@@ -1,0 +1,122 @@
+"""Causal prefill flash attention: wrapper, plain version, launch count.
+
+Port of bigdl_tpu/ops/pallas/flash_attention.py (`flash_attention`,
+`_flash`, `_kernel`) for a bf16 KV cache. The CUDA source is
+`csrc/flash_attention.cu`; its header note says what bounds it on the
+card and what the design does about it.
+
+Layout is the JAX package's: q [B, T, Hq, D]; k, v [B, S, Hkv, D] (the
+KV-cache layout); out [B, T, Hq, D]. Query t of row b sits at cache slot
+q_offset + t and attends slot j iff start[b] <= j <= q_offset + t (and
+j > q_offset + t - window with a sliding window). Rows with no valid slot
+(left padding) come out exactly 0.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from bigdl_tpu_torch.ops.kernels._build import Kernel
+
+# (q, k, v, start, out, B, T, S, Hq, Hkv, D, q_offset, scale, window, softcap)
+FLASH = Kernel("flash_attention_bf16", "flash_attention", "pppppiiiiiiifif",
+               replaces="bigdl_tpu/ops/pallas/flash_attention.py:49")
+
+_NEG_INF = -1e30
+_HEAD_DIMS = (64, 128, 256)
+
+
+def valid_mask(start: torch.Tensor, q_offset: int, T: int, S: int,
+               window: Optional[int] = None) -> torch.Tensor:
+    """[B, T, S] bool: query t of row b may attend cache slot j."""
+    dev = start.device
+    rows = q_offset + torch.arange(T, device=dev)[:, None]
+    cols = torch.arange(S, device=dev)[None, :]
+    ok = (cols <= rows)[None] & (cols[None] >= start.to(torch.long)[:, None, None])
+    if window is not None:
+        ok = ok & (cols > rows - window)[None]
+    return ok
+
+
+def flash_attention_plain(q, k, v, start, q_offset: int = 0,
+                          window: Optional[int] = None,
+                          softcap: Optional[float] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """The kernel's function in plain torch, all math in f32: scores
+    (q * scale) . k, optional tanh softcap, -1e30 at masked slots,
+    softmax weights exactly 0 there, rows without a valid slot give 0."""
+    B, T, Hq, D = q.shape
+    _, S, Hkv, _ = k.shape
+    G = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    qf = (q.float() * scale).reshape(B, T, Hkv, G, D)
+    s = torch.einsum("bthgd,bshd->bhgts", qf, k.float())
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    valid = valid_mask(start, q_offset, T, S, window)[:, None, None]
+    s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgts,bshd->bhgtd", p, v.float())
+    o = o / torch.where(l == 0, torch.ones_like(l), l)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, D).to(q.dtype)
+
+
+def _check(q, k, v, start) -> None:
+    B, T, Hq, D = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
+    if Hq % k.shape[2]:
+        raise ValueError(f"flash_attention: Hq={Hq} is not a multiple of "
+                         f"Hkv={k.shape[2]}")
+    if D not in _HEAD_DIMS:
+        raise NotImplementedError(f"flash_attention: head_dim {D} (the "
+                                  f"kernel takes {_HEAD_DIMS})")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"flash_attention: {name} must be bfloat16, got {t.dtype}")
+        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 4:
+            raise ValueError(f"flash_attention: {name} must be a contiguous "
+                             f"tensor on {q.device}")
+    if (start.dtype != torch.int32 or start.shape != (B,)
+            or start.device != q.device or not start.is_contiguous()):
+        raise ValueError("flash_attention: start must be a contiguous int32 "
+                         f"[B] tensor on {q.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    start: Optional[torch.Tensor] = None, q_offset: int = 0,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Causal attention of q over a left-padded KV cache; returns
+    [B, T, Hq, D] in q.dtype. `q_offset` is the cache slot of q[:, 0]."""
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "flash_attention over fp8 K/V: ROADMAP queue 2, the fp8 "
+            "variant of the flash kernel is still to be ported")
+    B, T, Hq, D = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if start is None:
+        start = torch.zeros((B,), dtype=torch.int32, device=q.device)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, start, q_offset, window,
+                                     softcap, scale)
+    if q.device.type != "cuda":
+        raise NotImplementedError(f"flash_attention: no kernel for {q.device}")
+    _check(q, k, v, start)
+    out = torch.empty_like(q)
+    if out.numel():
+        FLASH(q, k, v, start, out, B, T, k.shape[1], Hq, k.shape[2], D,
+              int(q_offset), float(scale), int(window or 0),
+              float(softcap or 0.0), device=q.device)
+    return out
