@@ -11,6 +11,10 @@ float32 (exact) and are stored as bf16; packed codes stay uint8 and
 scales float16. The projections come in the fused layout the JAX
 package's `optimize_model` makes by default (wqkv, w_gateup), the only
 one the port's `forward` runs.
+
+`lora_from_numpy` carries a JAX LoRA tree (train/qlora.py `init_lora`:
+{'layers': {target: {'a': [L, r, in], 'b': [L, out, r]}}, 'scale'}) the
+same way, keyed "layers.<target>.a" / "layers.<target>.b" and "scale".
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from bigdl_tpu_torch.models.llama import (DecoderLayer, LlamaModel,
                                           check_supported)
 from bigdl_tpu_torch.ops.linear import Linear
 from bigdl_tpu_torch.quant import QTensor
+from bigdl_tpu_torch.train.qlora import DEFAULT_TARGETS, LoRA, _target_dims
 from bigdl_tpu_torch.utils import resolve_device
 
 _NORMS = ("attn_norm", "mlp_norm")
@@ -70,3 +75,31 @@ def params_from_numpy(arrays: dict[str, np.ndarray], qtypes: dict[str, str],
                                    tensor("layers.mlp_norm", i), proj))
     return LlamaModel(tensor("embed"), layers, tensor("final_norm"),
                       Linear(weight("lm_head")))
+
+
+def lora_from_numpy(arrays: dict[str, np.ndarray], config: ModelConfig,
+                    device=None, dtype=torch.bfloat16) -> LoRA:
+    """The port's adapters holding exactly the given LoRA arrays, on
+    `device`: "layers.<target>.a" [L, r, in], "layers.<target>.b"
+    [L, out, r] (bf16 values, e.g. widened to float32) and the scalar
+    "scale"."""
+    dev = resolve_device(device)
+    targets = sorted({k.split(".")[1] for k in arrays if k.startswith("layers.")})
+    unknown = [t for t in targets if t not in DEFAULT_TARGETS]
+    if unknown or "scale" not in arrays:
+        raise ValueError(f"lora_from_numpy: unknown targets {unknown} or no "
+                         "'scale' among the arrays")
+    L = config.num_hidden_layers
+    layers = {}
+    for t in targets:
+        a = torch.from_numpy(np.array(arrays[f"layers.{t}.a"], np.float32))
+        b = torch.from_numpy(np.array(arrays[f"layers.{t}.b"], np.float32))
+        out_dim, in_dim = _target_dims(config, t)
+        r = a.shape[1]
+        if a.shape != (L, r, in_dim) or b.shape != (L, out_dim, r):
+            raise ValueError(f"lora_from_numpy: {t} has a {tuple(a.shape)}, b "
+                             f"{tuple(b.shape)}; the config wants [{L}, r, "
+                             f"{in_dim}] and [{L}, {out_dim}, r]")
+        layers[t] = (a.to(dtype).to(dev), b.to(dtype).to(dev))
+    scale = torch.tensor(float(np.asarray(arrays["scale"])), dtype=dtype, device=dev)
+    return LoRA(layers, scale)

@@ -22,7 +22,17 @@
 // x slices (columns j.. and K/2 + j..) with the two decoded halves, as
 // qdecode.walk walks the two nibble planes.
 //
-// Both return cudaGetLastError() after the launch; 0 means launched.
+// qmatmul_sym_int4_gemm_lora is the GEMM with `_kernel`'s `lora` arm (the
+// LoRA epilogue of `qmatmul_lora`): y = x . dq(W)^T + bf16((x . A_cat^T)
+// * gate) . B_cat^T for R <= 16 adapter columns. xa = x . A_cat^T is summed
+// by the tensor cores from the x tiles the GEMM already stages (A_cat's
+// matching K slices ride beside them: 2 x 16 x 32 bf16 per step), so the
+// epilogue reads x no second time; after the K walk xa * gate is rounded to
+// bf16 and its product with the block's B_cat rows is added to the f32
+// tile before the one bf16 rounding of y — the reference's rounding
+// points. Launched for M > 32 only (the training shapes).
+//
+// All return cudaGetLastError() after the launch; 0 means launched.
 
 #include <mma.h>
 
@@ -137,15 +147,24 @@ constexpr int kBN = 128;  // output columns (weight rows) per block tile
 constexpr int kBK = 32;   // packed bytes per K step: 32 elements of each half
 constexpr int kLds = kBK + 8;  // bf16 row stride in shared memory (80 B: wmma-legal, 16 B aligned)
 
+constexpr int kLoraR = 16;     // adapter columns of the LoRA epilogue (R <= 16, zero-padded)
+constexpr int kLdr = kLoraR + 8;  // bf16 row stride of the epilogue operands (48 B)
+
 using namespace nvcuda;
 
 // 8 warps as 4 (M) x 2 (N); each warp owns a 32 x 64 piece of the tile as
-// 2 x 4 wmma 16x16 f32 accumulators.
+// 2 x 4 wmma 16x16 f32 accumulators. With kLora, warp (wm, wn) also sums
+// xa for the 16 x rows wm * 32 + wn * 16.. in one more accumulator.
+template <bool kLora>
 __global__ void __launch_bounds__(256)
     gemm_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ data,
-                const __half* __restrict__ scales, bf16* __restrict__ out, int M, int K, int O) {
+                const __half* __restrict__ scales, bf16* __restrict__ out, int M, int K, int O,
+                const bf16* __restrict__ la, const bf16* __restrict__ lb,
+                const bf16* __restrict__ lg, int R) {
   __shared__ __align__(32) bf16 xs[2][kBM][kLds];  // [half][row][k]
   __shared__ __align__(32) bf16 ws[2][kBN][kLds];  // [half][weight row][k]
+  // [half][adapter column][k]: A_cat's slices of this K step (LoRA only)
+  __shared__ __align__(32) bf16 as[kLora ? 2 : 1][kLora ? kLoraR : 1][kLds];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -162,6 +181,8 @@ __global__ void __launch_bounds__(256)
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> xa;
+  if constexpr (kLora) wmma::fill_fragment(xa, 0.0f);
 
   for (int j0 = 0; j0 < half; j0 += kBK) {
     // x slices: 2 halves x 128 rows x 32 bf16 = 1024 16-byte vectors
@@ -195,7 +216,32 @@ __global__ void __launch_bounds__(256)
       dhi[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
       dhi[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
     }
+    if constexpr (kLora) {
+      // A_cat slices: 2 halves x 16 columns x 32 bf16 = 128 16-byte vectors
+      if (tid < 2 * kLoraR * (kBK / 8)) {
+        const int h = tid / (kLoraR * (kBK / 8));
+        const int r = (tid / (kBK / 8)) % kLoraR;
+        const int v = tid % (kBK / 8);
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (r < R) val = __ldg(reinterpret_cast<const uint4*>(la + static_cast<size_t>(r) * K + h * half + j0 + v * 8));
+        *reinterpret_cast<uint4*>(&as[h][r][v * 8]) = val;
+      }
+    }
     __syncthreads();
+
+    if constexpr (kLora) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int kk = 0; kk < kBK; kk += 16) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+          wmma::load_matrix_sync(a, &xs[h][wm * 32 + wn * 16][kk], kLds);
+          wmma::load_matrix_sync(b, &as[h][0][kk], kLds);
+          wmma::mma_sync(xa, a, b, xa);
+        }
+      }
+    }
 
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -214,6 +260,38 @@ __global__ void __launch_bounds__(256)
       }
     }
     __syncthreads();
+  }
+
+  if constexpr (kLora) {
+    // LoRA epilogue in the idle tiles: xa [128 x 16] f32 in ws, then
+    // bf16(xa * gate) and the block's B_cat rows [128 x 16] in xs
+    float* xstage = reinterpret_cast<float*>(&ws[0][0][0]);
+    bf16* xab = &xs[0][0][0];
+    bf16* bs = xab + kBM * kLdr;
+    wmma::store_matrix_sync(xstage + (wm * 32 + wn * 16) * kLoraR, xa, kLoraR, wmma::mem_row_major);
+    __syncthreads();
+    for (int i = tid; i < kBM * kLoraR; i += 256) {
+      const int r = i / kLoraR;
+      const int c = i % kLoraR;
+      const int m = m0 + r;
+      const int o = n0 + r;
+      float v = 0.0f;
+      if (c < R && m < M) v = xstage[i] * __bfloat162float(lg[static_cast<size_t>(m) * R + c]);
+      xab[r * kLdr + c] = __float2bfloat16(v);
+      bs[r * kLdr + c] = (c < R && o < O) ? lb[static_cast<size_t>(o) * R + c] : __float2bfloat16(0.0f);
+    }
+    __syncthreads();
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], xab + (wm * 32 + i * 16) * kLdr, kLdr);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::load_matrix_sync(b[j], bs + (wn * 64 + j * 16) * kLdr, kLdr);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    __syncthreads();  // the staging below reuses xs
   }
 
   // epilogue: each warp stages one 16x16 f32 fragment at a time in the
@@ -256,8 +334,21 @@ extern "C" int qmatmul_sym_int4_gemv(const void* x, const void* data, const void
 extern "C" int qmatmul_sym_int4_gemm(const void* x, const void* data, const void* scales, void* out,
                                      int M, int K, int O, void* stream) {
   const dim3 grid((O + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  gemm_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  gemm_kernel<false><<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const uint8_t*>(data), static_cast<const __half*>(scales),
-      static_cast<bf16*>(out), M, K, O);
+      static_cast<bf16*>(out), M, K, O, nullptr, nullptr, nullptr, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a_cat [R, K], b_cat [O, R], gate [M, R], all bf16; R <= 16.
+extern "C" int qmatmul_sym_int4_gemm_lora(const void* x, const void* data, const void* scales,
+                                          const void* a_cat, const void* b_cat, const void* gate,
+                                          void* out, int M, int K, int O, int R, void* stream) {
+  if (R < 1 || R > kLoraR) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((O + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  gemm_kernel<true><<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const uint8_t*>(data), static_cast<const __half*>(scales),
+      static_cast<bf16*>(out), M, K, O, static_cast<const bf16*>(a_cat), static_cast<const bf16*>(b_cat),
+      static_cast<const bf16*>(gate), R);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,13 +11,21 @@ not run raises `NotImplementedError` (`check_supported`).
 
 With a cache, attention runs over the full cache [0, max_len) under a
 validity mask from (start, pos), as in JAX: prefill (T > 1) goes through
-the flash kernel, decode through the plain masked attention.
+the flash kernel, decode through the plain masked attention. Without a
+cache (`cache=None`, the training / scoring path) query t of row b sits at
+slot t with position max(t - start[b], 0); T > 1 goes through the
+differentiable flash kernels (forward with logsumexp, dQ, dK/dV), T = 1
+through the masked attention. That path takes LoRA adapters (`lora=`, a
+`train.qlora.LoRA`): the q/k/v and gate/up deltas apply in plain torch on
+the fused projections' slices, wo and w_down fold theirs into the fused
+GEMM's writeback.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import warnings
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +36,7 @@ from bigdl_tpu_torch.kvcache import KVCache
 from bigdl_tpu_torch.models.config import ModelConfig
 from bigdl_tpu_torch.ops import (Linear, apply_rotary_emb, attention, kernels,
                                  rms_norm, rope_cos_sin)
+from bigdl_tpu_torch.ops.linear import lora_epilogue
 from bigdl_tpu_torch.ops.rope import make_inv_freq_scaled
 from bigdl_tpu_torch.quant import QTensor, concat_rows, quantize
 from bigdl_tpu_torch.quant.qtypes import resolve_qtype, split_mixed_qtype
@@ -193,18 +202,21 @@ def lm_head_logits(config: ModelConfig, model: LlamaModel, h: torch.Tensor,
 
 
 def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
-            cache: KVCache, mode: str = "prefill",
-            compute_dtype=torch.bfloat16,
-            last_logits_only: bool = False) -> tuple[torch.Tensor, KVCache]:
+            cache: Optional[KVCache], mode: str = "prefill",
+            compute_dtype=torch.bfloat16, last_logits_only: bool = False,
+            start: Optional[torch.Tensor] = None,
+            lora=None) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (logits [B, T, V] float32 — [B, 1, V] with
-    last_logits_only — and the cache with pos advanced by T). The cache
-    is written in place."""
+    last_logits_only — and the cache with pos advanced by T, or None
+    without a cache). The cache is written in place. `start` [B] gives
+    the left padding of the cache-free path (the cache carries its own);
+    `lora` runs only there."""
     if mode not in ("prefill", "decode"):
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
-    if cache is None:
+    if cache is not None and lora is not None:
         raise NotImplementedError(
-            "the cache-free forward (training / scoring): ROADMAP queue 1, "
-            "training is still to be ported")
+            "LoRA adapters with a KV cache (serving adapters): ROADMAP "
+            "queue 1 item 7, still to be ported")
     check_supported(config)
     if any("wqkv" not in layer.proj for layer in model.layers):
         raise ValueError("forward runs the fused layout (wqkv, w_gateup): "
@@ -215,51 +227,86 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
                   config.head_dim_)
     QD, KD = Hq * D, Hkv * D
     eps = config.rms_norm_eps
-    pos0 = cache.pos
-    row_start = cache.start
+    dev = tokens.device
+    if cache is None:
+        pos0 = 0
+        row_start = (torch.zeros((B,), dtype=torch.int32, device=dev)
+                     if start is None else start.to(device=dev, dtype=torch.int32))
+        positions = torch.clamp(
+            torch.arange(T, dtype=torch.int32, device=dev)[None, :]
+            - row_start[:, None], min=0)
+        max_len = T
+    else:
+        pos0 = cache.pos
+        row_start = cache.start
+        positions = cache.next_positions(T)
+        max_len = cache.max_len
 
     h = embed_tokens(config, model, tokens, compute_dtype)
     inv_freq, att_scale = make_inv_freq_scaled(
         config.rotary_dim, config.rope_theta, config.rope_scaling_dict,
-        seq_len=cache.max_len, device=tokens.device)
-    cos, sin = rope_cos_sin(cache.next_positions(T), inv_freq,
-                            scale=att_scale)
+        seq_len=max_len, device=dev)
+    cos, sin = rope_cos_sin(positions, inv_freq, scale=att_scale)
 
-    # prefill through the flash kernel (no [T, S] scores in memory),
-    # decode through the masked plain attention — the JAX dispatch
-    use_flash = mode == "prefill" and T > 1
+    # prefill through the flash kernel (no [T, S] scores in memory), the
+    # cache-free path through the differentiable flash kernels, decode
+    # and single-token scoring through the masked plain attention — the
+    # JAX dispatch
+    use_flash = T > 1 and (cache is None or mode == "prefill")
     mask = None
     if not use_flash:
-        sj = torch.arange(cache.max_len, device=tokens.device)
-        slots = pos0 + torch.arange(T, device=tokens.device)
+        sj = torch.arange(max_len, device=dev)
+        slots = pos0 + torch.arange(T, device=dev)
         mask = ((sj[None, None, :] <= slots[None, :, None])
                 & (sj[None, None, :] >= row_start[:, None, None]))
         mask = mask[:, None, None]  # [B, 1, 1, T, S]
+
+    def adapter(target, idx):
+        """(a [r, in], b [out, r], scale) of layer idx's `target`, or None."""
+        if lora is None or target not in lora.layers:
+            return None
+        pair = lora.layers[target]
+        return pair["a"][idx], pair["b"][idx], lora.scale
+
+    def plus_delta(y, x, target, idx):
+        """y + the LoRA delta of x for a slice of a fused projection (the
+        adapters keep the unmerged names)."""
+        pair = adapter(target, idx)
+        return y if pair is None else y + lora_epilogue(x, *pair, compute_dtype)
 
     for idx, layer in enumerate(model.layers):
         p = layer.proj
         x = rms_norm(h, layer.attn_norm, eps)
         qkv = p["wqkv"](x, compute_dtype)
         q, k, v = qkv[..., :QD], qkv[..., QD:QD + KD], qkv[..., QD + KD:]
-        q = q.reshape(B, T, Hq, D)
-        k = k.reshape(B, T, Hkv, D)
-        v = v.reshape(B, T, Hkv, D)
+        q = plus_delta(q, x, "wq", idx).reshape(B, T, Hq, D)
+        k = plus_delta(k, x, "wk", idx).reshape(B, T, Hkv, D)
+        v = plus_delta(v, x, "wv", idx).reshape(B, T, Hkv, D)
         q, k = apply_rotary_emb(q, k, cos, sin)
 
-        kvcache.update_layer(cache, idx, k, v)
-        k_att, v_att = kvcache.read_layer(cache, idx)
-        if use_flash:
+        if cache is None:
+            k_att, v_att = k.to(compute_dtype), v.to(compute_dtype)
+        else:
+            kvcache.update_layer(cache, idx, k, v)
+            k_att, v_att = kvcache.read_layer(cache, idx)
+        if use_flash and cache is None:
+            attn = kernels.flash_attention_train(q, k_att, v_att, start=row_start)
+        elif use_flash:
             attn = kernels.flash_attention(q, k_att, v_att, start=row_start,
                                            q_offset=pos0)
         else:
             attn = attention(q, k_att, v_att, mask)
-        h = h + p["wo"](attn.reshape(B, T, QD), compute_dtype)
+        h = h + p["wo"](attn.reshape(B, T, QD), compute_dtype,
+                        lora=adapter("wo", idx))
 
         x = rms_norm(h, layer.mlp_norm, eps)
         gate, up = p["w_gateup"](x, compute_dtype).chunk(2, dim=-1)
-        h = h + p["w_down"](F.silu(gate) * up, compute_dtype)
+        gate = plus_delta(gate, x, "w_gate", idx)
+        up = plus_delta(up, x, "w_up", idx)
+        h = h + p["w_down"](F.silu(gate) * up, compute_dtype,
+                            lora=adapter("w_down", idx))
 
     if last_logits_only:
         h = h[:, -1:]
     logits = lm_head_logits(config, model, h, compute_dtype)
-    return logits, kvcache.advance(cache, T)
+    return logits, (None if cache is None else kvcache.advance(cache, T))

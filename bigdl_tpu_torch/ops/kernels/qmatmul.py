@@ -5,7 +5,10 @@ Port of bigdl_tpu/ops/pallas/qmatmul.py (`qmatmul_int4`, `_fused`,
 `csrc/qmatmul_sym_int4.cu`; its header note says what bounds each form on
 the card and what the design does about it. Two kernels split the TPU
 kernel's two shape classes at `GEMV_MAX_ROWS` rows: a GEMV for decode and
-a tensor-core GEMM for prefill.
+a tensor-core GEMM for prefill. A third entry is the GEMM with `_kernel`'s
+LoRA epilogue (`qmatmul_lora`), for up to `LORA_MAX_RANK` adapter columns
+at more than `GEMV_MAX_ROWS` rows (the training shapes); the GEMV form of
+the epilogue (serving adapters) is still to port (ROADMAP queue 2).
 
 The wrapper dispatches on the tensor's device: a CPU tensor takes the
 plain version, a CUDA tensor launches a kernel or raises.
@@ -26,6 +29,10 @@ GEMV = Kernel("qmatmul_sym_int4_gemv", "qmatmul_sym_int4", "ppppiii",
               replaces="bigdl_tpu/ops/pallas/qmatmul.py:90")
 GEMM = Kernel("qmatmul_sym_int4_gemm", "qmatmul_sym_int4", "ppppiii",
               replaces="bigdl_tpu/ops/pallas/qmatmul.py:90")
+# (x, data, scales, a_cat, b_cat, gate, out, M, K, O, R)
+LORA_GEMM = Kernel("qmatmul_sym_int4_gemm_lora", "qmatmul_sym_int4", "pppppppiiii",
+                   replaces="bigdl_tpu/ops/pallas/qmatmul.py:90")
+LORA_MAX_RANK = 16  # adapter columns R the epilogue takes (one 16-wide tile)
 
 _SYM_INT4 = resolve_qtype("sym_int4")
 
@@ -83,4 +90,63 @@ def qmatmul_int4(x: torch.Tensor, data: torch.Tensor,
     if M:
         kernel = GEMV if M <= GEMV_MAX_ROWS else GEMM
         kernel(x2, data, scales, out, M, K, O, device=x.device)
+    return out.reshape(*x.shape[:-1], O)
+
+
+def qmatmul_int4_lora_plain(x: torch.Tensor, data: torch.Tensor,
+                            scales: torch.Tensor, a_cat: torch.Tensor,
+                            b_cat: torch.Tensor,
+                            gate: torch.Tensor) -> torch.Tensor:
+    """y = x @ dequant(W)^T + bf16((x @ A_cat^T) * gate) @ B_cat^T with the
+    kernel's rounding: bf16 operands, f32 sums, xa * gate rounded to bf16
+    before its product with B_cat, the sum rounded to bf16 once."""
+    K = x.shape[-1]
+    w = dequantize_blockwise(data, scales, _SYM_INT4, torch.bfloat16)
+    xf = x.reshape(-1, K).to(torch.bfloat16).float()
+    acc = torch.matmul(xf, w.float().t())
+    xa = torch.matmul(xf, a_cat.to(torch.bfloat16).float().t())
+    xa = (xa * gate.to(torch.bfloat16).float()).to(torch.bfloat16)
+    acc = acc + torch.matmul(xa.float(), b_cat.to(torch.bfloat16).float().t())
+    return acc.to(torch.bfloat16).reshape(*x.shape[:-1], w.shape[0])
+
+
+def qmatmul_int4_lora(x: torch.Tensor, data: torch.Tensor,
+                      scales: torch.Tensor, a_cat: torch.Tensor,
+                      b_cat: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """`qmatmul_int4` with the LoRA epilogue folded into the GEMM's
+    writeback: y = x @ dq(W)^T + ((x @ A_cat^T) * gate) @ B_cat^T. x
+    [..., K] bf16 with more than GEMV_MAX_ROWS rows; a_cat [R, K], b_cat
+    [O, R], gate [M, R] bf16, R <= LORA_MAX_RANK; returns bf16 [..., O]."""
+    if x.device.type == "cpu":
+        return qmatmul_int4_lora_plain(x, data, scales, a_cat, b_cat, gate)
+    if x.device.type != "cuda":
+        raise NotImplementedError(f"qmatmul_int4_lora: no kernel for {x.device}")
+    _check(x, data, scales)
+    K = x.shape[-1]
+    O = data.shape[0]
+    x2 = x.reshape(-1, K)
+    M = x2.shape[0]
+    R = a_cat.shape[0]
+    if M <= GEMV_MAX_ROWS:
+        raise NotImplementedError(
+            f"qmatmul_int4_lora at M={M} <= {GEMV_MAX_ROWS} rows (the GEMV "
+            "form of the LoRA epilogue, serving adapters): ROADMAP queue 2 "
+            "item 4, still to be ported")
+    if not 1 <= R <= LORA_MAX_RANK:
+        raise ValueError(f"qmatmul_int4_lora: R={R} adapter columns, the "
+                         f"kernel takes 1..{LORA_MAX_RANK}")
+    if a_cat.shape != (R, K) or b_cat.shape != (O, R) or gate.shape != (M, R):
+        raise ValueError(f"qmatmul_int4_lora: a_cat {tuple(a_cat.shape)}, b_cat "
+                         f"{tuple(b_cat.shape)}, gate {tuple(gate.shape)} do not "
+                         f"match M={M} K={K} O={O} R={R}")
+    # A_cat rows are read in 16-byte vectors, B_cat and the gate one by one
+    for name, t, align in (("a_cat", a_cat, 16), ("b_cat", b_cat, 2), ("gate", gate, 2)):
+        if t.dtype != torch.bfloat16 or t.device != x.device:
+            raise TypeError(f"qmatmul_int4_lora: {name} must be bfloat16 on {x.device}")
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"qmatmul_int4_lora: {name} must be contiguous "
+                             f"and {align}-byte aligned")
+    out = torch.empty((M, O), dtype=torch.bfloat16, device=x.device)
+    LORA_GEMM(x2, data, scales, a_cat, b_cat, gate, out, M, K, O, R,
+              device=x.device)
     return out.reshape(*x.shape[:-1], O)

@@ -5,8 +5,16 @@ package's rule: a QTensor whose shape the fused kernel takes (O % 128 ==
 0, K % k_multiple == 0) goes to the fused dequant-matmul — the GEMV at
 <= 32 rows, the GEMM above; any other shape dequantizes and multiplies
 in plain torch, as JAX sends those shapes to its XLA dequant path. A
-QTensor format without a kernel in the table raises. LoRA is not in this
-slice (ROADMAP queue 2).
+QTensor format without a kernel in the table raises.
+
+The fused matmul is differentiable in x (JAX's custom_vjp, `_fused_matmul`
+/ `_fused_bwd`): its backward is the fused dequant dx kernel, and the
+frozen weight gets no gradient. An optional shared LoRA pair
+`lora=(a [r, K], b [O, r], scale)` folds into the GEMM's writeback on the
+fused path (`_fused_lora_matmul`: the LoRA epilogue kernel forward; the
+backward's base-weight term through the dx kernel and the rank-r terms in
+plain torch, as JAX leaves them to XLA); everywhere else it applies as
+`lora_epilogue`. Batched per-row adapters raise (ROADMAP queue 1 item 7).
 
 `Linear` is the module form: it holds a sym_int4 weight as `data` /
 `scales` buffers, or a dense `weight` buffer, plus an optional bias.
@@ -22,11 +30,66 @@ from torch import nn
 from bigdl_tpu_torch.ops import kernels
 from bigdl_tpu_torch.quant import QTensor
 
+_BATCHED_ADAPTERS = ("batched per-row LoRA adapters (serving): ROADMAP queue 1 "
+                     "item 7, still to be ported")
+
+
+class _FusedMatmul(torch.autograd.Function):
+    """y = x @ dq(W)^T through the fused kernel; dx = g @ dq(W) through
+    the dx kernel. The kernels are looked up at call time, so a caller can
+    hold them against their plain versions by patching `kernels.*`."""
+
+    @staticmethod
+    def forward(ctx, x, data, scales):
+        ctx.save_for_backward(data, scales)
+        return kernels.qmatmul_int4(x, data, scales)
+
+    @staticmethod
+    def backward(ctx, g):
+        data, scales = ctx.saved_tensors
+        return kernels.qmatmul_dx(g.contiguous(), data, scales), None, None
+
+
+class _FusedLoraMatmul(torch.autograd.Function):
+    """y = x @ dq(W)^T + bf16((x @ a^T) * gate) @ b^T through the LoRA
+    epilogue kernel. The backward follows JAX's `_fused_lora_bwd`
+    (ops/linear.py:398-418): with u = x @ a^T and dv = g @ b, du = dv *
+    gate, dx = g @ dq(W) (dx kernel) + du @ a, da = du^T @ x, db = g^T @
+    (u * gate), dgate = dv * u — the rank-r products in the compute
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x, data, scales, a, b, gate):
+        ctx.save_for_backward(x, data, scales, a, b, gate)
+        return kernels.qmatmul_int4_lora(x, data, scales, a, b, gate)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, data, scales, a, b, gt = ctx.saved_tensors
+        cd = g.dtype
+        K, O = x.shape[-1], g.shape[-1]
+        xf = x.reshape(-1, K).to(cd)
+        gf = g.reshape(-1, O).contiguous()
+        ac, bc, gtc = a.to(cd), b.to(cd), gt.to(cd)
+        u = xf @ ac.t()  # [M, R]
+        dv = gf @ bc  # [M, R]
+        du = dv * gtc
+        need = ctx.needs_input_grad
+        dx = da = db = dgate = None
+        if need[0]:
+            dxw = kernels.qmatmul_dx(gf, data, scales).to(cd)
+            dx = (dxw + du @ ac).reshape(x.shape).to(x.dtype)
+        if need[3]:
+            da = (du.t() @ xf).to(a.dtype)
+        if need[4]:
+            db = (gf.t() @ (u * gtc)).to(b.dtype)
+        if need[5]:
+            dgate = (dv * u).to(gt.dtype)
+        return dx, None, None, da, db, dgate
+
 
 def _run_sym_int4(x: torch.Tensor, w: QTensor) -> torch.Tensor:
-    # looked up at call time, so a caller can hold the module's kernel
-    # against its plain version by patching `kernels.qmatmul_int4`
-    return kernels.qmatmul_int4(x, w.data, w.scales)
+    return _FusedMatmul.apply(x, w.data, w.scales)
 
 
 class _Entry(NamedTuple):
@@ -54,21 +117,66 @@ def _fused_kernel(x: torch.Tensor, w: QTensor) -> Optional[Callable]:
     return entry.run
 
 
+def _rows(x: torch.Tensor) -> int:
+    return x.numel() // x.shape[-1] if x.shape[-1] else 0
+
+
+def _lora_cat_operands(x: torch.Tensor, lora, compute_dtype):
+    """A shared LoRA triple (a [r, K], b [O, r], scale) in the fused
+    epilogue's concatenated operand form (a_cat [R, K], b_cat [O, R],
+    gate [M, R]): gate row m carries the scale in every column. None when
+    the shape is ineligible — more adapter columns than the epilogue
+    kernel takes (JAX's test is its VMEM allowance, `lora_fused_ok`)."""
+    a, b, scale = lora
+    if a.dim() == 3:
+        raise NotImplementedError(f"linear(lora=...) with {_BATCHED_ADAPTERS}")
+    r, ka = a.shape
+    if ka != x.shape[-1] or r == 0 or r > kernels.LORA_MAX_RANK:
+        return None
+    M = _rows(x)
+    if M <= kernels.GEMV_MAX_ROWS:
+        raise NotImplementedError(
+            f"linear(lora=...) at {M} <= {kernels.GEMV_MAX_ROWS} rows (the GEMV "
+            "form of the fused LoRA epilogue): ROADMAP queue 2 item 4, still to "
+            "be ported")
+    sc = torch.as_tensor(scale, device=x.device).to(compute_dtype)
+    return a, b, sc.expand(M, r).contiguous()
+
+
+def lora_epilogue(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                  scale, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The shared LoRA delta (x @ a^T) @ b^T * scale in the compute dtype,
+    added to a projection's output: a [r, in], b [out, r], scalar scale.
+    The scale is cast to the compute dtype, never the other way."""
+    if a.dim() == 3:
+        raise NotImplementedError(f"lora_epilogue with {_BATCHED_ADAPTERS}")
+    xc = x.to(compute_dtype)
+    xa = torch.matmul(xc, a.to(compute_dtype).t())
+    sc = torch.as_tensor(scale, device=x.device).to(compute_dtype)
+    return torch.matmul(xa, b.to(compute_dtype).t()) * sc
+
+
 def linear(x: torch.Tensor, w: Union[QTensor, torch.Tensor],
            bias: Optional[torch.Tensor] = None,
-           compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """y = x @ W^T (+ bias), W of logical shape [out, in]."""
-    if isinstance(w, QTensor):
-        run = _fused_kernel(x, w)
-        if run is not None:
-            y = run(x.to(compute_dtype), w).to(compute_dtype)
-            if bias is not None:
-                y = y + bias.to(compute_dtype)
-            return y
-        wd = w.dequantize(compute_dtype)
+           compute_dtype=torch.bfloat16, lora=None) -> torch.Tensor:
+    """y = x @ W^T (+ bias) (+ LoRA delta), W of logical shape [out, in].
+    `lora` is an optional shared (a, b, scale) triple: on the fused GEMM
+    path it rides in the kernel's writeback, elsewhere it applies as
+    `lora_epilogue`."""
+    run = _fused_kernel(x, w) if isinstance(w, QTensor) else None
+    if run is not None:
+        xc = x.to(compute_dtype)
+        ops = None if lora is None else _lora_cat_operands(x, lora, compute_dtype)
+        if ops is not None:
+            y, lora = _FusedLoraMatmul.apply(xc, w.data, w.scales, *ops), None
+        else:
+            y = run(xc, w).to(compute_dtype)
     else:
-        wd = w.to(compute_dtype)
-    y = torch.matmul(x.to(compute_dtype), wd.t())
+        wd = (w.dequantize(compute_dtype) if isinstance(w, QTensor)
+              else w.to(compute_dtype))
+        y = torch.matmul(x.to(compute_dtype), wd.t())
+    if lora is not None:
+        y = y + lora_epilogue(x, *lora, compute_dtype)
     if bias is not None:
         y = y + bias.to(compute_dtype)
     return y
@@ -94,5 +202,5 @@ class Linear(nn.Module):
             return self.weight
         return QTensor(self.data, self.scales, qtype=self.qtype)
 
-    def forward(self, x: torch.Tensor, compute_dtype=torch.bfloat16):
-        return linear(x, self.w, self.bias, compute_dtype)
+    def forward(self, x: torch.Tensor, compute_dtype=torch.bfloat16, lora=None):
+        return linear(x, self.w, self.bias, compute_dtype, lora)

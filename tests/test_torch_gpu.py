@@ -9,17 +9,19 @@ the port is installed:
 """
 
 import dataclasses
+from unittest import mock
 
 import pytest
 import torch
 
-from bigdl_tpu_torch import ModelConfig, TorchModel, optimize_model
+from bigdl_tpu_torch import PRESETS, ModelConfig, TorchModel, optimize_model
 from bigdl_tpu_torch.generate import pad_prompts
 from bigdl_tpu_torch.kvcache import init_cache
 from bigdl_tpu_torch.models import llama
 from bigdl_tpu_torch.ops import kernels
 from bigdl_tpu_torch.ops.kernels.flash_attention import valid_mask
 from bigdl_tpu_torch.quant import quantize
+from bigdl_tpu_torch.train import adamw, init_lora, make_train_step, next_token_loss
 
 # sums in other orders, then one bf16 rounding on each side: within two
 # bf16 ULPs of the largest output
@@ -116,3 +118,144 @@ def test_model_on_card_matches_plain_on_cpu():
     assert counts[kernels.GEMV.name] == 1  # the lm head at the last position
     # bf16 activations through two layers: 4 bf16 ULPs of the largest logit
     assert (got - ref).abs().max() <= 2 ** -6 * ref.abs().max()
+
+
+def _max_err(got, ref):
+    return (got.float() - ref.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("M,O,K", [
+    (1, 384, 1024), (33, 384, 1024), (300, 256, 320),  # small, ragged K/2
+    (1024, 4096, 14336),  # llama3-8b w_down at the training shape
+])
+def test_dx_kernel_matches_plain(M, O, K):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(M + O)
+    w = quantize(torch.randn(O, K, device=dev, generator=g) * 0.05, "sym_int4")
+    gr = torch.randn(M, O, device=dev, generator=g).to(torch.bfloat16)
+    before = kernels.DX.launches
+    dx = kernels.qmatmul_dx(gr, w.data, w.scales)
+    torch.cuda.synchronize()
+    assert kernels.DX.launches == before + 1 and dx.shape == (M, K)
+    ref = kernels.qmatmul_dx_plain(gr, w.data, w.scales)
+    assert _max_err(dx, ref) <= _ULPS * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("R", [3, 8, 16])
+@pytest.mark.parametrize("M,O,K", [(33, 384, 1024), (300, 256, 320),
+                                   (1024, 4096, 4096)])  # the last: llama3-8b wo
+def test_lora_gemm_matches_plain(M, O, K, R):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(M + O + R)
+    w = quantize(torch.randn(O, K, device=dev, generator=g) * 0.05, "sym_int4")
+    x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+    a = (torch.randn(R, K, device=dev, generator=g) / R).to(torch.bfloat16)
+    b = (torch.randn(O, R, device=dev, generator=g) * 0.1).to(torch.bfloat16)
+    gate = torch.full((M, R), 2.0, dtype=torch.bfloat16, device=dev)
+    before = kernels.LORA_GEMM.launches
+    y = kernels.qmatmul_int4_lora(x, w.data, w.scales, a, b, gate)
+    torch.cuda.synchronize()
+    assert kernels.LORA_GEMM.launches == before + 1
+    ref = kernels.qmatmul_int4_lora_plain(x, w.data, w.scales, a, b, gate)
+    base = kernels.qmatmul_int4_plain(x, w.data, w.scales)
+    assert _max_err(ref, base) > 0  # the epilogue is not a no-op here
+    assert _max_err(y, ref) <= _ULPS * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("case", [
+    # B, T, Hq, Hkv, D, window, start
+    (2, 48, 4, 2, 64, None, (0, 13)),
+    (1, 100, 4, 1, 128, 24, (0,)),
+    (2, 70, 2, 2, 128, None, (5, 40)),
+    (1, 1024, 32, 8, 128, None, (0,)),  # llama3-8b at the training shape
+])
+def test_flash_train_kernels_match_plain(case):
+    dev = _cuda()
+    B, T, Hq, Hkv, D, window, start = case
+    g = torch.Generator(device=dev).manual_seed(T + D)
+
+    def rnd(*shape):
+        return torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+
+    q, k, v, do = rnd(B, T, Hq, D), rnd(B, T, Hkv, D), rnd(B, T, Hkv, D), rnd(B, T, Hq, D)
+    st = torch.tensor(start, dtype=torch.int32, device=dev)
+    before = [kk.launches for kk in (kernels.FLASH_FWD, kernels.FLASH_DQ, kernels.FLASH_DKV)]
+    out, lse = kernels.flash_train_fwd(q, k, v, st, window)
+    ref_out, ref_lse = kernels.flash_attention_train_plain(q, k, v, st, window)
+    # per element, one bf16 rounding step above a floor far below a ULP
+    assert bool(((out.float() - ref_out.float()).abs()
+                 <= _ULPS * ref_out.float().abs() + 1e-5).all())
+    pad = ref_lse <= -1e29
+    assert pad.any() == (max(start) > 0) and bool((lse[pad] == -1e30).all())
+    assert bool((out[pad.any(-1)] == 0).all())
+    assert _max_err(lse[~pad], ref_lse[~pad]) <= 1e-4  # f32 sums in another order
+    delta = (do.float() * out.float()).sum(-1)
+    dq = kernels.flash_train_dq(q, k, v, st, do, lse, delta, window)
+    dk, dv = kernels.flash_train_dkv(q, k, v, st, do, lse, delta, window)
+    torch.cuda.synchronize()
+    assert [kk.launches for kk in (kernels.FLASH_FWD, kernels.FLASH_DQ,
+                                   kernels.FLASH_DKV)] == [n + 1 for n in before]
+    refs = kernels.flash_attention_train_bwd_plain(q, k, v, st, do, lse, delta, window)
+    for got, ref in zip((dq, dk, dv), refs):
+        # gradients sum many signed terms: 4 bf16 ULPs of the largest
+        # element, and 1 % in the Frobenius norm
+        scale = ref.float().abs().max().item()
+        assert _max_err(got, ref) <= 2 ** -6 * scale
+        assert ((got.float() - ref.float()).norm() <= 1e-2 * ref.float().norm()).item()
+
+
+def _train_grads(cfg, model, lora, tokens, plain):
+    """Loss and LoRA gradients of one step, with the kernels or, with
+    `plain`, every kernel patched to its plain version."""
+    patches = [mock.patch.object(kernels, n, getattr(kernels, p)) for n, p in (
+        ("qmatmul_int4", "qmatmul_int4_plain"), ("qmatmul_dx", "qmatmul_dx_plain"),
+        ("qmatmul_int4_lora", "qmatmul_int4_lora_plain"),
+        ("flash_train_fwd", "flash_attention_train_plain"),
+        ("flash_train_dq", "flash_train_dq_plain"),
+        ("flash_train_dkv", "flash_train_dkv_plain"))] if plain else []
+    for p in patches:
+        p.start()
+    try:
+        for prm in lora.parameters():
+            prm.grad = None
+        loss = next_token_loss(cfg, llama.forward, model, lora, tokens,
+                               torch.ones_like(tokens, dtype=torch.float32))
+        loss.backward()
+        return loss.item(), {n: prm.grad.float().clone() for n, prm in lora.named_parameters()}
+    finally:
+        for p in patches:
+            p.stop()
+
+
+def test_train_step_kernels_match_plain_full_width():
+    """Two llama3-8b layers at full width, B=1 T=256, rank 8: the loss and
+    LoRA gradients of one step through the kernels against the same step
+    through the plain versions on the card, then a step's launch counts."""
+    dev = _cuda()
+    cfg = dataclasses.replace(PRESETS["llama3-8b"], num_hidden_layers=2)
+    model = optimize_model(llama.init_params(cfg, seed=3), cfg)
+    lora = init_lora(cfg, seed=4)
+    with torch.no_grad():  # B != 0, so every adapter gets a gradient
+        for t in lora.layers.values():
+            t["b"].normal_(0.0, 0.01, generator=torch.Generator(device=dev).manual_seed(5))
+    tokens = torch.randint(0, cfg.vocab_size, (1, 257), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(6))
+    loss_k, grads_k = _train_grads(cfg, model, lora, tokens, plain=False)
+    loss_p, grads_p = _train_grads(cfg, model, lora, tokens, plain=True)
+    # bf16 activations through two layers and back: 1e-3 of the loss, and
+    # per adapter leaf 5 % of its largest gradient
+    assert abs(loss_k - loss_p) <= 1e-3 * abs(loss_p)
+    for n, ref in grads_p.items():
+        assert _max_err(grads_k[n], ref) <= 0.05 * ref.abs().max().item(), n
+
+    kernels.reset_launches()
+    step = make_train_step(cfg, llama.forward, adamw(lora))
+    loss = step(model, lora, tokens, torch.ones_like(tokens, dtype=torch.float32))
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    L = cfg.num_hidden_layers
+    assert kernels.launch_counts() == {
+        kernels.GEMM.name: 2 * L + 1, kernels.LORA_GEMM.name: 2 * L,
+        kernels.FLASH_FWD.name: L, kernels.FLASH_DQ.name: L,
+        kernels.FLASH_DKV.name: L, kernels.DX.name: 4 * L,
+        kernels.GEMV.name: 0, kernels.FLASH.name: 0}
