@@ -2,9 +2,9 @@
 a dense model, `TorchModel.generate` runs greedy or sampled generation.
 
 `TorchModel` places its model on the card unless told otherwise; without
-a card it raises and asks for device="cpu". The fp8 KV cache
-(`quantize_kv`), SnapKV (`compress_kv`) and attention-sink streaming
-(`streaming_window`) raise until ported.
+a card it raises and asks for device="cpu". SnapKV (`compress_kv`) and
+attention-sink streaming (`streaming_window`) raise until ported; the
+serving engine is `serving.engine.InferenceEngine`.
 """
 
 from __future__ import annotations
@@ -59,8 +59,7 @@ class TorchModel:
     ) -> np.ndarray:
         """prompts: ragged list of token-id lists (or a [B, T] array).
         Returns [B, max_new_tokens] generated ids."""
-        for name, on in (("quantize_kv", quantize_kv),
-                         ("compress_kv", compress_kv is not None),
+        for name, on in (("compress_kv", compress_kv is not None),
                          ("streaming_window", streaming_window is not None)):
             if on:
                 raise NotImplementedError(
@@ -100,5 +99,6 @@ class TorchModel:
             generator, gen,
             cache_len=cache_len_for(tokens.shape[1], max_new_tokens),
             last_logits=flags.last_lm_head_default(),
+            quantize_kv=quantize_kv,
         )
         return out.cpu().numpy().astype(np.int32)

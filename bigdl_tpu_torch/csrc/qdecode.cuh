@@ -1,6 +1,8 @@
-// Device-side weight decode shared by the dequant-matmul kernels: the
-// sym_int4 arm of bigdl_tpu/ops/pallas/qdecode.py (decode_chunk with
-// DecodeSpec(planes=(4,), value=("offset", 8), block=32)).
+// Device-side decode shared by the port's kernels: the sym_int4 weight arm
+// of bigdl_tpu/ops/pallas/qdecode.py (decode_chunk with
+// DecodeSpec(planes=(4,), value=("offset", 8), block=32)) used by the
+// dequant matmuls, and the fp8 KV arm (decode_kv) used by the paged and
+// flash attention kernels.
 //
 // Storage (quant/numerics.py pack_nibbles, half-split): row o of a
 // [O, K] weight is K/2 bytes; byte j carries element j in its low nibble
@@ -14,6 +16,15 @@
 #pragma once
 
 #include "common.cuh"
+
+// An float8_e5m2 KV code (the low byte of `code`) as f32: e5m2 is the high
+// byte of an IEEE f16 (1 sign, 5 exponent, 2 mantissa bits), so code << 8
+// is that f16 exactly, subnormals, infinities and NaN included — the
+// counterpart of qdecode.decode_kv's fp8 arms, exact on every code. The
+// caller multiplies by the (slot, head) scale.
+__device__ __forceinline__ float e5m2_to_float(uint32_t code) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>((code & 0xffu) << 8)));
+}
 
 // (code - 8) * scale rounded to bf16, returned as its 16 bits.
 __device__ __forceinline__ uint32_t sym_int4_bits(uint32_t code, float scale) {

@@ -3,7 +3,9 @@
 The JAX package compiles prefill and the whole decode loop into one XLA
 program (`lax.while_loop`); here the loop is Python over eager launches
 and sampling draws from an explicit `torch.Generator`. Prompts are
-left-padded to a power-of-two bucket, as in JAX.
+left-padded to a power-of-two bucket, as in JAX. The per-row sampler and
+the repetition penalty (`sample_token_per_row`, `apply_repetition_penalty`)
+serve the serving engine as well.
 """
 
 from __future__ import annotations
@@ -29,6 +31,67 @@ class GenerationConfig:
     repetition_penalty: float = 1.0  # HF semantics: >1 discourages repeats
     eos_token_id: Optional[int] = None
     pad_token_id: int = 0
+
+
+def apply_repetition_penalty(logits: torch.Tensor, seen: torch.Tensor,
+                             penalty) -> torch.Tensor:
+    """HF RepetitionPenaltyLogitsProcessor semantics: the logits of seen
+    tokens ([B, V] bool) divide by the penalty where positive and multiply
+    where negative. `penalty` is a float or a [B] tensor."""
+    p = torch.as_tensor(penalty, dtype=logits.dtype, device=logits.device)
+    if p.dim() == 1:
+        p = p[:, None]
+    penalized = torch.where(logits < 0, logits * p, logits / p)
+    return torch.where(seen, penalized, logits)
+
+
+def seen_from_prompt(tokens: torch.Tensor, start: torch.Tensor,
+                     vocab: int) -> torch.Tensor:
+    """[B, V] bool presence mask over the real (non-pad) prompt tokens."""
+    B, T = tokens.shape
+    real = torch.arange(T, device=tokens.device)[None, :] >= start[:, None]
+    idx = torch.where(real, tokens.long(), vocab)  # pads land in the overflow bin
+    seen = torch.zeros((B, vocab + 1), dtype=torch.bool, device=tokens.device)
+    seen.scatter_(1, idx, True)
+    return seen[:, :vocab]
+
+
+def filter_logits_per_row(logits: torch.Tensor, temperature: torch.Tensor,
+                          top_k: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
+    """Temperature, top-k (<= 0 disables), then top-p (>= 1 disables) over
+    the top-k-filtered distribution, with per-row [B] parameters; returns
+    scaled logits with -inf outside the support, whose softmax is the
+    sampling distribution."""
+    V = logits.shape[-1]
+    lt = logits / torch.clamp(temperature, min=1e-5)[:, None]
+    sorted_desc = torch.sort(lt, dim=-1, descending=True).values
+    kth = torch.gather(sorted_desc, -1, torch.clamp(top_k.long() - 1, 0, V - 1)[:, None])
+    neg_inf = torch.full_like(lt, float("-inf"))
+    lt_k = torch.where((top_k > 0)[:, None] & (lt < kth), neg_inf, lt)
+    sorted_k = torch.sort(lt_k, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_k, dim=-1)
+    cum = torch.cumsum(probs, dim=-1) - probs
+    cutoff_idx = torch.sum(cum < top_p[:, None], dim=-1, keepdim=True) - 1
+    cutoff = torch.gather(sorted_k, -1, torch.clamp(cutoff_idx, 0, V - 1))
+    return torch.where((top_p < 1.0)[:, None] & (lt_k < cutoff), neg_inf, lt_k)
+
+
+def sample_token_per_row(logits: torch.Tensor, generator: Optional[torch.Generator],
+                         temperature: torch.Tensor, top_k: torch.Tensor,
+                         top_p: torch.Tensor, do_sample: np.ndarray) -> torch.Tensor:
+    """Per-row sampling, every row with its own temperature / top-k /
+    top-p ([B] tensors on the logits' device): rows with do_sample False
+    (a host [B] bool array) take the argmax, the others one draw from
+    their filtered distribution. An all-greedy batch — the serving
+    engine's common case — skips the full-vocabulary sorts; the host
+    array decides that without a device sync."""
+    greedy = torch.argmax(logits, dim=-1)
+    if not np.any(do_sample):
+        return greedy
+    probs = torch.softmax(filter_logits_per_row(logits, temperature, top_k, top_p), -1)
+    sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    rows = torch.as_tensor(np.asarray(do_sample, bool), device=logits.device)
+    return torch.where(rows, sampled, greedy)
 
 
 def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
@@ -78,27 +141,35 @@ def pad_prompts(prompts: Sequence[Sequence[int]], pad_id: int,
 def generate_tokens(config: ModelConfig, params, tokens: torch.Tensor,
                     start: torch.Tensor, generator: Optional[torch.Generator],
                     gen: GenerationConfig, cache_len: int,
-                    last_logits: bool = True) -> torch.Tensor:
+                    last_logits: bool = True,
+                    quantize_kv: bool = False) -> torch.Tensor:
     """Prefill + decode loop. tokens [B, T] left-padded, start [B] int32,
     both on the model's device. Returns [B, max_new_tokens] generated ids
     (pad_token_id after a row's EOS); stops early once every row hit EOS.
+    With a repetition penalty the prompt's real tokens and every emitted
+    id (the pad after EOS too, as in JAX) count as seen. `quantize_kv`
+    keeps the KV cache as float8_e5m2 codes with f16 scales.
     """
-    if gen.repetition_penalty != 1.0:
-        raise NotImplementedError(
-            "repetition_penalty: ROADMAP queue 1, the repetition penalty is "
-            "still to be ported")
     B, T = tokens.shape
     if cache_len < T + gen.max_new_tokens:
         raise ValueError(f"cache_len {cache_len} < {T} + {gen.max_new_tokens}")
     cache = kvcache.init_cache(
         config.num_hidden_layers, B, cache_len, config.num_key_value_heads,
-        config.head_dim_, device=tokens.device)
+        config.head_dim_, quantize_kv=quantize_kv, device=tokens.device)
     cache = dataclasses.replace(cache, start=start)
     tokens = tokens.long()
+    use_rep = gen.repetition_penalty != 1.0
+    seen = seen_from_prompt(tokens, start, config.vocab_size) if use_rep else None
+    rows = torch.arange(B, device=tokens.device)
+
+    def next_token(logits):
+        if use_rep:
+            logits = apply_repetition_penalty(logits, seen, gen.repetition_penalty)
+        return sample_token(logits, generator, gen)
 
     logits, cache = llama.forward(config, params, tokens, cache,
                                   mode="prefill", last_logits_only=last_logits)
-    cur = sample_token(logits[:, -1], generator, gen)
+    cur = next_token(logits[:, -1])
     out = torch.full((B, gen.max_new_tokens), gen.pad_token_id,
                      dtype=torch.long, device=tokens.device)
     out[:, 0] = cur
@@ -107,9 +178,11 @@ def generate_tokens(config: ModelConfig, params, tokens: torch.Tensor,
     for i in range(1, gen.max_new_tokens):
         if done is not None and bool(done.all()):
             break
+        if use_rep:
+            seen[rows, cur] = True
         logits, cache = llama.forward(config, params, cur[:, None], cache,
                                       mode="decode")
-        cur = sample_token(logits[:, -1], generator, gen)
+        cur = next_token(logits[:, -1])
         if done is not None:
             cur = torch.where(done, torch.full_like(cur, gen.pad_token_id), cur)
             done = done | (cur == eos)

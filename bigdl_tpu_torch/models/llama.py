@@ -9,9 +9,15 @@ one `DecoderLayer` per layer (norm weights as buffers, projections as
 `forward` walks the layers in a Python loop. Every flag this slice does
 not run raises `NotImplementedError` (`check_supported`).
 
-With a cache, attention runs over the full cache [0, max_len) under a
-validity mask from (start, pos), as in JAX: prefill (T > 1) goes through
-the flash kernel, decode through the plain masked attention. Without a
+With a cache, attention follows JAX's dispatch: a prefill (T > 1) over a
+dense cache with one position for all rows (generate, the serving
+engine's 1-row prefill) goes through the flash kernel, its fp8 arm for an
+fp8 cache; a one-token decode over a paged cache through the paged
+kernel, which reads the pool in place; every other cached call — decode
+over a dense cache, and any call with per-row positions such as the
+engine's paged prefill — through the plain masked attention over the
+full cache [0, max_len) (`kvcache.read_layer`'s dense view) under a
+validity mask from (start, pos). Without a
 cache (`cache=None`, the training / scoring path) query t of row b sits at
 slot t with position max(t - start[b], 0); T > 1 goes through the
 differentiable flash kernels (forward with logsumexp, dQ, dK/dV), T = 1
@@ -25,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +39,7 @@ from torch import nn
 
 from bigdl_tpu_torch import kvcache
 from bigdl_tpu_torch.kvcache import KVCache
+from bigdl_tpu_torch.kvpaged import PagedKVCache
 from bigdl_tpu_torch.models.config import ModelConfig
 from bigdl_tpu_torch.ops import (Linear, apply_rotary_emb, attention, kernels,
                                  rms_norm, rope_cos_sin)
@@ -202,15 +209,16 @@ def lm_head_logits(config: ModelConfig, model: LlamaModel, h: torch.Tensor,
 
 
 def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
-            cache: Optional[KVCache], mode: str = "prefill",
+            cache: Optional[Union[KVCache, PagedKVCache]], mode: str = "prefill",
             compute_dtype=torch.bfloat16, last_logits_only: bool = False,
             start: Optional[torch.Tensor] = None,
             lora=None) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (logits [B, T, V] float32 — [B, 1, V] with
     last_logits_only — and the cache with pos advanced by T, or None
-    without a cache). The cache is written in place. `start` [B] gives
-    the left padding of the cache-free path (the cache carries its own);
-    `lora` runs only there."""
+    without a cache). The cache is written in place; its pos is an int
+    (rows aligned) or an int32 [B] tensor (per-row, the serving engine's
+    pools). `start` [B] gives the left padding of the cache-free path (the
+    cache carries its own); `lora` runs only there."""
     if mode not in ("prefill", "decode"):
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
     if cache is not None and lora is not None:
@@ -241,6 +249,7 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
         row_start = cache.start
         positions = cache.next_positions(T)
         max_len = cache.max_len
+    per_row = isinstance(pos0, torch.Tensor)
 
     h = embed_tokens(config, model, tokens, compute_dtype)
     inv_freq, att_scale = make_inv_freq_scaled(
@@ -248,16 +257,18 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
         seq_len=max_len, device=dev)
     cos, sin = rope_cos_sin(positions, inv_freq, scale=att_scale)
 
-    # prefill through the flash kernel (no [T, S] scores in memory), the
-    # cache-free path through the differentiable flash kernels, decode
-    # and single-token scoring through the masked plain attention — the
-    # JAX dispatch
-    use_flash = T > 1 and (cache is None or mode == "prefill")
+    # the JAX dispatch: a scalar-pos prefill through the flash kernel (no
+    # [T, S] scores in memory), the cache-free path through the
+    # differentiable flash kernels, a paged decode through the paged
+    # kernel, the rest through the masked plain attention
+    use_flash = T > 1 and (cache is None or (mode == "prefill" and not per_row))
+    use_paged = isinstance(cache, PagedKVCache) and mode == "decode" and T == 1
     mask = None
-    if not use_flash:
+    if not (use_flash or use_paged):
         sj = torch.arange(max_len, device=dev)
-        slots = pos0 + torch.arange(T, device=dev)
-        mask = ((sj[None, None, :] <= slots[None, :, None])
+        slots = torch.arange(T, device=dev)[None, :] + (
+            pos0.long()[:, None] if per_row else pos0)  # [B | 1, T]
+        mask = ((sj[None, None, :] <= slots[..., None])
                 & (sj[None, None, :] >= row_start[:, None, None]))
         mask = mask[:, None, None]  # [B, 1, 1, T, S]
 
@@ -285,16 +296,26 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
         q, k = apply_rotary_emb(q, k, cos, sin)
 
         if cache is None:
-            k_att, v_att = k.to(compute_dtype), v.to(compute_dtype)
+            attn = (kernels.flash_attention_train(q, k.to(compute_dtype),
+                                                  v.to(compute_dtype),
+                                                  start=row_start)
+                    if use_flash else attention(q, k.to(compute_dtype),
+                                                v.to(compute_dtype), mask))
+        elif use_paged:
+            kvcache.update_layer(cache, idx, k, v)
+            attn = kernels.paged_attention(
+                q[:, 0], cache.k, cache.v, cache.block_tables, idx,
+                cache.pos, cache.start, cache.k_scale, cache.v_scale)[:, None]
+        elif use_flash:
+            kvcache.update_layer(cache, idx, k, v)
+            # fp8 codes and scales go to the kernel's fp8 arm as they are
+            k_att, v_att, k_sc, v_sc = kvcache.read_layer_raw(cache, idx)
+            attn = kernels.flash_attention(q, k_att, v_att, start=row_start,
+                                           q_offset=pos0, k_scale=k_sc,
+                                           v_scale=v_sc)
         else:
             kvcache.update_layer(cache, idx, k, v)
-            k_att, v_att = kvcache.read_layer(cache, idx)
-        if use_flash and cache is None:
-            attn = kernels.flash_attention_train(q, k_att, v_att, start=row_start)
-        elif use_flash:
-            attn = kernels.flash_attention(q, k_att, v_att, start=row_start,
-                                           q_offset=pos0)
-        else:
+            k_att, v_att = kvcache.read_layer(cache, idx, compute_dtype)
             attn = attention(q, k_att, v_att, mask)
         h = h + p["wo"](attn.reshape(B, T, QD), compute_dtype,
                         lora=adapter("wo", idx))

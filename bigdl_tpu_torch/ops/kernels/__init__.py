@@ -3,13 +3,16 @@ kernels in bigdl_tpu/ops/pallas). Importing this package builds nothing:
 sources compile at the first launch (`_build.py`)."""
 
 from bigdl_tpu_torch.ops.kernels.flash_attention import (
-    FLASH, flash_attention, flash_attention_plain,
+    FLASH, FLASH_FP8, flash_attention, flash_attention_plain,
 )
 from bigdl_tpu_torch.ops.kernels.flash_backward import (
     FLASH_DKV, FLASH_DQ, FLASH_FWD, flash_attention_train,
     flash_attention_train_bwd_plain, flash_attention_train_plain,
     flash_train_dkv, flash_train_dkv_plain, flash_train_dq,
     flash_train_dq_plain, flash_train_fwd,
+)
+from bigdl_tpu_torch.ops.kernels.paged_attention import (
+    PAGED, PAGED_FP8, paged_attention, paged_attention_plain,
 )
 from bigdl_tpu_torch.ops.kernels.qbackward import (
     DX, qmatmul_dx, qmatmul_dx_plain,
@@ -20,8 +23,10 @@ from bigdl_tpu_torch.ops.kernels.qmatmul import (
 )
 
 # every kernel of the port, in the order the main paths first run them:
-# generation (prefill, decode), then a training step (forward, backward)
-KERNELS = (GEMM, FLASH, GEMV, FLASH_FWD, LORA_GEMM, DX, FLASH_DQ, FLASH_DKV)
+# generation (prefill, decode), a training step (forward, backward), then
+# serving (paged decode, bf16 and fp8 pages; the dense fp8 pool's prefill)
+KERNELS = (GEMM, FLASH, GEMV, FLASH_FWD, LORA_GEMM, DX, FLASH_DQ, FLASH_DKV,
+           PAGED, PAGED_FP8, FLASH_FP8)
 
 
 def reset_launches() -> None:
@@ -33,12 +38,14 @@ def launch_counts() -> dict:
     return {k.name: k.launches for k in KERNELS}
 
 
-__all__ = ["DX", "FLASH", "FLASH_DKV", "FLASH_DQ", "FLASH_FWD", "GEMM", "GEMV",
-           "GEMV_MAX_ROWS", "KERNELS", "LORA_GEMM", "LORA_MAX_RANK",
+__all__ = ["DX", "FLASH", "FLASH_DKV", "FLASH_DQ", "FLASH_FP8", "FLASH_FWD",
+           "GEMM", "GEMV", "GEMV_MAX_ROWS", "KERNELS", "LORA_GEMM",
+           "LORA_MAX_RANK", "PAGED", "PAGED_FP8",
            "flash_attention", "flash_attention_plain",
            "flash_attention_train", "flash_attention_train_bwd_plain",
            "flash_attention_train_plain", "flash_train_dkv",
            "flash_train_dkv_plain", "flash_train_dq", "flash_train_dq_plain",
-           "flash_train_fwd", "launch_counts", "qmatmul_dx", "qmatmul_dx_plain",
+           "flash_train_fwd", "launch_counts", "paged_attention", "paged_attention_plain",
+           "qmatmul_dx", "qmatmul_dx_plain",
            "qmatmul_int4", "qmatmul_int4_lora", "qmatmul_int4_lora_plain",
            "qmatmul_int4_plain", "reset_launches"]

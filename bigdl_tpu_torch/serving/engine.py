@@ -1,0 +1,1024 @@
+"""Slot-based continuous-batching inference engine (port of the engine
+sub-slice of bigdl_tpu/serving/engine.py).
+
+- a fixed pool of `n_slots` decode slots shares one KV pool with per-row
+  write positions: a dense `kvcache.KVCache` [L, slots, max_len, ...], or
+  with `paged=True` a `kvpaged.PagedKVCache` whose pages are allocated on
+  demand, refcounted, shared between prompts through the radix prefix
+  cache (`serving/radix.py`, full pages and a sub-page copy) and swapped
+  to host RAM when decode growth runs the pool dry (preemption);
+- a request joins mid-flight: the dense pool prefills it on a 1-row cache
+  (the flash kernel) and copies that row in; the paged pool prefills its
+  uncached tail straight into its pages;
+- one `step()` admits what fits and advances every active slot one token
+  (a paged decode reads its pages in place through the paged-attention
+  kernel); idle slots compute masked garbage into scratch (page 0, or
+  their own dense row);
+- sampling parameters, the repetition penalty and the EOS id are per
+  request; `quantize_kv` stores either pool as float8_e5m2 with scales.
+
+What changes from JAX: the pools are written in place where JAX donates
+buffers; `jax.random` keys become one `torch.Generator`; the all-default
+penalty and all-greedy sampling guards are host `if`s on the host-side
+per-slot arrays, so they cost no device sync; the paged prefill runs only
+the prompt's real tokens (JAX right-pads them to a bucket for a static
+shape — the page plan still uses that bucket, so the same admissions get
+the same physical pages, and the pad writes JAX makes land past `pos`,
+where nothing reads them). The block table goes to the card only when it
+changed.
+
+Not in this slice, each raising NotImplementedError with its ROADMAP
+item: speculative decoding, serving adapters, chunked prefill, the
+request journal and fault injection, tracing and the request log,
+overload control (`max_queue`, deadlines, drain).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import itertools
+import queue
+import threading
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from bigdl_tpu_torch import kvcache, kvpaged
+from bigdl_tpu_torch.generate import (GenerationConfig, apply_repetition_penalty,
+                                      sample_token_per_row, seen_from_prompt)
+from bigdl_tpu_torch.models import llama
+from bigdl_tpu_torch.serving.metrics import FAST_BUCKETS, Histogram
+from bigdl_tpu_torch.serving.radix import RadixPrefixCache
+from bigdl_tpu_torch.utils import round_up
+
+# engine arguments of the JAX engine this slice leaves out -> the ROADMAP
+# item (queue 1 item 5 unless said) that ports them
+_NOT_PORTED = {
+    "speculative": "speculative decoding",
+    "draft_params": "speculative decoding",
+    "adaptive_draft": "speculative decoding",
+    "prefill_chunk_tokens": "chunked prefill",
+    "journal": "the request journal",
+    "faults": "fault injection",
+    "tracer": "tracing",
+    "request_log": "the request log",
+    "max_queue": "overload control",
+    "queue_deadline_s": "overload control",
+    "deadline_s": "overload control",
+    "adapters": "serving adapters (queue 1 item 7)",
+}
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: ROADMAP queue 1 item 5 ({item}), not ported to the "
+        "serving engine yet")
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: list[int]
+    max_new_tokens: int = 64
+    # per-request sampling (None = the engine's default)
+    do_sample: Optional[bool] = None
+    temperature: Optional[float] = None
+    top_k: Optional[int] = None
+    top_p: Optional[float] = None
+    repetition_penalty: Optional[float] = None
+    eos_token_id: Optional[int] = None
+    # filled by the engine
+    out_tokens: list[int] = dataclasses.field(default_factory=list)
+    # chosen-token logprob per emitted token (log softmax of the model's
+    # pre-filtering distribution, after the repetition penalty)
+    out_logprobs: list[float] = dataclasses.field(default_factory=list)
+    # with logprobs_top_k=N: per emitted token, the N most likely
+    # {token_id: logprob} alternatives
+    out_top_logprobs: list[dict] = dataclasses.field(default_factory=list)
+    done: bool = False
+    finish_reason: str = ""  # "stop" (EOS or cancel) | "length" (budget) |
+    # "invalid" (rejected at submit) | "error"
+    error: Optional[str] = None
+    stream: Optional[queue.SimpleQueue] = None  # receives (token | None=end)
+    submit_ts: float = 0.0
+    admit_ts: Optional[float] = None  # first admission (before prefill)
+    preemptions: int = 0  # times swapped to host RAM
+    first_token_ts: Optional[float] = None
+    last_token_ts: Optional[float] = None
+    preempt_ts: Optional[float] = None  # set while parked in host RAM
+    preempted_s: float = 0.0  # total seconds parked
+
+
+@dataclasses.dataclass
+class _Slot:
+    req: Optional[Request] = None
+    remaining: int = 0
+    eos: Optional[int] = None  # resolved per-request EOS id
+    seq: int = 0  # admission order — the preemption victim policy's age
+    # pos at the last swap-in; -1 = never preempted. A slot that cannot
+    # extend AND has emitted nothing since its resume proves the pool
+    # cannot support it (self-preempting again would livelock).
+    resumed_pos: int = -1
+
+
+@dataclasses.dataclass
+class _Preempted:
+    """A request parked in host RAM: the KV blob plus the slot-side
+    sampling and progress state, everything to resume bit-exactly."""
+
+    req: Request
+    cur: int  # last emitted token (next decode input)
+    remaining: int
+    eos: Optional[int]
+    pos: int  # tokens written (prompt + emitted)
+    start: int  # dense left-pad offset (0 for paged)
+    seq: int  # original admission age
+    temp: float
+    topk: int
+    topp: float
+    dosample: bool
+    penalty: float
+    seen: Any  # [V] bool row (repetition-penalty state), on the CPU
+    blob: Any  # kvpaged.HostKVPages | dense (k, v, ks, vs) tuple
+    n_pages: int = 0  # paged: pages to reallocate on resume
+
+
+class InferenceEngine:
+    """model: a TorchModel (api.py) of the llama family. Sampling
+    parameters, the repetition penalty and EOS are per request; the
+    engine's GenerationConfig gives the defaults. Thread-safe entry
+    points: `submit`, `cancel`, `preempt`; everything else runs on the
+    thread that calls `step()`."""
+
+    # cache-aware admission: oldest entries scored per pop
+    _ADMIT_SCAN_WINDOW = 64
+
+    def __init__(self, model, n_slots: int = 8, max_len: int = 1024,
+                 gen: Optional[GenerationConfig] = None, seed: int = 0,
+                 paged: bool = False, page_size: int = 64,
+                 n_pages: Optional[int] = None, truncate_prompts: bool = False,
+                 logprobs_top_k: int = 0, quantize_kv: bool = False,
+                 preemption: bool = True, preemption_policy: str = "youngest",
+                 **not_ported):
+        for name, value in not_ported.items():
+            if name not in _NOT_PORTED:
+                raise TypeError(f"InferenceEngine got an unexpected argument {name!r}")
+            if value not in (None, False):
+                raise _not_ported(f"InferenceEngine({name}=...)", _NOT_PORTED[name])
+        if preemption_policy not in ("youngest", "oldest"):
+            raise ValueError(f"preemption_policy must be 'youngest' or "
+                             f"'oldest', got {preemption_policy!r}")
+        llama.check_supported(model.config)
+        self.model = model
+        self.config = model.config
+        self.device = model.device
+        self._clock = time.perf_counter
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.gen = gen or GenerationConfig()
+        self.paged = paged
+        self.quantize_kv = quantize_kv
+        self.page_size = page_size
+        self.max_pages_per_row = -(-max_len // page_size)
+        # +1: physical page 0 is the scratch sink, so the default pool
+        # still covers every slot at full logical length
+        self.n_pages = n_pages or n_slots * self.max_pages_per_row + 1
+        self.truncate_prompts = truncate_prompts
+        self.logprobs_top_k = logprobs_top_k
+        self.preemption = preemption
+        self.preemption_policy = preemption_policy
+        if paged:
+            # one hold per slot block-table entry + one per cached radix node
+            self._pool = kvpaged.PagePool(self.n_pages)
+            self.radix = RadixPrefixCache(page_size, self._pool)
+            self._slot_pages: list[list[int]] = [[] for _ in range(n_slots)]
+            self._slot_written: list[int] = [0] * n_slots  # logical slots covered
+            self.prefix_hits = 0
+            self.prefix_partial_hits = 0  # sub-page copies
+            self.prefix_tokens_reused = 0
+            self.prefix_evictions = 0
+            self._bt_host = np.zeros((n_slots, self.max_pages_per_row), np.int32)
+            self._bt_dirty = True
+            self._slot_pos = [0] * n_slots  # host mirror of cache.pos
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._queue: "queue.Queue[Request]" = queue.Queue()
+        self._slots = [_Slot() for _ in range(n_slots)]
+        self._rid = itertools.count(1)
+        self.cache = self._make_pool()
+        self.cur = torch.zeros((n_slots,), dtype=torch.long, device=self.device)
+        self.active = np.zeros((n_slots,), bool)  # host-side mask
+        g = self.gen
+        self._temp = np.full((n_slots,), g.temperature, np.float32)
+        self._topk = np.full((n_slots,), g.top_k or 0, np.int32)
+        self._topp = np.full((n_slots,), g.top_p if g.top_p is not None else 1.0,
+                             np.float32)
+        self._dosample = np.full((n_slots,), g.do_sample, bool)
+        self._penalty = np.full((n_slots,), 1.0, np.float32)
+        # per-slot seen-token masks for the repetition penalty
+        self.seen = torch.zeros((n_slots, self.config.vocab_size),
+                                dtype=torch.bool, device=self.device)
+        self._waiting: Optional[Request] = None  # paged out-of-pages retry
+        # rid -> Request whose client went away: freed at the next step
+        self._cancelled: dict[int, Request] = {}
+        self._stat_lock = threading.Lock()  # counters bumped off the engine thread
+        self._inflight = 0  # accepted-but-unfinished requests (under _stat_lock)
+        self.finish_reasons: "collections.defaultdict[str, int]" = \
+            collections.defaultdict(int)
+        # preempted requests parked in host RAM, FIFO: the resume order
+        self._preempted: "collections.deque[_Preempted]" = collections.deque()
+        self._preempt_requested: set[int] = set()
+        self._seq = itertools.count(1)
+        self.preemptions = 0
+        self.preemption_resumes = 0
+        self.requests_completed = 0
+        self.queue_wait = Histogram()
+        self.ttft = Histogram()  # submit -> first emitted token
+        self.itl = Histogram(buckets=FAST_BUCKETS)  # inter-token gap
+        self.prefill_seconds = Histogram(buckets=FAST_BUCKETS)
+        self.decode_step_seconds = Histogram(buckets=FAST_BUCKETS)
+        self.resume_wait = Histogram()
+
+    def _make_pool(self):
+        """The shared KV pool, per-row positions from the start (idle
+        rows park at 0)."""
+        cfg = self.config
+        L, Hkv, D = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim_
+        if self.paged:
+            return kvpaged.init_paged(L, self.n_pages, self.page_size, Hkv, D,
+                                      self.n_slots, self.max_pages_per_row,
+                                      quantize_kv=self.quantize_kv,
+                                      device=self.device)
+        cache = kvcache.init_cache(L, self.n_slots, self.max_len, Hkv, D,
+                                   quantize_kv=self.quantize_kv, device=self.device)
+        return dataclasses.replace(cache, pos=torch.zeros(
+            (self.n_slots,), dtype=torch.int32, device=self.device))
+
+    # ---- device pieces ----------------------------------------------------
+
+    def _prefill(self, tokens: np.ndarray, pad: int):
+        """One request's prefill on its own 1-row, scalar-pos cache (the
+        flash kernel; its fp8 arm for an fp8 pool). Returns ([1, V] last
+        logits, the 1-row cache)."""
+        cfg = self.config
+        cache = kvcache.init_cache(
+            cfg.num_hidden_layers, 1, tokens.shape[1], cfg.num_key_value_heads,
+            cfg.head_dim_, quantize_kv=self.quantize_kv, device=self.device)
+        cache = dataclasses.replace(cache, start=torch.tensor(
+            [pad], dtype=torch.int32, device=self.device))
+        logits, cache = llama.forward(
+            cfg, self.model.params, torch.as_tensor(tokens, device=self.device).long(),
+            cache, mode="prefill", last_logits_only=True)
+        return logits[:, -1], cache
+
+    def _paged_prefill(self, row: np.ndarray, pos0: int, tail: list[int]):
+        """Prefill ONE slot's uncached tail straight into the shared page
+        pool through the slot's block-table row (no mini-cache, no insert
+        copy); returns the last token's [1, V] logits."""
+        cache = dataclasses.replace(
+            self.cache,
+            block_tables=torch.as_tensor(row[None], device=self.device),
+            pos=torch.tensor([pos0], dtype=torch.int32, device=self.device),
+            start=torch.zeros((1,), dtype=torch.int32, device=self.device))
+        logits, _ = llama.forward(
+            self.config, self.model.params,
+            torch.tensor([tail], dtype=torch.long, device=self.device), cache,
+            mode="prefill", last_logits_only=True)
+        return logits[:, -1]
+
+    def _decode(self):
+        """One token for every slot: (next ids [B], chosen-token logprobs
+        [B], top alternatives or None), cache and seen updated in place."""
+        logits, self.cache = llama.forward(
+            self.config, self.model.params, self.cur[:, None], self.cache,
+            mode="decode")
+        step = logits[:, -1]
+        dev = self.device
+        # all-default batches skip the [slots, V] rewrite (a host check)
+        if np.any(self._penalty != 1.0):
+            step = apply_repetition_penalty(
+                step, self.seen, torch.as_tensor(self._penalty, device=dev))
+        nxt = sample_token_per_row(
+            step, self._gen, torch.as_tensor(self._temp, device=dev),
+            torch.as_tensor(self._topk, device=dev),
+            torch.as_tensor(self._topp, device=dev), self._dosample)
+        # chosen-token logprob without a [B, V] log-softmax
+        lse = torch.logsumexp(step, dim=-1)
+        lp = step.gather(-1, nxt[:, None])[:, 0] - lse
+        top = None
+        if self.logprobs_top_k:
+            tv, ti = torch.topk(step, self.logprobs_top_k, dim=-1)
+            top = (ti, tv - lse[:, None])
+        self.seen[torch.arange(self.n_slots, device=dev), nxt] = True
+        return nxt, lp, top
+
+    # ---- host API ---------------------------------------------------------
+
+    def submit(self, prompt: list[int], max_new_tokens: int = 64,
+               stream: Optional[queue.SimpleQueue] = None,
+               do_sample: Optional[bool] = None,
+               temperature: Optional[float] = None,
+               top_k: Optional[int] = None, top_p: Optional[float] = None,
+               repetition_penalty: Optional[float] = None,
+               eos_token_id: Optional[int] = None,
+               queue_deadline_s: Optional[float] = None,
+               deadline_s: Optional[float] = None,
+               adapter: Optional[str] = None) -> Request:
+        """Queue a request (thread-safe). An invalid one (empty prompt,
+        ids outside the vocabulary, a prompt over the slot capacity
+        without truncate_prompts) finishes "invalid" at once."""
+        for name, value, item in (
+                ("queue_deadline_s", queue_deadline_s, "overload control"),
+                ("deadline_s", deadline_s, "overload control"),
+                ("adapter", adapter, "serving adapters (queue 1 item 7)")):
+            if value is not None:
+                raise _not_ported(f"submit({name}=...)", item)
+        if repetition_penalty is not None and repetition_penalty <= 0:
+            raise ValueError(f"repetition_penalty must be > 0, got {repetition_penalty}")
+        if top_k is not None:
+            # <= 0 disables; more than the vocabulary caps
+            top_k = None if top_k <= 0 else min(top_k, self.config.vocab_size)
+        # the decode window must fit the cache beside a minimal prompt bucket
+        max_new_tokens = max(1, min(max_new_tokens, self.max_len - 16))
+        req = Request(
+            rid=next(self._rid), prompt=list(prompt),
+            max_new_tokens=max_new_tokens, stream=stream, do_sample=do_sample,
+            temperature=temperature, top_k=top_k, top_p=top_p,
+            repetition_penalty=repetition_penalty, eos_token_id=eos_token_id,
+            submit_ts=self._clock())
+        error = None
+        limit = self.max_len - max_new_tokens
+        bad = [t for t in req.prompt if not 0 <= t < self.config.vocab_size]
+        if not req.prompt:
+            error = "empty prompt — nothing to generate"
+        elif bad:
+            error = (f"prompt token id {bad[0]} outside [0, "
+                     f"{self.config.vocab_size}) — wrong tokenizer for this model?")
+        elif len(req.prompt) > limit and not self.truncate_prompts:
+            error = (f"prompt ({len(req.prompt)} tokens) exceeds the slot capacity "
+                     f"({limit} = max_len {self.max_len} - max_new_tokens "
+                     f"{max_new_tokens}); shorten the prompt, raise max_len, or "
+                     "construct the engine with truncate_prompts=True to keep "
+                     "the prompt tail")
+        if error is not None:
+            req.error, req.finish_reason, req.done = error, "invalid", True
+            self._note_finish(req)
+            if stream is not None:
+                stream.put(None)
+            return req
+        with self._stat_lock:
+            self._inflight += 1
+        self._queue.put(req)
+        return req
+
+    def _slot_sampling(self, req: Request) -> tuple[float, int, float, bool]:
+        """A request's sampling parameters against the engine defaults."""
+        g = self.gen
+        temp = req.temperature if req.temperature is not None else g.temperature
+        topk = req.top_k if req.top_k is not None else (g.top_k or 0)
+        topp = req.top_p if req.top_p is not None else (
+            g.top_p if g.top_p is not None else 1.0)
+        dosample = req.do_sample if req.do_sample is not None else g.do_sample
+        return float(temp), int(topk or 0), float(topp), bool(dosample)
+
+    def _free_slot(self) -> Optional[int]:
+        for i, s in enumerate(self._slots):
+            if s.req is None:
+                return i
+        return None
+
+    # ---- paged page management -------------------------------------------
+
+    def _alloc_page(self) -> Optional[int]:
+        """A free page, evicting LRU radix leaves while the free list is
+        dry (eviction only drops pages no slot holds)."""
+        pg = self._pool.alloc()
+        while pg is None and self.radix.evict_one():
+            self.prefix_evictions += 1
+            pg = self._pool.alloc()
+        return pg
+
+    def _release_slot_pages(self, slot: int) -> None:
+        for pg in self._slot_pages[slot]:
+            self._pool.decref(pg)  # frees on 0; cached nodes keep theirs
+        self._slot_pages[slot] = []
+        self._slot_written[slot] = 0
+        self._slot_pos[slot] = 0
+        # the idle slot's garbage decode writes go to the scratch page
+        self._bt_host[slot, :] = 0
+        self._bt_dirty = True
+        self.cache.pos[slot] = 0
+
+    def _admit_paged(self, req: Request, slot: int) -> bool:
+        """Reuse the longest cached prompt prefix from the radix tree
+        (full pages by descent, a mid-page divergence by copying the
+        cached page), allocate fresh pages for the rest, prefill the tail.
+        False = not enough pages; retry later."""
+        page = self.page_size
+        limit = self.max_len - req.max_new_tokens
+        if len(req.prompt) > limit:
+            req.prompt = req.prompt[-limit:]
+        prompt = req.prompt
+
+        path = self.radix.match(prompt)
+        shared = [nd.page for nd in path]
+        n_hit = len(shared)
+        lp = n_hit * page
+        tail = prompt[lp:]
+        head_node = path[-1] if path else self.radix.root_for(None)
+
+        # sub-page sharing: the matched node's child agreeing with the
+        # tail for t_copy tokens is copied instead of re-prefilled; the
+        # last real token always prefills (its logits seed generation)
+        t_copy, src_node = 0, None
+        if len(tail) > 1:
+            m, child = self.radix.match_partial(head_node, tail)
+            t_copy = min(m, len(tail) - 1)
+            src_node = child if t_copy > 0 else None
+            if src_node is None:
+                t_copy = 0
+        src_page = src_node.page if src_node is not None else None
+
+        def plan(cut):
+            # the prefill bucket (16-token quantum) and the fresh pages it needs
+            b = min(round_up(max(len(prompt) - lp - cut, 16), 16),
+                    self.max_len - lp - cut)
+            return b, -(-(lp + cut + b) // page) - n_hit
+
+        bucket0, need0 = plan(0)
+        if src_page is not None:
+            bucket, need = plan(t_copy)
+            # a copy that shrinks neither the bucket nor the pages is skipped
+            if bucket >= bucket0 and need >= need0:
+                t_copy, src_page, src_node = 0, None, None
+                bucket, need = bucket0, need0
+        else:
+            t_copy = 0
+            bucket, need = bucket0, need0
+        lp_eff = lp + t_copy
+        tail2 = prompt[lp_eff:]
+        if need > self.n_pages - 1:  # can never be satisfied (page 0 is scratch)
+            self._fail_request(req, (
+                f"prompt needs {need} pages but the pool only has "
+                f"{self.n_pages - 1}; raise n_pages or shorten the prompt"))
+            return True  # consumed (failed), keep admitting others
+        # hold the shared pages and the copy source BEFORE allocating, so
+        # radix eviction cannot take this request's own prefix
+        for pg in shared:
+            self._pool.incref(pg)
+        if src_page is not None:
+            self._pool.incref(src_page)
+        fresh: list[int] = []
+        for _ in range(need):
+            pg = self._alloc_page()
+            if pg is None:  # out of pages: roll back, retry next step
+                for q in fresh + shared:
+                    self._pool.decref(q)
+                if src_page is not None:
+                    self._pool.decref(src_page)
+                return False
+            fresh.append(pg)
+        self._mark_admitted(req)
+        if n_hit:
+            self.prefix_hits += 1
+
+        table = shared + fresh
+        self._slot_pages[slot] = table
+        # page-aligned coverage: decode extends in whole pages
+        self._slot_written[slot] = len(table) * page
+        row = np.zeros((self.max_pages_per_row,), np.int32)
+        row[: len(table)] = table
+
+        if src_page is not None:
+            # the whole source page is copied; slots past t_copy are
+            # overwritten by the tail prefill or masked by pos
+            kvpaged.copy_page(self.cache, src_page, fresh[0])
+            self._pool.decref(src_page)
+            self.prefix_partial_hits += 1
+            self.prefix_tokens_reused += t_copy
+            self.radix.touch(src_node)
+
+        self._bt_host[slot] = row
+        self._bt_dirty = True
+        logits_last = self._paged_prefill(row, lp_eff, tail2)
+        self.cache.pos[slot] = len(prompt)
+        self.cache.start[slot] = 0
+        self._slot_pos[slot] = len(prompt)
+        self._register_prefix(prompt, path, table)
+        self._activate(slot, req, logits_last)
+        return True
+
+    def _register_prefix(self, prompt: list[int], path: list,
+                         table: list[int]) -> None:
+        """Register the prompt's fully covered pages past the matched run
+        as radix nodes (the cache takes its own page reference). An
+        existing edge keeps its page; our duplicate frees at release."""
+        page = self.page_size
+        node = path[-1] if path else self.radix.root_for(None)
+        for i in range(len(path), len(prompt) // page):
+            key = tuple(prompt[i * page: (i + 1) * page])
+            nxt = node.children.get(key)
+            if nxt is None:
+                nxt = self.radix.insert(node, key, table[i])
+            node = nxt
+
+    def _ensure_decode_pages(self) -> None:
+        """Before a decode step, every active slot whose next write would
+        run past its allocation gets a page; a dry pool preempts a victim
+        (policy order) to host RAM. "length" remains only for the logical
+        capacity or a pool that provably cannot support the request."""
+        for i in np.nonzero(self.active)[0]:
+            slot = int(i)
+            while (self.active[slot]
+                   and self._slot_pos[slot] + 1 > self._slot_written[slot]):
+                idx = len(self._slot_pages[slot])
+                if idx >= self.max_pages_per_row:  # logical capacity hit
+                    self._finish(slot, "length")
+                    break
+                pg = self._alloc_page_preempting(slot)
+                if pg is None:
+                    if self.active[slot]:  # not self-preempted: stuck
+                        self._finish(slot, "length")
+                    break
+                self._slot_pages[slot].append(pg)
+                self._slot_written[slot] += self.page_size
+                self._bt_host[slot, idx] = pg
+                self._bt_dirty = True
+
+    # ---- preemption (host-RAM KV swap) ------------------------------------
+
+    def _alloc_page_preempting(self, slot: int) -> Optional[int]:
+        """_alloc_page, escalating to preemption: swap victims out until a
+        page frees. With no other victim the slot preempts itself — only
+        if it progressed since its last resume (else it would livelock)."""
+        while True:
+            pg = self._alloc_page()
+            if pg is not None or not self.preemption:
+                return pg
+            victim = self._pick_victim(exclude=slot)
+            if victim is not None:
+                self._preempt_slot(victim)
+                continue
+            s = self._slots[slot]
+            if s.resumed_pos < 0 or self._slot_pos[slot] > s.resumed_pos:
+                self._preempt_slot(slot)  # the caller sees the slot inactive
+            return None
+
+    def _pick_victim(self, exclude: int) -> Optional[int]:
+        """youngest = most recently (re)admitted: least progress lost, and
+        the oldest request is never chosen while another is active, so it
+        always completes and frees its pages."""
+        cands = [(s.seq, i) for i, s in enumerate(self._slots)
+                 if s.req is not None and i != exclude and self.active[i]]
+        if not cands:
+            return None
+        pick = max(cands) if self.preemption_policy == "youngest" else min(cands)
+        return pick[1]
+
+    def _preempt_slot(self, slot: int) -> None:
+        """Swap a slot's KV to host RAM and park its request with the
+        tokens generated so far; the slot frees without finishing it."""
+        s = self._slots[slot]
+        req = s.req
+        if self.paged:
+            pos = self._slot_pos[slot]
+            n_keep = -(-pos // self.page_size)  # pages holding real KV
+            blob = kvpaged.swap_out_pages(self.cache, self._slot_pages[slot][:n_keep])
+            start = 0
+        else:
+            pos = int(self.cache.pos[slot])
+            start = int(self.cache.start[slot])
+            # only the live region travels, in 64-slot steps
+            n = min(round_up(max(pos, 1), 64), self.cache.max_len)
+            blob = kvcache.swap_out_row(self.cache, slot, n)
+            n_keep = 0
+        entry = _Preempted(
+            req=req, cur=int(self.cur[slot]), remaining=s.remaining, eos=s.eos,
+            pos=pos, start=start, seq=s.seq, temp=float(self._temp[slot]),
+            topk=int(self._topk[slot]), topp=float(self._topp[slot]),
+            dosample=bool(self._dosample[slot]),
+            penalty=float(self._penalty[slot]), seen=self.seen[slot].cpu(),
+            blob=blob, n_pages=n_keep)
+        req.preemptions += 1
+        self.preemptions += 1
+        req.preempt_ts = self._clock()
+        self._preempted.append(entry)
+        self._free_slot_state(slot)
+        if not self.paged:
+            self.cache.pos[slot] = 0
+
+    def _resume_preempted(self, entry: _Preempted, slot: int) -> bool:
+        """Swap a parked request back into `slot` (fresh pages / any free
+        row). False = the pool cannot hold the restore yet."""
+        req = entry.req
+        if self.paged:
+            fresh: list[int] = []
+            for _ in range(entry.n_pages):
+                pg = self._alloc_page()
+                if pg is None:  # roll back; retry when pages free up
+                    for q in fresh:
+                        self._pool.decref(q)
+                    return False
+                fresh.append(pg)
+            self._slot_pages[slot] = fresh
+            self._slot_written[slot] = entry.n_pages * self.page_size
+            row = np.zeros((self.max_pages_per_row,), np.int32)
+            row[: entry.n_pages] = fresh
+            self._bt_host[slot] = row
+            self._bt_dirty = True
+            kvpaged.swap_in_pages(self.cache, entry.blob, fresh)
+            self.cache.pos[slot] = entry.pos
+            self.cache.start[slot] = 0
+            self._slot_pos[slot] = entry.pos
+        else:
+            k, v, ks, vs = entry.blob
+            kvcache.swap_in_row(self.cache, k, v, ks, vs, slot, entry.pos,
+                                entry.start)
+        self.cur[slot] = entry.cur
+        self.seen[slot] = entry.seen.to(self.device)
+        self._temp[slot], self._topk[slot] = entry.temp, entry.topk
+        self._topp[slot], self._dosample[slot] = entry.topp, entry.dosample
+        self._penalty[slot] = entry.penalty
+        self._slots[slot] = _Slot(req=req, remaining=entry.remaining,
+                                  eos=entry.eos, seq=entry.seq,
+                                  resumed_pos=entry.pos)
+        self.active[slot] = True
+        now = self._clock()
+        if req.preempt_ts is not None:
+            parked = max(now - req.preempt_ts, 0.0)
+            self.resume_wait.observe(parked)
+            req.preempted_s += parked
+            req.preempt_ts = None
+        if req.last_token_ts is not None:
+            req.last_token_ts = now  # the stall is in resume_wait, not itl
+        self.preemption_resumes += 1
+        return True
+
+    def preempt(self, req: Request) -> None:
+        """Thread-safe operator preemption: park the request's KV in host
+        RAM at the next step and requeue it. A request not decoding in a
+        slot has nothing to swap; the marker is dropped for it."""
+        self._preempt_requested.add(req.rid)
+
+    def _reap_preempt_requests(self) -> None:
+        if not self._preempt_requested:
+            return
+        pending, self._preempt_requested = self._preempt_requested, set()
+        for i, s in enumerate(self._slots):
+            if s.req is not None and s.req.rid in pending and self.active[i]:
+                self._preempt_slot(i)
+
+    # ---- admission and finishing ------------------------------------------
+
+    def _pop_request(self) -> Optional[Request]:
+        if self._waiting is not None:
+            req, self._waiting = self._waiting, None
+            return req
+        if self.paged:
+            return self._pop_deepest_match()
+        try:
+            return self._queue.get_nowait()
+        except queue.Empty:
+            return None
+
+    def _pop_deepest_match(self) -> Optional[Request]:
+        """Cache-aware admission: among the oldest queued requests, admit
+        the one with the deepest radix prefix match first (ties keep FIFO
+        order); the probe does not touch the LRU."""
+        with self._queue.mutex:
+            q = self._queue.queue
+            if not q:
+                return None
+            if len(q) > 1 and self.radix.n_nodes:
+                n = min(len(q), self._ADMIT_SCAN_WINDOW)
+                best_i, best_d = 0, self.radix.match_len(q[0].prompt)
+                for i in range(1, n):
+                    d = self.radix.match_len(q[i].prompt)
+                    if d > best_d:
+                        best_i, best_d = i, d
+                if best_i:
+                    req = q[best_i]
+                    del q[best_i]
+                    return req
+            return q.popleft()
+
+    def _fail_request(self, req: Request, msg: str) -> None:
+        """Terminal failure for a request not (or no longer) in a slot."""
+        self._finish_detached(req, "error", error=msg)
+
+    def _finish_detached(self, req: Request, reason: str,
+                         error: Optional[str] = None) -> None:
+        """Terminal state for a request not in a slot (queued / parked)."""
+        with self._stat_lock:
+            self._inflight -= 1
+        if error is not None:
+            req.error = error
+        req.finish_reason = reason
+        req.done = True
+        self._note_finish(req)
+        if req.stream is not None:
+            req.stream.put(None)
+
+    def _note_finish(self, req: Request) -> None:
+        """Per-reason finish count, shared by every finish path (handler
+        threads reach it for rejected submits, hence the lock)."""
+        now = self._clock()
+        with self._stat_lock:
+            self.finish_reasons[req.finish_reason or "?"] += 1
+        if req.preempt_ts is not None:  # died while parked
+            req.preempted_s += max(now - req.preempt_ts, 0.0)
+            req.preempt_ts = None
+
+    def _mark_admitted(self, req: Request) -> None:
+        """Stamp the first admission: queue_wait measures pure waiting."""
+        if req.admit_ts is not None:
+            return
+        req.admit_ts = self._clock()
+        self.queue_wait.observe(req.admit_ts - req.submit_ts)
+
+    def _activate(self, slot: int, req: Request, logits_last: torch.Tensor) -> None:
+        """After prefill: sample the first token, arm the slot's sampling
+        parameters, emit. logits_last: [1, V]."""
+        temp, topk, topp, dosample = self._slot_sampling(req)
+        penalty = (req.repetition_penalty if req.repetition_penalty is not None
+                   else self.gen.repetition_penalty)
+        dev, V = self.device, self.config.vocab_size
+        if penalty != 1.0:
+            row = seen_from_prompt(
+                torch.tensor([req.prompt], device=dev),
+                torch.zeros((1,), dtype=torch.int32, device=dev), V)[0]
+            logits_last = apply_repetition_penalty(logits_last, row[None], penalty)
+        else:
+            row = torch.zeros((V,), dtype=torch.bool, device=dev)
+        first = int(sample_token_per_row(
+            logits_last, self._gen,
+            torch.tensor([temp], dtype=torch.float32, device=dev),
+            torch.tensor([topk], dtype=torch.int32, device=dev),
+            torch.tensor([topp], dtype=torch.float32, device=dev),
+            np.asarray([dosample]))[0])
+        self.cur[slot] = first
+        eos = (req.eos_token_id if req.eos_token_id is not None
+               else self.gen.eos_token_id)
+        self._slots[slot] = _Slot(req=req, remaining=req.max_new_tokens - 1,
+                                  eos=eos, seq=next(self._seq))
+        self._temp[slot], self._topk[slot] = temp, topk
+        self._topp[slot], self._dosample[slot] = topp, dosample
+        self._penalty[slot] = penalty
+        self.seen[slot] = row
+        self.seen[slot, first] = True
+        self.active[slot] = True
+        row_lp = torch.log_softmax(logits_last.float().reshape(-1), dim=-1)
+        first_lp = float(row_lp[first])
+        first_top = None
+        if self.logprobs_top_k:
+            tv, ti = torch.topk(row_lp, self.logprobs_top_k)
+            first_top = {int(t): float(lv) for t, lv in zip(ti.tolist(), tv.tolist())}
+        if req.admit_ts is not None:
+            self.prefill_seconds.observe(self._clock() - req.admit_ts)
+        self._emit(slot, first, first_lp, first_top)
+
+    def _admit_dense(self, req: Request, slot: int) -> None:
+        self._mark_admitted(req)
+        # decode writes land at [bucket, bucket + max_new_tokens): keep
+        # that window inside the row, tail-truncating over-long prompts
+        limit = self.max_len - req.max_new_tokens
+        bucket = min(round_up(max(len(req.prompt), 16), 64), limit)
+        if len(req.prompt) > bucket:
+            req.prompt = req.prompt[-bucket:]
+        tokens = np.full((1, bucket), self.gen.pad_token_id, np.int32)
+        tokens[0, bucket - len(req.prompt):] = req.prompt
+        pad = bucket - len(req.prompt)
+        logits_last, pcache = self._prefill(tokens, pad)
+        kvcache.insert_row(self.cache, pcache, slot, pad)
+        self._activate(slot, req, logits_last)
+
+    def _admit(self) -> None:
+        while True:
+            slot = self._free_slot()
+            if slot is None:
+                return
+            # preempted requests resume first, in preemption order
+            if self._preempted:
+                entry = self._preempted[0]
+                if self._resume_preempted(entry, slot):
+                    self._preempted.popleft()
+                    continue
+                if not self.active.any():
+                    # nothing left to free pages: the restore can never fit
+                    self._preempted.popleft()
+                    self._fail_request(entry.req, (
+                        f"cannot resume preempted request: restoring "
+                        f"{entry.n_pages} pages exceeds the free pool; "
+                        "raise n_pages"))
+                    continue
+                return  # wait for pages before admitting anything newer
+            req = self._pop_request()
+            if req is None:
+                return
+            if req.rid in self._cancelled:  # cancelled while queued
+                self._cancelled.pop(req.rid, None)
+                self._finish_detached(req, "stop")
+                continue
+            if self.paged:
+                if not self._admit_paged(req, slot):
+                    self._waiting = req  # pool full: retry after frees
+                    return
+            else:
+                self._admit_dense(req, slot)
+
+    def _emit(self, slot: int, token: int, logprob: Optional[float] = None,
+              top_logprobs: Optional[dict] = None) -> None:
+        s = self._slots[slot]
+        if s.eos is not None and token == s.eos:
+            # the EOS id ends the stream but is not generated text
+            self._finish(slot, "stop")
+            return
+        req = s.req
+        now = self._clock()
+        if req.first_token_ts is None:
+            req.first_token_ts = now
+            self.ttft.observe(now - req.submit_ts)
+        else:
+            self.itl.observe(now - req.last_token_ts)
+        req.last_token_ts = now
+        req.out_tokens.append(token)
+        if logprob is not None:
+            req.out_logprobs.append(logprob)
+        if top_logprobs is not None:
+            req.out_top_logprobs.append(top_logprobs)
+        if req.stream is not None:
+            req.stream.put(token)
+        if s.remaining <= 0:
+            self._finish(slot, "length")
+
+    def _finish(self, slot: int, reason: str = "stop", counted: bool = True) -> None:
+        s = self._slots[slot]
+        s.req.finish_reason = reason
+        s.req.done = True
+        with self._stat_lock:
+            self._inflight -= 1
+        self._note_finish(s.req)
+        if counted and reason in ("stop", "length"):
+            self.requests_completed += 1  # cancelled requests are not counted
+        if s.req.stream is not None:
+            s.req.stream.put(None)
+        self._free_slot_state(slot)
+
+    def _free_slot_state(self, slot: int) -> None:
+        """Release a slot's engine-side state (sampling rows, pages)
+        without touching the request's terminal fields."""
+        self._slots[slot] = _Slot()
+        self.active[slot] = False
+        self._dosample[slot] = False  # idle rows decode deterministic garbage
+        self._penalty[slot] = 1.0
+        self.seen[slot] = False
+        if self.paged:
+            self._release_slot_pages(slot)
+
+    def _reset_state(self) -> None:
+        """Rebuild the pool after a failed decode so the engine can keep
+        serving new requests."""
+        self.cache = self._make_pool()
+        self.cur.zero_()
+        self.seen.zero_()
+        self._penalty[:] = 1.0
+        self.active[:] = False
+        self._preempted.clear()
+        if self.paged:
+            self._pool = kvpaged.PagePool(self.n_pages)
+            self.radix = RadixPrefixCache(self.page_size, self._pool)
+            self._slot_pages = [[] for _ in range(self.n_slots)]
+            self._slot_written = [0] * self.n_slots
+            self._slot_pos = [0] * self.n_slots
+            self._bt_host[:] = 0
+            self._bt_dirty = True
+
+    def cancel(self, req: Request) -> None:
+        """Thread-safe: stop generating for a request whose consumer is
+        gone. Its slot frees at the engine thread's next step."""
+        if req.done:
+            return
+        self._cancelled[req.rid] = req
+
+    def _reap_cancelled(self) -> None:
+        for rid, q in list(self._cancelled.items()):
+            if q.done:  # lost the race with a normal finish
+                self._cancelled.pop(rid, None)
+        for i, s in enumerate(self._slots):
+            if s.req is not None and s.req.rid in self._cancelled:
+                self._cancelled.pop(s.req.rid, None)
+                self._finish(i, "stop", counted=False)
+
+    def fail_all(self, msg: str) -> None:
+        """Mark every in-flight, parked and queued request failed (the
+        decode-failure path; streams get their end marker)."""
+        for i, s in enumerate(self._slots):
+            if s.req is not None:
+                s.req.error = msg
+                self._finish(i, "error")
+        if self._waiting is not None:
+            req, self._waiting = self._waiting, None
+            self._fail_request(req, msg)
+        while self._preempted:
+            self._fail_request(self._preempted.popleft().req, msg)
+        while True:
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            self._fail_request(req, msg)
+        self.active[:] = False
+
+    @torch.inference_mode()
+    def step(self) -> bool:
+        """Admit queued requests, advance every active slot one token.
+        Returns True while work remains."""
+        self._reap_cancelled()
+        self._reap_preempt_requests()
+        self._admit()
+        if self.paged:
+            self._ensure_decode_pages()
+            if self._bt_dirty:
+                self.cache.block_tables.copy_(torch.from_numpy(self._bt_host))
+                self._bt_dirty = False
+        if not self.active.any():
+            return (not self._queue.empty() or self._waiting is not None
+                    or bool(self._preempted))
+        t0 = self._clock()
+        try:
+            nxt, lps, top = self._decode()
+        except Exception:
+            # the pool may be half written: fail what is in flight, rebuild
+            self.fail_all("decode step failed")
+            self._reset_state()
+            raise
+        self.cur = nxt
+        toks = nxt.tolist()
+        lps_h = lps.cpu().numpy()
+        tops_h = None if top is None else (top[0].tolist(), top[1].tolist())
+        # the host copies above synchronize: the step's device work is done
+        self.decode_step_seconds.observe(self._clock() - t0)
+        for i in np.nonzero(self.active)[0]:
+            i = int(i)
+            s = self._slots[i]
+            if not np.isfinite(lps_h[i]):
+                # quarantine the one poisoned slot; per-row decode leaves
+                # the others untouched
+                s.req.error = ("non-finite logits in decode step; request "
+                               "quarantined (other slots unaffected)")
+                self._finish(i, "error")
+                continue
+            s.remaining -= 1
+            if self.paged:
+                self._slot_pos[i] += 1
+            alt = None
+            if tops_h is not None:
+                alt = {int(t): float(lv) for t, lv in zip(tops_h[0][i], tops_h[1][i])}
+            self._emit(i, int(toks[i]), float(lps_h[i]), alt)
+        return True
+
+    def run_until_idle(self, max_steps: int = 100000) -> None:
+        for _ in range(max_steps):
+            if not self.step():
+                return
+
+    def begin_drain(self) -> None:
+        raise _not_ported("InferenceEngine.begin_drain", "drain")
+
+    def drain(self, timeout_s: Optional[float] = None) -> bool:
+        raise _not_ported("InferenceEngine.drain", "drain")
+
+    def idle(self) -> bool:
+        """No accepted-but-unfinished work remains (an in-flight count,
+        so a request mid-admission is not missed)."""
+        with self._stat_lock:
+            return self._inflight == 0
+
+    def page_leaks(self) -> int:
+        """Pages whose refcount disagrees with their holders (slot block
+        tables + radix nodes), plus any page neither free nor held. 0 is
+        the invariant."""
+        if not self.paged:
+            return 0
+        held = [0] * self.n_pages
+        for pages in self._slot_pages:
+            for pg in pages:
+                held[pg] += 1
+        for node in self.radix.nodes():
+            held[node.page] += 1
+        return sum(1 for pg in range(1, self.n_pages)
+                   if self._pool.ref[pg] != held[pg])
+
+    def kv_utilization(self) -> float:
+        """Fraction of the KV pool holding live state: allocated pages
+        over the allocatable pool (paged; page 0 is scratch), or written
+        positions over the row capacity (dense, a host-side estimate)."""
+        if self.paged:
+            cap = self.n_pages - 1
+            return (cap - self._pool.n_free) / max(cap, 1)
+        used = sum(min(len(s.req.prompt) + len(s.req.out_tokens), self.max_len)
+                   for i, s in enumerate(self._slots)
+                   if s.req is not None and self.active[i])
+        return used / max(self.n_slots * self.max_len, 1)

@@ -1,0 +1,230 @@
+"""Radix-tree prefix cache over the paged KV pool (a copy of
+bigdl_tpu/serving/radix.py, which imports nothing of JAX; the port keeps
+its own copy).
+
+A tree over the physical pages of `kvpaged.PagedKVCache`:
+
+- **one node per physical page**: a node covers exactly one page worth
+  of prompt tokens (`tokens`, length == page_size) and owns one
+  reference on its physical page in the shared `kvpaged.PagePool` — a
+  page is freed exactly when no slot's block table and no cached node
+  holds it;
+- **O(prompt) incremental keys**: descending the tree hashes one
+  page-sized token chunk per level;
+- **longest-prefix match at any split point**: the full-page descent
+  finds the deepest cached run, then `match_partial` scans only that
+  node's direct children for the best mid-page agreement — the engine
+  copies those KV slots instead of re-prefilling them;
+- **O(1) LRU** (`OrderedDict.move_to_end` on hit) with **leaf-first
+  eviction**: only nodes with no children are evicted, so a cached
+  chain is consumed tail-first and an interior page is never stranded
+  unreachable; eviction unlinks the node from its parent.
+
+Eviction only ever touches pages whose sole reference is the cache's
+own, so it can never steal a page from a live slot or from a host-RAM
+parked request's future swap-in. The engine escalates allocation
+pressure as free list -> radix eviction -> preemption.
+
+This module is pure host-side bookkeeping: no torch, no clock reads.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Iterator, Optional
+
+
+class RadixNode:
+    """One cached physical page: `tokens` is the page-content chunk it
+    covers (its edge label from `parent`), `page` the physical page id
+    holding that chunk's KV."""
+
+    __slots__ = ("tokens", "page", "parent", "children")
+
+    def __init__(self, tokens: tuple, page: int,
+                 parent: Optional["RadixNode"]):
+        self.tokens = tokens
+        self.page = page
+        self.parent = parent
+        self.children: dict = {}  # tokens-tuple -> RadixNode
+
+
+class RadixPrefixCache:
+    """The tree + its LRU. The engine owns the hit/eviction counters
+    (they must survive `_reset_state`, which rebuilds this object);
+    the cache owns structure and page references only."""
+
+    def __init__(self, page_size: int, pool):
+        self.page_size = page_size
+        self.pool = pool  # kvpaged.PagePool: one hold per cached node
+        self.root = RadixNode((), -1, None)
+        # adapter namespaces (docs/serving.md §7): KV pages prefilled
+        # under a LoRA adapter carry that adapter's shifted K/V from
+        # the first adapted layer up — sharing them with another tenant
+        # (or the base) would silently leak one fine-tune's activations
+        # into another's generation. Each namespace gets its own root,
+        # so cross-tenant pages are unreachable BY CONSTRUCTION; all
+        # namespaces share one LRU and one eviction policy.
+        self._ns_roots: dict = {}  # adapter name -> RadixNode
+        # node -> None, least-recently-used first. Hits move_to_end
+        # (O(1)); eviction scans from the front for the first leaf
+        # whose page only the cache holds.
+        self._lru: "collections.OrderedDict[RadixNode, None]" = \
+            collections.OrderedDict()
+
+    # -- queries -------------------------------------------------------------
+
+    @property
+    def n_nodes(self) -> int:
+        return len(self._lru)
+
+    def nodes(self) -> Iterator[RadixNode]:
+        return iter(self._lru)
+
+    def root_for(self, ns=None) -> RadixNode:
+        """The descent root for `ns` (an adapter name; None = the
+        shared base namespace). Created on first use — a namespace with
+        no cached pages costs one dict entry."""
+        if ns is None:
+            return self.root
+        root = self._ns_roots.get(ns)
+        if root is None:
+            root = self._ns_roots[ns] = RadixNode((), -1, None)
+        return root
+
+    def match(self, prompt: list, ns=None) -> list:
+        """The longest cached run of full pages prefixing `prompt`,
+        leaving at least one tail token to prefill (its logits seed
+        generation). Returns the node path root-first; every matched
+        node is LRU-refreshed. O(len(prompt)) total hashing. `ns`
+        selects the adapter namespace (see `root_for`)."""
+        page = self.page_size
+        node, path = self.root_for(ns), []
+        while (len(path) + 1) * page <= len(prompt) - 1:
+            lo = len(path) * page
+            child = node.children.get(tuple(prompt[lo:lo + page]))
+            if child is None:
+                break
+            path.append(child)
+            node = child
+        for nd in path:
+            self._lru.move_to_end(nd)
+        return path
+
+    def match_len(self, prompt: list, ns=None) -> int:
+        """Read-only probe: how many prompt tokens the cached full-page
+        run would cover (same descent bound as `match`, but NO LRU
+        refresh — the admission-ordering sort key must not promote
+        entries for requests that merely got scored). Namespaced like
+        `match`: a tenant's score counts only its own cached pages —
+        and, staying read-only, never materializes a root for a
+        namespace nothing has cached under yet."""
+        page = self.page_size
+        if ns is None:
+            node = self.root
+        else:
+            node = self._ns_roots.get(ns)
+            if node is None:
+                return 0
+        depth = 0
+        while (depth + 1) * page <= len(prompt) - 1:
+            lo = depth * page
+            child = node.children.get(tuple(prompt[lo:lo + page]))
+            if child is None:
+                break
+            depth += 1
+            node = child
+        return depth * page
+
+    def match_partial(self, node: RadixNode, tail: list):
+        """Best mid-page extension under `node`: the child page whose
+        tokens agree with `tail` longest. Returns (t_agree, child);
+        (0, None) when nothing agrees. The caller caps t_agree and
+        decides whether the copy pays (bucket-plan quantization)."""
+        best_m, best = 0, None
+        for child in node.children.values():
+            m = 0
+            for a, b in zip(child.tokens, tail):
+                if a != b:
+                    break
+                m += 1
+            if m > best_m:
+                best_m, best = m, child
+        return best_m, best
+
+    def touch(self, node: RadixNode) -> None:
+        """LRU-refresh a node that just proved hot (partial-copy
+        source)."""
+        self._lru.move_to_end(node)
+
+    # -- mutation ------------------------------------------------------------
+
+    def insert(self, parent: RadixNode, tokens, page: int) -> RadixNode:
+        """Register `page` as `parent`'s child covering `tokens`,
+        taking the cache's own page reference. The caller guarantees
+        the edge does not exist (use `parent.children.get` first —
+        an existing edge keeps its canonical page)."""
+        key = tuple(tokens)
+        assert key not in parent.children
+        node = RadixNode(key, page, parent)
+        parent.children[key] = node
+        self.pool.incref(page)
+        self._lru[node] = None  # most-recently-used
+        return node
+
+    def evict_one(self) -> bool:
+        """Drop the least-recently-used evictable node: a leaf (an
+        interior node anchors a live chain — evicting it would strand
+        its descendants unreachable) whose page carries no hold beyond
+        the cache's own. Unlinks it from its parent (no stale child
+        keys) and releases the page to the pool's free list. Returns
+        False when nothing is evictable (every cached page is also in
+        some slot's table, or the cache is empty)."""
+        victim = None
+        for node in self._lru:  # LRU -> MRU
+            if not node.children and self.pool.ref[node.page] == 1:
+                victim = node
+                break
+        if victim is None:
+            return False
+        del self._lru[victim]
+        del victim.parent.children[victim.tokens]
+        victim.parent = None
+        self.pool.decref(victim.page)  # -> 0: back on the free list
+        return True
+
+    def clear(self) -> None:
+        """Release every cached page (engine `_reset_state`: the pool
+        is rebuilt alongside, so holds must not linger)."""
+        for node in self._lru:
+            self.pool.decref(node.page)
+            node.parent = None
+            node.children.clear()
+        self._lru.clear()
+        self.root = RadixNode((), -1, None)
+        self._ns_roots = {}
+
+    # -- invariants (tests + engine leak accounting) -------------------------
+
+    def check(self) -> None:
+        """Structural invariants: every reachable node is LRU-tracked
+        and vice versa (a violation means dead nodes — the flat
+        cache's stale-children bug class), every cached page holds at
+        least the cache's reference, and edge labels are page-sized."""
+        reachable = set()
+        stack = [self.root, *self._ns_roots.values()]
+        while stack:
+            nd = stack.pop()
+            for key, child in nd.children.items():
+                assert key == child.tokens and child.parent is nd
+                assert len(child.tokens) == self.page_size
+                assert self.pool.ref[child.page] >= 1, (
+                    f"cached page {child.page} has no reference"
+                )
+                reachable.add(child)
+                stack.append(child)
+        tracked = set(self._lru)
+        assert reachable == tracked, (
+            f"{len(tracked - reachable)} dead (unreachable) nodes, "
+            f"{len(reachable - tracked)} untracked nodes"
+        )

@@ -14,7 +14,11 @@ Phases (any failure exits non-zero; nothing is caught):
    then the training kernels: the dequant dx at every projection and the
    lm head, the GEMM's LoRA epilogue at wo and w_down (all at M = 1024),
    and the trainable flash forward (+ logsumexp), dQ and dK/dV at B=1
-   T=1024 and at a small GQA + left-pad + window case;
+   T=1024 and at a small GQA + left-pad + window case; then the serving
+   kernels: paged decode attention over bf16 and fp8 pages at the
+   engine's decode shape (8 rows, pages of 64, ragged positions up to
+   2047 over shuffled pages, an idle row; a window + softcap case) and the
+   flash kernel's fp8 arm at the dense fp8 pool's prefill shape;
 3. the generation path: llama3-8b at full width and depth (32 layers) with
    seeded random weights, `optimize_model(..., "sym_int4")`, greedy
    `TorchModel.generate` of 32 tokens for 4 ragged prompts — launch counts
@@ -37,9 +41,25 @@ Phases (any failure exits non-zero; nothing is caught):
 6. training times, as in 4: each new kernel on the path (a profiler
    window over two steps) and isolated at its path shapes beside its
    plain version, library call and bound; step ms, tokens/s, peak memory
-   and the device's busy share of a step.
+   and the device's busy share of a step;
+7. the serving path: `serving.InferenceEngine` over llama3-8b sym_int4
+   (32 layers) at `cli serve`'s defaults (8 slots, max_len 2048, pages of
+   64) with 16 seeded requests (8 sharing a 1,024-token prefix, one of
+   them taking the sub-page copy; 8 independent) through (a) a paged bf16
+   pool — prefix hits, no page leaks, 32 paged launches a decode step —
+   (b) a dense bf16 pool — no paged launch, first tokens as (a)'s beyond
+   near-ties — (c) a paged pool too small for decode growth — preemption,
+   tokens equal to an unpreempted run's — (d) a paged fp8 pool and (e) a
+   dense fp8 pool (the flash fp8 arm); then 2-layer full-width engines
+   through the kernels against the plain versions on the card;
+8. serving times: requests/s, tokens/s, TTFT and decode-step quantiles
+   and peak memory of (a); a profiled decode step at 8 rows of ~1,100
+   live slots over bf16 and fp8 pages (busy share, the paged kernel's
+   time on the path); the paged kernel and the flash fp8 arm isolated
+   beside their plain versions, an SDPA yardstick and their bounds.
 
-It prints one `{"kernels": [...]}` line, and as its last line
+The whole run takes about 200 s of command time on an H100, the kernel
+builds included. It prints one `{"kernels": [...]}` line, and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the
 package beside it, it exits non-zero before printing either.
 """
@@ -203,6 +223,7 @@ def main() -> int:
         check(bool(torch.isfinite(y).all()) and within and zeros_ok, f"flash {label}")
 
     train_kernel_checks(torch, dev, cfg, shapes, errs, qweight, randn)
+    serving_kernel_checks(torch, dev, cfg, errs, randn)
     torch.cuda.synchronize()
 
     # ---------------------------------------------------------------- 3
@@ -416,7 +437,9 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 5
     train_entries = train_phases(torch, dev, cfg, card, errs, qweight, randn)
-    log(json.dumps({"kernels": entries + train_entries}))
+    # ---------------------------------------------------------------- 7
+    serving_entries = serving_phases(torch, dev, cfg, card, errs)
+    log(json.dumps({"kernels": entries + train_entries + serving_entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -556,7 +579,9 @@ def train_phases(torch, dev, cfg, card, errs, qweight, randn) -> list:
                 # every projection's dx but layer 0's wqkv, whose input
                 # needs no gradient, plus the lm head's
                 kernels.DX.name: 4 * L,
-                kernels.GEMV.name: 0, kernels.FLASH.name: 0}
+                kernels.GEMV.name: 0, kernels.FLASH.name: 0,
+                kernels.PAGED.name: 0, kernels.PAGED_FP8.name: 0,
+                kernels.FLASH_FP8.name: 0}
     want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
     losses = [warm_loss] + [x for _, x in runs]
     log(f"phase 5: launches over {TRAIN_STEPS} steps {launches} expected {want}")
@@ -750,6 +775,466 @@ def train_phases(torch, dev, cfg, card, errs, qweight, randn) -> list:
             "max_abs_err": errs[kern.name], "ms": path_ms[kern.name],
             "isolated_ms": iso, "plain_ms": plain_, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_, "per": unit})
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# serving: phase 2's checks of the serving kernels, phases 7 and 8
+# ---------------------------------------------------------------------------
+
+SLOTS, MAX_LEN, PAGE = 8, 2048, 64  # `cli serve`'s defaults, pages of 64
+SERVE_NEW, PREFIX_LEN = 64, 1024
+INDEP_LENS = (100, 1500, 420, 880, 260, 1210, 640, 1030)
+FP8_DENSE_LEN, FP8_DENSE_NEW = 1000, 16  # engine (e): 4 requests
+STEADY_LEN, PROFILED_DECODES = 1100, 5  # the decode-step profile: 8 rows
+# The dense pool prefills through flash over a left-padded bucket, the
+# paged pool through the masked plain attention, which rounds the softmax
+# weights to bf16. Through 32 layers of bf16 activations that moves a
+# first-token logprob by up to 0.125 nat (H100, this traffic), and both
+# of the top two tokens can move by it: a greedy first token may differ
+# only where the top-1/top-2 margin is within 0.25 nat.
+MARGIN_TOL = 0.25
+# kernels vs plain versions over two full-width layers (phase 7): bf16
+# activations through two layers, 0.05 nat per chosen-token logprob. An
+# fp8 pool quantizes K/V that already differ by a bf16 rounding, and a
+# code that lands one e5m2 step over moves its element by a quarter of
+# its value: twice the bound there.
+LOGPROB_TOL = {False: 0.05, True: 0.1}  # by quantize_kv
+
+
+def paged_operands(torch, dev, g, L, Hkv, D, pos, fp8):
+    """A pool of L layers holding, per row, pages for slots [0, pos], in
+    a shuffled (non-contiguous) order; the rest of each block table and a
+    row at pos 0 (idle) point at the scratch page 0. Returns (pool k, v,
+    k_scale, v_scale, block tables, pos, start, live slots)."""
+    from bigdl_tpu_torch.kvcache import _quantize_heads
+
+    mp = MAX_LEN // PAGE
+    need = [p // PAGE + 1 if p > 0 else 0 for p in pos]
+    NP = sum(need) + 1
+    perm = (torch.randperm(NP - 1, device=dev, generator=g) + 1).tolist()
+    bt = torch.zeros((len(pos), mp), dtype=torch.int32)
+    for b, n in enumerate(need):
+        bt[b, :n] = torch.tensor(perm[:n], dtype=torch.int32)
+        perm = perm[n:]
+    ks = vs = None
+    k = torch.randn((L, NP, PAGE, Hkv, D), device=dev, generator=g)
+    v = torch.randn((L, NP, PAGE, Hkv, D), device=dev, generator=g)
+    if fp8:
+        (k, ks), (v, vs) = _quantize_heads(k, torch.float32), _quantize_heads(v, torch.float32)
+    else:
+        k, v = k.bfloat16(), v.bfloat16()
+    i32 = dict(dtype=torch.int32, device=dev)
+    live = sum(p + 1 for p in pos)
+    return (k, v, ks, vs, bt.to(dev), torch.tensor(pos, **i32),
+            torch.zeros((len(pos),), **i32), live)
+
+
+def serving_kernel_checks(torch, dev, cfg, errs, randn) -> None:
+    """Phase 2's serving half: the paged decode kernel (bf16 and fp8
+    pages) at the engine's decode shape — llama3-8b heads, 8 rows, pages
+    of 64, ragged positions up to 2047 over shuffled pages, an idle row —
+    and a window + softcap case; the flash kernel's fp8 arm at the dense
+    fp8 pool's prefill shape and a ragged window + softcap case; each
+    against its plain version."""
+    from bigdl_tpu_torch.kvcache import _quantize_heads
+    from bigdl_tpu_torch.ops import kernels
+    from bigdl_tpu_torch.ops.kernels.flash_attention import valid_mask
+
+    Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+    g = torch.Generator(device=dev).manual_seed(11)
+    pos = [2047, 1100, 64, 0, 1500, 5, 700, 1999]  # row 3 idle
+    for fp8 in (False, True):
+        kern = kernels.PAGED_FP8 if fp8 else kernels.PAGED
+        for label, window, cap in (("decode", None, None), ("window+softcap", 300, 30.0)):
+            k, v, ks, vs, bt, p, st, _ = paged_operands(torch, dev, g, 2, Hkv, D, pos, fp8)
+            q = randn(len(pos), Hq, D)
+            y = kernels.paged_attention(q, k, v, bt, 1, p, st, ks, vs, softcap=cap,
+                                        window=window).float()
+            ref = kernels.paged_attention_plain(q, k, v, bt, 1, p, st, ks, vs,
+                                                softcap=cap, window=window).float()
+            err = (y - ref).abs().max().item()
+            # f32 math on both sides, one bf16 rounding: one bf16 step per
+            # element (2^-7 relative) above a floor far below a ULP
+            within = bool(((y - ref).abs() <= 2 ** -7 * ref.abs() + 1e-5).all())
+            errs[kern.name] = max(errs[kern.name], err)
+            log(f"phase 2: {kern.name} {label} B={len(pos)} Hq={Hq} Hkv={Hkv} D={D} "
+                f"page={PAGE} pos={pos} window={window} softcap={cap} "
+                f"max_abs_err={err:.6g} tol=2^-7*|ref|+1e-5 per element")
+            check(bool(torch.isfinite(y).all()) and within, f"{kern.name} {label}")
+    for label, b, t_, s_, qoff, st_, win, cap in (
+            ("dense fp8 prefill", 1, 1024, 1024, 0, (24,), None, None),
+            ("window+softcap", 2, 128, 192, 40, (0, 37), 64, 30.0)):
+        q = randn(b, t_, Hq, D)
+        k, ks = _quantize_heads(torch.randn((b, s_, Hkv, D), device=dev, generator=g) * 3)
+        v, vs = _quantize_heads(torch.randn((b, s_, Hkv, D), device=dev, generator=g))
+        start = torch.tensor(st_, dtype=torch.int32, device=dev)
+        y = kernels.flash_attention(q, k, v, start=start, q_offset=qoff, window=win,
+                                    softcap=cap, k_scale=ks, v_scale=vs).float()
+        ref = kernels.flash_attention_plain(q, k, v, start, qoff, win, cap,
+                                            k_scale=ks, v_scale=vs).float()
+        err = (y - ref).abs().max().item()
+        within = bool(((y - ref).abs() <= 2 ** -7 * ref.abs() + 1e-5).all())
+        pad_rows = ~valid_mask(start, qoff, t_, s_, win).any(-1)
+        zeros_ok = bool((y[pad_rows] == 0).all())
+        errs[kernels.FLASH_FP8.name] = max(errs[kernels.FLASH_FP8.name], err)
+        log(f"phase 2: {kernels.FLASH_FP8.name} {label} B={b} T={t_} S={s_} "
+            f"q_offset={qoff} start={st_} window={win} softcap={cap} max_abs_err={err:.6g} "
+            f"tol=2^-7*|ref|+1e-5 per element pad_rows={int(pad_rows.sum())} "
+            f"exact_zero={zeros_ok}")
+        check(bool(torch.isfinite(y).all()) and within and zeros_ok,
+              f"flash fp8 {label}")
+
+
+def serving_traffic(V: int) -> tuple[list, list]:
+    """Phase 7's 16 seeded requests: 8 share a 1,024-token prefix (16 full
+    pages) with tails of 5-200 tokens — tail 1 repeats the first 40
+    tokens of tail 0 (120 tokens) and diverges, which takes the sub-page
+    copy — and 8 independent prompts of 100-1,500 tokens; 64 new tokens
+    each, greedy but for two sampled requests (temperature 0.8, top-p
+    0.9) and one with repetition penalty 1.1. Returns (shared, independent)
+    submit kwargs."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+
+    def toks(n):
+        return rng.integers(1, V, n).tolist()
+
+    prefix = toks(PREFIX_LEN)
+    tails = [toks(120)]
+    tails.append(tails[0][:40] + toks(30))
+    tails += [toks(int(n)) for n in rng.integers(5, 201, 6)]
+    shared = [dict(prompt=prefix + t, max_new_tokens=SERVE_NEW) for t in tails]
+    indep = [dict(prompt=toks(n), max_new_tokens=SERVE_NEW) for n in INDEP_LENS]
+    shared[3]["repetition_penalty"] = 1.1
+    for r in (indep[1], indep[4]):
+        r.update(do_sample=True, temperature=0.8, top_p=0.9)
+    return shared, indep
+
+
+def serving_phases(torch, dev, cfg, card, errs) -> list:
+    """Phases 7 and 8: the serving engine on llama3-8b sym_int4 (32
+    layers) at `cli serve`'s defaults, over both pools and both KV
+    types, then its times. Returns the `kernels` entries of the paged
+    kernel (bf16, fp8 pages) and the flash kernel's fp8 arm."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch import TorchModel, optimize_model
+    from bigdl_tpu_torch.models import llama
+    from bigdl_tpu_torch.ops import kernels
+    from bigdl_tpu_torch.ops.kernels.paged_attention import _decoded as gathered
+    from bigdl_tpu_torch.serving import InferenceEngine
+
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+    t = time.time()
+    tm = TorchModel(cfg, optimize_model(llama.init_params(cfg, seed=0), cfg, "sym_int4"),
+                    "sym_int4")
+    torch.cuda.synchronize()
+    log(f"phase 7: llama3-8b {L} layers sym_int4 built in {time.time() - t:.1f} s")
+    shared, indep = serving_traffic(V)
+    traffic = shared + indep
+
+    def engine(**kw):
+        return InferenceEngine(tm, n_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, **kw)
+
+    def serve(eng, specs):
+        """Submit all, step to idle; (requests, seconds, decode steps)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(**sp) for sp in specs]
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        return reqs, time.perf_counter() - t0, eng.decode_step_seconds.count
+
+    def finished(reqs, n_new, what):
+        ok = all(r.finish_reason == "length" and len(r.out_tokens) == n_new
+                 and all(0 <= x < V for x in r.out_tokens)
+                 and all(math.isfinite(lp) for lp in r.out_logprobs) for r in reqs)
+        check(ok, f"{what}: every request finishes 'length' with {n_new} in-vocabulary "
+                  "tokens and finite logprobs")
+
+    def margin(r, i):
+        top = sorted(r.out_top_logprobs[i].values(), reverse=True)
+        return top[0] - top[1]
+
+    # (a) paged bf16, the main path; phase 8 reads its times -------------
+    eng = engine(paged=True, logprobs_top_k=2)
+    seen = {"ttft": [], "step": []}  # each observation of two histograms
+    for key, hist in (("ttft", eng.ttft), ("step", eng.decode_step_seconds)):
+        hist.observe = (lambda h, out: lambda x: (out.append(x), type(h).observe(h, x)))(
+            hist, seen[key])
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    reqs_a, sec_a, steps_a = serve(eng, traffic)
+    launches_a = kernels.launch_counts()
+    peak_a = torch.cuda.max_memory_allocated() / 2**30
+    log(f"phase 7 (a) paged bf16: {len(traffic)} requests in {sec_a:.3f} s, {steps_a} decode "
+        f"steps, prefix_hits={eng.prefix_hits} prefix_partial_hits={eng.prefix_partial_hits} "
+        f"reused={eng.prefix_tokens_reused} page_leaks={eng.page_leaks()} launches {launches_a}")
+    finished(reqs_a, SERVE_NEW, "(a)")
+    check(eng.prefix_hits >= 7 and eng.prefix_partial_hits >= 1, "(a) prefix hits")
+    check(eng.page_leaks() == 0, "(a) page leaks after the drain")
+    check(launches_a[kernels.PAGED.name] == L * steps_a,
+          f"(a) paged launches = {L} x decode steps")
+    check(launches_a[kernels.GEMM.name] > 0 and launches_a[kernels.GEMV.name] > 0,
+          "(a) prefill GEMM and decode GEMV launched")
+    del eng
+
+    # (b) dense bf16, same requests ------------------------------------------
+    kernels.reset_launches()
+    eng = engine(logprobs_top_k=2)
+    reqs_b, sec_b, steps_b = serve(eng, traffic)
+    launches_b = kernels.launch_counts()
+    finished(reqs_b, SERVE_NEW, "(b)")
+    check(launches_b[kernels.PAGED.name] == launches_b[kernels.PAGED_FP8.name] == 0,
+          "(b) no paged launches")
+    same, ties, lp_err = [], [], 0.0
+    for i, (ra, rb) in enumerate(zip(reqs_a, reqs_b)):
+        if traffic[i].get("do_sample"):
+            continue
+        if ra.out_tokens[0] == rb.out_tokens[0]:
+            same.append(i)
+            lp_err = max(lp_err, abs(ra.out_logprobs[0] - rb.out_logprobs[0]))
+        else:
+            ties.append((i, round(margin(rb, 0), 5)))
+            # the two tokens' logprobs in each pool, where both have them
+            ta, tb = ra.out_tokens[0], rb.out_tokens[0]
+            log(f"  request {i}: (a) {ra.out_top_logprobs[0]} (b) {rb.out_top_logprobs[0]} "
+                f"tokens {ta} / {tb}")
+    log(f"phase 7 (b) dense bf16: {sec_b:.3f} s, {steps_b} decode steps, first tokens equal "
+        f"to (a) for greedy requests {same} (max first-token logprob diff {lp_err:.5f}), "
+        f"differing (request, (b)'s top-1/top-2 margin) {ties}, tol {MARGIN_TOL}; "
+        f"(b)'s first-token margins {[round(margin(r, 0), 4) for r in reqs_b]}")
+    for i, m in ties:
+        check(m <= MARGIN_TOL, f"(b) request {i}: first token differs from (a) at margin {m}")
+    del eng
+
+    # (c) preemption: a pool too small for decode growth ---------------------
+    greedy = [dict(prompt=sp["prompt"], max_new_tokens=SERVE_NEW) for sp in indep]
+    eng = engine(paged=True, logprobs_top_k=2)
+    ref_c, _, _ = serve(eng, greedy)
+    del eng
+    # admission takes ceil(bucket / 64) pages a prompt, the bucket being
+    # the prompt rounded up to 16; two spare pages cannot hold the growth
+    adm = sum(-(-(-(-n // 16) * 16) // PAGE) for n in INDEP_LENS)
+    n_pages = adm + 3
+    eng = engine(paged=True, n_pages=n_pages)
+    reqs_c, sec_c, _ = serve(eng, greedy)
+    finished(reqs_c, SERVE_NEW, "(c)")
+    ties = []
+    for i, (rr, rc) in enumerate(zip(ref_c, reqs_c)):
+        diff = [j for j, (x, y) in enumerate(zip(rr.out_tokens, rc.out_tokens)) if x != y]
+        if diff:
+            ties.append((i, diff[0], round(margin(rr, diff[0]), 5)))
+            check(margin(rr, diff[0]) <= MARGIN_TOL, f"(c) request {i} differs at token {diff[0]}")
+    log(f"phase 7 (c) paged bf16, n_pages={n_pages} ({adm} pages at admission + 2 spare + "
+        f"scratch): {sec_c:.3f} s, preemptions={eng.preemptions} "
+        f"resumes={eng.preemption_resumes} page_leaks={eng.page_leaks()}, tokens equal to "
+        f"the default pool's for {len(greedy) - len(ties)}/{len(greedy)}, near-ties {ties}")
+    check(eng.preemptions >= 1 and eng.page_leaks() == 0, "(c) preemption and page leaks")
+    del eng
+
+    # (d) paged fp8 ----------------------------------------------------------
+    kernels.reset_launches()
+    eng = engine(paged=True, quantize_kv=True)
+    reqs_d, sec_d, steps_d = serve(eng, shared)
+    launches_d = kernels.launch_counts()
+    finished(reqs_d, SERVE_NEW, "(d)")
+    log(f"phase 7 (d) paged fp8: {len(shared)} requests in {sec_d:.3f} s, {steps_d} decode "
+        f"steps, prefix_hits={eng.prefix_hits} page_leaks={eng.page_leaks()} "
+        f"launches {launches_d}")
+    check(launches_d[kernels.PAGED_FP8.name] == L * steps_d
+          and launches_d[kernels.PAGED.name] == 0, f"(d) paged fp8 launches = {L} x steps")
+    check(eng.page_leaks() == 0, "(d) page leaks")
+    del eng
+
+    # (e) dense fp8: prefill through the flash kernel's fp8 arm ---------------
+    rng = np.random.default_rng(8)
+    fp8_specs = [dict(prompt=rng.integers(1, V, FP8_DENSE_LEN).tolist(),
+                      max_new_tokens=FP8_DENSE_NEW) for _ in range(4)]
+    kernels.reset_launches()
+    eng = engine(quantize_kv=True)
+    for sp in fp8_specs:
+        eng.submit(**sp)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof_e:  # the admission step: 4 prefills
+        eng.step()
+        torch.cuda.synchronize()
+    eng.run_until_idle()
+    launches_e = kernels.launch_counts()
+    log(f"phase 7 (e) dense fp8: 4 requests of {FP8_DENSE_LEN} tokens, launches {launches_e}")
+    check(launches_e[kernels.FLASH_FP8.name] == 4 * L > 0, "(e) flash fp8 launches")
+    del eng
+
+    # 2 layers at full width: kernels on, then every kernel's plain version
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    tm2 = TorchModel(cfg2, optimize_model(llama.init_params(cfg2, seed=5), cfg2, "sym_int4"),
+                     "sym_int4")
+    plain = {"qmatmul_int4": kernels.qmatmul_int4_plain,
+             "flash_attention": kernels.flash_attention_plain,
+             "paged_attention": kernels.paged_attention_plain}
+    for kw in (dict(paged=True), dict(paged=True, quantize_kv=True), dict(quantize_kv=True)):
+        def run2():
+            e2 = InferenceEngine(tm2, n_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, **kw)
+            rs = [e2.submit(**sp) for sp in shared[:4]]
+            e2.run_until_idle()
+            check(e2.page_leaks() == 0, f"2-layer {kw} page leaks")
+            return [r.out_logprobs for r in rs], [r.out_tokens for r in rs]
+        lk, tk = run2()
+        with mock.patch.multiple(kernels, **plain):
+            lp_, tp_ = run2()
+        worst = 0.0
+        for a, b_, ta, tb in zip(lk, lp_, tk, tp_):
+            n = next((j for j, (x, y) in enumerate(zip(ta, tb)) if x != y), len(ta)) + 1
+            worst = max(worst, max(abs(x - y) for x, y in zip(a[:n], b_[:n])))
+        tol = LOGPROB_TOL[kw.get("quantize_kv", False)]
+        log(f"phase 7: 2-layer full-width engine {kw}: chosen-token logprobs kernels vs "
+            f"plain max_abs_err={worst:.5f} nat (tol {tol}, up to the first "
+            f"differing token)")
+        check(worst <= tol, f"2-layer engine {kw} kernels vs plain")
+    del tm2
+
+    # ---------------------------------------------------------------- 8
+    # engine (a)'s run: throughput, TTFT, decode step, peak memory
+    ntok = sum(len(r.out_tokens) for r in reqs_a)
+
+    def q(xs, f):
+        xs = sorted(xs)
+        return xs[min(int(f * len(xs)), len(xs) - 1)] * 1e3
+
+    log(f"phase 8: card {card}")
+    log(f"phase 8: engine (a) paged bf16, {len(reqs_a)} requests, {SLOTS} slots: "
+        f"{sec_a:.3f} s = {len(reqs_a) / sec_a:.3f} requests/s, {ntok} tokens = "
+        f"{ntok / sec_a:.1f} generated tokens/s; TTFT ms median={q(seen['ttft'], .5):.3f} "
+        f"p90={q(seen['ttft'], .9):.3f}; decode step ms median={q(seen['step'], .5):.3f} "
+        f"p90={q(seen['step'], .9):.3f} (n={steps_a}); peak_mem_gib={peak_a:.3f}")
+
+    def device_events(prof_):
+        return [e for e in prof_.key_averages()
+                if e.self_cpu_time_total == 0 and e.self_device_time_total > 0]
+
+    def kernel_ms(prof_, names, want_calls, n_units):
+        evs = [e for e in prof_.key_averages() if any(n in e.key for n in names)
+               and e.self_device_time_total > 0]
+        calls = sum(e.count for e in evs)
+        check(calls == want_calls, f"{names[0]}: {calls} profiled calls, expected {want_calls}")
+        return sum(e.self_device_time_total for e in evs) / 1e3 / n_units
+
+    # the decode step at 8 rows of ~1,100 live slots, bf16 and fp8 pages
+    entries = []
+    rng = np.random.default_rng(9)
+    steady = [rng.integers(1, V, STEADY_LEN + 13 * i).tolist() for i in range(SLOTS)]
+    for fp8, kern, launches in ((False, kernels.PAGED, launches_a[kernels.PAGED.name]),
+                                (True, kernels.PAGED_FP8, launches_d[kernels.PAGED_FP8.name])):
+        eng = engine(paged=True, quantize_kv=fp8)
+        for p_ in steady:
+            eng.submit(p_, max_new_tokens=SERVE_NEW)
+        for _ in range(4):
+            eng.step()
+        host = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        pos = list(eng._slot_pos)
+        with profile(activities=acts) as prof:
+            for _ in range(PROFILED_DECODES):
+                eng.step()
+            torch.cuda.synchronize()
+        del eng
+        busy = sum(e.self_device_time_total for e in device_events(prof)) / 1e3 / PROFILED_DECODES
+        med = sorted(host)[len(host) // 2]
+        flag = "true" if fp8 else "false"
+        path = kernel_ms(prof, (f"paged_kernel<128, {flag}>", f"paged_kernel<128, (bool){int(fp8)}>"),
+                         L * PROFILED_DECODES, PROFILED_DECODES)
+        log(f"phase 8: decode step, {'fp8' if fp8 else 'bf16'} pages, 8 rows at pos {pos}: "
+            f"host median {med:.3f} ms (n=10), device busy {busy:.3f} ms = {busy / med:.3f} "
+            f"of the step; {kern.name} {path:.3f} ms a step on the path")
+        for e in sorted(device_events(prof), key=lambda e: -e.self_device_time_total)[:6]:
+            log(f"  {e.self_device_time_total / 1e3 / PROFILED_DECODES:8.3f} ms/step "
+                f"{e.count // PROFILED_DECODES:5d} calls/step  {e.key[:90]}")
+
+        # isolated, at these positions, layers cycled (each has its own pages)
+        g = torch.Generator(device=dev).manual_seed(12)
+        k, v, ks, vs, bt, p_t, st, live = paged_operands(torch, dev, g, L, Hkv, D, pos, fp8)
+        qv = torch.randn((SLOTS, Hq, D), device=dev, generator=g).bfloat16()
+        layers = [(layer,) for layer in range(L)]
+        iso = time_ms(torch, lambda layer: kernels.paged_attention(
+            qv, k, v, bt, layer, p_t, st, ks, vs), layers, iters=64)
+        pl_ = time_ms(torch, lambda layer: kernels.paged_attention_plain(
+            qv, k, v, bt, layer, p_t, st, ks, vs), layers, iters=8)
+        # the yardstick: SDPA over views gathered (and decoded) beforehand,
+        # GQA-expanded, masked to each row's live slots; the gather is not timed
+        G = Hq // Hkv
+        mask = (torch.arange(MAX_LEN, device=dev)[None, :] <= p_t[:, None].long())[:, None, None]
+        views = []
+        for layer in (0, 1):
+            kd, vd = (gathered(x, sc, layer, bt.long()).bfloat16().repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+                      for x, sc in ((k, ks), (v, vs)))
+            views.append((qv[:, :, None], kd, vd))
+        lib = time_ms(torch, lambda q_, k_, v_: torch.nn.functional.scaled_dot_product_attention(
+            q_, k_, v_, attn_mask=mask), views)
+        del k, v, ks, vs, views
+        per_slot = Hkv * D * (1 if fp8 else 2) * 2 + (Hkv * 4 * 2 if fp8 else 0)
+        nbytes = live * per_slot + SLOTS * Hq * D * (4 + 2) + bt.numel() * 4 + SLOTS * 8
+        flops = 4.0 * D * Hq * live
+        bms, by = bound_ms(nbytes, flops)
+        log(f"phase 8: {kern.name} per layer, 8 rows, {live} live slots: isolated_ms={iso:.5f} "
+            f"plain_ms={pl_:.5f} library_ms={lib:.5f} (SDPA over a pre-gathered dense view, "
+            f"gather not timed) bound_ms={bms:.5f} ({by}, {nbytes / 1e6:.2f} MB)")
+        entries.append({
+            "name": kern.name, "route": "cuda", "source": kern.source,
+            "replaces": kern.replaces, "launches": launches,
+            "max_abs_err": errs[kern.name], "ms": path, "isolated_ms": L * iso,
+            "plain_ms": L * pl_, "bound_ms": L * bms, "bound_by": by, "library_ms": L * lib,
+            "per": f"one decode step: {L} layers, 8 rows, {live} live slots"})
+
+    # the flash fp8 arm at (e)'s prefill shape: B=1, bucket 1024, 24 pad slots
+    T = -(-FP8_DENSE_LEN // 64) * 64
+    st = torch.tensor([T - FP8_DENSE_LEN], dtype=torch.int32, device=dev)
+    path = kernel_ms(prof_e, ("flash_kernel<128, true>", "flash_kernel<128, (bool)1>"),
+                     4 * L, 4)
+    from bigdl_tpu_torch.kvcache import _quantize_heads
+    from bigdl_tpu_torch.ops.kernels.flash_attention import valid_mask
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    io = T * Hq * D * 2 * 2 + 2 * T * Hkv * (D + 2)
+    sets = []
+    for _ in range(math.ceil(L2_COPIES_BYTES / io)):
+        (kq, ksc), (vq, vsc) = (_quantize_heads(torch.randn((1, T, Hkv, D), device=dev,
+                                                            generator=g)) for _ in range(2))
+        sets.append((torch.randn((1, T, Hq, D), device=dev, generator=g).bfloat16(),
+                     kq, vq, ksc, vsc))
+    iso = time_ms(torch, lambda q_, k_, v_, a, b_: kernels.flash_attention(
+        q_, k_, v_, start=st, k_scale=a, v_scale=b_), sets)
+    pl_ = time_ms(torch, lambda q_, k_, v_, a, b_: kernels.flash_attention_plain(
+        q_, k_, v_, st, k_scale=a, v_scale=b_), sets, iters=5)
+    mask = valid_mask(st, 0, T, T)
+    G = Hq // Hkv
+    deq = [(q_.transpose(1, 2), *((x.float() * s_.float()[..., None]).bfloat16()
+                                  .repeat_interleave(G, dim=2).transpose(1, 2)
+                                  for x, s_ in ((k_, a), (v_, b_))))
+           for q_, k_, v_, a, b_ in sets[:4]]
+    lib = time_ms(torch, lambda q_, k_, v_: torch.nn.functional.scaled_dot_product_attention(
+        q_, k_, v_, attn_mask=mask[:, None]), deq)
+    del sets, deq
+    live = int(mask.sum())
+    nbytes, flops = io + 4, 4.0 * D * Hq * live
+    bms, by = bound_ms(nbytes, flops)
+    log(f"phase 8: {kernels.FLASH_FP8.name} per layer B=1 T=S={T} start={T - FP8_DENSE_LEN} "
+        f"{live} live pairs: isolated_ms={iso:.5f} plain_ms={pl_:.5f} library_ms={lib:.5f} "
+        f"(SDPA over K/V dequantized beforehand, not timed) bound_ms={bms:.5f} ({by}); "
+        f"on the path {path:.3f} ms a prefill")
+    entries.append({
+        "name": kernels.FLASH_FP8.name, "route": "cuda", "source": kernels.FLASH_FP8.source,
+        "replaces": kernels.FLASH_FP8.replaces, "launches": launches_e[kernels.FLASH_FP8.name],
+        "max_abs_err": errs[kernels.FLASH_FP8.name], "ms": path, "isolated_ms": L * iso,
+        "plain_ms": L * pl_, "bound_ms": L * bms, "bound_by": by, "library_ms": L * lib,
+        "per": f"one dense fp8 prefill: {L} layers, B=1 T=S={T}"})
     return entries
 
 

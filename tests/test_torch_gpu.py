@@ -80,6 +80,147 @@ def test_flash_kernel_matches_plain(case):
     assert pad_rows.any() and bool((got[pad_rows] == 0).all())
 
 
+def paged_inputs(dev, B, Hq, Hkv, D, page, mp, pos, start, L=2, fp8=False, seed=0):
+    """A random pool, a block table of distinct shuffled pages per row
+    (row b holds pos[b] // page + 1 pages; the rest, and an idle row with
+    pos 0, point at the scratch page 0), and the per-row pos/start."""
+    from bigdl_tpu_torch.kvcache import _quantize_heads
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    need = [p // page + 1 for p in pos]
+    NP = sum(need) + 1
+    perm = torch.randperm(NP - 1, device=dev, generator=g) + 1
+    bt = torch.zeros((B, mp), dtype=torch.int32, device=dev)
+    used = 0
+    for b, n in enumerate(need):
+        if pos[b] > 0:
+            bt[b, :n] = perm[used:used + n]
+            used += n
+    shape = (L, NP, page, Hkv, D)
+    k = torch.randn(shape, device=dev, generator=g)
+    v = torch.randn(shape, device=dev, generator=g)
+    if fp8:
+        (k, ks), (v, vs) = _quantize_heads(k, torch.float32), _quantize_heads(v, torch.float32)
+    else:
+        k, v, ks, vs = k.bfloat16(), v.bfloat16(), None, None
+    q = torch.randn((B, Hq, D), device=dev, generator=g).bfloat16()
+    i32 = dict(dtype=torch.int32, device=dev)
+    return q, k, v, bt, torch.tensor(pos, **i32), torch.tensor(start, **i32), ks, vs
+
+
+PAGED_CASES = [
+    # B, Hq, Hkv, D, page, max_pages, pos, start, window, softcap
+    (3, 6, 2, 64, 8, 4, (17, 9, 30), (2, 0, 5), None, None),
+    (3, 8, 2, 128, 16, 4, (50, 0, 60), (0, 0, 35), 20, 30.0),
+    # llama3-8b at the serving engine's decode shape: 8 rows, page 64,
+    # ragged positions up to 2047, row 3 idle
+    (8, 32, 8, 128, 64, 32, (2047, 1100, 64, 0, 1500, 5, 700, 1999),
+     (0,) * 8, None, None),
+]
+
+
+@pytest.mark.parametrize("fp8", [False, True], ids=["bf16", "fp8"])
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_kernel_matches_plain(case, fp8):
+    dev = _cuda()
+    B, Hq, Hkv, D, page, mp, pos, start, window, softcap = case
+    q, k, v, bt, p, st, ks, vs = paged_inputs(dev, B, Hq, Hkv, D, page, mp, pos,
+                                              start, fp8=fp8, seed=B + D)
+    kern = kernels.PAGED_FP8 if fp8 else kernels.PAGED
+    for layer in (0, 1):
+        before = kern.launches
+        got = kernels.paged_attention(q, k, v, bt, layer, p, st, ks, vs,
+                                      softcap=softcap, window=window).float()
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        ref = kernels.paged_attention_plain(q, k, v, bt, layer, p, st, ks, vs,
+                                            softcap=softcap, window=window).float()
+        assert bool(torch.isfinite(got).all())
+        assert bool(((got - ref).abs() <= _ULPS * ref.abs() + 1e-5).all()), \
+            (got - ref).abs().max().item()
+
+
+@pytest.mark.parametrize("case", [
+    # B, T, S, Hq, Hkv, D, q_offset, start, window, softcap
+    (2, 24, 64, 4, 2, 64, 0, (0, 9), None, None),
+    (2, 32, 64, 2, 2, 128, 16, (3, 30), 12, 20.0),
+    (1, 1024, 1024, 32, 8, 128, 0, (0,), None, None),  # the dense fp8 prefill
+])
+def test_flash_fp8_kernel_matches_plain(case):
+    from bigdl_tpu_torch.kvcache import _quantize_heads
+
+    dev = _cuda()
+    B, T, S, Hq, Hkv, D, qoff, start, window, softcap = case
+    g = torch.Generator(device=dev).manual_seed(T + S)
+    q = torch.randn(B, T, Hq, D, device=dev, generator=g).to(torch.bfloat16)
+    k, ks = _quantize_heads(torch.randn(B, S, Hkv, D, device=dev, generator=g) * 3)
+    v, vs = _quantize_heads(torch.randn(B, S, Hkv, D, device=dev, generator=g))
+    st = torch.tensor(start, dtype=torch.int32, device=dev)
+    before = kernels.FLASH_FP8.launches
+    got = kernels.flash_attention(q, k, v, start=st, q_offset=qoff, window=window,
+                                  softcap=softcap, k_scale=ks, v_scale=vs).float()
+    torch.cuda.synchronize()
+    assert kernels.FLASH_FP8.launches == before + 1
+    ref = kernels.flash_attention_plain(q, k, v, st, qoff, window, softcap,
+                                        k_scale=ks, v_scale=vs).float()
+    assert bool(((got - ref).abs() <= _ULPS * ref.abs() + 1e-5).all())
+    pad_rows = ~valid_mask(st, qoff, T, S, window).any(-1)
+    assert bool((got[pad_rows] == 0).all())
+
+
+@pytest.mark.parametrize("paged,quantize_kv", [(True, False), (True, True),
+                                               (False, True)])
+def test_engine_two_layers_full_width_kernels_vs_plain(paged, quantize_kv):
+    """Two llama3-8b layers at full width through the serving engine on
+    the card: a shared prefix (a radix hit), the paged kernel at every
+    paged decode step, the flash fp8 arm at every dense fp8 prefill, page
+    accounting balanced after the drain, and the chosen-token logprobs of
+    the same run with every kernel patched to its plain version."""
+    from bigdl_tpu_torch.serving import InferenceEngine
+
+    dev = _cuda()
+    cfg = dataclasses.replace(PRESETS["llama3-8b"], num_hidden_layers=2)
+    tm = TorchModel(cfg, optimize_model(llama.init_params(cfg, seed=5), cfg), "sym_int4")
+    g = torch.Generator().manual_seed(6)
+    prefix = torch.randint(1, cfg.vocab_size, (128,), generator=g).tolist()
+    prompts = [prefix + torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in (5, 40)] + [torch.randint(1, cfg.vocab_size, (300,),
+                                                  generator=g).tolist()]
+
+    def run():
+        eng = InferenceEngine(tm, n_slots=4, max_len=512, paged=paged, page_size=64,
+                              quantize_kv=quantize_kv)
+        reqs = [eng.submit(prompts[0], max_new_tokens=8)]
+        eng.step()  # the prefix's pages are registered before the others come
+        reqs += [eng.submit(p, max_new_tokens=8) for p in prompts[1:]]
+        eng.run_until_idle()
+        assert eng.page_leaks() == 0
+        assert all(r.finish_reason == "length" for r in reqs)
+        return eng, [(r.out_tokens, r.out_logprobs) for r in reqs]
+
+    kernels.reset_launches()
+    eng, outs = run()
+    counts = kernels.launch_counts()
+    if paged:
+        assert eng.prefix_hits == 1
+        name = (kernels.PAGED_FP8 if quantize_kv else kernels.PAGED).name
+        assert counts[name] == 2 * eng.decode_step_seconds.count  # per decode step
+    else:
+        assert counts[kernels.FLASH_FP8.name] == 2 * len(prompts)
+    plain = {"qmatmul_int4": kernels.qmatmul_int4_plain,
+             "flash_attention": kernels.flash_attention_plain,
+             "paged_attention": kernels.paged_attention_plain}
+    with mock.patch.multiple(kernels, **plain):
+        _, ref = run()
+    # bf16 activations through two layers: 0.05 in logprob units, twice
+    # that over an fp8 pool (a K/V code one e5m2 step over moves its
+    # element by a quarter), up to the first token the runs differ on
+    tol = 0.1 if quantize_kv else 0.05
+    for (ta, a), (tb, b) in zip(outs, ref):
+        n = next((j for j, (x, y) in enumerate(zip(ta, tb)) if x != y), len(ta)) + 1
+        assert max(abs(x - y) for x, y in zip(a[:n], b[:n])) <= tol
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take():
     dev = _cuda()
     w = quantize(torch.randn(128, 256, device=dev), "sym_int4")
@@ -258,4 +399,5 @@ def test_train_step_kernels_match_plain_full_width():
         kernels.GEMM.name: 2 * L + 1, kernels.LORA_GEMM.name: 2 * L,
         kernels.FLASH_FWD.name: L, kernels.FLASH_DQ.name: L,
         kernels.FLASH_DKV.name: L, kernels.DX.name: 4 * L,
-        kernels.GEMV.name: 0, kernels.FLASH.name: 0}
+        kernels.GEMV.name: 0, kernels.FLASH.name: 0, kernels.PAGED.name: 0,
+        kernels.PAGED_FP8.name: 0, kernels.FLASH_FP8.name: 0}

@@ -121,24 +121,65 @@ def test_prefill_logits_match_jax(pair, pallas, monkeypatch):
     assert np.abs(got - ref).max() <= tol, (np.abs(got - ref).max(), tol)
 
 
+def _assert_tokens_match_where_margin_allows(name, jcfg, jparams, prompts, got,
+                                             want, penalty=1.0, ulps=_TOL_ULPS):
+    """Equal tokens, or a first divergence where JAX's top-1/top-2 margin
+    (after the repetition penalty, over the same history) is within twice
+    the logit tolerance."""
+    assert got.shape == want.shape == (len(prompts), NEW_TOKENS)
+    for b in range(len(prompts)):
+        diff = np.nonzero(got[b] != want[b])[0]
+        if diff.size == 0:
+            continue
+        i = diff[0]  # first divergence: same history up to here
+        ctx = prompts[b] + list(want[b, :i])
+        ref = _jax_last_logits(jcfg, jparams, [ctx])[0]
+        if penalty != 1.0:
+            seen = np.zeros(ref.shape, bool)
+            seen[ctx] = True
+            ref = np.where(seen, np.where(ref < 0, ref * penalty, ref / penalty), ref)
+        top = np.sort(ref)
+        margin = top[-1] - top[-2]
+        assert margin <= 2 * ulps * np.abs(ref).max(), (name, b, i, margin)
+
+
 def test_greedy_tokens_match_jax_where_margin_allows(pair, monkeypatch):
     name, jcfg, jparams, tcfg, model, prompts = pair
     monkeypatch.setenv("BIGDL_TPU_PALLAS", "interpret")
     want = TpuModel(jcfg, jparams, "sym_int4").generate(prompts, NEW_TOKENS)
     kernels.reset_launches()
     got = TorchModel(tcfg, model, "sym_int4", device="cpu").generate(prompts, NEW_TOKENS)
-    assert got.shape == want.shape == (len(prompts), NEW_TOKENS)
     assert all(n == 0 for n in kernels.launch_counts().values())
-    for b in range(len(prompts)):
-        diff = np.nonzero(got[b] != want[b])[0]
-        if diff.size == 0:
-            continue
-        i = diff[0]  # first divergence: same history up to here
-        ctx = [prompts[b] + list(want[b, :i])]
-        ref = _jax_last_logits(jcfg, jparams, ctx)[0]
-        top = np.sort(ref)
-        margin = top[-1] - top[-2]
-        assert margin <= 2 * _TOL_ULPS * np.abs(ref).max(), (name, b, i, margin)
+    _assert_tokens_match_where_margin_allows(name, jcfg, jparams, prompts, got, want)
+
+
+def test_repetition_penalty_generate_matches_jax(pair):
+    """The penalty divides (multiplies, if negative) the logits of every
+    prompt and emitted token, as HF and JAX do."""
+    name, jcfg, jparams, tcfg, model, prompts = pair
+    want = TpuModel(jcfg, jparams, "sym_int4").generate(
+        prompts, NEW_TOKENS, repetition_penalty=1.3)
+    got = TorchModel(tcfg, model, "sym_int4", device="cpu").generate(
+        prompts, NEW_TOKENS, repetition_penalty=1.3)
+    _assert_tokens_match_where_margin_allows(name, jcfg, jparams, prompts, got,
+                                             want, penalty=1.3)
+
+
+def test_quantize_kv_generate_matches_jax(pair, monkeypatch):
+    """generate over the fp8 cache: prefill through the flash kernel's fp8
+    arm (its plain version here; JAX's Pallas kernel in interpret mode),
+    decode over the dequantized cache. The fp8 codes of K/V that differ by
+    a bf16 rounding may land a code step apart, so the margin bound is 4
+    times the bf16 one; the first divergence is measured against JAX's
+    bf16 history."""
+    name, jcfg, jparams, tcfg, model, prompts = pair
+    monkeypatch.setenv("BIGDL_TPU_PALLAS", "interpret")
+    want = TpuModel(jcfg, jparams, "sym_int4").generate(prompts, NEW_TOKENS,
+                                                       quantize_kv=True)
+    got = TorchModel(tcfg, model, "sym_int4", device="cpu").generate(
+        prompts, NEW_TOKENS, quantize_kv=True)
+    _assert_tokens_match_where_margin_allows(name, jcfg, jparams, prompts, got,
+                                             want, ulps=4 * _TOL_ULPS)
 
 
 def test_eos_stops_rows_and_pads(pair):
@@ -162,8 +203,7 @@ def test_eos_stops_rows_and_pads(pair):
 def test_unsupported_paths_raise(pair):
     name, jcfg, jparams, tcfg, model, prompts = pair
     tm = TorchModel(tcfg, model, "sym_int4", device="cpu")
-    for kw in ({"quantize_kv": True}, {"compress_kv": 8},
-               {"streaming_window": 64}, {"repetition_penalty": 1.2}):
+    for kw in ({"compress_kv": 8}, {"streaming_window": 64}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tm.generate(prompts, 2, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

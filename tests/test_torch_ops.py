@@ -105,8 +105,10 @@ def test_kvcache_positions_and_update_match_jax():
     tkv.update_layer(tc, 1, _t(kn), _t(-kn))
     np.testing.assert_array_equal(tc.k.float().numpy(), np.asarray(jc.k, np.float32))
     np.testing.assert_array_equal(tc.v.float().numpy(), np.asarray(jc.v, np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkv.init_cache(1, 1, 16, 1, 64, quantize_kv=True, device="cpu")
+    fp8 = tkv.init_cache(1, 1, 16, 1, 64, quantize_kv=True, device="cpu")
+    jfp8 = jkv.init_cache(1, 1, 16, 1, 64, quantize_kv=True)
+    assert (fp8.k.dtype, fp8.k_scale.dtype) == (torch.float8_e5m2, torch.float16)
+    assert fp8.k_scale.shape == jfp8.k_scale.shape and str(jfp8.k.dtype) == "float8_e5m2"
 
 
 def test_pad_prompts_matches_jax():
