@@ -23,11 +23,13 @@ from bigdl_tpu_torch.utils import cache_len_for, flags, resolve_device
 
 
 def optimize_model(params: llama.LlamaModel, config: ModelConfig,
-                   low_bit: str = "sym_int4") -> llama.LlamaModel:
-    """Quantize a dense model's projections and lm head and fuse qkv and
+                   low_bit: str = "sym_int4",
+                   lm_head_qtype: Optional[str] = None) -> llama.LlamaModel:
+    """Quantize a dense model's projections and lm head (to `lm_head_qtype`
+    where given, else as `llama.quantize_params` picks) and fuse qkv and
     gate/up into single linears, in place — the layout `forward` runs."""
-    return llama.merge_fused_params(llama.quantize_params(params, low_bit),
-                                    config)
+    return llama.merge_fused_params(
+        llama.quantize_params(params, low_bit, lm_head_qtype), config)
 
 
 @dataclasses.dataclass

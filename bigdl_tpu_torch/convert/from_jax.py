@@ -4,11 +4,14 @@
 flattened under the key naming of its low-bit artifacts
 (bigdl_tpu/convert/low_bit.py `_flatten`): a dense leaf under its dotted
 path ("embed", "final_norm", "layers.attn_norm"), a QTensor's fields
-under "<path>@<field>" ("layers.wqkv@data", "layers.wqkv@scales"), with
-the qtype of each QTensor path in `qtypes`. Leaves under "layers." are
+under "<path>@<field>" ("layers.wqkv@data", "layers.wqkv@scales",
+"@mins", "@sub_scales", "@sub_mins" where the format has them), with the
+qtype of each QTensor path in `qtypes`. Leaves under "layers." are
 stacked [L, ...] and are split per layer here. bf16 leaves arrive as
-float32 (exact) and are stored as bf16; packed codes stay uint8 and
-scales float16. The projections come in the fused layout the JAX
+float32 (exact) and are stored as bf16; codes and sub-scales keep their
+integer types, scales and mins float16, and fp8 codes (numpy float8
+arrays, as the JAX package holds them) become torch's float8 types
+through their uint8 bytes. The projections come in the fused layout the JAX
 package's `optimize_model` makes by default (wqkv, w_gateup), the only
 one the port's `forward` runs.
 
@@ -26,7 +29,8 @@ from bigdl_tpu_torch.models.config import ModelConfig
 from bigdl_tpu_torch.models.llama import (DecoderLayer, LlamaModel,
                                           check_supported)
 from bigdl_tpu_torch.ops.linear import Linear
-from bigdl_tpu_torch.quant import QTensor
+from bigdl_tpu_torch.quant import ARRAY_FIELDS, QTensor, resolve_qtype
+from bigdl_tpu_torch.quant.numerics import FP8_DTYPE
 from bigdl_tpu_torch.train.qlora import DEFAULT_TARGETS, LoRA, _target_dims
 from bigdl_tpu_torch.utils import resolve_device
 
@@ -62,10 +66,18 @@ def params_from_numpy(arrays: dict[str, np.ndarray], qtypes: dict[str, str],
             t = t.to(torch.bfloat16)
         return t.to(dev)
 
+    def field(key, index, qtype):
+        a = np.array(arrays[key] if index is None else arrays[key][index])
+        if key.endswith("@data") and qtype in FP8_DTYPE:
+            return torch.from_numpy(a.view(np.uint8)).view(FP8_DTYPE[qtype]).to(dev)
+        return tensor(key, index)
+
     def weight(path, index=None):
         if path in qtypes:
-            return QTensor(tensor(f"{path}@data", index),
-                           tensor(f"{path}@scales", index), qtype=qtypes[path])
+            qtype = resolve_qtype(qtypes[path]).name
+            return QTensor(qtype=qtype, **{
+                f: field(f"{path}@{f}", index, qtype) for f in ARRAY_FIELDS
+                if f"{path}@{f}" in arrays})
         return tensor(path, index)
 
     layers = []

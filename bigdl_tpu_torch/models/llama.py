@@ -30,7 +30,6 @@ GEMM's writeback.
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import Optional, Union
 
 import torch
@@ -45,7 +44,7 @@ from bigdl_tpu_torch.ops import (Linear, apply_rotary_emb, attention, kernels,
                                  rms_norm, rope_cos_sin)
 from bigdl_tpu_torch.ops.linear import lora_epilogue
 from bigdl_tpu_torch.ops.rope import make_inv_freq_scaled
-from bigdl_tpu_torch.quant import QTensor, concat_rows, quantize
+from bigdl_tpu_torch.quant import QTensor, concat_rows, quantize_or_dense
 from bigdl_tpu_torch.quant.qtypes import resolve_qtype, split_mixed_qtype
 from bigdl_tpu_torch.utils import resolve_device
 
@@ -130,23 +129,16 @@ def init_params(config: ModelConfig, seed: int = 0, device=None,
     return LlamaModel(embed, layers, ones(H), Linear(w((config.vocab_size, H))))
 
 
-def _quantize_or_dense(w: torch.Tensor, qtype: str, what: str):
-    """quantize(), but a weight whose last dim the format's block does not
-    divide stays dense with a warning (the JAX package's rule)."""
-    block = resolve_qtype(qtype).block_size
-    if w.shape[-1] % block:
-        warnings.warn(f"{what}: last dim {w.shape[-1]} not divisible by "
-                      f"{qtype}'s block size {block}; keeping this weight dense")
-        return w
-    return quantize(w, qtype)
-
-
-def quantize_params(model: LlamaModel, qtype: str) -> LlamaModel:
+def quantize_params(model: LlamaModel, qtype: str,
+                    lm_head_qtype: Optional[str] = None) -> LlamaModel:
     """Quantize every projection and the lm head, in place (each dense
     weight is freed as its QTensor replaces it); norms and the embedding
-    stay dense. A mixed alias names the lm head's format. Returns
-    `model`."""
-    qtype, lm_head_qtype = split_mixed_qtype(qtype)
+    stay dense. The lm head takes `lm_head_qtype`, else the head format a
+    mixed alias names (q4_k_m: q4_k body, q6_k head), else `qtype`. A
+    weight whose last dim the format cannot take stays dense, with a
+    warning (`quantize_or_dense`). Returns `model`."""
+    qtype, head_default = split_mixed_qtype(qtype)
+    lm_head_qtype = lm_head_qtype or head_default
     spec = resolve_qtype(qtype)
     if spec.is_dense:
         return model
@@ -154,12 +146,12 @@ def quantize_params(model: LlamaModel, qtype: str) -> LlamaModel:
         for name, lin in layer.proj.items():
             if lin.qtype is None:
                 layer.proj[name] = Linear(
-                    _quantize_or_dense(lin.weight, spec.name, name), lin.bias)
+                    quantize_or_dense(lin.weight, spec.name, name), lin.bias)
     head = model.lm_head
     lm_spec = resolve_qtype(lm_head_qtype) if lm_head_qtype else spec
     if head.qtype is None and not lm_spec.is_dense:
         model.lm_head = Linear(
-            _quantize_or_dense(head.weight, lm_spec.name, "lm_head"), head.bias)
+            quantize_or_dense(head.weight, lm_spec.name, "lm_head"), head.bias)
     return model
 
 

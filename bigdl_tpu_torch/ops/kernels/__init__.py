@@ -18,8 +18,8 @@ from bigdl_tpu_torch.ops.kernels.qbackward import (
     DX, qmatmul_dx, qmatmul_dx_plain,
 )
 from bigdl_tpu_torch.ops.kernels.qmatmul import (
-    GEMM, GEMV, GEMV_MAX_ROWS, LORA_GEMM, LORA_MAX_RANK, qmatmul_int4,
-    qmatmul_int4_lora, qmatmul_int4_lora_plain, qmatmul_int4_plain,
+    GEMM, GEMV, GEMV_MAX_ROWS, K_MULTIPLE, LORA_GEMM, LORA_MAX_RANK, qmatmul,
+    qmatmul_lora, qmatmul_lora_plain, qmatmul_plain,
 )
 
 # every kernel of the port, in the order the main paths first run them:
@@ -31,21 +31,25 @@ KERNELS = (GEMM, FLASH, GEMV, FLASH_FWD, LORA_GEMM, DX, FLASH_DQ, FLASH_DKV,
 
 def reset_launches() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.reset()
 
 
 def launch_counts() -> dict:
     return {k.name: k.launches for k in KERNELS}
 
 
+def format_launch_counts() -> dict:
+    """{kernel name: {qtype: launches}} of the per-format kernels."""
+    return {k.name: dict(k.by_format) for k in KERNELS if k.per_format}
+
+
 __all__ = ["DX", "FLASH", "FLASH_DKV", "FLASH_DQ", "FLASH_FP8", "FLASH_FWD",
-           "GEMM", "GEMV", "GEMV_MAX_ROWS", "KERNELS", "LORA_GEMM",
-           "LORA_MAX_RANK", "PAGED", "PAGED_FP8",
+           "GEMM", "GEMV", "GEMV_MAX_ROWS", "KERNELS", "K_MULTIPLE", "LORA_GEMM",
+           "LORA_MAX_RANK", "PAGED", "PAGED_FP8", "format_launch_counts",
            "flash_attention", "flash_attention_plain",
            "flash_attention_train", "flash_attention_train_bwd_plain",
            "flash_attention_train_plain", "flash_train_dkv",
            "flash_train_dkv_plain", "flash_train_dq", "flash_train_dq_plain",
            "flash_train_fwd", "launch_counts", "paged_attention", "paged_attention_plain",
-           "qmatmul_dx", "qmatmul_dx_plain",
-           "qmatmul_int4", "qmatmul_int4_lora", "qmatmul_int4_lora_plain",
-           "qmatmul_int4_plain", "reset_launches"]
+           "qmatmul", "qmatmul_dx", "qmatmul_dx_plain", "qmatmul_lora",
+           "qmatmul_lora_plain", "qmatmul_plain", "reset_launches"]

@@ -1,11 +1,11 @@
 """Quantized / dense linear op (port of bigdl_tpu/ops/linear.py).
 
 One entry point dispatches on weight type and shape, with the JAX
-package's rule: a QTensor whose shape the fused kernel takes (O % 128 ==
-0, K % k_multiple == 0) goes to the fused dequant-matmul — the GEMV at
-<= 32 rows, the GEMM above; any other shape dequantizes and multiplies
-in plain torch, as JAX sends those shapes to its XLA dequant path. A
-QTensor format without a kernel in the table raises.
+package's rule: a QTensor of any of the 16 quantized formats whose shape
+the fused kernel takes (O % 128 == 0, K % the format's k_multiple == 0)
+goes to the fused dequant-matmul — the GEMV at <= 32 rows, the GEMM
+above; any other shape dequantizes and multiplies in plain torch, as JAX
+sends those shapes to its XLA dequant path.
 
 The fused matmul is differentiable in x (JAX's custom_vjp, `_fused_matmul`
 / `_fused_bwd`): its backward is the fused dequant dx kernel, and the
@@ -16,38 +16,45 @@ backward's base-weight term through the dx kernel and the rank-r terms in
 plain torch, as JAX leaves them to XLA); everywhere else it applies as
 `lora_epilogue`. Batched per-row adapters raise (ROADMAP queue 1 item 7).
 
-`Linear` is the module form: it holds a sym_int4 weight as `data` /
-`scales` buffers, or a dense `weight` buffer, plus an optional bias.
+`Linear` is the module form: it holds a QTensor's fields as buffers
+(`data`, `scales`, and `mins` / `sub_scales` / `sub_mins` where the
+format has them), or a dense `weight` buffer, plus an optional bias.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Union
+from typing import Optional, Union
 
 import torch
 from torch import nn
 
 from bigdl_tpu_torch.ops import kernels
-from bigdl_tpu_torch.quant import QTensor
+from bigdl_tpu_torch.quant import ARRAY_FIELDS, QTensor
 
 _BATCHED_ADAPTERS = ("batched per-row LoRA adapters (serving): ROADMAP queue 1 "
                      "item 7, still to be ported")
 
 
+def _qtensor(qtype: str, fields) -> QTensor:
+    return QTensor(**dict(zip(ARRAY_FIELDS, fields)), qtype=qtype)
+
+
 class _FusedMatmul(torch.autograd.Function):
     """y = x @ dq(W)^T through the fused kernel; dx = g @ dq(W) through
-    the dx kernel. The kernels are looked up at call time, so a caller can
+    the dx kernel. The weight crosses as its qtype and five fields (None
+    where absent). The kernels are looked up at call time, so a caller can
     hold them against their plain versions by patching `kernels.*`."""
 
     @staticmethod
-    def forward(ctx, x, data, scales):
-        ctx.save_for_backward(data, scales)
-        return kernels.qmatmul_int4(x, data, scales)
+    def forward(ctx, x, qtype, *fields):
+        ctx.qtype = qtype
+        ctx.save_for_backward(*fields)
+        return kernels.qmatmul(x, _qtensor(qtype, fields))
 
     @staticmethod
     def backward(ctx, g):
-        data, scales = ctx.saved_tensors
-        return kernels.qmatmul_dx(g.contiguous(), data, scales), None, None
+        w = _qtensor(ctx.qtype, ctx.saved_tensors)
+        return (kernels.qmatmul_dx(g.contiguous(), w), None) + (None,) * len(ARRAY_FIELDS)
 
 
 class _FusedLoraMatmul(torch.autograd.Function):
@@ -59,13 +66,14 @@ class _FusedLoraMatmul(torch.autograd.Function):
     dtype."""
 
     @staticmethod
-    def forward(ctx, x, data, scales, a, b, gate):
-        ctx.save_for_backward(x, data, scales, a, b, gate)
-        return kernels.qmatmul_int4_lora(x, data, scales, a, b, gate)
+    def forward(ctx, x, a, b, gate, qtype, *fields):
+        ctx.qtype = qtype
+        ctx.save_for_backward(x, a, b, gate, *fields)
+        return kernels.qmatmul_lora(x, _qtensor(qtype, fields), a, b, gate)
 
     @staticmethod
     def backward(ctx, g):
-        x, data, scales, a, b, gt = ctx.saved_tensors
+        x, a, b, gt, *fields = ctx.saved_tensors
         cd = g.dtype
         K, O = x.shape[-1], g.shape[-1]
         xf = x.reshape(-1, K).to(cd)
@@ -77,44 +85,28 @@ class _FusedLoraMatmul(torch.autograd.Function):
         need = ctx.needs_input_grad
         dx = da = db = dgate = None
         if need[0]:
-            dxw = kernels.qmatmul_dx(gf, data, scales).to(cd)
+            dxw = kernels.qmatmul_dx(gf, _qtensor(ctx.qtype, fields)).to(cd)
             dx = (dxw + du @ ac).reshape(x.shape).to(x.dtype)
-        if need[3]:
+        if need[1]:
             da = (du.t() @ xf).to(a.dtype)
-        if need[4]:
+        if need[2]:
             db = (gf.t() @ (u * gtc)).to(b.dtype)
-        if need[5]:
+        if need[3]:
             dgate = (dv * u).to(gt.dtype)
-        return dx, None, None, da, db, dgate
+        return (dx, da, db, dgate, None) + (None,) * len(ARRAY_FIELDS)
 
 
-def _run_sym_int4(x: torch.Tensor, w: QTensor) -> torch.Tensor:
-    return _FusedMatmul.apply(x, w.data, w.scales)
+def _fields(w: QTensor) -> tuple:
+    return tuple(getattr(w, f) for f in ARRAY_FIELDS)
 
 
-class _Entry(NamedTuple):
-    """Eligibility + kernel for one qtype: the contraction dim must be a
-    multiple of k_multiple (whole quant blocks per nibble plane)."""
-    k_multiple: int
-    run: Callable  # (x [..., K] bf16, w) -> y [..., O] bf16, both row classes
-
-
-_QGEMV_QTYPES = {"sym_int4": _Entry(64, _run_sym_int4)}
-
-
-def _fused_kernel(x: torch.Tensor, w: QTensor) -> Optional[Callable]:
-    """The fused kernel this (x, w) pair dispatches to, or None for the
-    dequant path (the JAX package's shape guards)."""
-    entry = _QGEMV_QTYPES.get(w.qtype)
-    if entry is None:
-        raise NotImplementedError(
-            f"linear over a {w.qtype} weight: ROADMAP queue 1, the other 15 "
-            "weight formats are still to be ported")
-    if w.data.dim() != 2 or w.data.shape[0] % 128 != 0:
-        return None
-    if w.shape[-1] % entry.k_multiple != 0:
-        return None
-    return entry.run
+def _fused_kernel(x: torch.Tensor, w: QTensor) -> bool:
+    """Whether this (x, w) pair goes to the fused kernels rather than the
+    dequant path: the JAX package's shape guards (every quantized qtype
+    has a kernel; its contraction dim must be a multiple of the format's
+    k_multiple, `kernels.K_MULTIPLE`, JAX's `_QGEMV_QTYPES`)."""
+    return (w.data.dim() == 2 and w.data.shape[0] % 128 == 0
+            and w.shape[-1] % kernels.K_MULTIPLE[w.qtype] == 0)
 
 
 def _rows(x: torch.Tensor) -> int:
@@ -163,14 +155,13 @@ def linear(x: torch.Tensor, w: Union[QTensor, torch.Tensor],
     `lora` is an optional shared (a, b, scale) triple: on the fused GEMM
     path it rides in the kernel's writeback, elsewhere it applies as
     `lora_epilogue`."""
-    run = _fused_kernel(x, w) if isinstance(w, QTensor) else None
-    if run is not None:
+    if isinstance(w, QTensor) and _fused_kernel(x, w):
         xc = x.to(compute_dtype)
         ops = None if lora is None else _lora_cat_operands(x, lora, compute_dtype)
         if ops is not None:
-            y, lora = _FusedLoraMatmul.apply(xc, w.data, w.scales, *ops), None
+            y, lora = _FusedLoraMatmul.apply(xc, *ops, w.qtype, *_fields(w)), None
         else:
-            y = run(xc, w).to(compute_dtype)
+            y = _FusedMatmul.apply(xc, w.qtype, *_fields(w)).to(compute_dtype)
     else:
         wd = (w.dequantize(compute_dtype) if isinstance(w, QTensor)
               else w.to(compute_dtype))
@@ -183,7 +174,8 @@ def linear(x: torch.Tensor, w: Union[QTensor, torch.Tensor],
 
 
 class Linear(nn.Module):
-    """A linear layer over a sym_int4 QTensor or a dense weight."""
+    """A linear layer over a QTensor (its fields as buffers, None where the
+    format has none) or a dense weight."""
 
     def __init__(self, weight: Union[QTensor, torch.Tensor],
                  bias: Optional[torch.Tensor] = None):
@@ -192,15 +184,15 @@ class Linear(nn.Module):
         if self.qtype is None:
             self.register_buffer("weight", weight)
         else:
-            self.register_buffer("data", weight.data)
-            self.register_buffer("scales", weight.scales)
+            for f in ARRAY_FIELDS:
+                self.register_buffer(f, getattr(weight, f))
         self.register_buffer("bias", bias)
 
     @property
     def w(self) -> Union[QTensor, torch.Tensor]:
         if self.qtype is None:
             return self.weight
-        return QTensor(self.data, self.scales, qtype=self.qtype)
+        return _qtensor(self.qtype, [getattr(self, f) for f in ARRAY_FIELDS])
 
     def forward(self, x: torch.Tensor, compute_dtype=torch.bfloat16, lora=None):
         return linear(x, self.w, self.bias, compute_dtype, lora)

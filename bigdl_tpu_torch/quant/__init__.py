@@ -3,15 +3,19 @@
 from bigdl_tpu_torch.quant.numerics import (
     dequantize_blockwise,
     pack_nibbles,
+    pack_planes,
     quantize_blockwise,
     unpack_nibbles,
+    unpack_planes,
 )
-from bigdl_tpu_torch.quant.qtensor import (QTensor, concat_rows, dequantize,
-                                           quantize)
+from bigdl_tpu_torch.quant.qtensor import (ARRAY_FIELDS, QTensor, concat_rows,
+                                           dequantize, quantize,
+                                           quantize_or_dense)
 from bigdl_tpu_torch.quant.qtypes import QTypeSpec, resolve_qtype
 
 __all__ = [
-    "QTensor", "QTypeSpec", "concat_rows", "dequantize",
-    "dequantize_blockwise", "pack_nibbles", "quantize",
-    "quantize_blockwise", "resolve_qtype", "unpack_nibbles",
+    "ARRAY_FIELDS", "QTensor", "QTypeSpec", "concat_rows", "dequantize",
+    "dequantize_blockwise", "pack_nibbles", "pack_planes", "quantize",
+    "quantize_blockwise", "quantize_or_dense", "resolve_qtype",
+    "unpack_nibbles", "unpack_planes",
 ]

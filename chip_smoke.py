@@ -56,10 +56,29 @@ Phases (any failure exits non-zero; nothing is caught):
    and peak memory of (a); a profiled decode step at 8 rows of ~1,100
    live slots over bf16 and fp8 pages (busy share, the paged kernel's
    time on the path); the paged kernel and the flash fp8 arm isolated
-   beside their plain versions, an SDPA yardstick and their bounds.
+   beside their plain versions, an SDPA yardstick and their bounds;
+9. the other 15 weight formats (asym_int4, nf4, fp4, sym_int8, asym_int5,
+   fp8_e4m3/e5m2, sym_int5, fp6, nf3, q2_k..q6_k): each format's weights
+   made on the card (seeded N(0, 0.02^2) through the port's encoder), and
+   at every llama3-8b projection and the lm head the GEMV (M = 1, 4, 32),
+   the GEMM (33, 1024), the LoRA GEMM (wo, w_down; 1024, R = 8) and dx
+   (1024) against their plain versions; then through `optimize_model` at
+   32 layers nf4 and q4_k_m (q4_k body, q6_k lm head) generation as phase
+   3 (exact launch counts per format, in-vocabulary and repeatable
+   tokens) and nf4 QLoRA as phase 5 (five finite steps); then a 2-layer
+   full-width model in each of the 15 formats and q4_k_m, prefill logits
+   through the kernels against the plain versions;
+10. per format: the prefill, decode step and generate ms of the nf4 and
+   q4_k_m paths and the nf4 train step, busy shares and peak memory; each
+   form isolated at its path shapes (GEMV M=4 over a decode step, GEMM
+   M=1024 over a prefill, dx and the LoRA GEMM over a train step) beside
+   its plain version, cuBLAS on the weight dequantized beforehand (not
+   timed) and its bound.
 
-The whole run takes about 200 s of command time on an H100, the kernel
-builds included. It prints one `{"kernels": [...]}` line, and as its last line
+The whole run takes about 400 s of command time on an H100, the kernel
+builds included (the dequant sources build once per qtype, 32 libraries).
+It prints one `{"kernels": [...]}` line (the dequant forms carry their
+numbers per format under "by_format"), and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the
 package beside it, it exits non-zero before printing either.
 """
@@ -133,7 +152,7 @@ def main() -> int:
     from bigdl_tpu_torch.ops import kernels
     from bigdl_tpu_torch.ops.kernels import _build
     from bigdl_tpu_torch.ops.kernels.flash_attention import valid_mask
-    from bigdl_tpu_torch.quant import dequantize_blockwise, resolve_qtype
+    from bigdl_tpu_torch.quant import QTensor
     from bigdl_tpu_torch.utils import cache_len_for
 
     dev = torch.device("cuda")
@@ -156,11 +175,18 @@ def main() -> int:
     # ---------------------------------------------------------------- 1
     t = time.time()
     libs = _build.build_all()
-    log(f"phase 1: built {sorted(libs)} for sm_90a in {time.time() - t:.1f} s")
-    for stem, path in libs.items():
+    log(f"phase 1: built {len(libs)} libraries from {sorted({s for s, _ in libs})} "
+        f"(the dequant sources once per qtype) for sm_90a in {time.time() - t:.1f} s")
+    for (stem, qtype), path in libs.items():
+        # ptxas per kernel: registers, and spill stores/loads where not 0
+        regs, spills = [], 0
         for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line and " 0 bytes spill" not in line:
-                log(f"  ptxas {stem}: {line.strip()}")
+            if "registers" in line:
+                regs.append(int(line.split("Used ")[1].split(" registers")[0]))
+            if "spill" in line:
+                spills += sum(int(t) for t in line.split() if t.isdigit())
+        log(f"  ptxas {stem}{'[' + qtype + ']' if qtype else ''}: {len(regs)} kernels, "
+            f"registers {min(regs, default=0)}-{max(regs, default=0)}, spill bytes {spills}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -169,24 +195,26 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 2
     g = torch.Generator(device=dev).manual_seed(0)
-    sym_int4 = resolve_qtype("sym_int4")
 
     def qweight(O, K, copies=1):
-        return [((torch.randint(0, 256, (O, K // 2), dtype=torch.uint8,
-                                device=dev, generator=g)),
-                 (torch.rand((O, K // 32), device=dev, generator=g) * 0.02
-                  + 1e-3).to(torch.float16)) for _ in range(copies)]
+        """Random-but-valid sym_int4 weights on the card: random codes,
+        scales in [1e-3, 0.021)."""
+        return [QTensor(torch.randint(0, 256, (O, K // 2), dtype=torch.uint8,
+                                      device=dev, generator=g),
+                        (torch.rand((O, K // 32), device=dev, generator=g) * 0.02
+                         + 1e-3).to(torch.float16), qtype="sym_int4")
+                for _ in range(copies)]
 
     def randn(*shape):
         return torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
 
     errs = {k.name: 0.0 for k in kernels.KERNELS}
     for name, (O, K) in shapes.items():
-        (data, scales), = qweight(O, K)
+        w, = qweight(O, K)
         for M in (1, 4, 32, 33, 1024):
             x = randn(M, K)
-            y = kernels.qmatmul_int4(x, data, scales).float()
-            ref = kernels.qmatmul_int4_plain(x, data, scales).float()
+            y = kernels.qmatmul(x, w).float()
+            ref = kernels.qmatmul_plain(x, w).float()
             err = (y - ref).abs().max().item()
             # f32 sums in another order, then one bf16 rounding on each
             # side: within 2 bf16 ULPs of the largest output
@@ -261,7 +289,7 @@ def main() -> int:
                                  last_logits_only=True)[0][:, -1]
 
     kern_logits = prefill_logits()
-    with mock.patch.object(kernels, "qmatmul_int4", kernels.qmatmul_int4_plain), \
+    with mock.patch.object(kernels, "qmatmul", kernels.qmatmul_plain), \
             mock.patch.object(kernels, "flash_attention", kernels.flash_attention_plain):
         plain_logits = prefill_logits()
     lerr = (kern_logits - plain_logits).abs().max().item()
@@ -280,13 +308,12 @@ def main() -> int:
     rows = {}
     for name, (O, K) in shapes.items():
         copies = max(1, math.ceil(L2_COPIES_BYTES / (O * K * 0.5625)))
-        ws = qweight(O, K, copies)
-        dense = [dequantize_blockwise(d_, s_, sym_int4, torch.bfloat16)
-                 for d_, s_ in ws[:max(1, copies // 2)]]
+        ws = [(w,) for w in qweight(O, K, copies)]
+        dense = [w.dequantize(torch.bfloat16) for w, in ws[:max(1, copies // 2)]]
         for M in ((4,) if name == "lm_head" else (4, 1024)):
             x = randn(M, K)
-            kern = time_ms(torch, lambda d_, s_: kernels.qmatmul_int4(x, d_, s_), ws)
-            plain = time_ms(torch, lambda d_, s_: kernels.qmatmul_int4_plain(x, d_, s_), ws)
+            kern = time_ms(torch, lambda w_: kernels.qmatmul(x, w_), ws)
+            plain = time_ms(torch, lambda w_: kernels.qmatmul_plain(x, w_), ws)
             lib = time_ms(torch, lambda w_: torch.matmul(x, w_.t()), [(w,) for w in dense])
             nbytes = M * K * 2 + O * K // 2 + O * K // 32 * 2 + M * O * 2
             bms, by = bound_ms(nbytes, 2.0 * M * O * K)
@@ -439,6 +466,12 @@ def main() -> int:
     train_entries = train_phases(torch, dev, cfg, card, errs, qweight, randn)
     # ---------------------------------------------------------------- 7
     serving_entries = serving_phases(torch, dev, cfg, card, errs)
+    # ---------------------------------------------------------------- 9
+    by_format = format_phases(torch, dev, cfg, card, prompts, tok, st, T, S)
+    for e in entries + train_entries:
+        if e["name"] in by_format:  # the dequant forms: sym_int4 above, then the others
+            e["formats"] = ["sym_int4"] + list(by_format[e["name"]])
+            e["by_format"] = by_format[e["name"]]
     log(json.dumps({"kernels": entries + train_entries + serving_entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -461,11 +494,11 @@ def train_kernel_checks(torch, dev, cfg, shapes, errs, qweight, randn) -> None:
                 torch.full((M, RANK), 2.0, dtype=torch.bfloat16, device=dev))
 
     for name, (O, K) in shapes.items():
-        (data, scales), = qweight(O, K)
+        w, = qweight(O, K)
         for M in ((33, TRAIN_T) if name == "wqkv" else (TRAIN_T,)):
             gr = randn(M, O)
-            dx = kernels.qmatmul_dx(gr, data, scales).float()
-            ref = kernels.qmatmul_dx_plain(gr, data, scales).float()
+            dx = kernels.qmatmul_dx(gr, w).float()
+            ref = kernels.qmatmul_dx_plain(gr, w).float()
             err = (dx - ref).abs().max().item()
             # f32 sums in another order, one bf16 rounding on each side
             tol = ref.abs().max().item() * 2 ** -7
@@ -476,9 +509,9 @@ def train_kernel_checks(torch, dev, cfg, shapes, errs, qweight, randn) -> None:
         if name in ("wo", "w_down"):
             x = randn(TRAIN_T, K)
             a, b_, gate = lora_operands(TRAIN_T, O, K)
-            y = kernels.qmatmul_int4_lora(x, data, scales, a, b_, gate).float()
-            ref = kernels.qmatmul_int4_lora_plain(x, data, scales, a, b_, gate).float()
-            lift = (ref - kernels.qmatmul_int4_plain(x, data, scales).float()).abs().max().item()
+            y = kernels.qmatmul_lora(x, w, a, b_, gate).float()
+            ref = kernels.qmatmul_lora_plain(x, w, a, b_, gate).float()
+            lift = (ref - kernels.qmatmul_plain(x, w).float()).abs().max().item()
             err = (y - ref).abs().max().item()
             # as the GEMM, plus xa * gate rounded to bf16 on each side
             tol = ref.abs().max().item() * 2 ** -7
@@ -538,11 +571,8 @@ def train_phases(torch, dev, cfg, card, errs, qweight, randn) -> list:
     from bigdl_tpu_torch import optimize_model
     from bigdl_tpu_torch.models import llama
     from bigdl_tpu_torch.ops import kernels
-    from bigdl_tpu_torch.quant import dequantize_blockwise, resolve_qtype
     from bigdl_tpu_torch.train import (adamw, init_lora, make_train_step,
                                        next_token_loss)
-
-    sym_int4 = resolve_qtype("sym_int4")
 
     L, H, I, V = (cfg.num_hidden_layers, cfg.hidden_size,
                   cfg.intermediate_size, cfg.vocab_size)
@@ -607,9 +637,9 @@ def train_phases(torch, dev, cfg, card, errs, qweight, randn) -> list:
         return loss.item(), {n: prm.grad.float() for n, prm in lora2.named_parameters()}
 
     kern_loss, kern_grads = grads2()
-    plain = {"qmatmul_int4": kernels.qmatmul_int4_plain,
+    plain = {"qmatmul": kernels.qmatmul_plain,
              "qmatmul_dx": kernels.qmatmul_dx_plain,
-             "qmatmul_int4_lora": kernels.qmatmul_int4_lora_plain,
+             "qmatmul_lora": kernels.qmatmul_lora_plain,
              "flash_train_fwd": kernels.flash_attention_train_plain,
              "flash_train_dq": kernels.flash_train_dq_plain,
              "flash_train_dkv": kernels.flash_train_dkv_plain}
@@ -679,12 +709,11 @@ def train_phases(torch, dev, cfg, card, errs, qweight, randn) -> list:
 
     for name, (O, K) in shapes.items():
         copies = max(1, math.ceil(L2_COPIES_BYTES / (O * K * 0.5625)))
-        ws = qweight(O, K, copies)
-        dense = [dequantize_blockwise(d_, s_, sym_int4, torch.bfloat16)
-                 for d_, s_ in ws[:max(1, copies // 2)]]
+        ws = [(w,) for w in qweight(O, K, copies)]
+        dense = [w.dequantize(torch.bfloat16) for w, in ws[:max(1, copies // 2)]]
         gr = randn(M, O)
-        kern = time_ms(torch, lambda d_, s_: kernels.qmatmul_dx(gr, d_, s_), ws)
-        plain_ = time_ms(torch, lambda d_, s_: kernels.qmatmul_dx_plain(gr, d_, s_), ws)
+        kern = time_ms(torch, lambda w_: kernels.qmatmul_dx(gr, w_), ws)
+        plain_ = time_ms(torch, lambda w_: kernels.qmatmul_dx_plain(gr, w_), ws)
         lib = time_ms(torch, lambda w_: torch.matmul(gr, w_), [(w,) for w in dense])
         nbytes = M * O * 2 + O * K // 2 + O * K // 32 * 2 + M * K * 2
         flops = 2.0 * M * O * K
@@ -696,10 +725,8 @@ def train_phases(torch, dev, cfg, card, errs, qweight, randn) -> list:
             x = randn(M, K)
             a, b_ = randn(RANK, K) / RANK, randn(O, RANK) * 0.01
             gate = torch.full((M, RANK), 2.0, dtype=torch.bfloat16, device=dev)
-            kern = time_ms(torch, lambda d_, s_: kernels.qmatmul_int4_lora(
-                x, d_, s_, a, b_, gate), ws)
-            plain_ = time_ms(torch, lambda d_, s_: kernels.qmatmul_int4_lora_plain(
-                x, d_, s_, a, b_, gate), ws)
+            kern = time_ms(torch, lambda w_: kernels.qmatmul_lora(x, w_, a, b_, gate), ws)
+            plain_ = time_ms(torch, lambda w_: kernels.qmatmul_lora_plain(x, w_, a, b_, gate), ws)
             lib = time_ms(torch, lambda w_: torch.matmul(x, w_.t()) + torch.matmul(
                 torch.matmul(x, a.t()) * 2.0, b_.t()), [(w,) for w in dense])
             nbytes = (M * K * 2 + O * K // 2 + O * K // 32 * 2 + RANK * K * 2
@@ -1073,7 +1100,7 @@ def serving_phases(torch, dev, cfg, card, errs) -> list:
     cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
     tm2 = TorchModel(cfg2, optimize_model(llama.init_params(cfg2, seed=5), cfg2, "sym_int4"),
                      "sym_int4")
-    plain = {"qmatmul_int4": kernels.qmatmul_int4_plain,
+    plain = {"qmatmul": kernels.qmatmul_plain,
              "flash_attention": kernels.flash_attention_plain,
              "paged_attention": kernels.paged_attention_plain}
     for kw in (dict(paged=True), dict(paged=True, quantize_kv=True), dict(quantize_kv=True)):
@@ -1236,6 +1263,345 @@ def serving_phases(torch, dev, cfg, card, errs) -> list:
         "plain_ms": L * pl_, "bound_ms": L * bms, "bound_by": by, "library_ms": L * lib,
         "per": f"one dense fp8 prefill: {L} layers, B=1 T=S={T}"})
     return entries
+
+
+# ---------------------------------------------------------------------------
+# the other 15 weight formats: phases 9 and 10
+# ---------------------------------------------------------------------------
+
+FORMATS = ("asym_int4", "nf4", "fp4", "sym_int8", "asym_int5", "fp8_e4m3", "fp8_e5m2",
+           "sym_int5", "fp6", "nf3", "q2_k", "q3_k", "q4_k", "q5_k", "q6_k")
+FORMAT_PATHS = ("nf4", "q4_k_m")  # generation at full depth (q4_k body, q6_k head)
+PLAIN_ITERS = 5  # timed calls of a plain version or library call (kernels: 20)
+
+
+def qweight_of(torch, dev, qtype, O, K, seed):
+    """Random-but-valid [O, K] fields of `qtype` made on the card: seeded
+    N(0, 0.02^2) weights through the port's encoder (quant/numerics.py)."""
+    from bigdl_tpu_torch.quant import quantize
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return quantize(torch.randn((O, K), device=dev, generator=g) * 0.02, qtype)
+
+
+def weight_bytes(w) -> int:
+    return sum(t.numel() * t.element_size() for t in w.fields().values())
+
+
+def format_phases(torch, dev, cfg, card, prompts, tok, st, T, S) -> dict:
+    """Phases 9 and 10: every form of the 15 other formats against its
+    plain version at every llama3-8b shape, nf4 and q4_k_m generation and
+    nf4 QLoRA at full depth, 2-layer full-width models in every format,
+    then each form's times per format. Returns {kernel name: {qtype:
+    numbers}} for the `kernels` line."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch import TorchModel, optimize_model
+    from bigdl_tpu_torch.kvcache import init_cache
+    from bigdl_tpu_torch.models import llama
+    from bigdl_tpu_torch.ops import kernels
+    from bigdl_tpu_torch.quant.qtypes import split_mixed_qtype
+    from bigdl_tpu_torch.train import adamw, init_lora, make_train_step
+
+    L, H, I, V = (cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size,
+                  cfg.vocab_size)
+    Hkv, D = cfg.num_key_value_heads, cfg.head_dim_
+    shapes = {"wqkv": (cfg.q_dim + 2 * cfg.kv_dim, H), "wo": (H, cfg.q_dim),
+              "w_gateup": (2 * I, H), "w_down": (H, I), "lm_head": (V, H)}
+    forms = (kernels.GEMV, kernels.GEMM, kernels.LORA_GEMM, kernels.DX)
+    out = {k.name: {q: {"launches": 0, "max_abs_err": 0.0, "ms": None} for q in FORMATS}
+           for k in forms}
+    g = torch.Generator(device=dev).manual_seed(20)
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+
+    def held(kern, qtype, got, ref, what):
+        """got against the plain version's ref: finite, within 2 bf16 ULPs
+        of the largest output (f32 sums in another order, one bf16
+        rounding on each side)."""
+        got, ref = got.float(), ref.float()
+        err = (got - ref).abs().max().item()
+        tol = ref.abs().max().item() * 2 ** -7
+        check(bool(torch.isfinite(got).all()) and err <= tol,
+              f"{kern.name} {qtype} {what}: max_abs_err {err} > tol {tol}")
+        row = out[kern.name][qtype]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        return err, tol
+
+    # ---------------------------------------------------------------- 9
+    t0 = time.time()
+    for qi, qtype in enumerate(FORMATS):
+        for si, (name, (O, K)) in enumerate(shapes.items()):
+            w = qweight_of(torch, dev, qtype, O, K, 100 * qi + si)
+            worst = []
+            for M in (1, 4, 32, 33, 1024):
+                x = randn(M, K)
+                kern = kernels.GEMV if M <= kernels.GEMV_MAX_ROWS else kernels.GEMM
+                worst.append(held(kern, qtype, kernels.qmatmul(x, w), kernels.qmatmul_plain(x, w),
+                                  f"{name} M={M}"))
+            if name in ("wo", "w_down"):
+                x, a, b_ = randn(TRAIN_T, K), randn(RANK, K) / RANK, randn(O, RANK) * 0.01
+                gate = torch.full((TRAIN_T, RANK), 2.0, dtype=torch.bfloat16, device=dev)
+                worst.append(held(kernels.LORA_GEMM, qtype, kernels.qmatmul_lora(x, w, a, b_, gate),
+                                  kernels.qmatmul_lora_plain(x, w, a, b_, gate), f"{name} lora"))
+            gr = randn(TRAIN_T, O)
+            worst.append(held(kernels.DX, qtype, kernels.qmatmul_dx(gr, w),
+                              kernels.qmatmul_dx_plain(gr, w), f"{name} dx"))
+            log(f"phase 9: {qtype} {name} O={O} K={K} ({weight_bytes(w) / (O * K):.6g} B/weight): "
+                f"GEMV M=1,4,32, GEMM M=33,1024{', LoRA GEMM M=1024 R=8' if name in ('wo', 'w_down') else ''}"
+                f", dx M=1024: max_abs_err/tol {' '.join(f'{e:.3g}/{t_:.3g}' for e, t_ in worst)}")
+            del w
+    torch.cuda.synchronize()
+    log(f"phase 9: every form of {len(FORMATS)} formats within 2 bf16 ULPs of its plain "
+        f"version at every llama3-8b shape ({time.time() - t0:.1f} s)")
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def busy_ms(prof_, n):
+        return sum(e.self_device_time_total for e in prof_.key_averages()
+                   if e.self_cpu_time_total == 0 and e.self_device_time_total > 0) / 1e3 / n
+
+    def kernel_path_ms(prof_, fn, n):
+        return sum(e.self_device_time_total for e in prof_.key_averages()
+                   if f"namespace)::{fn}" in e.key and e.self_device_time_total > 0) / 1e3 / n
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) * 1e3
+
+    # full depth: nf4 and q4_k_m generation
+    for qtype in FORMAT_PATHS:
+        body, head = split_mixed_qtype(qtype)
+        head = head or body
+        t0 = time.time()
+        tm = TorchModel(cfg, optimize_model(llama.init_params(cfg, seed=0), cfg, qtype), qtype)
+        torch.cuda.synchronize()
+        log(f"phase 9: llama3-8b {L} layers {qtype} (body {body}, lm head {head}) built in "
+            f"{time.time() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.3f} GiB on the card")
+        kernels.reset_launches()
+        out1 = tm.generate(prompts, max_new_tokens=NEW_TOKENS)
+        torch.cuda.synchronize()
+        launches, by_fmt = kernels.launch_counts(), kernels.format_launch_counts()
+        want = {k.name: 0 for k in kernels.KERNELS}
+        want.update({kernels.GEMM.name: 4 * L, kernels.FLASH.name: L,
+                     kernels.GEMV.name: (NEW_TOKENS - 1) * 4 * L + NEW_TOKENS})
+        want_fmt = {kernels.GEMM.name: {body: 4 * L}, kernels.LORA_GEMM.name: {},
+                    kernels.DX.name: {}, kernels.GEMV.name: {body: (NEW_TOKENS - 1) * 4 * L}}
+        want_fmt[kernels.GEMV.name][head] = want_fmt[kernels.GEMV.name].get(head, 0) + NEW_TOKENS
+        log(f"phase 9: {qtype} launches {launches} by format {by_fmt}; expected {want} {want_fmt}")
+        check(launches == want and by_fmt == want_fmt, f"{qtype} launch counts")
+        check(out1.shape == (B, NEW_TOKENS) and bool(((out1 >= 0) & (out1 < V)).all()),
+              f"{qtype} tokens in the vocabulary")
+        out2 = tm.generate(prompts, max_new_tokens=NEW_TOKENS)
+        check(bool((out1 == out2).all()), f"{qtype} identical tokens on a second call")
+        for k in (kernels.GEMV, kernels.GEMM):
+            for q, n in by_fmt[k.name].items():
+                if q in out[k.name]:
+                    out[k.name][q]["launches"] += n
+
+        gen = sorted(wall_ms(lambda: tm.generate(prompts, NEW_TOKENS)) for _ in range(3))
+        pre = sorted(wall_ms(lambda: tm.generate(prompts, 1)) for _ in range(3))
+        torch.cuda.reset_peak_memory_stats()
+        tm.generate(prompts, NEW_TOKENS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        def prefill_state():
+            cache = dataclasses.replace(init_cache(L, B, S, Hkv, D, device=dev), start=st)
+            logits, cache = llama.forward(cfg, tm.params, tok, cache, "prefill",
+                                          last_logits_only=True)
+            return cache, logits[:, -1].argmax(-1)
+
+        def step(cache, cur):
+            logits, cache = llama.forward(cfg, tm.params, cur[:, None], cache, "decode")
+            return cache, logits[:, -1].argmax(-1)
+
+        with torch.inference_mode():
+            state = prefill_state()
+            steps = []
+            for _ in range(24):
+                t1 = time.perf_counter()
+                state = step(*state)
+                torch.cuda.synchronize()
+                steps.append((time.perf_counter() - t1) * 1e3)
+            with profile(activities=acts) as prof_pre:
+                for _ in range(PROFILED_PREFILLS):
+                    state = prefill_state()
+                torch.cuda.synchronize()
+            with profile(activities=acts) as prof_dec:
+                for _ in range(PROFILED_STEPS):
+                    state = step(*state)
+                torch.cuda.synchronize()
+        steps.sort()
+        med = steps[len(steps) // 2]
+        dec_busy, pre_busy = busy_ms(prof_dec, PROFILED_STEPS), busy_ms(prof_pre, PROFILED_PREFILLS)
+        gemv_ms = kernel_path_ms(prof_dec, "gemv_kernel", PROFILED_STEPS)
+        gemm_ms = kernel_path_ms(prof_pre, "gemm_kernel", PROFILED_PREFILLS)
+        if body in out[kernels.GEMM.name]:
+            out[kernels.GEMM.name][body]["ms"] = gemm_ms
+        if body == head and body in out[kernels.GEMV.name]:
+            out[kernels.GEMV.name][body]["ms"] = gemv_ms
+        log(f"phase 10: card {card}")
+        log(f"phase 10: {qtype} llama3-8b B={B} bucket {T}: generate_ms of {NEW_TOKENS} tokens "
+            f"median={gen[1]:.3f} (n=3, {[round(x, 3) for x in gen]}); prefill_ms (generate of 1 "
+            f"token) median={pre[1]:.3f} ({[round(x, 3) for x in pre]}); decode step ms "
+            f"median={med:.3f} max={steps[-1]:.3f} (n={len(steps)}); peak_mem_gib={peak:.3f}")
+        log(f"phase 10: {qtype} profiled: decode step device busy {dec_busy:.3f} ms = "
+            f"{dec_busy / med:.3f} of the median step, GEMV {gemv_ms:.3f} ms of it "
+            f"({4 * L} {body} + 1 {head} calls); prefill device busy {pre_busy:.3f} ms = "
+            f"{pre_busy / pre[1]:.3f} of the 1-token generate, GEMM {gemm_ms:.3f} ms of it")
+        del tm, state
+
+    # full depth: QLoRA over an nf4 base
+    t0 = time.time()
+    model = optimize_model(llama.init_params(cfg, seed=0, device=dev), cfg, "nf4")
+    lora = init_lora(cfg, seed=1, rank=RANK, device=dev)
+    step_fn = make_train_step(cfg, llama.forward, adamw(lora, LR))
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(1, V, (1, TRAIN_T + 1)),
+                             dtype=torch.long, device=dev)
+    mask = torch.ones((1, TRAIN_T + 1), dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    log(f"phase 9: llama3-8b {L} layers nf4 + rank-{RANK} LoRA built in {time.time() - t0:.1f} s")
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = step_fn(model, lora, tokens, mask)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) * 1e3, loss.item()
+
+    warm = timed_step()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    runs = [timed_step() for _ in range(TRAIN_STEPS)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches, by_fmt = kernels.launch_counts(), kernels.format_launch_counts()
+    per_step = {kernels.GEMM.name: 2 * L + 1, kernels.LORA_GEMM.name: 2 * L,
+                kernels.DX.name: 4 * L, kernels.FLASH_FWD.name: L,
+                kernels.FLASH_DQ.name: L, kernels.FLASH_DKV.name: L}
+    want = {k.name: per_step.get(k.name, 0) * TRAIN_STEPS for k in kernels.KERNELS}
+    want_fmt = {k.name: ({"nf4": want[k.name]} if want[k.name] else {}) for k in forms}
+    losses = [warm[1]] + [x for _, x in runs]
+    log(f"phase 9: nf4 QLoRA launches over {TRAIN_STEPS} steps {launches} by format {by_fmt}; "
+        f"losses {losses}")
+    check(launches == want and by_fmt == want_fmt, "nf4 QLoRA launch counts")
+    check(all(math.isfinite(x) for x in losses), "nf4 QLoRA finite losses")
+    for k in forms:
+        out[k.name]["nf4"]["launches"] += by_fmt[k.name].get("nf4", 0)
+    with profile(activities=acts) as prof:
+        for _ in range(PROFILED_TRAIN_STEPS):
+            step_fn(model, lora, tokens, mask)
+        torch.cuda.synchronize()
+    step_ms = sorted(x for x, _ in runs)
+    med = step_ms[len(step_ms) // 2]
+    tbusy = busy_ms(prof, PROFILED_TRAIN_STEPS)
+    out[kernels.DX.name]["nf4"]["ms"] = kernel_path_ms(prof, "dx_kernel", PROFILED_TRAIN_STEPS)
+    out[kernels.LORA_GEMM.name]["nf4"]["ms"] = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if ("gemm_kernel<true" in e.key or "gemm_kernel<(bool)1" in e.key)
+        and e.self_device_time_total > 0) / 1e3 / PROFILED_TRAIN_STEPS
+    log(f"phase 10: nf4 QLoRA B=1 T={TRAIN_T} rank {RANK}: step_ms median={med:.3f} "
+        f"({[round(x, 3) for x in step_ms]}; warm-up {warm[0]:.3f}); tokens_per_s="
+        f"{TRAIN_T * 1e3 / med:.1f}; peak_mem_gib={peak:.3f}; device busy {tbusy:.3f} ms = "
+        f"{tbusy / med:.3f} of the median step; dx {out[kernels.DX.name]['nf4']['ms']:.3f} ms, "
+        f"LoRA GEMM {out[kernels.LORA_GEMM.name]['nf4']['ms']:.3f} ms of it")
+    del model, lora, step_fn, prof
+
+    # 2 layers at full width, every format and q4_k_m: kernels vs plain
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    for qtype in FORMATS + ("q4_k_m",):
+        m2 = optimize_model(llama.init_params(cfg2, seed=1), cfg2, qtype)
+
+        def logits2():
+            cache = dataclasses.replace(init_cache(2, B, S, Hkv, D, device=dev), start=st)
+            with torch.inference_mode():
+                return llama.forward(cfg2, m2, tok, cache, "prefill",
+                                     last_logits_only=True)[0][:, -1].float()
+
+        kernels.reset_launches()
+        kern = logits2()
+        launched = kernels.format_launch_counts()
+        with mock.patch.object(kernels, "qmatmul", kernels.qmatmul_plain), \
+                mock.patch.object(kernels, "flash_attention", kernels.flash_attention_plain):
+            plain = logits2()
+        err = (kern - plain).abs().max().item()
+        tol = 0.02 * plain.abs().max().item()  # phase 3's tolerance
+        same = bool((kern.argmax(-1) == plain.argmax(-1)).all())
+        log(f"phase 9: 2-layer full-width {qtype} prefill logits kernels vs plain: "
+            f"max_abs_err={err:.6g} tol={tol:.6g} same_top1={same} launches {launched}")
+        check(bool(torch.isfinite(kern).all()) and err <= tol, f"2-layer {qtype} logits")
+        for k in (kernels.GEMV, kernels.GEMM):
+            for q, n in launched[k.name].items():
+                if q in out[k.name]:
+                    out[k.name][q]["launches"] += n
+        del m2
+
+    # ---------------------------------------------------------------- 10
+    # each form per format, isolated at the path shapes, operands cycled
+    # past the L2; summed over one decode step (GEMV, M=B: 4 layer
+    # projections x L + the lm head), one prefill (GEMM, M=1024: 4 x L),
+    # one train step (dx at M=1024: every projection x L but layer 0's
+    # wqkv, + the lm head; LoRA GEMM: wo and w_down x L)
+    dx_calls = {"wqkv": L - 1, "wo": L, "w_gateup": L, "w_down": L, "lm_head": 1}
+    t0 = time.time()
+    for qi, qtype in enumerate(FORMATS):
+        sums = {k.name: [0.0] * 5 for k in forms}  # iso, plain, lib, nbytes, flops
+
+        def add(kern, n, *vals):
+            for i_, v_ in enumerate(vals):
+                sums[kern.name][i_] += n * v_
+
+        for si, (name, (O, K)) in enumerate(shapes.items()):
+            w = qweight_of(torch, dev, qtype, O, K, 1000 + 100 * qi + si)
+            wb = weight_bytes(w)
+            copies = max(1, math.ceil(L2_COPIES_BYTES / wb))
+            ws = [(w,)] + [(type(w)(qtype=w.qtype, **{f: t.clone() for f, t in w.fields().items()}),)
+                           for _ in range(copies - 1)]
+            dense = [(w_.dequantize(torch.bfloat16),) for w_, in ws[:max(1, copies // 2)]]
+            n_layer = 1 if name == "lm_head" else L
+            for M, kern in ((B, kernels.GEMV), (TRAIN_T, kernels.GEMM)):
+                if kern is kernels.GEMM and name == "lm_head":
+                    continue  # prefill keeps the last position only: the lm head runs the GEMV
+                x = randn(M, K)
+                add(kern, n_layer,
+                    time_ms(torch, lambda w_: kernels.qmatmul(x, w_), ws),
+                    time_ms(torch, lambda w_: kernels.qmatmul_plain(x, w_), ws, iters=PLAIN_ITERS),
+                    time_ms(torch, lambda d_: torch.matmul(x, d_.t()), dense, iters=PLAIN_ITERS),
+                    M * K * 2 + wb + M * O * 2, 2.0 * M * O * K)
+            gr = randn(TRAIN_T, O)
+            add(kernels.DX, dx_calls[name],
+                time_ms(torch, lambda w_: kernels.qmatmul_dx(gr, w_), ws),
+                time_ms(torch, lambda w_: kernels.qmatmul_dx_plain(gr, w_), ws, iters=PLAIN_ITERS),
+                time_ms(torch, lambda d_: torch.matmul(gr, d_), dense, iters=PLAIN_ITERS),
+                TRAIN_T * O * 2 + wb + TRAIN_T * K * 2, 2.0 * TRAIN_T * O * K)
+            if name in ("wo", "w_down"):
+                x, a, b_ = randn(TRAIN_T, K), randn(RANK, K) / RANK, randn(O, RANK) * 0.01
+                gate = torch.full((TRAIN_T, RANK), 2.0, dtype=torch.bfloat16, device=dev)
+                add(kernels.LORA_GEMM, L,
+                    time_ms(torch, lambda w_: kernels.qmatmul_lora(x, w_, a, b_, gate), ws),
+                    time_ms(torch, lambda w_: kernels.qmatmul_lora_plain(x, w_, a, b_, gate), ws,
+                            iters=PLAIN_ITERS),
+                    time_ms(torch, lambda d_: torch.matmul(x, d_.t()) + torch.matmul(
+                        torch.matmul(x, a.t()) * 2.0, b_.t()), dense, iters=PLAIN_ITERS),
+                    TRAIN_T * K * 2 + wb + RANK * K * 2 + O * RANK * 2 + TRAIN_T * RANK * 2
+                    + TRAIN_T * O * 2,
+                    2.0 * TRAIN_T * O * K + 2.0 * TRAIN_T * K * RANK + 2.0 * TRAIN_T * RANK * O)
+            del w, ws, dense
+        for kern, unit in ((kernels.GEMV, f"decode step M={B}"), (kernels.GEMM, f"prefill M={TRAIN_T}"),
+                           (kernels.DX, f"train step M={TRAIN_T}"),
+                           (kernels.LORA_GEMM, f"train step M={TRAIN_T} R={RANK}")):
+            iso, plain_, lib, nbytes, flops = sums[kern.name]
+            bms, by = bound_ms(nbytes, flops)
+            out[kern.name][qtype].update(isolated_ms=iso, plain_ms=plain_, library_ms=lib,
+                                         bound_ms=bms, bound_by=by, per=unit)
+            log(f"phase 10: {kern.name} {qtype} per {unit}: isolated_ms={iso:.5f} "
+                f"plain_ms={plain_:.5f} library_ms={lib:.5f} bound_ms={bms:.5f} ({by})")
+    log(f"phase 10: per-format times taken in {time.time() - t0:.1f} s")
+    return out
 
 
 if __name__ == "__main__":

@@ -45,11 +45,58 @@ def test_qmatmul_kernels_match_plain(M, O, K):
     x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
     kernel = kernels.GEMV if M <= kernels.GEMV_MAX_ROWS else kernels.GEMM
     before = kernel.launches
-    y = kernels.qmatmul_int4(x, w.data, w.scales).float()
+    y = kernels.qmatmul(x, w).float()
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    ref = kernels.qmatmul_int4_plain(x, w.data, w.scales).float()
+    ref = kernels.qmatmul_plain(x, w).float()
     assert (y - ref).abs().max() <= _ULPS * ref.abs().max()
+
+
+OTHER_FORMATS = ["asym_int4", "nf4", "fp4", "sym_int8", "asym_int5", "fp8_e4m3",
+                 "fp8_e5m2", "sym_int5", "fp6", "nf3", "q2_k", "q3_k", "q4_k",
+                 "q5_k", "q6_k"]
+
+
+@pytest.mark.parametrize("O", [384, 200])
+@pytest.mark.parametrize("qtype", OTHER_FORMATS)
+def test_format_kernels_match_plain(qtype, O):
+    """Every form of every other format against its plain version: the
+    GEMV at 1, 5 and 32 rows, the GEMM at 33 and 200, the LoRA GEMM at 40
+    (R = 8) and dx at 33, at K = 2048 (every format's k_multiple divides
+    it); O = 200 leaves a ragged last tile. The encoder ran on the card:
+    its bytes equal the CPU's."""
+    dev = _cuda()
+    K = 2048
+    g = torch.Generator(device=dev).manual_seed(len(qtype) + O)
+    dense = torch.randn(O, K, device=dev, generator=g) * 0.02
+    w = quantize(dense, qtype)
+    cpu = quantize(dense.cpu(), qtype)
+    for f, t in w.fields().items():
+        assert torch.equal(t.cpu().view(torch.uint8), cpu.fields()[f].view(torch.uint8)), f
+
+    def rnd(*shape):
+        return torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+
+    def check(kernel, got, ref, before):
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1 and kernel.by_format[qtype] >= 1
+        assert bool(torch.isfinite(got).all()) and got.shape == ref.shape
+        assert _max_err(got, ref) <= _ULPS * ref.float().abs().max().item()
+
+    for M in (1, 5, 32, 33, 200):
+        x = rnd(M, K)
+        kernel = kernels.GEMV if M <= kernels.GEMV_MAX_ROWS else kernels.GEMM
+        before = kernel.launches
+        check(kernel, kernels.qmatmul(x, w), kernels.qmatmul_plain(x, w), before)
+    x, R = rnd(40, K), 8
+    a, b = rnd(R, K) / R, rnd(O, R) * 0.1
+    gate = torch.full((40, R), 2.0, dtype=torch.bfloat16, device=dev)
+    before = kernels.LORA_GEMM.launches
+    check(kernels.LORA_GEMM, kernels.qmatmul_lora(x, w, a, b, gate),
+          kernels.qmatmul_lora_plain(x, w, a, b, gate), before)
+    gr = rnd(33, O)
+    before = kernels.DX.launches
+    check(kernels.DX, kernels.qmatmul_dx(gr, w), kernels.qmatmul_dx_plain(gr, w), before)
 
 
 @pytest.mark.parametrize("case", [
@@ -207,7 +254,7 @@ def test_engine_two_layers_full_width_kernels_vs_plain(paged, quantize_kv):
         assert counts[name] == 2 * eng.decode_step_seconds.count  # per decode step
     else:
         assert counts[kernels.FLASH_FP8.name] == 2 * len(prompts)
-    plain = {"qmatmul_int4": kernels.qmatmul_int4_plain,
+    plain = {"qmatmul": kernels.qmatmul_plain,
              "flash_attention": kernels.flash_attention_plain,
              "paged_attention": kernels.paged_attention_plain}
     with mock.patch.multiple(kernels, **plain):
@@ -225,20 +272,22 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     dev = _cuda()
     w = quantize(torch.randn(128, 256, device=dev), "sym_int4")
     with pytest.raises(TypeError):
-        kernels.qmatmul_int4(torch.zeros(2, 256, device=dev), w.data, w.scales)
+        kernels.qmatmul(torch.zeros(2, 256, device=dev), w)
     q = torch.zeros(1, 4, 2, 96, dtype=torch.bfloat16, device=dev)
     with pytest.raises(NotImplementedError):
         kernels.flash_attention(q, q, q)
 
 
-def test_model_on_card_matches_plain_on_cpu():
+@pytest.mark.parametrize("qtype", ["sym_int4", "nf4", "q4_k_m"])
+def test_model_on_card_matches_plain_on_cpu(qtype):
     """The kernel-eligible slice config: prefill logits on the card (all
-    three kernels) against the same weights on the CPU (plain versions)."""
+    three kernels) against the same weights on the CPU (plain versions);
+    q4_k_m is a q4_k body under a q6_k lm head."""
     dev = _cuda()
     cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
                       num_hidden_layers=2, num_attention_heads=2,
                       num_key_value_heads=1)
-    cpu = optimize_model(llama.init_params(cfg, 0, device="cpu"), cfg)
+    cpu = optimize_model(llama.init_params(cfg, 0, device="cpu"), cfg, qtype)
     tokens, start = pad_prompts([[5, 9, 200, 7], list(range(1, 40))], 0)
 
     def logits(model, d):
@@ -251,8 +300,8 @@ def test_model_on_card_matches_plain_on_cpu():
 
     ref = logits(cpu, torch.device("cpu"))
     kernels.reset_launches()
-    gpu = TorchModel(cfg, optimize_model(llama.init_params(cfg, 0, device="cpu"), cfg),
-                     "sym_int4", device=dev).params
+    gpu = TorchModel(cfg, optimize_model(llama.init_params(cfg, 0, device="cpu"), cfg, qtype),
+                     qtype, device=dev).params
     got = logits(gpu, dev)
     counts = kernels.launch_counts()
     assert counts[kernels.GEMM.name] == 8 and counts[kernels.FLASH.name] == 2
@@ -275,10 +324,10 @@ def test_dx_kernel_matches_plain(M, O, K):
     w = quantize(torch.randn(O, K, device=dev, generator=g) * 0.05, "sym_int4")
     gr = torch.randn(M, O, device=dev, generator=g).to(torch.bfloat16)
     before = kernels.DX.launches
-    dx = kernels.qmatmul_dx(gr, w.data, w.scales)
+    dx = kernels.qmatmul_dx(gr, w)
     torch.cuda.synchronize()
     assert kernels.DX.launches == before + 1 and dx.shape == (M, K)
-    ref = kernels.qmatmul_dx_plain(gr, w.data, w.scales)
+    ref = kernels.qmatmul_dx_plain(gr, w)
     assert _max_err(dx, ref) <= _ULPS * ref.float().abs().max().item()
 
 
@@ -294,11 +343,11 @@ def test_lora_gemm_matches_plain(M, O, K, R):
     b = (torch.randn(O, R, device=dev, generator=g) * 0.1).to(torch.bfloat16)
     gate = torch.full((M, R), 2.0, dtype=torch.bfloat16, device=dev)
     before = kernels.LORA_GEMM.launches
-    y = kernels.qmatmul_int4_lora(x, w.data, w.scales, a, b, gate)
+    y = kernels.qmatmul_lora(x, w, a, b, gate)
     torch.cuda.synchronize()
     assert kernels.LORA_GEMM.launches == before + 1
-    ref = kernels.qmatmul_int4_lora_plain(x, w.data, w.scales, a, b, gate)
-    base = kernels.qmatmul_int4_plain(x, w.data, w.scales)
+    ref = kernels.qmatmul_lora_plain(x, w, a, b, gate)
+    base = kernels.qmatmul_plain(x, w)
     assert _max_err(ref, base) > 0  # the epilogue is not a no-op here
     assert _max_err(y, ref) <= _ULPS * ref.float().abs().max().item()
 
@@ -349,8 +398,8 @@ def _train_grads(cfg, model, lora, tokens, plain):
     """Loss and LoRA gradients of one step, with the kernels or, with
     `plain`, every kernel patched to its plain version."""
     patches = [mock.patch.object(kernels, n, getattr(kernels, p)) for n, p in (
-        ("qmatmul_int4", "qmatmul_int4_plain"), ("qmatmul_dx", "qmatmul_dx_plain"),
-        ("qmatmul_int4_lora", "qmatmul_int4_lora_plain"),
+        ("qmatmul", "qmatmul_plain"), ("qmatmul_dx", "qmatmul_dx_plain"),
+        ("qmatmul_lora", "qmatmul_lora_plain"),
         ("flash_train_fwd", "flash_attention_train_plain"),
         ("flash_train_dq", "flash_train_dq_plain"),
         ("flash_train_dkv", "flash_train_dkv_plain"))] if plain else []

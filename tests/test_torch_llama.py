@@ -2,11 +2,14 @@
 bigdl_tpu_torch with `params_from_numpy`, then prefill logits and greedy
 generation compared between the packages.
 
-Two configurations: a small kernel-eligible one (hidden 256, 2 heads of
-128, 1 kv head, intermediate 512, vocab 512 — every projection passes
-O % 128 and K % 64, so the port runs its kernels' plain versions and JAX,
-with BIGDL_TPU_PALLAS=interpret, its Pallas kernels) and tiny-llama
-(hidden 64: both packages take the dequant path)."""
+Two sym_int4 configurations: a small kernel-eligible one (hidden 256, 2
+heads of 128, 1 kv head, intermediate 512, vocab 512 — every projection
+passes O % 128 and K % 64, so the port runs its kernels' plain versions
+and JAX, with BIGDL_TPU_PALLAS=interpret, its Pallas kernels) and
+tiny-llama (hidden 64: both packages take the dequant path). Then nf4
+and q4_k_m (q4_k body, q6_k lm head) at hidden 1024, where every
+projection passes every format's k_multiple, and the weight carry in
+formats with mins, sub-scales and fp8 codes."""
 
 import dataclasses
 import functools
@@ -24,12 +27,16 @@ from bigdl_tpu.models import llama as jllama
 from bigdl_tpu.models.config import PRESETS as JAX_PRESETS
 from bigdl_tpu.models.config import ModelConfig as JaxConfig
 from bigdl_tpu.quant import QTensor as JaxQTensor
+from bigdl_tpu.quant.qtypes import resolve_qtype, split_mixed_qtype
 from bigdl_tpu_torch import TorchModel, kvcache
 from bigdl_tpu_torch.convert import params_from_numpy
 from bigdl_tpu_torch.generate import pad_prompts
 from bigdl_tpu_torch.models import llama
 from bigdl_tpu_torch.models.config import ModelConfig
 from bigdl_tpu_torch.ops import kernels
+from bigdl_tpu_torch.quant import ARRAY_FIELDS
+
+torch.set_num_threads(1)
 
 CONFIGS = {
     "kernel-eligible": JaxConfig(vocab_size=512, hidden_size=256,
@@ -52,8 +59,9 @@ def _flatten(tree, prefix, arrays, qtypes):
     leaves widened to float32 (exact)."""
     if isinstance(tree, JaxQTensor):
         qtypes[prefix] = tree.qtype
-        arrays[f"{prefix}@data"] = np.asarray(tree.data)
-        arrays[f"{prefix}@scales"] = np.asarray(tree.scales)
+        for f in ARRAY_FIELDS:
+            if getattr(tree, f) is not None:
+                arrays[f"{prefix}@{f}"] = np.asarray(getattr(tree, f))
     elif isinstance(tree, dict):
         for k in sorted(tree):
             _flatten(tree[k], f"{prefix}.{k}" if prefix else k, arrays, qtypes)
@@ -61,20 +69,26 @@ def _flatten(tree, prefix, arrays, qtypes):
         arrays[prefix] = np.asarray(tree, np.float32)
 
 
-@pytest.fixture(scope="module", params=list(CONFIGS))
-def pair(request):
-    jcfg = CONFIGS[request.param]
+def _make_pair(name, jcfg, qtype):
     # jitted whole: one compile instead of one per eager op and shape
     jparams = jax.jit(functools.partial(jllama.init_params, jcfg))(
         jax.random.PRNGKey(0))
-    jparams = jax.jit(lambda p: jax_optimize_model(p, jcfg, "sym_int4"))(jparams)
+    if resolve_qtype(split_mixed_qtype(qtype)[0]).superblock:
+        jparams = jax_optimize_model(jparams, jcfg, qtype)  # host encoder
+    else:
+        jparams = jax.jit(lambda p: jax_optimize_model(p, jcfg, qtype))(jparams)
     arrays, qtypes = {}, {}
     _flatten(jparams, "", arrays, qtypes)
     tcfg = ModelConfig(**dataclasses.asdict(jcfg))
     model = params_from_numpy(arrays, qtypes, tcfg, device="cpu")
     prompts = [list(np.random.default_rng(i).integers(1, jcfg.vocab_size, n))
                for i, n in enumerate(PROMPT_LENS)]
-    return request.param, jcfg, jparams, tcfg, model, prompts
+    return name, jcfg, jparams, tcfg, model, prompts
+
+
+@pytest.fixture(scope="module", params=list(CONFIGS))
+def pair(request):
+    return _make_pair(request.param, CONFIGS[request.param], "sym_int4")
 
 
 def _jax_last_logits(jcfg, jparams, prompts):
@@ -208,3 +222,99 @@ def test_unsupported_paths_raise(pair):
             tm.generate(prompts, 2, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         llama.check_supported(dataclasses.replace(tcfg, qk_norm=True))
+
+
+# nf4 and q4_k_m at a width where every projection passes every format's
+# k_multiple (hidden and intermediate 1024): the port runs its kernels'
+# plain versions, JAX its Pallas kernels in interpret mode
+FORMAT_CFG = JaxConfig(vocab_size=512, hidden_size=1024, intermediate_size=1024,
+                       num_hidden_layers=2, num_attention_heads=8,
+                       num_key_value_heads=2)
+
+
+@pytest.fixture(scope="module", params=["nf4", "q4_k_m"])
+def fmt_pair(request):
+    return _make_pair(request.param, FORMAT_CFG, request.param)
+
+
+def _assert_same_fields(got, ref, what):
+    for f in ARRAY_FIELDS:
+        r = getattr(ref, f)
+        assert (getattr(got, f) is None) == (r is None), (what, f)
+        if r is not None:
+            g = getattr(got, f)
+            r = np.asarray(r)
+            assert str(g.dtype).removeprefix("torch.") == r.dtype.name, (what, f)
+            np.testing.assert_array_equal(g.view(torch.uint8).numpy() if g.element_size() == 1
+                                          else g.numpy(), r.view(np.uint8) if
+                                          r.dtype.itemsize == 1 else r, err_msg=f"{what} {f}")
+
+
+def test_formats_weights_carry_over_exactly(fmt_pair):
+    name, jcfg, jparams, tcfg, model, _ = fmt_pair
+    head = "q6_k" if name == "q4_k_m" else name
+    assert model.lm_head.qtype == jparams["lm_head"].qtype == head
+    for i in range(tcfg.num_hidden_layers):
+        for p, lin in model.layers[i].proj.items():
+            ref = jparams["layers"][p]
+            ref_i = type(ref)(qtype=ref.qtype, **{
+                f: None if getattr(ref, f) is None else getattr(ref, f)[i]
+                for f in ARRAY_FIELDS})
+            _assert_same_fields(lin.w, ref_i, f"layer {i} {p}")
+    _assert_same_fields(model.lm_head.w, jparams["lm_head"], "lm_head")
+
+
+@pytest.mark.parametrize("pallas", ["interpret", "0"])
+def test_formats_prefill_logits_match_jax(fmt_pair, pallas, monkeypatch):
+    """Against JAX's Pallas kernels (interpret) and its XLA oracles (0):
+    4 bf16 ULPs of the largest logit."""
+    name, jcfg, jparams, tcfg, model, prompts = fmt_pair
+    monkeypatch.setenv("BIGDL_TPU_PALLAS", pallas)
+    ref = _jax_last_logits(jcfg, jparams, prompts)
+    got = _port_last_logits(tcfg, model, prompts)
+    tol = _TOL_ULPS * np.abs(ref).max()
+    assert np.abs(got - ref).max() <= tol, (np.abs(got - ref).max(), tol)
+
+
+def test_formats_greedy_tokens_match_jax_where_margin_allows(fmt_pair, monkeypatch):
+    """Greedy generation against JAX's (its XLA dequant path, the same
+    arithmetic as its kernels, fast on the CPU)."""
+    name, jcfg, jparams, tcfg, model, prompts = fmt_pair
+    monkeypatch.setenv("BIGDL_TPU_PALLAS", "0")
+    want = TpuModel(jcfg, jparams, name).generate(prompts, NEW_TOKENS)
+    kernels.reset_launches()
+    got = TorchModel(tcfg, model, name, device="cpu").generate(prompts, NEW_TOKENS)
+    assert all(n == 0 for n in kernels.launch_counts().values())
+    _assert_tokens_match_where_margin_allows(name, jcfg, jparams, prompts, got, want)
+
+
+@pytest.mark.parametrize("qtype", ["fp8_e4m3", "fp8_e5m2", "asym_int4", "q5_k", "q3_k"])
+def test_params_from_numpy_carries_every_field(qtype):
+    """mins, sub-scales, sub-mins and fp8 codes (numpy float8 arrays)
+    cross into the port byte for byte."""
+    jcfg = CONFIGS["kernel-eligible"]
+    _, _, jparams, _, model, _ = _make_pair(qtype, jcfg, qtype)
+    ref = jparams["layers"]["w_gateup"]
+    ref_1 = type(ref)(qtype=ref.qtype, **{
+        f: None if getattr(ref, f) is None else getattr(ref, f)[1] for f in ARRAY_FIELDS})
+    _assert_same_fields(model.layers[1].proj["w_gateup"].w, ref_1, qtype)
+    _assert_same_fields(model.lm_head.w, jparams["lm_head"], qtype)
+
+
+@pytest.mark.parametrize("low_bit,lm_head_qtype,head", [
+    ("nf4", "sym_int8", "sym_int8"), ("q4_k_m", None, "q6_k"), ("q4_k_m", "fp8_e4m3", "fp8_e4m3")])
+def test_optimize_model_lm_head_qtype_matches_jax(low_bit, lm_head_qtype, head):
+    """The lm head takes `lm_head_qtype`, else the mixed alias's head
+    format (JAX's quantize_params rule); its bytes equal JAX's quantize of
+    the same dense weight, and the body keeps the body format."""
+    from bigdl_tpu.quant import quantize as jquantize
+    from bigdl_tpu_torch import optimize_model
+
+    cfg = ModelConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1)
+    model = llama.init_params(cfg, 3, device="cpu")
+    dense_head = model.lm_head.weight.float().numpy()
+    model = optimize_model(model, cfg, low_bit, lm_head_qtype=lm_head_qtype)
+    assert model.lm_head.qtype == head
+    assert model.layers[0].proj["wo"].qtype == split_mixed_qtype(low_bit)[0]
+    _assert_same_fields(model.lm_head.w, jquantize(jnp.asarray(dense_head), head), head)

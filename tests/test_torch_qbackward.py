@@ -1,5 +1,6 @@
-"""bigdl_tpu_torch's fused dequant dx and the GEMM's LoRA epilogue: the
-plain versions against the JAX Pallas kernels (interpret mode), and the
+"""bigdl_tpu_torch's fused dequant dx and the GEMM's LoRA epilogue, for
+every weight format: the plain versions against the JAX Pallas kernels
+(interpret mode), and the
 gradients of the port's `linear` (the autograd Functions over the fused
 GEMM, the LoRA epilogue and the dx kernel) against `jax.vjp` of the JAX
 package's `linear` on its Pallas path. The CUDA kernels against the plain
@@ -17,10 +18,16 @@ from bigdl_tpu.ops.linear import linear as jax_linear
 from bigdl_tpu.ops.pallas.qbackward import qmatmul_dx as jax_qmatmul_dx
 from bigdl_tpu.ops.pallas.qmatmul import qmatmul_lora as jax_qmatmul_lora
 from bigdl_tpu.quant import quantize as jquantize
+from bigdl_tpu.quant.qtypes import qtype_registry
 from bigdl_tpu_torch.ops import kernels, linear
-from bigdl_tpu_torch.quant import QTensor
+from bigdl_tpu_torch.quant import ARRAY_FIELDS, QTensor
 
-# Both sides decode (code - 8) * scale in f32 rounded to bf16, sum bf16
+torch.set_num_threads(1)
+
+OTHER_FORMATS = [n for n, s in qtype_registry().items()
+                 if not s.is_dense and n != "sym_int4"]
+
+# Both sides decode each weight in f32 rounded to bf16, sum bf16
 # products in f32 in different orders and round the result to bf16 once:
 # one bf16 rounding step (2^-8 relative) per element, plus the f32
 # reordering (about K * 2^-24 of the largest term) where sums cancel.
@@ -36,13 +43,19 @@ def _within_bf16_ulps(got, ref, floor=1e-5):
     assert np.all(np.abs(got - ref) <= bound), np.abs(got - ref).max()
 
 
-def _weight(O, K, seed):
+def _weight(O, K, seed, qtype="sym_int4"):
+    """A JAX QTensor and the port's holding the same fields (fp8 codes
+    through their bytes)."""
     rng = np.random.default_rng(seed)
-    qt = jquantize(jnp.asarray(rng.normal(size=(O, K)) * 0.05, jnp.float32),
-                   "sym_int4")
-    w = QTensor(torch.from_numpy(np.array(qt.data)),
-                torch.from_numpy(np.array(qt.scales)), qtype="sym_int4")
-    return qt, w, rng
+    qt = jquantize(jnp.asarray(rng.normal(size=(O, K)) * 0.05, jnp.float32), qtype)
+    fields = {}
+    for f in ARRAY_FIELDS:
+        a = getattr(qt, f)
+        if a is not None:
+            a = np.array(a)
+            fields[f] = (torch.from_numpy(a.view(np.uint8)).view(getattr(torch, a.dtype.name))
+                         if a.dtype.name.startswith("float8") else torch.from_numpy(a))
+    return qt, QTensor(qtype=qt.qtype, **fields), rng
 
 
 def _bf16(a):
@@ -57,8 +70,36 @@ def test_dx_plain_matches_pallas_interpret(M, O, K):
     qt, w, rng = _weight(O, K, M + O + K)
     jg, tg = _bf16(rng.normal(size=(M, O)))
     ref = jax_qmatmul_dx(jg, qt, interpret=True)
-    got = kernels.qmatmul_dx(tg, w.data, w.scales)
+    got = kernels.qmatmul_dx(tg, w)
     assert got.dtype == torch.bfloat16 and got.shape == (M, K)
+    _within_bf16_ulps(got.float().numpy(), ref)
+
+
+@pytest.mark.parametrize("qtype", OTHER_FORMATS)
+def test_formats_dx_plain_matches_pallas_interpret(qtype):
+    """Every other format's dx at M = 33 (K = 1024 takes every format's
+    k_multiple)."""
+    M, O, K = 33, 256, 1024
+    qt, w, rng = _weight(O, K, len(qtype), qtype)
+    jg, tg = _bf16(rng.normal(size=(M, O)))
+    ref = jax_qmatmul_dx(jg, qt, interpret=True)
+    got = kernels.qmatmul_dx(tg, w)
+    assert got.dtype == torch.bfloat16 and got.shape == (M, K)
+    _within_bf16_ulps(got.float().numpy(), ref)
+
+
+@pytest.mark.parametrize("qtype", OTHER_FORMATS)
+def test_formats_lora_gemm_plain_matches_pallas_interpret(qtype):
+    """Every other format's LoRA GEMM at M = 33, R = 8."""
+    M, O, K, R = 33, 256, 1024, 8
+    qt, w, rng = _weight(O, K, len(qtype) + 1, qtype)
+    jx, tx = _bf16(rng.normal(size=(M, K)))
+    ja, ta = _bf16(rng.normal(size=(R, K)) / R)
+    jb, tb = _bf16(rng.normal(size=(O, R)) * 0.1)
+    jgate, tgate = _bf16(np.full((M, R), 2.0))
+    ref = jax_qmatmul_lora(jx, qt, ja, jb, jgate, interpret=True)
+    got = kernels.qmatmul_lora(tx, w, ta, tb, tgate)
+    assert (got.float() - kernels.qmatmul(tx, w).float()).abs().max() > 0.01
     _within_bf16_ulps(got.float().numpy(), ref)
 
 
@@ -71,8 +112,8 @@ def test_lora_gemm_plain_matches_pallas_interpret(M, R):
     jb, tb = _bf16(rng.normal(size=(O, R)) * 0.1)
     jgate, tgate = _bf16(np.full((M, R), 2.0))
     ref = jax_qmatmul_lora(jx, qt, ja, jb, jgate, interpret=True)
-    got = kernels.qmatmul_int4_lora(tx, w.data, w.scales, ta, tb, tgate)
-    base = kernels.qmatmul_int4(tx, w.data, w.scales)
+    got = kernels.qmatmul_lora(tx, w, ta, tb, tgate)
+    base = kernels.qmatmul(tx, w)
     assert (got.float() - base.float()).abs().max() > 0.01  # a real epilogue
     _within_bf16_ulps(got.float().numpy(), ref)
 
@@ -134,14 +175,14 @@ def test_lora_dispatch_follows_jax_rules():
                 torch.tensor(2.0, dtype=torch.bfloat16))
 
     wide = pair(kernels.LORA_MAX_RANK + 1)
-    unfused = (kernels.qmatmul_int4(x.to(torch.bfloat16), w.data, w.scales)
+    unfused = (kernels.qmatmul(x.to(torch.bfloat16), w)
                + linear_mod.lora_epilogue(x, *wide))
     torch.testing.assert_close(linear(x, w, lora=wide), unfused, rtol=0, atol=0)
     a, b, s = pair(8)
     gate = s.expand(40, 8).contiguous()
     torch.testing.assert_close(
         linear(x, w, lora=(a, b, s)),
-        kernels.qmatmul_int4_lora(x.to(torch.bfloat16), w.data, w.scales, a, b, gate),
+        kernels.qmatmul_lora(x.to(torch.bfloat16), w, a, b, gate),
         rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
         linear(x[:32], w, lora=(a, b, s))

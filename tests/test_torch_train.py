@@ -32,8 +32,11 @@ from bigdl_tpu_torch.convert import lora_from_numpy, params_from_numpy
 from bigdl_tpu_torch.models import llama
 from bigdl_tpu_torch.models.config import ModelConfig
 from bigdl_tpu_torch.ops import kernels
+from bigdl_tpu_torch.quant import ARRAY_FIELDS
 from bigdl_tpu_torch.train import (adamw, init_lora, make_train_step,
                                    merge_lora, next_token_loss)
+
+torch.set_num_threads(1)
 
 CONFIGS = {
     "kernel-eligible": JaxConfig(vocab_size=512, hidden_size=256,
@@ -49,8 +52,9 @@ def _flatten(tree, prefix, arrays, qtypes):
     widened to float32 (exact)."""
     if isinstance(tree, JaxQTensor):
         qtypes[prefix] = tree.qtype
-        arrays[f"{prefix}@data"] = np.asarray(tree.data)
-        arrays[f"{prefix}@scales"] = np.asarray(tree.scales)
+        for f in ARRAY_FIELDS:
+            if getattr(tree, f) is not None:
+                arrays[f"{prefix}@{f}"] = np.asarray(getattr(tree, f))
     elif isinstance(tree, dict):
         for k in sorted(tree):
             _flatten(tree[k], f"{prefix}.{k}" if prefix else k, arrays, qtypes)
@@ -58,11 +62,9 @@ def _flatten(tree, prefix, arrays, qtypes):
         arrays[prefix] = np.asarray(tree, np.float32)
 
 
-@pytest.fixture(scope="module", params=list(CONFIGS))
-def pair(request):
-    jcfg = CONFIGS[request.param]
+def _make_pair(name, jcfg, qtype):
     jparams = jax.jit(functools.partial(jllama.init_params, jcfg))(jax.random.PRNGKey(0))
-    jparams = jax.jit(lambda p: jax_optimize_model(p, jcfg, "sym_int4"))(jparams)
+    jparams = jax.jit(lambda p: jax_optimize_model(p, jcfg, qtype))(jparams)
     jlora = jax_init_lora(jcfg, jax.random.PRNGKey(1), rank=8)
     arrays, qtypes = {}, {}
     _flatten(jparams, "", arrays, qtypes)
@@ -74,7 +76,12 @@ def pair(request):
     tokens = rng.integers(1, jcfg.vocab_size, (2, 25)).astype(np.int32)
     mask = np.ones((2, 25), np.float32)
     mask[1, :4] = 0.0  # targets that do not count
-    return request.param, jcfg, jparams, jlora, tcfg, model, larrays, tokens, mask
+    return name, jcfg, jparams, jlora, tcfg, model, larrays, tokens, mask
+
+
+@pytest.fixture(scope="module", params=list(CONFIGS))
+def pair(request):
+    return _make_pair(request.param, CONFIGS[request.param], "sym_int4")
 
 
 def _port_lora(tcfg, larrays):
@@ -96,6 +103,18 @@ def test_step1_loss_and_grads_match_jax(pair, monkeypatch):
     leaf within 5 % of its largest element: bf16 activations cross two
     layers forward and back, and the two packages round at the same
     points but sum in different orders."""
+    _assert_step1_matches_jax(pair, monkeypatch)
+
+
+def test_nf4_qlora_step1_loss_and_grads_match_jax(monkeypatch):
+    """QLoRA over an nf4 base (QLoRA's own format) at the kernel-eligible
+    config: the fused nf4 GEMM, LoRA epilogue and dx (plain versions)
+    against JAX's Pallas kernels, with step 1's tolerances."""
+    _assert_step1_matches_jax(_make_pair("nf4", CONFIGS["kernel-eligible"], "nf4"),
+                              monkeypatch)
+
+
+def _assert_step1_matches_jax(pair, monkeypatch):
     name, jcfg, jparams, jlora, tcfg, model, larrays, tokens, mask = pair
     monkeypatch.setenv("BIGDL_TPU_PALLAS", "interpret")
     scale = jlora["scale"]
