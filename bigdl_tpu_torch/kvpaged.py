@@ -14,9 +14,9 @@ bigdl_tpu/kvpaged.py).
 
 Pages are allocated on demand and refcounted (`PagePool`); physical page
 0 is the scratch sink that idle slots write into. The host-RAM swap
-(`swap_out_pages` / `swap_in_pages`) backs serving preemption. The
-adapter page store of the JAX module waits for serving adapters (ROADMAP
-queue 1 item 7).
+(`swap_out_pages` / `swap_in_pages`) backs serving preemption.
+`AdapterPageStore` frames LoRA adapter weights in pages drawn from the same
+`PagePool` (the serving engine's unified adapter paging).
 """
 
 from __future__ import annotations
@@ -130,6 +130,39 @@ def kv_page_nbytes(cache: PagedKVCache) -> int:
     if cache.quantized:
         n += 2 * L * page * Hkv * cache.k_scale.element_size()
     return n
+
+
+class AdapterPageStore:
+    """Device residency for LoRA adapter weights, page-framed so that its
+    page ids come from the same `PagePool` as KV: every adapter page here
+    is one KV page the radix cache and the slots cannot hold, one device
+    budget. One flat bf16 buffer `buf` [n_pages, page_elems], page_elems
+    the bf16 count whose bytes match one KV page (`kv_page_nbytes`) — as
+    the JAX store, a second buffer the size of the KV pool. Ownership
+    (holds, LRU, eviction) lives in `serving.adapters.AdapterPager`."""
+
+    def __init__(self, n_pages: int, page_nbytes: int, device=None):
+        self.page_elems = max(page_nbytes // 2, 1)
+        self.buf = torch.zeros((n_pages, self.page_elems), dtype=torch.bfloat16,
+                               device=resolve_device(device))
+
+    def n_for(self, n_elems: int) -> int:
+        """Pages needed to hold `n_elems` bf16 elements."""
+        return -(-int(n_elems) // self.page_elems)
+
+    def write(self, pages, flat: torch.Tensor) -> None:
+        """Scatter a flat vector (rounded to bf16, zero-padded to the page
+        frame) into physical pages `pages`, in place."""
+        n = len(pages) * self.page_elems
+        v = torch.zeros((n,), dtype=torch.bfloat16, device=self.buf.device)
+        v[: flat.numel()] = flat.reshape(-1).to(device=self.buf.device, dtype=torch.bfloat16)
+        ids = torch.as_tensor(list(pages), dtype=torch.long, device=self.buf.device)
+        self.buf.index_copy_(0, ids, v.view(len(pages), self.page_elems))
+
+    def read(self, pages, n_elems: int) -> torch.Tensor:
+        """The leading `n_elems` of the pages' flat vector, on the device."""
+        ids = torch.as_tensor(list(pages), dtype=torch.long, device=self.buf.device)
+        return self.buf.index_select(0, ids).reshape(-1)[:n_elems]
 
 
 # ---------------------------------------------------------------------------

@@ -21,10 +21,14 @@ validity mask from (start, pos). Without a
 cache (`cache=None`, the training / scoring path) query t of row b sits at
 slot t with position max(t - start[b], 0); T > 1 goes through the
 differentiable flash kernels (forward with logsumexp, dQ, dK/dV), T = 1
-through the masked attention. That path takes LoRA adapters (`lora=`, a
-`train.qlora.LoRA`): the q/k/v and gate/up deltas apply in plain torch on
-the fused projections' slices, wo and w_down fold theirs into the fused
-GEMM's writeback.
+through the masked attention. Every path takes LoRA adapters (`lora=`: a
+`train.qlora.LoRA`, or JAX's {"layers": {target: {"a", "b"}}, "scale"}
+tree, shared — a [L, r, in], b [L, out, r], scalar scale — or batched per
+row, as the serving engine's decode step gathers them — a [L, B, rb, in],
+b [L, B, out, rb], scale [B]): the q/k/v and gate/up deltas apply as
+`lora_epilogue` on the fused projections' slices, wo and w_down pass
+theirs to `linear`, which folds them into the fused kernel's writeback
+where JAX's eligibility rule admits the width.
 """
 
 from __future__ import annotations
@@ -210,13 +214,9 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
     without a cache). The cache is written in place; its pos is an int
     (rows aligned) or an int32 [B] tensor (per-row, the serving engine's
     pools). `start` [B] gives the left padding of the cache-free path (the
-    cache carries its own); `lora` runs only there."""
+    cache carries its own); `lora` is a shared or batched adapter tree."""
     if mode not in ("prefill", "decode"):
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
-    if cache is not None and lora is not None:
-        raise NotImplementedError(
-            "LoRA adapters with a KV cache (serving adapters): ROADMAP "
-            "queue 1 item 7, still to be ported")
     check_supported(config)
     if any("wqkv" not in layer.proj for layer in model.layers):
         raise ValueError("forward runs the fused layout (wqkv, w_gateup): "
@@ -264,12 +264,17 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
                 & (sj[None, None, :] >= row_start[:, None, None]))
         mask = mask[:, None, None]  # [B, 1, 1, T, S]
 
+    lora_layers, lora_scale = ((None, None) if lora is None else
+                               (lora["layers"], lora["scale"]) if isinstance(lora, dict)
+                               else (lora.layers, lora.scale))
+
     def adapter(target, idx):
-        """(a [r, in], b [out, r], scale) of layer idx's `target`, or None."""
-        if lora is None or target not in lora.layers:
+        """(a, b, scale) of layer idx's `target` — a [r, in], b [out, r]
+        shared, or a [B, rb, in], b [B, out, rb] batched — or None."""
+        if lora is None or target not in lora_layers:
             return None
-        pair = lora.layers[target]
-        return pair["a"][idx], pair["b"][idx], lora.scale
+        pair = lora_layers[target]
+        return pair["a"][idx], pair["b"][idx], lora_scale
 
     def plus_delta(y, x, target, idx):
         """y + the LoRA delta of x for a slice of a fused projection (the

@@ -18,15 +18,16 @@ from bigdl_tpu_torch.ops.kernels.qbackward import (
     DX, qmatmul_dx, qmatmul_dx_plain,
 )
 from bigdl_tpu_torch.ops.kernels.qmatmul import (
-    GEMM, GEMV, GEMV_MAX_ROWS, K_MULTIPLE, LORA_GEMM, LORA_MAX_RANK, qmatmul,
-    qmatmul_lora, qmatmul_lora_plain, qmatmul_plain,
+    GEMM, GEMV, GEMV_MAX_ROWS, K_MULTIPLE, LORA_GEMM, LORA_GEMV, lora_fused_ok,
+    qmatmul, qmatmul_lora, qmatmul_lora_plain, qmatmul_plain,
 )
 
 # every kernel of the port, in the order the main paths first run them:
 # generation (prefill, decode), a training step (forward, backward), then
-# serving (paged decode, bf16 and fp8 pages; the dense fp8 pool's prefill)
+# serving (paged decode, bf16 and fp8 pages; the dense fp8 pool's prefill;
+# adapter decode steps)
 KERNELS = (GEMM, FLASH, GEMV, FLASH_FWD, LORA_GEMM, DX, FLASH_DQ, FLASH_DKV,
-           PAGED, PAGED_FP8, FLASH_FP8)
+           PAGED, PAGED_FP8, FLASH_FP8, LORA_GEMV)
 
 
 def reset_launches() -> None:
@@ -45,11 +46,12 @@ def format_launch_counts() -> dict:
 
 __all__ = ["DX", "FLASH", "FLASH_DKV", "FLASH_DQ", "FLASH_FP8", "FLASH_FWD",
            "GEMM", "GEMV", "GEMV_MAX_ROWS", "KERNELS", "K_MULTIPLE", "LORA_GEMM",
-           "LORA_MAX_RANK", "PAGED", "PAGED_FP8", "format_launch_counts",
+           "LORA_GEMV", "PAGED", "PAGED_FP8", "format_launch_counts",
            "flash_attention", "flash_attention_plain",
            "flash_attention_train", "flash_attention_train_bwd_plain",
            "flash_attention_train_plain", "flash_train_dkv",
            "flash_train_dkv_plain", "flash_train_dq", "flash_train_dq_plain",
-           "flash_train_fwd", "launch_counts", "paged_attention", "paged_attention_plain",
+           "flash_train_fwd", "launch_counts", "lora_fused_ok", "paged_attention",
+           "paged_attention_plain",
            "qmatmul", "qmatmul_dx", "qmatmul_dx_plain", "qmatmul_lora",
            "qmatmul_lora_plain", "qmatmul_plain", "reset_launches"]

@@ -7,10 +7,10 @@ qtype (ops/kernels/_build.py); its header note says what bounds each form
 on the card and what the design does about it, and `csrc/qdecode.cuh`
 holds every format's decode. Two kernels split the TPU kernel's two shape
 classes at `GEMV_MAX_ROWS` rows: a GEMV for decode and a tensor-core GEMM
-for prefill. A third entry is the GEMM with `_kernel`'s LoRA epilogue
-(`qmatmul_lora`), for up to `LORA_MAX_RANK` adapter columns at more than
-`GEMV_MAX_ROWS` rows (the training shapes); the GEMV form of the epilogue
-(serving adapters) is still to port (ROADMAP queue 2 item 4).
+for prefill. `_kernel`'s LoRA epilogue (`qmatmul_lora`) has the same two
+forms, the LoRA GEMV (serving decode steps, short prefill tails) and the
+LoRA GEMM (prefill, training), for any adapter width R that the JAX
+package's `lora_fused_ok` admits (copied here with its constants).
 
 The wrappers take a `QTensor` of any quantized qtype whose contraction
 dim is a multiple of the format's `K_MULTIPLE` and dispatch on the
@@ -33,11 +33,33 @@ GEMV = Kernel("qmatmul_gemv", "qmatmul", "pppppppiii", replaces=_REPLACES,
               per_format=True)
 GEMM = Kernel("qmatmul_gemm", "qmatmul", "pppppppiii", replaces=_REPLACES,
               per_format=True)
-# (x, data, scales, mins, sub_scales, sub_mins, a_cat, b_cat, gate, out,
-#  M, K, O, R)
-LORA_GEMM = Kernel("qmatmul_gemm_lora", "qmatmul", "ppppppppppiiii",
+# (x, data, scales, mins, sub_scales, sub_mins, a_cat, b_cat, gate, xg
+#  scratch, out, M, K, O, R)
+LORA_GEMV = Kernel("qmatmul_gemv_lora", "qmatmul", "pppppppppppiiii",
                    replaces=_REPLACES, per_format=True)
-LORA_MAX_RANK = 16  # adapter columns R the epilogue takes (one 16-wide tile)
+LORA_GEMM = Kernel("qmatmul_gemm_lora", "qmatmul", "pppppppppppiiii",
+                   replaces=_REPLACES, per_format=True)
+
+# The fused epilogue's eligibility, copied from bigdl_tpu/ops/pallas/
+# tiling.py so that the port fuses exactly where JAX does: bytes per
+# element of the LoRA operands, and their share of the TPU kernel's VMEM.
+LORA_BPE = 2
+LORA_VMEM_CAP = 4 * 1024 * 1024
+
+
+def lora_operand_bytes(R: int, K: int, O_block: int, M_block: int) -> int:
+    """The TPU kernel's VMEM for the epilogue's operands: A_cat [R, K], a
+    B_cat tile [O_block, R], a gate tile [M_block, R] and the f32 xa
+    [M_block, R]."""
+    return (R * K * LORA_BPE + O_block * R * LORA_BPE
+            + M_block * R * LORA_BPE + M_block * R * 4)
+
+
+def lora_fused_ok(R: int, K: int) -> bool:
+    """Whether R adapter columns over a K-wide contraction take the fused
+    epilogue (at the largest tiles, 256 x 256); else the epilogue runs
+    unfused after the base kernel."""
+    return R > 0 and lora_operand_bytes(R, K, 256, 256) <= LORA_VMEM_CAP
 
 # The contraction dims the kernels take, per qtype: the JAX package's
 # k_multiple (bigdl_tpu/ops/linear.py _QGEMV_QTYPES): whole quant blocks
@@ -151,10 +173,11 @@ def qmatmul_lora_plain(x: torch.Tensor, w: QTensor, a_cat: torch.Tensor,
 
 def qmatmul_lora(x: torch.Tensor, w: QTensor, a_cat: torch.Tensor,
                  b_cat: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
-    """`qmatmul` with the LoRA epilogue folded into the GEMM's writeback:
-    y = x @ dq(W)^T + ((x @ A_cat^T) * gate) @ B_cat^T. x [..., K] bf16 with
-    more than GEMV_MAX_ROWS rows; a_cat [R, K], b_cat [O, R], gate [M, R]
-    bf16, R <= LORA_MAX_RANK; returns bf16 [..., O]."""
+    """`qmatmul` with the LoRA epilogue folded into the writeback:
+    y = x @ dq(W)^T + bf16((x @ A_cat^T) * gate) @ B_cat^T. x [..., K]
+    bf16; a_cat [R, K], b_cat [O, R], gate [M, R] bf16 with
+    `lora_fused_ok(R, K)`; returns bf16 [..., O]. Rows <= GEMV_MAX_ROWS
+    launch the LoRA GEMV, more rows the LoRA GEMM."""
     if x.device.type == "cpu":
         return qmatmul_lora_plain(x, w, a_cat, b_cat, gate)
     if x.device.type != "cuda":
@@ -165,14 +188,9 @@ def qmatmul_lora(x: torch.Tensor, w: QTensor, a_cat: torch.Tensor,
     _check_x(x2, "qmatmul_lora")
     M, O = x2.shape[0], w.data.shape[0]
     R = a_cat.shape[0]
-    if M <= GEMV_MAX_ROWS:
-        raise NotImplementedError(
-            f"qmatmul_lora at M={M} <= {GEMV_MAX_ROWS} rows (the GEMV form of "
-            "the LoRA epilogue, serving adapters): ROADMAP queue 2 item 4, "
-            "still to be ported")
-    if not 1 <= R <= LORA_MAX_RANK:
-        raise ValueError(f"qmatmul_lora: R={R} adapter columns, the kernel "
-                         f"takes 1..{LORA_MAX_RANK}")
+    if not lora_fused_ok(R, K):
+        raise ValueError(f"qmatmul_lora: R={R} adapter columns at K={K} exceed "
+                         "the fused epilogue's operand budget (lora_fused_ok)")
     if a_cat.shape != (R, K) or b_cat.shape != (O, R) or gate.shape != (M, R):
         raise ValueError(f"qmatmul_lora: a_cat {tuple(a_cat.shape)}, b_cat "
                          f"{tuple(b_cat.shape)}, gate {tuple(gate.shape)} do not "
@@ -185,6 +203,9 @@ def qmatmul_lora(x: torch.Tensor, w: QTensor, a_cat: torch.Tensor,
             raise ValueError(f"qmatmul_lora: {name} must be contiguous and "
                              f"{align}-byte aligned")
     out = torch.empty((M, O), dtype=torch.bfloat16, device=x.device)
-    LORA_GEMM(x2, *fields, a_cat, b_cat, gate, out, M, K, O, R,
-              device=x.device, qtype=w.qtype)
+    if M:
+        xg = torch.empty((M, R), dtype=torch.bfloat16, device=x.device)  # first pass
+        kernel = LORA_GEMV if M <= GEMV_MAX_ROWS else LORA_GEMM
+        kernel(x2, *fields, a_cat, b_cat, gate, xg, out, M, K, O, R,
+               device=x.device, qtype=w.qtype)
     return out.reshape(*x.shape[:-1], O)

@@ -9,12 +9,14 @@ sends those shapes to its XLA dequant path.
 
 The fused matmul is differentiable in x (JAX's custom_vjp, `_fused_matmul`
 / `_fused_bwd`): its backward is the fused dequant dx kernel, and the
-frozen weight gets no gradient. An optional shared LoRA pair
-`lora=(a [r, K], b [O, r], scale)` folds into the GEMM's writeback on the
-fused path (`_fused_lora_matmul`: the LoRA epilogue kernel forward; the
-backward's base-weight term through the dx kernel and the rank-r terms in
-plain torch, as JAX leaves them to XLA); everywhere else it applies as
-`lora_epilogue`. Batched per-row adapters raise (ROADMAP queue 1 item 7).
+frozen weight gets no gradient. An optional LoRA triple — shared,
+`lora=(a [r, K], b [O, r], scale)`, or batched per-row adapters of the
+serving engine, `(a [B, rb, K], b [B, O, rb], scale [B])` against x
+[B, T, K] — folds into the fused matmul's writeback wherever JAX's
+`lora_fused_ok` admits its width (`_FusedLoraMatmul`: the LoRA GEMV or
+GEMM forward; the backward's base-weight term through the dx kernel and
+the rank-R terms in plain torch, as JAX leaves them to XLA); everywhere
+else it applies as `lora_epilogue`.
 
 `Linear` is the module form: it holds a QTensor's fields as buffers
 (`data`, `scales`, and `mins` / `sub_scales` / `sub_mins` where the
@@ -30,10 +32,6 @@ from torch import nn
 
 from bigdl_tpu_torch.ops import kernels
 from bigdl_tpu_torch.quant import ARRAY_FIELDS, QTensor
-
-_BATCHED_ADAPTERS = ("batched per-row LoRA adapters (serving): ROADMAP queue 1 "
-                     "item 7, still to be ported")
-
 
 def _qtensor(qtype: str, fields) -> QTensor:
     return QTensor(**dict(zip(ARRAY_FIELDS, fields)), qtype=qtype)
@@ -59,7 +57,7 @@ class _FusedMatmul(torch.autograd.Function):
 
 class _FusedLoraMatmul(torch.autograd.Function):
     """y = x @ dq(W)^T + bf16((x @ a^T) * gate) @ b^T through the LoRA
-    epilogue kernel. The backward follows JAX's `_fused_lora_bwd`
+    GEMV or GEMM (the operands cross to it in bf16). The backward follows JAX's `_fused_lora_bwd`
     (ops/linear.py:398-418): with u = x @ a^T and dv = g @ b, du = dv *
     gate, dx = g @ dq(W) (dx kernel) + du @ a, da = du^T @ x, db = g^T @
     (u * gate), dgate = dv * u — the rank-r products in the compute
@@ -69,7 +67,8 @@ class _FusedLoraMatmul(torch.autograd.Function):
     def forward(ctx, x, a, b, gate, qtype, *fields):
         ctx.qtype = qtype
         ctx.save_for_backward(x, a, b, gate, *fields)
-        return kernels.qmatmul_lora(x, _qtensor(qtype, fields), a, b, gate)
+        a16, b16, g16 = (t.to(torch.bfloat16).contiguous() for t in (a, b, gate))
+        return kernels.qmatmul_lora(x, _qtensor(qtype, fields), a16, b16, g16)
 
     @staticmethod
     def backward(ctx, g):
@@ -114,46 +113,63 @@ def _rows(x: torch.Tensor) -> int:
 
 
 def _lora_cat_operands(x: torch.Tensor, lora, compute_dtype):
-    """A shared LoRA triple (a [r, K], b [O, r], scale) in the fused
-    epilogue's concatenated operand form (a_cat [R, K], b_cat [O, R],
-    gate [M, R]): gate row m carries the scale in every column. None when
-    the shape is ineligible — more adapter columns than the epilogue
-    kernel takes (JAX's test is its VMEM allowance, `lora_fused_ok`)."""
+    """A LoRA triple in the fused epilogue's concatenated operand form
+    (a_cat [R, K], b_cat [O, R], gate [M, R]), as JAX's
+    `_lora_cat_operands`, or None where JAX's `lora_fused_ok` refuses the
+    width or the batched form does not line up with x's rows. Shared
+    (a [r, K], b [O, r], scale): gate row m carries the scale in every
+    column. Batched (a [B, rb, K], b [B, O, rb], scale [B] against x
+    [B, T, K]): columns group-major, rank within; gate row m carries
+    scale_g in its own group g's columns and 0 elsewhere."""
     a, b, scale = lora
-    if a.dim() == 3:
-        raise NotImplementedError(f"linear(lora=...) with {_BATCHED_ADAPTERS}")
-    r, ka = a.shape
-    if ka != x.shape[-1] or r == 0 or r > kernels.LORA_MAX_RANK:
-        return None
-    M = _rows(x)
-    if M <= kernels.GEMV_MAX_ROWS:
-        raise NotImplementedError(
-            f"linear(lora=...) at {M} <= {kernels.GEMV_MAX_ROWS} rows (the GEMV "
-            "form of the fused LoRA epilogue): ROADMAP queue 2 item 4, still to "
-            "be ported")
+    K = x.shape[-1]
     sc = torch.as_tensor(scale, device=x.device).to(compute_dtype)
-    return a, b, sc.expand(M, r).contiguous()
+    if a.dim() == 3:
+        if x.dim() != 3 or a.shape[0] != x.shape[0]:
+            return None
+        B, rb, ka = a.shape
+        R = B * rb
+        if ka != K or rb == 0 or not kernels.lora_fused_ok(R, K):
+            return None
+        T = x.shape[1]
+        a_cat = a.reshape(R, K)
+        b_cat = b.movedim(0, 1).reshape(b.shape[1], R)
+        grp = torch.arange(B, device=x.device).repeat_interleave(T)  # row -> group
+        col = torch.arange(B, device=x.device).repeat_interleave(rb)  # col -> group
+        gate = (grp[:, None] == col[None, :]).to(compute_dtype) * sc[grp][:, None]
+        return a_cat, b_cat, gate
+    r, ka = a.shape
+    if ka != K or r == 0 or not kernels.lora_fused_ok(r, K):
+        return None
+    return a, b, sc.expand(_rows(x), r).contiguous()
 
 
 def lora_epilogue(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                   scale, compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """The shared LoRA delta (x @ a^T) @ b^T * scale in the compute dtype,
-    added to a projection's output: a [r, in], b [out, r], scalar scale.
-    The scale is cast to the compute dtype, never the other way."""
-    if a.dim() == 3:
-        raise NotImplementedError(f"lora_epilogue with {_BATCHED_ADAPTERS}")
+    """The LoRA delta (x @ a^T) @ b^T * scale in the compute dtype, added
+    to a projection's output. Shared: a [r, in], b [out, r], scalar scale.
+    Batched per-row adapters (the serving engine's mixed decode batch):
+    a [B, r, in], b [B, out, r], scale [B] against x [B, T, in], row b
+    through its own pair (zero-padded rank columns and a 0 scale add
+    nothing). The scale is cast to the compute dtype, never the other
+    way."""
     xc = x.to(compute_dtype)
-    xa = torch.matmul(xc, a.to(compute_dtype).t())
+    ac, bc = a.to(compute_dtype), b.to(compute_dtype)
     sc = torch.as_tensor(scale, device=x.device).to(compute_dtype)
-    return torch.matmul(xa, b.to(compute_dtype).t()) * sc
+    if a.dim() == 3:
+        xa = torch.einsum("btk,brk->btr", xc, ac)
+        return torch.einsum("btr,bor->bto", xa, bc) * sc[:, None, None]
+    xa = torch.matmul(xc, ac.t())
+    return torch.matmul(xa, bc.t()) * sc
 
 
 def linear(x: torch.Tensor, w: Union[QTensor, torch.Tensor],
            bias: Optional[torch.Tensor] = None,
            compute_dtype=torch.bfloat16, lora=None) -> torch.Tensor:
     """y = x @ W^T (+ bias) (+ LoRA delta), W of logical shape [out, in].
-    `lora` is an optional shared (a, b, scale) triple: on the fused GEMM
-    path it rides in the kernel's writeback, elsewhere it applies as
+    `lora` is an optional shared or batched (a, b, scale) triple: where
+    the fused kernels take the weight and `lora_fused_ok` the width it
+    rides in the kernel's writeback, elsewhere it applies as
     `lora_epilogue`."""
     if isinstance(w, QTensor) and _fused_kernel(x, w):
         xc = x.to(compute_dtype)

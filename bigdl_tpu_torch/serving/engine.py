@@ -15,7 +15,16 @@ sub-slice of bigdl_tpu/serving/engine.py).
   kernel); idle slots compute masked garbage into scratch (page 0, or
   their own dense row);
 - sampling parameters, the repetition penalty and the EOS id are per
-  request; `quantize_kv` stores either pool as float8_e5m2 with scales.
+  request; `quantize_kv` stores either pool as float8_e5m2 with scales;
+- with `adapters=` (a `serving.adapters.AdapterRegistry`) a request may
+  name a LoRA adapter: its prefill carries the adapter's own tree, and a
+  decode step one batched tree over every slot (zero rows and a 0 scale
+  for base rows; rank padded to the batch's bucket), which the wo and
+  w_down projections fold into the LoRA GEMV. A step with no adapter row
+  runs the base path unchanged. Prefix pages are cached per adapter
+  namespace, and over a paged pool the adapters' weights page into the
+  same `PagePool` as KV (`AdapterPager`), paged out before any request is
+  preempted.
 
 What changes from JAX: the pools are written in place where JAX donates
 buffers; `jax.random` keys become one `torch.Generator`; the all-default
@@ -28,9 +37,10 @@ where nothing reads them). The block table goes to the card only when it
 changed.
 
 Not in this slice, each raising NotImplementedError with its ROADMAP
-item: speculative decoding, serving adapters, chunked prefill, the
-request journal and fault injection, tracing and the request log,
-overload control (`max_queue`, deadlines, drain).
+item: speculative decoding (with or without adapters), chunked prefill
+(with or without adapters), the request journal and fault injection,
+tracing and the request log, overload control (`max_queue`, deadlines,
+drain).
 """
 
 from __future__ import annotations
@@ -50,8 +60,10 @@ from bigdl_tpu_torch import kvcache, kvpaged
 from bigdl_tpu_torch.generate import (GenerationConfig, apply_repetition_penalty,
                                       sample_token_per_row, seen_from_prompt)
 from bigdl_tpu_torch.models import llama
+from bigdl_tpu_torch.serving.adapters import AdapterError, AdapterPager, rank_bucket
 from bigdl_tpu_torch.serving.metrics import FAST_BUCKETS, Histogram
 from bigdl_tpu_torch.serving.radix import RadixPrefixCache
+from bigdl_tpu_torch.train.qlora import _target_dims
 from bigdl_tpu_torch.utils import round_up
 
 # engine arguments of the JAX engine this slice leaves out -> the ROADMAP
@@ -68,7 +80,6 @@ _NOT_PORTED = {
     "max_queue": "overload control",
     "queue_deadline_s": "overload control",
     "deadline_s": "overload control",
-    "adapters": "serving adapters (queue 1 item 7)",
 }
 
 
@@ -90,6 +101,8 @@ class Request:
     top_p: Optional[float] = None
     repetition_penalty: Optional[float] = None
     eos_token_id: Optional[int] = None
+    # the LoRA adapter this request decodes with (None = the shared base)
+    adapter: Optional[str] = None
     # filled by the engine
     out_tokens: list[int] = dataclasses.field(default_factory=list)
     # chosen-token logprob per emitted token (log softmax of the model's
@@ -162,7 +175,7 @@ class InferenceEngine:
                  n_pages: Optional[int] = None, truncate_prompts: bool = False,
                  logprobs_top_k: int = 0, quantize_kv: bool = False,
                  preemption: bool = True, preemption_policy: str = "youngest",
-                 **not_ported):
+                 adapters=None, **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"InferenceEngine got an unexpected argument {name!r}")
@@ -241,6 +254,22 @@ class InferenceEngine:
         self.decode_step_seconds = Histogram(buckets=FAST_BUCKETS)
         self.resume_wait = Histogram()
 
+        # multi-tenant LoRA: rid -> AdapterEntry, one registry reference per
+        # in-flight request that resolved an adapter (held across preemption
+        # and the paged out-of-pages retry, released at its terminal finish)
+        self.adapters = adapters
+        self._adapter_refs: dict[int, Any] = {}
+        self._slot_adapter: list[Optional[Any]] = [None] * n_slots
+        # the decode step's batched tree, rebuilt when a slot's adapter changes
+        self._blora: Optional[dict] = None
+        self._blora_dirty = True
+        # unified paging: adapter leaves in pages of the KV pool
+        self._pager = None
+        if adapters is not None and paged:
+            self._adapter_store = kvpaged.AdapterPageStore(
+                self.n_pages, kvpaged.kv_page_nbytes(self.cache), device=self.device)
+            self._pager = AdapterPager(self._adapter_store, self._pool, self._alloc_page)
+
     def _make_pool(self):
         """The shared KV pool, per-row positions from the start (idle
         rows park at 0)."""
@@ -258,10 +287,11 @@ class InferenceEngine:
 
     # ---- device pieces ----------------------------------------------------
 
-    def _prefill(self, tokens: np.ndarray, pad: int):
+    def _prefill(self, tokens: np.ndarray, pad: int, lora=None):
         """One request's prefill on its own 1-row, scalar-pos cache (the
-        flash kernel; its fp8 arm for an fp8 pool). Returns ([1, V] last
-        logits, the 1-row cache)."""
+        flash kernel; its fp8 arm for an fp8 pool), with the request's
+        adapter tree if any. Returns ([1, V] last logits, the 1-row
+        cache)."""
         cfg = self.config
         cache = kvcache.init_cache(
             cfg.num_hidden_layers, 1, tokens.shape[1], cfg.num_key_value_heads,
@@ -270,13 +300,14 @@ class InferenceEngine:
             [pad], dtype=torch.int32, device=self.device))
         logits, cache = llama.forward(
             cfg, self.model.params, torch.as_tensor(tokens, device=self.device).long(),
-            cache, mode="prefill", last_logits_only=True)
+            cache, mode="prefill", last_logits_only=True, lora=lora)
         return logits[:, -1], cache
 
-    def _paged_prefill(self, row: np.ndarray, pos0: int, tail: list[int]):
+    def _paged_prefill(self, row: np.ndarray, pos0: int, tail: list[int], lora=None):
         """Prefill ONE slot's uncached tail straight into the shared page
         pool through the slot's block-table row (no mini-cache, no insert
-        copy); returns the last token's [1, V] logits."""
+        copy), with the request's adapter tree if any; returns the last
+        token's [1, V] logits."""
         cache = dataclasses.replace(
             self.cache,
             block_tables=torch.as_tensor(row[None], device=self.device),
@@ -285,7 +316,7 @@ class InferenceEngine:
         logits, _ = llama.forward(
             self.config, self.model.params,
             torch.tensor([tail], dtype=torch.long, device=self.device), cache,
-            mode="prefill", last_logits_only=True)
+            mode="prefill", last_logits_only=True, lora=lora)
         return logits[:, -1]
 
     def _decode(self):
@@ -293,7 +324,7 @@ class InferenceEngine:
         [B], top alternatives or None), cache and seen updated in place."""
         logits, self.cache = llama.forward(
             self.config, self.model.params, self.cur[:, None], self.cache,
-            mode="decode")
+            mode="decode", lora=self._gather_blora())
         step = logits[:, -1]
         dev = self.device
         # all-default batches skip the [slots, V] rewrite (a host check)
@@ -328,11 +359,11 @@ class InferenceEngine:
                adapter: Optional[str] = None) -> Request:
         """Queue a request (thread-safe). An invalid one (empty prompt,
         ids outside the vocabulary, a prompt over the slot capacity
-        without truncate_prompts) finishes "invalid" at once."""
+        without truncate_prompts, an adapter on an engine without a
+        registry) finishes "invalid" at once."""
         for name, value, item in (
                 ("queue_deadline_s", queue_deadline_s, "overload control"),
-                ("deadline_s", deadline_s, "overload control"),
-                ("adapter", adapter, "serving adapters (queue 1 item 7)")):
+                ("deadline_s", deadline_s, "overload control")):
             if value is not None:
                 raise _not_ported(f"submit({name}=...)", item)
         if repetition_penalty is not None and repetition_penalty <= 0:
@@ -347,7 +378,7 @@ class InferenceEngine:
             max_new_tokens=max_new_tokens, stream=stream, do_sample=do_sample,
             temperature=temperature, top_k=top_k, top_p=top_p,
             repetition_penalty=repetition_penalty, eos_token_id=eos_token_id,
-            submit_ts=self._clock())
+            adapter=adapter, submit_ts=self._clock())
         error = None
         limit = self.max_len - max_new_tokens
         bad = [t for t in req.prompt if not 0 <= t < self.config.vocab_size]
@@ -362,6 +393,10 @@ class InferenceEngine:
                      f"{max_new_tokens}); shorten the prompt, raise max_len, or "
                      "construct the engine with truncate_prompts=True to keep "
                      "the prompt tail")
+        elif adapter is not None and self.adapters is None:
+            # serving the base instead would be the wrong model for the tenant
+            error = (f"request names adapter {adapter!r} but this engine has no "
+                     "adapter registry (construct it with adapters=)")
         if error is not None:
             req.error, req.finish_reason, req.done = error, "invalid", True
             self._note_finish(req)
@@ -392,11 +427,15 @@ class InferenceEngine:
     # ---- paged page management -------------------------------------------
 
     def _alloc_page(self) -> Optional[int]:
-        """A free page, evicting LRU radix leaves while the free list is
-        dry (eviction only drops pages no slot holds)."""
+        """A free page: the free list, then LRU radix leaves, then the page-
+        out of holder-free adapters (their host copies survive). Eviction
+        only drops pages no slot holds; preemption comes after all three
+        (`_alloc_page_preempting`)."""
         pg = self._pool.alloc()
         while pg is None and self.radix.evict_one():
             self.prefix_evictions += 1
+            pg = self._pool.alloc()
+        while pg is None and self._pager is not None and self._pager.evict_one():
             pg = self._pool.alloc()
         return pg
 
@@ -422,12 +461,14 @@ class InferenceEngine:
             req.prompt = req.prompt[-limit:]
         prompt = req.prompt
 
-        path = self.radix.match(prompt)
+        # in the request's adapter namespace: pages prefilled under an
+        # adapter carry its K/V, so tenants never share pages
+        path = self.radix.match(prompt, ns=req.adapter)
         shared = [nd.page for nd in path]
         n_hit = len(shared)
         lp = n_hit * page
         tail = prompt[lp:]
-        head_node = path[-1] if path else self.radix.root_for(None)
+        head_node = path[-1] if path else self.radix.root_for(req.adapter)
 
         # sub-page sharing: the matched node's child agreeing with the
         # tail for t_copy tokens is copied instead of re-prefilled; the
@@ -502,21 +543,22 @@ class InferenceEngine:
 
         self._bt_host[slot] = row
         self._bt_dirty = True
-        logits_last = self._paged_prefill(row, lp_eff, tail2)
+        logits_last = self._paged_prefill(row, lp_eff, tail2, self._prefill_lora(req))
         self.cache.pos[slot] = len(prompt)
         self.cache.start[slot] = 0
         self._slot_pos[slot] = len(prompt)
-        self._register_prefix(prompt, path, table)
+        self._register_prefix(prompt, path, table, ns=req.adapter)
         self._activate(slot, req, logits_last)
         return True
 
     def _register_prefix(self, prompt: list[int], path: list,
-                         table: list[int]) -> None:
+                         table: list[int], ns=None) -> None:
         """Register the prompt's fully covered pages past the matched run
-        as radix nodes (the cache takes its own page reference). An
-        existing edge keeps its page; our duplicate frees at release."""
+        as radix nodes (the cache takes its own page reference), under the
+        adapter namespace `ns`. An existing edge keeps its page; our
+        duplicate frees at release."""
         page = self.page_size
-        node = path[-1] if path else self.radix.root_for(None)
+        node = path[-1] if path else self.radix.root_for(ns)
         for i in range(len(path), len(prompt) // page):
             key = tuple(prompt[i * page: (i + 1) * page])
             nxt = node.children.get(key)
@@ -638,6 +680,8 @@ class InferenceEngine:
                                 entry.start)
         self.cur[slot] = entry.cur
         self.seen[slot] = entry.seen.to(self.device)
+        # the parked request kept its adapter reference; re-point the slot
+        self._set_slot_adapter(slot, req)
         self._temp[slot], self._topk[slot] = entry.temp, entry.topk
         self._topp[slot], self._dosample[slot] = entry.topp, entry.dosample
         self._penalty[slot] = entry.penalty
@@ -670,6 +714,117 @@ class InferenceEngine:
             if s.req is not None and s.req.rid in pending and self.active[i]:
                 self._preempt_slot(i)
 
+    # ---- multi-tenant LoRA adapters ---------------------------------------
+
+    def _resolve_adapter(self, req: Request) -> bool:
+        """Acquire the request's adapter at admission (load and verify
+        through the registry) and take the request's one reference, paged
+        into the device pool where it fits. False: the adapter is missing,
+        corrupt or does not fit this model; that request finishes "error"
+        and the caller admits the next one."""
+        if req.rid in self._adapter_refs:  # an out-of-pages retry: held already
+            if self._pager is not None:  # its pages may have been paged out
+                self._pager.ensure(self._adapter_refs[req.rid], req.rid)
+            return True
+        try:
+            entry = self.adapters.acquire(req.adapter)
+        except AdapterError as e:
+            self._fail_request(req, str(e))
+            return False
+        try:
+            self._check_adapter_dims(entry)
+        except AdapterError as e:
+            self.adapters.reject(entry)  # counted, and dropped from residency
+            self._fail_request(req, str(e))
+            return False
+        self._adapter_refs[req.rid] = entry
+        if self._pager is not None:
+            # False (the pool stayed dry) is no error: the decode step
+            # gathers this adapter from host RAM; paging never preempts KV
+            self._pager.ensure(entry, req.rid)
+        return True
+
+    def _check_adapter_dims(self, entry) -> None:
+        """An adapter trained on another base fails at admission, with its
+        shapes, not deep inside a projection."""
+        L = self.config.num_hidden_layers
+        for t in entry.targets:
+            try:
+                out_d, in_d = _target_dims(self.config, t)
+            except KeyError:
+                raise AdapterError(entry.name, "rank_mismatch",
+                                   f"unknown lora target {t!r} for this model family") from None
+            a, b = entry.layers[t]["a"], entry.layers[t]["b"]
+            if (tuple(a.shape) != (L, entry.rank, in_d)
+                    or tuple(b.shape) != (L, out_d, entry.rank)):
+                raise AdapterError(
+                    entry.name, "rank_mismatch",
+                    f"target {t}: a{tuple(a.shape)} / b{tuple(b.shape)} do not fit this "
+                    f"model's [L={L}, r={entry.rank}, in={in_d}] / [L, out={out_d}, r] — "
+                    "adapter trained on a different base?")
+
+    def _set_slot_adapter(self, slot: int, req: Request) -> None:
+        """Point the slot at the request's adapter entry (or None); the
+        batched tree is rebuilt only when the assignment changed."""
+        if self.adapters is None:
+            return
+        entry = self._adapter_refs.get(req.rid)
+        if self._slot_adapter[slot] is not entry:
+            self._slot_adapter[slot] = entry
+            self._blora_dirty = True
+
+    def _prefill_lora(self, req: Request) -> Optional[dict]:
+        """The request's own rank-bucketed adapter tree on the engine's
+        device, or None for the base."""
+        entry = self._adapter_refs.get(req.rid)
+        return None if entry is None else entry.tree(device=self.device)
+
+    def _gather_blora(self) -> Optional[dict]:
+        """The decode step's batched tree: per target an [L, B, rb, in] A
+        stack and an [L, B, out, rb] B stack over every slot (zeros and a
+        0 scale for rows without the adapter or the target), rb the bucket
+        of the batch's largest rank; None when no active slot carries an
+        adapter (the base path). Rebuilt only when the slot assignment
+        changed. Adapters resident in the page pool are read from their
+        pages on the device, the rest copied from host RAM; both hold the
+        same bf16 values."""
+        if self.adapters is None:
+            return None
+        if not self._blora_dirty:
+            return self._blora
+        self._blora_dirty = False
+        entries = self._slot_adapter
+        live = [e for e in entries if e is not None]
+        if not live:
+            self._blora = None
+            return None
+        B, L, dev = self.n_slots, self.config.num_hidden_layers, self.device
+        rb = rank_bucket(max(e.rank for e in live))
+        paged = {}
+        if self._pager is not None:
+            for e in live:
+                if e.name not in paged:
+                    lv = self._pager.leaves(e.name)
+                    if lv is not None:
+                        paged[e.name] = lv
+        layers = {}
+        for t in sorted({t for e in live for t in e.targets}):
+            ref = next(e.layers[t] for e in live if t in e.layers)
+            in_d, out_d = ref["a"].shape[-1], ref["b"].shape[-2]
+            a = torch.zeros((L, B, rb, in_d), dtype=torch.bfloat16, device=dev)
+            b = torch.zeros((L, B, out_d, rb), dtype=torch.bfloat16, device=dev)
+            for i, e in enumerate(entries):
+                if e is None or t not in e.layers:
+                    continue
+                src = paged[e.name][t] if e.name in paged else e.layers[t]
+                a[:, i, :e.rank] = src["a"].to(device=dev, dtype=torch.bfloat16)
+                b[:, i, :, :e.rank] = src["b"].to(device=dev, dtype=torch.bfloat16)
+            layers[t] = {"a": a, "b": b}
+        scale = torch.tensor([0.0 if e is None else e.scale for e in entries],
+                             dtype=torch.float32, device=dev)
+        self._blora = {"layers": layers, "scale": scale}
+        return self._blora
+
     # ---- admission and finishing ------------------------------------------
 
     def _pop_request(self) -> Optional[Request]:
@@ -693,9 +848,9 @@ class InferenceEngine:
                 return None
             if len(q) > 1 and self.radix.n_nodes:
                 n = min(len(q), self._ADMIT_SCAN_WINDOW)
-                best_i, best_d = 0, self.radix.match_len(q[0].prompt)
+                best_i, best_d = 0, self.radix.match_len(q[0].prompt, ns=q[0].adapter)
                 for i in range(1, n):
-                    d = self.radix.match_len(q[i].prompt)
+                    d = self.radix.match_len(q[i].prompt, ns=q[i].adapter)
                     if d > best_d:
                         best_i, best_d = i, d
                 if best_i:
@@ -727,6 +882,13 @@ class InferenceEngine:
         now = self._clock()
         with self._stat_lock:
             self.finish_reasons[req.finish_reason or "?"] += 1
+        entry = self._adapter_refs.pop(req.rid, None)
+        if entry is not None:
+            # the request's one adapter hold ends with it (every finish path
+            # comes here); its device pages become page-out candidates
+            self.adapters.release(entry)
+            if self._pager is not None:
+                self._pager.drop_holder(req.rid)
         if req.preempt_ts is not None:  # died while parked
             req.preempted_s += max(now - req.preempt_ts, 0.0)
             req.preempt_ts = None
@@ -768,6 +930,7 @@ class InferenceEngine:
         self._penalty[slot] = penalty
         self.seen[slot] = row
         self.seen[slot, first] = True
+        self._set_slot_adapter(slot, req)
         self.active[slot] = True
         row_lp = torch.log_softmax(logits_last.float().reshape(-1), dim=-1)
         first_lp = float(row_lp[first])
@@ -790,7 +953,7 @@ class InferenceEngine:
         tokens = np.full((1, bucket), self.gen.pad_token_id, np.int32)
         tokens[0, bucket - len(req.prompt):] = req.prompt
         pad = bucket - len(req.prompt)
-        logits_last, pcache = self._prefill(tokens, pad)
+        logits_last, pcache = self._prefill(tokens, pad, self._prefill_lora(req))
         kvcache.insert_row(self.cache, pcache, slot, pad)
         self._activate(slot, req, logits_last)
 
@@ -821,6 +984,8 @@ class InferenceEngine:
                 self._cancelled.pop(req.rid, None)
                 self._finish_detached(req, "stop")
                 continue
+            if req.adapter is not None and not self._resolve_adapter(req):
+                continue  # that request errors; the batch keeps serving
             if self.paged:
                 if not self._admit_paged(req, slot):
                     self._waiting = req  # pool full: retry after frees
@@ -871,6 +1036,11 @@ class InferenceEngine:
         without touching the request's terminal fields."""
         self._slots[slot] = _Slot()
         self.active[slot] = False
+        if self._slot_adapter[slot] is not None:
+            # the row leaves the batched tree; a parked request keeps its
+            # registry reference in _adapter_refs
+            self._slot_adapter[slot] = None
+            self._blora_dirty = True
         self._dosample[slot] = False  # idle rows decode deterministic garbage
         self._penalty[slot] = 1.0
         self.seen[slot] = False
@@ -886,9 +1056,15 @@ class InferenceEngine:
         self._penalty[:] = 1.0
         self.active[:] = False
         self._preempted.clear()
+        self._slot_adapter = [None] * self.n_slots
+        self._blora, self._blora_dirty = None, True
         if self.paged:
             self._pool = kvpaged.PagePool(self.n_pages)
             self.radix = RadixPrefixCache(self.page_size, self._pool)
+            if self._pager is not None:
+                # resident adapters held the dead pool's pages; the next
+                # admission pages them in again from the host copies
+                self._pager.reset(self._pool)
             self._slot_pages = [[] for _ in range(self.n_slots)]
             self._slot_written = [0] * self.n_slots
             self._slot_pos = [0] * self.n_slots
@@ -1008,6 +1184,9 @@ class InferenceEngine:
                 held[pg] += 1
         for node in self.radix.nodes():
             held[node.page] += 1
+        if self._pager is not None:
+            for pg in self._pager.held_pages():
+                held[pg] += 1
         return sum(1 for pg in range(1, self.n_pages)
                    if self._pool.ref[pg] != held[pg])
 

@@ -18,7 +18,11 @@ Phases (any failure exits non-zero; nothing is caught):
    kernels: paged decode attention over bf16 and fp8 pages at the
    engine's decode shape (8 rows, pages of 64, ragged positions up to
    2047 over shuffled pages, an idle row; a window + softcap case) and the
-   flash kernel's fp8 arm at the dense fp8 pool's prefill shape;
+   flash kernel's fp8 arm at the dense fp8 pool's prefill shape; then the
+   adapter kernels: the LoRA GEMV at wo and w_down (M = 1, 8, 32; R = 4,
+   16, 128 and the widest R the eligibility rule admits; block-diagonal
+   gates with a zero row, whose output must equal the plain GEMV's bits,
+   and dense gates) and the LoRA GEMM at M = 1024, R = 32, 64, 128;
 3. the generation path: llama3-8b at full width and depth (32 layers) with
    seeded random weights, `optimize_model(..., "sym_int4")`, greedy
    `TorchModel.generate` of 32 tokens for 4 ragged prompts — launch counts
@@ -62,7 +66,8 @@ Phases (any failure exits non-zero; nothing is caught):
    made on the card (seeded N(0, 0.02^2) through the port's encoder), and
    at every llama3-8b projection and the lm head the GEMV (M = 1, 4, 32),
    the GEMM (33, 1024), the LoRA GEMM (wo, w_down; 1024, R = 8) and dx
-   (1024) against their plain versions; then through `optimize_model` at
+   (1024) and the LoRA GEMV (wo, w_down; M = 8, R = 128) against their
+   plain versions; then through `optimize_model` at
    32 layers nf4 and q4_k_m (q4_k body, q6_k lm head) generation as phase
    3 (exact launch counts per format, in-vocabulary and repeatable
    tokens) and nf4 QLoRA as phase 5 (five finite steps); then a 2-layer
@@ -73,9 +78,28 @@ Phases (any failure exits non-zero; nothing is caught):
    form isolated at its path shapes (GEMV M=4 over a decode step, GEMM
    M=1024 over a prefill, dx and the LoRA GEMM over a train step) beside
    its plain version, cuBLAS on the weight dequantized beforehand (not
-   timed) and its bound.
+   timed) and its bound;
+11. serving with adapters: engine (f), the paged bf16 pool of phase 7 with
+   an `AdapterRegistry` of four seeded adapters (ranks 4, 8, 16, 32, alpha
+   2 rank, all seven projections, saved with `save_adapter` and loaded by
+   the registry), over phase 7's 16 requests (4 base, 3 for each adapter;
+   tenants share the prefix, so each namespace misses the others' pages;
+   one sub-page copy leaves a 30-token adapter prefill, the GEMV form):
+   page_leaks() == 0 with the pager's pages, the LoRA GEMV launched in
+   every decode step with an adapter row (at wo and w_down where the
+   eligibility rule takes 8 x the bucket's columns) and in no base-only
+   step, base requests' greedy tokens as engine (a)'s beyond near-ties,
+   greedy tokens repeatable on a second run; then (g), the dense pool with
+   adapters gathered from host RAM, and a 2-layer full-width adapter
+   engine through the kernels against the plain versions;
+12. adapter serving times: requests/s, tokens/s, TTFT and decode-step
+   quantiles and peak memory of (f) beside (a); a profiled decode step
+   with 8 adapter rows (R = 128: busy share, the LoRA GEMV's time on the
+   path); the LoRA GEMV isolated at M = 8, R = 128 beside its plain
+   version, cuBLAS on the weight dequantized beforehand plus two
+   torch.matmul (a yardstick the port never calls) and its bound.
 
-The whole run takes about 400 s of command time on an H100, the kernel
+The whole run takes about 500 s of command time on an H100, the kernel
 builds included (the dequant sources build once per qtype, 32 libraries).
 It prints one `{"kernels": [...]}` line (the dequant forms carry their
 numbers per format under "by_format"), and as its last line
@@ -252,6 +276,7 @@ def main() -> int:
 
     train_kernel_checks(torch, dev, cfg, shapes, errs, qweight, randn)
     serving_kernel_checks(torch, dev, cfg, errs, randn)
+    adapter_kernel_checks(torch, dev, shapes, errs, qweight, randn)
     torch.cuda.synchronize()
 
     # ---------------------------------------------------------------- 3
@@ -465,14 +490,17 @@ def main() -> int:
     # ---------------------------------------------------------------- 5
     train_entries = train_phases(torch, dev, cfg, card, errs, qweight, randn)
     # ---------------------------------------------------------------- 7
-    serving_entries = serving_phases(torch, dev, cfg, card, errs)
+    serving_entries, served = serving_phases(torch, dev, cfg, card, errs)
+    # --------------------------------------------------------------- 11
+    adapter_entries = adapter_phases(torch, dev, cfg, card, errs, served)
+    del served
     # ---------------------------------------------------------------- 9
     by_format = format_phases(torch, dev, cfg, card, prompts, tok, st, T, S)
-    for e in entries + train_entries:
+    for e in entries + train_entries + adapter_entries:
         if e["name"] in by_format:  # the dequant forms: sym_int4 above, then the others
             e["formats"] = ["sym_int4"] + list(by_format[e["name"]])
             e["by_format"] = by_format[e["name"]]
-    log(json.dumps({"kernels": entries + train_entries + serving_entries}))
+    log(json.dumps({"kernels": entries + train_entries + serving_entries + adapter_entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -611,7 +639,7 @@ def train_phases(torch, dev, cfg, card, errs, qweight, randn) -> list:
                 kernels.DX.name: 4 * L,
                 kernels.GEMV.name: 0, kernels.FLASH.name: 0,
                 kernels.PAGED.name: 0, kernels.PAGED_FP8.name: 0,
-                kernels.FLASH_FP8.name: 0}
+                kernels.FLASH_FP8.name: 0, kernels.LORA_GEMV.name: 0}
     want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
     losses = [warm_loss] + [x for _, x in runs]
     log(f"phase 5: launches over {TRAIN_STEPS} steps {launches} expected {want}")
@@ -679,16 +707,19 @@ def train_phases(torch, dev, cfg, card, errs, qweight, randn) -> list:
         log(f"  {e.self_device_time_total / 1e3 / PROFILED_TRAIN_STEPS:8.3f} ms/step "
             f"{e.count // PROFILED_TRAIN_STEPS:5d} calls/step  {e.key[:90]}")
 
-    def on_path(kern, match):
+    def on_path(kern, match, parts=1):
+        """Device time a step of the kernel's device functions (`parts` of
+        them a launch: the LoRA GEMM's first pass and its GEMM)."""
         evs = [e for e in prof.key_averages()
                if any(m in e.key for m in match) and e.self_device_time_total > 0]
         calls = sum(e.count for e in evs)
-        want_calls = per_step[kern.name] * PROFILED_TRAIN_STEPS
+        want_calls = per_step[kern.name] * PROFILED_TRAIN_STEPS * parts
         check(calls == want_calls, f"{kern.name}: {calls} profiled calls, expected {want_calls}")
         return sum(e.self_device_time_total for e in evs) / 1e3 / PROFILED_TRAIN_STEPS
 
     path_ms = {
-        kernels.LORA_GEMM.name: on_path(kernels.LORA_GEMM, ("gemm_kernel<true", "gemm_kernel<(bool)1")),
+        kernels.LORA_GEMM.name: on_path(kernels.LORA_GEMM, ("gemm_kernel<true", "gemm_kernel<(bool)1",
+                                                            "lora_xa_tc_kernel"), parts=2),
         kernels.DX.name: on_path(kernels.DX, ("namespace)::dx_kernel",)),
         kernels.FLASH_FWD.name: on_path(kernels.FLASH_FWD, ("namespace)::fwd_kernel",)),
         kernels.FLASH_DQ.name: on_path(kernels.FLASH_DQ, ("namespace)::dq_kernel",)),
@@ -944,7 +975,9 @@ def serving_phases(torch, dev, cfg, card, errs) -> list:
     """Phases 7 and 8: the serving engine on llama3-8b sym_int4 (32
     layers) at `cli serve`'s defaults, over both pools and both KV
     types, then its times. Returns the `kernels` entries of the paged
-    kernel (bf16, fp8 pages) and the flash kernel's fp8 arm."""
+    kernel (bf16, fp8 pages) and the flash kernel's fp8 arm, and what
+    phases 11-12 compare with: the model, the traffic and engine (a)'s
+    requests and times."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -1132,12 +1165,13 @@ def serving_phases(torch, dev, cfg, card, errs) -> list:
         xs = sorted(xs)
         return xs[min(int(f * len(xs)), len(xs) - 1)] * 1e3
 
+    summary_a = (f"{sec_a:.3f} s = {len(reqs_a) / sec_a:.3f} requests/s, {ntok} tokens = "
+                 f"{ntok / sec_a:.1f} generated tokens/s; TTFT ms median={q(seen['ttft'], .5):.3f} "
+                 f"p90={q(seen['ttft'], .9):.3f}; decode step ms median="
+                 f"{q(seen['step'], .5):.3f} p90={q(seen['step'], .9):.3f} (n={steps_a}); "
+                 f"peak_mem_gib={peak_a:.3f}")
     log(f"phase 8: card {card}")
-    log(f"phase 8: engine (a) paged bf16, {len(reqs_a)} requests, {SLOTS} slots: "
-        f"{sec_a:.3f} s = {len(reqs_a) / sec_a:.3f} requests/s, {ntok} tokens = "
-        f"{ntok / sec_a:.1f} generated tokens/s; TTFT ms median={q(seen['ttft'], .5):.3f} "
-        f"p90={q(seen['ttft'], .9):.3f}; decode step ms median={q(seen['step'], .5):.3f} "
-        f"p90={q(seen['step'], .9):.3f} (n={steps_a}); peak_mem_gib={peak_a:.3f}")
+    log(f"phase 8: engine (a) paged bf16, {len(reqs_a)} requests, {SLOTS} slots: {summary_a}")
 
     def device_events(prof_):
         return [e for e in prof_.key_averages()
@@ -1262,7 +1296,412 @@ def serving_phases(torch, dev, cfg, card, errs) -> list:
         "max_abs_err": errs[kernels.FLASH_FP8.name], "ms": path, "isolated_ms": L * iso,
         "plain_ms": L * pl_, "bound_ms": L * bms, "bound_by": by, "library_ms": L * lib,
         "per": f"one dense fp8 prefill: {L} layers, B=1 T=S={T}"})
-    return entries
+    return entries, {"tm": tm, "traffic": traffic, "reqs_a": reqs_a, "summary_a": summary_a}
+
+
+# ---------------------------------------------------------------------------
+# serving with adapters: phase 2's checks of the LoRA GEMV, phases 11 and 12
+# ---------------------------------------------------------------------------
+
+ADAPTER_RANKS = (4, 8, 16, 32)  # alpha = 2 rank, all seven projections
+# phase 7's 16 requests with their tenants: 4 base requests, 3 for each
+# adapter. Requests 0 and 1 share one, so request 1's sub-page copy leaves
+# a 30-token prefill (the LoRA GEMV form) in its namespace. The rank-32
+# adapter serves only the first wave (the 8 sharing the prefix): its steps
+# run at bucket 32 (R = 256: wo fused, w_down past the eligibility edge),
+# the second wave's at bucket 16 or less (both fused).
+ADAPTER_OF = ("r8", "r8", None, "r32", "r32", None, "r32", "r4",  # the 8 sharing the prefix
+              None, "r16", "r16", None, "r8", "r16", "r4", "r4")  # the 8 independent
+STEADY_ADAPTERS = ("r4", "r8", "r16") * 3  # the profiled step: bucket 16, R = 128
+
+
+def lora_gate(torch, dev, M, R, kind):
+    """A LoRA gate [M, R] bf16: "dense", a scale in every column; "block",
+    the serving decode's form (row m holds its own scale in its R // M
+    group columns, zero elsewhere) with the last row all zero at M > 1."""
+    if kind == "dense":
+        return torch.full((M, R), 2.0, dtype=torch.bfloat16, device=dev)
+    gate = torch.zeros((M, R), dtype=torch.bfloat16, device=dev)
+    width = max(R // M, 1)
+    for m in range(max(M - 1, 1)):
+        c = (m * width) % R
+        gate[m, c:c + width] = 0.5 + 0.5 * (m % 4)
+    return gate
+
+
+def lora_gemv_library(torch, x, dense_w, a, b, gate):
+    """The yardstick the port never calls: cuBLAS on the weight dequantized
+    beforehand plus two torch.matmul for the epilogue."""
+    xg = (torch.matmul(x, a.t()) * gate).to(torch.bfloat16)
+    return torch.matmul(x, dense_w.t()) + torch.matmul(xg, b.t())
+
+
+def lora_gemv_cost(M, O, K, R, w_bytes):
+    """(bytes, operations) of one LoRA matmul: every input read once (x,
+    the packed weight, A_cat, B_cat, the gate), the output written once."""
+    nbytes = M * K * 2 + w_bytes + R * K * 2 + O * R * 2 + M * R * 2 + M * O * 2
+    return nbytes, 2.0 * M * O * K + 2.0 * M * K * R + 2.0 * M * R * O
+
+
+def adapter_kernel_checks(torch, dev, shapes, errs, qweight, randn) -> None:
+    """Phase 2's adapter half: the LoRA GEMV (sym_int4) at wo and w_down —
+    M = 1, 8, 32; R = 4, 16, 128 and the widest R `lora_fused_ok` admits
+    at that K; a block-diagonal gate with an all-zero row, whose output
+    must equal the plain GEMV kernel's bits, and a dense gate — and the
+    LoRA GEMM at M = 1024 with R = 32, 64, 128, each against its plain
+    version within 2 bf16 ULPs of the largest output."""
+    from bigdl_tpu_torch.ops import kernels
+
+    for name in ("wo", "w_down"):
+        O, K = shapes[name]
+        w, = qweight(O, K)
+        rmax = max(r for r in range(1, 1024) if kernels.lora_fused_ok(r, K))
+        for M in (1, 8, 32):
+            x = randn(M, K)
+            base = kernels.qmatmul(x, w)
+            worst = []
+            for R in (4, 16, 128, rmax):
+                a, b_ = randn(R, K) / R, randn(O, R) * 0.02
+                for kind in ("block", "dense"):
+                    gate = lora_gate(torch, dev, M, R, kind)
+                    y = kernels.qmatmul_lora(x, w, a, b_, gate)
+                    ref = kernels.qmatmul_lora_plain(x, w, a, b_, gate).float()
+                    err = (y.float() - ref).abs().max().item()
+                    tol = ref.abs().max().item() * 2 ** -7
+                    base_row = kind == "block" and M > 1
+                    same = bool(torch.equal(y[-1], base[-1])) if base_row else True
+                    errs[kernels.LORA_GEMV.name] = max(errs[kernels.LORA_GEMV.name], err)
+                    worst.append(f"R={R} {kind} {err:.3g}/{tol:.3g}")
+                    check(bool(torch.isfinite(y).all()) and err <= tol and same,
+                          f"lora gemv {name} M={M} R={R} {kind} (zero row bit-equal: {same})")
+            log(f"phase 2: {kernels.LORA_GEMV.name} {name} M={M} O={O} K={K} (widest R "
+                f"{rmax}) max_abs_err/tol {', '.join(worst)}; zero-gate rows equal the "
+                f"plain GEMV kernel's bits")
+        x = randn(TRAIN_T, K)
+        for R in (32, 64, 128):
+            a, b_ = randn(R, K) / R, randn(O, R) * 0.02
+            gate = lora_gate(torch, dev, TRAIN_T, R, "dense")
+            y = kernels.qmatmul_lora(x, w, a, b_, gate).float()
+            ref = kernels.qmatmul_lora_plain(x, w, a, b_, gate).float()
+            err = (y - ref).abs().max().item()
+            tol = ref.abs().max().item() * 2 ** -7
+            errs[kernels.LORA_GEMM.name] = max(errs[kernels.LORA_GEMM.name], err)
+            log(f"phase 2: {kernels.LORA_GEMM.name} {name} M={TRAIN_T} O={O} K={K} R={R} "
+                f"max_abs_err={err:.6g} tol={tol:.6g}")
+            check(bool(torch.isfinite(y).all()) and err <= tol, f"lora gemm {name} R={R}")
+
+
+def make_adapters(torch, dev, cfg, root, seed=30) -> float:
+    """Four seeded adapters on all seven projections saved under `root`
+    (r4, r8, r16, r32): A ~ N(0, 1) / rank, B ~ N(0, 0.02^2), alpha =
+    2 rank. Returns their bytes in MB."""
+    from bigdl_tpu_torch.serving.adapters import lora_nbytes, save_adapter
+    from bigdl_tpu_torch.train import init_lora
+
+    root.mkdir(parents=True, exist_ok=True)
+    mb = 0.0
+    for r in ADAPTER_RANKS:
+        lo = init_lora(cfg, seed=seed + r, rank=r, alpha=2.0 * r, device=dev)
+        with torch.no_grad():
+            g = torch.Generator(device=dev).manual_seed(seed + 100 + r)
+            for t in lo.layers.values():
+                t["b"].normal_(0.0, 0.02, generator=g)
+        save_adapter(str(root / f"r{r}.npz"), lo)
+        mb += lora_nbytes(lo) / 1e6
+    return mb
+
+
+def adapter_phases(torch, dev, cfg, card, errs, served) -> list:
+    """Phases 11 and 12: engine (f), the paged bf16 pool with four
+    adapters (ranks 4-32) over phase 7's traffic, then its times. Returns
+    the `kernels` entry of the LoRA GEMV."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch import TorchModel, optimize_model
+    from bigdl_tpu_torch.models import llama
+    from bigdl_tpu_torch.ops import kernels
+    from bigdl_tpu_torch.serving import InferenceEngine
+    from bigdl_tpu_torch.serving.adapters import AdapterRegistry, rank_bucket
+
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    K_WO, K_DOWN = cfg.q_dim, cfg.intermediate_size
+    tm, traffic, reqs_a = served["tm"], served["traffic"], served["reqs_a"]
+    root = Path(__file__).resolve().parent / "build" / "adapters"
+    t0 = time.time()
+    mb = make_adapters(torch, dev, cfg, root / "full")
+    log(f"phase 11: adapters r4 r8 r16 r32 (alpha 2 rank, 7 projections x {L} layers, "
+        f"{mb:.1f} MB) made and saved in {time.time() - t0:.1f} s")
+    specs = [dict(sp, adapter=a) for sp, a in zip(traffic, ADAPTER_OF)]
+
+    def engine(model, where, **kw):
+        return InferenceEngine(model, n_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE,
+                               adapters=AdapterRegistry(dir=str(where)), **kw)
+
+    def lora_gemv_per_step(rb):
+        """LoRA GEMV launches a decode step makes at bucket rb (0: no
+        adapter row): wo and w_down, each where `lora_fused_ok` takes
+        SLOTS x rb columns."""
+        return 0 if rb == 0 else L * (kernels.lora_fused_ok(SLOTS * rb, K_WO)
+                                      + kernels.lora_fused_ok(SLOTS * rb, K_DOWN))
+
+    def watch(eng):
+        """Per decode step (the batch's bucket, LoRA GEMV launches), and per
+        paged prefill (tail tokens, adapter or not, LoRA GEMV launches)."""
+        steps, prefills = [], []
+        real_decode, real_prefill = eng._decode, eng._paged_prefill
+
+        def decode():
+            rows = [e for i, e in enumerate(eng._slot_adapter) if e is not None and eng.active[i]]
+            n0 = kernels.LORA_GEMV.launches
+            out = real_decode()
+            steps.append((rank_bucket(max(e.rank for e in rows)) if rows else 0,
+                          kernels.LORA_GEMV.launches - n0))
+            return out
+
+        def prefill(row, pos0, tail, lora=None):
+            n0 = kernels.LORA_GEMV.launches
+            out = real_prefill(row, pos0, tail, lora)
+            prefills.append((len(tail), lora is not None, kernels.LORA_GEMV.launches - n0))
+            return out
+
+        eng._decode, eng._paged_prefill = decode, prefill
+        return steps, prefills
+
+    def serve(eng):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        reqs = [eng.submit(**sp) for sp in specs]
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        return reqs, time.perf_counter() - t1
+
+    def finished(reqs, what):
+        ok = all(r.finish_reason == "length" and len(r.out_tokens) == SERVE_NEW
+                 and all(0 <= x < V for x in r.out_tokens)
+                 and all(math.isfinite(lp) for lp in r.out_logprobs) for r in reqs)
+        check(ok, f"{what}: every request finishes 'length' with {SERVE_NEW} in-vocabulary "
+                  "tokens and finite logprobs")
+
+    def margin(r, i):
+        top = sorted(r.out_top_logprobs[i].values(), reverse=True)
+        return top[0] - top[1]
+
+    greedy = [i for i, sp in enumerate(specs) if not sp.get("do_sample")]
+
+    # (f) paged bf16 with adapters, the main path; phase 12 reads its times
+    eng = engine(tm, root / "full", paged=True, logprobs_top_k=2)
+    seen = {"ttft": [], "step": []}
+    for key, hist in (("ttft", eng.ttft), ("step", eng.decode_step_seconds)):
+        hist.observe = (lambda h, out: lambda x: (out.append(x), type(h).observe(h, x)))(
+            hist, seen[key])
+    steps_f, prefills_f = watch(eng)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    reqs_f, sec_f = serve(eng)
+    launches_f = kernels.launch_counts()
+    peak_f = torch.cuda.max_memory_allocated() / 2**30
+    store_gib = eng._adapter_store.buf.numel() * 2 / 2**30
+    finished(reqs_f, "(f)")
+    buckets = sorted({rb for rb, _ in steps_f})
+    wrong = [(i, rb, n) for i, (rb, n) in enumerate(steps_f) if n != lora_gemv_per_step(rb)]
+    short = [(n, k) for n, has, k in prefills_f if has and n <= kernels.GEMV_MAX_ROWS]
+    log(f"phase 11 (f) paged bf16 + adapters: {len(specs)} requests in {sec_f:.3f} s, "
+        f"{len(steps_f)} decode steps at buckets {buckets} (LoRA GEMV launches per step "
+        f"{ {rb: lora_gemv_per_step(rb) for rb in buckets} }), prefix_hits={eng.prefix_hits} "
+        f"prefix_partial_hits={eng.prefix_partial_hits}, adapter page_ins="
+        f"{eng._pager.page_ins} pages_resident={eng._pager.pages_resident}, page_leaks="
+        f"{eng.page_leaks()}, adapter prefills at <= {kernels.GEMV_MAX_ROWS} tokens "
+        f"(tokens, LoRA GEMV launches) {short}; launches {launches_f}")
+    check(eng.page_leaks() == 0, "(f) page leaks, the pager's pages counted")
+    check(not wrong, f"(f) LoRA GEMV launches per decode step (step, bucket, launches) {wrong[:5]}")
+    check(any(rb > 0 for rb in buckets), "(f) decode steps with adapter rows")
+    check(bool(short) and all(k == 2 * L for _, k in short),
+          "(f) a short adapter prefill through the LoRA GEMV")
+    check(eng.prefix_partial_hits >= 1, "(f) the sub-page copy in an adapter namespace")
+    check(all(launches_f[k.name] > 0 for k in (kernels.GEMV, kernels.GEMM, kernels.LORA_GEMV,
+                                               kernels.LORA_GEMM, kernels.PAGED)),
+          "(f) GEMV, GEMM, LoRA GEMV, LoRA GEMM and paged launches")
+    check(launches_f[kernels.PAGED.name] == L * len(steps_f), "(f) paged launches")
+    ties = []
+    for i in greedy:
+        if ADAPTER_OF[i] is not None:
+            continue
+        ra, rf = reqs_a[i], reqs_f[i]
+        diff = next((j for j, (x, y) in enumerate(zip(ra.out_tokens, rf.out_tokens)) if x != y), None)
+        if diff is not None:
+            ties.append((i, diff, round(margin(ra, diff), 5)))
+            check(margin(ra, diff) <= MARGIN_TOL, f"(f) base request {i} differs from (a) "
+                                                  f"at token {diff}")
+    log(f"phase 11 (f): base requests {[i for i in greedy if ADAPTER_OF[i] is None]} equal "
+        f"engine (a)'s tokens but at near-ties (request, token, (a)'s margin) {ties}, "
+        f"tol {MARGIN_TOL}")
+    stats_f = eng.adapters.stats()
+    # base requests alone afterwards: their steps launch the plain GEMV only
+    n_steps, gemv0 = len(steps_f), kernels.GEMV.launches
+    eng.submit(traffic[2]["prompt"], max_new_tokens=4)
+    eng.submit(traffic[11]["prompt"], max_new_tokens=4)
+    eng.run_until_idle()
+    base_steps = steps_f[n_steps:]
+    log(f"phase 11 (f): a base-only burst afterwards: (bucket, LoRA GEMV launches) per decode "
+        f"step {base_steps}, GEMV launches {kernels.GEMV.launches - gemv0}")
+    check(bool(base_steps) and all(x == (0, 0) for x in base_steps)
+          and kernels.GEMV.launches - gemv0 >= len(base_steps) * (4 * L + 1),
+          "(f) base-only steps take the plain GEMV, no LoRA GEMV")
+    check(eng.page_leaks() == 0, "(f) page leaks after the base-only burst")
+    del eng
+
+    # the same traffic again: adapter requests' greedy tokens repeat
+    eng = engine(tm, root / "full", paged=True)
+    reqs_f2, sec_f2 = serve(eng)
+    finished(reqs_f2, "(f) again")
+    check(all(reqs_f[i].out_tokens == reqs_f2[i].out_tokens for i in greedy),
+          "(f) greedy tokens repeat on a second run")
+    check(eng.page_leaks() == 0, "(f) again: page leaks")
+    del eng
+    log(f"phase 11 (f) again: {sec_f2:.3f} s, greedy tokens identical; registry {stats_f}")
+
+    # (g) dense bf16 with adapters (gathered from host RAM)
+    kernels.reset_launches()
+    eng = engine(tm, root / "full", logprobs_top_k=2)
+    reqs_g, sec_g = serve(eng)
+    launches_g = kernels.launch_counts()
+    finished(reqs_g, "(g)")
+    check(launches_g[kernels.PAGED.name] == 0 and launches_g[kernels.LORA_GEMV.name] > 0,
+          "(g) LoRA GEMV and no paged launches")
+    ties = []
+    for i in greedy:
+        if reqs_f[i].out_tokens[0] != reqs_g[i].out_tokens[0]:
+            ties.append((i, round(margin(reqs_g[i], 0), 5)))
+            check(margin(reqs_g[i], 0) <= MARGIN_TOL, f"(g) request {i} first token")
+    log(f"phase 11 (g) dense bf16 + adapters: {sec_g:.3f} s, first tokens equal to (f)'s but at "
+        f"near-ties {ties}; launches {launches_g}")
+    del eng
+
+    # 2 layers at full width: kernels on, then every kernel's plain version
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    tm2 = TorchModel(cfg2, optimize_model(llama.init_params(cfg2, seed=5), cfg2, "sym_int4"),
+                     "sym_int4")
+    make_adapters(torch, dev, cfg2, root / "two_layers")
+    plain = {"qmatmul": kernels.qmatmul_plain, "qmatmul_lora": kernels.qmatmul_lora_plain,
+             "flash_attention": kernels.flash_attention_plain,
+             "paged_attention": kernels.paged_attention_plain}
+
+    def run2():
+        e2 = engine(tm2, root / "two_layers", paged=True)
+        rs = [e2.submit(**sp) for sp in specs[:8]]
+        e2.run_until_idle()
+        check(e2.page_leaks() == 0, "2-layer adapter engine page leaks")
+        return [r.out_logprobs for r in rs], [r.out_tokens for r in rs]
+
+    kernels.reset_launches()
+    lk, tk = run2()
+    check(kernels.LORA_GEMV.launches > 0, "2-layer adapter engine: LoRA GEMV launches")
+    with mock.patch.multiple(kernels, **plain):
+        lp_, tp_ = run2()
+    worst = 0.0
+    for a, b_, ta, tb in zip(lk, lp_, tk, tp_):
+        n = next((j for j, (x, y) in enumerate(zip(ta, tb)) if x != y), len(ta)) + 1
+        worst = max(worst, max(abs(x - y) for x, y in zip(a[:n], b_[:n])))
+    log(f"phase 11: 2-layer full-width adapter engine: chosen-token logprobs kernels vs plain "
+        f"max_abs_err={worst:.5f} nat (tol {LOGPROB_TOL[False]}, up to the first differing token)")
+    check(worst <= LOGPROB_TOL[False], "2-layer adapter engine kernels vs plain")
+    del tm2
+
+    # ---------------------------------------------------------------- 12
+    ntok = sum(len(r.out_tokens) for r in reqs_f)
+
+    def q(xs, f):
+        xs = sorted(xs)
+        return xs[min(int(f * len(xs)), len(xs) - 1)] * 1e3
+
+    log(f"phase 12: card {card}")
+    log(f"phase 12: engine (f) paged bf16 + adapters, {len(reqs_f)} requests, {SLOTS} slots: "
+        f"{sec_f:.3f} s = {len(reqs_f) / sec_f:.3f} requests/s, {ntok} tokens = "
+        f"{ntok / sec_f:.1f} generated tokens/s; TTFT ms median={q(seen['ttft'], .5):.3f} "
+        f"p90={q(seen['ttft'], .9):.3f}; decode step ms median={q(seen['step'], .5):.3f} "
+        f"p90={q(seen['step'], .9):.3f} (n={len(steps_f)}); peak_mem_gib={peak_f:.3f} "
+        f"(the adapter page store {store_gib:.3f} GiB of it); second run {sec_f2:.3f} s")
+    log(f"phase 12: engine (a) paged bf16, the same traffic without adapters: {served['summary_a']}")
+
+    # a decode step with 8 adapter rows (bucket 16: R = 128 at wo and w_down)
+    rng = np.random.default_rng(9)
+    steady = [rng.integers(1, V, STEADY_LEN + 13 * i).tolist() for i in range(SLOTS)]
+    eng = engine(tm, root / "full", paged=True)
+    for p_, a_ in zip(steady, STEADY_ADAPTERS):
+        eng.submit(p_, max_new_tokens=SERVE_NEW, adapter=a_)
+    for _ in range(4):
+        eng.step()
+    host = []
+    for _ in range(10):
+        t1 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t1) * 1e3)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        for _ in range(PROFILED_DECODES):
+            eng.step()
+        torch.cuda.synchronize()
+    R = SLOTS * rank_bucket(max(ADAPTER_RANKS[:3]))
+    del eng
+    dev_events = [e for e in prof.key_averages()
+                  if e.self_cpu_time_total == 0 and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in dev_events) / 1e3 / PROFILED_DECODES
+    med = sorted(host)[len(host) // 2]
+    gemv_evs = [e for e in dev_events if ("gemv_kernel<8, 4, true>" in e.key
+                                          or "gemv_kernel<8, 4, (bool)1>" in e.key)]
+    xa_evs = [e for e in dev_events if "lora_xa_small_kernel<8, 4>" in e.key]
+    calls = sum(e.count for e in gemv_evs)
+    check(calls == 2 * L * PROFILED_DECODES and sum(e.count for e in xa_evs) == calls,
+          f"LoRA GEMV: {calls} profiled calls, expected {2 * L * PROFILED_DECODES}")
+    path = sum(e.self_device_time_total for e in gemv_evs + xa_evs) / 1e3 / PROFILED_DECODES
+    xa_path = sum(e.self_device_time_total for e in xa_evs) / 1e3 / PROFILED_DECODES
+    log(f"phase 12: decode step, 8 adapter rows (R={R}), bf16 pages: host median {med:.3f} ms "
+        f"(n=10), device busy {busy:.3f} ms = {busy / med:.3f} of the step; "
+        f"{kernels.LORA_GEMV.name} {path:.3f} ms a step on the path (its first pass "
+        f"{xa_path:.3f} ms)")
+    for e in sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / 1e3 / PROFILED_DECODES:8.3f} ms/step "
+            f"{e.count // PROFILED_DECODES:5d} calls/step  {e.key[:90]}")
+
+    # the LoRA GEMV isolated at M = 8, R = 128, wo and w_down, operands
+    # cycled past the L2; per decode step: L x (wo + w_down)
+    from bigdl_tpu_torch.quant import quantize
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    iso = plain_ = lib = nbytes = flops = 0.0
+    for O, K in ((cfg.hidden_size, K_WO), (cfg.hidden_size, K_DOWN)):
+        w = quantize(torch.randn((O, K), device=dev, generator=g) * 0.02, "sym_int4")
+        wb = sum(t.numel() * t.element_size() for t in w.fields().values())
+        x = torch.randn((SLOTS, K), device=dev, generator=g).bfloat16()
+        gate = lora_gate(torch, dev, SLOTS, R, "block")
+        copies = max(1, math.ceil(L2_COPIES_BYTES / (wb + R * (K + O) * 2)))
+        sets = [(type(w)(qtype=w.qtype, **{f: t.clone() for f, t in w.fields().items()}),
+                 (torch.randn((R, K), device=dev, generator=g) / 16).bfloat16(),
+                 (torch.randn((O, R), device=dev, generator=g) * 0.02).bfloat16())
+                for _ in range(copies)]
+        dense = [(w_.dequantize(torch.bfloat16), a_, b_) for w_, a_, b_ in sets[:max(1, copies // 2)]]
+        k_ms = time_ms(torch, lambda w_, a_, b_: kernels.qmatmul_lora(x, w_, a_, b_, gate), sets)
+        p_ms = time_ms(torch, lambda w_, a_, b_: kernels.qmatmul_lora_plain(x, w_, a_, b_, gate),
+                       sets, iters=PLAIN_ITERS)
+        l_ms = time_ms(torch, lambda d_, a_, b_: lora_gemv_library(torch, x, d_, a_, b_, gate),
+                       dense, iters=PLAIN_ITERS)
+        nb, fl = lora_gemv_cost(SLOTS, O, K, R, wb)
+        bms1, by1 = bound_ms(nb, fl)
+        log(f"phase 12: {kernels.LORA_GEMV.name} M={SLOTS} O={O} K={K} R={R}: isolated_ms="
+            f"{k_ms:.5f} plain_ms={p_ms:.5f} library_ms={l_ms:.5f} (cuBLAS on the weight "
+            f"dequantized beforehand + two torch.matmul) bound_ms={bms1:.5f} ({by1})")
+        iso, plain_, lib = iso + L * k_ms, plain_ + L * p_ms, lib + L * l_ms
+        nbytes, flops = nbytes + L * nb, flops + L * fl
+        del sets, dense
+    bms, by = bound_ms(nbytes, flops)
+    return [{
+        "name": kernels.LORA_GEMV.name, "route": "cuda", "source": kernels.LORA_GEMV.source,
+        "replaces": kernels.LORA_GEMV.replaces, "launches": launches_f[kernels.LORA_GEMV.name],
+        "max_abs_err": errs[kernels.LORA_GEMV.name], "ms": path, "isolated_ms": iso,
+        "plain_ms": plain_, "bound_ms": bms, "bound_by": by, "library_ms": lib,
+        "per": f"one adapter decode step: {SLOTS} rows, R={R}, wo + w_down x {L} layers"}]
 
 
 # ---------------------------------------------------------------------------
@@ -1309,7 +1748,7 @@ def format_phases(torch, dev, cfg, card, prompts, tok, st, T, S) -> dict:
     Hkv, D = cfg.num_key_value_heads, cfg.head_dim_
     shapes = {"wqkv": (cfg.q_dim + 2 * cfg.kv_dim, H), "wo": (H, cfg.q_dim),
               "w_gateup": (2 * I, H), "w_down": (H, I), "lm_head": (V, H)}
-    forms = (kernels.GEMV, kernels.GEMM, kernels.LORA_GEMM, kernels.DX)
+    forms = (kernels.GEMV, kernels.GEMM, kernels.LORA_GEMM, kernels.DX, kernels.LORA_GEMV)
     out = {k.name: {q: {"launches": 0, "max_abs_err": 0.0, "ms": None} for q in FORMATS}
            for k in forms}
     g = torch.Generator(device=dev).manual_seed(20)
@@ -1346,11 +1785,16 @@ def format_phases(torch, dev, cfg, card, prompts, tok, st, T, S) -> dict:
                 gate = torch.full((TRAIN_T, RANK), 2.0, dtype=torch.bfloat16, device=dev)
                 worst.append(held(kernels.LORA_GEMM, qtype, kernels.qmatmul_lora(x, w, a, b_, gate),
                                   kernels.qmatmul_lora_plain(x, w, a, b_, gate), f"{name} lora"))
+                # the LoRA GEMV at a serving decode step: 8 rows, R = 128
+                x, a, b_ = randn(SLOTS, K), randn(128, K) / 16, randn(O, 128) * 0.02
+                gate = lora_gate(torch, dev, SLOTS, 128, "block")
+                worst.append(held(kernels.LORA_GEMV, qtype, kernels.qmatmul_lora(x, w, a, b_, gate),
+                                  kernels.qmatmul_lora_plain(x, w, a, b_, gate), f"{name} lora gemv"))
             gr = randn(TRAIN_T, O)
             worst.append(held(kernels.DX, qtype, kernels.qmatmul_dx(gr, w),
                               kernels.qmatmul_dx_plain(gr, w), f"{name} dx"))
             log(f"phase 9: {qtype} {name} O={O} K={K} ({weight_bytes(w) / (O * K):.6g} B/weight): "
-                f"GEMV M=1,4,32, GEMM M=33,1024{', LoRA GEMM M=1024 R=8' if name in ('wo', 'w_down') else ''}"
+                f"GEMV M=1,4,32, GEMM M=33,1024{', LoRA GEMM M=1024 R=8, LoRA GEMV M=8 R=128' if name in ('wo', 'w_down') else ''}"
                 f", dx M=1024: max_abs_err/tol {' '.join(f'{e:.3g}/{t_:.3g}' for e, t_ in worst)}")
             del w
     torch.cuda.synchronize()
@@ -1391,7 +1835,8 @@ def format_phases(torch, dev, cfg, card, prompts, tok, st, T, S) -> dict:
         want.update({kernels.GEMM.name: 4 * L, kernels.FLASH.name: L,
                      kernels.GEMV.name: (NEW_TOKENS - 1) * 4 * L + NEW_TOKENS})
         want_fmt = {kernels.GEMM.name: {body: 4 * L}, kernels.LORA_GEMM.name: {},
-                    kernels.DX.name: {}, kernels.GEMV.name: {body: (NEW_TOKENS - 1) * 4 * L}}
+                    kernels.DX.name: {}, kernels.GEMV.name: {body: (NEW_TOKENS - 1) * 4 * L},
+                    kernels.LORA_GEMV.name: {}}
         want_fmt[kernels.GEMV.name][head] = want_fmt[kernels.GEMV.name].get(head, 0) + NEW_TOKENS
         log(f"phase 9: {qtype} launches {launches} by format {by_fmt}; expected {want} {want_fmt}")
         check(launches == want and by_fmt == want_fmt, f"{qtype} launch counts")
@@ -1502,7 +1947,8 @@ def format_phases(torch, dev, cfg, card, prompts, tok, st, T, S) -> dict:
     out[kernels.DX.name]["nf4"]["ms"] = kernel_path_ms(prof, "dx_kernel", PROFILED_TRAIN_STEPS)
     out[kernels.LORA_GEMM.name]["nf4"]["ms"] = sum(
         e.self_device_time_total for e in prof.key_averages()
-        if ("gemm_kernel<true" in e.key or "gemm_kernel<(bool)1" in e.key)
+        if ("gemm_kernel<true" in e.key or "gemm_kernel<(bool)1" in e.key
+            or "lora_xa_tc_kernel" in e.key)
         and e.self_device_time_total > 0) / 1e3 / PROFILED_TRAIN_STEPS
     log(f"phase 10: nf4 QLoRA B=1 T={TRAIN_T} rank {RANK}: step_ms median={med:.3f} "
         f"({[round(x, 3) for x in step_ms]}; warm-up {warm[0]:.3f}); tokens_per_s="
@@ -1590,10 +2036,21 @@ def format_phases(torch, dev, cfg, card, prompts, tok, st, T, S) -> dict:
                     TRAIN_T * K * 2 + wb + RANK * K * 2 + O * RANK * 2 + TRAIN_T * RANK * 2
                     + TRAIN_T * O * 2,
                     2.0 * TRAIN_T * O * K + 2.0 * TRAIN_T * K * RANK + 2.0 * TRAIN_T * RANK * O)
+                x, gate = randn(SLOTS, K), lora_gate(torch, dev, SLOTS, 128, "block")
+                a, b_ = randn(128, K) / 16, randn(O, 128) * 0.02
+                add(kernels.LORA_GEMV, L,
+                    time_ms(torch, lambda w_: kernels.qmatmul_lora(x, w_, a, b_, gate), ws),
+                    time_ms(torch, lambda w_: kernels.qmatmul_lora_plain(x, w_, a, b_, gate), ws,
+                            iters=PLAIN_ITERS),
+                    time_ms(torch, lambda d_: lora_gemv_library(torch, x, d_, a, b_, gate), dense,
+                            iters=PLAIN_ITERS),
+                    *lora_gemv_cost(SLOTS, O, K, 128, wb))
             del w, ws, dense
         for kern, unit in ((kernels.GEMV, f"decode step M={B}"), (kernels.GEMM, f"prefill M={TRAIN_T}"),
                            (kernels.DX, f"train step M={TRAIN_T}"),
-                           (kernels.LORA_GEMM, f"train step M={TRAIN_T} R={RANK}")):
+                           (kernels.LORA_GEMM, f"train step M={TRAIN_T} R={RANK}"),
+                           (kernels.LORA_GEMV, f"adapter decode step M={SLOTS} R=128: "
+                                               f"wo + w_down x {L}")):
             iso, plain_, lib, nbytes, flops = sums[kern.name]
             bms, by = bound_ms(nbytes, flops)
             out[kern.name][qtype].update(isolated_ms=iso, plain_ms=plain_, library_ms=lib,

@@ -331,7 +331,7 @@ def test_dx_kernel_matches_plain(M, O, K):
     assert _max_err(dx, ref) <= _ULPS * ref.float().abs().max().item()
 
 
-@pytest.mark.parametrize("R", [3, 8, 16])
+@pytest.mark.parametrize("R", [3, 8, 16, 32, 128])
 @pytest.mark.parametrize("M,O,K", [(33, 384, 1024), (300, 256, 320),
                                    (1024, 4096, 4096)])  # the last: llama3-8b wo
 def test_lora_gemm_matches_plain(M, O, K, R):
@@ -449,4 +449,91 @@ def test_train_step_kernels_match_plain_full_width():
         kernels.FLASH_FWD.name: L, kernels.FLASH_DQ.name: L,
         kernels.FLASH_DKV.name: L, kernels.DX.name: 4 * L,
         kernels.GEMV.name: 0, kernels.FLASH.name: 0, kernels.PAGED.name: 0,
-        kernels.PAGED_FP8.name: 0, kernels.FLASH_FP8.name: 0}
+        kernels.PAGED_FP8.name: 0, kernels.FLASH_FP8.name: 0, kernels.LORA_GEMV.name: 0}
+
+
+ALL_FORMATS = ["sym_int4"] + OTHER_FORMATS
+
+
+@pytest.mark.parametrize("qtype", ALL_FORMATS)
+def test_lora_gemv_matches_plain(qtype):
+    """The LoRA GEMV of every format against its plain version at M = 1,
+    8, 32 and R = 8, 128, with the serving decode's block-diagonal gate
+    (the last row all zero: a base row) at M > 1: within 2 bf16 ULPs of
+    the largest output, and a zero-gate row bit-equal to the plain GEMV
+    kernel's row (the same sums in the same order, plus exact zeros)."""
+    dev = _cuda()
+    O, K = 200, 2048  # a ragged last block; every format's k_multiple divides K
+    g = torch.Generator(device=dev).manual_seed(len(qtype))
+    w = quantize(torch.randn(O, K, device=dev, generator=g) * 0.02, qtype)
+
+    def rnd(*shape):
+        return torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+
+    for M in (1, 8, 32):
+        for R in (8, 128):
+            x, a, b = rnd(M, K), rnd(R, K) / R, rnd(O, R) * 0.1
+            gate = torch.zeros((M, R), dtype=torch.bfloat16, device=dev)
+            width = max(R // M, 1)
+            for m in range(max(M - 1, 1)):
+                gate[m, (m * width) % R:(m * width) % R + width] = 2.0
+            before = kernels.LORA_GEMV.launches
+            got = kernels.qmatmul_lora(x, w, a, b, gate)
+            torch.cuda.synchronize()
+            assert kernels.LORA_GEMV.launches == before + 1
+            assert kernels.LORA_GEMV.by_format[qtype] >= 1
+            ref = kernels.qmatmul_lora_plain(x, w, a, b, gate)
+            assert bool(torch.isfinite(got.float()).all())
+            assert _max_err(got, ref) <= _ULPS * ref.float().abs().max().item(), (M, R)
+            base = kernels.qmatmul(x, w)
+            assert _max_err(got, base) > 0  # a real epilogue
+            if M > 1:
+                assert torch.equal(got[-1], base[-1]), (M, R)
+
+
+def test_adapter_engine_two_layers_full_width_kernels_vs_plain(tmp_path):
+    """Two llama3-8b layers at full width serving a mixed batch (two
+    adapters of ranks 4 and 16 on all seven projections, one base
+    request) over a paged pool: the LoRA GEMV at wo and w_down in every
+    decode step that holds an adapter row (2 per layer), and the
+    chosen-token logprobs of the same run with every kernel patched to its
+    plain version."""
+    from bigdl_tpu_torch.serving import InferenceEngine
+    from bigdl_tpu_torch.serving.adapters import AdapterRegistry, save_adapter
+
+    dev = _cuda()
+    cfg = dataclasses.replace(PRESETS["llama3-8b"], num_hidden_layers=2)
+    tm = TorchModel(cfg, optimize_model(llama.init_params(cfg, seed=5), cfg), "sym_int4")
+    for name, rank in (("r4", 4), ("r16", 16)):
+        lo = init_lora(cfg, seed=rank, rank=rank, alpha=2.0 * rank)
+        with torch.no_grad():
+            for t in lo.layers.values():
+                t["b"].normal_(0.0, 0.02, generator=torch.Generator(device=dev).manual_seed(rank))
+        save_adapter(str(tmp_path / f"{name}.npz"), lo)
+    g = torch.Generator().manual_seed(6)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist() for n in (20, 90, 40)]
+    jobs = list(zip(prompts, ["r4", "r16", None]))
+
+    def run():
+        eng = InferenceEngine(tm, n_slots=4, max_len=512, paged=True, page_size=64,
+                              adapters=AdapterRegistry(dir=str(tmp_path)))
+        reqs = [eng.submit(p, max_new_tokens=8, adapter=a) for p, a in jobs]
+        eng.run_until_idle()
+        assert eng.page_leaks() == 0
+        assert all(r.finish_reason == "length" for r in reqs)
+        return eng, [(r.out_tokens, r.out_logprobs) for r in reqs]
+
+    kernels.reset_launches()
+    eng, outs = run()
+    counts = kernels.launch_counts()
+    # every decode step held an adapter row (the base request finishes with them)
+    assert counts[kernels.LORA_GEMV.name] >= 2 * 2 * eng.decode_step_seconds.count
+    assert counts[kernels.PAGED.name] == 2 * eng.decode_step_seconds.count
+    plain = {"qmatmul": kernels.qmatmul_plain, "qmatmul_lora": kernels.qmatmul_lora_plain,
+             "flash_attention": kernels.flash_attention_plain,
+             "paged_attention": kernels.paged_attention_plain}
+    with mock.patch.multiple(kernels, **plain):
+        _, ref = run()
+    for (ta, a), (tb, b) in zip(outs, ref):  # bf16 through two layers: 0.05 nat
+        n = next((j for j, (x, y) in enumerate(zip(ta, tb)) if x != y), len(ta)) + 1
+        assert max(abs(x - y) for x, y in zip(a[:n], b[:n])) <= 0.05

@@ -161,30 +161,117 @@ def test_linear_grads_match_jax_vjp(with_lora, monkeypatch):
 
 
 def test_lora_dispatch_follows_jax_rules():
-    """The shared pair folds into the GEMM above 32 rows; more adapter
-    columns than the epilogue kernel takes run the unfused epilogue after
-    the base kernel, as JAX does past its VMEM allowance; the GEMV form
-    and batched per-row adapters raise until ported."""
+    """A shared pair folds into the fused kernel at any row count (the
+    LoRA GEMV at <= 32 rows, the LoRA GEMM above) wherever JAX's
+    `lora_fused_ok` admits its width, and runs the unfused epilogue after
+    the base kernel past it, as JAX does; batched per-row adapters fuse
+    through their concatenated operands."""
     O, K = 256, 256
     _, w, rng = _weight(O, K, 5)
     x = torch.from_numpy(rng.normal(size=(40, K)).astype(np.float32))
 
-    def pair(r):
-        return (torch.from_numpy(rng.normal(size=(r, K)).astype(np.float32)).to(torch.bfloat16),
-                torch.from_numpy(rng.normal(size=(O, r)).astype(np.float32)).to(torch.bfloat16),
-                torch.tensor(2.0, dtype=torch.bfloat16))
+    def pair(r, *lead):
+        return (torch.from_numpy(rng.normal(size=(*lead, r, K)).astype(np.float32)).to(torch.bfloat16),
+                torch.from_numpy(rng.normal(size=(*lead, O, r)).astype(np.float32)).to(torch.bfloat16),
+                torch.full(lead, 2.0, dtype=torch.bfloat16))
 
-    wide = pair(kernels.LORA_MAX_RANK + 1)
+    wide_r = next(r for r in range(1, 4096) if not kernels.lora_fused_ok(r, K))
+    wide = pair(wide_r)
     unfused = (kernels.qmatmul(x.to(torch.bfloat16), w)
                + linear_mod.lora_epilogue(x, *wide))
     torch.testing.assert_close(linear(x, w, lora=wide), unfused, rtol=0, atol=0)
     a, b, s = pair(8)
-    gate = s.expand(40, 8).contiguous()
+    for rows in (40, 32, 1):  # the LoRA GEMM, then the GEMV form
+        gate = s.expand(rows, 8).contiguous()
+        torch.testing.assert_close(
+            linear(x[:rows], w, lora=(a, b, s)),
+            kernels.qmatmul_lora(x[:rows].to(torch.bfloat16), w, a, b, gate),
+            rtol=0, atol=0)
+    # batched: 4 rows of one token, each through its own rank-8 pair
+    ab, bb, sb = pair(8, 4)
+    sb = torch.tensor([2.0, 0.0, 0.5, 1.0], dtype=torch.bfloat16)
+    x3 = x[:4, None]
+    a_cat, b_cat, gate = linear_mod._lora_cat_operands(x3, (ab, bb, sb), torch.bfloat16)
+    assert a_cat.shape == (32, K) and b_cat.shape == (O, 32) and gate.shape == (4, 32)
+    fused = linear(x3, w, lora=(ab, bb, sb))
     torch.testing.assert_close(
-        linear(x, w, lora=(a, b, s)),
-        kernels.qmatmul_lora(x.to(torch.bfloat16), w, a, b, gate),
+        fused, kernels.qmatmul_lora(x3.to(torch.bfloat16), w, a_cat, b_cat, gate),
         rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        linear(x[:32], w, lora=(a, b, s))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        linear(x, w, lora=(a[None], b[None], s[None]))
+    assert torch.equal(fused[1], kernels.qmatmul(x3[1].to(torch.bfloat16), w))  # scale 0
+    unfused = kernels.qmatmul(x3.to(torch.bfloat16), w) + linear_mod.lora_epilogue(
+        x3, ab, bb, sb)
+    _within_bf16_ulps(fused.float().numpy(), unfused.float().numpy(), floor=2 ** -7)
+
+
+def test_qlora_step_at_16_rows_rank32_matches_jax(monkeypatch):
+    """QLoRA at <= 32 rows per projection (B=1, 17 tokens: 16 rows), rank
+    32 on all seven projections, over a kernel-eligible sym_int4 model: wo
+    and w_down take the fused LoRA GEMV (its plain version here; JAX's
+    Pallas kernel in interpret mode, fused as well since R = 32 passes
+    `lora_fused_ok`). Loss to 1e-3 relative and every adapter gradient
+    within 5 % of its leaf's largest element (test_torch_train.py's
+    tolerances)."""
+    import dataclasses
+    import functools
+
+    from bigdl_tpu.api import optimize_model as jax_optimize_model
+    from bigdl_tpu.models import llama as jllama
+    from bigdl_tpu.models.config import ModelConfig as JaxConfig
+    from bigdl_tpu.quant import QTensor as JaxQTensor
+    from bigdl_tpu.train import init_lora as jax_init_lora
+    from bigdl_tpu.train import next_token_loss as jax_next_token_loss
+    from bigdl_tpu_torch.convert import lora_from_numpy, params_from_numpy
+    from bigdl_tpu_torch.models import llama
+    from bigdl_tpu_torch.models.config import ModelConfig
+    from bigdl_tpu_torch.train import next_token_loss
+
+    monkeypatch.setenv("BIGDL_TPU_PALLAS", "interpret")
+    jcfg = JaxConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                     num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1)
+    jparams = jax.jit(functools.partial(jllama.init_params, jcfg))(jax.random.PRNGKey(0))
+    jparams = jax.jit(lambda p: jax_optimize_model(p, jcfg, "sym_int4"))(jparams)
+    jlora = jax_init_lora(jcfg, jax.random.PRNGKey(1), rank=32)
+    rng = np.random.default_rng(3)
+    for t, pair_ in jlora["layers"].items():  # B != 0: dA is compared too
+        pair_["b"] = jnp.asarray(rng.normal(size=pair_["b"].shape) * 0.02, jnp.bfloat16)
+
+    def flatten(tree, prefix, arrays, qtypes):
+        if isinstance(tree, JaxQTensor):
+            qtypes[prefix] = tree.qtype
+            for f in ARRAY_FIELDS:
+                if getattr(tree, f) is not None:
+                    arrays[f"{prefix}@{f}"] = np.asarray(getattr(tree, f))
+        elif isinstance(tree, dict):
+            for k in sorted(tree):
+                flatten(tree[k], f"{prefix}.{k}" if prefix else k, arrays, qtypes)
+        else:
+            arrays[prefix] = np.asarray(tree, np.float32)
+
+    arrays, qtypes, larrays = {}, {}, {}
+    flatten(jparams, "", arrays, qtypes)
+    flatten(jlora, "", larrays, {})
+    tcfg = ModelConfig(**dataclasses.asdict(jcfg))
+    model = params_from_numpy(arrays, qtypes, tcfg, device="cpu")
+    lora = lora_from_numpy(larrays, tcfg, device="cpu")
+    tokens = rng.integers(1, jcfg.vocab_size, (1, 17)).astype(np.int32)
+    mask = np.ones((1, 17), np.float32)
+
+    j_loss, j_grads = jax.value_and_grad(lambda layers: jax_next_token_loss(
+        jcfg, jllama.forward, jparams, {"layers": layers, "scale": jlora["scale"]},
+        jnp.asarray(tokens), jnp.asarray(mask)))(jlora["layers"])
+    linear_calls = []
+    real = linear_mod._FusedLoraMatmul.apply
+    monkeypatch.setattr(linear_mod._FusedLoraMatmul, "apply",
+                        lambda *a: linear_calls.append(a[0].shape) or real(*a))
+    loss = next_token_loss(tcfg, llama.forward, model, lora, torch.from_numpy(tokens),
+                           torch.from_numpy(mask))
+    loss.backward()
+    # wo and w_down of both layers took the fused form at 16 rows
+    assert len(linear_calls) == 4 and all(s_[-2] == 16 for s_ in linear_calls)
+    assert abs(loss.item() - float(j_loss)) <= 1e-3 * abs(float(j_loss))
+    for t, g in j_grads.items():
+        for leaf in ("a", "b"):
+            ref = np.asarray(g[leaf], np.float32)
+            got = lora.layers[t][leaf].grad.float().numpy()
+            assert np.abs(ref).max() > 0
+            assert np.abs(got - ref).max() <= 0.05 * np.abs(ref).max(), (t, leaf)

@@ -128,3 +128,60 @@ def test_cpu_tensor_takes_plain_version_without_launch():
     assert kernels.format_launch_counts() == {k.name: {} for k in kernels.KERNELS
                                               if k.per_format}
 
+
+
+def _gate(M, R, kind, rng):
+    """A LoRA gate [M, R]: "dense" holds a scale in every column;
+    "block" is the serving decode's block-diagonal form (row m carries
+    its group's scale in its own R // M-wide group of columns, zero
+    elsewhere), with its last row all zero (a base row) when M > 1."""
+    if kind == "dense":
+        return np.full((M, R), 2.0, np.float32)
+    gate = np.zeros((M, R), np.float32)
+    width = max(R // M, 1)
+    for m in range(max(M - 1, 1)):
+        gate[m, (m * width) % R:(m * width) % R + width] = rng.choice([0.5, 1.0, 2.0])
+    return gate
+
+
+@pytest.mark.parametrize("gate_kind", ["block", "dense"])
+@pytest.mark.parametrize("R", [4, 48, 128])
+@pytest.mark.parametrize("M", [1, 8, 32])
+@pytest.mark.parametrize("qtype", ["sym_int4", "nf4", "fp6", "q4_k"])
+def test_lora_gemv_plain_matches_pallas_interpret(qtype, M, R, gate_kind):
+    """The LoRA epilogue at the GEMV's row counts (the serving decode and
+    short prefill tails): the plain version against JAX's qmatmul_lora in
+    interpret mode, dense and block-diagonal gates. K = 512 takes all four
+    formats' k_multiple. A zero gate row gets the plain GEMV's bits."""
+    from bigdl_tpu.ops.pallas.qmatmul import qmatmul_lora as jax_qmatmul_lora
+
+    O, K = 128, 512
+    x, qt = _operands(M, O, K, M * 31 + R, qtype)
+    rng = np.random.default_rng(M + R)
+    a = rng.normal(size=(R, K)) / R
+    b = rng.normal(size=(O, R)) * 0.1
+    gate = _gate(M, R, gate_kind, rng)
+    j = [jnp.asarray(v, jnp.float32).astype(jnp.bfloat16) for v in (x, a, b, gate)]
+    t = [torch.from_numpy(np.asarray(v, np.float32)).to(torch.bfloat16) for v in j]
+    ref = jax_qmatmul_lora(*j[:1], qt, *j[1:], interpret=True)
+    w = to_torch(qt)
+    got = kernels.qmatmul_lora(t[0], w, *t[1:])
+    assert got.dtype == torch.bfloat16 and got.shape == (M, O)
+    _within_bf16_ulps(got.float().numpy(), ref)
+    base = kernels.qmatmul(t[0], w)
+    assert (got.float() - base.float()).abs().max() > 0.01  # a real epilogue
+    zero = ~t[3].float().abs().sum(1).bool()
+    assert torch.equal(got[zero], base[zero])
+
+
+def test_lora_fused_ok_matches_jax():
+    """The copied eligibility rule agrees with JAX's over a grid of widths
+    that crosses the edge at llama3-8b's K (wo 4096: R <= 409; w_down
+    14336: R <= 136)."""
+    from bigdl_tpu.ops.pallas.tiling import lora_fused_ok as jax_lora_fused_ok
+
+    for K in (256, 1024, 4096, 14336):
+        for R in list(range(0, 20)) + [32, 128, 135, 136, 137, 256, 408, 409, 410, 1000]:
+            assert kernels.lora_fused_ok(R, K) == jax_lora_fused_ok(R, K), (R, K)
+    assert kernels.lora_fused_ok(409, 4096) and not kernels.lora_fused_ok(410, 4096)
+    assert kernels.lora_fused_ok(136, 14336) and not kernels.lora_fused_ok(137, 14336)

@@ -241,11 +241,13 @@ def test_out_of_slice_arguments_raise(pair):
     jm, tm, tol = pair
     for kw in ({"speculative": True}, {"prefill_chunk_tokens": 8},
                {"journal": "j.jsonl"}, {"max_queue": 4}, {"deadline_s": 1.0},
-               {"tracer": object()}, {"adapters": object()}):
+               {"tracer": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             InferenceEngine(tm, n_slots=1, max_len=64, **kw)
     eng = InferenceEngine(tm, n_slots=1, max_len=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit([1, 2], adapter="a")
+    # adapters are ported (test_torch_adapters.py): naming one on an engine
+    # without a registry finishes "invalid" at submit, as in JAX
+    req = eng.submit([1, 2], adapter="a")
+    assert req.done and req.finish_reason == "invalid" and "registry" in req.error
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.drain()

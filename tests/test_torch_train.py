@@ -222,10 +222,14 @@ def test_train_entry_points_refuse_cache_and_unported_options(pair):
             make_train_step(tcfg, llama.forward, opt, **kw)
     from bigdl_tpu_torch.kvcache import init_cache
 
+    # LoRA with a KV cache (the serving engine's adapter prefill) is no
+    # longer refused: its logits equal the cache-free forward's
     cache = init_cache(tcfg.num_hidden_layers, 2, 32, tcfg.num_key_value_heads,
                        tcfg.head_dim_, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        llama.forward(tcfg, model, torch.from_numpy(tokens), cache, lora=lora)
+    with torch.no_grad():
+        cached, _ = llama.forward(tcfg, model, torch.from_numpy(tokens), cache, lora=lora)
+        free, _ = llama.forward(tcfg, model, torch.from_numpy(tokens), None, lora=lora)
+    torch.testing.assert_close(cached, free, rtol=0, atol=2 ** -6 * free.abs().max().item())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             init_lora(tcfg)
