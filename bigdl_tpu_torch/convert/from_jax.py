@@ -8,12 +8,14 @@ under "<path>@<field>" ("layers.wqkv@data", "layers.wqkv@scales",
 "@mins", "@sub_scales", "@sub_mins" where the format has them), with the
 qtype of each QTensor path in `qtypes`. Leaves under "layers." are
 stacked [L, ...] and are split per layer here. bf16 leaves arrive as
-float32 (exact) and are stored as bf16; codes and sub-scales keep their
-integer types, scales and mins float16, and fp8 codes (numpy float8
-arrays, as the JAX package holds them) become torch's float8 types
-through their uint8 bytes. The projections come in the fused layout the JAX
-package's `optimize_model` makes by default (wqkv, w_gateup), the only
-one the port's `forward` runs.
+float32 (exact) and are stored as bf16 (`dtype=None` keeps each dense
+leaf's own type instead: the f32 parameters of a full fine-tune); codes
+and sub-scales keep their integer types, scales and mins float16, and fp8
+codes (numpy float8 arrays, as the JAX package holds them) become torch's
+float8 types through their uint8 bytes. The projections come in either
+layout the port's `forward` runs: the fused one the JAX package's
+`optimize_model` makes by default (wqkv, w_gateup), or the unfused one of
+its `init_params` (wq/wk/wv, w_gate/w_up).
 
 `lora_from_numpy` carries a JAX LoRA tree (train/qlora.py `init_lora`:
 {'layers': {target: {'a': [L, r, in], 'b': [L, out, r]}}, 'scale'}) the
@@ -35,35 +37,40 @@ from bigdl_tpu_torch.train.qlora import DEFAULT_TARGETS, LoRA, _target_dims
 from bigdl_tpu_torch.utils import resolve_device
 
 _NORMS = ("attn_norm", "mlp_norm")
-_PROJ = ("wqkv", "wo", "w_gateup", "w_down")
-_UNMERGED = ("wq", "wk", "wv", "w_gate", "w_up")
+# the projections of each layout: fused (optimize_model) and unfused (init_params)
+_LAYOUTS = (("wqkv", "wo", "w_gateup", "w_down"),
+            ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"))
 
 
 def params_from_numpy(arrays: dict[str, np.ndarray], qtypes: dict[str, str],
-                      config: ModelConfig, device=None) -> LlamaModel:
-    """The port's model holding exactly the given weights, on `device`."""
+                      config: ModelConfig, device=None,
+                      dtype=torch.bfloat16) -> LlamaModel:
+    """The port's model holding exactly the given weights, on `device`;
+    dense float leaves in `dtype`, or in their own type if it is None."""
     check_supported(config)
     dev = resolve_device(device)
-    known = {"embed", "final_norm", "lm_head"} | {
-        f"layers.{n}" for n in _NORMS + _PROJ}
-    unmerged = sorted(k for k in arrays if k.split("@")[0] in
-                      {f"layers.{n}" for n in _UNMERGED})
-    if unmerged:
+    paths = {k.split("@")[0] for k in arrays}
+    layout = next((names for names in _LAYOUTS
+                   if {f"layers.{n}" for n in names} <= paths), None)
+    if layout is None:
         raise ValueError(
-            f"params_from_numpy: leaves {unmerged} are unmerged; the port "
-            "takes the fused layout (wqkv, w_gateup) — merge them with the "
-            "JAX package's merge_fused_params first")
-    unknown = sorted(k for k in arrays if k.split("@")[0] not in known)
+            "params_from_numpy: the layer projections are neither the fused "
+            "layout (wqkv, wo, w_gateup, w_down) nor the unfused one (wq, wk, "
+            "wv, wo, w_gate, w_up, w_down); a layout mixing the two is unmerged "
+            "in part")
+    known = {"embed", "final_norm", "lm_head"} | {
+        f"layers.{n}" for n in _NORMS + layout}
+    unknown = sorted(p for p in paths if p not in known)
     if unknown:
         raise NotImplementedError(
             f"params_from_numpy: leaves {unknown} belong to llama flags "
-            "this port does not run yet (ROADMAP queue 1)")
+            "this port does not run yet (ROADMAP queue 1), or mix layouts")
 
     def tensor(key, index=None):
         a = arrays[key] if index is None else arrays[key][index]
         t = torch.from_numpy(np.array(a))
-        if t.is_floating_point() and t.dtype != torch.float16:
-            t = t.to(torch.bfloat16)
+        if t.is_floating_point() and t.dtype != torch.float16 and dtype is not None:
+            t = t.to(dtype)
         return t.to(dev)
 
     def field(key, index, qtype):
@@ -82,7 +89,7 @@ def params_from_numpy(arrays: dict[str, np.ndarray], qtypes: dict[str, str],
 
     layers = []
     for i in range(config.num_hidden_layers):
-        proj = {n: Linear(weight(f"layers.{n}", i)) for n in _PROJ}
+        proj = {n: Linear(weight(f"layers.{n}", i)) for n in layout}
         layers.append(DecoderLayer(tensor("layers.attn_norm", i),
                                    tensor("layers.mlp_norm", i), proj))
     return LlamaModel(tensor("embed"), layers, tensor("final_norm"),

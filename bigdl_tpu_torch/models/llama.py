@@ -4,10 +4,16 @@ untied lm head.
 
 The JAX package keeps parameters as a pytree with layers stacked for
 `lax.scan`; here they are modules — `LlamaModel` holds the embedding,
-one `DecoderLayer` per layer (norm weights as buffers, projections as
+one `DecoderLayer` per layer (norm weights, projections as
 `ops.linear.Linear` keyed by the JAX leaf names) and the lm head — and
-`forward` walks the layers in a Python loop. Every flag this slice does
-not run raises `NotImplementedError` (`check_supported`).
+`forward` walks the layers in a Python loop. The embedding, the norms and
+every dense projection are parameters that require no gradient until
+`make_trainable` turns them on (the full fine-tune, train/recipes.py);
+quantized projections stay buffers. `forward` runs both layouts, as
+JAX's does: the fused one (wqkv, w_gateup) that `optimize_model` makes,
+and the unfused one (wq/wk/wv, w_gate/w_up) of `init_params`, which the
+full fine-tune trains. Every flag this slice does not run raises
+`NotImplementedError` (`check_supported`).
 
 With a cache, attention follows JAX's dispatch: a prefill (T > 1) over a
 dense cache with one position for all rows (generate, the serving
@@ -21,7 +27,9 @@ validity mask from (start, pos). Without a
 cache (`cache=None`, the training / scoring path) query t of row b sits at
 slot t with position max(t - start[b], 0); T > 1 goes through the
 differentiable flash kernels (forward with logsumexp, dQ, dK/dV), T = 1
-through the masked attention. Every path takes LoRA adapters (`lora=`: a
+through the masked attention; `remat=True` recomputes each layer in the
+backward instead of keeping its activations (JAX's `jax.checkpoint`
+around the scan body). Every path takes LoRA adapters (`lora=`: a
 `train.qlora.LoRA`, or JAX's {"layers": {target: {"a", "b"}}, "scale"}
 tree, shared — a [L, r, in], b [L, out, r], scalar scale — or batched per
 row, as the serving engine's decode step gathers them — a [L, B, rb, in],
@@ -38,6 +46,7 @@ from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from bigdl_tpu_torch import kvcache
@@ -75,17 +84,21 @@ def check_supported(config: ModelConfig) -> None:
                 "still to be ported")
 
 
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
 class DecoderLayer(nn.Module):
-    """One decoder layer's weights: `attn_norm`/`mlp_norm` buffers and the
-    projections in `proj` — wq/wk/wv, wo, w_gate/w_up, w_down as
+    """One decoder layer's weights: the `attn_norm`/`mlp_norm` weights and
+    the projections in `proj` — wq/wk/wv, wo, w_gate/w_up, w_down as
     `init_params` makes them, wqkv, wo, w_gateup, w_down after
-    `merge_fused_params` (the layout `forward` runs)."""
+    `merge_fused_params`."""
 
     def __init__(self, attn_norm: torch.Tensor, mlp_norm: torch.Tensor,
                  proj: dict[str, Linear]):
         super().__init__()
-        self.register_buffer("attn_norm", attn_norm)
-        self.register_buffer("mlp_norm", mlp_norm)
+        self.attn_norm = _frozen(attn_norm)
+        self.mlp_norm = _frozen(mlp_norm)
         self.proj = nn.ModuleDict(proj)
 
 
@@ -95,10 +108,28 @@ class LlamaModel(nn.Module):
     def __init__(self, embed: torch.Tensor, layers: list[DecoderLayer],
                  final_norm: torch.Tensor, lm_head: Linear):
         super().__init__()
-        self.register_buffer("embed", embed)
+        self.embed = _frozen(embed)
         self.layers = nn.ModuleList(layers)
-        self.register_buffer("final_norm", final_norm)
+        self.final_norm = _frozen(final_norm)
         self.lm_head = lm_head
+
+
+def make_trainable(model: LlamaModel) -> list[nn.Parameter]:
+    """Turn on gradients for every leaf the full fine-tune trains (JAX's
+    `make_full_train_step` differentiates the whole parameter tree): the
+    embedding, the norms, every dense projection and the lm head.
+    Quantized projections are buffers and cannot train (QLoRA trains
+    adapters over them). Returns the parameters, for the optimizer."""
+    quantized = [n for n, m in model.named_modules()
+                 if isinstance(m, Linear) and m.qtype is not None]
+    if quantized:
+        raise ValueError(f"make_trainable: {quantized[:3]}... are quantized; the "
+                         "full fine-tune needs dense weights (QLoRA trains "
+                         "adapters over a low-bit base)")
+    params = list(model.parameters())
+    for p in params:
+        p.requires_grad_(True)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -107,8 +138,9 @@ class LlamaModel(nn.Module):
 
 def init_params(config: ModelConfig, seed: int = 0, device=None,
                 dtype=torch.bfloat16, scale: float = 0.02) -> LlamaModel:
-    """Random dense init on `device` (the card unless told otherwise),
-    N(0, scale^2) weights from a seeded torch.Generator, unit norms."""
+    """Random dense init in `dtype` on `device` (the card unless told
+    otherwise), N(0, scale^2) weights from a seeded torch.Generator, unit
+    norms, in the unfused layout."""
     check_supported(config)
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -208,20 +240,19 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
             cache: Optional[Union[KVCache, PagedKVCache]], mode: str = "prefill",
             compute_dtype=torch.bfloat16, last_logits_only: bool = False,
             start: Optional[torch.Tensor] = None,
-            lora=None) -> tuple[torch.Tensor, Optional[KVCache]]:
+            lora=None, remat: bool = False) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (logits [B, T, V] float32 — [B, 1, V] with
     last_logits_only — and the cache with pos advanced by T, or None
     without a cache). The cache is written in place; its pos is an int
     (rows aligned) or an int32 [B] tensor (per-row, the serving engine's
     pools). `start` [B] gives the left padding of the cache-free path (the
-    cache carries its own); `lora` is a shared or batched adapter tree."""
+    cache carries its own); `lora` is a shared or batched adapter tree;
+    `remat` (cache-free only) recomputes each layer in the backward."""
     if mode not in ("prefill", "decode"):
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+    if remat and cache is not None:
+        raise ValueError("remat=True is for the cache-free training path")
     check_supported(config)
-    if any("wqkv" not in layer.proj for layer in model.layers):
-        raise ValueError("forward runs the fused layout (wqkv, w_gateup): "
-                         "pass the model through optimize_model or "
-                         "merge_fused_params first")
     B, T = tokens.shape
     Hq, Hkv, D = (config.num_attention_heads, config.num_key_value_heads,
                   config.head_dim_)
@@ -282,14 +313,19 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
         pair = adapter(target, idx)
         return y if pair is None else y + lora_epilogue(x, *pair, compute_dtype)
 
-    for idx, layer in enumerate(model.layers):
+    def decoder_layer(h, idx):
+        layer = model.layers[idx]
         p = layer.proj
         x = rms_norm(h, layer.attn_norm, eps)
-        qkv = p["wqkv"](x, compute_dtype)
-        q, k, v = qkv[..., :QD], qkv[..., QD:QD + KD], qkv[..., QD + KD:]
-        q = plus_delta(q, x, "wq", idx).reshape(B, T, Hq, D)
-        k = plus_delta(k, x, "wk", idx).reshape(B, T, Hkv, D)
-        v = plus_delta(v, x, "wv", idx).reshape(B, T, Hkv, D)
+        if "wqkv" in p:  # fused layout; the adapters keep the unmerged names
+            qkv = p["wqkv"](x, compute_dtype)
+            q, k, v = qkv[..., :QD], qkv[..., QD:QD + KD], qkv[..., QD + KD:]
+            q, k, v = (plus_delta(t, x, n, idx) for t, n in ((q, "wq"), (k, "wk"), (v, "wv")))
+        else:
+            q, k, v = (p[n](x, compute_dtype, lora=adapter(n, idx)) for n in ("wq", "wk", "wv"))
+        q = q.reshape(B, T, Hq, D)
+        k = k.reshape(B, T, Hkv, D)
+        v = v.reshape(B, T, Hkv, D)
         q, k = apply_rotary_emb(q, k, cos, sin)
 
         if cache is None:
@@ -318,11 +354,21 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
                         lora=adapter("wo", idx))
 
         x = rms_norm(h, layer.mlp_norm, eps)
-        gate, up = p["w_gateup"](x, compute_dtype).chunk(2, dim=-1)
-        gate = plus_delta(gate, x, "w_gate", idx)
-        up = plus_delta(up, x, "w_up", idx)
-        h = h + p["w_down"](F.silu(gate) * up, compute_dtype,
-                            lora=adapter("w_down", idx))
+        if "w_gateup" in p:
+            gate, up = p["w_gateup"](x, compute_dtype).chunk(2, dim=-1)
+            gate = plus_delta(gate, x, "w_gate", idx)
+            up = plus_delta(up, x, "w_up", idx)
+        else:
+            gate, up = (p[n](x, compute_dtype, lora=adapter(n, idx)) for n in ("w_gate", "w_up"))
+        return h + p["w_down"](F.silu(gate) * up, compute_dtype,
+                               lora=adapter("w_down", idx))
+
+    for idx in range(len(model.layers)):
+        if remat and torch.is_grad_enabled():
+            h = torch.utils.checkpoint.checkpoint(decoder_layer, h, idx,
+                                                  use_reentrant=False)
+        else:
+            h = decoder_layer(h, idx)
 
     if last_logits_only:
         h = h[:, -1:]

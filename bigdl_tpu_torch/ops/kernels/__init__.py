@@ -2,6 +2,7 @@
 kernels in bigdl_tpu/ops/pallas). Importing this package builds nothing:
 sources compile at the first launch (`_build.py`)."""
 
+from bigdl_tpu_torch.ops.kernels.dw_matmul import DW, dw_matmul, dw_matmul_plain
 from bigdl_tpu_torch.ops.kernels.flash_attention import (
     FLASH, FLASH_FP8, flash_attention, flash_attention_plain,
 )
@@ -25,9 +26,9 @@ from bigdl_tpu_torch.ops.kernels.qmatmul import (
 # every kernel of the port, in the order the main paths first run them:
 # generation (prefill, decode), a training step (forward, backward), then
 # serving (paged decode, bf16 and fp8 pages; the dense fp8 pool's prefill;
-# adapter decode steps)
+# adapter decode steps), then the full fine-tune's weight gradients
 KERNELS = (GEMM, FLASH, GEMV, FLASH_FWD, LORA_GEMM, DX, FLASH_DQ, FLASH_DKV,
-           PAGED, PAGED_FP8, FLASH_FP8, LORA_GEMV)
+           PAGED, PAGED_FP8, FLASH_FP8, LORA_GEMV, DW)
 
 
 def reset_launches() -> None:
@@ -44,9 +45,10 @@ def format_launch_counts() -> dict:
     return {k.name: dict(k.by_format) for k in KERNELS if k.per_format}
 
 
-__all__ = ["DX", "FLASH", "FLASH_DKV", "FLASH_DQ", "FLASH_FP8", "FLASH_FWD",
+__all__ = ["DW", "DX", "FLASH", "FLASH_DKV", "FLASH_DQ", "FLASH_FP8", "FLASH_FWD",
            "GEMM", "GEMV", "GEMV_MAX_ROWS", "KERNELS", "K_MULTIPLE", "LORA_GEMM",
-           "LORA_GEMV", "PAGED", "PAGED_FP8", "format_launch_counts",
+           "LORA_GEMV", "PAGED", "PAGED_FP8", "dw_matmul", "dw_matmul_plain",
+           "format_launch_counts",
            "flash_attention", "flash_attention_plain",
            "flash_attention_train", "flash_attention_train_bwd_plain",
            "flash_attention_train_plain", "flash_train_dkv",

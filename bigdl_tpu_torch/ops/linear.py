@@ -18,13 +18,28 @@ GEMM forward; the backward's base-weight term through the dx kernel and
 the rank-R terms in plain torch, as JAX leaves them to XLA); everywhere
 else it applies as `lora_epilogue`.
 
+A dense weight goes through `_DenseMatmul`: y = x @ W^T and dx = g @ W
+in torch.matmul (JAX leaves both to XLA), dW = g^T @ x through the dW
+kernel (`kernels.dw_matmul`, the port of the Pallas `_dw_kernel`). The
+weight's cast to the compute dtype happens outside the Function, so an
+f32 master weight receives the dW of its bf16 copy, as JAX's autodiff of
+`w.astype(bf16)` gives it.
+
+`fused_backward_scope(False)` sends dx of every quantized linear whose
+forward runs inside it through the dequantize-then-matmul path instead
+of the dx kernel (JAX's rematerialized-dequant oracle, its
+`fused_backward_scope`); the training step chooses it per step function.
+
 `Linear` is the module form: it holds a QTensor's fields as buffers
 (`data`, `scales`, and `mins` / `sub_scales` / `sub_mins` where the
-format has them), or a dense `weight` buffer, plus an optional bias.
+format has them), or a dense `weight` parameter that trains only once
+asked to (`requires_grad=False` until `models.llama.make_trainable`),
+plus an optional bias.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -37,6 +52,33 @@ def _qtensor(qtype: str, fields) -> QTensor:
     return QTensor(**dict(zip(ARRAY_FIELDS, fields)), qtype=qtype)
 
 
+# The backward-path selector, read when a fused forward runs (and kept by
+# its autograd node): True takes the dx kernel, False the dequantize-then-
+# matmul oracle. A process-wide flag, as JAX's, so that a layer recomputed
+# in the backward (remat) reads the same value as its first forward.
+_FUSED_BACKWARD = True
+
+
+@contextlib.contextmanager
+def fused_backward_scope(enabled: bool = True):
+    """Choose the dx path of the quantized linears run inside the scope."""
+    global _FUSED_BACKWARD
+    prev = _FUSED_BACKWARD
+    _FUSED_BACKWARD = bool(enabled)
+    try:
+        yield
+    finally:
+        _FUSED_BACKWARD = prev
+
+
+def _dx(g: torch.Tensor, w: QTensor, fused: bool) -> torch.Tensor:
+    """dx = g @ dq(W): the dx kernel, or the dequantized weight through
+    torch.matmul in g's dtype (JAX's `_fused_dx` oracle)."""
+    if fused:
+        return kernels.qmatmul_dx(g, w)
+    return torch.matmul(g, w.dequantize(g.dtype))
+
+
 class _FusedMatmul(torch.autograd.Function):
     """y = x @ dq(W)^T through the fused kernel; dx = g @ dq(W) through
     the dx kernel. The weight crosses as its qtype and five fields (None
@@ -46,13 +88,14 @@ class _FusedMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, qtype, *fields):
         ctx.qtype = qtype
+        ctx.fused = _FUSED_BACKWARD
         ctx.save_for_backward(*fields)
         return kernels.qmatmul(x, _qtensor(qtype, fields))
 
     @staticmethod
     def backward(ctx, g):
         w = _qtensor(ctx.qtype, ctx.saved_tensors)
-        return (kernels.qmatmul_dx(g.contiguous(), w), None) + (None,) * len(ARRAY_FIELDS)
+        return (_dx(g.contiguous(), w, ctx.fused), None) + (None,) * len(ARRAY_FIELDS)
 
 
 class _FusedLoraMatmul(torch.autograd.Function):
@@ -66,6 +109,7 @@ class _FusedLoraMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, a, b, gate, qtype, *fields):
         ctx.qtype = qtype
+        ctx.fused = _FUSED_BACKWARD
         ctx.save_for_backward(x, a, b, gate, *fields)
         a16, b16, g16 = (t.to(torch.bfloat16).contiguous() for t in (a, b, gate))
         return kernels.qmatmul_lora(x, _qtensor(qtype, fields), a16, b16, g16)
@@ -84,7 +128,7 @@ class _FusedLoraMatmul(torch.autograd.Function):
         need = ctx.needs_input_grad
         dx = da = db = dgate = None
         if need[0]:
-            dxw = kernels.qmatmul_dx(gf, _qtensor(ctx.qtype, fields)).to(cd)
+            dxw = _dx(gf, _qtensor(ctx.qtype, fields), ctx.fused).to(cd)
             dx = (dxw + du @ ac).reshape(x.shape).to(x.dtype)
         if need[1]:
             da = (du.t() @ xf).to(a.dtype)
@@ -93,6 +137,29 @@ class _FusedLoraMatmul(torch.autograd.Function):
         if need[3]:
             dgate = (dv * u).to(gt.dtype)
         return (dx, da, db, dgate, None) + (None,) * len(ARRAY_FIELDS)
+
+
+class _DenseMatmul(torch.autograd.Function):
+    """y = x @ w^T for a dense weight already in the compute dtype; the
+    backward's dx = g @ w in torch.matmul and dW = g^T @ x through the dW
+    kernel, in w's dtype. The kernel is looked up at call time, so a
+    caller can hold it against its plain version by patching
+    `kernels.dw_matmul`."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.matmul(x, w.t())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(g, w)
+        if ctx.needs_input_grad[1]:
+            dw = kernels.dw_matmul(g, x, out_dtype=w.dtype)
+        return dx, dw
 
 
 def _fields(w: QTensor) -> tuple:
@@ -178,10 +245,10 @@ def linear(x: torch.Tensor, w: Union[QTensor, torch.Tensor],
             y, lora = _FusedLoraMatmul.apply(xc, *ops, w.qtype, *_fields(w)), None
         else:
             y = _FusedMatmul.apply(xc, w.qtype, *_fields(w)).to(compute_dtype)
+    elif isinstance(w, QTensor):
+        y = torch.matmul(x.to(compute_dtype), w.dequantize(compute_dtype).t())
     else:
-        wd = (w.dequantize(compute_dtype) if isinstance(w, QTensor)
-              else w.to(compute_dtype))
-        y = torch.matmul(x.to(compute_dtype), wd.t())
+        y = _DenseMatmul.apply(x.to(compute_dtype), w.to(compute_dtype))
     if lora is not None:
         y = y + lora_epilogue(x, *lora, compute_dtype)
     if bias is not None:
@@ -191,14 +258,15 @@ def linear(x: torch.Tensor, w: Union[QTensor, torch.Tensor],
 
 class Linear(nn.Module):
     """A linear layer over a QTensor (its fields as buffers, None where the
-    format has none) or a dense weight."""
+    format has none) or a dense weight (a parameter that requires no
+    gradient until asked to)."""
 
     def __init__(self, weight: Union[QTensor, torch.Tensor],
                  bias: Optional[torch.Tensor] = None):
         super().__init__()
         self.qtype = weight.qtype if isinstance(weight, QTensor) else None
         if self.qtype is None:
-            self.register_buffer("weight", weight)
+            self.weight = nn.Parameter(weight, requires_grad=False)
         else:
             for f in ARRAY_FIELDS:
                 self.register_buffer(f, getattr(weight, f))

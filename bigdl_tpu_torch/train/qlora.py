@@ -12,9 +12,12 @@ probability matrix is kept for the backward.
 JAX's step is one jitted function returning new adapters and optimizer
 state; here `make_train_step` returns a step that runs forward, backward
 and a torch optimizer's update in place, the optimizer holding its own
-state. `remat`, `seq_spec`/`ring_mesh` (sequence-parallel and ring
-attention) and `fused_backward=False` (the XLA rematerialized-dequant
-oracle) raise until ported.
+state. `remat=True` recomputes each decoder layer in the backward
+(`torch.utils.checkpoint`, JAX's `jax.checkpoint` around the scan body);
+`fused_backward=False` sends every quantized projection's dx of that
+step through the dequantize-then-matmul path (JAX's rematerialized-
+dequant oracle, `ops.linear.fused_backward_scope`). `seq_spec`/
+`ring_mesh` (sequence-parallel and ring attention) raise until ported.
 """
 
 from __future__ import annotations
@@ -174,27 +177,30 @@ def make_train_step(config: ModelConfig, forward_fn: Callable,
     optimizer over `lora.parameters()`, e.g. with `adamw`). Only the
     adapters train; the base and the scale stay fixed.
     return_grad_norm=True returns (loss, global norm of the gradients),
-    the training supervisor's overflow guard."""
-    if remat:
-        raise NotImplementedError(
-            "make_train_step(remat=True): ROADMAP queue 1 item 6, layer "
-            "rematerialization is still to be ported")
+    the training supervisor's overflow guard. remat=True recomputes each
+    layer in the backward (`forward_fn` takes `remat=`, as llama.forward
+    does); fused_backward=False takes the dequantize-then-matmul dx."""
     if seq_spec is not None or ring_mesh is not None:
         raise NotImplementedError(
             "make_train_step(seq_spec=..., ring_mesh=...): ROADMAP queue 1 "
             "item 8, sequence-parallel and ring-attention training are still "
             "to be ported")
-    if not fused_backward:
-        raise NotImplementedError(
-            "make_train_step(fused_backward=False), the rematerialized-"
-            "dequant backward: ROADMAP queue 1 item 6, still to be ported")
+    inner_forward = forward_fn
+    if remat:
+        def inner_forward(cfg, model, toks, cache, lora=None):
+            return forward_fn(cfg, model, toks, cache, lora=lora, remat=True)
 
     def step(model, lora: LoRA, tokens: torch.Tensor,
              loss_mask: torch.Tensor):
+        from bigdl_tpu_torch.ops.linear import fused_backward_scope
+
         optimizer.zero_grad(set_to_none=True)
-        loss = next_token_loss(config, forward_fn, model, lora, tokens,
-                               loss_mask)
-        loss.backward()
+        # the backward inside the scope too: a remat layer reruns its
+        # forward there
+        with fused_backward_scope(fused_backward):
+            loss = next_token_loss(config, inner_forward, model, lora, tokens,
+                                   loss_mask)
+            loss.backward()
         norm = None
         if return_grad_norm:
             grads = [p.grad.float() for p in lora.parameters() if p.grad is not None]

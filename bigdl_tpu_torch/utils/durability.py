@@ -112,12 +112,13 @@ def encode_array(arr) -> tuple[np.ndarray, str]:
 
 def decode_array(a: np.ndarray, dtype_name: str) -> torch.Tensor:
     """The inverse of `encode_array`: a CPU tensor of the logical dtype."""
+    # np.ascontiguousarray makes a 0-d array 1-d: keep the stored shape
     if dtype_name in _VIEW_DTYPES:
         _, same_width = _VIEW_DTYPES[dtype_name]
         bits = torch.from_numpy(np.ascontiguousarray(a).view(
             np.int16 if same_width == torch.int16 else np.uint8))
-        return bits.view(getattr(torch, dtype_name))
-    return torch.from_numpy(np.ascontiguousarray(a))
+        return bits.view(getattr(torch, dtype_name)).reshape(a.shape)
+    return torch.from_numpy(np.ascontiguousarray(a)).reshape(a.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -544,3 +544,42 @@ def test_corrupt_adapter_fails_one_request(tiny, tmp_path):
     assert good.finish_reason == base.finish_reason == "length"
     assert reg.stats()["load_failures"] == 2  # an unknown name is no load
     assert eng.finish_reasons["error"] == 3
+
+
+def test_admission_order_matches_jax_with_adapter_namespaces(tiny):
+    """chip_smoke phase 12's trace shape at tiny size: 16 requests, the
+    first 8 sharing a 40-token prefix and the rest independent, tenants
+    assigned as phase 11's ADAPTER_OF (4 base, 3 per adapter, over the
+    three test tenants), submitted at once to 4 paged slots. Cache-aware
+    admission scores each queued request's radix match in its own
+    adapter namespace: the port admits them in the order the JAX engine
+    does."""
+    rng = np.random.default_rng(12)
+    V = tiny.tcfg.vocab_size
+    prefix = [int(t) for t in rng.integers(1, V, 40)]
+    prompts = ([prefix + [int(t) for t in rng.integers(1, V, n)] for n in (3, 9, 17, 5, 11, 20, 7, 13)]
+               + [[int(t) for t in rng.integers(1, V, n)] for n in (12, 30, 8, 44, 19, 25, 6, 33)])
+    tenant = {"r4": "t-r2", "r8": "t-r3", "r16": "t-r5", "r32": "t-r5", None: None}
+    of = ("r8", "r8", None, "r32", "r32", None, "r32", "r4",
+          None, "r16", "r16", None, "r8", "r16", "r4", "r4")
+    jobs = [(p, tenant[a]) for p, a in zip(prompts, of)]
+    kw = dict(n_slots=4, max_len=128, paged=True, page_size=16)
+    orders = []
+    for eng in (JaxEngine(tiny.jmodel, adapters=JaxRegistry(dir=tiny.dir), **kw),
+                InferenceEngine(tiny.tmodel, adapters=AdapterRegistry(dir=tiny.dir), **kw)):
+        order, mark = [], eng._mark_admitted
+
+        def spy(req, mark=mark, order=order):
+            if req.admit_ts is None:
+                order.append(req.rid)
+            return mark(req)
+
+        eng._mark_admitted = spy
+        reqs = [eng.submit(p, max_new_tokens=4, adapter=a) for p, a in jobs]
+        eng.run_until_idle()
+        assert all(r.finish_reason == "length" for r in reqs) and eng.page_leaks() == 0
+        rid_of = {r.rid: i for i, r in enumerate(reqs)}
+        orders.append([rid_of[rid] for rid in order])
+    assert sorted(orders[1]) == list(range(16))
+    assert orders[1] == orders[0]
+    assert orders[0] != list(range(16))  # the namespaces reordered admission

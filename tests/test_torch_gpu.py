@@ -331,6 +331,31 @@ def test_dx_kernel_matches_plain(M, O, K):
     assert _max_err(dx, ref) <= _ULPS * ref.float().abs().max().item()
 
 
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("lead,O,K", [
+    ((1,), 384, 320), ((33,), 384, 320), ((2, 256), 384, 320),  # test_qbackward's
+    ((3, 7), 200, 136),  # ragged tiles, every edge predicated
+    ((5,), 385, 321),  # O, K not multiples of 8: the scalar-load variant
+    ((1024,), 1024, 4096),  # llama3-8b wk at the training shape
+])
+def test_dw_kernel_matches_plain(lead, O, K, out_dtype):
+    """dW = g^T @ x against its plain version: f32 sums in another order,
+    then one rounding on each side — within two bf16 ULPs of the largest
+    output (bf16), or 2^-16 of it (f32)."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(sum(lead) + O + K)
+    gr = torch.randn(*lead, O, device=dev, generator=g).to(torch.bfloat16)
+    x = torch.randn(*lead, K, device=dev, generator=g).to(torch.bfloat16)
+    before = kernels.DW.launches
+    dw = kernels.dw_matmul(gr, x, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert kernels.DW.launches == before + 1
+    assert dw.shape == (O, K) and dw.dtype == out_dtype
+    ref = kernels.dw_matmul_plain(gr, x, out_dtype)
+    tol = (_ULPS if out_dtype == torch.bfloat16 else 2 ** -16) * ref.float().abs().max().item()
+    assert _max_err(dw, ref) <= tol
+
+
 @pytest.mark.parametrize("R", [3, 8, 16, 32, 128])
 @pytest.mark.parametrize("M,O,K", [(33, 384, 1024), (300, 256, 320),
                                    (1024, 4096, 4096)])  # the last: llama3-8b wo
@@ -449,7 +474,57 @@ def test_train_step_kernels_match_plain_full_width():
         kernels.FLASH_FWD.name: L, kernels.FLASH_DQ.name: L,
         kernels.FLASH_DKV.name: L, kernels.DX.name: 4 * L,
         kernels.GEMV.name: 0, kernels.FLASH.name: 0, kernels.PAGED.name: 0,
-        kernels.PAGED_FP8.name: 0, kernels.FLASH_FP8.name: 0, kernels.LORA_GEMV.name: 0}
+        kernels.PAGED_FP8.name: 0, kernels.FLASH_FP8.name: 0, kernels.LORA_GEMV.name: 0,
+        kernels.DW.name: 0}
+
+
+def test_full_ft_step_kernels_match_plain():
+    """The full fine-tune of a small bf16 model (hidden 256, 2 layers,
+    B=2 T=48): every dense weight's gradient through the dW kernel (and
+    the flash trio) against the same backward through the plain versions
+    on the card — loss to 1e-3 of itself, each leaf within 5 % of its
+    largest gradient (bf16 activations through two layers and back) —
+    then a GaLore step's launch counts: 7 dW a layer and the lm head's."""
+    dev = _cuda()
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1)
+    from bigdl_tpu_torch.train import GaLore, make_full_train_step
+
+    model = llama.init_params(cfg, seed=7)
+    params = llama.make_trainable(model)
+    tokens = torch.randint(1, cfg.vocab_size, (2, 49), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(8))
+    mask = torch.ones_like(tokens, dtype=torch.float32)
+
+    def grads():
+        for p in params:
+            p.grad = None
+        loss = next_token_loss(cfg, llama.forward, model, None, tokens, mask)
+        loss.backward()
+        return loss.item(), [p.grad.float().clone() for p in params]
+
+    loss_k, grads_k = grads()
+    with mock.patch.multiple(kernels, dw_matmul=kernels.dw_matmul_plain,
+                             flash_train_fwd=kernels.flash_attention_train_plain,
+                             flash_train_dq=kernels.flash_train_dq_plain,
+                             flash_train_dkv=kernels.flash_train_dkv_plain):
+        loss_p, grads_p = grads()
+    assert abs(loss_k - loss_p) <= 1e-3 * abs(loss_p)
+    for gk, gp in zip(grads_k, grads_p):
+        assert _max_err(gk, gp) <= 0.05 * gp.abs().max().item()
+
+    step = make_full_train_step(cfg, llama.forward, GaLore(params, 1e-4, rank=16))
+    kernels.reset_launches()
+    before = [p.detach().clone() for p in params]
+    assert torch.isfinite(step(model, tokens, mask))
+    torch.cuda.synchronize()
+    L = cfg.num_hidden_layers
+    counts = kernels.launch_counts()
+    assert counts[kernels.DW.name] == 7 * L + 1
+    assert counts[kernels.FLASH_FWD.name] == counts[kernels.FLASH_DKV.name] == L
+    assert counts[kernels.GEMM.name] == counts[kernels.DX.name] == 0
+    assert any(not torch.equal(p, b) for p, b in zip(params, before))
 
 
 ALL_FORMATS = ["sym_int4"] + OTHER_FORMATS

@@ -174,6 +174,32 @@ def test_cpu_generate_in_fresh_process_loads_no_jax():
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-2000:]
 
 
+def test_training_modules_load_no_jax_in_fresh_process():
+    """The full fine-tune's modules (the dW kernel's wrapper, GaLore, the
+    recipes, DPO, the checkpoint and the watchdog) import and run a GaLore
+    step of a small model on the CPU without loading jax or bigdl_tpu."""
+    code = (
+        "import sys, torch\n"
+        "from bigdl_tpu_torch import PRESETS\n"
+        "from bigdl_tpu_torch.models import llama\n"
+        "from bigdl_tpu_torch.ops.kernels import dw_matmul\n"
+        "from bigdl_tpu_torch.train import GaLore, make_full_train_step, make_dpo_step\n"
+        "from bigdl_tpu_torch.train import checkpoint, watchdog\n"
+        "cfg = PRESETS['tiny-llama']\n"
+        "m = llama.init_params(cfg, 0, device='cpu')\n"
+        "step = make_full_train_step(cfg, llama.forward, GaLore(llama.make_trainable(m), 1e-3, rank=8))\n"
+        "loss = step(m, torch.ones((1, 9), dtype=torch.long), torch.ones((1, 9)))\n"
+        "assert torch.isfinite(loss)\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'bigdl_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-2000:]
+
+
 def test_entry_points_refuse_to_run_without_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None resolves to it")
@@ -197,9 +223,13 @@ def test_entry_points_refuse_to_run_without_card():
 
 
 def test_forward_and_carry_take_only_the_fused_layout():
-    """forward runs wqkv/w_gateup only; an unmerged model or unmerged JAX
-    leaves are refused, not run through a second projection path."""
-    from bigdl_tpu_torch import PRESETS, optimize_model
+    """forward runs the fused layout (wqkv/w_gateup, what optimize_model
+    makes) and, as JAX's forward does, the unfused one of init_params
+    (wq/wk/wv, w_gate/w_up), which the full fine-tune trains: the same
+    dense weights give the same logits in both, within two bf16 ULPs of
+    the largest (the concatenated matmul may sum in another order). The
+    carry takes either layout and refuses leaves that mix them."""
+    from bigdl_tpu_torch import PRESETS
     from bigdl_tpu_torch.convert import params_from_numpy
     from bigdl_tpu_torch.models import llama
 
@@ -207,15 +237,21 @@ def test_forward_and_carry_take_only_the_fused_layout():
     dense = llama.init_params(cfg, 0, device="cpu")
     assert set(dense.layers[0].proj) == {"wq", "wk", "wv", "wo", "w_gate",
                                          "w_up", "w_down"}
-    cache = tkv.init_cache(cfg.num_hidden_layers, 1, 16, cfg.num_key_value_heads,
-                           cfg.head_dim_, device="cpu")
     tokens = torch.ones((1, 4), dtype=torch.long)
-    with pytest.raises(ValueError, match="optimize_model"):
-        llama.forward(cfg, dense, tokens, cache)
-    fused = optimize_model(dense, cfg)
-    assert set(fused.layers[0].proj) == {"wqkv", "wo", "w_gateup", "w_down"}
-    logits, cache = llama.forward(cfg, fused, tokens, cache)
-    assert logits.shape == (1, 4, cfg.vocab_size) and cache.pos == 4
+
+    def run(model):
+        cache = tkv.init_cache(cfg.num_hidden_layers, 1, 16, cfg.num_key_value_heads,
+                               cfg.head_dim_, device="cpu")
+        with torch.no_grad():
+            return llama.forward(cfg, model, tokens, cache)
+
+    unfused, cache = run(dense)
+    assert unfused.shape == (1, 4, cfg.vocab_size) and cache.pos == 4
+    fused_model = llama.merge_fused_params(dense, cfg)
+    assert set(fused_model.layers[0].proj) == {"wqkv", "wo", "w_gateup", "w_down"}
+    fused, cache = run(fused_model)
+    assert cache.pos == 4
+    _close_bf16(unfused.numpy(), fused.numpy(), floor=2 ** -7 * fused.abs().max().item())
     L, H = cfg.num_hidden_layers, cfg.hidden_size
     with pytest.raises(ValueError, match="unmerged"):
         params_from_numpy({"layers.wq": np.zeros((L, H, H), np.float32)}, {},

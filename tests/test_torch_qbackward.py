@@ -1,6 +1,6 @@
 """bigdl_tpu_torch's fused dequant dx and the GEMM's LoRA epilogue, for
-every weight format: the plain versions against the JAX Pallas kernels
-(interpret mode), and the
+every weight format, and the dense weight gradient dW = g^T @ x: the plain
+versions against the JAX Pallas kernels (interpret mode), and the
 gradients of the port's `linear` (the autograd Functions over the fused
 GEMM, the LoRA epilogue and the dx kernel) against `jax.vjp` of the JAX
 package's `linear` on its Pallas path. The CUDA kernels against the plain
@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from bigdl_tpu.ops.linear import linear as jax_linear
+from bigdl_tpu.ops.pallas.qbackward import dw_matmul as jax_dw_matmul
 from bigdl_tpu.ops.pallas.qbackward import qmatmul_dx as jax_qmatmul_dx
 from bigdl_tpu.ops.pallas.qmatmul import qmatmul_lora as jax_qmatmul_lora
 from bigdl_tpu.quant import quantize as jquantize
@@ -73,6 +74,33 @@ def test_dx_plain_matches_pallas_interpret(M, O, K):
     got = kernels.qmatmul_dx(tg, w)
     assert got.dtype == torch.bfloat16 and got.shape == (M, K)
     _within_bf16_ulps(got.float().numpy(), ref)
+
+
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("lead", [(1, 1), (1, 33), (2, 256)])
+def test_dw_plain_matches_pallas_interpret(lead, out_dtype):
+    """dW = g^T @ x at test_qbackward.py's test_dw_parity shapes (flattened
+    M = 1, 33, 512; O = 384, K = 320; leading batch dims) against the
+    Pallas kernel in interpret mode. Both sides sum exact products of bf16
+    operands in f32 (in different orders) and round once: one bf16
+    rounding step per element with a bf16 output; with an f32 output the
+    sums' reordering alone, 2^-16 of the largest |g| |x| row sum."""
+    O, K = 384, 320
+    rng = np.random.default_rng(sum(lead) + K)
+    jg, tg = _bf16(rng.normal(size=(*lead, O)))
+    jx, tx = _bf16(rng.normal(size=(*lead, K)))
+    ref = np.asarray(jax_dw_matmul(jg, jx, out_dtype=getattr(jnp, out_dtype),
+                                   interpret=True), np.float32)
+    kernels.reset_launches()
+    got = kernels.dw_matmul(tg, tx, out_dtype=getattr(torch, out_dtype))
+    assert kernels.DW.launches == 0  # CPU: the plain version
+    assert got.dtype == getattr(torch, out_dtype) and got.shape == (O, K)
+    if out_dtype == "bfloat16":
+        _within_bf16_ulps(got.float().numpy(), ref)
+    else:
+        scale = (np.abs(np.asarray(jg, np.float32)).reshape(-1, O).T
+                 @ np.abs(np.asarray(jx, np.float32)).reshape(-1, K)).max()
+        assert np.abs(got.numpy() - ref).max() <= 2 ** -16 * scale
 
 
 @pytest.mark.parametrize("qtype", OTHER_FORMATS)
