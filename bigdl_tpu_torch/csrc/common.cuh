@@ -31,3 +31,59 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float2 bf16x2_to_float2(uint32_t w) {
   return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
 }
+
+// Hopper's asynchronous copies and warp-level tensor-core products
+// (mma.sync m16n8k16: bf16 operands, f32 accumulators), shared by the
+// kernels that run on the tensor cores.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; `bytes` 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes));
+}
+
+// 4 bytes global -> shared; `bytes` 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// lane l addresses row (l & 7) of 8x8 matrix l >> 3; register i holds
+// matrix i: row lane / 4, columns 2 (lane % 4) and + 1
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// the same, each matrix transposed: register i holds rows 2 (lane % 4)
+// and + 1, column lane / 4 of matrix i
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a . b over one 16 x 8 x 16 tile. Fragments (g = lane / 4,
+// q = lane % 4): c0, c1 row g, columns 2q, 2q + 1; c2, c3 row g + 8. a
+// (16 x 16, two bf16 a register): a0 row g, columns 2q, 2q + 1; a1 row
+// g + 8; a2, a3 the same at columns + 8. b (16 x 8): b0 rows 2q, 2q + 1
+// of column g; b1 rows + 8.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}

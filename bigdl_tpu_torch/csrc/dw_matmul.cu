@@ -39,30 +39,6 @@ constexpr int kBM = 32;        // rows of g and x per step of the M walk
 constexpr int kLd = 128 + 8;   // bf16 row stride of both tiles (272 B)
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; `bytes` 0 writes zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(bytes));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void store2(bf16* p, float a, float b, bool pair, bool second) {
   if (pair) {
     *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
@@ -100,7 +76,7 @@ __device__ __forceinline__ void load_tiles(bf16 (*gs)[kLd], bf16 (*xs)[kLd], con
       cp_async16(&gs[r][c], okg ? g + static_cast<size_t>(m) * O + o0 + c : g, okg ? 16 : 0);
       cp_async16(&xs[r][c], okx ? x + static_cast<size_t>(m) * K + k0 + c : x, okx ? 16 : 0);
     }
-    asm volatile("cp.async.commit_group;\n" ::);
+    cp_async_commit();
   } else {
     const bf16 zero = __float2bfloat16(0.0f);
     for (int e = tid; e < kBM * kBO; e += kThreads) {
@@ -145,9 +121,9 @@ __global__ void __launch_bounds__(kThreads)
     const int cur = s & 1;
     if (s + 1 < steps) {
       load_tiles<kVec>(gs[cur ^ 1], xs[cur ^ 1], g, x, (s + 1) * kBM, o0, k0, M, O, K, tid);
-      if constexpr (kVec) asm volatile("cp.async.wait_group 1;\n" ::);
+      if constexpr (kVec) cp_async_wait<1>();
     } else {
-      if constexpr (kVec) asm volatile("cp.async.wait_group 0;\n" ::);
+      if constexpr (kVec) cp_async_wait<0>();
     }
     __syncthreads();
 

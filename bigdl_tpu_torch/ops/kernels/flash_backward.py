@@ -16,7 +16,9 @@ delta = rowsum(dO * O) is plain torch between the forward and the two
 backward kernels. Softcap raises: JAX sends it to its XLA attention.
 
 Each wrapper dispatches on the tensor's device: a CPU tensor takes the
-plain version, a CUDA tensor launches the kernel or raises.
+plain version, a CUDA tensor launches the kernel or raises. The dK/dV
+kernel walks a schedule that `dkv_schedule` builds here per shape, so the
+CPU tests reach it too.
 """
 
 from __future__ import annotations
@@ -35,12 +37,17 @@ FLASH_FWD = Kernel("flash_train_fwd_bf16", "flash_backward", "pppppp" + _SHAPE,
 # (q, k, v, start, dout, lse, delta, dq, ...)
 FLASH_DQ = Kernel("flash_train_dq_bf16", "flash_backward", "pppppppp" + _SHAPE,
                   replaces="bigdl_tpu/ops/pallas/flash_backward.py:134")
-# (q, k, v, start, dout, lse, delta, dk, dv, ...)
-FLASH_DKV = Kernel("flash_train_dkv_bf16", "flash_backward", "ppppppppp" + _SHAPE,
+# (q, k, v, start, dout, lse, delta, dk, dv, ..., work, n_blocks, cluster)
+FLASH_DKV = Kernel("flash_train_dkv_bf16", "flash_backward", "ppppppppp" + _SHAPE + "pii",
                    replaces="bigdl_tpu/ops/pallas/flash_backward.py:178")
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)
+# keys of a dK/dV block and queries of each step of its walk, at both
+# head dims (csrc/flash_backward.cu's kTile)
+DKV_TILE = 64
+# the most blocks a cluster may hold without the non-portable opt-in
+_MAX_CLUSTER = 8
 
 
 def _valid(start: torch.Tensor, T: int, S: int,
@@ -145,13 +152,70 @@ def _check(q, k, v, start, dout=None, lse=None, delta=None) -> None:
         if t.dtype != dtype or t.shape != shape:
             raise TypeError(f"flash_attention_train: {name} must be {dtype} "
                             f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
-        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 4:
+        # the bf16 tiles load 16 bytes at a time, lse and delta 4
+        align = 16 if dtype == torch.bfloat16 else 4
+        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % align:
             raise ValueError(f"flash_attention_train: {name} must be a "
-                             f"contiguous tensor on {q.device}")
+                             f"contiguous tensor on {q.device} at a "
+                             f"{align}-byte aligned address")
     if (start.dtype != torch.int32 or start.shape != (B,)
             or start.device != q.device or not start.is_contiguous()):
         raise ValueError("flash_attention_train: start must be a contiguous "
                          f"int32 [B] tensor on {q.device}")
+
+
+def dkv_schedule(B: int, T: int, S: int, Hq: int, Hkv: int,
+                 window: Optional[int]) -> tuple[torch.Tensor, int]:
+    """The dK/dV kernel's work: (int32 [n_blocks, 6] CPU tensor, cluster).
+
+    A row is one block: (batch row, key tile, first q head, q heads, first
+    and last live query tile), with tiles of DKV_TILE keys and queries.
+    A query tile is live for a key tile if one of its queries attends one
+    of its keys by the causal and window masks; start[b] is a device value
+    that the kernel applies itself. Every (batch row, key tile, q head)
+    has exactly one row, also a key tile no query attends (its dk and dv
+    are written as zeros). The G = Hq / Hkv heads of a kv head form one
+    cluster of `cluster` consecutive rows (the largest divisor of G up to
+    8; each row takes G / cluster heads), summed in the kernel without
+    atomics. Rows are ordered heaviest first (q heads x live query tiles),
+    so the longest walks start first."""
+    tile = DKV_TILE
+    G = Hq // Hkv
+    cluster = max(c for c in range(1, _MAX_CLUSTER + 1) if G % c == 0)
+    per = G // cluster
+    n_qt = -(-T // tile)
+    rows = []
+    for kt in range(-(-S // tile)):
+        j0 = kt * tile
+        if j0 <= T - 1:  # queries j0 .. attend key j0 at least
+            lo, hi = kt, n_qt - 1
+            if window:  # the tile's last key is attended up to query j + window - 1
+                hi = min(hi, (min(j0 + tile, S) - 1 + window - 1) // tile)
+        else:
+            lo, hi = 0, -1
+        work = per * (hi - lo + 1)
+        for b in range(B):
+            for hk in range(Hkv):
+                for r in range(cluster):
+                    rows.append((-work, kt, b, hk, r,
+                                 (b, kt, hk * G + r * per, per, lo, hi)))
+    rows.sort(key=lambda x: x[:5])
+    table = torch.tensor([x[5] for x in rows], dtype=torch.int32).reshape(-1, 6)
+    return table, cluster
+
+
+_DEVICE_SCHEDULES: dict = {}
+
+
+def _dkv_work(q, k, window) -> tuple[torch.Tensor, int]:
+    """`dkv_schedule` for these operands, on their device (kept per shape:
+    every layer of a step asks again)."""
+    B, T, Hq, _ = q.shape
+    key = (B, T, k.shape[1], Hq, k.shape[2], window or None, str(q.device))
+    if key not in _DEVICE_SCHEDULES:
+        table, cluster = dkv_schedule(*key[:-1])
+        _DEVICE_SCHEDULES[key] = (table.to(q.device), cluster)
+    return _DEVICE_SCHEDULES[key]
 
 
 def _shape_args(q, k, window, scale):
@@ -209,8 +273,10 @@ def flash_train_dkv(q, k, v, start, dout, lse, delta, window=None, scale=None):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if dk.numel():
+        work, cluster = _dkv_work(q, k, window)
         FLASH_DKV(q, k, v, start, dout, lse, delta, dk, dv,
-                  *_shape_args(q, k, window, scale), device=q.device)
+                  *_shape_args(q, k, window, scale), work, work.shape[0], cluster,
+                  device=q.device)
     return dk, dv
 
 

@@ -5,8 +5,12 @@
 
 Phases (any failure exits non-zero; nothing is caught):
 
-1. build every CUDA kernel from csrc/ (one nvcc per source, in parallel)
-   and print the card's name and power limit;
+1. build every CUDA kernel from csrc/ (one nvcc per source, in parallel),
+   print each library's registers and spills, and for the tensor-core
+   training forward and dK/dV kernels (`fwd_kernel`, `dkv_kernel`) their
+   registers, spill bytes (0, or the run fails) and the HMMA instructions
+   in their SASS (where cuobjdump is present); print the card's name and
+   power limit;
 2. hold each kernel against its plain PyTorch version at the main paths'
    shapes: the sym_int4 dequant-matmul GEMV (M <= 32) and GEMM (M > 32) at
    every llama3-8b projection, flash attention at the prefill shape with
@@ -14,7 +18,10 @@ Phases (any failure exits non-zero; nothing is caught):
    then the training kernels: the dequant dx at every projection and the
    lm head, the GEMM's LoRA epilogue at wo and w_down (all at M = 1024),
    and the trainable flash forward (+ logsumexp), dQ and dK/dV at B=1
-   T=1024 and at a small GQA + left-pad + window case; then the serving
+   T=1024, at a small GQA + left-pad + window case and at a head_dim-64
+   case whose 8 q heads share one kv head (a cluster of 8) and whose pad
+   covers a whole key tile (dK/dV of keys before start exactly 0, and a
+   second dK/dV launch bit-equal to the first); then the serving
    kernels: paged decode attention over bf16 and fp8 pages at the
    engine's decode shape (8 rows, pages of 64, ragged positions up to
    2047 over shuffled pages, an idle row; a window + softcap case) and the
@@ -118,11 +125,12 @@ Phases (any failure exits non-zero; nothing is caught):
    kernels against the plain versions on the card;
 14. full fine-tune times: step ms (median of 5), tokens/s, the refresh
    step's ms, peak memory and the busy share of a step; the dW kernel's
-   device time on the path (a profiler window over two steps) and
-   isolated at each path shape beside its plain version, cuBLAS g^T x
-   (a yardstick the port never calls) and its bound.
+   and the training flash kernels' device time on the path (a profiler
+   window over two steps), and the dW kernel isolated at each path
+   shape beside its plain version, cuBLAS g^T x (a yardstick the port
+   never calls) and its bound.
 
-The whole run takes about 500 s of command time on an H100, the kernel
+The whole run takes about 470 s of command time on an H100, the kernel
 builds included (the dequant sources build once per qtype, 32 libraries).
 It prints one `{"kernels": [...]}` line (the dequant forms carry their
 numbers per format under "by_format"), and as its last line
@@ -187,6 +195,53 @@ def time_ms(torch, fn, args_list, iters: int = 20) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def ptxas_resources(report: str) -> dict:
+    """{mangled kernel: [registers, spill bytes (stores + loads)]} from an
+    nvcc -Xptxas -v report."""
+    res, name = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "Function properties for" in line:
+            name = line.split("Function properties for")[1].strip()
+        elif name and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            res.setdefault(name, [0, 0])[1] = nums[1] + nums[2]  # after the stack frame
+        elif name and "Used" in line and "registers" in line:
+            res.setdefault(name, [0, 0])[0] = int(line.split("Used ")[1].split(" registers")[0])
+    return res
+
+
+def tc_kernel_report(lib: Path, names) -> int:
+    """Phase 1's lines for the tensor-core kernels `names` of one library:
+    registers and spill bytes per instantiation from its ptxas report, and
+    the HMMA instructions in each one's SASS where cuobjdump is present.
+    Returns the spill bytes of them all."""
+    import shutil
+
+    res = ptxas_resources(lib.with_suffix(".log").read_text())
+    sass, spills = {}, 0
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if Path(tool).exists():
+        fn = None
+        for line in subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                                   text=True).stdout.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                sass[fn] = 0
+            elif fn and "HMMA" in line:
+                sass[fn] += 1
+    for mangled, (regs, spill) in sorted(res.items()):
+        kname = next((n for n in names if n in mangled), None)
+        if kname is None:
+            continue
+        d = mangled.split(kname + "ILi")[1].split("E")[0]
+        hmma = sass.get(mangled, "not read (no cuobjdump)") if sass else "not read (no cuobjdump)"
+        log(f"  ptxas {kname}<{d}>: registers {regs}, spill bytes {spill}, HMMA in SASS {hmma}")
+        spills += spill
+    return spills
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
@@ -236,15 +291,13 @@ def main() -> int:
     log(f"phase 1: built {len(libs)} libraries from {sorted({s for s, _ in libs})} "
         f"(the dequant sources once per qtype) for sm_90a in {time.time() - t:.1f} s")
     for (stem, qtype), path in libs.items():
-        # ptxas per kernel: registers, and spill stores/loads where not 0
-        regs, spills = [], 0
-        for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line:
-                regs.append(int(line.split("Used ")[1].split(" registers")[0]))
-            if "spill" in line:
-                spills += sum(int(t) for t in line.split() if t.isdigit())
+        res = ptxas_resources(path.with_suffix(".log").read_text())
+        regs = [r for r, _ in res.values() if r]  # entries; device functions report none
         log(f"  ptxas {stem}{'[' + qtype + ']' if qtype else ''}: {len(regs)} kernels, "
-            f"registers {min(regs, default=0)}-{max(regs, default=0)}, spill bytes {spills}")
+            f"registers {min(regs, default=0)}-{max(regs, default=0)}, spill bytes "
+            f"{sum(sp for _, sp in res.values())}")
+    check(tc_kernel_report(libs[("flash_backward", None)], ("fwd_kernel", "dkv_kernel")) == 0,
+          "the training forward or dK/dV kernel spills")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -581,9 +634,11 @@ def train_kernel_checks(torch, dev, cfg, shapes, errs, qweight, randn) -> None:
             check(bool(torch.isfinite(y).all()) and err <= tol and lift > 0,
                   f"lora gemm {name}")
 
-    for label, b, t_, hq, hkv, win, st in (
-            ("train", 1, TRAIN_T, Hq, Hkv, None, (0,)),
-            ("gqa+pad+window", 2, 160, 8, 2, 48, (0, 37))):
+    for label, b, t_, hq, hkv, D, win, st in (
+            ("train", 1, TRAIN_T, Hq, Hkv, D, None, (0,)),
+            ("gqa+pad+window", 2, 160, 8, 2, D, 48, (0, 37)),
+            # a cluster of 8 q heads; row 1's pad covers the whole key tile 0
+            ("G=8+pad covers a key tile", 2, 130, 8, 1, 64, 64, (0, 70))):
         q, k, v, do = randn(b, t_, hq, D), randn(b, t_, hkv, D), randn(b, t_, hkv, D), randn(b, t_, hq, D)
         start = torch.as_tensor(st, dtype=torch.int32, device=dev)
         out, lse = kernels.flash_train_fwd(q, k, v, start, win)
@@ -618,6 +673,15 @@ def train_kernel_checks(torch, dev, cfg, shapes, errs, qweight, randn) -> None:
                 f"rel_frobenius={frob:.3g}")
             check(bool(torch.isfinite(got).all()) and err <= tol and frob <= 1e-2,
                   f"flash train {gname} {label}")
+        # keys before start[b] are attended by no query: exactly 0; and no
+        # atomics: a second launch gives the same bits
+        zero_ok = all(bool((grads[1][i, :s0] == 0).all() and (grads[2][i, :s0] == 0).all())
+                      for i, s0 in enumerate(st))
+        dk2, dv2 = kernels.flash_train_dkv(q, k, v, start, do, lse, delta, win)
+        same = torch.equal(dk2, grads[1]) and torch.equal(dv2, grads[2])
+        log(f"phase 2: flash train dk/dv {label} keys before start exactly 0: {zero_ok}; "
+            f"two launches bit-equal: {same}")
+        check(zero_ok and same, f"flash train dk/dv {label}: zeros before start, bit-equal relaunch")
 
 
 def train_phases(torch, dev, cfg, card, errs, qweight, randn) -> list:
@@ -1056,6 +1120,16 @@ def full_ft_phases(torch, dev, cfg, card, errs, randn) -> list:
           f"{kernels.DW.name}: {dw_calls} profiled calls, expected "
           f"{per_step[kernels.DW.name] * PROFILED_TRAIN_STEPS}")
     dw_path = sum(e.self_device_time_total for e in dw_evs) / 1e3 / PROFILED_TRAIN_STEPS
+    flash_path = {}  # the training flash kernels' device time a step
+    for kern, fn in ((kernels.FLASH_FWD, "fwd_kernel"), (kernels.FLASH_DQ, "dq_kernel"),
+                     (kernels.FLASH_DKV, "dkv_kernel")):
+        evs = [e for e in dev_events if f"namespace)::{fn}" in e.key]
+        calls = sum(e.count for e in evs)
+        check(calls == per_step[kern.name] * PROFILED_TRAIN_STEPS,
+              f"{kern.name}: {calls} profiled calls in the full fine-tune, expected "
+              f"{per_step[kern.name] * PROFILED_TRAIN_STEPS}")
+        flash_path[kern.name] = round(sum(e.self_device_time_total for e in evs) / 1e3
+                                      / PROFILED_TRAIN_STEPS, 3)
     step_ms = sorted(ms for ms, _ in runs)
     med = step_ms[len(step_ms) // 2]
     log(f"phase 14: card {card}")
@@ -1066,7 +1140,7 @@ def full_ft_phases(torch, dev, cfg, card, errs, randn) -> list:
         f"{refresh_peak:.3f})")
     log(f"phase 14: profiled full fine-tune: device busy {busy_ms:.3f} ms per step = "
         f"{busy_ms / med:.3f} of the unprofiled median step; {kernels.DW.name} {dw_path:.3f} ms "
-        f"a step on the path")
+        f"a step on the path; the training flash kernels' ms a step on the path {flash_path}")
     for e in dev_events[:12]:
         log(f"  {e.self_device_time_total / 1e3 / PROFILED_TRAIN_STEPS:8.3f} ms/step "
             f"{e.count // PROFILED_TRAIN_STEPS:5d} calls/step  {e.key[:90]}")

@@ -77,3 +77,58 @@ def test_flash_train_contract():
         kernels.flash_attention_train(q, q, q, softcap=30.0)
     out = kernels.flash_attention_train(q.requires_grad_(), q, q)
     assert out.shape == q.shape
+
+
+def _live_tiles(T, S, tile, window):
+    """[query tile, key tile] bool: some query of the one attends some key
+    of the other by the causal and window masks (start aside), from the
+    element mask itself."""
+    t = np.arange(T)[:, None]
+    j = np.arange(S)[None, :]
+    ok = j <= t
+    if window:
+        ok &= j > t - window
+    n_qt, n_kt = -(-T // tile), -(-S // tile)
+    pad = np.zeros((n_qt * tile, n_kt * tile), bool)
+    pad[:T, :S] = ok
+    return pad.reshape(n_qt, tile, n_kt, tile).any(axis=(1, 3))
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+# window 66: a full tile's last key is attended up to the first query of
+# the tile two on, the edge of the live range
+@pytest.mark.parametrize("window", [None, 24, 48, 64, 66])
+@pytest.mark.parametrize("T", [48, 70, 100, 160, 1024])
+def test_dkv_schedule_covers_live_tiles_once(T, window, G):
+    """The dK/dV kernel's work table: every live (query tile, key tile, q
+    head) triple of every batch row exactly once and no other, every
+    (key tile, q head) in exactly one block (so keys no query attends get
+    their zeros), clusters of one kv head's heads, heaviest blocks first.
+    The table does not depend on the head dim: the kernel's tile is
+    DKV_TILE at D = 64 and 128."""
+    from bigdl_tpu_torch.ops.kernels.flash_backward import DKV_TILE, dkv_schedule
+
+    B, Hkv = 2, 2
+    Hq, S, tile = G * Hkv, T, DKV_TILE
+    table, cluster = dkv_schedule(B, T, S, Hq, Hkv, window)
+    rows = table.numpy()
+    live = _live_tiles(T, S, tile, window)
+    n_qt, n_kt = live.shape
+    seen = np.zeros((B, Hq, n_qt, n_kt), np.int64)
+    owner = np.zeros((B, Hq, n_kt), np.int64)
+    for b, kt, h0, nh, lo, hi in rows:
+        for h in range(h0, h0 + nh):
+            owner[b, h, kt] += 1
+            seen[b, h, lo:hi + 1, kt] += 1
+    np.testing.assert_array_equal(seen, np.broadcast_to(live, seen.shape).astype(np.int64))
+    assert (owner == 1).all()
+
+    work = rows[:, 3] * np.maximum(rows[:, 5] - rows[:, 4] + 1, 0)
+    assert (np.diff(work) <= 0).all(), "blocks not ordered heaviest first"
+    assert 1 <= cluster <= 8 and G % cluster == 0 and len(rows) % cluster == 0
+    for grp in rows.reshape(-1, cluster, 6):
+        # one cluster: one batch row, key tile, kv head and walk; the
+        # group's heads in rank order
+        assert (grp[:, [0, 1, 3, 4, 5]] == grp[0, [0, 1, 3, 4, 5]]).all()
+        assert (grp[:, 2] == grp[0, 2] + grp[0, 3] * np.arange(cluster)).all()
+        assert grp[0, 2] % G == 0

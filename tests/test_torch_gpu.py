@@ -276,6 +276,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     q = torch.zeros(1, 4, 2, 96, dtype=torch.bfloat16, device=dev)
     with pytest.raises(NotImplementedError):
         kernels.flash_attention(q, q, q)
+    # the training kernels load bf16 tiles 16 bytes at a time: a base 8
+    # bytes off raises, it does not fault
+    buf = torch.zeros(4 + 1 * 4 * 2 * 64, dtype=torch.bfloat16, device=dev)
+    q = buf[4:].view(1, 4, 2, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.flash_train_fwd(q, q, q, torch.zeros(1, dtype=torch.int32, device=dev))
 
 
 @pytest.mark.parametrize("qtype", ["sym_int4", "nf4", "q4_k_m"])
@@ -383,6 +389,8 @@ def test_lora_gemm_matches_plain(M, O, K, R):
     (1, 100, 4, 1, 128, 24, (0,)),
     (2, 70, 2, 2, 128, None, (5, 40)),
     (1, 1024, 32, 8, 128, None, (0,)),  # llama3-8b at the training shape
+    (2, 130, 8, 1, 64, 64, (0, 70)),  # G=8: a cluster of 8; row 1's pad covers key tile 0
+    (1, 65, 4, 4, 128, None, (0,)),  # G=1, one key past a tile
 ])
 def test_flash_train_kernels_match_plain(case):
     dev = _cuda()
@@ -410,6 +418,12 @@ def test_flash_train_kernels_match_plain(case):
     torch.cuda.synchronize()
     assert [kk.launches for kk in (kernels.FLASH_FWD, kernels.FLASH_DQ,
                                    kernels.FLASH_DKV)] == [n + 1 for n in before]
+    # keys before start[b] are attended by no query: exactly 0
+    for b, s0 in enumerate(start):
+        assert bool((dk[b, :s0] == 0).all() and (dv[b, :s0] == 0).all())
+    # no atomics: a second launch gives the same bits
+    dk2, dv2 = kernels.flash_train_dkv(q, k, v, st, do, lse, delta, window)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     refs = kernels.flash_attention_train_bwd_plain(q, k, v, st, do, lse, delta, window)
     for got, ref in zip((dq, dk, dv), refs):
         # gradients sum many signed terms: 4 bf16 ULPs of the largest
