@@ -1,222 +1,279 @@
-// Causal prefill flash attention for Hopper, bf16 Q, bf16 or float8_e5m2
-// K/V, f32 math.
+// Causal prefill flash attention for Hopper on the tensor cores: bf16 Q,
+// bf16 or float8_e5m2 K/V, f32 sums.
 //
 // Replaces the Pallas kernel bigdl_tpu/ops/pallas/flash_attention.py
 // `_kernel` (launched by `_flash`, wrapped by `flash_attention`), both its
 // arms: a bf16 KV cache, and an fp8 one whose codes carry one f16 scale per
 // (slot, head) (the quantized arm, `_kernel:65-98`). Same contract: q
-// [B, T, Hq, D], k/v [B, S, Hkv, D] (the cache layout), out [B, T, Hq, D];
-// query t of row b sits at cache slot q_offset + t and attends slot j iff
+// [B, T, Hq, D], k/v [B, S, Hkv, D] (the cache layout), out [B, T, Hq, D],
+// D 64, 128 or 256; query t of row b sits at cache slot q_offset + t and
+// attends slot j iff
 //     start[b] <= j <= q_offset + t   and   j > q_offset + t - window (if window > 0),
 // scores are (q . k) * scale, optionally tanh(s / softcap) * softcap, the
 // softmax is online in f32 with -1e30 for masked slots, and a row with no
-// valid slot (a left-pad row) writes exactly 0. An fp8 K/V element is
-// decoded to f32 by the shared e5m2 decode (qdecode.cuh) and multiplied by
-// its slot's scale before the dot, as `_kernel` decodes each tile through
-// qdecode.decode_kv: the cache never exists as a dense bf16 copy.
+// valid slot (a left-pad row) writes exactly 0. It is kept apart from the
+// training kernels (flash_backward.cu), as the JAX package keeps them
+// apart; the two share the tile helpers of flash_tc.cuh.
 //
-// What bounds it: the function's least time is set by bytes. At the
-// llama3-8b prefill (T = 256 over a cache of a few hundred slots, GQA 4:1)
-// reading q, k, v once and writing out once at 3.35 TB/s takes longer than
-// its ~4 * D flops per live (query, key) pair at the bf16 tensor-core peak.
-// What limits this design now is its own arithmetic: it does all math in
-// f32 on the CUDA cores, like the TPU kernel, not on the tensor cores. It
-// never materializes the
-// [T, S] scores: one block per (16 queries, head, batch row) walks the live
-// key tiles of 64 slots, K and V tiles staged in shared memory as stored
-// (bf16, or fp8 codes with their scales) with an odd word stride so the
-// lane-per-key reads are free of bank conflicts. Tiles
-// entirely above the diagonal, before start[b] or outside the window are
-// skipped; masked slots in them would add exactly nothing. Tensor cores
-// (mma/wgmma on bf16 P and V) are later work.
+// What bounds it: at the generation prefill (B = 4, T = 256 over 320
+// slots, GQA 4:1, D = 128) reading q, k, v once and writing out once at
+// 3.35 TB/s takes longer than its 4 * D flops per live (query, key) pair
+// at the bf16 tensor-core peak: bytes. At the dense fp8 pool's prefill
+// (T = S = 1024, one row) the operations do. The products run on the
+// tensor cores (mma.sync m16n8k16, bf16 operands, f32 sums); what bounds
+// the kernel now is mma.sync's rate and the ldmatrix reads that feed it,
+// plus the second P.V product that carries P's low part.
+//
+// Design (the training forward's, flash_backward.cu): one block per (64
+// queries, q head, batch row), the last query tiles (the longest causal
+// walks) first; four warps of 16 rows. Q's fragments are loaded once
+// (ldmatrix); 64-slot K and V tiles stream through a two-stage cp.async
+// ring over the live tiles only (tiles above the diagonal, before start[b]
+// or outside the window are not walked), and only the tiles a mask cuts
+// are masked. S = Q.K^T by mma.sync, scale (and the softcap) applied to S
+// in f32, the online softmax on the accumulator fragments, and P.V with P
+// as bf16 hi + lo in two products (pv_tile). Query rows and slots take
+// q_offset into the live range, the whole-tile test and the mask.
+// * D = 256: the output accumulator (128 f32 a thread at 16 rows a warp)
+//   does not fit beside S. Eight warps: two per row group, each with half
+//   of the output dims; both form the row group's S (from Q's fragments
+//   read per k step out of shared memory) and its softmax, bit for bit the
+//   same.
+// * fp8: every finite e5m2 code is a bf16 value (2 mantissa bits; bf16's
+//   exponent range covers e5m2's subnormals), and the scales are per slot,
+//   so they factor out of both products:
+//       S[t, j] = kscale[j] (q_t . code_j),
+//       O[t] = sum_j (P[t, j] vscale[j]) vcode_j.
+//   The code bytes come by cp.async (half a bf16 tile's bytes) and are
+//   converted once per tile into a bf16 tile in shared memory; the bf16
+//   products run on the codes; each S column is multiplied by its kscale
+//   in f32, and vscale is folded into P in f32 before the hi/lo split (the
+//   row sum takes P itself). code * scale is never formed in bf16 or f16:
+//   it has up to 14 significant bits, and the scales (absmax / 57344) are
+//   f16 subnormals below an absmax of ~3.5. This is `_kernel`'s decode of
+//   code * scale in f32, reassociated; the cache never exists as a dense
+//   bf16 copy.
 //
 // Returns cudaGetLastError() after the launch; 0 means launched.
 
-#include <type_traits>
-
-#include "qdecode.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
-constexpr int kRowsPerWarp = 4;
-constexpr int kWarps = 4;
-constexpr int kBQ = kRowsPerWarp * kWarps;  // query rows per block
-constexpr int kBK = 64;                     // key slots per tile
-constexpr float kNegInf = -1e30f;
+// Two float8_e5m2 codes (bits 0-7 and 8-15 of w) as two bf16, exactly:
+// e5m2 is the high byte of an IEEE f16, whose value bf16 holds.
+__device__ __forceinline__ uint32_t e5m2x2_to_bf16x2(uint32_t w) {
+  const uint32_t h2 = ((w & 0xffu) << 8) | ((w & 0xff00u) << 16);
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h2));
+  return pack_bf16(f.x, f.y);
+}
 
-// A staged K or V tile: elements as stored, rows an odd number of 32-bit
-// words apart.
-template <int D, bool kFp8>
-struct Tile {
-  using T = std::conditional_t<kFp8, uint8_t, bf16>;
-  static constexpr int kLd = kFp8 ? D + 4 : D + 2;  // elements per row
-  static constexpr int kWords = D * static_cast<int>(sizeof(T)) / 4;  // words per row
-
-  // Elements d and d + 1 (d even) of row r as f32; `s` is the row's scale
-  // (fp8 only).
-  static __device__ __forceinline__ float2 pair(const T* tile, int r, int d, float s) {
-    if constexpr (kFp8) {
-      const uint32_t w = *reinterpret_cast<const uint16_t*>(tile + r * kLd + d);
-      return make_float2(e5m2_to_float(w) * s, e5m2_to_float(w >> 8) * s);
-    } else {
-      return bf16x2_to_float2(*reinterpret_cast<const uint32_t*>(tile + r * kLd + d));
-    }
+// Rows r0 .. r0 + kTile - 1 of head h of a [B, R, H, D] tensor of fp8
+// codes into a dense [kTile][D] byte tile by cp.async; rows past R load as
+// zeros.
+template <int D, int kThreads>
+__device__ __forceinline__ void load_codes(uint8_t* dst, const uint8_t* __restrict__ src, int b, int r0, int R,
+                                           int H, int h) {
+  constexpr int kPieces = D / 16;
+#pragma unroll
+  for (int i = 0; i < kTile * kPieces / kThreads; ++i) {
+    const int e = static_cast<int>(threadIdx.x) + i * kThreads;
+    const int r = e / kPieces;
+    const int c = (e % kPieces) * 16;
+    const int row = r0 + r;
+    const bool ok = row < R;
+    const uint8_t* p = ok ? src + ((static_cast<size_t>(b) * R + row) * H + h) * D + c : src;
+    cp_async16(dst + r * D + c, p, ok ? 16 : 0);
   }
+}
+
+// A [kTile][D] code tile into a [kTile][D + 8] bf16 tile, 8 codes a piece.
+template <int D, int kThreads>
+__device__ __forceinline__ void decode_codes(bf16* dst, const uint8_t* src) {
+  constexpr int kPieces = D / 8;
+#pragma unroll
+  for (int i = 0; i < kTile * kPieces / kThreads; ++i) {
+    const int e = static_cast<int>(threadIdx.x) + i * kThreads;
+    const int r = e / kPieces;
+    const int c = (e % kPieces) * 8;
+    const uint2 w = *reinterpret_cast<const uint2*>(src + r * D + c);
+    uint4 o;
+    o.x = e5m2x2_to_bf16x2(w.x);
+    o.y = e5m2x2_to_bf16x2(w.x >> 16);
+    o.z = e5m2x2_to_bf16x2(w.y);
+    o.w = e5m2x2_to_bf16x2(w.y >> 16);
+    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = o;
+  }
+}
+
+// Warps sharing a row group (each with D / kSplit output dims) and threads
+// of a block at head dim D.
+template <int D>
+struct Split {
+  static constexpr int kSplit = D > 128 ? 2 : 1;
+  static constexpr int kThreads = kTcThreads * kSplit;
 };
 
 template <int D, bool kFp8>
-__global__ void __launch_bounds__(kWarps * 32)
+int smem_bytes() {
+  const int tile = kTile * (D + 8) * static_cast<int>(sizeof(bf16));
+  // Q and two stages of K and V; fp8: Q, one decoded K and V, two stages
+  // of their codes and one tile's K and V scales
+  return kFp8 ? 3 * tile + 4 * kTile * D + 2 * kTile * static_cast<int>(sizeof(float)) : 5 * tile;
+}
+
+template <int D, bool kFp8>
+__global__ void __launch_bounds__(Split<D>::kThreads, Split<D>::kSplit == 1 ? 2 : 1)
     flash_kernel(const bf16* __restrict__ q, const void* __restrict__ kraw, const void* __restrict__ vraw,
                  const __half* __restrict__ kscale, const __half* __restrict__ vscale,
                  const int* __restrict__ start, bf16* __restrict__ out, int T, int S, int Hq, int Hkv,
                  int q_offset, float scale, int window, float softcap) {
-  using TL = Tile<D, kFp8>;
-  using E = typename TL::T;
-  constexpr int kLd = TL::kLd;
-  constexpr int kPairs = D / 64;  // element pairs of the output row each lane owns
-  const E* k = static_cast<const E*>(kraw);
-  const E* v = static_cast<const E*>(vraw);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);  // [kBQ][D], pre-scaled
-  float* kss = qs + kBQ * D;                       // [kBK] K scales (fp8)
-  float* vss = kss + kBK;                          // [kBK] V scales (fp8)
-  E* ks = reinterpret_cast<E*>(vss + kBK);         // [kBK][kLd]
-  E* vs = ks + kBK * kLd;                          // [kBK][kLd]
+  constexpr int kSplit = Split<D>::kSplit;
+  constexpr int kThreads = Split<D>::kThreads;
+  constexpr int kLd = D + 8;
+  constexpr int kKs = D / 16;            // k steps of Q.K^T
+  constexpr int kNo = D / kSplit / 8;    // n tiles of this warp's output dims
+  constexpr bool kQRegs = kSplit == 1;   // Q's fragments held in registers
+  constexpr int kStages = kFp8 ? 1 : 2;  // bf16 K/V tiles in shared memory
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);                          // [kTile][kLd]
+  bf16* ks = qs + kTile * kLd;                                           // [kStages][kTile][kLd]
+  bf16* vs = ks + kStages * kTile * kLd;                                 // [kStages][kTile][kLd]
+  uint8_t* codes = reinterpret_cast<uint8_t*>(vs + kStages * kTile * kLd);  // fp8: [2][K, V][kTile][D]
+  float* kss = reinterpret_cast<float*>(codes + (kFp8 ? 4 * kTile * D : 0));  // fp8: [kTile] K, [kTile] V scales
+  const float* vss = kss + kTile;
 
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int t0 = blockIdx.x * kBQ;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int t0 = (gridDim.z - 1 - blockIdx.z) * kTile;  // the longest walks first
   const int hk = h / (Hq / Hkv);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wr = warp & 3;                     // row group: rows t0 + 16 wr ..
+  const int d0 = (warp >> 2) * (D / kSplit);  // this warp's first output dim
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;  // fragment row (and row + 8)
+  const int qd = lane & 3;   // fragment column pair
   const int st = start[b];
+  const int row0 = q_offset + t0;  // cache slot of the block's first query
+  int j_lo;
+  const int n_tiles = live_tiles(row0, q_offset + min(t0 + kTile, T) - 1, S, st, window, &j_lo);
 
-  for (int i = tid; i < kBQ * D; i += blockDim.x) {
-    const int t = t0 + i / D;
-    const int d = i % D;
-    qs[i] = t < T ? __bfloat162float(q[(static_cast<size_t>(b) * T + t) * Hq * D + static_cast<size_t>(h) * D + d]) * scale
-                  : 0.0f;
-  }
-
-  float m_i[kRowsPerWarp], l_i[kRowsPerWarp], acc[kRowsPerWarp][2 * kPairs];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m_i[r] = kNegInf;
-    l_i[r] = 0.0f;
-#pragma unroll
-    for (int e = 0; e < 2 * kPairs; ++e) acc[r][e] = 0.0f;
-  }
-
-  // live key range of this query tile
-  const int row_min = q_offset + t0;
-  const int row_max = q_offset + min(t0 + kBQ, T) - 1;
-  const int j_hi = min(S, row_max + 1);
-  int j_lo = st;
-  if (window > 0) j_lo = max(j_lo, row_min - window + 1);
-  j_lo = max(j_lo, 0) / kBK * kBK;
-
-  for (int j0 = j_lo; j0 < j_hi; j0 += kBK) {
-    __syncthreads();  // the previous tile is consumed (and qs is written)
-    for (int i = tid; i < kBK * TL::kWords; i += blockDim.x) {
-      const int r = i / TL::kWords;
-      const int c = i % TL::kWords;
-      const int j = j0 + r;
-      uint32_t kw = 0u, vw = 0u;
-      if (j < S) {
-        const size_t off = ((static_cast<size_t>(b) * S + j) * Hkv + hk) * D;
-        kw = reinterpret_cast<const uint32_t*>(k + off)[c];
-        vw = reinterpret_cast<const uint32_t*>(v + off)[c];
-      }
-      reinterpret_cast<uint32_t*>(ks + r * kLd)[c] = kw;
-      reinterpret_cast<uint32_t*>(vs + r * kLd)[c] = vw;
-    }
+  auto load_kv = [&](int j0, int stage) {
     if constexpr (kFp8) {
-      for (int r = tid; r < kBK; r += blockDim.x) {
-        const int j = j0 + r;
-        const size_t si = (static_cast<size_t>(b) * S + j) * Hkv + hk;
-        kss[r] = j < S ? __half2float(kscale[si]) : 0.0f;
-        vss[r] = j < S ? __half2float(vscale[si]) : 0.0f;
-      }
+      uint8_t* c = codes + stage * 2 * kTile * D;
+      load_codes<D, kThreads>(c, static_cast<const uint8_t*>(kraw), b, j0, S, Hkv, hk);
+      load_codes<D, kThreads>(c + kTile * D, static_cast<const uint8_t*>(vraw), b, j0, S, Hkv, hk);
+    } else {
+      load_tile<D, kThreads>(ks + stage * kTile * kLd, static_cast<const bf16*>(kraw), b, j0, S, Hkv, hk);
+      load_tile<D, kThreads>(vs + stage * kTile * kLd, static_cast<const bf16*>(vraw), b, j0, S, Hkv, hk);
     }
+  };
+  // fp8: one scale of tile j0 a thread, threads 0 .. 63 K's, 64 .. 127 V's
+  auto load_scale = [&](int j0) {
+    float x = 0.0f;
+    if constexpr (kFp8) {
+      const int j = j0 + (threadIdx.x & (kTile - 1));
+      if (threadIdx.x < 2 * kTile && j < S)
+        x = __half2float((threadIdx.x < kTile ? kscale : vscale)[(static_cast<size_t>(b) * S + j) * Hkv + hk]);
+    }
+    return x;
+  };
+
+  load_tile<D, kThreads>(qs, q, b, t0, T, Hq, h);
+  cp_async_commit();
+  float sc = 0.0f;  // fp8: this thread's scale of the current tile
+  if (n_tiles > 0) {
+    load_kv(j_lo, 0);
+    sc = load_scale(j_lo);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();  // Q has landed
+  __syncthreads();
+  const bf16* qrows = qs + wr * 16 * kLd;
+  uint32_t qa[kQRegs ? kKs : 1][4];
+  if constexpr (kQRegs) {
+#pragma unroll
+    for (int kk = 0; kk < kKs; ++kk) row_frag<D>(qa[kk], qrows, kk, lane);
+  }
+
+  const float sl2 = scale * kLog2e;
+  const int tr = t0 + wr * 16 + gr;  // this thread's rows tr and tr + 8
+  float m[2] = {kNegInf, kNegInf};   // running row max of S * scale * log2(e)
+  float l[2] = {0.0f, 0.0f};         // this lane's share of the running row sum
+  float o[kNo][4];
+#pragma unroll
+  for (int n = 0; n < kNo; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int j0 = j_lo + it * kTile;
+    const int cur = it & 1;
+    float sn = 0.0f;
+    if (it + 1 < n_tiles) {
+      load_kv(j0 + kTile, cur ^ 1);
+      sn = load_scale(j0 + kTile);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile has landed
     __syncthreads();
-
-    // scores: lane owns key slots j0 + lane and j0 + 32 + lane, for the
-    // warp's kRowsPerWarp query rows
-    float s[kRowsPerWarp][2];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) s[r][0] = s[r][1] = 0.0f;
-    const float* qw = qs + warp * kRowsPerWarp * D;
-    const float sk0 = kFp8 ? kss[lane] : 1.0f, sk1 = kFp8 ? kss[lane + 32] : 1.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 2) {
-      const float2 k0 = TL::pair(ks, lane, d, sk0);
-      const float2 k1 = TL::pair(ks, lane + 32, d, sk1);
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float2 qf = *reinterpret_cast<const float2*>(qw + r * D + d);
-        s[r][0] = fmaf(qf.y, k0.y, fmaf(qf.x, k0.x, s[r][0]));
-        s[r][1] = fmaf(qf.y, k1.y, fmaf(qf.x, k1.x, s[r][1]));
-      }
+    const bf16* kt = ks + (kFp8 ? 0 : cur * kTile * kLd);
+    const bf16* vt = vs + (kFp8 ? 0 : cur * kTile * kLd);
+    if constexpr (kFp8) {
+      const uint8_t* c = codes + cur * 2 * kTile * D;
+      decode_codes<D, kThreads>(ks, c);
+      decode_codes<D, kThreads>(vs, c + kTile * D);
+      if (threadIdx.x < 2 * kTile) kss[threadIdx.x] = sc;
+      __syncthreads();
     }
 
-    float p[kRowsPerWarp][2];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int t = t0 + warp * kRowsPerWarp + r;
-      const int row = q_offset + t;
-      bool valid[2];
-      float sc[2];
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        const int j = j0 + lane + 32 * kk;
-        valid[kk] = t < T && j < S && j >= st && j <= row && (window <= 0 || j > row - window);
-        float x = s[r][kk];
-        if (softcap > 0.0f) x = tanhf(x / softcap) * softcap;
-        sc[kk] = valid[kk] ? x : kNegInf;
-      }
-      const float m_new = fmaxf(m_i[r], warp_max(fmaxf(sc[0], sc[1])));
-      const float alpha = expf(m_i[r] - m_new);
-      p[r][0] = valid[0] ? expf(sc[0] - m_new) : 0.0f;
-      p[r][1] = valid[1] ? expf(sc[1] - m_new) : 0.0f;
-      l_i[r] = alpha * l_i[r] + warp_sum(p[r][0] + p[r][1]);
-      m_i[r] = m_new;
-#pragma unroll
-      for (int e = 0; e < 2 * kPairs; ++e) acc[r][e] *= alpha;
+    // S = Q.K^T: 16 rows x 64 slots a warp, times kscale (fp8), scale and
+    // the softcap in f32; masked scores exactly kNegInf
+    float s[8][4];
+    if constexpr (kQRegs) {
+      key_dots<D>(s, qa, kt, lane);
+    } else {
+      key_dots<D>(s, qrows, kt, lane);
     }
-
-    // P . V: lane owns output dims 2 * lane + 64 * pp (+1)
+    const bool edge = !whole_tile(t0, row0, j0, T, S, st, window);
 #pragma unroll
-    for (int jj = 0; jj < kBK; ++jj) {
-      const float sv = kFp8 ? vss[jj] : 1.0f;
-      float2 vf[kPairs];
+    for (int n = 0; n < 8; ++n) {
+      const float2 ksc = kFp8 ? *reinterpret_cast<const float2*>(kss + n * 8 + 2 * qd) : make_float2(1.0f, 1.0f);
 #pragma unroll
-      for (int pp = 0; pp < kPairs; ++pp) vf[pp] = TL::pair(vs, jj, 2 * lane + 64 * pp, sv);
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float pj = __shfl_sync(0xffffffffu, p[r][jj >> 5], jj & 31);
-#pragma unroll
-        for (int pp = 0; pp < kPairs; ++pp) {
-          acc[r][2 * pp] = fmaf(pj, vf[pp].x, acc[r][2 * pp]);
-          acc[r][2 * pp + 1] = fmaf(pj, vf[pp].y, acc[r][2 * pp + 1]);
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int t = tr + (e >> 1) * 8;
+        float x = s[n][e];
+        if constexpr (kFp8) x *= (e & 1) ? ksc.y : ksc.x;
+        x = softcap > 0.0f ? tanhf(x * scale / softcap) * softcap * kLog2e : x * sl2;
+        if (edge && !attends(t, q_offset + t, j0 + n * 8 + 2 * qd + (e & 1), T, S, st, window)) x = kNegInf;
+        s[n][e] = x;
       }
     }
+    softmax_tile<kNo>(s, m, l, o);
+    if constexpr (kFp8) {  // P vscale, after the row sums took P
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 vsc = *reinterpret_cast<const float2*>(vss + n * 8 + 2 * qd);
+        s[n][0] *= vsc.x;
+        s[n][1] *= vsc.y;
+        s[n][2] *= vsc.x;
+        s[n][3] *= vsc.y;
+      }
+    }
+    pv_tile<D, kNo>(o, s, vt, d0, lane);
+    __syncthreads();  // this stage is consumed before the next load or decode refills it
+    sc = sn;
   }
 
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int t = t0 + warp * kRowsPerWarp + r;
+  for (int i = 0; i < 2; ++i) {
+    const float li = quad_sum(l[i]);
+    const int t = tr + 8 * i;
     if (t >= T) continue;
-    const float l = l_i[r] == 0.0f ? 1.0f : l_i[r];
-    bf16* orow = out + (static_cast<size_t>(b) * T + t) * Hq * D + static_cast<size_t>(h) * D;
+    const float div = li == 0.0f ? 1.0f : li;  // no valid slot: o = 0, out = 0
+    bf16* row = out + (static_cast<size_t>(b) * T + t) * Hq * D + static_cast<size_t>(h) * D + d0;
 #pragma unroll
-    for (int pp = 0; pp < kPairs; ++pp) {
-      __nv_bfloat162 o2;
-      o2.x = __float2bfloat16(acc[r][2 * pp] / l);
-      o2.y = __float2bfloat16(acc[r][2 * pp + 1] / l);
-      *reinterpret_cast<__nv_bfloat162*>(orow + 2 * lane + 64 * pp) = o2;
-    }
+    for (int n = 0; n < kNo; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(row + n * 8 + 2 * qd) =
+          __floats2bfloat162_rn(o[n][2 * i] / div, o[n][2 * i + 1] / div);
   }
 }
 
@@ -224,13 +281,11 @@ template <int D, bool kFp8>
 int launch(const bf16* q, const void* k, const void* v, const __half* ks, const __half* vs, const int* start,
            bf16* out, int B, int T, int S, int Hq, int Hkv, int q_offset, float scale, int window, float softcap,
            cudaStream_t stream) {
-  using TL = Tile<D, kFp8>;
-  const int smem = (kBQ * D + 2 * kBK) * static_cast<int>(sizeof(float)) +
-                   2 * kBK * TL::kLd * static_cast<int>(sizeof(typename TL::T));
+  const int smem = smem_bytes<D, kFp8>();
   cudaFuncSetAttribute(flash_kernel<D, kFp8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const dim3 grid((T + kBQ - 1) / kBQ, Hq, B);
-  flash_kernel<D, kFp8><<<grid, kWarps * 32, smem, stream>>>(q, k, v, ks, vs, start, out, T, S, Hq, Hkv,
-                                                             q_offset, scale, window, softcap);
+  const dim3 grid(Hq, B, (T + kTile - 1) / kTile);
+  flash_kernel<D, kFp8><<<grid, Split<D>::kThreads, smem, stream>>>(q, k, v, ks, vs, start, out, T, S, Hq, Hkv,
+                                                                    q_offset, scale, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 

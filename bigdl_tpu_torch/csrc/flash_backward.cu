@@ -5,9 +5,10 @@
 // (wrapped by `flash_attention_trainable`): `_fwd_kernel` (flash_train_fwd),
 // `_dq_kernel` (flash_train_dq) and `_dkv_kernel` (flash_train_dkv). It is
 // kept apart from flash_attention.cu, the inference kernel, as the JAX
-// package keeps its inference kernel apart. Contract: q, dO, out, dq
-// [B, T, Hq, D]; k, v, dk, dv [B, S, Hkv, D] (the model's layout); lse and
-// delta [B, T, Hq] f32. Query t of row b attends key j iff
+// package keeps its inference kernel apart; the two share the tile
+// helpers of flash_tc.cuh. Contract: q, dO, out, dq [B, T, Hq, D]; k, v,
+// dk, dv [B, S, Hkv, D] (the model's layout); lse and delta [B, T, Hq]
+// f32. Query t of row b attends key j iff
 //     start[b] <= j <= t   and   j > t - window (if window > 0),
 // scores are (q . k) * scale, masked scores -1e30, and a row with no valid
 // key (a left-pad row) has out = 0 and lse = -1e30. The backward recomputes
@@ -18,12 +19,11 @@
 // What bounds it: at the llama3-8b training shape (B = 1, T = 1024, 32 q
 // heads over 8 kv heads, D = 128) the function's least time is set by
 // operations (4, 6 and 8 * D flops per live (query, key) pair and q head
-// against one read of q, k, v, dO), not bytes. The forward and dK/dV run
-// their products on the tensor cores (mma.sync m16n8k16, bf16 operands,
-// f32 sums); what bounds them now is mma.sync's rate (below wgmma's) and
-// the shared-memory reads of ldmatrix that feed it, plus the forward's
-// second P.V product (below). dQ still does all its math in f32 on the
-// CUDA cores (later work).
+// against one read of q, k, v, dO), not bytes. All three kernels run their
+// products on the tensor cores (mma.sync m16n8k16, bf16 operands, f32
+// sums); what bounds them now is mma.sync's rate (below wgmma's) and the
+// shared-memory reads of ldmatrix that feed it, plus the forward's second
+// P.V product (flash_tc.cuh's pv_tile).
 //
 // Design:
 // * forward: one block per (64 queries, q head, batch row), the last query
@@ -35,11 +35,19 @@
 //   and masks only the tiles that a mask cuts. S = Q.K^T runs as mma.sync;
 //   scale is applied to S in f32 (not to a bf16 q). The online softmax
 //   runs on the accumulator fragments (row max and sum across a quad's
-//   four lanes). P.V feeds P as the A operand straight from the
-//   accumulators, V through ldmatrix.trans, and carries P as a bf16 hi
-//   part plus a bf16 lo part (P - hi) in two products into one f32 sum:
-//   P rounded once to bf16 would err by ~2^-9 of a row's typical output,
-//   more than one bf16 step of the outputs near 0.
+//   four lanes); P.V carries P as bf16 hi + lo (pv_tile).
+// * dQ: the forward's Q-major walk. One block per (64 queries, q head,
+//   batch row), longest walks first, four warps of 16 rows; Q and dO tiles
+//   stay in shared memory and their fragments are read per k step (held
+//   in registers with dQ's 64 f32 sums and a tile's S and dP they would
+//   pass 255 registers at D = 128); each thread loads its rows' lse and
+//   delta once. Per live key tile (two-stage cp.async ring of K and V):
+//   S = Q.K^T and dP = dO.V^T by mma.sync, P = exp2(S scale log2(e) -
+//   lse log2(e)) (exactly 0 where masked, so a left-pad row, lse = -1e30,
+//   gets dQ = 0) and dS = P (dP - delta) in f32 on the fragments, then
+//   dQ += dS.K with dS rounded once to bf16 as the A operand straight from
+//   the accumulators and K through ldmatrix.trans. The block owns its rows:
+//   no atomics, no cross-block sum, the same bits from run to run.
 // * dK/dV: one block per (64 keys, q head, batch row) from a schedule the
 //   wrapper builds per shape (b, key tile, q heads, live query tiles),
 //   heaviest first; start[b] is applied here. K and V stay in shared
@@ -54,197 +62,18 @@
 //   cluster barrier, sums a slice of rows over the cluster's tiles in rank
 //   order through distributed shared memory and stores it in bf16. No
 //   atomics: the same bits from run to run. Keys no query attends get 0.
-// * dQ: one block per (16 queries, q head, batch row), four warps of four
-//   query rows, f32 on the CUDA cores; the block walks the live key tiles
-//   of 64 keys, staged in shared memory with an odd 32-bit-word row stride
-//   so the lane-per-key reads are free of bank conflicts.
 //
 // Each entry returns cudaGetLastError() after the launch; 0 means launched.
 
 #include <cooperative_groups.h>
 
-#include "common.cuh"
+#include "flash_tc.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-// dQ (CUDA cores)
-constexpr int kRowsPerWarp = 4;
-constexpr int kWarps = 4;
-constexpr int kBQ = kRowsPerWarp * kWarps;  // query rows per dQ block
-constexpr int kBK = 64;                     // key slots per tile of the dQ walk
-// forward and dK/dV (tensor cores): four warps of 16 rows
-constexpr int kTile = 64;  // queries of a forward block, keys of a dK/dV block, and each walk's step
-constexpr int kTcThreads = 128;
 constexpr int kWorkInts = 6;  // a row of the dK/dV schedule (see dkv_kernel)
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ bool attends(int t, int j, int T, int S, int st, int window) {
-  return t < T && j < S && j >= st && j <= t && (window <= 0 || j > t - window);
-}
-
-// First key slot (a multiple of kBK) and end of the live key range of the
-// query rows [t0, t0 + kBQ).
-__device__ __forceinline__ void live_keys(int t0, int T, int S, int st, int window, int* j_lo, int* j_hi) {
-  *j_hi = min(S, min(t0 + kBQ, T));
-  int lo = st;
-  if (window > 0) lo = max(lo, t0 - window + 1);
-  *j_lo = max(lo, 0) / kBK * kBK;
-}
-
-// K and V tile [kBK][D + 2] bf16 of key slots j0.. of kv head hk.
-template <int D>
-__device__ __forceinline__ void stage_kv(const bf16* __restrict__ k, const bf16* __restrict__ v, bf16* ks,
-                                         bf16* vs, int b, int j0, int S, int Hkv, int hk) {
-  constexpr int kLd = D + 2;
-  for (int i = threadIdx.x; i < kBK * (D / 2); i += blockDim.x) {
-    const int r = i / (D / 2);
-    const int c = i % (D / 2);
-    const int j = j0 + r;
-    uint32_t kw = 0u, vw = 0u;
-    if (j < S) {
-      const size_t off = ((static_cast<size_t>(b) * S + j) * Hkv + hk) * D + 2 * c;
-      kw = *reinterpret_cast<const uint32_t*>(k + off);
-      vw = *reinterpret_cast<const uint32_t*>(v + off);
-    }
-    *reinterpret_cast<uint32_t*>(ks + r * kLd + 2 * c) = kw;
-    *reinterpret_cast<uint32_t*>(vs + r * kLd + 2 * c) = vw;
-  }
-}
-
-// rows [t0, t0 + rows) of head h of a [B, T, H, D] bf16 tensor as f32
-// [rows][ld], times mul; rows past T are 0.
-template <int D>
-__device__ __forceinline__ void stage_rows(const bf16* __restrict__ src, float* dst, int ld, int rows, int b,
-                                           int t0, int T, int H, int h, float mul) {
-  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-    const int r = i / D;
-    const int d = i % D;
-    const int t = t0 + r;
-    dst[r * ld + d] =
-        t < T ? __bfloat162float(src[(static_cast<size_t>(b) * T + t) * H * D + static_cast<size_t>(h) * D + d]) * mul
-              : 0.0f;
-  }
-}
-
-// Scores of the warp's kRowsPerWarp rows (f32 [.][D] in shared memory, q
-// rows pre-scaled) against key slots lane and lane + 32 of the staged tile.
-template <int D>
-__device__ __forceinline__ void row_dots(const float* rows, const bf16* tile, int lane,
-                                         float s[kRowsPerWarp][2]) {
-  constexpr int kLd = D + 2;
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) s[r][0] = s[r][1] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 2) {
-    const float2 k0 = bf16x2_to_float2(*reinterpret_cast<const uint32_t*>(tile + lane * kLd + d));
-    const float2 k1 = bf16x2_to_float2(*reinterpret_cast<const uint32_t*>(tile + (lane + 32) * kLd + d));
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float2 qf = *reinterpret_cast<const float2*>(rows + r * D + d);
-      s[r][0] = fmaf(qf.y, k0.y, fmaf(qf.x, k0.x, s[r][0]));
-      s[r][1] = fmaf(qf.y, k1.y, fmaf(qf.x, k1.x, s[r][1]));
-    }
-  }
-}
-
-// acc[r][dims of this lane] += sum over the tile's keys jj of w[r][jj] *
-// tile[jj][dims]; lane owns dims 2 * lane + 64 * pp (+1), w[r][kk] is held
-// by lane jj & 31 in slot jj >> 5.
-template <int D>
-__device__ __forceinline__ void weighted_rows(const float w[kRowsPerWarp][2], const bf16* tile, int lane,
-                                              float acc[kRowsPerWarp][D / 32]) {
-  constexpr int kLd = D + 2;
-  constexpr int kPairs = D / 64;
-#pragma unroll
-  for (int jj = 0; jj < kBK; ++jj) {
-    float2 vf[kPairs];
-#pragma unroll
-    for (int pp = 0; pp < kPairs; ++pp)
-      vf[pp] = bf16x2_to_float2(*reinterpret_cast<const uint32_t*>(tile + jj * kLd + 2 * lane + 64 * pp));
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float pj = __shfl_sync(0xffffffffu, w[r][jj >> 5], jj & 31);
-#pragma unroll
-      for (int pp = 0; pp < kPairs; ++pp) {
-        acc[r][2 * pp] = fmaf(pj, vf[pp].x, acc[r][2 * pp]);
-        acc[r][2 * pp + 1] = fmaf(pj, vf[pp].y, acc[r][2 * pp + 1]);
-      }
-    }
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void write_rows(bf16* __restrict__ dst, const float acc[kRowsPerWarp][D / 32],
-                                           float mul, int b, int t0, int T, int H, int h, int lane) {
-  constexpr int kPairs = D / 64;
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int t = t0 + r;
-    if (t >= T) continue;
-    bf16* row = dst + (static_cast<size_t>(b) * T + t) * H * D + static_cast<size_t>(h) * D;
-#pragma unroll
-    for (int pp = 0; pp < kPairs; ++pp) {
-      __nv_bfloat162 o2;
-      o2.x = __float2bfloat16(acc[r][2 * pp] * mul);
-      o2.y = __float2bfloat16(acc[r][2 * pp + 1] * mul);
-      *reinterpret_cast<__nv_bfloat162*>(row + 2 * lane + 64 * pp) = o2;
-    }
-  }
-}
-
-
-// Rows r0 .. r0 + kTile - 1 of head h of a [B, R, H, D] bf16 tensor into a
-// [kTile][D + 8] shared tile by cp.async (16 bytes a piece); rows past R
-// load as zeros. The odd 16-byte row stride keeps ldmatrix conflict-free.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, int b, int r0, int R, int H,
-                                          int h) {
-  constexpr int kLd = D + 8;
-  constexpr int kPieces = D / 8;
-#pragma unroll
-  for (int i = 0; i < kTile * kPieces / kTcThreads; ++i) {
-    const int e = static_cast<int>(threadIdx.x) + i * kTcThreads;
-    const int r = e / kPieces;
-    const int c = (e % kPieces) * 8;
-    const int row = r0 + r;
-    const bool ok = row < R;
-    const bf16* p = ok ? src + ((static_cast<size_t>(b) * R + row) * H + h) * D + c : src;
-    cp_async16(dst + r * kLd + c, p, ok ? 16 : 0);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// (a, b) as bf16 hi + lo: hi = bf16(x), lo = bf16(x - hi)
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(a - hf.x, b - hf.y);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Tile pairs where every (query, key) pair attends need no mask.
-__device__ __forceinline__ bool whole_tile(int t0, int j0, int T, int S, int st, int window) {
-  return j0 >= st && j0 + kTile - 1 <= t0 && t0 + kTile <= T && j0 + kTile <= S &&
-         (window <= 0 || j0 > t0 + kTile - 1 - window);
-}
 
 template <int D>
 __global__ void __launch_bounds__(kTcThreads, 2)
@@ -268,13 +97,8 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   const int gr = lane >> 2;  // fragment row (and row + 8)
   const int qd = lane & 3;   // fragment column pair
   const int st = start[b];
-
-  // live key tiles of rows t0 .. t0 + kTile - 1
-  const int j_hi = min(S, min(t0 + kTile, T));
-  int lo = st;
-  if (window > 0) lo = max(lo, t0 - window + 1);
-  const int j_lo = max(lo, 0) / kTile * kTile;
-  const int n_tiles = j_hi > j_lo ? (j_hi - j_lo + kTile - 1) / kTile : 0;
+  int j_lo;
+  const int n_tiles = live_tiles(t0, min(t0 + kTile, T) - 1, S, st, window, &j_lo);
 
   load_tile<D>(qs, q, b, t0, T, Hq, h);
   cp_async_commit();
@@ -287,8 +111,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   __syncthreads();
   uint32_t qa[kKs][4];
 #pragma unroll
-  for (int kk = 0; kk < kKs; ++kk)
-    ldmatrix_x4(qa[kk], qs + (warp * 16 + (lane & 15)) * kLd + kk * 16 + (lane >> 4) * 8);
+  for (int kk = 0; kk < kKs; ++kk) row_frag<D>(qa[kk], qs + warp * 16 * kLd, kk, lane);
 
   const float sl2 = scale * kLog2e;
   const int r0 = t0 + warp * 16 + gr;     // this thread's rows r0 and r0 + 8
@@ -311,78 +134,22 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     const bf16* kt = ks + cur * kTile * kLd;
     const bf16* vt = vs + cur * kTile * kLd;
 
-    // S = Q.K^T: 16 rows x 64 keys a warp, n tile n = keys 8n ..
+    // S = Q.K^T: 16 rows x 64 keys a warp; masked scores exactly kNegInf
     float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < kKs; ++kk) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLd + kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qa[kk], kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qa[kk], kb[2], kb[3]);
-      }
-    }
-
-    // online softmax in the log2 domain; masked scores are exactly kNegInf
-    const bool edge = !whole_tile(t0, j0, T, S, st, window);
-    float mx[2] = {kNegInf, kNegInf};
+    key_dots<D>(s, qa, kt, lane);
+    const bool edge = !whole_tile(t0, t0, j0, T, S, st, window);
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
+        const int t = r0 + (e >> 1) * 8;
         float x = s[n][e] * sl2;
-        if (edge && !attends(r0 + (e >> 1) * 8, j0 + n * 8 + 2 * qd + (e & 1), T, S, st, window)) x = kNegInf;
+        if (edge && !attends(t, t, j0 + n * 8 + 2 * qd + (e & 1), T, S, st, window)) x = kNegInf;
         s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
     }
-    float mu[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float mn = fmaxf(m[i], quad_max(mx[i]));
-      // a row with no valid key yet keeps l = 0 and o = 0: exp2(kNegInf) = 0
-      mu[i] = mn == kNegInf ? 0.0f : mn;
-      const float alpha = exp2f(m[i] - mu[i]);
-      m[i] = mn;
-      l[i] *= alpha;
-#pragma unroll
-      for (int n = 0; n < kNd; ++n) {
-        o[n][2 * i] *= alpha;
-        o[n][2 * i + 1] *= alpha;
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[n][e] - mu[e >> 1]);
-        s[n][e] = p;
-        l[e >> 1] += p;
-      }
-    }
-
-    // o += P.V, P as bf16 hi + lo; A fragments of 16 keys straight from
-    // the accumulators of n tiles 2 kc and 2 kc + 1
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t ph[4], pl[4];
-      split_bf16(s[2 * kc][0], s[2 * kc][1], ph[0], pl[0]);
-      split_bf16(s[2 * kc][2], s[2 * kc][3], ph[1], pl[1]);
-      split_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1], ph[2], pl[2]);
-      split_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3], ph[3], pl[3]);
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vt + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd + dn * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * dn], ph, vb[0], vb[1]);
-        mma_bf16(o[2 * dn], pl, vb[0], vb[1]);
-        mma_bf16(o[2 * dn + 1], ph, vb[2], vb[3]);
-        mma_bf16(o[2 * dn + 1], pl, vb[2], vb[3]);
-      }
-    }
+    softmax_tile<kNd>(s, m, l, o);
+    pv_tile<D, kNd>(o, s, vt, 0, lane);
     __syncthreads();  // this stage is consumed before the next load refills it
   }
 
@@ -403,64 +170,116 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 }
 
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kTcThreads, 2)
     dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
               const int* __restrict__ start, const bf16* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ delta, bf16* __restrict__ dq, int T, int S, int Hq, int Hkv, float scale,
               int window) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);    // [kBQ][D], pre-scaled
-  float* dos = qs + kBQ * D;                         // [kBQ][D]
-  bf16* ks = reinterpret_cast<bf16*>(dos + kBQ * D);  // [kBK][D + 2]
-  bf16* vs = ks + kBK * (D + 2);
+  constexpr int kLd = D + 8;
+  constexpr int kNd = D / 8;  // n tiles of dQ
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kTile][kLd]
+  bf16* dos = qs + kTile * kLd;                  // [kTile][kLd]
+  bf16* ks = dos + kTile * kLd;                  // [2][kTile][kLd]
+  bf16* vs = ks + 2 * kTile * kLd;               // [2][kTile][kLd]
 
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int t0 = blockIdx.x * kBQ;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int t0 = (gridDim.z - 1 - blockIdx.z) * kTile;  // the longest walks first
   const int hk = h / (Hq / Hkv);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;
+  const int qd = lane & 3;
   const int st = start[b];
-  const int tw = t0 + warp * kRowsPerWarp;
+  int j_lo;
+  const int n_tiles = live_tiles(t0, min(t0 + kTile, T) - 1, S, st, window, &j_lo);
 
-  stage_rows<D>(q, qs, D, kBQ, b, t0, T, Hq, h, scale);
-  stage_rows<D>(dout, dos, D, kBQ, b, t0, T, Hq, h, 1.0f);
-
-  float lse_r[kRowsPerWarp], delta_r[kRowsPerWarp], acc[kRowsPerWarp][D / 32];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int t = min(tw + r, T - 1);
-    lse_r[r] = lse[(static_cast<size_t>(b) * T + t) * Hq + h];
-    delta_r[r] = delta[(static_cast<size_t>(b) * T + t) * Hq + h];
-#pragma unroll
-    for (int e = 0; e < D / 32; ++e) acc[r][e] = 0.0f;
+  load_tile<D>(qs, q, b, t0, T, Hq, h);
+  load_tile<D>(dos, dout, b, t0, T, Hq, h);
+  if (n_tiles > 0) {
+    load_tile<D>(ks, k, b, j_lo, S, Hkv, hk);
+    load_tile<D>(vs, v, b, j_lo, S, Hkv, hk);
   }
+  cp_async_commit();
 
-  int j_lo, j_hi;
-  live_keys(t0, T, S, st, window, &j_lo, &j_hi);
-  for (int j0 = j_lo; j0 < j_hi; j0 += kBK) {
-    __syncthreads();
-    stage_kv<D>(k, v, ks, vs, b, j0, S, Hkv, hk);
-    __syncthreads();
+  // this thread's rows r0 and r0 + 8: lse in the log2 domain, and delta
+  const int r0 = t0 + warp * 16 + gr;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const size_t off = (static_cast<size_t>(b) * T + min(r0 + 8 * i, T - 1)) * Hq + h;
+    lse2[i] = lse[off] * kLog2e;
+    dl[i] = delta[off];
+  }
+  const float sl2 = scale * kLog2e;
+  const bf16* qrows = qs + warp * 16 * kLd;
+  const bf16* drows = dos + warp * 16 * kLd;
+  float acc[kNd][4];
+#pragma unroll
+  for (int n = 0; n < kNd; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
 
-    float s[kRowsPerWarp][2], dp[kRowsPerWarp][2];
-    row_dots<D>(qs + warp * kRowsPerWarp * D, ks, lane, s);
-    row_dots<D>(dos + warp * kRowsPerWarp * D, vs, lane, dp);
-    float ds[kRowsPerWarp][2];
+  for (int it = 0; it < n_tiles; ++it) {
+    const int j0 = j_lo + it * kTile;
+    const int cur = it & 1;
+    if (it + 1 < n_tiles) {
+      load_tile<D>(ks + (cur ^ 1) * kTile * kLd, k, b, j0 + kTile, S, Hkv, hk);
+      load_tile<D>(vs + (cur ^ 1) * kTile * kLd, v, b, j0 + kTile, S, Hkv, hk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and, first, Q and dO) has landed
+    __syncthreads();
+    const bf16* kt = ks + cur * kTile * kLd;
+    const bf16* vt = vs + cur * kTile * kLd;
+
+    float s[8][4], dp[8][4];
+    key_dots<D>(s, qrows, kt, lane);   // S = Q.K^T
+    key_dots<D>(dp, drows, vt, lane);  // dP = dO.V^T
+    // dS = P (dP - delta) in dp, P exactly 0 where masked
+    const bool edge = !whole_tile(t0, t0, j0, T, S, st, window);
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
+    for (int n = 0; n < 8; ++n) {
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        const bool valid = attends(tw + r, j0 + lane + 32 * kk, T, S, st, window);
-        const float p = valid ? expf(s[r][kk] - lse_r[r]) : 0.0f;
-        ds[r][kk] = p * (dp[r][kk] - delta_r[r]);
+      for (int e = 0; e < 4; ++e) {
+        const int t = r0 + (e >> 1) * 8;
+        float p = exp2f(s[n][e] * sl2 - lse2[e >> 1]);
+        if (edge && !attends(t, t, j0 + n * 8 + 2 * qd + (e & 1), T, S, st, window)) p = 0.0f;
+        dp[n][e] = p * (dp[n][e] - dl[e >> 1]);
       }
     }
-    weighted_rows<D>(ds, ks, lane, acc);
-  }
-  write_rows<D>(dq, acc, scale, b, tw, T, Hq, h, lane);
-}
 
+    // dQ += dS.K: dS (bf16) A fragments of 16 keys from the accumulators
+    // of n tiles 2 kc and 2 kc + 1, K through ldmatrix.trans
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t da[4];
+      da[0] = pack_bf16(dp[2 * kc][0], dp[2 * kc][1]);
+      da[1] = pack_bf16(dp[2 * kc][2], dp[2 * kc][3]);
+      da[2] = pack_bf16(dp[2 * kc + 1][0], dp[2 * kc + 1][1]);
+      da[3] = pack_bf16(dp[2 * kc + 1][2], dp[2 * kc + 1][3]);
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        uint32_t kb[4];
+        ldmatrix_x4_trans(kb, kt + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd + dn * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * dn], da, kb[0], kb[1]);
+        mma_bf16(acc[2 * dn + 1], da, kb[2], kb[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before the next load refills it
+  }
+  cp_async_wait<0>();  // no walk: Q and dO may still be in flight
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = r0 + 8 * i;
+    if (t >= T) continue;
+    bf16* row = dq + (static_cast<size_t>(b) * T + t) * Hq * D + static_cast<size_t>(h) * D;
+#pragma unroll
+    for (int n = 0; n < kNd; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(row + n * 8 + 2 * qd) =
+          __floats2bfloat162_rn(acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
+  }
+}
 
 // work: one row of kWorkInts ints a block, the wrapper's schedule
 // (ops/kernels/flash_backward.py `dkv_schedule`): batch row, key tile,
@@ -543,7 +362,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     const bf16* dt = qt + kTile * kLd;
     const float* lse_s = stats + cur * 2 * kTile;
     const float* delta_s = lse_s + kTile;
-    const bool edge = !whole_tile(t0, j0, T, S, st, window);
+    const bool edge = !whole_tile(t0, t0, j0, T, S, st, window);
 
 #pragma unroll 1
     for (int c = 0; c < kTile / 16; ++c) {
@@ -582,7 +401,8 @@ __global__ void __launch_bounds__(kTcThreads, 2)
           const float lv = (e & 1) ? ls.y : ls.x;
           const float dlv = (e & 1) ? dl.y : dl.x;
           float pe = exp2f(sT[n][e] * sl2 - lv * kLog2e);
-          if (edge && !attends(t0 + cq + (e & 1), jr + (e >> 1) * 8, T, S, st, window)) pe = 0.0f;
+          const int t = t0 + cq + (e & 1);
+          if (edge && !attends(t, t, jr + (e >> 1) * 8, T, S, st, window)) pe = 0.0f;
           p[e] = pe;
           ds[e] = pe * (dpT[n][e] - dlv);
         }
@@ -662,8 +482,8 @@ int smem_dkv() {  // K, V and two stages of Q, dO, lse and delta
 }
 
 template <int D>
-int smem_dq() {
-  return 2 * kBQ * D * static_cast<int>(sizeof(float)) + 2 * kBK * (D + 2) * static_cast<int>(sizeof(bf16));
+int smem_dq() {  // Q, dO and two stages of K and V
+  return 6 * kTile * (D + 8) * static_cast<int>(sizeof(bf16));
 }
 
 template <int D>
@@ -682,9 +502,9 @@ int launch_dq(const bf16* q, const bf16* k, const bf16* v, const int* start, con
               cudaStream_t stream) {
   const int smem = smem_dq<D>();
   cudaFuncSetAttribute(dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const dim3 grid((T + kBQ - 1) / kBQ, Hq, B);
-  dq_kernel<D><<<grid, kWarps * 32, smem, stream>>>(q, k, v, start, dout, lse, delta, dq, T, S, Hq, Hkv, scale,
-                                                    window);
+  const dim3 grid(Hq, B, (T + kTile - 1) / kTile);
+  dq_kernel<D><<<grid, kTcThreads, smem, stream>>>(q, k, v, start, dout, lse, delta, dq, T, S, Hq, Hkv, scale,
+                                                   window);
   return static_cast<int>(cudaGetLastError());
 }
 

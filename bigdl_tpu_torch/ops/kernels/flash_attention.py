@@ -3,7 +3,7 @@
 Port of bigdl_tpu/ops/pallas/flash_attention.py (`flash_attention`,
 `_flash`, `_kernel`), both arms: a bf16 KV cache, and float8_e5m2 codes
 with one f16 scale per (slot, head) (`k_scale`/`v_scale`, the dense fp8
-pool), decoded tile by tile in the kernel. The CUDA source is
+pool), converted tile by tile in the kernel. The CUDA source is
 `csrc/flash_attention.cu`; its header note says what bounds it on the
 card and what the design does about it.
 
@@ -96,9 +96,10 @@ def _check(q, k, v, start, k_scale=None, v_scale=None) -> None:
                           ("v", v, kv_dtype)):
         if t.dtype != want:
             raise TypeError(f"flash_attention: {name} must be {want}, got {t.dtype}")
-        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 4:
+        # the kernel loads q, k and v tiles 16 bytes at a time
+        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} must be a contiguous "
-                             f"tensor on {q.device}")
+                             f"tensor on {q.device} at a 16-byte aligned address")
     if k_scale is not None:
         for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
             if (t is None or t.dtype != torch.float16 or t.shape != k.shape[:3]

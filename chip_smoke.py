@@ -7,25 +7,31 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. build every CUDA kernel from csrc/ (one nvcc per source, in parallel),
    print each library's registers and spills, and for the tensor-core
-   training forward and dK/dV kernels (`fwd_kernel`, `dkv_kernel`) their
-   registers, spill bytes (0, or the run fails) and the HMMA instructions
-   in their SASS (where cuobjdump is present); print the card's name and
-   power limit;
+   flash kernels (the training forward, dQ and dK/dV: `fwd_kernel`,
+   `dq_kernel`, `dkv_kernel`; the prefill kernel's bf16 and fp8 arms:
+   `flash_kernel`) their registers, spill bytes (0, or the run fails) and
+   the HMMA instructions in their SASS (where cuobjdump is present); print
+   the card's name and power limit;
 2. hold each kernel against its plain PyTorch version at the main paths'
    shapes: the sym_int4 dequant-matmul GEMV (M <= 32) and GEMM (M > 32) at
    every llama3-8b projection, flash attention at the prefill shape with
-   ragged left padding, plus a window+softcap case and a head_dim-64 case;
+   ragged left padding, plus a window+softcap case, a head_dim-64 case, a
+   head_dim-256 case and a T=17 case at q_offset 100 whose window edge
+   falls inside a key tile;
    then the training kernels: the dequant dx at every projection and the
    lm head, the GEMM's LoRA epilogue at wo and w_down (all at M = 1024),
    and the trainable flash forward (+ logsumexp), dQ and dK/dV at B=1
    T=1024, at a small GQA + left-pad + window case and at a head_dim-64
    case whose 8 q heads share one kv head (a cluster of 8) and whose pad
-   covers a whole key tile (dK/dV of keys before start exactly 0, and a
-   second dK/dV launch bit-equal to the first); then the serving
+   covers a whole key tile (dQ of rows and dK/dV of keys before start
+   exactly 0, and second dQ and dK/dV launches bit-equal to the first);
+   then the serving
    kernels: paged decode attention over bf16 and fp8 pages at the
    engine's decode shape (8 rows, pages of 64, ragged positions up to
    2047 over shuffled pages, an idle row; a window + softcap case) and the
-   flash kernel's fp8 arm at the dense fp8 pool's prefill shape; then the
+   flash kernel's fp8 arm at the dense fp8 pool's prefill shape, a window
+   + softcap case, a case whose scales are all f16 subnormals (K/V of
+   absmax < 1) and a head_dim-256 case; then the
    adapter kernels: the LoRA GEMV at wo and w_down (M = 1, 8, 32; R = 4,
    16, 128 and the widest R the eligibility rule admits; block-diagonal
    gates with a zero row, whose output must equal the plain GEMV's bits,
@@ -54,8 +60,10 @@ Phases (any failure exits non-zero; nothing is caught):
    gradients through the kernels against the plain versions on the card;
 6. training times, as in 4: each new kernel on the path (a profiler
    window over two steps) and isolated at its path shapes beside its
-   plain version, library call and bound; step ms, tokens/s, peak memory
-   and the device's busy share of a step;
+   plain version, library call and bound (the flash trio's library call,
+   SDPA's forward and its backward alone, read as profiled device time,
+   printed beside CUDA events around the calls); step ms, tokens/s, peak
+   memory and the device's busy share of a step;
 7. the serving path: `serving.InferenceEngine` over llama3-8b sym_int4
    (32 layers) at `cli serve`'s defaults (8 slots, max_len 2048, pages of
    64) with 16 seeded requests (8 sharing a 1,024-token prefix, one of
@@ -130,7 +138,7 @@ Phases (any failure exits non-zero; nothing is caught):
    shape beside its plain version, cuBLAS g^T x (a yardstick the port
    never calls) and its bound.
 
-The whole run takes about 470 s of command time on an H100, the kernel
+The whole run takes about 500 s of command time on an H100, the kernel
 builds included (the dequant sources build once per qtype, 32 libraries).
 It prints one `{"kernels": [...]}` line (the dequant forms carry their
 numbers per format under "by_format"), and as its last line
@@ -232,14 +240,34 @@ def tc_kernel_report(lib: Path, names) -> int:
             elif fn and "HMMA" in line:
                 sass[fn] += 1
     for mangled, (regs, spill) in sorted(res.items()):
-        kname = next((n for n in names if n in mangled), None)
+        kname = next((n for n in names if n + "I" in mangled), None)
         if kname is None:
             continue
-        d = mangled.split(kname + "ILi")[1].split("E")[0]
+        # template arguments: Li128 -> 128, Lb1 -> true, Lb0 -> false
+        targs = [{"Lb0": "false", "Lb1": "true"}.get(a, a[2:])
+                 for a in mangled.split(kname + "I")[1].split("EE")[0].split("E")]
         hmma = sass.get(mangled, "not read (no cuobjdump)") if sass else "not read (no cuobjdump)"
-        log(f"  ptxas {kname}<{d}>: registers {regs}, spill bytes {spill}, HMMA in SASS {hmma}")
+        log(f"  ptxas {kname}<{', '.join(targs)}>: registers {regs}, spill bytes {spill}, "
+            f"HMMA in SASS {hmma}")
         spills += spill
     return spills
+
+
+def device_ms(torch, fn, args_list, iters: int = 20) -> float:
+    """Device time per call: the self device time of every kernel in a
+    torch.profiler window over `iters` calls after 3 warm-up calls,
+    cycling through `args_list` as time_ms does. Unlike CUDA events around
+    the calls, it does not count the card waiting for the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(3):
+        fn(*args_list[i % len(args_list)])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*args_list[i % len(args_list)])
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in device_kernels(prof)) / 1e3 / iters
 
 
 def check(ok: bool, what: str) -> None:
@@ -296,8 +324,9 @@ def main() -> int:
         log(f"  ptxas {stem}{'[' + qtype + ']' if qtype else ''}: {len(regs)} kernels, "
             f"registers {min(regs, default=0)}-{max(regs, default=0)}, spill bytes "
             f"{sum(sp for _, sp in res.values())}")
-    check(tc_kernel_report(libs[("flash_backward", None)], ("fwd_kernel", "dkv_kernel")) == 0,
-          "the training forward or dK/dV kernel spills")
+    spills = tc_kernel_report(libs[("flash_backward", None)], ("fwd_kernel", "dq_kernel", "dkv_kernel"))
+    spills += tc_kernel_report(libs[("flash_attention", None)], ("flash_kernel",))
+    check(spills == 0, "a tensor-core flash kernel spills")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -336,7 +365,9 @@ def main() -> int:
             check(bool(torch.isfinite(y).all()) and err <= tol, f"{kname} {name} M={M}")
     flash_cases = [("prefill", B, T, S, Hq, Hkv, D, 0, None, None),
                    ("window+softcap", 2, 128, 192, Hq, Hkv, D, 40, 64, 30.0),
-                   ("head_dim 64", 2, 96, 128, 8, 2, 64, 0, None, None)]
+                   ("head_dim 64", 2, 96, 128, 8, 2, 64, 0, None, None),
+                   ("head_dim 256", 2, 70, 96, 4, 1, 256, 0, None, None),
+                   ("T=17, q_offset, window across a key tile", 2, 17, 192, Hq, Hkv, D, 100, 50, None)]
     for label, b, t_, s, hq, hkv, d, qoff, win, cap in flash_cases:
         q, k, v = randn(b, t_, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
         start = torch.as_tensor((starts if label == "prefill" else
@@ -673,15 +704,21 @@ def train_kernel_checks(torch, dev, cfg, shapes, errs, qweight, randn) -> None:
                 f"rel_frobenius={frob:.3g}")
             check(bool(torch.isfinite(got).all()) and err <= tol and frob <= 1e-2,
                   f"flash train {gname} {label}")
-        # keys before start[b] are attended by no query: exactly 0; and no
-        # atomics: a second launch gives the same bits
+        # keys before start[b] are attended by no query, and queries before
+        # it attend no key: their gradients are exactly 0; and no atomics:
+        # a second launch gives the same bits
         zero_ok = all(bool((grads[1][i, :s0] == 0).all() and (grads[2][i, :s0] == 0).all())
                       for i, s0 in enumerate(st))
+        dq_zero_ok = all(bool((grads[0][i, :s0] == 0).all()) for i, s0 in enumerate(st))
         dk2, dv2 = kernels.flash_train_dkv(q, k, v, start, do, lse, delta, win)
         same = torch.equal(dk2, grads[1]) and torch.equal(dv2, grads[2])
+        dq_same = torch.equal(kernels.flash_train_dq(q, k, v, start, do, lse, delta, win), grads[0])
         log(f"phase 2: flash train dk/dv {label} keys before start exactly 0: {zero_ok}; "
             f"two launches bit-equal: {same}")
+        log(f"phase 2: flash train dq {label} rows before start exactly 0: {dq_zero_ok}; "
+            f"two launches bit-equal: {dq_same}")
         check(zero_ok and same, f"flash train dk/dv {label}: zeros before start, bit-equal relaunch")
+        check(dq_zero_ok and dq_same, f"flash train dq {label}: zeros before start, bit-equal relaunch")
 
 
 def train_phases(torch, dev, cfg, card, errs, qweight, randn) -> list:
@@ -897,26 +934,20 @@ def train_phases(torch, dev, cfg, card, errs, qweight, randn) -> list:
             # q, k, v, dO, lse, delta read; dk, dv written
             io + 2 * T * Hq * 4 + 2 * T * Hkv * D * 2, 8.0 * D * Hq * live),
     }
-    # the yardstick: SDPA over GQA-expanded K/V, forward, and forward +
-    # backward (dq, dk and dv at once), whose difference is the backward
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    G = Hq // Hkv
-    exp = [tuple(t_.repeat_interleave(r, dim=2).transpose(1, 2).contiguous().requires_grad_()
-                 for t_, r in ((q, 1), (k, G), (v, G))) + (do.transpose(1, 2),)
-           for q, k, v, do, _, _ in sets]
-    lib_fwd = time_ms(torch, lambda q, k, v, do: sdpa(q, k, v, is_causal=True), exp)
-    lib_fb = time_ms(torch, lambda q, k, v, do: torch.autograd.grad(
-        sdpa(q, k, v, is_causal=True), (q, k, v), do), exp)
-    lib = {kernels.FLASH_FWD.name: lib_fwd, kernels.FLASH_DQ.name: lib_fb - lib_fwd,
-           kernels.FLASH_DKV.name: lib_fb - lib_fwd}
+    sdpa_ms = sdpa_train_yardstick(torch, [st_[:4] for st_ in sets], Hq // Hkv)
+    lib_fwd, lib_bwd = sdpa_ms["fwd_device_ms"], sdpa_ms["bwd_device_ms"]
+    lib = {kernels.FLASH_FWD.name: lib_fwd, kernels.FLASH_DQ.name: lib_bwd,
+           kernels.FLASH_DKV.name: lib_bwd}
     for kname, (kern, plain_, nbytes, flops) in rows.items():
         add(kname, L, kern, plain_, lib[kname], nbytes, flops)
         bms, by = bound_ms(nbytes, flops)
         log(f"phase 6: {kname} B=1 T={T} Hq={Hq} Hkv={Hkv} D={D} per layer isolated_ms={kern:.5f} "
             f"plain_ms={plain_:.5f} library_ms={lib[kname]:.5f} bound_ms={bms:.5f} ({by})")
-    log(f"phase 6: SDPA yardstick per layer: forward {lib_fwd:.5f} ms, forward+backward "
-        f"{lib_fb:.5f} ms (the backward's time stands as library_ms of both dQ and dK/dV)")
-    del sets, exp
+    log(f"phase 6: SDPA yardstick per layer, profiled device time (library_ms): forward "
+        f"{lib_fwd:.5f} ms, backward {lib_bwd:.5f} ms (dq, dk and dv at once: library_ms of both "
+        f"dQ and dK/dV); CUDA events around the calls: forward {sdpa_ms['fwd_event_ms']:.5f}, "
+        f"backward {sdpa_ms['bwd_event_ms']:.5f}")
+    del sets
 
     unit = f"one train step: B=1 T={TRAIN_T}, {L} layers, rank {RANK}"
     entries = []
@@ -931,6 +962,29 @@ def train_phases(torch, dev, cfg, card, errs, qweight, randn) -> list:
             "isolated_ms": iso, "plain_ms": plain_, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_, "per": unit})
     return entries
+
+
+def sdpa_train_yardstick(torch, sets, G: int) -> dict:
+    """SDPA at the training flash kernels' shapes, a yardstick the port
+    never calls: its forward, and its backward alone (dq, dk and dv at
+    once, over a graph the forward built beforehand), each as profiled
+    device time (`device_ms`, which host load cannot move) and as CUDA
+    events around the calls. `sets`: (q, k, v, dO) in the model's layout,
+    K/V GQA-expanded here; copies cycled past the L2."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    exp = [tuple(t_.repeat_interleave(r, dim=2).transpose(1, 2).contiguous().requires_grad_()
+                 for t_, r in ((q, 1), (k, G), (v, G))) + (do.transpose(1, 2),)
+           for q, k, v, do in sets]
+    res = {"fwd_event_ms": time_ms(torch, lambda q, k, v, do: sdpa(q, k, v, is_causal=True), exp),
+           "fwd_device_ms": device_ms(torch, lambda q, k, v, do: sdpa(q, k, v, is_causal=True), exp)}
+    graphs = [(sdpa(q, k, v, is_causal=True), q, k, v, do) for q, k, v, do in exp]
+
+    def bwd(o, q, k, v, do):
+        return torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
+
+    res["bwd_event_ms"] = time_ms(torch, bwd, graphs)
+    res["bwd_device_ms"] = device_ms(torch, bwd, graphs)
+    return res
 
 
 def qlora_variant_checks(torch, dev, cfg, model, tokens, mask) -> None:
@@ -1311,12 +1365,15 @@ def serving_kernel_checks(torch, dev, cfg, errs, randn) -> None:
                 f"page={PAGE} pos={pos} window={window} softcap={cap} "
                 f"max_abs_err={err:.6g} tol=2^-7*|ref|+1e-5 per element")
             check(bool(torch.isfinite(y).all()) and within, f"{kern.name} {label}")
-    for label, b, t_, s_, qoff, st_, win, cap in (
-            ("dense fp8 prefill", 1, 1024, 1024, 0, (24,), None, None),
-            ("window+softcap", 2, 128, 192, 40, (0, 37), 64, 30.0)):
-        q = randn(b, t_, Hq, D)
-        k, ks = _quantize_heads(torch.randn((b, s_, Hkv, D), device=dev, generator=g) * 3)
-        v, vs = _quantize_heads(torch.randn((b, s_, Hkv, D), device=dev, generator=g))
+    for label, b, t_, s_, hq, hkv, d, qoff, st_, win, cap, amp in (
+            ("dense fp8 prefill", 1, 1024, 1024, Hq, Hkv, D, 0, (24,), None, None, 3.0),
+            ("window+softcap", 2, 128, 192, Hq, Hkv, D, 40, (0, 37), 64, 30.0, 3.0),
+            # absmax < 1: every scale is an f16 subnormal
+            ("subnormal scales", 2, 30, 96, Hq, Hkv, D, 20, (0, 9), None, None, 0.2),
+            ("head_dim 256", 2, 70, 96, 4, 1, 256, 0, (0, 37), None, None, 3.0)):
+        q = randn(b, t_, hq, d)
+        k, ks = _quantize_heads(torch.randn((b, s_, hkv, d), device=dev, generator=g) * amp)
+        v, vs = _quantize_heads(torch.randn((b, s_, hkv, d), device=dev, generator=g) * amp / 3)
         start = torch.tensor(st_, dtype=torch.int32, device=dev)
         y = kernels.flash_attention(q, k, v, start=start, q_offset=qoff, window=win,
                                     softcap=cap, k_scale=ks, v_scale=vs).float()
@@ -1327,7 +1384,7 @@ def serving_kernel_checks(torch, dev, cfg, errs, randn) -> None:
         pad_rows = ~valid_mask(start, qoff, t_, s_, win).any(-1)
         zeros_ok = bool((y[pad_rows] == 0).all())
         errs[kernels.FLASH_FP8.name] = max(errs[kernels.FLASH_FP8.name], err)
-        log(f"phase 2: {kernels.FLASH_FP8.name} {label} B={b} T={t_} S={s_} "
+        log(f"phase 2: {kernels.FLASH_FP8.name} {label} B={b} T={t_} S={s_} Hq={hq} Hkv={hkv} D={d} "
             f"q_offset={qoff} start={st_} window={win} softcap={cap} max_abs_err={err:.6g} "
             f"tol=2^-7*|ref|+1e-5 per element pad_rows={int(pad_rows.sum())} "
             f"exact_zero={zeros_ok}")

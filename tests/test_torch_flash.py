@@ -77,3 +77,20 @@ def test_cpu_tensor_takes_plain_version_without_launch():
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
     assert kernels.FLASH.launches == 0
 
+
+
+def test_every_finite_e5m2_code_is_a_bf16_value():
+    """The fp8 arm of csrc/flash_attention.cu runs its products on the
+    codes as bf16: each of the 248 finite float8_e5m2 codes, subnormals
+    included, is a bf16 value, and the kernel's conversion (the code as the
+    high byte of an f16) gives it."""
+    from bigdl_tpu_torch.kvcache import FP8
+
+    bits = torch.arange(256, dtype=torch.int32)
+    val = bits.to(torch.uint8).view(FP8).float()
+    finite = torch.isfinite(val)
+    assert int(finite.sum()) == 248
+    assert torch.equal(val[finite].bfloat16().float(), val[finite])
+    as_f16 = (bits << 8).to(torch.int16).view(torch.float16).float()
+    assert torch.equal(as_f16[finite], val[finite])
+    assert bool((val[~finite].isnan() == as_f16[~finite].isnan()).all())

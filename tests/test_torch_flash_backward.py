@@ -132,3 +132,95 @@ def test_dkv_schedule_covers_live_tiles_once(T, window, G):
         assert (grp[:, [0, 1, 3, 4, 5]] == grp[0, [0, 1, 3, 4, 5]]).all()
         assert (grp[:, 2] == grp[0, 2] + grp[0, 3] * np.arange(cluster)).all()
         assert grp[0, 2] % G == 0
+
+
+# csrc/flash_backward.cu's dQ kernel on the tensor cores rounds dS to bf16
+# once (the A operand of dQ += dS . K); everything else is f32. The
+# emulation below walks the kernel's tiles (64 queries of a block, its live
+# 64-key tiles, masks only on the tiles a mask cuts) with that one rounding,
+# and is held to JAX's gradient as the card holds the kernel to its plain
+# version (chip_smoke phase 2): 2^-6 of the largest element, 1 % in the
+# Frobenius norm.
+_TILE = 64
+_LOG2E = 1.4426950408889634
+
+
+# the tile walk of csrc/flash_tc.cuh's live_tiles and whole_tile, with the
+# query rows at slots row_lo .. row_hi (the prefill kernel's q_offset + t;
+# the training kernels' t); test_torch_kvcache.py's fp8 emulation walks it too
+def _live_key_tiles(row_lo, row_hi, S, st, window):
+    j_hi = min(S, row_hi + 1)
+    lo = max(st, row_lo - window + 1) if window else st
+    j_lo = max(lo, 0) // _TILE * _TILE
+    return range(j_lo, j_hi, _TILE)
+
+
+def _whole_tile(t0, row0, j0, T, S, st, window):
+    return (j0 >= st and j0 + _TILE - 1 <= row0 and t0 + _TILE <= T
+            and j0 + _TILE <= S and (not window or j0 > row0 + _TILE - 1 - window))
+
+
+def _dq_emulated(q, k, v, start, do, lse, delta, window, scale):
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    dq = torch.zeros(B, T, Hq, D)
+    for b in range(B):
+        st = int(start[b])
+        kb = k[b].float().repeat_interleave(G, dim=1).transpose(0, 1)  # [Hq, S, D]
+        vb = v[b].float().repeat_interleave(G, dim=1).transpose(0, 1)
+        for t0 in range(0, T, _TILE):
+            t1 = min(t0 + _TILE, T)
+            rows = torch.arange(t0, t1)
+            qt = q[b, t0:t1].float().transpose(0, 1)  # [Hq, n, D]
+            dot = do[b, t0:t1].float().transpose(0, 1)
+            lse2 = lse[b, t0:t1].T[..., None] * _LOG2E  # [Hq, n, 1]
+            dl = delta[b, t0:t1].T[..., None]
+            acc = torch.zeros(Hq, t1 - t0, D)
+            for j0 in _live_key_tiles(t0, t1 - 1, S, st, window):
+                j1 = min(j0 + _TILE, S)
+                kt, vt = kb[:, j0:j1], vb[:, j0:j1]
+                p = torch.exp2(qt @ kt.transpose(1, 2) * (scale * _LOG2E) - lse2)
+                if not _whole_tile(t0, t0, j0, T, S, st, window):
+                    j = torch.arange(j0, j1)[None]
+                    ok = (j <= rows[:, None]) & (j >= st)
+                    if window:
+                        ok &= j > rows[:, None] - window
+                    p = torch.where(ok, p, torch.zeros_like(p))
+                ds = p * (dot @ vt.transpose(1, 2) - dl)
+                acc += ds.bfloat16().float() @ kt
+            dq[b, t0:t1] = (acc * scale).transpose(0, 1)
+    return dq.bfloat16()
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,D,window,start", [
+    (1, 128, 4, 4, 64, None, None),
+    (2, 160, 4, 2, 64, 40, [0, 37]),  # GQA, a left pad, a window across key tiles
+    (1, 192, 4, 1, 128, None, [70]),  # the pad covers key tile 0
+])
+def test_dq_one_bf16_rounding_of_ds_matches_pallas_interpret(B, T, Hq, Hkv, D, window, start):
+    rng = np.random.default_rng(T + D)
+    st = np.asarray(start or [0] * B, np.int32)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).bfloat16()
+                   for s in ((B, T, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D), (B, T, Hq, D)))
+    # rows before start attend nothing; their cotangent is 0 as in the
+    # weights of test_flash_train_matches_pallas_interpret
+    do = do * torch.from_numpy(np.arange(T)[None, :] >= st[:, None])[..., None, None]
+
+    def f(q_):
+        return flash_attention_trainable(q_, jnp.asarray(k.float().numpy()),
+                                         jnp.asarray(v.float().numpy()), jnp.asarray(st),
+                                         window=window, interpret=True, block_q=64, block_k=64)
+
+    _, vjp = jax.vjp(f, jnp.asarray(q.float().numpy()))
+    ref = torch.from_numpy(np.array(vjp(jnp.asarray(do.float().numpy()))[0]))
+
+    tst = torch.from_numpy(st)
+    out, lse = kernels.flash_attention_train_plain(q, k, v, tst, window)
+    delta = (do.float() * out.float()).sum(-1)
+    got = _dq_emulated(q, k, v, tst, do, lse, delta, window, 1.0 / np.sqrt(D)).float()
+    err = (got - ref).abs().max().item()
+    assert err <= 2 ** -6 * ref.abs().max().item(), err
+    assert ((got - ref).norm() <= 1e-2 * ref.norm()).item()
+    for b, s0 in enumerate(st):
+        assert bool((got[b, :s0] == 0).all())

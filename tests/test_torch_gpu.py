@@ -16,7 +16,7 @@ import torch
 
 from bigdl_tpu_torch import PRESETS, ModelConfig, TorchModel, optimize_model
 from bigdl_tpu_torch.generate import pad_prompts
-from bigdl_tpu_torch.kvcache import init_cache
+from bigdl_tpu_torch.kvcache import FP8, init_cache
 from bigdl_tpu_torch.models import llama
 from bigdl_tpu_torch.ops import kernels
 from bigdl_tpu_torch.ops.kernels.flash_attention import valid_mask
@@ -105,6 +105,10 @@ def test_format_kernels_match_plain(qtype, O):
     (3, 16, 48, 4, 1, 128, 8, (0, 5, 20), None, 20.0),
     (2, 32, 64, 2, 2, 128, 16, (3, 30), 12, None),
     (1, 70, 96, 2, 1, 256, 0, (13,), None, None),
+    (2, 17, 64, 4, 2, 128, 0, (0, 9), None, None),  # one query tile, mostly past T
+    (2, 30, 96, 4, 1, 128, 20, (0, 35), None, 30.0),
+    # q_offset > 0, the window's edge inside key tile 0 for the first rows
+    (2, 40, 192, 4, 2, 128, 100, (0, 110), 50, None),
 ])
 def test_flash_kernel_matches_plain(case):
     dev = _cuda()
@@ -192,16 +196,25 @@ def test_paged_kernel_matches_plain(case, fp8):
     (2, 24, 64, 4, 2, 64, 0, (0, 9), None, None),
     (2, 32, 64, 2, 2, 128, 16, (3, 30), 12, 20.0),
     (1, 1024, 1024, 32, 8, 128, 0, (0,), None, None),  # the dense fp8 prefill
+    (2, 17, 64, 4, 2, 128, 0, (0, 9), None, None),
+    (2, 30, 96, 4, 1, 128, 20, (0, 35), None, 30.0),
+    (2, 40, 192, 4, 2, 128, 100, (0, 110), 50, None),
+    (2, 70, 96, 4, 1, 256, 0, (0, 37), None, None),
+    # K/V of absmax < 1: every scale (absmax / 57344) is an f16 subnormal
+    (2, 48, 96, 4, 2, 128, 8, (0, 20), None, None, 0.2),
 ])
 def test_flash_fp8_kernel_matches_plain(case):
     from bigdl_tpu_torch.kvcache import _quantize_heads
 
     dev = _cuda()
-    B, T, S, Hq, Hkv, D, qoff, start, window, softcap = case
+    B, T, S, Hq, Hkv, D, qoff, start, window, softcap, *amp = case
+    amp = amp[0] if amp else 1.0
     g = torch.Generator(device=dev).manual_seed(T + S)
     q = torch.randn(B, T, Hq, D, device=dev, generator=g).to(torch.bfloat16)
-    k, ks = _quantize_heads(torch.randn(B, S, Hkv, D, device=dev, generator=g) * 3)
-    v, vs = _quantize_heads(torch.randn(B, S, Hkv, D, device=dev, generator=g))
+    k, ks = _quantize_heads(torch.randn(B, S, Hkv, D, device=dev, generator=g) * 3 * amp)
+    v, vs = _quantize_heads(torch.randn(B, S, Hkv, D, device=dev, generator=g) * amp)
+    if amp < 1:
+        assert bool((ks < 2 ** -14).all() and (vs < 2 ** -14).all())
     st = torch.tensor(start, dtype=torch.int32, device=dev)
     before = kernels.FLASH_FP8.launches
     got = kernels.flash_attention(q, k, v, start=st, q_offset=qoff, window=window,
@@ -282,6 +295,15 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     q = buf[4:].view(1, 4, 2, 64)
     with pytest.raises(ValueError, match="aligned"):
         kernels.flash_train_fwd(q, q, q, torch.zeros(1, dtype=torch.int32, device=dev))
+    # so does the prefill kernel, both arms
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.flash_attention(q, q, q)
+    codes = torch.zeros(8 + 1 * 4 * 2 * 64, dtype=torch.uint8, device=dev)[8:]
+    kv = codes.view(1, 4, 2, 64).view(FP8)
+    scales = torch.ones(1, 4, 2, dtype=torch.float16, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.flash_attention(torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16, device=dev),
+                                kv, kv, k_scale=scales, v_scale=scales)
 
 
 @pytest.mark.parametrize("qtype", ["sym_int4", "nf4", "q4_k_m"])
@@ -421,9 +443,13 @@ def test_flash_train_kernels_match_plain(case):
     # keys before start[b] are attended by no query: exactly 0
     for b, s0 in enumerate(start):
         assert bool((dk[b, :s0] == 0).all() and (dv[b, :s0] == 0).all())
+    # queries before start[b] attend no key: their dq rows are exactly 0
+    for b, s0 in enumerate(start):
+        assert bool((dq[b, :s0] == 0).all())
     # no atomics: a second launch gives the same bits
     dk2, dv2 = kernels.flash_train_dkv(q, k, v, st, do, lse, delta, window)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert torch.equal(dq, kernels.flash_train_dq(q, k, v, st, do, lse, delta, window))
     refs = kernels.flash_attention_train_bwd_plain(q, k, v, st, do, lse, delta, window)
     for got, ref in zip((dq, dk, dv), refs):
         # gradients sum many signed terms: 4 bf16 ULPs of the largest

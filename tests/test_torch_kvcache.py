@@ -16,6 +16,8 @@ from bigdl_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
 from bigdl_tpu_torch import kvcache
 from bigdl_tpu_torch.ops import kernels
 from bigdl_tpu_torch.ops.kernels.flash_attention import valid_mask
+# the flash kernels' tile walk, as the dQ emulation walks it
+from test_torch_flash_backward import _LOG2E, _TILE, _live_key_tiles, _whole_tile
 
 # One intra-op thread: the suite runs in parallel worker processes, and a
 # torch thread pool per worker oversubscribes the cores (tiny ops then
@@ -162,3 +164,91 @@ def test_flash_fp8_plain_matches_pallas_interpret(case):
     assert np.all(np.abs(got - ref) <= _ULPS * np.abs(ref) + 1e-5), np.abs(got - ref).max()
     pad_rows = ~valid_mask(torch.from_numpy(st), qoff, T, S, window).any(-1)
     assert pad_rows.any() and np.all(got[pad_rows.numpy()] == 0)
+
+
+# csrc/flash_attention.cu's fp8 arm runs bf16 tensor-core products on the
+# codes themselves: every finite e5m2 code is a bf16 value, and the per-slot
+# scales factor out of both products, S[t, j] = kscale[j] (q_t . code_j) and
+# O[t] = sum_j (P[t, j] vscale[j]) vcode_j. kscale multiplies S in f32;
+# vscale is folded into P in f32, which then goes in as bf16 hi + lo. The
+# emulation below walks the kernel's tiles (64 queries of a block, its live
+# 64-slot tiles, masks only on the tiles a mask cuts, the online softmax in
+# the log2 domain) with exactly those roundings, and is held to JAX's
+# quantized arm (code * scale decoded in f32) as the card holds the kernel
+# to its plain version: per element within 2^-7 |ref| + 1e-5.
+def _hi_lo(x):
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def _fp8_arm_emulated(q, kq, vq, ks, vs, start, q_offset, window, softcap):
+    B, T, Hq, D = q.shape
+    S, Hkv = kq.shape[1], kq.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / np.sqrt(D)
+    out = torch.zeros(B, T, Hq, D)
+    for b in range(B):
+        st = int(start[b])
+        # the codes as bf16 (exact), GQA-expanded: [Hq, S, D]; scales [Hq, S]
+        kc, vc = (x[b].float().bfloat16().float().repeat_interleave(G, dim=1).transpose(0, 1)
+                  for x in (kq, vq))
+        ksc, vsc = (x[b].float().repeat_interleave(G, dim=1).T for x in (ks, vs))
+        for t0 in range(0, T, _TILE):
+            t1 = min(t0 + _TILE, T)
+            slots = q_offset + torch.arange(t0, t1)
+            qt = q[b, t0:t1].float().transpose(0, 1)  # [Hq, n, D]
+            m = torch.full((Hq, t1 - t0, 1), -1e30)
+            l = torch.zeros(Hq, t1 - t0, 1)
+            o = torch.zeros(Hq, t1 - t0, D)
+            for j0 in _live_key_tiles(q_offset + t0, q_offset + t1 - 1, S, st, window):
+                j1 = min(j0 + _TILE, S)
+                x = (qt @ kc[:, j0:j1].transpose(1, 2)) * ksc[:, None, j0:j1]
+                x = (torch.tanh(x * scale / softcap) * softcap * _LOG2E if softcap
+                     else x * (scale * _LOG2E))
+                if not _whole_tile(t0, q_offset + t0, j0, T, S, st, window):
+                    j = torch.arange(j0, j1)[None]
+                    ok = (j <= slots[:, None]) & (j >= st)
+                    if window:
+                        ok &= j > slots[:, None] - window
+                    x = torch.where(ok, x, torch.full_like(x, -1e30))
+                mn = torch.maximum(m, x.amax(-1, keepdim=True))
+                mu = torch.where(mn == -1e30, torch.zeros_like(mn), mn)
+                p = torch.exp2(x - mu)
+                alpha = torch.exp2(m - mu)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                hi, lo = _hi_lo(p * vsc[:, None, j0:j1])
+                o = o * alpha + hi @ vc[:, j0:j1] + lo @ vc[:, j0:j1]
+                m = mn
+            out[b, t0:t1] = (o / torch.where(l == 0, torch.ones_like(l), l)).transpose(0, 1)
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("case", FP8_CASES + [
+    # K/V of absmax < 1: every scale (absmax / 57344) is an f16 subnormal
+    (2, 80, 128, 4, 2, 64, 24, (0, 40), None, None, 0.2),
+    (1, 70, 96, 2, 1, 128, 0, (13,), 40, None, 0.2),
+])
+def test_flash_fp8_tensor_core_roundings_match_pallas_interpret(case):
+    B, T, S, Hq, Hkv, D, qoff, start, window, softcap, *amp = case
+    amp = amp[0] if amp else 1.0
+    rng = np.random.default_rng(T + S + 1)
+    q = rng.normal(size=(B, T, Hq, D)).astype(np.float32)
+    k = rng.normal(size=(B, S, Hkv, D)).astype(np.float32) * 4 * amp
+    v = rng.normal(size=(B, S, Hkv, D)).astype(np.float32) * amp
+    kq, ks = kvcache._quantize_heads(torch.from_numpy(k))
+    vq, vs = kvcache._quantize_heads(torch.from_numpy(v))
+    if amp < 1:
+        assert bool((ks < 2 ** -14).all() and (vs < 2 ** -14).all())
+    st = np.asarray(start, np.int32)
+    ref = jax_flash(jnp.asarray(q, jnp.bfloat16),
+                    jnp.asarray(_bytes(kq)).view(jnp.float8_e5m2),
+                    jnp.asarray(_bytes(vq)).view(jnp.float8_e5m2),
+                    start=jnp.asarray(st), q_offset=jnp.asarray(qoff, jnp.int32),
+                    window=window, softcap=softcap, k_scale=jnp.asarray(ks.numpy()),
+                    v_scale=jnp.asarray(vs.numpy()), interpret=True)
+    ref = np.asarray(ref, np.float32)
+    got = _fp8_arm_emulated(torch.from_numpy(q).bfloat16(), kq, vq, ks, vs,
+                            torch.from_numpy(st), qoff, window, softcap).float().numpy()
+    assert np.all(np.abs(got - ref) <= _ULPS * np.abs(ref) + 1e-5), np.abs(got - ref).max()
+    pad_rows = ~valid_mask(torch.from_numpy(st), qoff, T, S, window).any(-1).numpy()
+    assert np.all(got[pad_rows] == 0) and np.all(ref[pad_rows] == 0)
