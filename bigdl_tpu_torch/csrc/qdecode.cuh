@@ -150,11 +150,10 @@ __device__ __forceinline__ float half_bits_to_float(uint32_t bits) {
   return __half2float(__ushort_as_half(static_cast<unsigned short>(bits & 0xffffu)));
 }
 
-// The scale fields of one group as stored (loaded with __ldg, so that the
-// loads of a K step can all be issued before the step's first store, and
-// converted only where the group is decoded): single-level formats the f16
-// scale and min bits; k-quants d | sub-scale << 16 and dmin | sub-min << 16.
-// w = v*a() (+ b()).
+// The scale fields of one group as stored (loaded with __ldg ahead of the
+// decode that needs them, and converted only where the group is decoded,
+// once per group): single-level formats the f16 scale and min bits;
+// k-quants d | sub-scale << 16 and dmin | sub-min << 16. w = v*a() (+ b()).
 template <class F>
 struct QScale {
   uint32_t s = 0, m = 0;
@@ -253,79 +252,57 @@ __device__ __forceinline__ void qdecode16(const uint4 (&pc)[F::kPieces], float a
   }
 }
 
-// One thread's share of one K step of a bf16 W tile: `rows` weight rows
-// from o0, kParts threads a row, GPT groups each (group g = jg*S + u sits at
-// tile column 16 g; the step covers the j positions j0 .. j0 +
-// 16*GPT*kParts/S). `load` issues every global load of the share into
-// registers, `store` decodes them into the tile: a kernel issues all the
-// loads of a step before the step's first shared-memory store, so that a
-// step waits on one round trip to memory (loads placed after a store wait
-// for it; a step that waited on two or three ran 20 % slower).
-//
-// With GPT a multiple of S a part decodes whole j positions (u runs over
-// all S at compile time). Otherwise a part decodes GPT of the S groups of
-// one j position, and the part is made a compile-time constant in `store`
-// (so every piece index and shift is a constant); it is warp-uniform there
-// (tid / rows with rows a multiple of 32), so the selection does not
-// diverge inside a warp.
-template <class F, int kParts, int GPT>
-struct QTileFetch {
-  static constexpr int S = F::kS;
-  static constexpr bool kWholeJ = GPT % S == 0;
-  static constexpr int kNU = kWholeJ ? S : GPT;  // groups of one j position per part
-  static constexpr int kIters = GPT / kNU;       // j positions per part
-  uint4 pc[kIters][F::kPieces];
-  QScale<F> sc[kIters][kNU];
-  int r = 0, part = 0;
+// The decode of the tensor-core kernels (qtile.cuh): the same bits as
+// qvalue and qdecode16 in fewer instructions. A 32-bit word of a plane
+// holds one code field of 4 consecutive elements, one a byte: one shift
+// and one mask take all 4 fields (and the second plane's, shifted above
+// the first's), so each element costs one byte permute (PRMT) to reach
+// its float. Offset and int8 codes become floats by the magic-number
+// trick: the permute writes the code under 0x4B, so the word is the f32
+// 2^23 + c, and one exact subtraction removes 2^23 and the offset (an
+// int8 code c is (c ^ 0x80) - 128, the xor taken a word at a time). The
+// other value kinds take the code from the permute and go through qvalue.
+template <class F>
+__device__ __forceinline__ float qvalue_tc(uint32_t word, int h, const float* lut) {
+  if constexpr (F::kValue == QValue::kOffset)
+    return __fsub_rn(__uint_as_float(__byte_perm(word, 0x4B000000u, 0x7440u | h)),
+                     static_cast<float>(8388608 + (F::kSigned ? 128 : F::kOffset)));
+  else
+    return qvalue<F>(__byte_perm(word, 0u, 0x4440u | h), lut);
+}
 
-  __device__ __forceinline__ void load(const QFields& w, int tid, int rows, int o0, int O, int K, int j0) {
-    r = kWholeJ ? tid / kParts : tid % rows;
-    part = kWholeJ ? tid % kParts : tid / rows;
-    const int o = o0 + r;
-    const int Q = K / S;
-    const int u0 = kWholeJ ? 0 : (part * GPT) % S;
-    const uint8_t* row = w.data + static_cast<size_t>(o) * (static_cast<size_t>(K) * F::kBits / 8);
+// qdecode16 for the tensor-core kernels: per element qvalue_tc and v*a
+// (+ b) in f32 with two roundings, then one cvt.rn.bf16x2.f32 for each
+// pair (the same round-to-nearest-even as two __float2bfloat16_rn). a and
+// b come converted once per group.
+template <class F, int U>
+__device__ __forceinline__ void qdecode16_tc(const uint4 (&pc)[F::kPieces], float a, float b,
+                                             const float* lut, uint32_t (&out)[8]) {
+  using P = QPiece<F, U>;
+  constexpr uint32_t kFields0 = F::kBits0 == 8 ? 0xffffffffu : ((1u << F::kBits0) - 1u) * 0x01010101u;
+  constexpr uint32_t kFields1 = F::kN1 ? ((1u << F::kBits1) - 1u) * 0x01010101u : 0u;
+  const uint4& p0 = pc[P::kIdx0];
+  const uint4& p1 = pc[P::kIdx1 < F::kPieces ? P::kIdx1 : 0];
+  const uint32_t w0[4] = {p0.x, p0.y, p0.z, p0.w};
+  const uint32_t w1[4] = {p1.x, p1.y, p1.z, p1.w};
 #pragma unroll
-    for (int t = 0; t < kIters; ++t) {
-      const int jj = j0 + ((part * GPT + t * kNU) / S) * 16;
-      const bool ok = o < O && jj < Q;
-      qload_pieces<F>(row, K, jj, ok, pc[t]);
+  for (int k = 0; k < 4; ++k) {
+    uint32_t t = (w0[k] >> P::kShift0) & kFields0;
+    if constexpr (F::kN1) t |= ((w1[k] >> P::kShift1) & kFields1) << F::kBits0;
+    if constexpr (F::kSigned) t ^= 0x80808080u;
+    float f[4];
 #pragma unroll
-      for (int u = 0; u < kNU; ++u) {
-        sc[t][u] = QScale<F>{};
-        sc[t][u].load(w, o, K, (u0 + u) * Q + jj, ok);
-      }
+    for (int h = 0; h < 4; ++h) {
+      const float v = qvalue_tc<F>(t, h, lut);
+      f[h] = F::kMins ? __fadd_rn(__fmul_rn(v, a), b) : __fmul_rn(v, a);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * h], f[2 * h + 1]);
+      out[2 * k + h] = *reinterpret_cast<const uint32_t*>(&p);
     }
   }
-
-  __device__ __forceinline__ void store(const float* lut, bf16* tile, int ld) const {
-    bf16* dst = tile + r * ld;
-    if constexpr (kWholeJ) {
-      store_part<-1>(lut, dst);
-    } else {
-      static_for<0, kParts>([&](auto pc_) {
-        if (part == decltype(pc_)::value) store_part<decltype(pc_)::value>(lut, dst);
-      });
-    }
-  }
-
-  template <int kPart>
-  __device__ __forceinline__ void store_part(const float* lut, bf16* dst) const {
-    constexpr int kU0 = kPart >= 0 ? (kPart * GPT) % S : 0;
-#pragma unroll
-    for (int t = 0; t < kIters; ++t) {
-      const int jg = ((kPart >= 0 ? kPart : part) * GPT + t * kNU) / S;
-      static_for<0, kNU>([&](auto uc) {
-        constexpr int u = decltype(uc)::value;
-        uint32_t v[8];
-        qdecode16<F, kU0 + u>(pc[t], sc[t][u].a(), sc[t][u].b(), lut, v);
-        uint4* d = reinterpret_cast<uint4*>(dst + (jg * S + kU0 + u) * 16);
-        d[0] = make_uint4(v[0], v[1], v[2], v[3]);
-        d[1] = make_uint4(v[4], v[5], v[6], v[7]);
-      });
-    }
-  }
-};
+}
 
 // clang-format off
 //                                  planes  signed value            off block super mins   sub-signed

@@ -17,13 +17,27 @@
 //   registers, and decodes the S groups u*Q + j .. +15 from them in turn,
 //   each against its x slice, so every weight byte crosses DRAM once, as
 //   the byte bound assumes.
-// * qmatmul_gemm (M > 32, prefill): bound by operations at large M. A
-//   128 x 128 output tile per block; each K step decodes a 128 x KS W tile
-//   to bf16 in shared memory once and feeds the tensor cores through wmma
-//   (bf16 in, f32 accumulate). KS = max(64, 16 S) elements: the groups of
-//   JB = KS/S j positions, all S segments. The order of the tile's columns
-//   is the groups' (x is staged in the same order), which a contraction
-//   does not see. No cp.async/TMA pipeline and no wgmma yet.
+// * qmatmul_gemm (M > 32, prefill): bound by operations at large M (at
+//   M = 1024 each packed byte feeds >= 2 * 1024 flops, far above the ~295
+//   flops a byte where the bf16 tensor cores stop waiting on memory). A
+//   single-buffered design lost 4.5x to cuBLAS on the weight dequantized
+//   beforehand: each K step loaded, decoded (~10 instructions an element,
+//   on the MMA warps), synchronised and multiplied in series, 64 elements
+//   deep. This design (qtile.cuh) takes the decode and the loads off the
+//   tensor-core warps: decoder warps keep a ring of 3-6 stages of x tiles
+//   and packed weight bytes in flight with cp.async and decode each step's
+//   128 weight rows once per block, one step ahead, into a ring of two
+//   bf16 tiles (qdecode16_tc: the same bits in about half the
+//   instructions); one or two warpgroups multiply them with wgmma
+//   m64n128k16 from shared memory. A block is 128 output columns by 64,
+//   128 or 256 rows of x (ops/kernels/qtile.py gemm_tile), the grid walks
+//   M fastest so that the blocks of one weight tile run together and share
+//   it through the L2. A step is 64 elements of K (128 for the S = 8
+//   formats): the groups of 64/S (128/S) j positions, all S segments, the
+//   column order of the weight's planes, which a contraction does not
+//   see; x_order_kernel first writes x in that order, so that each step's
+//   x tile is contiguous. The epilogue stores bf16 pairs from the
+//   accumulators. No TMA yet.
 // * the LoRA arm of `_kernel` (`qmatmul_lora`): y = x . dq(W)^T +
 //   bf16((x . A_cat^T) * gate) . B_cat^T for any R adapter columns that
 //   the JAX package's `lora_fused_ok` admits (A_cat up to 4 MB). The TPU
@@ -43,15 +57,15 @@
 //     xg . B_cat over every 32nd column before the warp reduction.
 //   - qmatmul_gemm_lora (M > 32, prefill and training): the first pass on
 //     the tensor cores (`lora_xa_tc_kernel`, 16 x 32 tiles of xa, its 4
-//     warps splitting the K walk, wmma), then the GEMM, which after its K walk stages
-//     kKS columns of xg and of its B_cat rows at a time in the idle tiles
-//     and runs them through the same wmma loop.
+//     warps splitting the K walk, wmma), then the GEMM, whose decoder
+//     warps stage kDepth columns of xg and of its B_cat rows a step after
+//     the K walk, run through the same MMA warps.
 //
 // All return cudaGetLastError() after the launch; 0 means launched.
 
 #include <mma.h>
 
-#include "qdecode.cuh"
+#include "qtile.cuh"
 
 #ifndef BIGDL_QFMT
 #error "build with -DBIGDL_QFMT=QF_<qtype> (ops/kernels/_build.py does)"
@@ -271,16 +285,6 @@ int launch_gemv_lora(const bf16* x, const QFields& w, const bf16* la, const bf16
   return launch_gemv<MT, RPW, true>(x, w, out, M, K, O, xg, lb, R, stream);
 }
 
-constexpr int kBM = 128;                   // x rows per block tile
-constexpr int kBN = 128;                   // output columns (weight rows) per block tile
-constexpr int kKS = 16 * kS > 64 ? 16 * kS : 64;  // elements of a row per K step
-constexpr int kNG = kKS / 16;              // groups per K step
-constexpr int kJB = kKS / kS;              // j positions per K step
-constexpr int kLds = kKS + 8;              // bf16 row stride in shared memory (wmma-legal, 16 B aligned)
-constexpr int kParts = 2;                  // threads decoding one weight row
-constexpr int kGPT = kNG / kParts;         // groups each of them decodes
-constexpr int kGemmSmem = 2 * kBM * kLds * static_cast<int>(sizeof(bf16));
-
 using namespace nvcuda;
 
 // The LoRA GEMM's first pass on the tensor cores: a 16 x 32 tile of
@@ -349,138 +353,173 @@ __global__ void __launch_bounds__(kXaWarps * 32)
   }
 }
 
-// 8 warps as 4 (M) x 2 (N); each warp owns a 32 x 64 piece of the tile as
-// 2 x 4 wmma 16x16 f32 accumulators. With kLora, xg [M, R] and B_cat
-// [O, R] add the LoRA epilogue to those accumulators after the K walk.
+// The GEMM's tiles: kWG warpgroups of MMA warps, each kChunks m64 pieces
+// of x by 128 weight rows (output columns); W tiles of 128 rows by a step
+// of K, both in wgmma's swizzled layout.
+constexpr int kDepth = kS == 8 ? 128 : 64;
+template <int kWG, int kChunks>
+using GemmW = qtile::WTileFor<Fmt, 64 * kWG * kChunks, 128, kDepth>;
+template <int kWG, int kChunks>
+using GemmL = qtile::Layout<Fmt, 64 * kWG * kChunks, 4 * kWG, GemmW<kWG, kChunks>>;
+
+// x in the order the GEMM's steps read it: step s's column 16 g + i is
+// x[m, (g % S) Q + s kDepth/S + (g / S) 16 + i] (the groups of the finest
+// plane split, qtile.cuh), so that each step's A tile is kDepth contiguous
+// columns a row. Read in place, a step's columns are S runs of kDepth/S
+// elements a row, and those half- and quarter-line reads held the A
+// loads well below the rate of whole lines. A 16-byte chunk a thread;
+// the formats with S = 1 are in order already and skip this pass. kLora
+// only names the launch, so that a profile tells the LoRA GEMM's pass
+// from the GEMM's.
 template <bool kLora>
 __global__ void __launch_bounds__(256)
-    gemm_kernel(const bf16* __restrict__ x, const QFields w, bf16* __restrict__ out, int M, int K,
-                int O, const bf16* __restrict__ xg, const bf16* __restrict__ lb, int R) {
-  extern __shared__ __align__(32) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [kBM][kLds]: x in the groups' column order
-  bf16* ws = xs + kBM * kLds;                    // [kBN][kLds]: decoded weight rows
-  __shared__ float lut[16];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp >> 1;
-  const int wn = warp & 1;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
+    x_order_kernel(const bf16* __restrict__ x, bf16* __restrict__ xo, int M, int K) {
   const int Q = K / kS;
-  if constexpr (Fmt::kLut) {
-    if (tid < 16) lut[tid] = qlut<Fmt>()[tid];
-    __syncthreads();
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  // the tile's MMA over one K step: xs [kBM][kKS] . ws [kBN][kKS]^T
-  auto mma_step = [&]() {
-#pragma unroll
-    for (int kk = 0; kk < kKS; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], xs + (wm * 32 + i * 16) * kLds + kk, kLds);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::load_matrix_sync(b[j], ws + (wn * 64 + j * 16) * kLds + kk, kLds);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-  };
-
-  // One K step's operands in registers: x (kNG vectors a thread) and the W
-  // share. `fetch` issues all their loads, `put` stores them (W decoded)
-  // into shared memory: all loads of a step go out before its first store.
-  uint4 xv[kNG];
-  QTileFetch<Fmt, kParts, kGPT> wf;
-  auto fetch = [&](int j0) {
-#pragma unroll
-    for (int v = 0; v < kNG; ++v) {
-      // vector i of the tile: row r, group g = i/2 of the step (j position
-      // j0 + (g / S) * 16, segment g % S), half h; zero outside x
-      const int i = tid + v * 256;
-      const int r = i / (kNG * 2);
-      const int g = (i % (kNG * 2)) >> 1, h = i & 1;
-      const int jj = j0 + (g / kS) * 16;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M && jj < Q)
-        val = __ldg(reinterpret_cast<const uint4*>(x + static_cast<size_t>(m0 + r) * K + (g % kS) * Q + jj + h * 8));
-      xv[v] = val;
-    }
-    wf.load(w, tid, kBN, n0, O, K, j0);
-  };
-  auto put = [&]() {
-#pragma unroll
-    for (int v = 0; v < kNG; ++v) {
-      const int i = tid + v * 256;
-      *reinterpret_cast<uint4*>(xs + (i / (kNG * 2)) * kLds + (i % (kNG * 2)) * 8) = xv[v];
-    }
-    wf.store(lut, ws, kLds);
-  };
-
-  for (int j0 = 0; j0 < Q; j0 += kJB) {
-    fetch(j0);
-    put();
-    __syncthreads();
-    mma_step();
-    __syncthreads();
-  }
-
-  if constexpr (kLora) {
-    // kKS columns of R at a time: xg's rows of the block in xs, B_cat's
-    // in ws (zero past M, O and R), through the same MMA as the K walk
-    const bf16 zero = __float2bfloat16(0.0f);
-    for (int c0 = 0; c0 < R; c0 += kKS) {
-      for (int i = tid; i < kBM * kKS; i += 256) {
-        const int r = i / kKS;
-        const int c = c0 + i % kKS;
-        const bool in_r = c < R;
-        xs[r * kLds + i % kKS] =
-            in_r && m0 + r < M ? xg[static_cast<size_t>(m0 + r) * R + c] : zero;
-        ws[r * kLds + i % kKS] =
-            in_r && n0 + r < O ? lb[static_cast<size_t>(n0 + r) * R + c] : zero;
-      }
-      __syncthreads();
-      mma_step();
-      __syncthreads();
-    }
-  }
-
-  // epilogue: each warp stages one 16x16 f32 fragment at a time in the
-  // (now idle) x tile, then writes bf16 with the ragged edges masked
-  float* stg = reinterpret_cast<float*>(xs) + warp * 256;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(stg, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int m = m0 + wm * 32 + i * 16 + (e >> 4);
-        const int o = n0 + wn * 64 + j * 16 + (e & 15);
-        if (m < M && o < O) out[static_cast<size_t>(m) * O + o] = __float2bfloat16(stg[e]);
-      }
-      __syncwarp();
-    }
+  const int chunks_per_row = K / 8;
+  const size_t chunks = static_cast<size_t>(M) * chunks_per_row;
+  for (size_t c = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x; c < chunks;
+       c += static_cast<size_t>(gridDim.x) * 256) {
+    const size_t m = c / chunks_per_row;
+    const int k = static_cast<int>(c % chunks_per_row) * 8;
+    const int col = k % kDepth, grp = col / 16;
+    const int src = (grp % kS) * Q + (k / kDepth) * (kDepth / kS) + (grp / kS) * 16 + (col & 15);
+    *reinterpret_cast<uint4*>(xo + m * K + k) = __ldg(reinterpret_cast<const uint4*>(x + m * K + src));
   }
 }
 
 template <bool kLora>
-int launch_gemm(const bf16* x, const QFields& w, bf16* out, int M, int K, int O, const bf16* xg,
-                const bf16* lb, int R, cudaStream_t stream) {
-  cudaFuncSetAttribute(gemm_kernel<kLora>, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
-  const dim3 grid((O + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  gemm_kernel<kLora><<<grid, 256, kGemmSmem, stream>>>(x, w, out, M, K, O, xg, lb, R);
+int launch_x_order(const bf16* x, bf16* xo, int M, int K, cudaStream_t stream) {
+  const size_t chunks = static_cast<size_t>(M) * (K / 8);
+  const int grid = static_cast<int>(chunks / 256 + 1 < 4096 ? chunks / 256 + 1 : 4096);
+  x_order_kernel<kLora><<<grid, 256, 0, stream>>>(x, xo, M, K);
   return static_cast<int>(cudaGetLastError());
+}
+
+// y[m0 .. m0 + bm, n0 .. n0 + 128] over the whole K walk (qtile.cuh: 4 or
+// 8 decoder warps, kWG warpgroups of wgmma). A step's A tile is kDepth
+// contiguous columns of xo, x in the steps' order (x_order_kernel).
+// With kLora, ceil(R / kDepth) more steps after the K walk carry xg [M, R]
+// (bf16(xa * gate), from lora_xa_tc_kernel) as A and B_cat [O, R] as W, so
+// the LoRA epilogue runs through the same MMA into the same f32 sums,
+// after the same K walk: a zero xg row adds exactly 0.
+template <int kWG, int kChunks, bool kLora>
+__global__ void __launch_bounds__(GemmL<kWG, kChunks>::kThreads, 1)
+    gemm_kernel(const bf16* __restrict__ xo, const QFields w, bf16* __restrict__ out, int M, int K, int O,
+                const bf16* __restrict__ xg, const bf16* __restrict__ lb, int R) {
+  using L = GemmL<kWG, kChunks>;
+  using W = GemmW<kWG, kChunks>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int m0 = blockIdx.x * L::kBM;
+  const int n0 = blockIdx.y * W::kRowsN;
+  const int Q = K / kS;
+  const int wsteps = (Q + W::kJB - 1) / W::kJB;
+  const int steps = wsteps + (kLora ? (R + L::kDepth - 1) / L::kDepth : 0);
+  constexpr int kCPR = L::kDepth / 8;  // 16-byte chunks of an A row
+
+  if (warp >= L::kMmaWarps) {
+    const int ptid = threadIdx.x - 32 * L::kMmaWarps;
+    qtile::produce<Fmt, L, W>(
+        smem, w, K, O, Q, wsteps, steps, ptid, [&](int s) { return make_int2(n0, s * W::kJB); },
+        [&](int s, bf16* as) {
+#pragma unroll
+          for (int i = 0; i < L::kBM * kCPR / W::kDecThreads; ++i) {
+            const int c = ptid + i * W::kDecThreads;
+            const int r = c / kCPR, k = s * kDepth + (c % kCPR) * 8;
+            const bool ok = m0 + r < M && k < K;
+            const size_t off = ok ? static_cast<size_t>(m0 + r) * K + k : 0;
+            cp_async16(reinterpret_cast<unsigned char*>(as) + L::a_chunk(r, c % kCPR), xo + off, ok ? 16 : 0);
+          }
+        },
+        [&](int s, bf16* as, bf16* ws) {
+          // adapter columns c0 .. c0 + kDepth: xg's rows of the block as A,
+          // B_cat's as W, zero past M, O and R
+          const int c0 = (s - wsteps) * L::kDepth;
+          for (int c = ptid; c < (L::kBM + W::kRowsN) * kCPR; c += W::kDecThreads) {
+            const bool is_x = c < L::kBM * kCPR;
+            const int cr = is_x ? c : c - L::kBM * kCPR;
+            const int r = cr / kCPR, k0 = c0 + (cr % kCPR) * 8;
+            const int row = (is_x ? m0 : n0) + r;
+            const bool in = row < (is_x ? M : O);
+            const unsigned short* src =
+                reinterpret_cast<const unsigned short*>(is_x ? xg : lb) + static_cast<size_t>(in ? row : 0) * R;
+            uint32_t v[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int k = k0 + 2 * e;
+              const uint32_t lo = in && k < R ? src[k] : 0u;
+              const uint32_t hi = in && k + 1 < R ? src[k + 1] : 0u;
+              v[e] = lo | (hi << 16);
+            }
+            *reinterpret_cast<uint4*>(is_x ? reinterpret_cast<unsigned char*>(as) + L::a_chunk(r, cr % kCPR)
+                                           : reinterpret_cast<unsigned char*>(ws) + W::chunk(r, cr % kCPR)) =
+                make_uint4(v[0], v[1], v[2], v[3]);
+          }
+        });
+    return;
+  }
+
+  float acc[kChunks][64];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[c][e] = 0.0f;
+  qtile::consume_wgmma<L, W, kChunks, false>(smem, steps, warp, acc);
+
+  // bf16 pairs straight from the accumulators: register 4 j + 2 h + e is
+  // row 16 (warp % 4) + lane / 4 + 8 h, column 8 j + 2 (lane % 4) + e
+  const bool even = (O & 1) == 0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int n = n0 + 8 * j + 2 * (lane & 3);
+    if (n >= O) continue;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + ((warp >> 2) * kChunks + c) * 64 + 16 * (warp & 3) + (lane >> 2) + 8 * h;
+        if (m < M)
+          qtile::store_bf16x2(out + static_cast<size_t>(m) * O + n, acc[c][4 * j + 2 * h], acc[c][4 * j + 2 * h + 1],
+                              even && n + 1 < O, n + 1 < O);
+      }
+  }
+}
+
+template <int kWG, int kChunks, bool kLora>
+int launch_gemm(const bf16* xo, const QFields& w, bf16* out, int M, int K, int O, const bf16* xg,
+                const bf16* lb, int R, int stages, int smem, cudaStream_t stream) {
+  using L = GemmL<kWG, kChunks>;
+  if (stages != L::kStages || smem != L::kBytes) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(gemm_kernel<kWG, kChunks, kLora>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((M + L::kBM - 1) / L::kBM, (O + 127) / 128);
+  gemm_kernel<kWG, kChunks, kLora><<<grid, L::kThreads, L::kBytes, stream>>>(xo, w, out, M, K, O, xg, lb, R);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x into xo in the steps' order (S > 1; xo is x itself at S = 1), then the
+// tile ops/kernels/qtile.py chose: bm rows of x by bn output columns a
+// block, (64, 128), (128, 128) or, below S = 8, (256, 128)
+template <bool kLora>
+int launch_gemm_tile(const bf16* x, bf16* xo, const QFields& w, bf16* out, int M, int K, int O,
+                     const bf16* xg, const bf16* lb, int R, int bm, int bn, int stages, int smem,
+                     cudaStream_t stream) {
+  const bf16* xa = x;
+  if constexpr (kS > 1) {
+    if (xo == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const int err = launch_x_order<kLora>(x, xo, M, K, stream);
+    if (err != 0) return err;
+    xa = xo;
+  }
+  if (bm == 64 && bn == 128) return launch_gemm<1, 1, kLora>(xa, w, out, M, K, O, xg, lb, R, stages, smem, stream);
+  if (bm == 128 && bn == 128) return launch_gemm<1, 2, kLora>(xa, w, out, M, K, O, xg, lb, R, stages, smem, stream);
+  if constexpr (kS < 8) {
+    if (bm == 256 && bn == 128)
+      return launch_gemm<2, 2, kLora>(xa, w, out, M, K, O, xg, lb, R, stages, smem, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 QFields fields(const void* data, const void* scales, const void* mins, const void* sub_scales,
@@ -509,12 +548,17 @@ extern "C" int qmatmul_gemv(const void* x, const void* data, const void* scales,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int qmatmul_gemm(const void* x, const void* data, const void* scales, const void* mins,
+// xo: [M, K] bf16 scratch for x in the steps' order (null where S = 1);
+// bm, bn, stages, smem: the tile of ops/kernels/qtile.py gemm_tile
+// (checked against this build's layout; a mismatch returns
+// cudaErrorInvalidValue).
+extern "C" int qmatmul_gemm(const void* x, void* xo, const void* data, const void* scales, const void* mins,
                             const void* sub_scales, const void* sub_mins, void* out, int M, int K,
-                            int O, void* stream) {
-  return launch_gemm<false>(static_cast<const bf16*>(x), fields(data, scales, mins, sub_scales, sub_mins),
-                            static_cast<bf16*>(out), M, K, O, nullptr, nullptr, 0,
-                            static_cast<cudaStream_t>(stream));
+                            int O, int bm, int bn, int stages, int smem, void* stream) {
+  return launch_gemm_tile<false>(static_cast<const bf16*>(x), static_cast<bf16*>(xo),
+                                 fields(data, scales, mins, sub_scales, sub_mins), static_cast<bf16*>(out), M,
+                                 K, O, nullptr, nullptr, 0, bm, bn, stages, smem,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // The LoRA forms: a_cat [R, K], b_cat [O, R], gate [M, R], all bf16; xg
@@ -541,11 +585,13 @@ extern "C" int qmatmul_gemv_lora(const void* x, const void* data, const void* sc
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The same operands, M > 32 rows.
-extern "C" int qmatmul_gemm_lora(const void* x, const void* data, const void* scales, const void* mins,
-                                 const void* sub_scales, const void* sub_mins, const void* a_cat,
-                                 const void* b_cat, const void* gate, void* xg, void* out, int M, int K,
-                                 int O, int R, void* stream) {
+// The same operands, M > 32 rows; xo, bm, bn, stages, smem as
+// qmatmul_gemm's.
+extern "C" int qmatmul_gemm_lora(const void* x, void* xo, const void* data, const void* scales,
+                                 const void* mins, const void* sub_scales, const void* sub_mins,
+                                 const void* a_cat, const void* b_cat, const void* gate, void* xg, void* out,
+                                 int M, int K, int O, int R, int bm, int bn, int stages, int smem,
+                                 void* stream) {
   if (R < 1) return static_cast<int>(cudaErrorInvalidValue);
   const bf16* xp = static_cast<const bf16*>(x);
   bf16* xgp = static_cast<bf16*>(xg);
@@ -555,6 +601,7 @@ extern "C" int qmatmul_gemm_lora(const void* x, const void* data, const void* sc
                                           static_cast<const bf16*>(gate), xgp, M, K, R);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  return launch_gemm<true>(xp, fields(data, scales, mins, sub_scales, sub_mins), static_cast<bf16*>(out),
-                           M, K, O, xgp, static_cast<const bf16*>(b_cat), R, st);
+  return launch_gemm_tile<true>(xp, static_cast<bf16*>(xo), fields(data, scales, mins, sub_scales, sub_mins),
+                                static_cast<bf16*>(out), M, K, O, xgp, static_cast<const bf16*>(b_cat), R, bm,
+                                bn, stages, smem, st);
 }

@@ -5,9 +5,9 @@ Port of bigdl_tpu/ops/pallas/qbackward.py (`qmatmul_dx`, `_dxmm`,
 `_dx_kernel`): dx = g @ dequant(W), the backward of the frozen quantized
 projection. The CUDA source is `csrc/qbackward.cu`, built once per qtype;
 its header note says what bounds it on the card and what the design does
-about it. The wrapper takes any number of rows: JAX's dx has no GEMV/GEMM
-split. `_dw_kernel` (dW = g^T @ x) is on no path of the JAX package and
-stays to port (ROADMAP queue 2).
+about it. The wrapper takes any number of rows (JAX's dx has no GEMV/GEMM
+split); `qtile.dx_tile` chooses the tile. `_dw_kernel` (dW = g^T @ x) is
+ported in `dw_matmul`.
 
 The wrapper dispatches on the tensor's device: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises.
@@ -19,10 +19,12 @@ import torch
 
 from bigdl_tpu_torch.ops.kernels._build import Kernel
 from bigdl_tpu_torch.ops.kernels.qmatmul import kernel_fields
+from bigdl_tpu_torch.ops.kernels.qtile import dx_tile
 from bigdl_tpu_torch.quant import QTensor
 
-# (g, data, scales, mins, sub_scales, sub_mins, dx, M, K, O)
-DX = Kernel("qmatmul_dx", "qbackward", "pppppppiii",
+# (g, data, scales, mins, sub_scales, sub_mins, dx, M, K, O, bm, bn,
+#  stages, smem): the tile of qtile.dx_tile
+DX = Kernel("qmatmul_dx", "qbackward", "pppppppiiiiiii",
             replaces="bigdl_tpu/ops/pallas/qbackward.py:68", per_format=True)
 
 
@@ -58,5 +60,7 @@ def qmatmul_dx(g: torch.Tensor, w: QTensor) -> torch.Tensor:
     M = g2.shape[0]
     dx = torch.empty((M, K), dtype=torch.bfloat16, device=g.device)
     if M:
-        DX(g2, *fields, dx, M, K, O, device=g.device, qtype=w.qtype)
+        t = dx_tile(M, O, K, w.qtype)
+        DX(g2, *fields, dx, M, K, O, t.bm, t.bn, t.stages, t.smem, device=g.device,
+           qtype=w.qtype)
     return dx.reshape(*g.shape[:-1], K)

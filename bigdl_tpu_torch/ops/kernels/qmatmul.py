@@ -7,10 +7,11 @@ qtype (ops/kernels/_build.py); its header note says what bounds each form
 on the card and what the design does about it, and `csrc/qdecode.cuh`
 holds every format's decode. Two kernels split the TPU kernel's two shape
 classes at `GEMV_MAX_ROWS` rows: a GEMV for decode and a tensor-core GEMM
-for prefill. `_kernel`'s LoRA epilogue (`qmatmul_lora`) has the same two
-forms, the LoRA GEMV (serving decode steps, short prefill tails) and the
-LoRA GEMM (prefill, training), for any adapter width R that the JAX
-package's `lora_fused_ok` admits (copied here with its constants).
+for prefill, whose tile `qtile.gemm_tile` chooses. `_kernel`'s LoRA
+epilogue (`qmatmul_lora`) has the same two forms, the LoRA GEMV (serving
+decode steps, short prefill tails) and the LoRA GEMM (prefill, training),
+for any adapter width R that the JAX package's `lora_fused_ok` admits
+(copied here with its constants).
 
 The wrappers take a `QTensor` of any quantized qtype whose contraction
 dim is a multiple of the format's `K_MULTIPLE` and dispatch on the
@@ -23,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from bigdl_tpu_torch.ops.kernels._build import Kernel
+from bigdl_tpu_torch.ops.kernels.qtile import gemm_tile, plane_split
 from bigdl_tpu_torch.quant import QTensor
 
 GEMV_MAX_ROWS = 32  # ops/linear.py _GEMV_MAX_ROWS in the JAX package
@@ -31,13 +33,17 @@ _REPLACES = "bigdl_tpu/ops/pallas/qmatmul.py:90"
 # (x, data, scales, mins, sub_scales, sub_mins, out, M, K, O)
 GEMV = Kernel("qmatmul_gemv", "qmatmul", "pppppppiii", replaces=_REPLACES,
               per_format=True)
-GEMM = Kernel("qmatmul_gemm", "qmatmul", "pppppppiii", replaces=_REPLACES,
+# (x, xo scratch for x in the GEMM's order (None where S = 1), data,
+#  scales, mins, sub_scales, sub_mins, out, M, K, O, bm, bn, stages, smem):
+#  the tile of qtile.gemm_tile
+GEMM = Kernel("qmatmul_gemm", "qmatmul", "ppppppppiiiiiii", replaces=_REPLACES,
               per_format=True)
 # (x, data, scales, mins, sub_scales, sub_mins, a_cat, b_cat, gate, xg
-#  scratch, out, M, K, O, R)
+#  scratch, out, M, K, O, R); the LoRA GEMM with xo after x and bm, bn,
+#  stages, smem at the end
 LORA_GEMV = Kernel("qmatmul_gemv_lora", "qmatmul", "pppppppppppiiii",
                    replaces=_REPLACES, per_format=True)
-LORA_GEMM = Kernel("qmatmul_gemm_lora", "qmatmul", "pppppppppppiiii",
+LORA_GEMM = Kernel("qmatmul_gemm_lora", "qmatmul", "ppppppppppppiiiiiiii",
                    replaces=_REPLACES, per_format=True)
 
 # The fused epilogue's eligibility, copied from bigdl_tpu/ops/pallas/
@@ -126,6 +132,12 @@ def _check_x(x: torch.Tensor, who: str) -> None:
         raise ValueError(f"{who}: x must be contiguous and 16-byte aligned")
 
 
+def _x_order_scratch(x2: torch.Tensor, qtype: str):
+    """The GEMM's scratch for x in its steps' order (csrc/qmatmul.cu
+    x_order_kernel), None where the format's order is K's own (S = 1)."""
+    return torch.empty_like(x2) if plane_split(qtype)[0] > 1 else None
+
+
 def qmatmul_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     """y[..., O] = x @ dequant(W)^T with the kernels' arithmetic: weights
     decode in f32 and round to bf16 (QTensor.dequantize), x is rounded to
@@ -150,9 +162,12 @@ def qmatmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     _check_x(x2, "qmatmul")
     M, O = x2.shape[0], w.data.shape[0]
     out = torch.empty((M, O), dtype=torch.bfloat16, device=x.device)
-    if M:
-        kernel = GEMV if M <= GEMV_MAX_ROWS else GEMM
-        kernel(x2, *fields, out, M, K, O, device=x.device, qtype=w.qtype)
+    if 0 < M <= GEMV_MAX_ROWS:
+        GEMV(x2, *fields, out, M, K, O, device=x.device, qtype=w.qtype)
+    elif M:
+        t = gemm_tile(M, O, K, w.qtype)
+        GEMM(x2, _x_order_scratch(x2, w.qtype), *fields, out, M, K, O, t.bm, t.bn, t.stages,
+             t.smem, device=x.device, qtype=w.qtype)
     return out.reshape(*x.shape[:-1], O)
 
 
@@ -205,7 +220,11 @@ def qmatmul_lora(x: torch.Tensor, w: QTensor, a_cat: torch.Tensor,
     out = torch.empty((M, O), dtype=torch.bfloat16, device=x.device)
     if M:
         xg = torch.empty((M, R), dtype=torch.bfloat16, device=x.device)  # first pass
-        kernel = LORA_GEMV if M <= GEMV_MAX_ROWS else LORA_GEMM
-        kernel(x2, *fields, a_cat, b_cat, gate, xg, out, M, K, O, R,
-               device=x.device, qtype=w.qtype)
+        args = (*fields, a_cat, b_cat, gate, xg, out, M, K, O, R)
+        if M <= GEMV_MAX_ROWS:
+            LORA_GEMV(x2, *args, device=x.device, qtype=w.qtype)
+        else:
+            t = gemm_tile(M, O, K, w.qtype)
+            LORA_GEMM(x2, _x_order_scratch(x2, w.qtype), *args, t.bm, t.bn, t.stages, t.smem,
+                      device=x.device, qtype=w.qtype)
     return out.reshape(*x.shape[:-1], O)

@@ -9,12 +9,18 @@ Phases (any failure exits non-zero; nothing is caught):
    print each library's registers and spills, and for the tensor-core
    flash kernels (the training forward, dQ and dK/dV: `fwd_kernel`,
    `dq_kernel`, `dkv_kernel`; the prefill kernel's bf16 and fp8 arms:
-   `flash_kernel`) their registers, spill bytes (0, or the run fails) and
-   the HMMA instructions in their SASS (where cuobjdump is present); print
-   the card's name and power limit;
+   `flash_kernel`) and the dequant GEMM and dx of every format
+   (`gemm_kernel`, `dx_kernel`, csrc/qtile.cuh) their registers, spill
+   bytes (0 for the flash kernels and for the paths' formats sym_int4,
+   nf4, q4_k and q6_k, or the run fails) and the HMMA/HGMMA instructions
+   in their SASS (where cuobjdump is present); print the card's name and
+   power limit;
 2. hold each kernel against its plain PyTorch version at the main paths'
    shapes: the sym_int4 dequant-matmul GEMV (M <= 32) and GEMM (M > 32) at
-   every llama3-8b projection, flash attention at the prefill shape with
+   every llama3-8b projection; the GEMM, LoRA GEMM and dx at ragged M (33,
+   255, 257, 1000, 4096) with O = 200, each launched twice (bit-equal) and
+   with every third LoRA gate row zero (those rows bit-equal to the
+   GEMM's); flash attention at the prefill shape with
    ragged left padding, plus a window+softcap case, a head_dim-64 case, a
    head_dim-256 case and a T=17 case at q_offset 100 whose window edge
    falls inside a key tile;
@@ -85,7 +91,8 @@ Phases (any failure exits non-zero; nothing is caught):
    at every llama3-8b projection and the lm head the GEMV (M = 1, 4, 32),
    the GEMM (33, 1024), the LoRA GEMM (wo, w_down; 1024, R = 8) and dx
    (1024) and the LoRA GEMV (wo, w_down; M = 8, R = 128) against their
-   plain versions; then through `optimize_model` at
+   plain versions, and phase 2's ragged-M, relaunch and zero-gate checks of
+   the GEMM, LoRA GEMM and dx; then through `optimize_model` at
    32 layers nf4 and q4_k_m (q4_k body, q6_k lm head) generation as phase
    3 (exact launch counts per format, in-vocabulary and repeatable
    tokens) and nf4 QLoRA as phase 5 (five finite steps); then a 2-layer
@@ -138,8 +145,9 @@ Phases (any failure exits non-zero; nothing is caught):
    shape beside its plain version, cuBLAS g^T x (a yardstick the port
    never calls) and its bound.
 
-The whole run takes about 500 s of command time on an H100, the kernel
-builds included (the dequant sources build once per qtype, 32 libraries).
+The whole run takes about 460 s of command time on an H100, the kernel
+builds included (the dequant sources build once per qtype: 36 libraries
+in about 80 s).
 It prints one `{"kernels": [...]}` line (the dequant forms carry their
 numbers per format under "by_format"), and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the
@@ -151,6 +159,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -164,6 +173,12 @@ L2_COPIES_BYTES = 200e6  # operands cycled through 4x the 50 MB L2
 PROFILED_PREFILLS, PROFILED_STEPS = 2, 5
 TRAIN_T, RANK, LR = 1024, 8, 1e-4  # bench.py child_train: B=1, T=1024, rank 8
 TRAIN_STEPS, PROFILED_TRAIN_STEPS = 5, 2
+PATH_FORMATS = ("sym_int4", "nf4", "q4_k", "q6_k")  # generation, training, q4_k_m
+RAGGED_M = (33, 255, 257, 1000, 4096)
+# the GEMM's launch (x in its steps' order, then the GEMM) and the LoRA
+# GEMM's (its first pass, then the same two) in a profiler's kernel names
+GEMM_EVENT = re.compile(r"namespace\)::(gemm|x_order)_kernel<([^<>]*, )?(false|\(bool\)0)>")
+LORA_GEMM_EVENT = re.compile(r"lora_xa_tc_kernel|namespace\)::(gemm|x_order)_kernel<([^<>]*, )?(true|\(bool\)1)>")
 
 
 def log(*a):
@@ -220,15 +235,12 @@ def ptxas_resources(report: str) -> dict:
     return res
 
 
-def tc_kernel_report(lib: Path, names) -> int:
-    """Phase 1's lines for the tensor-core kernels `names` of one library:
-    registers and spill bytes per instantiation from its ptxas report, and
-    the HMMA instructions in each one's SASS where cuobjdump is present.
-    Returns the spill bytes of them all."""
+def sass_mma_counts(lib: Path) -> dict:
+    """{mangled kernel: HMMA and HGMMA instructions in its SASS} of one
+    library, {} where cuobjdump is missing."""
     import shutil
 
-    res = ptxas_resources(lib.with_suffix(".log").read_text())
-    sass, spills = {}, 0
+    sass = {}
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if Path(tool).exists():
         fn = None
@@ -237,8 +249,20 @@ def tc_kernel_report(lib: Path, names) -> int:
             if "Function :" in line:
                 fn = line.split("Function :")[1].strip()
                 sass[fn] = 0
-            elif fn and "HMMA" in line:
+            elif fn and ("HMMA" in line or "HGMMA" in line):
                 sass[fn] += 1
+    return sass
+
+
+def tc_kernel_report(lib: Path, names, label: str = "", sass=None) -> int:
+    """Phase 1's lines for the tensor-core kernels `names` of one library:
+    registers and spill bytes per instantiation from its ptxas report, and
+    the HMMA/HGMMA instructions in each one's SASS where cuobjdump is
+    present (`sass`: sass_mma_counts(lib), computed here when None).
+    Returns the spill bytes of them all."""
+    res = ptxas_resources(lib.with_suffix(".log").read_text())
+    sass = sass_mma_counts(lib) if sass is None else sass
+    spills = 0
     for mangled, (regs, spill) in sorted(res.items()):
         kname = next((n for n in names if n + "I" in mangled), None)
         if kname is None:
@@ -247,8 +271,8 @@ def tc_kernel_report(lib: Path, names) -> int:
         targs = [{"Lb0": "false", "Lb1": "true"}.get(a, a[2:])
                  for a in mangled.split(kname + "I")[1].split("EE")[0].split("E")]
         hmma = sass.get(mangled, "not read (no cuobjdump)") if sass else "not read (no cuobjdump)"
-        log(f"  ptxas {kname}<{', '.join(targs)}>: registers {regs}, spill bytes {spill}, "
-            f"HMMA in SASS {hmma}")
+        log(f"  ptxas {label}{kname}<{', '.join(targs)}>: registers {regs}, spill bytes {spill}, "
+            f"HMMA/HGMMA in SASS {hmma}")
         spills += spill
     return spills
 
@@ -275,6 +299,52 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+def tile_text(t) -> str:
+    """A launch's tile (ops/kernels/qtile.py) for the timing lines."""
+    return (f"tile {t.bm}x{t.bn} stages={t.stages} threads={t.threads} blocks={t.blocks} "
+            f"waves={t.waves:.2f}")
+
+
+def dequant_edge_checks(torch, dev, qtype, errs, w, randn) -> None:
+    """The tensor-core GEMM, LoRA GEMM and dx over `w` (O = 200: an O edge
+    inside a 128-wide tile, K = 2048) at ragged M (RAGGED_M): each within 2
+    bf16 ULPs of the largest output of its plain version (f32 sums in
+    another order, one rounding on each side), a second launch bit-equal
+    to the first (no atomics), and rows whose LoRA gate is zero bit-equal
+    to the GEMM's (the LoRA steps add exactly 0 after the same K walk).
+    The largest errors go to `errs`."""
+    from bigdl_tpu_torch.ops import kernels
+
+    O, K = w.data.shape[0], 2048
+    lines = []
+    for M in RAGGED_M:
+        x, gr = randn(M, K), randn(M, O)
+        a, b_ = randn(RANK, K) / RANK, randn(O, RANK) * 0.1
+        gate = torch.full((M, RANK), 2.0, dtype=torch.bfloat16, device=dev)
+        gate[::3] = 0  # every third row a base row
+        y = kernels.qmatmul(x, w)
+        yl = kernels.qmatmul_lora(x, w, a, b_, gate)
+        dx = kernels.qmatmul_dx(gr, w)
+        for kern, got, ref in ((kernels.GEMM, y, kernels.qmatmul_plain(x, w)),
+                               (kernels.LORA_GEMM, yl, kernels.qmatmul_lora_plain(x, w, a, b_, gate)),
+                               (kernels.DX, dx, kernels.qmatmul_dx_plain(gr, w))):
+            got, ref = got.float(), ref.float()
+            err = (got - ref).abs().max().item()
+            tol = ref.abs().max().item() * 2 ** -7
+            errs[kern.name] = max(errs.get(kern.name, 0.0), err)
+            check(bool(torch.isfinite(got).all()) and err <= tol,
+                  f"{kern.name} {qtype} M={M} O={O}: max_abs_err {err} > tol {tol}")
+            lines.append(f"{kern.name} M={M} {err:.3g}/{tol:.3g}")
+        same = (torch.equal(y, kernels.qmatmul(x, w)) and torch.equal(dx, kernels.qmatmul_dx(gr, w))
+                and torch.equal(yl, kernels.qmatmul_lora(x, w, a, b_, gate)))
+        base = torch.equal(yl[::3], y[::3])
+        check(same and base, f"{qtype} M={M}: second launches bit-equal {same}, "
+                             f"zero-gate LoRA rows = GEMM bits {base}")
+    log(f"phase {2 if qtype == 'sym_int4' else 9}: {qtype} GEMM, LoRA GEMM (R={RANK}, every third "
+        f"gate row 0) and dx at ragged M, O={O} K={K}: max_abs_err/tol {'; '.join(lines)}; "
+        f"second launches bit-equal, zero-gate rows = GEMM bits")
+
+
 def main() -> int:
     import torch
 
@@ -293,6 +363,7 @@ def main() -> int:
     from bigdl_tpu_torch.ops import kernels
     from bigdl_tpu_torch.ops.kernels import _build
     from bigdl_tpu_torch.ops.kernels.flash_attention import valid_mask
+    from bigdl_tpu_torch.ops.kernels.qtile import gemm_tile
     from bigdl_tpu_torch.quant import QTensor
     from bigdl_tpu_torch.utils import cache_len_for
 
@@ -327,6 +398,19 @@ def main() -> int:
     spills = tc_kernel_report(libs[("flash_backward", None)], ("fwd_kernel", "dq_kernel", "dkv_kernel"))
     spills += tc_kernel_report(libs[("flash_attention", None)], ("flash_kernel",))
     check(spills == 0, "a tensor-core flash kernel spills")
+    # the dequant GEMM and dx of every format (csrc/qtile.cuh), SASS read in
+    # parallel; a spill in the paths' formats fails the run
+    from concurrent.futures import ThreadPoolExecutor
+
+    dequant = sorted(k for k in libs if k[0] in ("qmatmul", "qbackward"))
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        sass = dict(zip(dequant, pool.map(lambda k: sass_mma_counts(libs[k]), dequant)))
+    path_spills = 0
+    for stem, qtype in dequant:
+        sp = tc_kernel_report(libs[(stem, qtype)], ("gemm_kernel",) if stem == "qmatmul" else ("dx_kernel",),
+                              label=f"[{qtype}] ", sass=sass[(stem, qtype)])
+        path_spills += sp if qtype in PATH_FORMATS else 0
+    check(path_spills == 0, f"a dequant GEMM or dx kernel of {PATH_FORMATS} spills")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -363,6 +447,7 @@ def main() -> int:
             errs[kname] = max(errs[kname], err)
             log(f"phase 2: {kname} {name} M={M} O={O} K={K} max_abs_err={err:.6g} tol={tol:.6g}")
             check(bool(torch.isfinite(y).all()) and err <= tol, f"{kname} {name} M={M}")
+    dequant_edge_checks(torch, dev, "sym_int4", errs, qweight(200, 2048)[0], randn)
     flash_cases = [("prefill", B, T, S, Hq, Hkv, D, 0, None, None),
                    ("window+softcap", 2, 128, 192, Hq, Hkv, D, 40, 64, 30.0),
                    ("head_dim 64", 2, 96, 128, 8, 2, 64, 0, None, None),
@@ -463,7 +548,8 @@ def main() -> int:
             bms, by = bound_ms(nbytes, 2.0 * M * O * K)
             rows[(name, M)] = (kern, plain, lib, bms, nbytes, 2.0 * M * O * K)
             log(f"phase 4: qmatmul {name} M={M} O={O} K={K} isolated_ms={kern:.5f} "
-                f"plain_ms={plain:.5f} library_ms={lib:.5f} bound_ms={bms:.5f} ({by})")
+                f"plain_ms={plain:.5f} library_ms={lib:.5f} bound_ms={bms:.5f} ({by})"
+                + (f" {tile_text(gemm_tile(M, O, K, 'sym_int4'))}" if M > kernels.GEMV_MAX_ROWS else ""))
         del ws, dense
 
     start = torch.as_tensor(starts, device=dev)
@@ -570,17 +656,19 @@ def main() -> int:
 
     def on_path(window, kern, n_units, calls_per_unit):
         """One kernel's device time per main-path unit in a profiler
-        window; fails unless the window holds exactly the expected calls."""
+        window (the GEMM's: its x_order pass and the GEMM, two device
+        kernels a launch); fails unless the window holds exactly the
+        expected calls."""
+        parts = 2 if kern is kernels.GEMM else 1
         evs = [e for e in window.key_averages()
-               if f"namespace)::{device_fn[kern.name]}" in e.key
-               and e.self_device_time_total > 0]
+               if device_fn[kern.name].search(e.key) and e.self_device_time_total > 0]
         calls = sum(e.count for e in evs)
-        check(calls == n_units * calls_per_unit,
-              f"{kern.name}: {calls} profiled calls, expected {n_units * calls_per_unit}")
+        check(calls == n_units * calls_per_unit * parts,
+              f"{kern.name}: {calls} profiled calls, expected {n_units * calls_per_unit * parts}")
         return sum(e.self_device_time_total for e in evs) / 1e3 / n_units
 
-    device_fn = {kernels.GEMV.name: "gemv_kernel", kernels.GEMM.name: "gemm_kernel",
-                 kernels.FLASH.name: "flash_kernel"}
+    device_fn = {kernels.GEMV.name: re.compile(r"namespace\)::gemv_kernel"), kernels.GEMM.name: GEMM_EVENT,
+                 kernels.FLASH.name: re.compile(r"namespace\)::flash_kernel")}
     layer_names = ["wqkv", "wo", "w_gateup", "w_down"]
     entries = []
     for kern, unit, prof_, n, calls, (iso, plain, lib, _, nbytes, flops) in (
@@ -732,6 +820,7 @@ def train_phases(torch, dev, cfg, card, errs, qweight, randn) -> list:
     from bigdl_tpu_torch import optimize_model
     from bigdl_tpu_torch.models import llama
     from bigdl_tpu_torch.ops import kernels
+    from bigdl_tpu_torch.ops.kernels.qtile import dx_tile, gemm_tile
     from bigdl_tpu_torch.train import (adamw, init_lora, make_train_step,
                                        next_token_loss)
 
@@ -841,21 +930,20 @@ def train_phases(torch, dev, cfg, card, errs, qweight, randn) -> list:
 
     def on_path(kern, match, parts=1):
         """Device time a step of the kernel's device functions (`parts` of
-        them a launch: the LoRA GEMM's first pass and its GEMM)."""
+        them a launch: the LoRA GEMM's first pass, x_order and its GEMM)."""
         evs = [e for e in prof.key_averages()
-               if any(m in e.key for m in match) and e.self_device_time_total > 0]
+               if match.search(e.key) and e.self_device_time_total > 0]
         calls = sum(e.count for e in evs)
         want_calls = per_step[kern.name] * PROFILED_TRAIN_STEPS * parts
         check(calls == want_calls, f"{kern.name}: {calls} profiled calls, expected {want_calls}")
         return sum(e.self_device_time_total for e in evs) / 1e3 / PROFILED_TRAIN_STEPS
 
     path_ms = {
-        kernels.LORA_GEMM.name: on_path(kernels.LORA_GEMM, ("gemm_kernel<true", "gemm_kernel<(bool)1",
-                                                            "lora_xa_tc_kernel"), parts=2),
-        kernels.DX.name: on_path(kernels.DX, ("namespace)::dx_kernel",)),
-        kernels.FLASH_FWD.name: on_path(kernels.FLASH_FWD, ("namespace)::fwd_kernel",)),
-        kernels.FLASH_DQ.name: on_path(kernels.FLASH_DQ, ("namespace)::dq_kernel",)),
-        kernels.FLASH_DKV.name: on_path(kernels.FLASH_DKV, ("namespace)::dkv_kernel",)),
+        kernels.LORA_GEMM.name: on_path(kernels.LORA_GEMM, LORA_GEMM_EVENT, parts=3),
+        kernels.DX.name: on_path(kernels.DX, re.compile(r"namespace\)::dx_kernel")),
+        kernels.FLASH_FWD.name: on_path(kernels.FLASH_FWD, re.compile(r"namespace\)::fwd_kernel")),
+        kernels.FLASH_DQ.name: on_path(kernels.FLASH_DQ, re.compile(r"namespace\)::dq_kernel")),
+        kernels.FLASH_DKV.name: on_path(kernels.FLASH_DKV, re.compile(r"namespace\)::dkv_kernel")),
     }
     del lora, step, prof
     qlora_variant_checks(torch, dev, cfg, model, tokens, mask)
@@ -885,7 +973,8 @@ def train_phases(torch, dev, cfg, card, errs, qweight, randn) -> list:
         bms, by = bound_ms(nbytes, flops)
         add(kernels.DX.name, dx_calls[name], kern, plain_, lib, nbytes, flops)
         log(f"phase 6: dx {name} M={M} O={O} K={K} isolated_ms={kern:.5f} "
-            f"plain_ms={plain_:.5f} library_ms={lib:.5f} bound_ms={bms:.5f} ({by})")
+            f"plain_ms={plain_:.5f} library_ms={lib:.5f} bound_ms={bms:.5f} ({by}) "
+            f"{tile_text(dx_tile(M, O, K, 'sym_int4'))}")
         if name in ("wo", "w_down"):
             x = randn(M, K)
             a, b_ = randn(RANK, K) / RANK, randn(O, RANK) * 0.01
@@ -900,7 +989,8 @@ def train_phases(torch, dev, cfg, card, errs, qweight, randn) -> list:
             bms, by = bound_ms(nbytes, flops)
             add(kernels.LORA_GEMM.name, L, kern, plain_, lib, nbytes, flops)
             log(f"phase 6: lora gemm {name} M={M} O={O} K={K} R={RANK} isolated_ms={kern:.5f} "
-                f"plain_ms={plain_:.5f} library_ms={lib:.5f} bound_ms={bms:.5f} ({by})")
+                f"plain_ms={plain_:.5f} library_ms={lib:.5f} bound_ms={bms:.5f} ({by}) "
+                f"{tile_text(gemm_tile(M, O, K, 'sym_int4'))}")
         del ws, dense
 
     # flash trio at the training shape, one layer
@@ -2260,6 +2350,12 @@ def format_phases(torch, dev, cfg, card, prompts, tok, st, T, S) -> dict:
     # ---------------------------------------------------------------- 9
     t0 = time.time()
     for qi, qtype in enumerate(FORMATS):
+        edge_errs = {}
+        dequant_edge_checks(torch, dev, qtype, edge_errs, qweight_of(torch, dev, qtype, 200, 2048, 50 + qi),
+                            randn)
+        for k in (kernels.GEMM, kernels.LORA_GEMM, kernels.DX):
+            row = out[k.name][qtype]
+            row["max_abs_err"] = max(row["max_abs_err"], edge_errs[k.name])
         for si, (name, (O, K)) in enumerate(shapes.items()):
             w = qweight_of(torch, dev, qtype, O, K, 100 * qi + si)
             worst = []
@@ -2295,8 +2391,9 @@ def format_phases(torch, dev, cfg, card, prompts, tok, st, T, S) -> dict:
         return sum(e.self_device_time_total for e in device_kernels(prof_)) / 1e3 / n
 
     def kernel_path_ms(prof_, fn, n):
+        pat = fn if isinstance(fn, re.Pattern) else re.compile(rf"namespace\)::{fn}")
         return sum(e.self_device_time_total for e in prof_.key_averages()
-                   if f"namespace)::{fn}" in e.key and e.self_device_time_total > 0) / 1e3 / n
+                   if pat.search(e.key) and e.self_device_time_total > 0) / 1e3 / n
 
     def wall_ms(fn):
         torch.cuda.synchronize()
@@ -2372,7 +2469,7 @@ def format_phases(torch, dev, cfg, card, prompts, tok, st, T, S) -> dict:
         med = steps[len(steps) // 2]
         dec_busy, pre_busy = busy_ms(prof_dec, PROFILED_STEPS), busy_ms(prof_pre, PROFILED_PREFILLS)
         gemv_ms = kernel_path_ms(prof_dec, "gemv_kernel", PROFILED_STEPS)
-        gemm_ms = kernel_path_ms(prof_pre, "gemm_kernel", PROFILED_PREFILLS)
+        gemm_ms = kernel_path_ms(prof_pre, GEMM_EVENT, PROFILED_PREFILLS)
         if body in out[kernels.GEMM.name]:
             out[kernels.GEMM.name][body]["ms"] = gemm_ms
         if body == head and body in out[kernels.GEMV.name]:
@@ -2432,11 +2529,7 @@ def format_phases(torch, dev, cfg, card, prompts, tok, st, T, S) -> dict:
     med = step_ms[len(step_ms) // 2]
     tbusy = busy_ms(prof, PROFILED_TRAIN_STEPS)
     out[kernels.DX.name]["nf4"]["ms"] = kernel_path_ms(prof, "dx_kernel", PROFILED_TRAIN_STEPS)
-    out[kernels.LORA_GEMM.name]["nf4"]["ms"] = sum(
-        e.self_device_time_total for e in prof.key_averages()
-        if ("gemm_kernel<true" in e.key or "gemm_kernel<(bool)1" in e.key
-            or "lora_xa_tc_kernel" in e.key)
-        and e.self_device_time_total > 0) / 1e3 / PROFILED_TRAIN_STEPS
+    out[kernels.LORA_GEMM.name]["nf4"]["ms"] = kernel_path_ms(prof, LORA_GEMM_EVENT, PROFILED_TRAIN_STEPS)
     log(f"phase 10: nf4 QLoRA B=1 T={TRAIN_T} rank {RANK}: step_ms median={med:.3f} "
         f"({[round(x, 3) for x in step_ms]}; warm-up {warm[0]:.3f}); tokens_per_s="
         f"{TRAIN_T * 1e3 / med:.1f}; peak_mem_gib={peak:.3f}; device busy {tbusy:.3f} ms = "

@@ -652,3 +652,44 @@ def test_adapter_engine_two_layers_full_width_kernels_vs_plain(tmp_path):
     for (ta, a), (tb, b) in zip(outs, ref):  # bf16 through two layers: 0.05 nat
         n = next((j for j, (x, y) in enumerate(zip(ta, tb)) if x != y), len(ta)) + 1
         assert max(abs(x - y) for x, y in zip(a[:n], b[:n])) <= 0.05
+
+
+# The tensor-core GEMM, LoRA GEMM and dx (csrc/qtile.cuh) at their tiles'
+# edges: ragged M (a partial last block of every tile) with O = 200 (an O
+# edge inside a 128-wide tile), and M = 1024, O = 4096, which takes the
+# 256-row tile where the format has one; every format at K = 2048.
+TILE_CASES = ([("sym_int4", M, 200) for M in (33, 255, 257, 1000, 1024, 4096)]
+              + [(q, M, O) for q in ALL_FORMATS for M, O in ((300, 200), (1024, 4096))])
+
+
+@pytest.mark.parametrize("qtype,M,O", TILE_CASES)
+def test_dequant_tile_kernels_match_plain(qtype, M, O):
+    """Each within 2 bf16 ULPs of the largest output of its plain version,
+    a second launch bit-equal to the first (no atomics), and rows whose
+    LoRA gate is zero bit-equal to the GEMM's rows (the adapter steps add
+    exactly 0 after the same K walk)."""
+    dev = _cuda()
+    K, R = 2048, 8
+    g = torch.Generator(device=dev).manual_seed(M + O + len(qtype))
+    w = quantize(torch.randn(O, K, device=dev, generator=g) * 0.02, qtype)
+
+    def rnd(*shape):
+        return torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+
+    x, gr = rnd(M, K), rnd(M, O)
+    a, b = rnd(R, K) / R, rnd(O, R) * 0.1
+    gate = torch.full((M, R), 2.0, dtype=torch.bfloat16, device=dev)
+    gate[::3] = 0
+    before = [k.launches for k in (kernels.GEMM, kernels.LORA_GEMM, kernels.DX)]
+    y, yl, dx = kernels.qmatmul(x, w), kernels.qmatmul_lora(x, w, a, b, gate), kernels.qmatmul_dx(gr, w)
+    torch.cuda.synchronize()
+    assert [k.launches for k in (kernels.GEMM, kernels.LORA_GEMM, kernels.DX)] == [n + 1 for n in before]
+    for got, ref in ((y, kernels.qmatmul_plain(x, w)),
+                     (yl, kernels.qmatmul_lora_plain(x, w, a, b, gate)),
+                     (dx, kernels.qmatmul_dx_plain(gr, w))):
+        assert bool(torch.isfinite(got.float()).all()) and got.shape == ref.shape
+        assert _max_err(got, ref) <= _ULPS * ref.float().abs().max().item()
+    assert torch.equal(y, kernels.qmatmul(x, w))
+    assert torch.equal(yl, kernels.qmatmul_lora(x, w, a, b, gate))
+    assert torch.equal(dx, kernels.qmatmul_dx(gr, w))
+    assert torch.equal(yl[::3], y[::3])

@@ -7,6 +7,7 @@ package's `linear` on its Pallas path. The CUDA kernels against the plain
 versions are in test_torch_gpu.py."""
 
 import importlib
+import math
 
 import jax
 import jax.numpy as jnp
@@ -20,8 +21,10 @@ from bigdl_tpu.ops.pallas.qbackward import qmatmul_dx as jax_qmatmul_dx
 from bigdl_tpu.ops.pallas.qmatmul import qmatmul_lora as jax_qmatmul_lora
 from bigdl_tpu.quant import quantize as jquantize
 from bigdl_tpu.quant.qtypes import qtype_registry
+from bigdl_tpu_torch import PRESETS
 from bigdl_tpu_torch.ops import kernels, linear
-from bigdl_tpu_torch.quant import ARRAY_FIELDS, QTensor
+from bigdl_tpu_torch.ops.kernels import qtile
+from bigdl_tpu_torch.quant import ARRAY_FIELDS, QTensor, quantize
 
 torch.set_num_threads(1)
 
@@ -303,3 +306,55 @@ def test_qlora_step_at_16_rows_rank32_matches_jax(monkeypatch):
             got = lora.layers[t][leaf].grad.float().numpy()
             assert np.abs(ref).max() > 0
             assert np.abs(got - ref).max() <= 0.05 * np.abs(ref).max(), (t, leaf)
+
+
+# The tensor-core dx's tile policy and column order (ops/kernels/qtile.py,
+# the host's side of csrc/qtile.cuh).
+
+def path_shapes():
+    """llama3-8b's [O, K] weights whose dx a QLoRA step takes: the fused
+    projections and the lm head."""
+    c = PRESETS["llama3-8b"]
+    H, I = c.hidden_size, c.intermediate_size
+    return {"wqkv": (c.q_dim + 2 * c.kv_dim, H), "wo": (H, c.q_dim),
+            "w_gateup": (2 * I, H), "w_down": (H, I), "lm_head": (c.vocab_size, H)}
+
+
+ALL_FORMATS = ["sym_int4"] + OTHER_FORMATS
+
+
+@pytest.mark.parametrize("qtype", ALL_FORMATS)
+def test_dx_tile_policy_is_legal_and_fills_the_card(qtype):
+    """Every M from 33 (and some beyond 4096) at every path shape: a tile
+    the kernel was built for within 227 KB of shared memory, a grid that
+    covers M and K's 128-column blocks, at least one block per SM unless
+    the tile is already the smallest, and always at the paths' M = 1024.
+    The whole O walk stays in one block (no split, no atomics)."""
+    for name, (O, K) in path_shapes().items():
+        for M in list(range(33, 4097)) + [6000, 8192, 65536]:
+            t = qtile.dx_tile(M, O, K, qtype)
+            assert (t.bm, t.bn) in qtile.tiles(qtype) and 3 <= t.stages <= qtile.MAX_STAGES
+            assert t.smem <= qtile.SMEM_LIMIT
+            assert t.threads in (32 * (4 * max(1, t.bm // 128) + d) for d in (4, 8))
+            assert t.grid == (math.ceil(M / t.bm), math.ceil(K / t.bn))
+            assert t.blocks >= qtile.FILL * qtile.SMS or (t.bm, t.bn) == (64, 128), (name, M, t)
+        assert qtile.dx_tile(1024, O, K, qtype).blocks >= qtile.FILL * qtile.SMS
+
+
+@pytest.mark.parametrize("bn", [128, 256])
+@pytest.mark.parametrize("mult", [1, 3, 5])
+@pytest.mark.parametrize("qtype", ALL_FORMATS)
+def test_dx_column_order_is_a_permutation_the_product_does_not_see(qtype, mult, bn):
+    """dx's blocks cover K's columns in the groups' order (bn columns a
+    block): a permutation of K, and dx computed in that order and put back
+    equals dx computed in order (exactly, in f64 over small integers)."""
+    K = mult * kernels.K_MULTIPLE[qtype]
+    order = qtile.k_order(K, qtype, bn)
+    assert torch.equal(order.sort().values, torch.arange(K))
+    rng = np.random.default_rng(K + len(qtype))
+    w = quantize(torch.from_numpy(rng.normal(size=(24, K)) * 0.05).float(), qtype)
+    wd = w.dequantize(torch.bfloat16).double()
+    g = torch.from_numpy(rng.integers(-8, 8, size=(5, 24))).double()
+    dx = torch.zeros(5, K, dtype=torch.float64)
+    dx[:, order] = g @ wd[:, order]
+    assert torch.equal(dx, g @ wd)

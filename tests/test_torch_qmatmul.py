@@ -4,6 +4,9 @@ dispatch rules against the JAX package's. The CUDA kernels against the
 plain version are in test_torch_gpu.py."""
 
 import importlib
+import math
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +16,9 @@ import torch
 from bigdl_tpu.ops.pallas.qmatmul import qmatmul as jax_qmatmul
 from bigdl_tpu.quant import quantize as jquantize
 from bigdl_tpu.quant.qtypes import qtype_registry
+from bigdl_tpu_torch import PRESETS
 from bigdl_tpu_torch.ops import kernels, linear
+from bigdl_tpu_torch.ops.kernels import qtile
 from bigdl_tpu_torch.quant import ARRAY_FIELDS, QTensor, quantize
 
 torch.set_num_threads(1)
@@ -185,3 +190,62 @@ def test_lora_fused_ok_matches_jax():
             assert kernels.lora_fused_ok(R, K) == jax_lora_fused_ok(R, K), (R, K)
     assert kernels.lora_fused_ok(409, 4096) and not kernels.lora_fused_ok(410, 4096)
     assert kernels.lora_fused_ok(136, 14336) and not kernels.lora_fused_ok(137, 14336)
+
+
+# The tensor-core GEMM's tile policy and column order (ops/kernels/
+# qtile.py, the host's side of csrc/qtile.cuh).
+
+def path_shapes():
+    """llama3-8b's [O, K] weights on the paths: the fused projections and
+    the lm head."""
+    c = PRESETS["llama3-8b"]
+    H, I = c.hidden_size, c.intermediate_size
+    return {"wqkv": (c.q_dim + 2 * c.kv_dim, H), "wo": (H, c.q_dim),
+            "w_gateup": (2 * I, H), "w_down": (H, I), "lm_head": (c.vocab_size, H)}
+
+
+# every GEMM row count up to 4096, and a few beyond
+TILE_M = list(range(kernels.GEMV_MAX_ROWS + 1, 4097)) + [6000, 8192, 65536]
+
+
+def test_plane_table_matches_the_cuda_traits():
+    """qtile.PLANES, from which the host sizes the shared memory, is the
+    plane table of csrc/qdecode.cuh's QF_<qtype> traits."""
+    text = (Path(kernels.__file__).parents[2] / "csrc" / "qdecode.cuh").read_text()
+    got = {m[1]: (int(m[2]), int(m[3])) for m in
+           re.finditer(r"using QF_(\w+)\s*=\s*QFormat<(\d+),\s*(\d+),", text)}
+    assert got == qtile.PLANES and sorted(got) == sorted(QTYPES)
+
+
+@pytest.mark.parametrize("qtype", QTYPES)
+def test_gemm_tile_policy_is_legal_and_fills_the_card(qtype):
+    """Every M the GEMM takes, at every path shape: a tile the kernel was
+    built for (64 or 128 rows, 3-6 stages within 227 KB of shared memory),
+    a grid that covers M and O, and at least one block per SM unless the
+    tile is already the smallest; at the paths' M = 1024 always."""
+    for name, (O, K) in path_shapes().items():
+        for M in TILE_M:
+            t = qtile.gemm_tile(M, O, K, qtype)
+            assert (t.bm, t.bn) in qtile.tiles(qtype) and 3 <= t.stages <= qtile.MAX_STAGES
+            assert t.smem <= qtile.SMEM_LIMIT
+            assert t.threads in (32 * (4 * max(1, t.bm // 128) + d) for d in (4, 8))
+            assert t.grid == (math.ceil(M / t.bm), math.ceil(O / t.bn))
+            assert t.blocks >= qtile.FILL * qtile.SMS or (t.bm, t.bn) == (64, 128), (name, M, t)
+        assert qtile.gemm_tile(1024, O, K, qtype).blocks >= qtile.FILL * qtile.SMS
+
+
+@pytest.mark.parametrize("mult", [1, 3, 7])
+@pytest.mark.parametrize("qtype", QTYPES)
+def test_gemm_k_order_is_a_permutation_the_product_does_not_see(qtype, mult):
+    """The order of K in which the GEMM's steps see it (the groups of the
+    finest plane split) is a permutation of K, and the product over the
+    permuted columns equals the unpermuted one (exactly: small integers
+    times bf16 weights sum without rounding in f64)."""
+    K = mult * kernels.K_MULTIPLE[qtype]
+    order = qtile.k_order(K, qtype, qtile.depth(qtype))
+    assert torch.equal(order.sort().values, torch.arange(K))
+    rng = np.random.default_rng(K + len(qtype))
+    w = quantize(torch.from_numpy(rng.normal(size=(24, K)) * 0.05).float(), qtype)
+    wd = w.dequantize(torch.bfloat16).double()
+    x = torch.from_numpy(rng.integers(-8, 8, size=(5, K))).double()
+    assert torch.equal(x[:, order] @ wd[:, order].T, x @ wd.T)
