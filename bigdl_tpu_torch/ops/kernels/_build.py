@@ -21,6 +21,7 @@ through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -45,6 +46,13 @@ FORMAT_SOURCES = ("qmatmul", "qbackward")
 
 _lock = threading.Lock()
 _libs: dict[tuple, ctypes.CDLL] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index` (the persistent
+    and split kernels size their grids by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def nvcc() -> str:

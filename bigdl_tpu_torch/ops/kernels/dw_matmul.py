@@ -11,20 +11,54 @@ involved); its header note says what bounds it on the card and what the
 design does about it.
 
 The wrapper dispatches on the tensor's device: a CPU tensor takes the
-plain version, a CUDA tensor launches the kernel or raises.
+plain version, a CUDA tensor launches a kernel or raises. On the card
+`dw_variant` picks one of two kernels by shape, both counted on `DW`: the
+persistent TMA + wgmma kernel, which walks the 128 x 256 tiles of dW in
+the order `dw_tile` gives, wherever TMA can read g and x, else the
+mma.sync kernel with scalar loads.
 """
 
 from __future__ import annotations
 
 import torch
 
-from bigdl_tpu_torch.ops.kernels._build import Kernel
+from bigdl_tpu_torch.ops.kernels._build import Kernel, sm_count
 
-# (g, x, dw, M, O, K, out_f32, vec)
-DW = Kernel("dw_matmul", "dw_matmul", "pppiiiii",
+# (g, x, dw, M, O, K, out_f32, tma, sms)
+DW = Kernel("dw_matmul", "dw_matmul", "pppiiiiii",
             replaces="bigdl_tpu/ops/pallas/qbackward.py:190")
 
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
+
+TILE_O, TILE_K = 128, 256  # the wgmma kernel's tile of dW (csrc/dw_matmul.cu kBO, kBK)
+GROUP_O = 8  # o-blocks side by side in its tile order (kGroupO)
+
+
+def dw_variant(O: int, K: int, g_ptr: int, x_ptr: int) -> str:
+    """"tma" (the wgmma kernel) where TMA can read both operands: rows of
+    16-byte multiples (O and K multiples of 8) from 16-byte aligned bases;
+    else "any" (the mma.sync kernel, scalar loads)."""
+    ok = O % 8 == 0 and K % 8 == 0 and g_ptr % 16 == 0 and x_ptr % 16 == 0
+    return "tma" if ok else "any"
+
+
+def dw_tile(t: int, O: int, K: int) -> tuple[int, int]:
+    """The first dW row and column of the wgmma kernel's tile t: groups of
+    GROUP_O o-blocks, the o-block fastest within a group, so the tiles at
+    work at once share x's column panels and a few of g's."""
+    no, nk = -(-O // TILE_O), -(-K // TILE_K)
+    group, r = divmod(t, GROUP_O * nk)
+    go = min(GROUP_O, no - group * GROUP_O)
+    return (group * GROUP_O + r % go) * TILE_O, (r // go) * TILE_K
+
+
+def dw_schedule(O: int, K: int, sms: int) -> list[list[tuple[int, int]]]:
+    """The persistent grid's walk: block b takes tiles b, b + grid, ...
+    (grid = min(tiles, sms)); [block][tile origins in its order]."""
+    tiles = -(-O // TILE_O) * -(-K // TILE_K)
+    grid = min(tiles, sms)
+    return [[dw_tile(t, O, K) for t in range(b, tiles, grid)] for b in range(grid)]
+
 
 
 def _flatten(g: torch.Tensor, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -66,8 +100,7 @@ def dw_matmul(g: torch.Tensor, x: torch.Tensor,
     if M == 0:
         return dw.zero_()
     if O and K:
-        # 16-byte pieces where every row starts on a 16-byte boundary
-        vec = int(O % 8 == 0 and K % 8 == 0 and g2.data_ptr() % 16 == 0
-                  and x2.data_ptr() % 16 == 0)
-        DW(g2, x2, dw, M, O, K, int(out_dtype == torch.float32), vec, device=g.device)
+        tma = dw_variant(O, K, g2.data_ptr(), x2.data_ptr()) == "tma"
+        DW(g2, x2, dw, M, O, K, int(out_dtype == torch.float32), int(tma),
+           sm_count(g.device.index or 0), device=g.device)
     return dw

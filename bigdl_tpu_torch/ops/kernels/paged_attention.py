@@ -12,6 +12,12 @@ block_tables [B, max_pages] int32; pos [B] the slot holding the current
 token, start [B] the first valid slot. Slot j of row b is attended iff
 start[b] <= j <= pos[b] (and j > pos[b] - window with a sliding window);
 a row with no valid slot comes out exactly 0. Returns [B, Hq, D] bf16.
+
+The kernel splits each row's live slots into chunks, one block each
+(flash-decoding); `split_chunk` picks the chunk size from the launch's
+shape and `split_plan` is the cut the kernel makes on the card, in plain
+Python for the tests. The partials and the per-(row, kv head) ticket
+counters live in a workspace the wrapper keeps per device and stream.
 """
 
 from __future__ import annotations
@@ -22,20 +28,84 @@ from typing import Optional
 import torch
 
 from bigdl_tpu_torch.kvcache import FP8, as_bits
-from bigdl_tpu_torch.ops.kernels._build import Kernel
+from bigdl_tpu_torch.ops.kernels._build import Kernel, sm_count
+from bigdl_tpu_torch.ops.kernels.qtile import SMS
 
 _REPLACES = "bigdl_tpu/ops/pallas/paged_attention.py:42"
-# (q, k, v, block_tables, pos, start, out, B, Hq, Hkv, D, NP, page,
-#  max_pages, layer, window, softcap)
-PAGED = Kernel("paged_attention_bf16", "paged_attention", "pppppppiiiiiiiiif",
+# (q, k, v, block_tables, pos, start, out, part_o, part_ml, tickets, B,
+#  Hq, Hkv, D, NP, page, max_pages, layer, window, softcap, chunk, nmax,
+#  q_f32, scale)
+PAGED = Kernel("paged_attention_bf16", "paged_attention", "ppppppppppiiiiiiiiifiiif",
                replaces=_REPLACES)
 # the same with (k_scale, v_scale) after v
-PAGED_FP8 = Kernel("paged_attention_fp8", "paged_attention", "pppppppppiiiiiiiiif",
+PAGED_FP8 = Kernel("paged_attention_fp8", "paged_attention", "ppppppppppppiiiiiiiiifiiif",
                    replaces=_REPLACES)
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (64, 128, 256)
-_MAX_GROUP = 16  # query heads per kv head: one warp each, 512 threads
+_MAX_GROUP = 16  # query heads per kv head: 4 warps, up to 4 heads each
+
+SPLIT_TILE = 32  # slots a stage of the kernel's ring (csrc/paged_attention.cu kTile)
+SPLIT_CHUNKS = (256, 128, 64)  # chunk sizes, largest first: multiples of the tile
+
+
+def split_chunk(B: int, Hkv: int, cap: int, sms: int = SMS) -> int:
+    """Slots a block of the kernel takes: the largest of SPLIT_CHUNKS at
+    which a pool of `cap` slots a row (max_pages * page) gives at least
+    three blocks an SM over B rows and Hkv kv heads, else the smallest.
+    Rows hold fewer live slots than their capacity, so three blocks an SM
+    over the capacity leave two waves at two thirds full: at the serving
+    engine's decode shape (8 rows, 8 kv heads, 2048 slots) 256, and ~320
+    blocks at ~1,160 live slots a row."""
+    for c in SPLIT_CHUNKS:
+        if B * Hkv * -(-cap // c) >= 3 * sms:
+            return c
+    return SPLIT_CHUNKS[-1]
+
+
+def max_chunks(cap: int, chunk: int, window: Optional[int] = None) -> int:
+    """The most chunks a row of `cap` slots can be cut into (the grid's
+    chunk axis): a window of w slots spans at most (w - 1) // chunk + 2."""
+    n = -(-cap // chunk)
+    return min(n, (window - 1) // chunk + 2) if window else n
+
+
+def live_range(pos: int, start: int, cap: int, window: Optional[int] = None) -> tuple[int, int]:
+    """A row's attended slots [lo, hi], as the kernel computes them (lo >
+    hi: none)."""
+    hi = min(pos, cap - 1)
+    lo = max(start, 0)
+    if window:
+        lo = max(lo, pos - window + 1)
+    return lo, hi
+
+
+def split_plan(lo: int, hi: int, chunk: int) -> list[tuple[int, int]]:
+    """The kernel's cut of live slots [lo, hi] into chunks aligned to
+    multiples of `chunk`: [(first slot, last slot)] in chunk order; none
+    for an empty range."""
+    if lo > hi:
+        return []
+    return [(max(lo, c * chunk), min(hi, (c + 1) * chunk - 1))
+            for c in range(lo // chunk, hi // chunk + 1)]
+
+
+# per (device, stream): the f32 partials and the int32 ticket counters,
+# kept across calls so the counters, which each launch leaves at zero,
+# need no memset a launch; launches on one stream run in order, so they
+# can share them
+_workspaces: dict = {}
+
+
+def _workspace(device: torch.device, floats: int, counters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    part, tickets = _workspaces.get(key, (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.empty(max(floats, 1), dtype=torch.float32, device=device)
+    if tickets is None or tickets.numel() < counters:
+        tickets = torch.zeros(counters, dtype=torch.int32, device=device)
+    _workspaces[key] = (part, tickets)
+    return part, tickets
 
 
 def _decoded(pool: torch.Tensor, scale: Optional[torch.Tensor], layer: int,
@@ -146,16 +216,24 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
         raise ValueError(f"paged_attention: layer {layer} outside [0, {L})")
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    qs = q.float() * scale  # the query is tiny: scaled in f32 as JAX does
+    # the kernel scales the query in f32 as it loads it, as JAX does
+    qs = q if q.dtype in (torch.bfloat16, torch.float32) else q.float()
     out = torch.empty((B, Hq, D), dtype=torch.bfloat16, device=q.device)
     if not out.numel():
         return out
-    tail = (B, Hq, Hkv, D, NP, page, block_tables.shape[1], int(layer),
-            int(window or 0), float(softcap or 0.0))
+    mp = block_tables.shape[1]
+    chunk = split_chunk(B, Hkv, mp * page, sm_count(q.device.index or 0))
+    nmax = max_chunks(mp * page, chunk, window)
+    G = Hq // Hkv
+    part, tickets = _workspace(q.device, B * Hkv * nmax * G * (D + 2), B * Hkv)
+    part_o, part_ml = part[:B * Hkv * nmax * G * D], part[B * Hkv * nmax * G * D:]
+    tail = (B, Hq, Hkv, D, NP, page, mp, int(layer), int(window or 0),
+            float(softcap or 0.0), chunk, nmax, int(qs.dtype == torch.float32), float(scale))
     if k_scale is None:
-        PAGED(qs, k_pages, v_pages, block_tables, pos, start, out, *tail,
-              device=q.device)
+        PAGED(qs, k_pages, v_pages, block_tables, pos, start, out, part_o, part_ml,
+              tickets, *tail, device=q.device)
     else:
         PAGED_FP8(qs, as_bits(k_pages), as_bits(v_pages), k_scale, v_scale,
-                  block_tables, pos, start, out, *tail, device=q.device)
+                  block_tables, pos, start, out, part_o, part_ml, tickets, *tail,
+                  device=q.device)
     return out

@@ -13,8 +13,11 @@ Phases (any failure exits non-zero; nothing is caught):
    (`gemm_kernel`, `dx_kernel`, csrc/qtile.cuh) their registers, spill
    bytes (0 for the flash kernels and for the paths' formats sym_int4,
    nf4, q4_k and q6_k, or the run fails) and the HMMA/HGMMA instructions
-   in their SASS (where cuobjdump is present); print the card's name and
-   power limit;
+   in their SASS (where cuobjdump is present); the same for the dW kernels
+   (`dw_tma_kernel`, wgmma, and `dw_kernel`, mma.sync, for shapes TMA
+   cannot read) and the paged decode kernel (`paged_split_kernel`): a
+   spill there fails the run, and so does a `dw_tma_kernel` without HGMMA
+   in its SASS; print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version at the main paths'
    shapes: the sym_int4 dequant-matmul GEMV (M <= 32) and GEMM (M > 32) at
    every llama3-8b projection; the GEMM, LoRA GEMM and dx at ragged M (33,
@@ -34,7 +37,11 @@ Phases (any failure exits non-zero; nothing is caught):
    then the serving
    kernels: paged decode attention over bf16 and fp8 pages at the
    engine's decode shape (8 rows, pages of 64, ragged positions up to
-   2047 over shuffled pages, an idle row; a window + softcap case) and the
+   2047 over shuffled pages, an idle row; a window + softcap case) and at
+   the edges of its split over slots (chunk edges at page boundaries and
+   inside pages of 96, a window that skips whole chunks, one-slot rows and
+   rows without a valid slot, which must be exactly 0), each launched
+   twice (bit-equal), and the
    flash kernel's fp8 arm at the dense fp8 pool's prefill shape, a window
    + softcap case, a case whose scales are all f16 subnormals (K/V of
    absmax < 1) and a head_dim-256 case; then the
@@ -43,8 +50,11 @@ Phases (any failure exits non-zero; nothing is caught):
    gates with a zero row, whose output must equal the plain GEMV's bits,
    and dense gates) and the LoRA GEMM at M = 1024, R = 32, 64, 128; then
    the weight gradient dW = g^T x at every unfused llama3-8b weight and
-   the lm head (M = 1024) and at M = 1, 33, 512 with O = 384, K = 320,
-   bf16 and f32 outputs;
+   the lm head (M = 1024), at M = 1, 33, 512 with O = 384, K = 320 and at
+   M = 1, 63, 65, 1000 over aligned O and K (128 x 256 tiles with ragged
+   edges), O and K not multiples of 8 and a base off 16 bytes, bf16 and
+   f32 outputs, each launched twice (bit-equal), printing which of the two
+   kernels (`dw_variant`) each case ran;
 3. the generation path: llama3-8b at full width and depth (32 layers) with
    seeded random weights, `optimize_model(..., "sym_int4")`, greedy
    `TorchModel.generate` of 32 tokens for 4 ragged prompts — launch counts
@@ -83,7 +93,9 @@ Phases (any failure exits non-zero; nothing is caught):
 8. serving times: requests/s, tokens/s, TTFT and decode-step quantiles
    and peak memory of (a); a profiled decode step at 8 rows of ~1,100
    live slots over bf16 and fp8 pages (busy share, the paged kernel's
-   time on the path); the paged kernel and the flash fp8 arm isolated
+   time on the path: `paged_split_kernel`, one launch a layer, its
+   partials merged by its own last block); the paged kernel and the flash
+   fp8 arm isolated
    beside their plain versions, an SDPA yardstick and their bounds;
 9. the other 15 weight formats (asym_int4, nf4, fp4, sym_int8, asym_int5,
    fp8_e4m3/e5m2, sym_int5, fp6, nf3, q2_k..q6_k): each format's weights
@@ -141,13 +153,14 @@ Phases (any failure exits non-zero; nothing is caught):
 14. full fine-tune times: step ms (median of 5), tokens/s, the refresh
    step's ms, peak memory and the busy share of a step; the dW kernel's
    and the training flash kernels' device time on the path (a profiler
-   window over two steps), and the dW kernel isolated at each path
-   shape beside its plain version, cuBLAS g^T x (a yardstick the port
-   never calls) and its bound.
+   window over two steps; every dW launch of the path is the wgmma
+   `dw_tma_kernel`), and the dW kernel isolated at each path shape beside
+   its plain version, cuBLAS g^T x (a yardstick the port never calls) and
+   its bound.
 
-The whole run takes about 460 s of command time on an H100, the kernel
-builds included (the dequant sources build once per qtype: 36 libraries
-in about 80 s).
+The whole run takes about 460-510 s of command time on an H100 (the
+host's speed moves it), the kernel builds included (the dequant sources
+build once per qtype: 36 libraries in 80-90 s).
 It prints one `{"kernels": [...]}` line (the dequant forms carry their
 numbers per format under "by_format"), and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the
@@ -235,9 +248,10 @@ def ptxas_resources(report: str) -> dict:
     return res
 
 
-def sass_mma_counts(lib: Path) -> dict:
-    """{mangled kernel: HMMA and HGMMA instructions in its SASS} of one
-    library, {} where cuobjdump is missing."""
+def sass_mma_counts(lib: Path, ops=("HMMA", "HGMMA")) -> dict:
+    """{mangled kernel: instructions in its SASS naming one of `ops` (the
+    tensor cores' HMMA and HGMMA)} of one library, {} where cuobjdump is
+    missing."""
     import shutil
 
     sass = {}
@@ -249,7 +263,7 @@ def sass_mma_counts(lib: Path) -> dict:
             if "Function :" in line:
                 fn = line.split("Function :")[1].strip()
                 sass[fn] = 0
-            elif fn and ("HMMA" in line or "HGMMA" in line):
+            elif fn and any(op in line for op in ops):
                 sass[fn] += 1
     return sass
 
@@ -268,7 +282,7 @@ def tc_kernel_report(lib: Path, names, label: str = "", sass=None) -> int:
         if kname is None:
             continue
         # template arguments: Li128 -> 128, Lb1 -> true, Lb0 -> false
-        targs = [{"Lb0": "false", "Lb1": "true"}.get(a, a[2:])
+        targs = [{"Lb0": "false", "Lb1": "true", "f": "float"}.get(a, a[2:])
                  for a in mangled.split(kname + "I")[1].split("EE")[0].split("E")]
         hmma = sass.get(mangled, "not read (no cuobjdump)") if sass else "not read (no cuobjdump)"
         log(f"  ptxas {label}{kname}<{', '.join(targs)}>: registers {regs}, spill bytes {spill}, "
@@ -398,6 +412,15 @@ def main() -> int:
     spills = tc_kernel_report(libs[("flash_backward", None)], ("fwd_kernel", "dq_kernel", "dkv_kernel"))
     spills += tc_kernel_report(libs[("flash_attention", None)], ("flash_kernel",))
     check(spills == 0, "a tensor-core flash kernel spills")
+    # the dW kernels and the paged decode kernel: no spill; HGMMA (wgmma)
+    # in the TMA-fed dW kernel
+    spills = tc_kernel_report(libs[("dw_matmul", None)], ("dw_tma_kernel", "dw_kernel"))
+    spills += tc_kernel_report(libs[("paged_attention", None)], ("paged_split_kernel",))
+    check(spills == 0, "a dW or paged decode kernel spills")
+    hgmma = {k: n for k, n in sass_mma_counts(libs[("dw_matmul", None)], ("HGMMA",)).items()
+             if "dw_tma_kernel" in k}
+    log(f"  dw_tma_kernel HGMMA in SASS: {sorted(hgmma.values()) if hgmma else 'not read (no cuobjdump)'}")
+    check(all(n > 0 for n in hgmma.values()), "dw_tma_kernel: no HGMMA in its SASS")
     # the dequant GEMM and dx of every format (csrc/qtile.cuh), SASS read in
     # parallel; a spill in the paths' formats fails the run
     from concurrent.futures import ThreadPoolExecutor
@@ -1166,26 +1189,44 @@ def dw_shapes(cfg) -> dict:
     return calls
 
 
+# dW's ragged cases (M, O, K, g's base 2 bytes off 16): 128 x 256 tiles
+# with ragged edges, O and K not multiples of 8, a misaligned base — the
+# last two take the mma.sync kernel
+DW_EDGE_CASES = [(M, O, K, skew) for O, K, skew in ((384, 320, False), (200, 136, False),
+                                                    (385, 321, False), (384, 320, True))
+                 for M in (1, 63, 65, 1000)]
+
+
 def dw_kernel_checks(torch, cfg, errs, randn) -> None:
     """Phase 2's dW half: dW = g^T x against its plain version at every
-    unfused llama3-8b weight at M = TRAIN_T and at tests/test_qbackward.py's
-    shapes (M = 1, 33, 512; O = 384, K = 320), bf16 and f32 outputs: f32
-    sums in another order and one rounding on each side, within 2 bf16
-    ULPs of each shape's largest output."""
+    unfused llama3-8b weight at M = TRAIN_T, at tests/test_qbackward.py's
+    shapes (M = 1, 33, 512; O = 384, K = 320) and at DW_EDGE_CASES, bf16
+    and f32 outputs: f32 sums in another order and one rounding on each
+    side, within 2 bf16 ULPs of each shape's largest output; a second
+    launch gives the same bits (no atomics, no split of M). Each line names
+    the kernel the case ran (`dw_variant`)."""
     from bigdl_tpu_torch.ops import kernels
+    from bigdl_tpu_torch.ops.kernels.dw_matmul import dw_variant
 
-    cases = [(TRAIN_T, O, K) for O, K in dw_shapes(cfg)] + [(M, 384, 320) for M in (1, 33, 512)]
-    for M, O, K in cases:
+    cases = ([(TRAIN_T, O, K, False) for O, K in dw_shapes(cfg)]
+             + [(M, 384, 320, False) for M in (1, 33, 512)] + DW_EDGE_CASES)
+    for M, O, K, skew in cases:
         g_, x_ = randn(M, O), randn(M, K)
+        if skew:  # the same values from a base 2 bytes past a 16-byte boundary
+            g_ = torch.empty(M * O + 1, dtype=g_.dtype, device=g_.device)[1:].view(M, O).copy_(g_)
+        variant = dw_variant(O, K, g_.data_ptr(), x_.data_ptr())
         for out_dtype in (torch.bfloat16, torch.float32):
-            dw = kernels.dw_matmul(g_, x_, out_dtype).float()
+            dw = kernels.dw_matmul(g_, x_, out_dtype)
+            same = torch.equal(dw, kernels.dw_matmul(g_, x_, out_dtype))
+            dw = dw.float()
             ref = kernels.dw_matmul_plain(g_, x_, out_dtype).float()
             err = (dw - ref).abs().max().item()
             tol = ref.abs().max().item() * 2 ** -7
             errs[kernels.DW.name] = max(errs[kernels.DW.name], err)
-            log(f"phase 2: {kernels.DW.name} M={M} O={O} K={K} out {str(out_dtype)[6:]} "
-                f"max_abs_err={err:.6g} tol={tol:.6g}")
-            check(bool(torch.isfinite(dw).all()) and err <= tol, f"dw_matmul M={M} O={O} K={K}")
+            log(f"phase 2: {kernels.DW.name} [{variant}] M={M} O={O} K={K} base_skew={skew} out "
+                f"{str(out_dtype)[6:]} max_abs_err={err:.6g} tol={tol:.6g} relaunch bit-equal {same}")
+            check(bool(torch.isfinite(dw).all()) and err <= tol and same,
+                  f"dw_matmul [{variant}] M={M} O={O} K={K} skew={skew}")
         del g_, x_, dw, ref
 
 
@@ -1258,11 +1299,14 @@ def full_ft_phases(torch, dev, cfg, card, errs, randn) -> list:
         torch.cuda.synchronize()
     dev_events = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3 / PROFILED_TRAIN_STEPS
-    dw_evs = [e for e in dev_events if "dw_kernel" in e.key]
+    # every dW launch of the path runs the wgmma kernel (every weight's O
+    # and K are multiples of 8)
+    dw_evs = [e for e in dev_events if "dw_tma_kernel<" in e.key]
     dw_calls = sum(e.count for e in dw_evs)
-    check(dw_calls == per_step[kernels.DW.name] * PROFILED_TRAIN_STEPS,
-          f"{kernels.DW.name}: {dw_calls} profiled calls, expected "
-          f"{per_step[kernels.DW.name] * PROFILED_TRAIN_STEPS}")
+    check(dw_calls == per_step[kernels.DW.name] * PROFILED_TRAIN_STEPS
+          and not any("dw_kernel<" in e.key for e in dev_events),
+          f"{kernels.DW.name}: {dw_calls} profiled dw_tma_kernel calls, expected "
+          f"{per_step[kernels.DW.name] * PROFILED_TRAIN_STEPS} and no dw_kernel")
     dw_path = sum(e.self_device_time_total for e in dw_evs) / 1e3 / PROFILED_TRAIN_STEPS
     flash_path = {}  # the training flash kernels' device time a step
     for kern, fn in ((kernels.FLASH_FWD, "fwd_kernel"), (kernels.FLASH_DQ, "dq_kernel"),
@@ -1395,15 +1439,14 @@ MARGIN_TOL = 0.25
 LOGPROB_TOL = {False: 0.05, True: 0.1}  # by quantize_kv
 
 
-def paged_operands(torch, dev, g, L, Hkv, D, pos, fp8):
+def paged_operands(torch, dev, g, L, Hkv, D, pos, fp8, page=PAGE, mp=MAX_LEN // PAGE):
     """A pool of L layers holding, per row, pages for slots [0, pos], in
     a shuffled (non-contiguous) order; the rest of each block table and a
     row at pos 0 (idle) point at the scratch page 0. Returns (pool k, v,
     k_scale, v_scale, block tables, pos, start, live slots)."""
     from bigdl_tpu_torch.kvcache import _quantize_heads
 
-    mp = MAX_LEN // PAGE
-    need = [p // PAGE + 1 if p > 0 else 0 for p in pos]
+    need = [p // page + 1 if p > 0 else 0 for p in pos]
     NP = sum(need) + 1
     perm = (torch.randperm(NP - 1, device=dev, generator=g) + 1).tolist()
     bt = torch.zeros((len(pos), mp), dtype=torch.int32)
@@ -1411,8 +1454,8 @@ def paged_operands(torch, dev, g, L, Hkv, D, pos, fp8):
         bt[b, :n] = torch.tensor(perm[:n], dtype=torch.int32)
         perm = perm[n:]
     ks = vs = None
-    k = torch.randn((L, NP, PAGE, Hkv, D), device=dev, generator=g)
-    v = torch.randn((L, NP, PAGE, Hkv, D), device=dev, generator=g)
+    k = torch.randn((L, NP, page, Hkv, D), device=dev, generator=g)
+    v = torch.randn((L, NP, page, Hkv, D), device=dev, generator=g)
     if fp8:
         (k, ks), (v, vs) = _quantize_heads(k, torch.float32), _quantize_heads(v, torch.float32)
     else:
@@ -1423,38 +1466,64 @@ def paged_operands(torch, dev, g, L, Hkv, D, pos, fp8):
             torch.zeros((len(pos),), **i32), live)
 
 
+# phase 2's paged cases: label, page, max pages, pos, start, window,
+# softcap. At 8 rows of 2048 slots the kernel cuts chunks of 256 (edges on
+# page boundaries); 2 rows of 22 pages of 96 take chunks of 64, whose
+# edges fall inside pages.
+PAGED_CHECK_CASES = [
+    ("decode", PAGE, MAX_LEN // PAGE, (2047, 1100, 64, 0, 1500, 5, 700, 1999), (0,) * 8, None, None),
+    ("window+softcap", PAGE, MAX_LEN // PAGE, (2047, 1100, 64, 0, 1500, 5, 700, 1999), (0,) * 8, 300, 30.0),
+    ("chunk edges at pages", PAGE, MAX_LEN // PAGE, (255, 256, 511, 512, 767, 1023, 1024, 300),
+     (0, 0, 0, 0, 0, 0, 1, 256), None, None),
+    ("chunk edges in pages of 96", 96, 22, (2111, 700), (0, 64), None, None),
+    ("a window skipping chunks", PAGE, MAX_LEN // PAGE, (2047, 1999, 1300, 900, 520, 256, 255, 64),
+     (0,) * 8, 300, 30.0),
+    ("one slot; no slot", PAGE, MAX_LEN // PAGE, (700, 5, 1000, 64, 0, 2047, 300, 1),
+     (700, 6, 0, 64, 0, 2047, 0, 2), None, None),
+]
+
+
 def serving_kernel_checks(torch, dev, cfg, errs, randn) -> None:
     """Phase 2's serving half: the paged decode kernel (bf16 and fp8
-    pages) at the engine's decode shape — llama3-8b heads, 8 rows, pages
-    of 64, ragged positions up to 2047 over shuffled pages, an idle row —
-    and a window + softcap case; the flash kernel's fp8 arm at the dense
-    fp8 pool's prefill shape and a ragged window + softcap case; each
-    against its plain version."""
+    pages) at PAGED_CHECK_CASES — the engine's decode shape (llama3-8b
+    heads, 8 rows, pages of 64, ragged positions up to 2047 over shuffled
+    pages, an idle row), a window + softcap case and the edges of its
+    split over slots — each launched twice (bit-equal), rows without a
+    valid slot exactly 0; the flash kernel's fp8 arm at the dense fp8
+    pool's prefill shape and a ragged window + softcap case; each against
+    its plain version."""
     from bigdl_tpu_torch.kvcache import _quantize_heads
     from bigdl_tpu_torch.ops import kernels
     from bigdl_tpu_torch.ops.kernels.flash_attention import valid_mask
+    from bigdl_tpu_torch.ops.kernels.paged_attention import split_chunk
 
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
     g = torch.Generator(device=dev).manual_seed(11)
-    pos = [2047, 1100, 64, 0, 1500, 5, 700, 1999]  # row 3 idle
     for fp8 in (False, True):
         kern = kernels.PAGED_FP8 if fp8 else kernels.PAGED
-        for label, window, cap in (("decode", None, None), ("window+softcap", 300, 30.0)):
-            k, v, ks, vs, bt, p, st, _ = paged_operands(torch, dev, g, 2, Hkv, D, pos, fp8)
+        for label, page, mp, pos, start, window, cap in PAGED_CHECK_CASES:
+            k, v, ks, vs, bt, p, _, _ = paged_operands(torch, dev, g, 2, Hkv, D, pos, fp8, page, mp)
+            st = torch.tensor(start, dtype=torch.int32, device=dev)
             q = randn(len(pos), Hq, D)
-            y = kernels.paged_attention(q, k, v, bt, 1, p, st, ks, vs, softcap=cap,
-                                        window=window).float()
+            y = kernels.paged_attention(q, k, v, bt, 1, p, st, ks, vs, softcap=cap, window=window)
+            same = torch.equal(y, kernels.paged_attention(q, k, v, bt, 1, p, st, ks, vs, softcap=cap,
+                                                          window=window))
+            y = y.float()
             ref = kernels.paged_attention_plain(q, k, v, bt, 1, p, st, ks, vs,
                                                 softcap=cap, window=window).float()
             err = (y - ref).abs().max().item()
             # f32 math on both sides, one bf16 rounding: one bf16 step per
             # element (2^-7 relative) above a floor far below a ULP
             within = bool(((y - ref).abs() <= 2 ** -7 * ref.abs() + 1e-5).all())
+            empty = [b for b in range(len(pos)) if start[b] > min(pos[b], mp * page - 1)]
+            zero = all(bool((y[b] == 0).all()) for b in empty)
             errs[kern.name] = max(errs[kern.name], err)
             log(f"phase 2: {kern.name} {label} B={len(pos)} Hq={Hq} Hkv={Hkv} D={D} "
-                f"page={PAGE} pos={pos} window={window} softcap={cap} "
-                f"max_abs_err={err:.6g} tol=2^-7*|ref|+1e-5 per element")
-            check(bool(torch.isfinite(y).all()) and within, f"{kern.name} {label}")
+                f"page={page} pos={pos} start={start} window={window} softcap={cap} "
+                f"chunk={split_chunk(len(pos), Hkv, mp * page)} max_abs_err={err:.6g} "
+                f"tol=2^-7*|ref|+1e-5 per element; rows {empty} without a slot exactly 0 {zero}; "
+                f"relaunch bit-equal {same}")
+            check(bool(torch.isfinite(y).all()) and within and zero and same, f"{kern.name} {label}")
     for label, b, t_, s_, hq, hkv, d, qoff, st_, win, cap, amp in (
             ("dense fp8 prefill", 1, 1024, 1024, Hq, Hkv, D, 0, (24,), None, None, 3.0),
             ("window+softcap", 2, 128, 192, Hq, Hkv, D, 40, (0, 37), 64, 30.0, 3.0),
@@ -1744,7 +1813,8 @@ def serving_phases(torch, dev, cfg, card, errs) -> list:
         busy = sum(e.self_device_time_total for e in device_kernels(prof)) / 1e3 / PROFILED_DECODES
         med = sorted(host)[len(host) // 2]
         flag = "true" if fp8 else "false"
-        path = kernel_ms(prof, (f"paged_kernel<128, {flag}>", f"paged_kernel<128, (bool){int(fp8)}>"),
+        path = kernel_ms(prof, (f"paged_split_kernel<128, {flag}, ",
+                                f"paged_split_kernel<128, (bool){int(fp8)}, "),
                          L * PROFILED_DECODES, PROFILED_DECODES)
         log(f"phase 8: decode step, {'fp8' if fp8 else 'bf16'} pages, 8 rows at pos {pos}: "
             f"host median {med:.3f} ms (n=10), device busy {busy:.3f} ms = {busy / med:.3f} "

@@ -191,6 +191,47 @@ def test_paged_kernel_matches_plain(case, fp8):
             (got - ref).abs().max().item()
 
 
+# the edges of the kernel's split over slots: at 8 rows of 2048 slots it
+# cuts chunks of 256 (on page boundaries), at 2 rows of 22 pages of 96
+# chunks of 64 (inside pages)
+PAGED_SPLIT_CASES = [
+    # B, Hq, Hkv, D, page, max_pages, pos, start, window, softcap
+    (8, 32, 8, 128, 64, 32, (255, 256, 511, 512, 767, 1023, 1024, 300),
+     (0, 0, 0, 0, 0, 0, 1, 256), None, None),
+    (2, 32, 8, 128, 96, 22, (2111, 700), (0, 64), None, None),
+    (8, 32, 8, 128, 64, 32, (2047, 1999, 1300, 900, 520, 256, 255, 64), (0,) * 8, 300, 30.0),
+    # one-slot rows, and rows 1 and 7 without a valid slot
+    (8, 32, 8, 128, 64, 32, (700, 5, 1000, 64, 0, 2047, 300, 1),
+     (700, 6, 0, 64, 0, 2047, 0, 2), None, None),
+    (3, 8, 2, 64, 16, 8, (127, 64, 40), (0, 63, 41), 70, None),
+]
+
+
+@pytest.mark.parametrize("fp8", [False, True], ids=["bf16", "fp8"])
+@pytest.mark.parametrize("case", PAGED_SPLIT_CASES)
+def test_paged_split_edges_match_plain_and_relaunch_bit_equal(case, fp8):
+    """One launch a call; within one bf16 step of the plain version per
+    element; rows without a valid slot exactly 0; a second launch gives the
+    same bits (partials merged in chunk order by the last block)."""
+    dev = _cuda()
+    B, Hq, Hkv, D, page, mp, pos, start, window, softcap = case
+    q, k, v, bt, p, st, ks, vs = paged_inputs(dev, B, Hq, Hkv, D, page, mp, pos,
+                                              start, fp8=fp8, seed=sum(pos))
+    kern = kernels.PAGED_FP8 if fp8 else kernels.PAGED
+    before = kern.launches
+    got = kernels.paged_attention(q, k, v, bt, 1, p, st, ks, vs, softcap=softcap, window=window)
+    again = kernels.paged_attention(q, k, v, bt, 1, p, st, ks, vs, softcap=softcap, window=window)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2 and torch.equal(got, again)
+    ref = kernels.paged_attention_plain(q, k, v, bt, 1, p, st, ks, vs, softcap=softcap,
+                                        window=window).float()
+    got = got.float()
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - ref).abs() <= _ULPS * ref.abs() + 1e-5).all()), (got - ref).abs().max().item()
+    empty = [b for b in range(B) if start[b] > min(pos[b], mp * page - 1)]
+    assert all(bool((got[b] == 0).all()) for b in empty)
+
+
 @pytest.mark.parametrize("case", [
     # B, T, S, Hq, Hkv, D, q_offset, start, window, softcap
     (2, 24, 64, 4, 2, 64, 0, (0, 9), None, None),
@@ -363,7 +404,7 @@ def test_dx_kernel_matches_plain(M, O, K):
 @pytest.mark.parametrize("lead,O,K", [
     ((1,), 384, 320), ((33,), 384, 320), ((2, 256), 384, 320),  # test_qbackward's
     ((3, 7), 200, 136),  # ragged tiles, every edge predicated
-    ((5,), 385, 321),  # O, K not multiples of 8: the scalar-load variant
+    ((5,), 385, 321),  # O, K not multiples of 8: the mma.sync kernel
     ((1024,), 1024, 4096),  # llama3-8b wk at the training shape
 ])
 def test_dw_kernel_matches_plain(lead, O, K, out_dtype):
@@ -379,6 +420,35 @@ def test_dw_kernel_matches_plain(lead, O, K, out_dtype):
     torch.cuda.synchronize()
     assert kernels.DW.launches == before + 1
     assert dw.shape == (O, K) and dw.dtype == out_dtype
+    ref = kernels.dw_matmul_plain(gr, x, out_dtype)
+    tol = (_ULPS if out_dtype == torch.bfloat16 else 2 ** -16) * ref.float().abs().max().item()
+    assert _max_err(dw, ref) <= tol
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("O,K,skew,variant", [
+    (384, 320, False, "tma"), (200, 136, False, "tma"),  # 128 x 256 tiles, ragged edges
+    (385, 321, False, "any"), (384, 320, True, "any"),  # no TMA: K % 8, g's base off 16 bytes
+])
+@pytest.mark.parametrize("M", [1, 63, 65, 1000])
+def test_dw_kernels_at_ragged_m_and_both_variants(M, O, K, skew, variant, out_dtype):
+    """Each variant the wrapper picks by shape (`dw_variant`) against the
+    plain version, and a second launch bit-equal to the first (no split of
+    M, no atomics)."""
+    from bigdl_tpu_torch.ops.kernels.dw_matmul import dw_variant
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(M + O + K)
+    gr = torch.randn(M, O, device=dev, generator=g).to(torch.bfloat16)
+    if skew:
+        gr = torch.empty(M * O + 1, dtype=torch.bfloat16, device=dev)[1:].view(M, O).copy_(gr)
+    x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+    assert dw_variant(O, K, gr.data_ptr(), x.data_ptr()) == variant
+    before = kernels.DW.launches
+    dw = kernels.dw_matmul(gr, x, out_dtype=out_dtype)
+    again = kernels.dw_matmul(gr, x, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert kernels.DW.launches == before + 2 and torch.equal(dw, again)
     ref = kernels.dw_matmul_plain(gr, x, out_dtype)
     tol = (_ULPS if out_dtype == torch.bfloat16 else 2 ** -16) * ref.float().abs().max().item()
     assert _max_err(dw, ref) <= tol

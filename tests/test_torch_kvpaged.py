@@ -1,10 +1,13 @@
 """bigdl_tpu_torch's paged KV pool against bigdl_tpu/kvpaged.py (page
 accounting, writes and gathers through the block table, bf16 and fp8
 pages, the host-RAM swap) and the plain version of the paged-attention
-kernel against the JAX Pallas kernel in interpret mode. The CUDA kernel
-against its plain version is in test_torch_gpu.py."""
+kernel against the JAX Pallas kernel in interpret mode, with the kernel's
+split over slots (its plan, and its arithmetic modelled in torch). The
+CUDA kernel against its plain version is in test_torch_gpu.py."""
 
 import dataclasses
+import importlib
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +18,9 @@ from bigdl_tpu import kvpaged as jkp
 from bigdl_tpu.ops.pallas.paged_attention import paged_decode_attention
 from bigdl_tpu_torch import kvcache, kvpaged
 from bigdl_tpu_torch.ops import kernels
+
+# the module, not the `paged_attention` function that kernels/__init__ exports
+pa = importlib.import_module("bigdl_tpu_torch.ops.kernels.paged_attention")
 
 # One intra-op thread: the suite runs in parallel worker processes, and a
 # torch thread pool per worker oversubscribes the cores (tiny ops then
@@ -171,3 +177,177 @@ def test_row_without_valid_slot_is_exactly_zero():
     out = kernels.paged_attention(q, k, k, bt, 0, torch.tensor([5, 3], dtype=torch.int32),
                                   torch.tensor([0, 9], dtype=torch.int32))
     assert bool((out[1] == 0).all()) and bool(out[0].abs().sum() > 0)
+
+
+# The kernel's split over slots (ops/kernels/paged_attention.py): each
+# row's live slots cut into chunks, a block each, partials merged in chunk
+# order. The plan is plain Python; the arithmetic is modelled below in
+# torch and held against the plain version and the Pallas kernel.
+
+PLAN_CASES = [
+    # lo, hi, chunk
+    (0, 0, 64), (0, 63, 64), (0, 64, 64), (63, 64, 64), (5, 1160, 256),
+    (255, 256, 256), (300, 2047, 128), (1, 2046, 64), (700, 700, 256),
+]
+
+
+@pytest.mark.parametrize("lo,hi,chunk", PLAN_CASES)
+def test_split_plan_covers_each_live_slot_once_and_nothing_else(lo, hi, chunk):
+    plan = pa.split_plan(lo, hi, chunk)
+    covered = [j for clo, chi in plan for j in range(clo, chi + 1)]
+    assert covered == list(range(lo, hi + 1))  # once each, in order
+    for clo, chi in plan:  # inside [lo, hi] and inside one aligned chunk
+        assert lo <= clo <= chi <= hi and clo // chunk == chi // chunk
+    assert len(plan) == hi // chunk - lo // chunk + 1
+
+
+@pytest.mark.parametrize("window", [1, 63, 64, 65, 300, 1000])
+def test_a_window_skips_whole_chunks(window):
+    """Chunks stay aligned to multiples of the chunk, so a window's lower
+    edge drops every chunk below it and cuts at most the first kept one;
+    the grid's chunk axis (`max_chunks`) covers every row."""
+    cap, chunk = 2048, 128
+    for pos in (0, 5, 127, 128, 1000, 2047):
+        lo, hi = pa.live_range(pos, 0, cap, window)
+        plan = pa.split_plan(lo, hi, chunk)
+        assert plan[0][0] == max(0, pos - window + 1) and plan[-1][1] == pos
+        assert all(clo % chunk == 0 for clo, _ in plan[1:])
+        assert len(plan) == pos // chunk - lo // chunk + 1
+        assert len(plan) <= pa.max_chunks(cap, chunk, window)
+
+
+def test_a_row_without_valid_slot_gets_no_chunk():
+    for pos, start, window in ((5, 6, None), (0, 1, None), (100, 101, 50)):
+        lo, hi = pa.live_range(pos, start, 2048, window)
+        assert lo > hi and pa.split_plan(lo, hi, 256) == []
+
+
+def test_split_gives_two_waves_at_the_engine_decode_shape():
+    """chip_smoke phase 8's steady decode: 8 rows of ~1,160 live slots
+    (1100 + 13 i tokens after 14 steps), llama3-8b's 8 kv heads, max_len
+    2048 in pages of 64: at least two blocks per SM of the H100's 132."""
+    B, Hkv, cap = 8, 8, 2048
+    chunk = pa.split_chunk(B, Hkv, cap)
+    assert chunk % pa.SPLIT_TILE == 0 and chunk % 64 == 0
+    pos = [1100 + 13 * i + 14 for i in range(B)]
+    blocks = Hkv * sum(len(pa.split_plan(0, p, chunk)) for p in pos)
+    assert blocks >= 2 * pa.SMS
+    assert pa.max_chunks(cap, chunk) * B * Hkv >= blocks
+
+
+def _split_combine(q, k_pages, v_pages, bt, layer, pos, start, k_scale, v_scale,
+                   softcap, window, chunk, tile=pa.SPLIT_TILE):
+    """The kernel's arithmetic in torch: per row the chunks of split_plan;
+    per chunk tiles of 32 slots with an online softmax in f32 (an e5m2
+    slot's K scale times its score, its V scale times its weight); each
+    chunk's (m, l, o) merged in chunk order; one bf16 rounding."""
+    B, Hq, D = q.shape
+    Hkv = k_pages.shape[3]
+    G = Hq // Hkv
+    cap = bt.shape[1] * k_pages.shape[2]
+
+    def rows(pool, scale):
+        x = kvcache.as_bits(pool[layer])[bt.long()].view(pool.dtype).float()
+        x = x.reshape(B, cap, Hkv, D)
+        s = (torch.ones(B, cap, Hkv) if scale is None
+             else scale[layer][bt.long()].float().reshape(B, cap, Hkv))
+        return x, s
+
+    kc, ks = rows(k_pages, k_scale)
+    vc, vs = rows(v_pages, v_scale)
+    qf = (q.float() / math.sqrt(D)).reshape(B, Hkv, G, D)
+    out = torch.zeros(B, Hkv, G, D)
+    for b in range(B):
+        lo, hi = pa.live_range(int(pos[b]), int(start[b]), cap, window)
+        parts = []
+        for clo, chi in pa.split_plan(lo, hi, chunk):
+            m = torch.full((Hkv, G), -1e30)
+            l = torch.zeros(Hkv, G)
+            o = torch.zeros(Hkv, G, D)
+            for t0 in range(clo // tile * tile, chi + 1, tile):
+                j = torch.arange(t0, t0 + tile)
+                valid = (j >= clo) & (j <= chi)
+                jc = j.clamp(max=cap - 1)
+                s = torch.einsum("hgd,jhd->hgj", qf[b], kc[b, jc]) * ks[b, jc].T[:, None]
+                if softcap is not None:
+                    s = torch.tanh(s / softcap) * softcap
+                s = torch.where(valid, s, torch.full_like(s, -1e30))
+                m_new = torch.maximum(m, s.amax(-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.where(valid, torch.exp(s - m_new[..., None]), torch.zeros_like(s))
+                l = alpha * l + p.sum(-1)
+                o = o * alpha[..., None] + torch.einsum(
+                    "hgj,jhd->hgd", p * vs[b, jc].T[:, None], vc[b, jc])
+                m = m_new
+            parts.append((m, l, o))
+        if len(parts) == 1:
+            out[b] = parts[0][2] / parts[0][1][..., None]
+        elif parts:
+            mx = torch.stack([m for m, _, _ in parts]).amax(0)
+            ls, os_ = torch.zeros(Hkv, G), torch.zeros(Hkv, G, D)
+            for m, l, o in parts:
+                w = torch.exp(m - mx)
+                ls = ls + l * w
+                os_ = os_ + o * w[..., None]
+            out[b] = os_ / ls[..., None]
+    return out.reshape(B, Hq, D).bfloat16()
+
+
+SPLIT_CASES = [
+    # L, NP, page, Hkv, G, D, block tables, pos, start, window, softcap, chunk
+    # chunk edges (every 64 slots) inside pages of 48; a one-slot row
+    (1, 14, 48, 2, 2, 64, [[3, 7, 1, 12, 5], [9, 2, 11, 4, 13], [6, 8, 10, 0, 0]],
+     [200, 130, 90], [0, 63, 90], None, None, 64),
+    # chunk edges on page boundaries (pages of 32, chunks of 64); row 2 has
+    # no valid slot (start past pos): exactly 0
+    (1, 13, 32, 2, 2, 64, [[3, 7, 1, 12], [9, 2, 11, 4], [6, 8, 10, 5]],
+     [127, 64, 40], [0, 63, 41], None, None, 64),
+    # a window that skips whole chunks, softcap, GQA 4:1
+    (2, 16, 32, 1, 4, 64, [[9, 3, 14, 2, 5, 7, 1, 11], [4, 6, 8, 10, 12, 13, 15, 0]],
+     [250, 200], [0, 10], 70, 30.0, 64),
+]
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "fp8"])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_and_combine_match_plain_and_pallas_interpret(case, quantize):
+    """The split arithmetic over split_plan equals the plain version and
+    the Pallas kernel in interpret mode within the kernel's per-element
+    tolerance, and rows without a valid slot are exactly 0 in all three."""
+    L, NP, P, Hkv, G, D, bt, pos, start, window, softcap, chunk = case
+    B, Hq = len(bt), Hkv * G
+    rng = np.random.default_rng(NP + D + P)
+    k = rng.normal(size=(L, NP, P, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(L, NP, P, Hkv, D)).astype(np.float32)
+    q = rng.normal(size=(B, Hq, D)).astype(np.float32)
+    bt, pos, start = (np.asarray(x, np.int32) for x in (bt, pos, start))
+    if quantize:
+        kq, ks = kvcache._quantize_heads(torch.from_numpy(k), torch.float32)
+        vq, vs = kvcache._quantize_heads(torch.from_numpy(v), torch.float32)
+        jk, jv = (jnp.asarray(_bytes(t)).view(jnp.float8_e5m2) for t in (kq, vq))
+        jks, jvs = jnp.asarray(ks.numpy()), jnp.asarray(vs.numpy())
+        tk, tv, tks, tvs = kq, vq, ks, vs
+    else:
+        jk, jv = jnp.asarray(k, jnp.bfloat16), jnp.asarray(v, jnp.bfloat16)
+        jks = jvs = None
+        tk, tv = torch.from_numpy(k).bfloat16(), torch.from_numpy(v).bfloat16()
+        tks = tvs = None
+    tq = torch.from_numpy(q).bfloat16()
+    targs = (torch.from_numpy(bt), L - 1, torch.from_numpy(pos), torch.from_numpy(start))
+    assert max(len(pa.split_plan(
+        *pa.live_range(int(p), int(s), bt.shape[1] * P, window), chunk))
+        for p, s in zip(pos, start)) > 1  # the combine runs
+    got = _split_combine(tq, tk, tv, *targs, tks, tvs, softcap, window, chunk).float()
+    plain = kernels.paged_attention_plain(tq, tk, tv, *targs, tks, tvs, softcap=softcap,
+                                          window=window).float()
+    ref = torch.from_numpy(np.asarray(paged_decode_attention(
+        jnp.asarray(q, jnp.bfloat16), jk, jv, jnp.asarray(bt), jnp.asarray(L - 1),
+        jnp.asarray(pos), jnp.asarray(start), k_scale=jks, v_scale=jvs,
+        softcap=softcap, window=window, interpret=True), np.float32))
+    for other in (plain, ref):
+        assert bool(((got - other).abs() <= _ULPS * other.abs() + 1e-5).all()), \
+            (got - other).abs().max().item()
+    empty = start > pos
+    assert empty.any() == (case is SPLIT_CASES[1])
+    for t in (got, plain, ref):
+        assert bool((t[torch.from_numpy(empty)] == 0).all())

@@ -358,3 +358,36 @@ def test_dx_column_order_is_a_permutation_the_product_does_not_see(qtype, mult, 
     dx = torch.zeros(5, K, dtype=torch.float64)
     dx[:, order] = g @ wd[:, order]
     assert torch.equal(dx, g @ wd)
+
+
+# The dW kernel's persistent tile order and its variant rule
+# (ops/kernels/dw_matmul.py, the host's side of csrc/dw_matmul.cu).
+
+dw_mod = importlib.import_module("bigdl_tpu_torch.ops.kernels.dw_matmul")
+
+
+@pytest.mark.parametrize("O,K", [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
+                                 (128256, 4096), (200, 136), (385, 321), (1000, 3000), (8, 8)])
+@pytest.mark.parametrize("sms", [132, 7, 1])
+def test_dw_schedule_covers_every_tile_once(O, K, sms):
+    """The persistent grid (min(tiles, sms) blocks, block b taking tiles
+    b, b + grid, ...) visits every 128 x 256 tile of dW exactly once, at
+    the full fine-tune's shapes and at ragged O and K; a block's tiles of
+    one group share x's column panel with the blocks beside it."""
+    tiles = math.ceil(O / dw_mod.TILE_O) * math.ceil(K / dw_mod.TILE_K)
+    sched = dw_mod.dw_schedule(O, K, sms)
+    assert len(sched) == min(tiles, sms)
+    seen = [t for block in sched for t in block]
+    want = {(o, k) for o in range(0, O, dw_mod.TILE_O) for k in range(0, K, dw_mod.TILE_K)}
+    assert len(seen) == tiles and set(seen) == want
+    # consecutive tiles walk a group's o-blocks at one k
+    first = [dw_mod.dw_tile(t, O, K) for t in range(min(dw_mod.GROUP_O, math.ceil(O / dw_mod.TILE_O)))]
+    assert len({k for _, k in first}) == 1 and len(set(first)) == len(first)
+
+
+def test_dw_variant_rule_sends_what_tma_cannot_read_to_the_other_kernel():
+    assert dw_mod.dw_variant(4096, 4096, 256, 512) == "tma"
+    assert dw_mod.dw_variant(200, 136, 0, 16) == "tma"
+    for O, K, gp, xp in ((385, 320, 0, 0), (384, 321, 0, 0), (4, 8, 0, 0),
+                         (384, 320, 2, 0), (384, 320, 0, 8)):
+        assert dw_mod.dw_variant(O, K, gp, xp) == "any", (O, K, gp, xp)
