@@ -45,6 +45,10 @@
 //   in chunk order, so the result is the same from run to run. The
 //   wrapper allocates scratch and counters; the kernel allocates nothing.
 //
+// Head dims 64, 96 (phi3-mini), 128 and 256: a lane holds dimension pairs
+// 64 i + 2 lane (at D = 96 the second pair on lanes 0 .. 15 only), and
+// the 192- and 96-byte slot rows of D = 96 take swizzles of their own.
+//
 // All offsets into the pool are 64-bit: L * NP * page * Hkv * D passes
 // 2^31 at larger pools.
 //
@@ -61,11 +65,16 @@ constexpr float kNegInf = -1e30f;
 
 // The 16-byte chunk slot of chunk c of row r in a staged tile of kNC chunks
 // a row: chunk c of rows r .. r + 7 (lane-per-slot reads) lands in 8
-// distinct bank quads, and a row's chunks stay a permutation of the row.
+// distinct bank quads, and a row's chunks stay a permutation of the row
+// (an XOR within aligned groups of 1, 2, 4 or 8 chunks).
 template <int kNC>
 __device__ __forceinline__ int swz(int r, int c) {
-  if constexpr (kNC >= 8)
+  if constexpr (kNC % 8 == 0)
     return r * kNC + (c ^ (r & 7));
+  else if constexpr (kNC == 12)
+    return r * kNC + (c ^ ((r >> 1) & 3));  // D = 96, bf16: 192-byte rows
+  else if constexpr (kNC == 6)
+    return r * kNC + (c ^ ((r >> 2) & 1));  // D = 96, e5m2: 96-byte rows
   else
     return r * kNC + (c ^ ((r >> 1) & 3));  // 64-byte rows: two a 128-byte line
 }
@@ -90,7 +99,7 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kEPC = kFp8 ? 16 : 8;  // elements a chunk
   constexpr int kTileBytes = kTile * kRowBytes;
   constexpr int kStageBytes = 2 * kTileBytes + (kFp8 ? 2 * kTile * 4 : 0);
-  constexpr int kPairs = D / 64;  // dimension pairs a lane holds
+  constexpr int kPairs = (D + 63) / 64;  // dimension pairs a lane holds
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;  // [stage][K tile | V tile | K scales | V scales]
   float* qs = reinterpret_cast<float*>(smem + kStages * kStageBytes);  // [G][D]
@@ -104,6 +113,9 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const size_t head0 = static_cast<size_t>(b) * Hkv * G + static_cast<size_t>(hk) * G;
+  // pair i of lane l is dimensions 64 i + 2 l, + 1: at D = 96 the second
+  // pair exists for lanes 0 .. 15 only
+  auto has_pair = [&](int i) { return D % 64 == 0 || 64 * i + 2 * lane < D; };
 
   // the row's live slots [lo, hi] (slots past the block table do not
   // exist) and its chunks: n of them, aligned to multiples of `chunk`
@@ -143,8 +155,9 @@ __global__ void __launch_bounds__(kThreads)
       unsigned char* st = ring + (t % kStages) * kStageBytes;
       const int j0 = (t0 + t) * kTile;
 #pragma unroll
-      for (int v = 0; v < kTile * kNC / kThreads; ++v) {  // the same slot's K and V chunk
+      for (int v = 0; v < (kTile * kNC + kThreads - 1) / kThreads; ++v) {  // the same slot's K and V chunk
         const int i = tid + v * kThreads;
+        if (kTile * kNC % kThreads != 0 && i >= kTile * kNC) break;
         const int r = i / kNC;
         const int ch = i % kNC;
         const int j = j0 + r;
@@ -261,6 +274,7 @@ __global__ void __launch_bounds__(kThreads)
           for (int h = 0; h < kHPW; ++h) pw[h] = __shfl_sync(0xffffffffu, pj[h], jj);
 #pragma unroll
           for (int i = 0; i < kPairs; ++i) {
+            if (!has_pair(i)) continue;
             float2 v2;
             if constexpr (kFp8) {
               const int ch = 4 * i + (lane >> 3);
@@ -293,13 +307,15 @@ __global__ void __launch_bounds__(kThreads)
       bf16* orow = out + (head0 + g) * D;
 #pragma unroll
       for (int i = 0; i < kPairs; ++i)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 64 * i + 2 * lane) =
-            __floats2bfloat162_rn(acc[h][i][0] * inv, acc[h][i][1] * inv);
+        if (has_pair(i))
+          *reinterpret_cast<__nv_bfloat162*>(orow + 64 * i + 2 * lane) =
+              __floats2bfloat162_rn(acc[h][i][0] * inv, acc[h][i][1] * inv);
     } else {
       const size_t pi = ((static_cast<size_t>(b) * Hkv + hk) * nmax + c) * G + g;
 #pragma unroll
       for (int i = 0; i < kPairs; ++i)
-        *reinterpret_cast<float2*>(part_o + pi * D + 64 * i + 2 * lane) = make_float2(acc[h][i][0], acc[h][i][1]);
+        if (has_pair(i))
+          *reinterpret_cast<float2*>(part_o + pi * D + 64 * i + 2 * lane) = make_float2(acc[h][i][0], acc[h][i][1]);
       if (lane == 0) {
         part_ml[2 * pi] = m[h];
         part_ml[2 * pi + 1] = l[h];
@@ -332,6 +348,7 @@ __global__ void __launch_bounds__(kThreads)
       ls = fmaf(__ldcg(part_ml + 2 * pi + 1), w, ls);
 #pragma unroll
       for (int i = 0; i < kPairs; ++i) {
+        if (!has_pair(i)) continue;
         const float2 v = __ldcg(reinterpret_cast<const float2*>(part_o + pi * D + 64 * i + 2 * lane));
         o[i][0] = fmaf(v.x, w, o[i][0]);
         o[i][1] = fmaf(v.y, w, o[i][1]);
@@ -341,8 +358,9 @@ __global__ void __launch_bounds__(kThreads)
     bf16* orow = out + (head0 + g) * D;
 #pragma unroll
     for (int i = 0; i < kPairs; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 64 * i + 2 * lane) =
-          __floats2bfloat162_rn(o[i][0] * inv, o[i][1] * inv);
+      if (has_pair(i))
+        *reinterpret_cast<__nv_bfloat162*>(orow + 64 * i + 2 * lane) =
+            __floats2bfloat162_rn(o[i][0] * inv, o[i][1] * inv);
   }
   if (tid == 0) *ticket = 0;
 }
@@ -403,6 +421,9 @@ int dispatch(const void* q, int q_f32, float scale, const void* k, const void* v
   switch (D) {
     case 64:
       return by_group<64, kFp8>(q, q_f32, scale, k, v, ksp, vsp, btp, pp, sp, op, po, pml, tk, B, Hq, Hkv, NP, page, mp, layer,
+                                window, softcap, chunk, nmax, st);
+    case 96:
+      return by_group<96, kFp8>(q, q_f32, scale, k, v, ksp, vsp, btp, pp, sp, op, po, pml, tk, B, Hq, Hkv, NP, page, mp, layer,
                                 window, softcap, chunk, nmax, st);
     case 128:
       return by_group<128, kFp8>(q, q_f32, scale, k, v, ksp, vsp, btp, pp, sp, op, po, pml, tk, B, Hq, Hkv, NP, page, mp,

@@ -271,10 +271,24 @@ __device__ __forceinline__ float qvalue_tc(uint32_t word, int h, const float* lu
     return qvalue<F>(__byte_perm(word, 0u, 0x4440u | h), lut);
 }
 
+// The offset-coded formats whose scale is never negative (all but q3_k
+// and q6_k, whose sub-scales are signed) take one instruction less an
+// element: the permute writes code c into byte 1 under 0x4B, so the word
+// is the f32 2^23 + 256 c, and one FMA with a / 256 and -(2^15 + offset) a
+// (both exact: the offset's 2^15 + 0..128 has at most 13 significant
+// bits, a f16 scale 11, and for the k-quants the offset is 0) gives
+// (c - offset) a rounded once: the product v * a, the same bits (a zero
+// weight is +0 where the scale is negative, which no encoder writes).
+template <class F>
+struct QFmaDecode {
+  static constexpr bool kOn = F::kValue == QValue::kOffset && !F::kSubSigned;
+  static constexpr float kOff = 32768.0f + (F::kSigned ? 128.0f : static_cast<float>(F::kOffset));
+};
+
 // qdecode16 for the tensor-core kernels: per element qvalue_tc and v*a
-// (+ b) in f32 with two roundings, then one cvt.rn.bf16x2.f32 for each
-// pair (the same round-to-nearest-even as two __float2bfloat16_rn). a and
-// b come converted once per group.
+// (+ b) in f32 with two roundings (or the FMA of QFmaDecode, one), then
+// one cvt.rn.bf16x2.f32 for each pair (the same round-to-nearest-even as
+// two __float2bfloat16_rn). a and b come converted once per group.
 template <class F, int U>
 __device__ __forceinline__ void qdecode16_tc(const uint4 (&pc)[F::kPieces], float a, float b,
                                              const float* lut, uint32_t (&out)[8]) {
@@ -285,6 +299,8 @@ __device__ __forceinline__ void qdecode16_tc(const uint4 (&pc)[F::kPieces], floa
   const uint4& p1 = pc[P::kIdx1 < F::kPieces ? P::kIdx1 : 0];
   const uint32_t w0[4] = {p0.x, p0.y, p0.z, p0.w};
   const uint32_t w1[4] = {p1.x, p1.y, p1.z, p1.w};
+  const float a8 = a * 0.00390625f;                       // a / 256, exact
+  const float c0 = __fmul_rn(-QFmaDecode<F>::kOff, a);  // exact
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     uint32_t t = (w0[k] >> P::kShift0) & kFields0;
@@ -293,8 +309,13 @@ __device__ __forceinline__ void qdecode16_tc(const uint4 (&pc)[F::kPieces], floa
     float f[4];
 #pragma unroll
     for (int h = 0; h < 4; ++h) {
-      const float v = qvalue_tc<F>(t, h, lut);
-      f[h] = F::kMins ? __fadd_rn(__fmul_rn(v, a), b) : __fmul_rn(v, a);
+      float v;
+      if constexpr (QFmaDecode<F>::kOn) {
+        v = fmaf(__uint_as_float(__byte_perm(t, 0x4B000000u, 0x7604u | (h << 4))), a8, c0);
+      } else {
+        v = __fmul_rn(qvalue_tc<F>(t, h, lut), a);
+      }
+      f[h] = F::kMins ? __fadd_rn(v, b) : v;
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {

@@ -8,15 +8,16 @@
 // build names the library by qtype), into three entries:
 //
 // * qmatmul_gemv (M <= 32, decode): bound by the bytes of the packed
-//   weight (0.39-1.07 B per weight with its scales, by format). Each warp
-//   streams whole rows with 16-byte loads and keeps RPW rows live, so
-//   every x value read from shared memory feeds RPW rows; x is staged once
-//   per block in shared memory in K chunks. The walk runs over the j
-//   positions of the format's finest plane split S (qdecode.cuh): a lane
-//   loads the pieces of 16 j positions of every plane once, into
-//   registers, and decodes the S groups u*Q + j .. +15 from them in turn,
-//   each against its x slice, so every weight byte crosses DRAM once, as
-//   the byte bound assumes.
+//   weight (0.39-1.07 B per weight with its scales, by format). A design
+//   that decoded and multiplied on the CUDA cores (~14 instructions a
+//   weight at M = 4, ~22 at M = 8) sat at 5x its byte bound and lost to
+//   cuBLAS on the weight dequantized beforehand. This one (`gemv_kernel`,
+//   its note below) multiplies on the tensor cores (mma.sync m16n8k16,
+//   the decoded weights as the A fragment in registers), decodes with
+//   qdecode16_tc (~4 instructions a weight, whatever M is), streams the
+//   packed bytes through per-warp cp.async rings with no barrier in the K
+//   walk, and splits K over a cluster where the rows alone would not give
+//   every SM two blocks.
 // * qmatmul_gemm (M > 32, prefill): bound by operations at large M (at
 //   M = 1024 each packed byte feeds >= 2 * 1024 flops, far above the ~295
 //   flops a byte where the bf16 tensor cores stop waiting on memory). A
@@ -45,24 +46,27 @@
 //   every output tile; here A_cat fits no shared memory, and reading it
 //   once per output block would multiply its bytes by the block count. So
 //   each entry is two launches on one stream: a first pass computes
-//   xg = bf16((x . A_cat^T) * gate) [M, R] once (f32 sums, one rounding,
-//   the reference's point), reading A_cat once; the dequant kernel then
-//   adds xg . B_cat^T to its f32 accumulator before the one bf16 rounding
-//   of y, reading B_cat once. A zero gate gives xg = 0 and adds exactly 0,
+//   x . A_cat^T once (f32 sums, reading A_cat once), xg = bf16(xa * gate)
+//   is rounded once (the reference's point), and the dequant kernel adds
+//   xg . B_cat^T to its f32 accumulator before the one bf16 rounding of y,
+//   reading B_cat once. A zero gate gives xg = 0 and adds exactly 0,
 //   so a base row of a mixed batch gets the plain form's bits.
 //   - qmatmul_gemv_lora (M <= 32, serving decode and short prefill
-//     tails): the first pass on CUDA cores (`lora_xa_small_kernel`, a
-//     block streams RB rows of A_cat with 16-byte loads against every row
-//     of x; bound by A_cat's bytes), then the GEMV with each lane summing
-//     xg . B_cat over every 32nd column before the warp reduction.
+//     tails): the first pass on the tensor cores, split over K into f32
+//     partials (`lora_xa_split_kernel`, at least a wave of blocks) that
+//     the last block of each adapter tile sums, gates and rounds once
+//     (so xg is the one-pass value); then the GEMV, whose last cluster
+//     rank runs the adapter columns as a tail of its K walk through the
+//     same MMAs.
 //   - qmatmul_gemm_lora (M > 32, prefill and training): the first pass on
 //     the tensor cores (`lora_xa_tc_kernel`, 16 x 32 tiles of xa, its 4
-//     warps splitting the K walk, wmma), then the GEMM, whose decoder
+//     warps splitting the K walk, wmma, each step summed from zero), then the GEMM, whose decoder
 //     warps stage kDepth columns of xg and of its B_cat rows a step after
 //     the K walk, run through the same MMA warps.
 //
 // All return cudaGetLastError() after the launch; 0 means launched.
 
+#include <cooperative_groups.h>
 #include <mma.h>
 
 #include "qtile.cuh"
@@ -75,214 +79,461 @@ namespace {
 
 using Fmt = BIGDL_QFMT;
 constexpr int kS = Fmt::kS;
+namespace cg = cooperative_groups;
 
-constexpr int kGemvWarps = 8;
+// ---------------------------------------------------------------- GEMV
+// The decode GEMV (M <= 32) on the tensor cores: mma.sync m16n8k16, the
+// decoded weights as the A fragment in registers (16 weight rows), x as the
+// B fragment (8 rows of x a n-tile, NT = 1, 2 or 4 n-tiles).
+//
+// * The contraction's order is free, so a lane's decoded run maps straight
+//   onto its fragment slots: lane (g, q) (g = lane / 4, q = lane % 4)
+//   decodes the 16 elements of one group (qdecode.cuh: u*Q + j .. + 15,
+//   j = j0 + 16 q) of rows g and g + 8 into 8 bf16 pairs each, and k-tile
+//   t of the group's 4 takes pairs 2t and 2t + 1 as the slots (2q, 2q + 1)
+//   and (2q + 8, 2q + 9) of a0/a2 (row g) and a1/a3 (row g + 8). Its B
+//   fragment is the same 16 elements of x's row g (+ 8 n-tile), read from
+//   shared memory as two 16-byte vectors: the k-slot 2q + e of a tile
+//   means "element 4t + e of group q" for every row and column alike
+//   (ops/kernels/qtile.py gemv_k_order mirrors the order).
+// * A warp owns 16 weight rows and walks steps of 64 j positions (4 lanes
+//   x 16), decoding all S groups of each from the same pieces, so every
+//   packed byte is read once. Its packed bytes arrive through a private
+//   ring of cp.async stages (4, or 2 for the multi-piece formats) in
+//   shared memory: each lane copies exactly the 16-byte pieces it decodes,
+//   so a lane's cp.async.wait_group is the only wait — no barrier sits in
+//   the K walk. Where a 16-byte piece holds 16 j positions a lane takes
+//   two of them a step (the four lanes of a row then read 128 contiguous
+//   bytes of its row). The scale fields of a step are read into
+//   registers a step ahead of their decode.
+// * A block is 8 warps: WR tiles of 16 rows by WK = 8 / WR warps that take
+//   the block's steps in turn; x's columns of the block's j positions (all
+//   S segments) are staged once in shared memory. Where O / (16 WR) blocks
+//   would not give every SM two, the K walk is split over a cluster of KC
+//   blocks (each a contiguous range of steps); the partials are summed
+//   through shared memory, the warps' in warp order, the cluster's ranks'
+//   in rank order over distributed shared memory: no atomics, the same
+//   bits on every launch. ops/kernels/qtile.py `gemv_tile` picks WR and KC.
+// * The LoRA arm: the first pass (`lora_xa_split_kernel`) splits K over
+//   blocks into f32 partials [KS, M, R], and the last block of an adapter
+//   tile sums them in order, multiplies by the gate and rounds once to
+//   bf16 (xg). The last rank of each cluster stages xg in shared memory
+//   and runs the R adapter columns as a tail of its K walk through the
+//   same MMAs: xg as x's extra columns, B_cat's rows as extra bf16 weight
+//   columns with no decode. A zero gate row adds exact
+//   zeros after the same K walk, so it keeps the plain GEMV's bits.
+// warps a block: 8, or 16 where a thread holds few registers (the
+// formats of two j-blocks a step, one n-tile); gemv_tile picks
+constexpr int kGemvMaxWarps = Fmt::kPieces == 1 && kS <= 2 ? 16 : 8;
+__host__ __device__ constexpr int gemv_max_warps(int NT) { return NT >= 2 ? 8 : kGemvMaxWarps; }
+// j-blocks of 16 a lane takes in a step: where one piece holds 16 j (and
+// a j decodes to at most 2 groups, so the scale fields of two blocks fit
+// the registers), the four lanes of a row read 128 contiguous bytes of a
+// plane's row (lane q the blocks at 16 q and 64 + 16 q, so that their x
+// reads stay free of bank conflicts)
+constexpr int kJW = Fmt::kPieces == 1 && kS <= 2 ? 2 : 1;
+constexpr int kJStep = 64 * kJW;                        // j positions of a warp's step
+constexpr int kTailStep = 64;                           // adapter columns of a tail step
+constexpr int kGemvStages = Fmt::kPieces == 1 ? 4 : 2;  // ring slots of a warp
+constexpr int kLutBytes = 16 * 4;
 
-// j positions of x staged per K chunk: 32 lanes x 16, fewer where MT rows
-// of x over S segments would pass 64 KB of shared memory.
-template <int MT>
-__host__ __device__ constexpr int gemv_chunk() {
-  return 32768 / (MT * kS) < 512 ? 32768 / (MT * kS) : 512;
+constexpr int kRingSlot = 2 * kJW * Fmt::kPieces * 32 * 16;  // rows g, g + 8 x j-blocks x pieces x 32 lanes x 16 B
+// the partial sums reuse the rings: 8 warps x 16 rows x 8 NT columns f32
+// the partial sums reuse the rings: 16 rows x 32 columns f32 a warp at most
+static_assert(16 * 32 * 4 <= kGemvStages * kRingSlot, "the partials fit the rings");
+
+__host__ __device__ constexpr int round_up(int a, int b) { return (a + b - 1) / b * b; }
+
+// Steps of the K walk and of one cluster rank's share.
+__host__ __device__ inline int gemv_steps(int K) { return (K / kS + kJStep - 1) / kJStep; }
+
+// Dynamic shared memory of a launch (ops/kernels/qtile.py gemv_smem):
+// the codebook, x's columns of a rank's steps (rows 16 bytes apart past
+// their width, so the two rows a quarter-warp reads fall in distinct
+// banks), xg with the LoRA arm (R > 0), the warps' rings.
+inline int gemv_smem(int M, int K, int kc, int R, int warps) {
+  const int spb = (gemv_steps(K) + kc - 1) / kc;
+  const int xbytes = M * (kS * spb * kJStep * 2 + 16);
+  const int gbytes = R > 0 ? M * (round_up(R, kTailStep) * 2 + 16) : 0;
+  return kLutBytes + xbytes + gbytes + warps * kGemvStages * kRingSlot;
 }
 
-// Eight bf16 values (one 16-byte vector) as floats.
-__device__ __forceinline__ void unpack8(const uint4 v, float (&f)[8]) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = bf16x2_to_float2(w[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-// One warp owns RPW output rows; a block owns kGemvWarps * RPW rows. MT is
-// the row count of x rounded up to a power of two (rows >= M are zero).
-// With kLora, xg [M, R] (bf16(xa * gate), from lora_xa_small_kernel) and
-// B_cat [O, R] add the LoRA epilogue before the warp reduction.
-template <int MT, int RPW, bool kLora>
-__global__ void __launch_bounds__(kGemvWarps * 32)
-    gemv_kernel(const bf16* __restrict__ x, const QFields w, bf16* __restrict__ out, int M, int K,
-                int O, const bf16* __restrict__ xg, const bf16* __restrict__ lb, int R) {
-  constexpr int CJ = gemv_chunk<MT>();
-  extern __shared__ __align__(32) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [MT][S][CJ]: x at u*Q + c0 + j
-  __shared__ float lut[16];
-
+// y[m, o] = x[m] . dq(W)[o] for M <= 8 NT rows of x (the rest read as
+// zeros), a block of 16 WR rows, cluster rank blockIdx.x of gridDim.x over
+// the steps. With kLora, xg [M, R] (lora_xa_split_kernel) and lb = B_cat
+// [O, R] add the adapter tail on the last rank.
+template <int NT, bool kLora>
+__global__ void __launch_bounds__(32 * gemv_max_warps(NT), 1)
+    gemv_kernel(const bf16* __restrict__ x, const QFields w, bf16* __restrict__ out, int M, int K, int O, int WR,
+                const bf16* __restrict__ xg, const bf16* __restrict__ lb, int R) {
+  extern __shared__ __align__(1024) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int nthreads = blockDim.x;
+  const int WK = (nthreads >> 5) / WR;
+  const int wr = warp % WR, wk = warp / WR;
+  const int RB = 16 * WR;
+  const int kc = blockIdx.x, KC = gridDim.x;
+  const int row0 = blockIdx.y * RB + 16 * wr;  // this warp's 16 rows
   const int Q = K / kS;
+  const int nsteps = gemv_steps(K);
+  const int spb = (nsteps + KC - 1) / KC;
+  const int s0 = kc * spb, s1 = min(s0 + spb, nsteps);
+  const int jcb = spb * kJStep;  // j positions of the rank's x columns
+  const int xstride = kS * jcb * 2 + 16;
+  const int Rp = kLora ? round_up(R, kTailStep) : 0;
+  const int gstride = Rp * 2 + 16;
+  float* lut = reinterpret_cast<float*>(smem);
+  unsigned char* xs = smem + kLutBytes;  // [m][u][jcb] bf16
+  unsigned char* gs = xs + M * xstride;  // xg [m][Rp] bf16
+  unsigned char* rings = gs + (kLora ? M * gstride : 0);
+  unsigned char* ring = rings + warp * kGemvStages * kRingSlot;
   const size_t row_bytes = static_cast<size_t>(K) * Fmt::kBits / 8;
-  const int row0 = (blockIdx.x * kGemvWarps + warp) * RPW;
+  const bool tail = kLora && kc == KC - 1;
+
+  // x's columns of this rank's j positions, every segment, zeros past Q
+  const int cpr = kS * jcb / 8;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < M * cpr; i += nthreads) {
+    const int m = i / cpr, c = i % cpr;
+    const int u = c / (jcb / 8), j = s0 * kJStep + (c % (jcb / 8)) * 8;
+    const bool ok = j < Q;
+    cp_async16(xs + m * xstride + c * 16, x + (ok ? static_cast<size_t>(m) * K + u * Q + j : 0), ok ? 16 : 0);
+  }
+  cp_async_commit();
+
+  // this warp's steps: s0 + wk, + WK, ...; step i's pieces into slot i % stages
+  const int mine = s0 + wk < s1 ? (s1 - s0 - wk + WK - 1) / WK : 0;
+  // lane q's first j of step i (its other block 64 further)
+  auto jpos = [&](int i) { return (s0 + wk + i * WK) * kJStep + 16 * q; };
+  auto issue = [&](int i) {
+    if (i < mine) {
+      unsigned char* slot = ring + (i % kGemvStages) * kRingSlot;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int o = row0 + g + 8 * h;
+#pragma unroll
+        for (int jw = 0; jw < kJW; ++jw) {
+          const int j = jpos(i) + 64 * jw;
+          const bool ok = o < O && j < Q;
+#pragma unroll
+          for (int p = 0; p < Fmt::kPieces; ++p) {
+            const size_t off = ok ? static_cast<size_t>(o) * row_bytes +
+                                        qpiece_offset<Fmt>(K, p < Fmt::kN0 ? 0 : 1, p < Fmt::kN0 ? p : p - Fmt::kN0, j)
+                                  : 0;
+            cp_async16(slot + (((h * kJW + jw) * Fmt::kPieces + p) * 32 + lane) * 16, w.data + off, ok ? 16 : 0);
+          }
+        }
+      }
+    }
+    cp_async_commit();  // one group a step, empty or not: the waits count steps
+  };
+  for (int i = 0; i < kGemvStages - 1; ++i) issue(i);
+
+  // the scale fields of a step, read into registers a step ahead of their
+  // decode (zeros past O and Q)
+  auto load_scales = [&](QScale<Fmt> (&sc)[2][kJW][kS], int i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = row0 + g + 8 * h;
+#pragma unroll
+      for (int jw = 0; jw < kJW; ++jw) {
+        const int j = jpos(i) + 64 * jw;
+        const bool ok = i < mine && o < O && j < Q;
+#pragma unroll
+        for (int u = 0; u < kS; ++u) {
+          sc[h][jw][u] = QScale<Fmt>{};
+          sc[h][jw][u].load(w, o, K, u * Q + j, ok);
+        }
+      }
+    }
+  };
+  QScale<Fmt> cur[2][kJW][kS], nxt[2][kJW][kS];
+  load_scales(cur, 0);
+
   if constexpr (Fmt::kLut) {
     if (threadIdx.x < 16) lut[threadIdx.x] = qlut<Fmt>()[threadIdx.x];
   }
-
-  float acc[RPW][MT];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r)
-#pragma unroll
-    for (int m = 0; m < MT; ++m) acc[r][m] = 0.0f;
-
-  for (int c0 = 0; c0 < Q; c0 += CJ) {
-    const int cw = min(CJ, Q - c0);  // a multiple of 16: K % k_multiple == 0
-    const int vecs = cw >> 3;        // 16-byte vectors of x per row slice
-    __syncthreads();
-    for (int i = threadIdx.x; i < MT * kS * vecs; i += blockDim.x) {
-      const int m = i / (kS * vecs);
-      const int u = (i / vecs) % kS;
-      const int v = i % vecs;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (m < M) val = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(m) * K + u * Q + c0 + v * 8);
-      *reinterpret_cast<uint4*>(xs + (m * kS + u) * CJ + v * 8) = val;
+  if (tail) {  // xg's rows, zeros past R
+    const unsigned short* xgu = reinterpret_cast<const unsigned short*>(xg);
+    for (int i = threadIdx.x; i < M * Rp; i += nthreads) {
+      const int m = i / Rp, r = i % Rp;
+      reinterpret_cast<unsigned short*>(gs + m * gstride)[r] = r < R ? __ldg(xgu + static_cast<size_t>(m) * R + r) : 0;
     }
-    __syncthreads();
+  }
+  cp_async_wait<kGemvStages - 1>();  // this thread's x chunks have landed
+  __syncthreads();                    // and every thread's, the codebook and xg
 
-    const int jb = lane * 16;  // this lane's j offset within the chunk
-    if (jb < cw) {
-      uint4 pc[RPW][Fmt::kPieces];
+  float acc[NT][4];
 #pragma unroll
-      for (int r = 0; r < RPW; ++r) {
-        const int o = row0 + r;
-        qload_pieces<Fmt>(w.data + static_cast<size_t>(o) * row_bytes, K, c0 + jb, o < O, pc[r]);
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+  // the 4 k-tiles of one group: rows g, g + 8 decoded into d0, d1; x's
+  // row 8 n + g of the same 16 elements at byte offset `col` of its row.
+  // The tensor cores add into their f32 accumulator with the addends
+  // aligned to the largest and truncated: chained over K, the running sum
+  // sets that alignment and the error grows with it (3-11x as many bf16
+  // outputs off the exactly rounded product as the plain version's, by
+  // scripts/gemv_sweep.py --misrounding). So each group's 4 MMAs sum from
+  // zero and the groups' sums join acc by round-to-nearest adds: about as
+  // many misrounded outputs as the plain version's.
+  auto mma_group = [&](const uint32_t (&d0)[8], const uint32_t (&d1)[8], const unsigned char* base, int stride,
+                       int col) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int m = 8 * n + g;
+      uint4 x0 = make_uint4(0u, 0u, 0u, 0u), x1 = x0;
+      if (m < M) {
+        const uint4* xp = reinterpret_cast<const uint4*>(base + m * stride + col);
+        x0 = xp[0];
+        x1 = xp[1];
       }
+      const uint32_t xw[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+      float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const uint32_t a[4] = {d0[2 * t], d1[2 * t], d0[2 * t + 1], d1[2 * t + 1]};
+        mma_bf16(c, a, xw[2 * t], xw[2 * t + 1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += c[e];
+    }
+  };
+
+  for (int i = 0; i < mine; ++i) {
+    load_scales(nxt, i + 1);
+    cp_async_wait<kGemvStages - 2>();  // this lane's pieces of step i have landed
+    issue(i + kGemvStages - 1);        // into the slot step i - 1 left
+    const unsigned char* slot = ring + (i % kGemvStages) * kRingSlot;
+#pragma unroll
+    for (int jw = 0; jw < kJW; ++jw) {
+      uint4 pc[2][Fmt::kPieces];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int p = 0; p < Fmt::kPieces; ++p)
+          pc[h][p] = *reinterpret_cast<const uint4*>(slot + (((h * kJW + jw) * Fmt::kPieces + p) * 32 + lane) * 16);
+      const int j = jpos(i) + 64 * jw;
+      const int jl = j - s0 * kJStep;  // j within the rank's x columns
       static_for<0, kS>([&](auto uc) {
         constexpr int U = decltype(uc)::value;
-        uint32_t wv[RPW][8];
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) {
-          QScale<Fmt> sc;
-          sc.load(w, row0 + r, K, U * Q + c0 + jb, row0 + r < O);
-          qdecode16<Fmt, U>(pc[r], sc.a(), sc.b(), lut, wv[r]);
-        }
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const uint4* xp = reinterpret_cast<const uint4*>(xs + (m * kS + U) * CJ + jb);
-          const uint4 x0 = xp[0], x1 = xp[1];
-          const uint32_t xw[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-          for (int r = 0; r < RPW; ++r) {
-            float s = acc[r][m];
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-              const float2 xa = bf16x2_to_float2(xw[i]);
-              const float2 wa = bf16x2_to_float2(wv[r][i]);
-              s = fmaf(xa.x, wa.x, s);
-              s = fmaf(xa.y, wa.y, s);
-            }
-            acc[r][m] = s;
-          }
-        }
+        uint32_t d0[8], d1[8];
+        qdecode16_tc<Fmt, U>(pc[0], cur[0][jw][U].a(), cur[0][jw][U].b(), lut, d0);
+        qdecode16_tc<Fmt, U>(pc[1], cur[1][jw][U].a(), cur[1][jw][U].b(), lut, d1);
+        mma_group(d0, d1, xs, xstride, (U * jcb + jl) * 2);
       });
     }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int jw = 0; jw < kJW; ++jw)
+#pragma unroll
+        for (int u = 0; u < kS; ++u) cur[h][jw][u] = nxt[h][jw][u];
   }
 
-  if constexpr (kLora) {
-    // lane j of the warp sums columns j, j + 32, ... of xg . B_cat^T into
-    // the same f32 partials; a zero xg row adds exactly 0
-    for (int j = lane; j < R; j += 32) {
-      float xv[MT];
+  if (tail) {
+    // the adapter columns: 64 a step, B_cat's rows as bf16 weights
+    const unsigned short* lbu = reinterpret_cast<const unsigned short*>(lb);
+    for (int t = wk; t < Rp / kTailStep; t += WK) {
+      const int r = t * kTailStep + 16 * q;
+      uint32_t d[2][8];
 #pragma unroll
-      for (int m = 0; m < MT; ++m)
-        xv[m] = m < M ? __bfloat162float(xg[static_cast<size_t>(m) * R + j]) : 0.0f;
+      for (int h = 0; h < 2; ++h) {
+        const int o = row0 + g + 8 * h;
 #pragma unroll
-      for (int r = 0; r < RPW; ++r) {
-        const int o = row0 + r;
-        const float b = o < O ? __bfloat162float(lb[static_cast<size_t>(o) * R + j]) : 0.0f;
-#pragma unroll
-        for (int m = 0; m < MT; ++m) acc[r][m] = fmaf(xv[m], b, acc[r][m]);
+        for (int e = 0; e < 8; ++e) {
+          const int c = r + 2 * e;
+          const uint32_t lo = o < O && c < R ? __ldg(lbu + static_cast<size_t>(o) * R + c) : 0u;
+          const uint32_t hi = o < O && c + 1 < R ? __ldg(lbu + static_cast<size_t>(o) * R + c + 1) : 0u;
+          d[h][e] = lo | (hi << 16);
+        }
       }
+      mma_group(d[0], d[1], gs, gstride, r * 2);
     }
   }
 
+  // the block's partial: red[wk][col][row], summed over wk in warp order
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with its ring
+  float* red = reinterpret_cast<float*>(rings);
+  constexpr int kCols = 8 * NT;
 #pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int o = row0 + r;
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const float v = warp_sum(acc[r][m]);
-      if (lane == 0 && m < M && o < O) out[static_cast<size_t>(m) * O + o] = __float2bfloat16(v);
+    for (int e = 0; e < 4; ++e)
+      red[(wk * kCols + 8 * n + 2 * q + (e & 1)) * RB + 16 * wr + g + 8 * (e >> 1)] = acc[n][e];
+  __syncthreads();
+  const int o0 = blockIdx.y * RB;
+  for (int i = threadIdx.x; i < kCols * RB; i += nthreads) {
+    float s = red[i];
+    for (int k2 = 1; k2 < WK; ++k2) s += red[k2 * kCols * RB + i];
+    const int m = i / RB, o = o0 + i % RB;
+    if (KC == 1) {
+      if (m < M && o < O) out[static_cast<size_t>(m) * O + o] = __float2bfloat16(s);
+    } else {
+      red[i] = s;
     }
   }
+  if (KC == 1) return;
+
+  // the cluster's ranks in rank order; rank kc writes its RB / KC rows
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int per = RB / KC;
+  for (int i = threadIdx.x; i < kCols * per; i += nthreads) {
+    const int m = i / per, row = kc * per + i % per, o = o0 + row;
+    float s = cluster.map_shared_rank(red, 0)[m * RB + row];
+    for (int r = 1; r < KC; ++r) s += cluster.map_shared_rank(red, r)[m * RB + row];
+    if (m < M && o < O) out[static_cast<size_t>(m) * O + o] = __float2bfloat16(s);
+  }
+  cluster.sync();  // no block leaves while another reads its partial
 }
 
-template <int MT, int RPW, bool kLora>
-int launch_gemv(const bf16* x, const QFields& w, bf16* out, int M, int K, int O, const bf16* xg,
-                const bf16* lb, int R, cudaStream_t stream) {
-  const int rows_per_block = kGemvWarps * RPW;
-  const int smem = MT * kS * gemv_chunk<MT>() * static_cast<int>(sizeof(bf16));
-  cudaFuncSetAttribute(gemv_kernel<MT, RPW, kLora>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const dim3 grid((O + rows_per_block - 1) / rows_per_block);
-  gemv_kernel<MT, RPW, kLora><<<grid, kGemvWarps * 32, smem, stream>>>(x, w, out, M, K, O, xg, lb, R);
-  return static_cast<int>(cudaGetLastError());
+// cudaFuncSetAttribute once per instantiation and device: every launch
+// stays within the 227 KB the attribute allows.
+template <class Kern>
+int allow_smem(Kern kern, bool (&done)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= 64) return static_cast<int>(err != cudaSuccess ? err : cudaErrorInvalidDevice);
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, qtile::kSmemLimit);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    done[dev] = true;
+  }
+  return 0;
+}
+
+// The grid of ops/kernels/qtile.py gemv_tile: kc cluster ranks along K by
+// ceil(O / 16 wr) blocks of rows; stages and smem checked against this
+// build's (cudaErrorInvalidValue where they differ).
+template <int NT, bool kLora>
+int launch_gemv(const bf16* x, const QFields& w, bf16* out, int M, int K, int O, int wr, int kc, int warps,
+                int stages, int smem, const bf16* xg, const bf16* lb, int R, cudaStream_t stream) {
+  if ((warps != 8 && warps != 16) || warps > gemv_max_warps(NT) || (wr != 1 && wr != 2 && wr != 4 && wr != 8 && wr != 16) ||
+      wr > warps || (kc != 1 && kc != 2 && kc != 4 && kc != 8) || stages != kGemvStages ||
+      smem != gemv_smem(M, K, kc, kLora ? R : 0, warps) || smem > qtile::kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool done[64] = {};
+  const int err = allow_smem(gemv_kernel<NT, kLora>, done);
+  if (err != 0) return err;
+  const dim3 grid(kc, (O + 16 * wr - 1) / (16 * wr));
+  if (kc == 1) {
+    gemv_kernel<NT, kLora><<<grid, 32 * warps, smem, stream>>>(x, w, out, M, K, O, wr, xg, lb, R);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(32 * warps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, gemv_kernel<NT, kLora>, x, w, out, M, K, O, wr, xg, lb, R);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 // The LoRA GEMV's first pass: xg[m, r] = bf16(gate[m, r] * sum_k x[m, k]
-// A_cat[r, k]) for M <= 32. A block owns RB rows of A_cat; its 256 threads
-// stride K in 16-byte vectors, each A_cat vector feeding MT rows of x (x is
-// small and stays in L1/L2), then the block reduces its partial sums.
-template <int MT, int RB>
-__global__ void __launch_bounds__(256)
-    lora_xa_small_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
-                         const bf16* __restrict__ gate, bf16* __restrict__ xg, int M, int K, int R) {
-  __shared__ float red[8][RB * MT];
+// A_cat[r, k]), 16 rows of A_cat a block, the grid (ks, ceil(R / 16))
+// splitting K so that it fills the card (ops/kernels/qtile.py
+// lora_xa_split). The same fragment mapping as the GEMV: lane (g, q) reads
+// 16 consecutive k of A_cat's rows g, g + 8 and of x's row 8 n + g; the 4
+// warps take the block's steps of 64 in turn (each step's 4 MMAs summed
+// from zero, as the GEMV's groups) and sum in warp order into part[b, m,
+// r] (f32). The last block of a row tile to finish (a ticket counter, left
+// at zero again) sums the ks partials in split order, multiplies by the
+// gate and rounds once: the one-pass value, the same on every launch.
+template <int NT>
+__global__ void __launch_bounds__(128)
+    lora_xa_split_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a, const bf16* __restrict__ gate,
+                         float* __restrict__ part, bf16* __restrict__ xg, int* __restrict__ tickets, int M, int K,
+                         int R, int kspb) {
+  constexpr int kCols = 8 * NT;
+  __shared__ float red[4][kCols * 16];
+  __shared__ int last;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int r0 = blockIdx.x * RB;
-  float acc[RB][MT];
+  const int g = lane >> 2, q = lane & 3;
+  const int r0 = blockIdx.y * 16;
+  const int nk = (K + kTailStep - 1) / kTailStep;
+  const int s0 = blockIdx.x * kspb, s1 = min(s0 + kspb, nk);
+  float acc[NT][4];
 #pragma unroll
-  for (int rb = 0; rb < RB; ++rb)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int m = 0; m < MT; ++m) acc[rb][m] = 0.0f;
-
-  for (int v = threadIdx.x; v < (K >> 3); v += 256) {
-    float av[RB][8];
-#pragma unroll
-    for (int rb = 0; rb < RB; ++rb) {
-      uint4 t = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + rb < R) t = __ldg(reinterpret_cast<const uint4*>(a + static_cast<size_t>(r0 + rb) * K) + v);
-      unpack8(t, av[rb]);
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  auto ld32 = [&](const bf16* row, int k, bool ok, uint32_t (&v)[8]) {
+    uint4 p0 = make_uint4(0u, 0u, 0u, 0u), p1 = p0;
+    if (ok) {
+      p0 = __ldg(reinterpret_cast<const uint4*>(row + k));
+      p1 = __ldg(reinterpret_cast<const uint4*>(row + k + 8));
     }
+    v[0] = p0.x, v[1] = p0.y, v[2] = p0.z, v[3] = p0.w, v[4] = p1.x, v[5] = p1.y, v[6] = p1.z, v[7] = p1.w;
+  };
+  for (int s = s0 + warp; s < s1; s += 4) {
+    const int k = s * kTailStep + 16 * q;
+    uint32_t d0[8], d1[8], xv[NT][8];
+    ld32(a + static_cast<size_t>(r0 + g) * K, k, r0 + g < R && k < K, d0);
+    ld32(a + static_cast<size_t>(r0 + g + 8) * K, k, r0 + g + 8 < R && k < K, d1);
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (m < M) {
-        float xv[8];
-        unpack8(__ldg(reinterpret_cast<const uint4*>(x + static_cast<size_t>(m) * K) + v), xv);
+    for (int n = 0; n < NT; ++n) ld32(x + static_cast<size_t>(8 * n + g) * K, k, 8 * n + g < M && k < K, xv[n]);
 #pragma unroll
-        for (int rb = 0; rb < RB; ++rb)
+    for (int n = 0; n < NT; ++n) {
+      float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-          for (int i = 0; i < 8; ++i) acc[rb][m] = fmaf(xv[i], av[rb][i], acc[rb][m]);
+      for (int t = 0; t < 4; ++t) {
+        const uint32_t af[4] = {d0[2 * t], d1[2 * t], d0[2 * t + 1], d1[2 * t + 1]};
+        mma_bf16(c, af, xv[n][2 * t], xv[n][2 * t + 1]);
       }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += c[e];
     }
   }
 #pragma unroll
-  for (int rb = 0; rb < RB; ++rb)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const float s = warp_sum(acc[rb][m]);
-      if (lane == 0) red[warp][rb * MT + m] = s;
-    }
+    for (int e = 0; e < 4; ++e) red[warp][(8 * n + 2 * q + (e & 1)) * 16 + g + 8 * (e >> 1)] = acc[n][e];
   __syncthreads();
-  for (int i = threadIdx.x; i < RB * MT; i += 256) {
-    const int r = r0 + i / MT;
-    const int m = i % MT;
-    if (m < M && r < R) {
-      float s = 0.0f;
-#pragma unroll
-      for (int w8 = 0; w8 < 8; ++w8) s += red[w8][i];
+  for (int i = threadIdx.x; i < kCols * 16; i += 128) {
+    const int m = i / 16, r = r0 + i % 16;
+    if (m < M && r < R)
+      part[(static_cast<size_t>(blockIdx.x) * M + m) * R + r] = ((red[0][i] + red[1][i]) + red[2][i]) + red[3][i];
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(tickets + blockIdx.y, 1) == static_cast<int>(gridDim.x) - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < M * 16; i += 128) {
+    const int m = i / 16, r = r0 + i % 16;
+    if (r < R) {
+      float s = __ldcg(part + static_cast<size_t>(m) * R + r);
+      for (int t = 1; t < static_cast<int>(gridDim.x); ++t) s += __ldcg(part + (static_cast<size_t>(t) * M + m) * R + r);
       const size_t at = static_cast<size_t>(m) * R + r;
       xg[at] = __float2bfloat16(s * __bfloat162float(gate[at]));
     }
   }
+  if (threadIdx.x == 0) tickets[blockIdx.y] = 0;
 }
 
-template <int MT, int RPW, int RB>
-int launch_gemv_lora(const bf16* x, const QFields& w, const bf16* la, const bf16* lb, const bf16* lg,
-                     bf16* xg, bf16* out, int M, int K, int O, int R, cudaStream_t stream) {
-  lora_xa_small_kernel<MT, RB><<<(R + RB - 1) / RB, 256, 0, stream>>>(x, la, lg, xg, M, K, R);
+template <int NT>
+int launch_gemv_lora(const bf16* x, const QFields& w, const bf16* la, const bf16* lb, const bf16* lg, float* part,
+                     bf16* xg, int* tickets, bf16* out, int M, int K, int O, int R, int wr, int kc, int warps,
+                     int stages, int smem, int ks, int kspb, cudaStream_t stream) {
+  const int nk = (K + kTailStep - 1) / kTailStep;
+  if (ks < 1 || kspb < 1 || (ks - 1) * kspb >= nk || ks * kspb < nk) return static_cast<int>(cudaErrorInvalidValue);
+  lora_xa_split_kernel<NT><<<dim3(ks, (R + 15) / 16), 128, 0, stream>>>(x, la, lg, part, xg, tickets, M, K, R, kspb);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  return launch_gemv<MT, RPW, true>(x, w, out, M, K, O, xg, lb, R, stream);
+  return launch_gemv<NT, true>(x, w, out, M, K, O, wr, kc, warps, stages, smem, xg, lb, R, stream);
 }
 
 using namespace nvcuda;
@@ -292,6 +543,12 @@ using namespace nvcuda;
 // (warp w takes the 64-wide K steps w, w + 4, ...), each staging its own x
 // and A_cat slices in shared memory (rows past M, columns past R and K
 // past its end read as zeros); the block then adds the 4 partial tiles.
+// Each step's 4 MMAs sum from zero and join the warp's running sum by
+// round-to-nearest adds, as the GEMV's groups do: chained over K, the
+// tensor cores' truncating adds misrounded 7x as many elements of xg as
+// the plain version (451 against 63 off the exactly rounded value over
+// chip_smoke phase 11's adapter engine, scripts/engine_rounding.py), and
+// one element of xg rounded the other way moves a whole row of y.
 // Small tiles and the split keep enough blocks in flight at training's
 // R = 8 (M / 16 blocks).
 constexpr int kXaBM = 16, kXaBR = 32, kXaKS = 64, kXaLd = kXaKS + 8, kXaWarps = 4;
@@ -323,6 +580,9 @@ __global__ void __launch_bounds__(kXaWarps * 32)
       *reinterpret_cast<uint4*>((is_x ? xs[warp] : as[warp]) + r * kXaLd + (j % kVecs) * 8) = val;
     }
     __syncwarp();
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> step[2];
+    wmma::fill_fragment(step[0], 0.0f);
+    wmma::fill_fragment(step[1], 0.0f);
 #pragma unroll
     for (int kk = 0; kk < kXaKS; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
@@ -331,9 +591,13 @@ __global__ void __launch_bounds__(kXaWarps * 32)
       for (int j = 0; j < 2; ++j) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
         wmma::load_matrix_sync(fb, as[warp] + j * 16 * kXaLd + kk, kXaLd);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
+        wmma::mma_sync(step[j], fa, fb, step[j]);
       }
     }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < step[j].num_elements; ++i) acc[j].x[i] = __fadd_rn(acc[j].x[i], step[j].x[i]);
     __syncwarp();
   }
 #pragma unroll
@@ -531,20 +795,20 @@ QFields fields(const void* data, const void* scales, const void* mins, const voi
 
 }  // namespace
 
-// x [M, K] bf16, the weight's fields (null where absent), out [M, O] bf16.
+// x [M, K] bf16, the weight's fields (null where absent), out [M, O] bf16;
+// wr, kc, warps, stages, smem: the tile of ops/kernels/qtile.py gemv_tile
+// (checked against this build's; a mismatch returns cudaErrorInvalidValue).
 extern "C" int qmatmul_gemv(const void* x, const void* data, const void* scales, const void* mins,
-                            const void* sub_scales, const void* sub_mins, void* out, int M, int K,
-                            int O, void* stream) {
+                            const void* sub_scales, const void* sub_mins, void* out, int M, int K, int O, int wr,
+                            int kc, int warps, int stages, int smem, void* stream) {
   const bf16* xp = static_cast<const bf16*>(x);
   const QFields w = fields(data, scales, mins, sub_scales, sub_mins);
   bf16* op = static_cast<bf16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 1) return launch_gemv<1, 4, false>(xp, w, op, M, K, O, nullptr, nullptr, 0, st);
-  if (M <= 2) return launch_gemv<2, 4, false>(xp, w, op, M, K, O, nullptr, nullptr, 0, st);
-  if (M <= 4) return launch_gemv<4, 4, false>(xp, w, op, M, K, O, nullptr, nullptr, 0, st);
-  if (M <= 8) return launch_gemv<8, 4, false>(xp, w, op, M, K, O, nullptr, nullptr, 0, st);
-  if (M <= 16) return launch_gemv<16, 2, false>(xp, w, op, M, K, O, nullptr, nullptr, 0, st);
-  if (M <= 32) return launch_gemv<32, 1, false>(xp, w, op, M, K, O, nullptr, nullptr, 0, st);
+  if (M < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 8) return launch_gemv<1, false>(xp, w, op, M, K, O, wr, kc, warps, stages, smem, nullptr, nullptr, 0, st);
+  if (M <= 16) return launch_gemv<2, false>(xp, w, op, M, K, O, wr, kc, warps, stages, smem, nullptr, nullptr, 0, st);
+  if (M <= 32) return launch_gemv<4, false>(xp, w, op, M, K, O, wr, kc, warps, stages, smem, nullptr, nullptr, 0, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -561,27 +825,34 @@ extern "C" int qmatmul_gemm(const void* x, void* xo, const void* data, const voi
                                  static_cast<cudaStream_t>(stream));
 }
 
-// The LoRA forms: a_cat [R, K], b_cat [O, R], gate [M, R], all bf16; xg
-// [M, R] bf16 scratch for the first pass; out [M, O] bf16. M <= 32 rows.
+// The LoRA forms: a_cat [R, K], b_cat [O, R], gate [M, R], all bf16; out
+// [M, O] bf16. M <= 32 rows: part [ks, M, R] f32 scratch for the first
+// pass, split in ks blocks of kspb steps of 64 along K (ops/kernels/
+// qtile.py lora_xa_split), xg [M, R] bf16 scratch, tickets
+// [ceil(R / 16)] int32, zero before the launch and left zero after it;
+// the GEMV's tile as qmatmul_gemv's.
 extern "C" int qmatmul_gemv_lora(const void* x, const void* data, const void* scales, const void* mins,
                                  const void* sub_scales, const void* sub_mins, const void* a_cat,
-                                 const void* b_cat, const void* gate, void* xg, void* out, int M, int K,
-                                 int O, int R, void* stream) {
+                                 const void* b_cat, const void* gate, void* part, void* xg, void* tickets,
+                                 void* out, int M, int K, int O, int R, int wr, int kc, int warps, int stages,
+                                 int smem, int ks, int kspb, void* stream) {
   const bf16* xp = static_cast<const bf16*>(x);
   const QFields w = fields(data, scales, mins, sub_scales, sub_mins);
   const bf16* la = static_cast<const bf16*>(a_cat);
   const bf16* lb = static_cast<const bf16*>(b_cat);
   const bf16* lg = static_cast<const bf16*>(gate);
+  float* pp = static_cast<float*>(part);
   bf16* xgp = static_cast<bf16*>(xg);
+  int* tk = static_cast<int*>(tickets);
   bf16* op = static_cast<bf16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (M <= 1) return launch_gemv_lora<1, 4, 4>(xp, w, la, lb, lg, xgp, op, M, K, O, R, st);
-  if (M <= 2) return launch_gemv_lora<2, 4, 4>(xp, w, la, lb, lg, xgp, op, M, K, O, R, st);
-  if (M <= 4) return launch_gemv_lora<4, 4, 4>(xp, w, la, lb, lg, xgp, op, M, K, O, R, st);
-  if (M <= 8) return launch_gemv_lora<8, 4, 4>(xp, w, la, lb, lg, xgp, op, M, K, O, R, st);
-  if (M <= 16) return launch_gemv_lora<16, 2, 2>(xp, w, la, lb, lg, xgp, op, M, K, O, R, st);
-  if (M <= 32) return launch_gemv_lora<32, 1, 1>(xp, w, la, lb, lg, xgp, op, M, K, O, R, st);
+  if (R < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 8)
+    return launch_gemv_lora<1>(xp, w, la, lb, lg, pp, xgp, tk, op, M, K, O, R, wr, kc, warps, stages, smem, ks, kspb, st);
+  if (M <= 16)
+    return launch_gemv_lora<2>(xp, w, la, lb, lg, pp, xgp, tk, op, M, K, O, R, wr, kc, warps, stages, smem, ks, kspb, st);
+  if (M <= 32)
+    return launch_gemv_lora<4>(xp, w, la, lb, lg, pp, xgp, tk, op, M, K, O, R, wr, kc, warps, stages, smem, ks, kspb, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -118,6 +118,27 @@ def library(stem: str, variant: Optional[str] = None) -> ctypes.CDLL:
         return _libs[(stem, variant)]
 
 
+# per (device, stream): the scratch bytes and int32 ticket counters of the
+# kernels whose last block merges the others' partials (the paged decode
+# kernel, the LoRA GEMV's first pass), kept across calls so that the
+# counters, which each launch leaves at zero, need no memset a launch;
+# launches on one stream run in order, so they share them
+_workspaces: dict = {}
+
+
+def workspace(device: torch.device, nbytes: int, counters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(uint8 scratch of at least `nbytes`, int32 counters at zero, at
+    least `counters`) for the current stream of CUDA `device`."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf, tickets = _workspaces.get(key, (None, None))
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.empty(max(nbytes, 8), dtype=torch.uint8, device=device)
+    if tickets is None or tickets.numel() < counters:
+        tickets = torch.zeros(max(counters, 64), dtype=torch.int32, device=device)
+    _workspaces[key] = (buf, tickets)
+    return buf, tickets
+
+
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 

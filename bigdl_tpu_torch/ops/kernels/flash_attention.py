@@ -12,6 +12,17 @@ KV-cache layout); out [B, T, Hq, D]. Query t of row b sits at cache slot
 q_offset + t and attends slot j iff start[b] <= j <= q_offset + t (and
 j > q_offset + t - window with a sliding window). Rows with no valid slot
 (left padding) come out exactly 0.
+
+The kernel is built for head_dim 64, 128 and 256. Any other D <= 256
+that is a multiple of 16 (phi3-mini's 96, tiny-llama's 16) runs it at the
+next of those widths: q, k and v are zero-padded there and the output is
+sliced back, as the JAX package pads D to 128 lanes. The softmax scale
+stays the true D's (the callers pass it); zero columns add nothing to
+the scores. The padding costs a copy of q, k and v at the padded width
+and of the output back: at phi3-mini's prefill of B=4 T=256 over S=320
+slots (32 heads, D = 96 run at 128), 29.4 MB written and 22.0 MB read a
+layer for q, k and v, and 6.3 MB more each way for the output, against
+the 28.3 MB the kernel moves at D = 96.
 """
 
 from __future__ import annotations
@@ -32,7 +43,28 @@ FLASH_FP8 = Kernel("flash_attention_fp8", "flash_attention", "pppppppiiiiiiifif"
                    replaces="bigdl_tpu/ops/pallas/flash_attention.py:65")
 
 _NEG_INF = -1e30
-_HEAD_DIMS = (64, 128, 256)
+_HEAD_DIMS = (64, 128, 256)  # the widths the kernel is built for
+
+
+def kernel_head_dim(D: int, dims: tuple = _HEAD_DIMS, who: str = "flash_attention") -> int:
+    """The width the kernel runs a head_dim D at: D itself, or the next
+    of `dims` for a D that is a multiple of 16 (zero-padded); raises
+    NotImplementedError for a head_dim no kernel takes."""
+    if D % 16 == 0 and 0 < D <= dims[-1]:
+        return next(d for d in dims if d >= D)
+    raise NotImplementedError(f"{who}: head_dim {D} (the kernel takes multiples of 16 up "
+                              f"to {dims[-1]}; others: ROADMAP queue 2 item 1)")
+
+
+def pad_head_dim(t: torch.Tensor, Dk: int) -> torch.Tensor:
+    """t [..., D] zero-padded to [..., Dk] (fp8 codes through their bytes:
+    code 0 is 0.0)."""
+    D = t.shape[-1]
+    if D == Dk:
+        return t
+    if t.dtype in (torch.float8_e5m2, torch.float8_e4m3fn):
+        return torch.nn.functional.pad(t.view(torch.uint8), (0, Dk - D)).view(t.dtype)
+    return torch.nn.functional.pad(t, (0, Dk - D))
 
 
 def valid_mask(start: torch.Tensor, q_offset: int, T: int, S: int,
@@ -88,9 +120,7 @@ def _check(q, k, v, start, k_scale=None, v_scale=None) -> None:
     if Hq % k.shape[2]:
         raise ValueError(f"flash_attention: Hq={Hq} is not a multiple of "
                          f"Hkv={k.shape[2]}")
-    if D not in _HEAD_DIMS:
-        raise NotImplementedError(f"flash_attention: head_dim {D} (the "
-                                  f"kernel takes {_HEAD_DIMS})")
+    kernel_head_dim(D)
     kv_dtype = torch.bfloat16 if k_scale is None else FP8
     for name, t, want in (("q", q, torch.bfloat16), ("k", k, kv_dtype),
                           ("v", v, kv_dtype)):
@@ -140,14 +170,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise NotImplementedError(f"flash_attention: no kernel for {q.device}")
     _check(q, k, v, start, k_scale, v_scale)
+    if not q.numel():
+        return torch.empty_like(q)
+    Dk = kernel_head_dim(D)
+    q, k, v = (pad_head_dim(t, Dk) for t in (q, k, v))
     out = torch.empty_like(q)
-    if not out.numel():
-        return out
-    tail = (out, B, T, k.shape[1], Hq, k.shape[2], D, int(q_offset),
+    tail = (out, B, T, k.shape[1], Hq, k.shape[2], Dk, int(q_offset),
             float(scale), int(window or 0), float(softcap or 0.0))
     if k_scale is None:
         FLASH(q, k, v, start, *tail, device=q.device)
     else:
         FLASH_FP8(q, as_bits(k), as_bits(v), k_scale, v_scale, start, *tail,
                   device=q.device)
-    return out
+    return out if Dk == D else out[..., :D].contiguous()

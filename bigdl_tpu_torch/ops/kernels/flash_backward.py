@@ -16,7 +16,12 @@ delta = rowsum(dO * O) is plain torch between the forward and the two
 backward kernels. Softcap raises: JAX sends it to its XLA attention.
 
 Each wrapper dispatches on the tensor's device: a CPU tensor takes the
-plain version, a CUDA tensor launches the kernel or raises. The dK/dV
+plain version, a CUDA tensor launches the kernel or raises. The kernels
+are built for head_dim 64 and 128; any other D <= 128 that is a multiple
+of 16 (phi3-mini's 96) runs at the next of them, its operands zero-padded
+and its results sliced back (flash_attention.py says what that costs),
+the softmax scale staying the true D's. `FlashAttentionTrain` pads q, k
+and v once a step and keeps the padded forward for its backward. The dK/dV
 kernel walks a schedule that `dkv_schedule` builds here per shape, so the
 CPU tests reach it too.
 """
@@ -29,6 +34,7 @@ from typing import Optional
 import torch
 
 from bigdl_tpu_torch.ops.kernels._build import Kernel
+from bigdl_tpu_torch.ops.kernels.flash_attention import kernel_head_dim, pad_head_dim
 
 _SHAPE = "iiiiiifi"  # B, T, S, Hq, Hkv, D, scale, window
 # (q, k, v, start, out, lse, ...)
@@ -42,7 +48,7 @@ FLASH_DKV = Kernel("flash_train_dkv_bf16", "flash_backward", "ppppppppp" + _SHAP
                    replaces="bigdl_tpu/ops/pallas/flash_backward.py:178")
 
 _NEG_INF = -1e30
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128)  # the widths the kernels are built for
 # keys of a dK/dV block and queries of each step of its walk, at both
 # head dims (csrc/flash_backward.cu's kTile)
 DKV_TILE = 64
@@ -138,10 +144,7 @@ def _check(q, k, v, start, dout=None, lse=None, delta=None) -> None:
     if Hq % k.shape[2]:
         raise ValueError(f"flash_attention_train: Hq={Hq} is not a multiple "
                          f"of Hkv={k.shape[2]}")
-    if D not in _HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention_train: head_dim {D} (the kernels take "
-            f"{_HEAD_DIMS}; others: ROADMAP queue 2 item 1)")
+    kernel_head_dim(D, _HEAD_DIMS, "flash_attention_train")
     operands = [("q", q, torch.bfloat16, q.shape), ("k", k, torch.bfloat16, k.shape),
                 ("v", v, torch.bfloat16, k.shape)]
     if dout is not None:
@@ -223,6 +226,16 @@ def _shape_args(q, k, window, scale):
     return (B, T, k.shape[1], Hq, k.shape[2], D, float(scale), int(window or 0))
 
 
+def _padded(*ts):
+    """The operands zero-padded to the kernels' width for their head_dim;
+    at 64 and 128 the operands themselves, with no further call."""
+    D = ts[0].shape[-1]
+    if D in _HEAD_DIMS:
+        return ts
+    Dk = kernel_head_dim(D, _HEAD_DIMS, "flash_attention_train")
+    return tuple(pad_head_dim(t, Dk) for t in ts)
+
+
 def _on_card(fn: str, q: torch.Tensor) -> bool:
     if q.device.type == "cpu":
         return False
@@ -239,13 +252,14 @@ def flash_train_fwd(q, k, v, start, window=None, scale=None):
     if not _on_card("flash_train_fwd", q):
         return flash_attention_train_plain(q, k, v, start, window, scale)
     _check(q, k, v, start)
-    B, T, Hq, _ = q.shape
+    B, T, Hq, D = q.shape
+    q, k, v = _padded(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((B, T, Hq), dtype=torch.float32, device=q.device)
     if out.numel():
         FLASH_FWD(q, k, v, start, out, lse, *_shape_args(q, k, window, scale),
                   device=q.device)
-    return out, lse
+    return out[..., :D].contiguous() if out.shape[-1] != D else out, lse
 
 
 def flash_train_dq(q, k, v, start, dout, lse, delta, window=None, scale=None):
@@ -255,11 +269,13 @@ def flash_train_dq(q, k, v, start, dout, lse, delta, window=None, scale=None):
     if not _on_card("flash_train_dq", q):
         return flash_train_dq_plain(q, k, v, start, dout, lse, delta, window, scale)
     _check(q, k, v, start, dout, lse, delta)
+    D = q.shape[-1]
+    q, k, v, dout = _padded(q, k, v, dout)
     dq = torch.empty_like(q)
     if dq.numel():
         FLASH_DQ(q, k, v, start, dout, lse, delta, dq,
                  *_shape_args(q, k, window, scale), device=q.device)
-    return dq
+    return dq[..., :D].contiguous() if dq.shape[-1] != D else dq
 
 
 def flash_train_dkv(q, k, v, start, dout, lse, delta, window=None, scale=None):
@@ -270,6 +286,8 @@ def flash_train_dkv(q, k, v, start, dout, lse, delta, window=None, scale=None):
     if not _on_card("flash_train_dkv", q):
         return flash_train_dkv_plain(q, k, v, start, dout, lse, delta, window, scale)
     _check(q, k, v, start, dout, lse, delta)
+    D = q.shape[-1]
+    q, k, v, dout = _padded(q, k, v, dout)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if dk.numel():
@@ -277,6 +295,8 @@ def flash_train_dkv(q, k, v, start, dout, lse, delta, window=None, scale=None):
         FLASH_DKV(q, k, v, start, dout, lse, delta, dk, dv,
                   *_shape_args(q, k, window, scale), work, work.shape[0], cluster,
                   device=q.device)
+    if dk.shape[-1] != D:
+        return dk[..., :D].contiguous(), dv[..., :D].contiguous()
     return dk, dv
 
 
@@ -296,20 +316,28 @@ class FlashAttentionTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, start, window, scale):
+        D = q.shape[-1]
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if q.device.type == "cuda":  # once a step, at the kernels' width
+            q, k, v = _padded(q, k, v)
         out, lse = _kernels().flash_train_fwd(q, k, v, start, window, scale)
         ctx.save_for_backward(q, k, v, start, out, lse)
-        ctx.window, ctx.scale = window, scale
-        return out
+        ctx.window, ctx.scale, ctx.D = window, scale, D
+        return out[..., :D].contiguous() if out.shape[-1] != D else out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, start, out, lse = ctx.saved_tensors
+        D = ctx.D
         dout = dout.to(q.dtype).contiguous()
+        if D != q.shape[-1]:
+            dout = pad_head_dim(dout, q.shape[-1])
         delta = (dout.float() * out.float()).sum(-1)  # [B, T, Hq]
         kern = _kernels()
         dq = kern.flash_train_dq(q, k, v, start, dout, lse, delta, ctx.window, ctx.scale)
         dk, dv = kern.flash_train_dkv(q, k, v, start, dout, lse, delta, ctx.window, ctx.scale)
+        if dq.shape[-1] != D:
+            dq, dk, dv = dq[..., :D], dk[..., :D], dv[..., :D]
         return dq, dk, dv, None, None, None
 
 

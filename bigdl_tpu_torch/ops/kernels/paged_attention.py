@@ -28,7 +28,7 @@ from typing import Optional
 import torch
 
 from bigdl_tpu_torch.kvcache import FP8, as_bits
-from bigdl_tpu_torch.ops.kernels._build import Kernel, sm_count
+from bigdl_tpu_torch.ops.kernels._build import Kernel, sm_count, workspace
 from bigdl_tpu_torch.ops.kernels.qtile import SMS
 
 _REPLACES = "bigdl_tpu/ops/pallas/paged_attention.py:42"
@@ -42,7 +42,9 @@ PAGED_FP8 = Kernel("paged_attention_fp8", "paged_attention", "ppppppppppppiiiiii
                    replaces=_REPLACES)
 
 _NEG_INF = -1e30
-_HEAD_DIMS = (64, 128, 256)
+# phi3-mini's 96 is an instantiation of its own: padding the pool each
+# step would move every live slot's bytes again
+_HEAD_DIMS = (64, 96, 128, 256)
 _MAX_GROUP = 16  # query heads per kv head: 4 warps, up to 4 heads each
 
 SPLIT_TILE = 32  # slots a stage of the kernel's ring (csrc/paged_attention.cu kTile)
@@ -88,24 +90,6 @@ def split_plan(lo: int, hi: int, chunk: int) -> list[tuple[int, int]]:
         return []
     return [(max(lo, c * chunk), min(hi, (c + 1) * chunk - 1))
             for c in range(lo // chunk, hi // chunk + 1)]
-
-
-# per (device, stream): the f32 partials and the int32 ticket counters,
-# kept across calls so the counters, which each launch leaves at zero,
-# need no memset a launch; launches on one stream run in order, so they
-# can share them
-_workspaces: dict = {}
-
-
-def _workspace(device: torch.device, floats: int, counters: int) -> tuple[torch.Tensor, torch.Tensor]:
-    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
-    part, tickets = _workspaces.get(key, (None, None))
-    if part is None or part.numel() < floats:
-        part = torch.empty(max(floats, 1), dtype=torch.float32, device=device)
-    if tickets is None or tickets.numel() < counters:
-        tickets = torch.zeros(counters, dtype=torch.int32, device=device)
-    _workspaces[key] = (part, tickets)
-    return part, tickets
 
 
 def _decoded(pool: torch.Tensor, scale: Optional[torch.Tensor], layer: int,
@@ -164,10 +148,11 @@ def _check(q, k_pages, v_pages, block_tables, pos, start, k_scale, v_scale) -> N
     Hkv = k_pages.shape[3]
     if Hq % Hkv or Hq // Hkv > _MAX_GROUP:
         raise NotImplementedError(f"paged_attention: Hq={Hq} over Hkv={Hkv} (the "
-                                  f"kernel takes groups of 1..{_MAX_GROUP} heads)")
+                                  f"kernel takes groups of 1..{_MAX_GROUP} heads; "
+                                  "others: ROADMAP queue 2 item 1)")
     if D not in _HEAD_DIMS:
         raise NotImplementedError(f"paged_attention: head_dim {D} (the kernel "
-                                  f"takes {_HEAD_DIMS})")
+                                  f"takes {_HEAD_DIMS}; others: ROADMAP queue 2 item 1)")
     want = FP8 if k_scale is not None else torch.bfloat16
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         if t.dtype != want:
@@ -225,7 +210,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     chunk = split_chunk(B, Hkv, mp * page, sm_count(q.device.index or 0))
     nmax = max_chunks(mp * page, chunk, window)
     G = Hq // Hkv
-    part, tickets = _workspace(q.device, B * Hkv * nmax * G * (D + 2), B * Hkv)
+    floats = B * Hkv * nmax * G * (D + 2)
+    buf, tickets = workspace(q.device, 4 * floats, B * Hkv)
+    part = buf[:4 * floats].view(torch.float32)
     part_o, part_ml = part[:B * Hkv * nmax * G * D], part[B * Hkv * nmax * G * D:]
     tail = (B, Hq, Hkv, D, NP, page, mp, int(layer), int(window or 0),
             float(softcap or 0.0), chunk, nmax, int(qs.dtype == torch.float32), float(scale))

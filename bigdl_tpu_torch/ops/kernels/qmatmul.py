@@ -6,8 +6,9 @@ Port of bigdl_tpu/ops/pallas/qmatmul.py (`qmatmul`, `qmatmul_lora`,
 qtype (ops/kernels/_build.py); its header note says what bounds each form
 on the card and what the design does about it, and `csrc/qdecode.cuh`
 holds every format's decode. Two kernels split the TPU kernel's two shape
-classes at `GEMV_MAX_ROWS` rows: a GEMV for decode and a tensor-core GEMM
-for prefill, whose tile `qtile.gemm_tile` chooses. `_kernel`'s LoRA
+classes at `GEMV_MAX_ROWS` rows: a GEMV for decode and a GEMM for
+prefill, both on the tensor cores, whose tiles `qtile.gemv_tile` and
+`qtile.gemm_tile` choose. `_kernel`'s LoRA
 epilogue (`qmatmul_lora`) has the same two forms, the LoRA GEMV (serving
 decode steps, short prefill tails) and the LoRA GEMM (prefill, training),
 for any adapter width R that the JAX package's `lora_fused_ok` admits
@@ -23,26 +24,31 @@ from __future__ import annotations
 
 import torch
 
-from bigdl_tpu_torch.ops.kernels._build import Kernel
-from bigdl_tpu_torch.ops.kernels.qtile import gemm_tile, plane_split
+from bigdl_tpu_torch.ops.kernels._build import Kernel, workspace
+from bigdl_tpu_torch.ops.kernels.qtile import gemm_tile, gemv_tile, lora_xa_split, plane_split
 from bigdl_tpu_torch.quant import QTensor
 
 GEMV_MAX_ROWS = 32  # ops/linear.py _GEMV_MAX_ROWS in the JAX package
 
 _REPLACES = "bigdl_tpu/ops/pallas/qmatmul.py:90"
-# (x, data, scales, mins, sub_scales, sub_mins, out, M, K, O)
-GEMV = Kernel("qmatmul_gemv", "qmatmul", "pppppppiii", replaces=_REPLACES,
+# (x, data, scales, mins, sub_scales, sub_mins, out, M, K, O, wr, kc,
+#  warps, stages, smem): the tile of qtile.gemv_tile
+GEMV = Kernel("qmatmul_gemv", "qmatmul", "pppppppiiiiiiii", replaces=_REPLACES,
               per_format=True)
 # (x, xo scratch for x in the GEMM's order (None where S = 1), data,
 #  scales, mins, sub_scales, sub_mins, out, M, K, O, bm, bn, stages, smem):
 #  the tile of qtile.gemm_tile
 GEMM = Kernel("qmatmul_gemm", "qmatmul", "ppppppppiiiiiii", replaces=_REPLACES,
               per_format=True)
-# (x, data, scales, mins, sub_scales, sub_mins, a_cat, b_cat, gate, xg
-#  scratch, out, M, K, O, R); the LoRA GEMM with xo after x and bm, bn,
-#  stages, smem at the end
-LORA_GEMV = Kernel("qmatmul_gemv_lora", "qmatmul", "pppppppppppiiii",
+# (x, data, scales, mins, sub_scales, sub_mins, a_cat, b_cat, gate, f32
+#  scratch of the first pass's partials, xg scratch, ticket counters, out,
+#  M, K, O, R, wr, kc, warps, stages, smem, ks, kspb): the tile of
+#  qtile.gemv_tile, the split of qtile.lora_xa_split
+LORA_GEMV = Kernel("qmatmul_gemv_lora", "qmatmul", "pppppppppppppiiiiiiiiiii",
                    replaces=_REPLACES, per_format=True)
+# (x, data, scales, mins, sub_scales, sub_mins, a_cat, b_cat, gate, xg
+#  scratch, out, M, K, O, R) with xo after x and bm, bn, stages, smem at
+#  the end
 LORA_GEMM = Kernel("qmatmul_gemm_lora", "qmatmul", "ppppppppppppiiiiiiii",
                    replaces=_REPLACES, per_format=True)
 
@@ -163,7 +169,9 @@ def qmatmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     M, O = x2.shape[0], w.data.shape[0]
     out = torch.empty((M, O), dtype=torch.bfloat16, device=x.device)
     if 0 < M <= GEMV_MAX_ROWS:
-        GEMV(x2, *fields, out, M, K, O, device=x.device, qtype=w.qtype)
+        t = gemv_tile(M, O, K, w.qtype)
+        GEMV(x2, *fields, out, M, K, O, t.wr, t.kc, t.warps, t.stages, t.smem,
+             device=x.device, qtype=w.qtype)
     elif M:
         t = gemm_tile(M, O, K, w.qtype)
         GEMM(x2, _x_order_scratch(x2, w.qtype), *fields, out, M, K, O, t.bm, t.bn, t.stages,
@@ -218,13 +226,17 @@ def qmatmul_lora(x: torch.Tensor, w: QTensor, a_cat: torch.Tensor,
             raise ValueError(f"qmatmul_lora: {name} must be contiguous and "
                              f"{align}-byte aligned")
     out = torch.empty((M, O), dtype=torch.bfloat16, device=x.device)
-    if M:
+    if M and M <= GEMV_MAX_ROWS:
+        t = gemv_tile(M, O, K, w.qtype, R)
+        ks, kspb = lora_xa_split(R, K)
+        buf, tickets = workspace(x.device, 4 * ks * M * R, -(-R // 16))  # first pass
+        xg = torch.empty((M, R), dtype=torch.bfloat16, device=x.device)
+        LORA_GEMV(x2, *fields, a_cat, b_cat, gate, buf, xg, tickets, out,
+                  M, K, O, R, t.wr, t.kc, t.warps, t.stages, t.smem, ks, kspb,
+                  device=x.device, qtype=w.qtype)
+    elif M:
         xg = torch.empty((M, R), dtype=torch.bfloat16, device=x.device)  # first pass
-        args = (*fields, a_cat, b_cat, gate, xg, out, M, K, O, R)
-        if M <= GEMV_MAX_ROWS:
-            LORA_GEMV(x2, *args, device=x.device, qtype=w.qtype)
-        else:
-            t = gemm_tile(M, O, K, w.qtype)
-            LORA_GEMM(x2, _x_order_scratch(x2, w.qtype), *args, t.bm, t.bn, t.stages, t.smem,
-                      device=x.device, qtype=w.qtype)
+        t = gemm_tile(M, O, K, w.qtype)
+        LORA_GEMM(x2, _x_order_scratch(x2, w.qtype), *fields, a_cat, b_cat, gate, xg, out, M,
+                  K, O, R, t.bm, t.bn, t.stages, t.smem, device=x.device, qtype=w.qtype)
     return out.reshape(*x.shape[:-1], O)

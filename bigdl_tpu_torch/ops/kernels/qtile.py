@@ -15,11 +15,18 @@ S = 8 have no 256-row tile (its ring does not fit in shared memory).
 `k_order` gives the order in which a step or a dx block sees the
 contraction's columns: the groups of the format's finest plane split
 (`csrc/qdecode.cuh`), a permutation of K that the sums do not see.
+
+The decode GEMV (M <= 32, `csrc/qmatmul.cu` gemv_kernel) has its own
+policy, `gemv_tile`: a block of 8 warps takes 16 WR weight rows, its
+WK = 8 / WR warps share the K walk, and where the row blocks alone would
+not fill the card the walk is split over a cluster of KC blocks. `gemv_k_order` is the order its MMAs see K in; `lora_xa_split`
+cuts the LoRA GEMV's first pass over K.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -153,3 +160,155 @@ def k_order(K: int, qtype: str, width: int) -> torch.Tensor:
         jj = j0 + (g // S) * 16
         cols.append(((g % S) * Q + jj + i)[jj < Q])
     return torch.cat(cols)
+
+
+# ---------------------------------------------------------------- GEMV
+GEMV_WARPS = (8, 16)  # warps a block; 16 only where one piece holds 16 j (registers)
+GEMV_TAIL = 64  # adapter columns of the LoRA arm's tail step, elements of a first-pass step
+GEMV_WR = (16, 8, 4, 2, 1)  # row tiles of 16 a block, most first (at most the warps)
+GEMV_KC = (1, 2, 4, 8)  # cluster ranks along K (portable cluster sizes)
+GEMV_FILL = 0.72  # blocks of the GEMV's grid an SM, at least (where a tile has them)
+LORA_XA_FILL = 2  # blocks of the LoRA GEMV's first pass an SM
+
+
+def gemv_stages(qtype: str) -> int:
+    """Ring slots a warp of the GEMV keeps: 4, or 2 for the formats whose
+    16 j positions take more than one 16-byte piece."""
+    return 4 if plane_split(qtype)[1] == 1 else 2
+
+
+def gemv_jw(qtype: str) -> int:
+    """j-blocks of 16 a lane of the GEMV takes a step: 2 where one
+    16-byte piece holds 16 j positions and decodes to at most 2 groups
+    (the four lanes of a row then read 128 contiguous bytes a plane, and
+    two blocks' scale fields fit the registers), else 1."""
+    S, pieces = plane_split(qtype)
+    return 2 if pieces == 1 and S <= 2 else 1
+
+
+def gemv_jstep(qtype: str) -> int:
+    """j positions of a GEMV warp's step: 4 lanes x 16 x gemv_jw."""
+    return 64 * gemv_jw(qtype)
+
+
+def gemv_steps(K: int, qtype: str) -> int:
+    """Steps in the GEMV's K walk."""
+    return -(-(K // plane_split(qtype)[0]) // gemv_jstep(qtype))
+
+
+def gemv_warps(qtype: str, M: int = 1) -> tuple:
+    """The warps a GEMV block may have for this format and M: 16 only
+    where a thread holds few registers (two j-blocks a step, one n-tile
+    of 8 rows of x)."""
+    return GEMV_WARPS if gemv_jw(qtype) == 2 and M <= 8 else GEMV_WARPS[:1]
+
+
+def gemv_smem(M: int, K: int, qtype: str, kc: int, R: int = 0, warps: int = 8) -> int:
+    """csrc/qmatmul.cu gemv_smem: the codebook, x's columns of one cluster
+    rank's steps (every segment; rows 16 bytes past their width), xg of
+    the LoRA arm (R > 0) and the warps' rings of pieces."""
+    S, pieces = plane_split(qtype)
+    spb = -(-gemv_steps(K, qtype) // kc)
+    xbytes = M * (S * spb * gemv_jstep(qtype) * 2 + 16)
+    gbytes = M * (-(-R // GEMV_TAIL) * GEMV_TAIL * 2 + 16) if R > 0 else 0
+    return 64 + xbytes + gbytes + warps * gemv_stages(qtype) * 2 * gemv_jw(qtype) * pieces * 32 * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class GemvTile:
+    """One GEMV launch: `wr` row tiles of 16 a block (`rows` = 16 wr),
+    `kc` cluster ranks along K, `warps` a block (wr of them a K slice),
+    `stages` ring slots a warp, `smem` bytes, `threads` a block, `grid`
+    (kc, row blocks)."""
+
+    wr: int
+    kc: int
+    warps: int
+    stages: int
+    smem: int
+    threads: int
+    grid: tuple[int, int]
+
+    @property
+    def rows(self) -> int:
+        return 16 * self.wr
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_tile(M: int, O: int, K: int, qtype: str, R: int = 0) -> GemvTile:
+    """The GEMV's tile for x [M <= 32, K] against an [O, K] weight (R > 0:
+    the LoRA arm's shared memory; the tile itself does not depend on R, so
+    a zero-gate row of the LoRA GEMV sums in the plain GEMV's order).
+
+    The first, fewest cluster ranks first and then most rows, whose grid
+    has GEMV_FILL of a block an SM with steps to walk and that fits 227 KB
+    with the widest adapter the fused epilogue admits at this K; else the
+    fitting one with the most such blocks. Rows go 256 a block in 16
+    warps (where the format's registers allow), else 128 down to 16 in 8
+    warps. A sweep of every tile at llama3-8b's shapes (scripts/gemv_sweep.py)
+    put the fastest at 96-500 blocks: blocks that stream long runs of
+    steps beat more, shorter ones. More rows a block read x's columns
+    fewer times; a smaller cluster sums fewer partials. Kept per shape:
+    a decode step asks again for every layer."""
+    from bigdl_tpu_torch.ops.kernels.qmatmul import lora_fused_ok
+
+    nsteps = gemv_steps(K, qtype)
+    rmax = 4 * 1024 * 1024 // (2 * K + 2048)
+    while rmax > 0 and not lora_fused_ok(rmax, K):
+        rmax -= 1
+    shapes = [(w, w) for w in gemv_warps(qtype, M)[1:]] + [(8, wr) for wr in GEMV_WR if wr <= 8]
+    best = None
+    for kc in GEMV_KC:
+        working = -(-nsteps // -(-nsteps // kc))  # ranks with steps
+        for warps, wr in shapes:
+            if gemv_smem(M, K, qtype, kc, rmax, warps) > SMEM_LIMIT:
+                continue
+            blocks = working * math.ceil(O / (16 * wr))
+            if blocks >= GEMV_FILL * SMS:
+                best = (blocks, warps, wr, kc)
+                break
+            if best is None or blocks > best[0]:
+                best = (blocks, warps, wr, kc)
+        else:
+            continue
+        break
+    _, warps, wr, kc = best
+    return GemvTile(wr, kc, warps, gemv_stages(qtype), gemv_smem(M, K, qtype, kc, R, warps),
+                    32 * warps, (kc, math.ceil(O / (16 * wr))))
+
+
+def gemv_k_order(K: int, qtype: str) -> torch.Tensor:
+    """The contraction's columns in the order the GEMV's MMAs see them:
+    step s, j-block b of the lane's gemv_jw, segment u, k-tile t, slot c
+    of the 16 (slots 2 q + e and 2 q + 8 + e are elements 4 t + e and
+    4 t + 2 + e of lane q's group, u Q + jstep s + 64 b + 16 q .. + 15),
+    for the j positions below Q = K / S."""
+    S, _ = plane_split(qtype)
+    Q = K // S
+    c = torch.arange(16)
+    q, e, hi = (c % 8) // 2, c % 2, c // 8
+    cols = []
+    for s in range(gemv_steps(K, qtype)):
+        for b in range(gemv_jw(qtype)):
+            for u in range(S):
+                for t in range(4):
+                    j = gemv_jstep(qtype) * s + 64 * b + 16 * q
+                    el = u * Q + j + 4 * t + 2 * hi + e
+                    cols.append(el[j < Q])
+    return torch.cat(cols)
+
+
+@functools.lru_cache(maxsize=None)
+def lora_xa_split(R: int, K: int) -> tuple[int, int]:
+    """(ks, kspb): the LoRA GEMV's first pass in ks blocks along K of kspb
+    steps of 64 elements each, over ceil(R / 16) blocks of A_cat rows:
+    as few steps a block as give the grid LORA_XA_FILL blocks an SM
+    (a wave at least at R = 128), no block without steps."""
+    nk = -(-K // GEMV_TAIL)
+    want = -(-LORA_XA_FILL * SMS // -(-R // 16))
+    kspb = max(1, -(-nk // max(1, min(nk, want))))
+    return -(-nk // kspb), kspb

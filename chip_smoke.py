@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught):
+Phases (a failed check is reported where it fails and the run goes on,
+so that one run shows every failure, then exits non-zero before printing
+the result lines; an exception ends the run at once; nothing is caught):
 
 1. build every CUDA kernel from csrc/ (one nvcc per source, in parallel),
    print each library's registers and spills, and for the tensor-core
@@ -17,15 +19,21 @@ Phases (any failure exits non-zero; nothing is caught):
    (`dw_tma_kernel`, wgmma, and `dw_kernel`, mma.sync, for shapes TMA
    cannot read) and the paged decode kernel (`paged_split_kernel`): a
    spill there fails the run, and so does a `dw_tma_kernel` without HGMMA
-   in its SASS; print the card's name and power limit;
+   in its SASS; then the decode GEMV of every format (`gemv_kernel`, both
+   arms, and the LoRA GEMV's first pass `lora_xa_split_kernel`): a spill
+   or a kernel without HMMA in its SASS in sym_int4, nf4, q4_k or q6_k
+   fails the run; print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version at the main paths'
-   shapes: the sym_int4 dequant-matmul GEMV (M <= 32) and GEMM (M > 32) at
-   every llama3-8b projection; the GEMM, LoRA GEMM and dx at ragged M (33,
+   shapes: the sym_int4 dequant-matmul GEMV (M = 1, 3, 4, 8, 17, 32: every
+   n-tile count) and GEMM (M = 33, 1024) at every llama3-8b projection and
+   the lm head, and there the LoRA GEMV at R = 128 with the serving
+   decode's gate (its last row zero: that row must equal the GEMV's bits),
+   both launched twice (bit-equal); the GEMM, LoRA GEMM and dx at ragged M (33,
    255, 257, 1000, 4096) with O = 200, each launched twice (bit-equal) and
    with every third LoRA gate row zero (those rows bit-equal to the
    GEMM's); flash attention at the prefill shape with
    ragged left padding, plus a window+softcap case, a head_dim-64 case, a
-   head_dim-256 case and a T=17 case at q_offset 100 whose window edge
+   head_dim-256 case, phi3-mini's head_dim 96 and a T=17 case at q_offset 100 whose window edge
    falls inside a key tile;
    then the training kernels: the dequant dx at every projection and the
    lm head, the GEMM's LoRA epilogue at wo and w_down (all at M = 1024),
@@ -156,7 +164,16 @@ Phases (any failure exits non-zero; nothing is caught):
    window over two steps; every dW launch of the path is the wgmma
    `dw_tma_kernel`), and the dW kernel isolated at each path shape beside
    its plain version, cuBLAS g^T x (a yardstick the port never calls) and
-   its bound.
+   its bound;
+15. phi3-mini's head_dim 96: a 2-layer phi3-mini at full width (hidden
+   3072, 32 heads of 96 over 32 kv heads), sym_int4, weights from a seed:
+   prefill logits through the flash kernel (D run at 128, zero-padded),
+   a paged engine's decode steps through the paged kernel's D = 96
+   instantiation (chosen-token logprobs) and one QLoRA step (B=1 T=256)
+   through the flash backward (loss and LoRA gradients), each against the
+   plain versions on the card under phases 3, 7 and 5's bounds, and each
+   of those kernels launched (flash a layer, paged a layer and decode
+   step, each flash-train kernel a layer).
 
 The whole run takes about 460-510 s of command time on an H100 (the
 host's speed moves it), the kernel builds included (the dequant sources
@@ -188,10 +205,13 @@ TRAIN_T, RANK, LR = 1024, 8, 1e-4  # bench.py child_train: B=1, T=1024, rank 8
 TRAIN_STEPS, PROFILED_TRAIN_STEPS = 5, 2
 PATH_FORMATS = ("sym_int4", "nf4", "q4_k", "q6_k")  # generation, training, q4_k_m
 RAGGED_M = (33, 255, 257, 1000, 4096)
+GEMV_CHECK_M, GEMV_R = (1, 3, 4, 8, 17, 32), 128  # the GEMV's row counts (n-tiles 1, 2, 4), adapter width
 # the GEMM's launch (x in its steps' order, then the GEMM) and the LoRA
 # GEMM's (its first pass, then the same two) in a profiler's kernel names
 GEMM_EVENT = re.compile(r"namespace\)::(gemm|x_order)_kernel<([^<>]*, )?(false|\(bool\)0)>")
 LORA_GEMM_EVENT = re.compile(r"lora_xa_tc_kernel|namespace\)::(gemm|x_order)_kernel<([^<>]*, )?(true|\(bool\)1)>")
+# the LoRA GEMV at 8 rows (one n-tile): its GEMV launch in a profile
+LORA_GEMV_EVENT = re.compile(r"namespace\)::gemv_kernel<1, (true|\(bool\)1)>")
 
 
 def log(*a):
@@ -308,9 +328,16 @@ def device_ms(torch, fn, args_list, iters: int = 20) -> float:
     return sum(e.self_device_time_total for e in device_kernels(prof)) / 1e3 / iters
 
 
+# the checks that failed: each is reported where it fails and the run goes
+# on, so that one run shows every failure; main() then exits 1 before the
+# result lines (an exception still ends the run at once)
+FAILED: list = []
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
-        raise SystemExit(f"chip_smoke: FAILED: {what}")
+        log(f"chip_smoke: FAILED: {what}")
+        FAILED.append(what)
 
 
 def tile_text(t) -> str:
@@ -434,6 +461,18 @@ def main() -> int:
                               label=f"[{qtype}] ", sass=sass[(stem, qtype)])
         path_spills += sp if qtype in PATH_FORMATS else 0
     check(path_spills == 0, f"a dequant GEMM or dx kernel of {PATH_FORMATS} spills")
+    # the decode GEMV (plain and LoRA arms) and the LoRA GEMV's first pass:
+    # on the tensor cores (HMMA in the SASS) and unspilled in the paths' formats
+    gemv_spills, no_hmma = 0, []
+    for qtype in sorted(q for s_, q in dequant if s_ == "qmatmul"):
+        sp = tc_kernel_report(libs[("qmatmul", qtype)], ("gemv_kernel", "lora_xa_split_kernel"),
+                              label=f"[{qtype}] ", sass=sass[("qmatmul", qtype)])
+        if qtype in PATH_FORMATS:
+            gemv_spills += sp
+            no_hmma += [(qtype, k) for k, n in sass[("qmatmul", qtype)].items()
+                        if ("gemv_kernel" in k or "lora_xa_split_kernel" in k) and n == 0]
+    check(gemv_spills == 0, f"a GEMV kernel of {PATH_FORMATS} spills")
+    check(not no_hmma, f"GEMV kernels without HMMA in their SASS: {no_hmma}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -458,23 +497,44 @@ def main() -> int:
     errs = {k.name: 0.0 for k in kernels.KERNELS}
     for name, (O, K) in shapes.items():
         w, = qweight(O, K)
-        for M in (1, 4, 32, 33, 1024):
+        a_l, b_l = randn(GEMV_R, K) / 16, randn(O, GEMV_R) * 0.02
+        for M in GEMV_CHECK_M + (33, 1024):
             x = randn(M, K)
-            y = kernels.qmatmul(x, w).float()
+            y = kernels.qmatmul(x, w)
             ref = kernels.qmatmul_plain(x, w).float()
-            err = (y - ref).abs().max().item()
+            err = (y.float() - ref).abs().max().item()
             # f32 sums in another order, then one bf16 rounding on each
             # side: within 2 bf16 ULPs of the largest output
             tol = ref.abs().max().item() * 2 ** -7
-            kname = (kernels.GEMV if M <= kernels.GEMV_MAX_ROWS else kernels.GEMM).name
+            gemv = M <= kernels.GEMV_MAX_ROWS
+            kname = (kernels.GEMV if gemv else kernels.GEMM).name
             errs[kname] = max(errs[kname], err)
-            log(f"phase 2: {kname} {name} M={M} O={O} K={K} max_abs_err={err:.6g} tol={tol:.6g}")
+            line = f"phase 2: {kname} {name} M={M} O={O} K={K} max_abs_err={err:.6g} tol={tol:.6g}"
             check(bool(torch.isfinite(y).all()) and err <= tol, f"{kname} {name} M={M}")
+            if gemv:
+                # the LoRA GEMV at R = 128 with the serving decode's gate (its
+                # last row all zero at M > 1: that row is the GEMV's bits);
+                # both launched twice (the same bits: no atomics)
+                gate = lora_gate(torch, dev, M, GEMV_R, "block")
+                yl = kernels.qmatmul_lora(x, w, a_l, b_l, gate)
+                refl = kernels.qmatmul_lora_plain(x, w, a_l, b_l, gate).float()
+                errl = (yl.float() - refl).abs().max().item()
+                toll = refl.abs().max().item() * 2 ** -7
+                errs[kernels.LORA_GEMV.name] = max(errs[kernels.LORA_GEMV.name], errl)
+                same = (torch.equal(y, kernels.qmatmul(x, w))
+                        and torch.equal(yl, kernels.qmatmul_lora(x, w, a_l, b_l, gate)))
+                base = M == 1 or torch.equal(yl[-1], y[-1])
+                line += (f"; {kernels.LORA_GEMV.name} R={GEMV_R} max_abs_err={errl:.6g} tol={toll:.6g}, "
+                         f"relaunches bit-equal {same}, zero-gate row = GEMV bits {base}")
+                check(bool(torch.isfinite(yl).all()) and errl <= toll and same and base,
+                      f"{kernels.LORA_GEMV.name} {name} M={M}: relaunch {same}, zero-gate row {base}")
+            log(line)
     dequant_edge_checks(torch, dev, "sym_int4", errs, qweight(200, 2048)[0], randn)
     flash_cases = [("prefill", B, T, S, Hq, Hkv, D, 0, None, None),
                    ("window+softcap", 2, 128, 192, Hq, Hkv, D, 40, 64, 30.0),
                    ("head_dim 64", 2, 96, 128, 8, 2, 64, 0, None, None),
                    ("head_dim 256", 2, 70, 96, 4, 1, 256, 0, None, None),
+                   ("head_dim 96 (phi3-mini's, run at 128)", 2, 96, 128, 32, 32, 96, 0, None, None),
                    ("T=17, q_offset, window across a key tile", 2, 17, 192, Hq, Hkv, D, 100, 50, None)]
     for label, b, t_, s, hq, hkv, d, qoff, win, cap in flash_cases:
         q, k, v = randn(b, t_, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
@@ -722,10 +782,15 @@ def main() -> int:
     by_format = format_phases(torch, dev, cfg, card, prompts, tok, st, T, S)
     # --------------------------------------------------------------- 13
     ft_entries = full_ft_phases(torch, dev, cfg, card, errs, randn)
+    # --------------------------------------------------------------- 15
+    phi3_phases(torch, dev, errs)
     for e in entries + train_entries + adapter_entries:
         if e["name"] in by_format:  # the dequant forms: sym_int4 above, then the others
             e["formats"] = ["sym_int4"] + list(by_format[e["name"]])
             e["by_format"] = by_format[e["name"]]
+    if FAILED:
+        log(f"chip_smoke: {len(FAILED)} check(s) failed: {FAILED}")
+        return 1
     log(json.dumps({"kernels": entries + train_entries + serving_entries + adapter_entries
                     + ft_entries}))
     log(json.dumps({"ok": True, "device": {
@@ -2297,9 +2362,8 @@ def adapter_phases(torch, dev, cfg, card, errs, served) -> list:
     dev_events = device_kernels(prof)
     busy = sum(e.self_device_time_total for e in dev_events) / 1e3 / PROFILED_DECODES
     med = sorted(host)[len(host) // 2]
-    gemv_evs = [e for e in dev_events if ("gemv_kernel<8, 4, true>" in e.key
-                                          or "gemv_kernel<8, 4, (bool)1>" in e.key)]
-    xa_evs = [e for e in dev_events if "lora_xa_small_kernel<8, 4>" in e.key]
+    gemv_evs = [e for e in dev_events if LORA_GEMV_EVENT.search(e.key)]
+    xa_evs = [e for e in dev_events if "lora_xa_split_kernel<1>" in e.key]
     calls = sum(e.count for e in gemv_evs)
     check(calls == 2 * L * PROFILED_DECODES and sum(e.count for e in xa_evs) == calls,
           f"LoRA GEMV: {calls} profiled calls, expected {2 * L * PROFILED_DECODES}")
@@ -2350,6 +2414,135 @@ def adapter_phases(torch, dev, cfg, card, errs, served) -> list:
         "max_abs_err": errs[kernels.LORA_GEMV.name], "ms": path, "isolated_ms": iso,
         "plain_ms": plain_, "bound_ms": bms, "bound_by": by, "library_ms": lib,
         "per": f"one adapter decode step: {SLOTS} rows, R={R}, wo + w_down x {L} layers"}]
+
+
+# ---------------------------------------------------------------------------
+# phi3-mini: head_dim 96 through the attention kernels (phase 15)
+# ---------------------------------------------------------------------------
+
+PHI3_LAYERS, PHI3_PROMPTS, PHI3_NEW = 2, (200, 150, 97, 17), 16
+
+
+def phi3_phases(torch, dev, errs) -> None:
+    """Phase 15: a 2-layer phi3-mini at full width (hidden 3072, 32 heads
+    of 96 over 32 kv heads, intermediate 8192, vocab 32064), sym_int4,
+    weights from a seed. Its head_dim runs the flash kernels at 128 (zero-
+    padded) and the paged kernel's D = 96 instantiation. Against the plain
+    versions on the card: prefill logits through `flash_attention`; the
+    chosen-token logprobs of a paged engine's decode steps through
+    `paged_attention`; one QLoRA step's loss and LoRA gradients through
+    the flash backward. Each of those kernels must have launched."""
+    import numpy as np
+
+    from bigdl_tpu_torch import PRESETS, TorchModel, optimize_model
+    from bigdl_tpu_torch.generate import pad_prompts
+    from bigdl_tpu_torch.kvcache import init_cache
+    from bigdl_tpu_torch.models import llama
+    from bigdl_tpu_torch.ops import kernels
+    from bigdl_tpu_torch.serving import InferenceEngine
+    from bigdl_tpu_torch.train import init_lora, next_token_loss
+
+    cfg = dataclasses.replace(PRESETS["phi3-mini"], num_hidden_layers=PHI3_LAYERS)
+    L, V, Hkv, D = cfg.num_hidden_layers, cfg.vocab_size, cfg.num_key_value_heads, cfg.head_dim_
+    check(D == 96, f"phi3-mini head_dim {D}")
+    t0 = time.time()
+    model = optimize_model(llama.init_params(cfg, seed=40, device=dev), cfg, "sym_int4")
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(41)
+    prompts = [rng.integers(1, V, n).tolist() for n in PHI3_PROMPTS]
+    tokens, starts = pad_prompts(prompts, 0)
+    tok = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+    st = torch.as_tensor(starts, device=dev)
+    T = tok.shape[1]
+
+    # prefill through the flash kernel (D = 96 run at 128)
+    def prefill_logits():
+        cache = dataclasses.replace(init_cache(L, len(prompts), T + 8, Hkv, D, device=dev), start=st)
+        with torch.inference_mode():
+            return llama.forward(cfg, model, tok, cache, "prefill", last_logits_only=True)[0][:, -1]
+
+    kernels.reset_launches()
+    kern_logits = prefill_logits()
+    torch.cuda.synchronize()
+    flash_n = kernels.FLASH.launches
+    with mock.patch.object(kernels, "qmatmul", kernels.qmatmul_plain), \
+            mock.patch.object(kernels, "flash_attention", kernels.flash_attention_plain):
+        plain_logits = prefill_logits()
+    lerr = (kern_logits - plain_logits).abs().max().item()
+    ltol = 0.02 * plain_logits.abs().max().item()  # phase 3's bound
+    log(f"phase 15: phi3-mini {L} layers (full width, D={D}) sym_int4 built and prefilled in "
+        f"{time.time() - t0:.1f} s: prefill logits kernels vs plain max_abs_err={lerr:.6g} "
+        f"tol={ltol:.6g}, flash launches {flash_n}")
+    check(bool(torch.isfinite(kern_logits).all()) and lerr <= ltol and flash_n == L,
+          "phi3-mini prefill logits through the flash kernel")
+
+    # decode steps of a paged engine through the paged kernel (D = 96)
+    tm = TorchModel(cfg, model, "sym_int4", device=dev)
+    specs = [dict(prompt=p_, max_new_tokens=PHI3_NEW) for p_ in prompts]
+
+    def serve():
+        eng = InferenceEngine(tm, n_slots=4, max_len=512, page_size=PAGE, paged=True)
+        rs = [eng.submit(**sp) for sp in specs]
+        eng.run_until_idle()
+        check(eng.page_leaks() == 0, "phi3-mini engine page leaks")
+        return [r.out_logprobs for r in rs], [r.out_tokens for r in rs], eng.decode_step_seconds.count
+
+    kernels.reset_launches()
+    lk, tk, steps = serve()
+    launches = kernels.launch_counts()
+    with mock.patch.multiple(kernels, qmatmul=kernels.qmatmul_plain,
+                             flash_attention=kernels.flash_attention_plain,
+                             paged_attention=kernels.paged_attention_plain):
+        lp_, tp_, _ = serve()
+    worst = 0.0
+    for a, b_, ta, tb in zip(lk, lp_, tk, tp_):
+        n = next((j for j, (x, y) in enumerate(zip(ta, tb)) if x != y), len(ta)) + 1
+        worst = max(worst, max(abs(x - y) for x, y in zip(a[:n], b_[:n])))
+    log(f"phase 15: phi3-mini paged engine, {len(specs)} requests x {PHI3_NEW} tokens, {steps} "
+        f"decode steps: chosen-token logprobs kernels vs plain max_abs_err={worst:.5f} nat "
+        f"(tol {LOGPROB_TOL[False]}, up to the first differing token); launches {launches}")
+    check(launches[kernels.PAGED.name] == L * steps > 0 and launches[kernels.GEMV.name] > 0,
+          "phi3-mini engine: paged launches = layers x decode steps, GEMV launched")
+    check(worst <= LOGPROB_TOL[False], "phi3-mini paged engine kernels vs plain")
+    del tm
+
+    # one QLoRA step through the flash backward (D = 96 run at 128)
+    lora = init_lora(cfg, seed=42, rank=RANK, device=dev)
+    with torch.no_grad():  # B != 0, so the A gradients are not all 0
+        for pair in lora.layers.values():
+            pair["b"].copy_(torch.randn(pair["b"].shape, device=dev,
+                                        generator=torch.Generator(device=dev).manual_seed(43)) * 0.01)
+    ttok = torch.as_tensor(rng.integers(1, V, (1, 256)), dtype=torch.long, device=dev)
+    mask = torch.ones(ttok.shape, device=dev)
+
+    def grads():
+        for prm in lora.parameters():
+            prm.grad = None
+        loss = next_token_loss(cfg, llama.forward, model, lora, ttok, mask)
+        loss.backward()
+        return loss.item(), {n: prm.grad.float() for n, prm in lora.named_parameters()}
+
+    kernels.reset_launches()
+    kern_loss, kern_grads = grads()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    plain = {"qmatmul": kernels.qmatmul_plain, "qmatmul_dx": kernels.qmatmul_dx_plain,
+             "qmatmul_lora": kernels.qmatmul_lora_plain,
+             "flash_train_fwd": kernels.flash_attention_train_plain,
+             "flash_train_dq": kernels.flash_train_dq_plain,
+             "flash_train_dkv": kernels.flash_train_dkv_plain}
+    with mock.patch.multiple(kernels, **plain):
+        plain_loss, plain_grads = grads()
+    worst = max(((kern_grads[n] - g).abs().max() / g.abs().max()).item()
+                for n, g in plain_grads.items())
+    log(f"phase 15: phi3-mini QLoRA step (B=1 T=256, rank {RANK}) kernels vs plain: loss "
+        f"{kern_loss:.6f} vs {plain_loss:.6f}; worst LoRA grad max_abs_err / max|grad| = "
+        f"{worst:.4g} (tol 0.05, phase 5's); launches {launches}")
+    check(all(launches[k.name] == L for k in (kernels.FLASH_FWD, kernels.FLASH_DQ, kernels.FLASH_DKV)),
+          "phi3-mini QLoRA step: one launch of each flash-train kernel a layer")
+    check(abs(kern_loss - plain_loss) <= 1e-3 * abs(plain_loss) and worst <= 0.05,
+          "phi3-mini QLoRA step, kernels vs plain")
+    del model, lora, kern_grads, plain_grads
 
 
 # ---------------------------------------------------------------------------

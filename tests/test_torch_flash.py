@@ -23,6 +23,8 @@ CASES = [
     (2, 24, 64, 4, 2, 64, 0, (0, 9), None, None),
     (3, 16, 48, 4, 1, 128, 8, (0, 5, 20), None, 20.0),
     (2, 32, 64, 2, 2, 128, 16, (3, 30), 12, None),
+    # phi3-mini's head_dim and group (G = 1): JAX pads D to 128 lanes
+    (2, 24, 48, 4, 4, 96, 8, (0, 13), None, None),
 ]
 
 

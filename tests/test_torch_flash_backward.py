@@ -19,6 +19,7 @@ CASES = [
     (1, 32, 4, 4, 16, None, None),
     (2, 48, 4, 2, 16, None, [0, 13]),  # GQA + left padding
     (1, 64, 2, 2, 16, 24, None),  # sliding window
+    (2, 48, 2, 2, 96, None, [0, 13]),  # phi3-mini's head_dim and group
 ]
 
 # Both sides run f32 math on f32 inputs, blockwise in JAX and in one pass

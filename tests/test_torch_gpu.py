@@ -109,6 +109,9 @@ def test_format_kernels_match_plain(qtype, O):
     (2, 30, 96, 4, 1, 128, 20, (0, 35), None, 30.0),
     # q_offset > 0, the window's edge inside key tile 0 for the first rows
     (2, 40, 192, 4, 2, 128, 100, (0, 110), 50, None),
+    # phi3-mini's head_dim and group (run at 128, zero-padded), tiny-llama's
+    (2, 40, 96, 8, 8, 96, 8, (0, 21), 30, 20.0),
+    (2, 24, 64, 4, 2, 16, 0, (0, 9), None, None),
 ])
 def test_flash_kernel_matches_plain(case):
     dev = _cuda()
@@ -163,6 +166,8 @@ PAGED_CASES = [
     # B, Hq, Hkv, D, page, max_pages, pos, start, window, softcap
     (3, 6, 2, 64, 8, 4, (17, 9, 30), (2, 0, 5), None, None),
     (3, 8, 2, 128, 16, 4, (50, 0, 60), (0, 0, 35), 20, 30.0),
+    # phi3-mini's head_dim 96 and group 1 (the D = 96 instantiation)
+    (3, 8, 8, 96, 16, 4, (50, 0, 60), (0, 0, 35), 20, 30.0),
     # llama3-8b at the serving engine's decode shape: 8 rows, page 64,
     # ragged positions up to 2047, row 3 idle
     (8, 32, 8, 128, 64, 32, (2047, 1100, 64, 0, 1500, 5, 700, 1999),
@@ -204,6 +209,8 @@ PAGED_SPLIT_CASES = [
     (8, 32, 8, 128, 64, 32, (700, 5, 1000, 64, 0, 2047, 300, 1),
      (700, 6, 0, 64, 0, 2047, 0, 2), None, None),
     (3, 8, 2, 64, 16, 8, (127, 64, 40), (0, 63, 41), 70, None),
+    # phi3-mini at the engine's decode shape: 32 heads over 32 kv heads, D = 96
+    (8, 32, 32, 96, 64, 32, (2047, 1100, 64, 0, 1500, 5, 700, 1999), (0,) * 8, None, None),
 ]
 
 
@@ -241,6 +248,7 @@ def test_paged_split_edges_match_plain_and_relaunch_bit_equal(case, fp8):
     (2, 30, 96, 4, 1, 128, 20, (0, 35), None, 30.0),
     (2, 40, 192, 4, 2, 128, 100, (0, 110), 50, None),
     (2, 70, 96, 4, 1, 256, 0, (0, 37), None, None),
+    (2, 40, 96, 8, 8, 96, 8, (0, 21), 30, None),  # phi3-mini's head_dim, padded
     # K/V of absmax < 1: every scale (absmax / 57344) is an f16 subnormal
     (2, 48, 96, 4, 2, 128, 8, (0, 20), None, None, 0.2),
 ])
@@ -327,8 +335,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     w = quantize(torch.randn(128, 256, device=dev), "sym_int4")
     with pytest.raises(TypeError):
         kernels.qmatmul(torch.zeros(2, 256, device=dev), w)
-    q = torch.zeros(1, 4, 2, 96, dtype=torch.bfloat16, device=dev)
-    with pytest.raises(NotImplementedError):
+    q = torch.zeros(1, 4, 2, 40, dtype=torch.bfloat16, device=dev)  # not a multiple of 16
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         kernels.flash_attention(q, q, q)
     # the training kernels load bf16 tiles 16 bytes at a time: a base 8
     # bytes off raises, it does not fault
@@ -483,6 +491,8 @@ def test_lora_gemm_matches_plain(M, O, K, R):
     (1, 1024, 32, 8, 128, None, (0,)),  # llama3-8b at the training shape
     (2, 130, 8, 1, 64, 64, (0, 70)),  # G=8: a cluster of 8; row 1's pad covers key tile 0
     (1, 65, 4, 4, 128, None, (0,)),  # G=1, one key past a tile
+    (2, 70, 8, 8, 96, None, (5, 40)),  # phi3-mini's head_dim and group, padded
+    (1, 100, 4, 2, 96, 24, (0,)),
 ])
 def test_flash_train_kernels_match_plain(case):
     dev = _cuda()
@@ -642,11 +652,13 @@ ALL_FORMATS = ["sym_int4"] + OTHER_FORMATS
 
 @pytest.mark.parametrize("qtype", ALL_FORMATS)
 def test_lora_gemv_matches_plain(qtype):
-    """The LoRA GEMV of every format against its plain version at M = 1,
-    8, 32 and R = 8, 128, with the serving decode's block-diagonal gate
-    (the last row all zero: a base row) at M > 1: within 2 bf16 ULPs of
-    the largest output, and a zero-gate row bit-equal to the plain GEMV
-    kernel's row (the same sums in the same order, plus exact zeros)."""
+    """The LoRA GEMV of every format against its plain version at ragged
+    M (1, 3, 5, 8, 17, 32: every n-tile count) and R = 8, 128, with the
+    serving decode's block-diagonal gate (the last row all zero: a base
+    row) at M > 1: within 2 bf16 ULPs of the largest output, a second
+    launch bit-equal to the first, and a zero-gate row bit-equal to the
+    plain GEMV kernel's row (the same sums in the same order, plus exact
+    zeros)."""
     dev = _cuda()
     O, K = 200, 2048  # a ragged last block; every format's k_multiple divides K
     g = torch.Generator(device=dev).manual_seed(len(qtype))
@@ -655,7 +667,7 @@ def test_lora_gemv_matches_plain(qtype):
     def rnd(*shape):
         return torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
 
-    for M in (1, 8, 32):
+    for M in (1, 3, 5, 8, 17, 32):
         for R in (8, 128):
             x, a, b = rnd(M, K), rnd(R, K) / R, rnd(O, R) * 0.1
             gate = torch.zeros((M, R), dtype=torch.bfloat16, device=dev)
@@ -667,6 +679,7 @@ def test_lora_gemv_matches_plain(qtype):
             torch.cuda.synchronize()
             assert kernels.LORA_GEMV.launches == before + 1
             assert kernels.LORA_GEMV.by_format[qtype] >= 1
+            assert torch.equal(got, kernels.qmatmul_lora(x, w, a, b, gate)), (M, R)
             ref = kernels.qmatmul_lora_plain(x, w, a, b, gate)
             assert bool(torch.isfinite(got.float()).all())
             assert _max_err(got, ref) <= _ULPS * ref.float().abs().max().item(), (M, R)
@@ -674,6 +687,84 @@ def test_lora_gemv_matches_plain(qtype):
             assert _max_err(got, base) > 0  # a real epilogue
             if M > 1:
                 assert torch.equal(got[-1], base[-1]), (M, R)
+
+
+@pytest.mark.parametrize("qtype", ALL_FORMATS)
+def test_gemv_kernel_every_format_ragged_m_relaunch_bit_equal(qtype):
+    """The tensor-core GEMV of every format at ragged M (1, 3, 5, 17, 32:
+    every n-tile count, rows past M in a tile) with O = 200 (a ragged last
+    row tile; the policy splits K over a cluster of 8): within 2 bf16 ULPs
+    of the largest output of its plain version, one launch a call, and a
+    second launch bit-equal to the first (no atomics)."""
+    dev = _cuda()
+    O, K = 200, 2048
+    g = torch.Generator(device=dev).manual_seed(3 * len(qtype))
+    w = quantize(torch.randn(O, K, device=dev, generator=g) * 0.02, qtype)
+    for M in (1, 3, 5, 17, 32):
+        x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+        before = kernels.GEMV.launches
+        got = kernels.qmatmul(x, w)
+        again = kernels.qmatmul(x, w)
+        torch.cuda.synchronize()
+        assert kernels.GEMV.launches == before + 2 and kernels.GEMV.by_format[qtype] >= 2
+        assert torch.equal(got, again), M
+        ref = kernels.qmatmul_plain(x, w)
+        assert bool(torch.isfinite(got.float()).all())
+        assert _max_err(got, ref) <= _ULPS * ref.float().abs().max().item(), M
+
+
+@pytest.mark.parametrize("qtype", ALL_FORMATS)
+def test_gemv_decodes_the_reference_bits(qtype):
+    """Rows of x that are one-hot pick single weights: each output is one
+    decoded weight times 1 plus exact zeros, so the GEMV must give the
+    plain version's bits exactly, at every column of K (32 columns a
+    launch, then 5): the GEMV's decode (qdecode16_tc) equals the
+    reference's dequantization bit for bit."""
+    dev = _cuda()
+    O, K = 200, 2048
+    g = torch.Generator(device=dev).manual_seed(5 * len(qtype))
+    w = quantize(torch.randn(O, K, device=dev, generator=g) * 0.02, qtype)
+    eye = torch.eye(K, dtype=torch.bfloat16, device=dev)
+    for c0 in range(0, K, 32):
+        x = eye[c0:c0 + 32].contiguous()
+        assert torch.equal(kernels.qmatmul(x, w), kernels.qmatmul_plain(x, w)), c0
+    x = eye[torch.randperm(K, device=dev, generator=g)[:5]].contiguous()
+    assert torch.equal(kernels.qmatmul(x, w), kernels.qmatmul_plain(x, w))
+
+
+@pytest.mark.parametrize("O,K", [(4096, 4096), (6144, 4096), (28672, 4096), (40000, 1024),
+                                 (4096, 14336)])
+def test_gemv_tiles_match_plain(O, K):
+    """The GEMV's tiles at the policy's choices (rows 64 in clusters of 8,
+    128 in clusters of 8 and of 2, 128 without a cluster; K = 14336's 112
+    steps over 8 ranks), sym_int4, M = 1, 8, 32 and the LoRA GEMV at
+    R = 128 with a zero-gate row: within 2 bf16 ULPs, relaunches
+    bit-equal, the zero-gate row the plain GEMV's bits."""
+    from bigdl_tpu_torch.ops.kernels.qtile import gemv_tile
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(O + K)
+    w = quantize(torch.randn(O, K, device=dev, generator=g) * 0.02, "sym_int4")
+    tiles = set()
+    for M in (1, 8, 32):
+        t = gemv_tile(M, O, K, "sym_int4")
+        tiles.add((t.rows, t.kc))
+        x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+        got = kernels.qmatmul(x, w)
+        assert torch.equal(got, kernels.qmatmul(x, w))
+        ref = kernels.qmatmul_plain(x, w)
+        assert _max_err(got, ref) <= _ULPS * ref.float().abs().max().item(), (M, t)
+        R = 128
+        a = (torch.randn(R, K, device=dev, generator=g) / R).to(torch.bfloat16)
+        b = (torch.randn(O, R, device=dev, generator=g) * 0.02).to(torch.bfloat16)
+        gate = torch.full((M, R), 2.0, dtype=torch.bfloat16, device=dev)
+        gate[-1] = 0
+        yl = kernels.qmatmul_lora(x, w, a, b, gate)
+        assert torch.equal(yl, kernels.qmatmul_lora(x, w, a, b, gate))
+        refl = kernels.qmatmul_lora_plain(x, w, a, b, gate)
+        assert _max_err(yl, refl) <= _ULPS * refl.float().abs().max().item(), (M, t)
+        assert torch.equal(yl[-1], got[-1])
+    assert tiles
 
 
 def test_adapter_engine_two_layers_full_width_kernels_vs_plain(tmp_path):

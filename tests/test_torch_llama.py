@@ -2,11 +2,13 @@
 bigdl_tpu_torch with `params_from_numpy`, then prefill logits and greedy
 generation compared between the packages.
 
-Two sym_int4 configurations: a small kernel-eligible one (hidden 256, 2
+Three sym_int4 configurations: a small kernel-eligible one (hidden 256, 2
 heads of 128, 1 kv head, intermediate 512, vocab 512 — every projection
 passes O % 128 and K % 64, so the port runs its kernels' plain versions
-and JAX, with BIGDL_TPU_PALLAS=interpret, its Pallas kernels) and
-tiny-llama (hidden 64: both packages take the dequant path). Then nf4
+and JAX, with BIGDL_TPU_PALLAS=interpret, its Pallas kernels),
+tiny-llama (hidden 64: both packages take the dequant path) and a
+phi3-mini-shaped one (hidden 192, 2 heads of 96 over 2 kv heads: its
+head_dim and group). Then nf4
 and q4_k_m (q4_k body, q6_k lm head) at hidden 1024, where every
 projection passes every format's k_multiple, and the weight carry in
 formats with mins, sub-scales and fp8 codes."""
@@ -43,6 +45,11 @@ CONFIGS = {
                                  intermediate_size=512, num_hidden_layers=2,
                                  num_attention_heads=2, num_key_value_heads=1),
     "tiny-llama": JAX_PRESETS["tiny-llama"],
+    # phi3-mini's head_dim 96 and group 1 (32 heads over 32 kv heads),
+    # narrowed to two heads
+    "phi3-shaped": JaxConfig(vocab_size=512, hidden_size=192, intermediate_size=512,
+                             num_hidden_layers=2, num_attention_heads=2,
+                             num_key_value_heads=2),
 }
 PROMPT_LENS = (11, 5, 16)
 NEW_TOKENS = 6

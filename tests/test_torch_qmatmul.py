@@ -64,7 +64,7 @@ def _operands(M, O, K, seed, qtype="sym_int4"):
 
 @pytest.mark.parametrize("K", [256, 1024, 4096])
 @pytest.mark.parametrize("O", [128, 384])
-@pytest.mark.parametrize("M", [1, 4, 32, 33, 128])
+@pytest.mark.parametrize("M", [1, 4, 8, 32, 33, 128])
 def test_plain_matches_pallas_interpret(M, O, K):
     x, qt = _operands(M, O, K, M * 7 + O + K)
     xb = jnp.asarray(x, jnp.bfloat16)
@@ -249,3 +249,76 @@ def test_gemm_k_order_is_a_permutation_the_product_does_not_see(qtype, mult):
     wd = w.dequantize(torch.bfloat16).double()
     x = torch.from_numpy(rng.integers(-8, 8, size=(5, K))).double()
     assert torch.equal(x[:, order] @ wd[:, order].T, x @ wd.T)
+
+
+# The decode GEMV's tile policy and column order (ops/kernels/qtile.py,
+# the host's side of csrc/qmatmul.cu gemv_kernel).
+
+def _widest_r(K):
+    return max(r for r in range(1, 2049) if kernels.lora_fused_ok(r, K))
+
+
+@pytest.mark.parametrize("qtype", QTYPES)
+def test_gemv_tile_policy_is_legal_and_fills_the_card(qtype):
+    """Every M the GEMV takes, at every path shape: a tile the kernel
+    takes (16 wr rows over 8 or 16 warps, a portable cluster of kc ranks,
+    the build's ring), shared memory within 227 KB also with the widest
+    adapter the fused epilogue admits, a grid that covers O, and at least
+    GEMV_FILL of a block with steps to walk for every SM. The LoRA arm's
+    tile is the plain GEMV's (so a zero-gate row sums in the same order)."""
+    for name, (O, K) in path_shapes().items():
+        nsteps = qtile.gemv_steps(K, qtype)
+        for M in range(1, kernels.GEMV_MAX_ROWS + 1):
+            t = qtile.gemv_tile(M, O, K, qtype)
+            assert t.wr in qtile.GEMV_WR and t.kc in qtile.GEMV_KC and t.wr <= t.warps
+            assert t.warps in qtile.gemv_warps(qtype, M) and t.threads == 32 * t.warps
+            assert t.stages == qtile.gemv_stages(qtype)
+            assert qtile.gemv_smem(M, K, qtype, t.kc, _widest_r(K), t.warps) <= qtile.SMEM_LIMIT
+            assert t.smem == qtile.gemv_smem(M, K, qtype, t.kc, 0, t.warps)
+            assert t.grid == (t.kc, math.ceil(O / t.rows))
+            spb = -(-nsteps // t.kc)
+            working = -(-nsteps // spb)  # ranks with steps
+            assert working * t.grid[1] >= qtile.GEMV_FILL * qtile.SMS, (name, M, t)
+            tl = qtile.gemv_tile(M, O, K, qtype, R=128)
+            assert (tl.wr, tl.kc, tl.warps, tl.grid) == (t.wr, t.kc, t.warps, t.grid)
+            assert tl.smem == qtile.gemv_smem(M, K, qtype, t.kc, 128, t.warps)
+
+
+@pytest.mark.parametrize("mult", [1, 3, 7])
+@pytest.mark.parametrize("qtype", QTYPES)
+def test_gemv_k_order_is_a_permutation_the_product_does_not_see(qtype, mult):
+    """The order of K in which the GEMV's MMAs see it (steps of 64 j
+    positions, the S segments of each, 4 k-tiles of 16 slots, lane q's
+    group on slots 2q, 2q + 1, 2q + 8, 2q + 9) is a permutation of K, also
+    where the last step is half empty, and the product over the permuted
+    columns equals the unpermuted one (exactly: small integers times bf16
+    weights sum without rounding in f64)."""
+    K = mult * kernels.K_MULTIPLE[qtype]
+    order = qtile.gemv_k_order(K, qtype)
+    assert torch.equal(order.sort().values, torch.arange(K))
+    rng = np.random.default_rng(K + 7 * len(qtype))
+    w = quantize(torch.from_numpy(rng.normal(size=(24, K)) * 0.05).float(), qtype)
+    wd = w.dequantize(torch.bfloat16).double()
+    x = torch.from_numpy(rng.integers(-8, 8, size=(5, K))).double()
+    assert torch.equal(x[:, order] @ wd[:, order].T, x @ wd.T)
+    # where every step is whole, a k-tile's 16 slots are 4 lanes' runs of
+    # 4 elements: the elements of slot pair (2q, 2q + 1) are consecutive,
+    # and those of (2q + 8, 2q + 9) follow them
+    if (K // qtile.plane_split(qtype)[0]) % qtile.gemv_jstep(qtype) == 0:
+        tiles = order.reshape(-1, 16)
+        assert torch.equal(tiles[:, 1::2] - tiles[:, 0::2], torch.ones_like(tiles[:, 0::2]))
+        assert torch.equal(tiles[:, 8:10] - tiles[:, 0:2], torch.full_like(tiles[:, 0:2], 2))
+
+
+@pytest.mark.parametrize("K", sorted({k for _, k in path_shapes().values()} | {64, 2048}))
+def test_lora_xa_split_covers_k_and_fills_the_card(K):
+    """The LoRA GEMV's first pass: every step of 64 elements of K in
+    exactly one block, no block without steps, and at R = 128 (the
+    serving engine's bucket) at least one block for every SM where K has
+    the steps for it."""
+    nk = -(-K // 64)
+    for R in (1, 4, 8, 16, 128, _widest_r(K)):
+        ks, kspb = qtile.lora_xa_split(R, K)
+        assert ks >= 1 and kspb >= 1 and (ks - 1) * kspb < nk <= ks * kspb, (R, ks, kspb)
+        if R == 128 and nk * 8 >= qtile.SMS:
+            assert ks * -(-R // 16) >= qtile.SMS, (R, ks)
