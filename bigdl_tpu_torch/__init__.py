@@ -9,7 +9,9 @@ given device="cpu", where every kernel wrapper takes its plain PyTorch
 version.
 """
 
-from bigdl_tpu_torch.api import TorchModel, optimize_model
+from bigdl_tpu_torch.api import AutoModelForCausalLM, TorchModel, optimize_model
+from bigdl_tpu_torch.convert.low_bit import load_low_bit, save_low_bit, verify_low_bit
 from bigdl_tpu_torch.models.config import PRESETS, ModelConfig
 
-__all__ = ["ModelConfig", "PRESETS", "TorchModel", "optimize_model"]
+__all__ = ["AutoModelForCausalLM", "ModelConfig", "PRESETS", "TorchModel", "load_low_bit",
+           "optimize_model", "save_low_bit", "verify_low_bit"]

@@ -1,5 +1,8 @@
 """User-facing API (port of bigdl_tpu/api.py): `optimize_model` quantizes
-a dense model, `TorchModel.generate` runs greedy or sampled generation.
+a dense model, `TorchModel.generate` runs greedy or sampled generation,
+`TorchModel.save_low_bit` writes the JAX package's low-bit artifact, and
+`AutoModelForCausalLM` loads one (`load_low_bit`) or ingests a
+HuggingFace safetensors checkpoint (`from_pretrained`).
 
 `TorchModel` places its model on the card unless told otherwise; without
 a card it raises and asks for device="cpu". SnapKV (`compress_kv`) and
@@ -41,7 +44,15 @@ class TorchModel:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        self.params = self.params.to(self.device)
+        if isinstance(self.params, llama.LlamaModel):  # else a salvaged subset
+            self.params = self.params.to(self.device)
+
+    def save_low_bit(self, path: str, *, faults=None) -> None:
+        """The JAX package's low-bit artifact (convert/low_bit.py): atomic,
+        with per-tensor digests; either package loads it."""
+        from bigdl_tpu_torch.convert.low_bit import save_low_bit
+
+        save_low_bit(path, self.config, self.params, self.qtype, faults=faults)
 
     def generate(
         self,
@@ -104,3 +115,49 @@ class TorchModel:
             quantize_kv=quantize_kv,
         )
         return out.cpu().numpy().astype(np.int32)
+
+
+class AutoModelForCausalLM:
+    """Loader namespace with the reference's spelling
+    (ipex_llm.transformers.AutoModelForCausalLM)."""
+
+    @classmethod
+    def from_pretrained(cls, model_path: str, load_in_low_bit: str = "sym_int4",
+                        load_in_4bit: bool = False, device=None) -> TorchModel:
+        """A HuggingFace safetensors checkpoint directory, quantized layer
+        by layer on `device` (the card unless told otherwise) and fused
+        (convert/hf.py)."""
+        from bigdl_tpu_torch.convert.hf import load_hf_checkpoint
+
+        qtype = "sym_int4" if load_in_4bit else load_in_low_bit
+        config, params, qtype = load_hf_checkpoint(model_path, qtype=qtype, device=device)
+        return TorchModel(config, params, qtype, device=device)
+
+    @classmethod
+    def load_low_bit(cls, path: str, verify: str = "fast", salvage: bool = False,
+                     device=None) -> TorchModel:
+        """A `save_low_bit` artifact of either package, verified
+        (verify="off" | "fast" | "full") and fused. A corrupt artifact
+        raises an IntegrityError naming every bad tensor; salvage=True
+        loads what verified instead and leaves the report on the model as
+        `salvage_report` (None when clean): a salvaged subset is a dict of
+        tensors for inspection, not a model that runs."""
+        from bigdl_tpu_torch.convert.low_bit import load_low_bit
+
+        if salvage:
+            config, params, qtype, report = load_low_bit(path, verify=verify, salvage=True,
+                                                         device=device)
+        else:
+            config, params, qtype = load_low_bit(path, verify=verify, device=device)
+            report = None
+        if report is None:
+            params = llama.merge_fused_params(params, config)
+        model = TorchModel(config, params, qtype, device=device)
+        model.salvage_report = report
+        return model
+
+    @classmethod
+    def from_gguf(cls, path: str, qtype: Optional[str] = None) -> TorchModel:
+        raise NotImplementedError(
+            "AutoModelForCausalLM.from_gguf: ROADMAP queue 1 item [10], "
+            "convert/gguf.py is still to be ported")

@@ -17,6 +17,10 @@ layout the port's `forward` runs: the fused one the JAX package's
 `optimize_model` makes by default (wqkv, w_gateup), or the unfused one of
 its `init_params` (wq/wk/wv, w_gate/w_up).
 
+`params_to_numpy` is the inverse: the port's model flattened under the
+same naming, in the artifact's stored form, for `convert/low_bit.py`'s
+`save_low_bit`.
+
 `lora_from_numpy` carries a JAX LoRA tree (train/qlora.py `init_lora`:
 {'layers': {target: {'a': [L, r, in], 'b': [L, out, r]}}, 'scale'}) the
 same way, keyed "layers.<target>.a" / "layers.<target>.b" and "scale".
@@ -68,15 +72,17 @@ def params_from_numpy(arrays: dict[str, np.ndarray], qtypes: dict[str, str],
 
     def tensor(key, index=None):
         a = arrays[key] if index is None else arrays[key][index]
-        t = torch.from_numpy(np.array(a))
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
         if t.is_floating_point() and t.dtype != torch.float16 and dtype is not None:
             t = t.to(dtype)
         return t.to(dev)
 
     def field(key, index, qtype):
-        a = np.array(arrays[key] if index is None else arrays[key][index])
+        a = arrays[key] if index is None else arrays[key][index]
         if key.endswith("@data") and qtype in FP8_DTYPE:
-            return torch.from_numpy(a.view(np.uint8)).view(FP8_DTYPE[qtype]).to(dev)
+            if isinstance(a, torch.Tensor):
+                return a.view(FP8_DTYPE[qtype]).to(dev)
+            return torch.from_numpy(np.array(a).view(np.uint8)).view(FP8_DTYPE[qtype]).to(dev)
         return tensor(key, index)
 
     def weight(path, index=None):
@@ -94,6 +100,63 @@ def params_from_numpy(arrays: dict[str, np.ndarray], qtypes: dict[str, str],
                                    tensor("layers.mlp_norm", i), proj))
     return LlamaModel(tensor("embed"), layers, tensor("final_norm"),
                       Linear(weight("lm_head")))
+
+
+def params_to_numpy(model: LlamaModel) -> tuple[dict[str, np.ndarray], dict[str, dict]]:
+    """The inverse of `params_from_numpy`: (arrays, manifest) as the JAX
+    package's artifact flattens its tree (bigdl_tpu/convert/low_bit.py
+    `_flatten`): dense leaves by dotted path, a QTensor's present fields
+    as "<path>@<field>" in ARRAY_FIELDS order, per-layer leaves stacked
+    [L, ...] under "layers.", keys in the order the JAX tree's sorted
+    dicts give them. Arrays are host copies in their stored form (bf16 and
+    fp8 as unsigned bit views, `utils.durability.encode_array`); the
+    manifest maps each key to {"kind": "array", "dtype": name} and each
+    QTensor path to {"kind": "qtensor", "qtype": ...}."""
+    from bigdl_tpu_torch.utils.durability import encode_array
+
+    def leaf(t):
+        return t.w if isinstance(t, Linear) else t
+
+    layers = list(model.layers)
+    names = sorted({"attn_norm", "mlp_norm"} | set(layers[0].proj) if layers else ())
+    if any(set(layer.proj) != set(layers[0].proj) for layer in layers):
+        raise ValueError("params_to_numpy: the layers mix the fused and unfused layouts")
+
+    def stacked(name):
+        vals = [getattr(layer, name) if name in _NORMS else leaf(layer.proj[name])
+                for layer in layers]
+        if isinstance(vals[0], QTensor):
+            if len({v.qtype for v in vals}) != 1:
+                raise ValueError(f"params_to_numpy: layers.{name} mixes formats")
+            return QTensor(qtype=vals[0].qtype, **{
+                f: torch.stack([getattr(v, f).detach().cpu() for v in vals])
+                for f in ARRAY_FIELDS if getattr(vals[0], f) is not None})
+        return torch.stack([v.detach().cpu() for v in vals])
+
+    tree = {"embed": model.embed, "final_norm": model.final_norm,
+            "lm_head": leaf(model.lm_head)}
+    if layers:
+        tree["layers"] = {n: stacked(n) for n in names}
+    arrays: dict[str, np.ndarray] = {}
+    manifest: dict[str, dict] = {}
+
+    def flatten(node, prefix):
+        if isinstance(node, QTensor):
+            manifest[prefix] = {"kind": "qtensor", "qtype": node.qtype}
+            for f in ARRAY_FIELDS:
+                val = getattr(node, f)
+                if val is not None:
+                    arrays[f"{prefix}@{f}"], dt = encode_array(val)
+                    manifest[f"{prefix}@{f}"] = {"kind": "array", "dtype": dt}
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                flatten(node[k], f"{prefix}.{k}" if prefix else k)
+        else:
+            arrays[prefix], dt = encode_array(node)
+            manifest[prefix] = {"kind": "array", "dtype": dt}
+
+    flatten(tree, "")
+    return arrays, manifest
 
 
 def lora_from_numpy(arrays: dict[str, np.ndarray], config: ModelConfig,

@@ -1,0 +1,276 @@
+"""HuggingFace checkpoint ingest (port of bigdl_tpu/convert/hf.py).
+
+`load_hf_checkpoint(dir, qtype)` reads a local checkpoint (`config.json`
+and one `model.safetensors` or the shards of
+`model.safetensors.index.json`) into the port's quantized model: the
+tensors stream in layer by layer, each layer's projections are quantized
+on the model's device (the card unless told otherwise) by the port's own
+encoder from f32 values, as the JAX package quantizes them, and the lm
+head takes the format the mixed aliases name (q4_k_m: a q6_k head).
+`models.llama.merge_fused_params` then fuses qkv and gate/up. The host
+and the device hold about one layer in f32 beside the model built so far.
+
+`open_checkpoint` is the port's own safetensors reader (an 8-byte header
+length, a JSON header, raw little-endian bytes): one tensor at a time,
+read straight from its byte range.
+
+The family tables hold the llama-shaped default and phi3 (fused qkv_proj
+and gate_up_proj, split here as the JAX package splits them). Every other
+`model_type` the JAX package's tables map raises NotImplementedError
+before a tensor is read: the rest of the zoo is ROADMAP queue 1 item [9],
+and the llama flags a configuration needs (biases, windows, ...) item
+[4]. GPTQ/AWQ checkpoints (a `quantization_config`) wait for item [10].
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from bigdl_tpu_torch.models.config import ModelConfig
+from bigdl_tpu_torch.models.llama import (DecoderLayer, LlamaModel, check_supported,
+                                          merge_fused_params)
+from bigdl_tpu_torch.ops.linear import Linear
+from bigdl_tpu_torch.quant import concat_rows, quantize, resolve_qtype
+from bigdl_tpu_torch.quant.qtypes import split_mixed_qtype
+from bigdl_tpu_torch.utils import resolve_device
+
+_QUANT_TARGETS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
+# rows of a weight quantized at once hold at most this many f32 values
+# (256 MiB, about a llama3-8b projection): the lm head of a 128K
+# vocabulary goes in pieces, so the device holds less than a layer of f32
+# values at a time (the encoders treat rows independently, so the bytes
+# are those of one call)
+QUANT_CHUNK = 1 << 26
+
+Get = Callable[[str], torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# per-family layer/top tensor builders
+# ---------------------------------------------------------------------------
+
+# the biases, norm biases and tied embeddings of the JAX package's
+# builders are llama flags `check_family` refuses (item [4])
+def _llama_layer(config: ModelConfig, i: int, get: Get) -> dict:
+    p = f"model.layers.{i}."
+    return {
+        "attn_norm": get(p + "input_layernorm.weight"),
+        "mlp_norm": get(p + "post_attention_layernorm.weight"),
+        "wq": get(p + "self_attn.q_proj.weight"),
+        "wk": get(p + "self_attn.k_proj.weight"),
+        "wv": get(p + "self_attn.v_proj.weight"),
+        "wo": get(p + "self_attn.o_proj.weight"),
+        "w_gate": get(p + "mlp.gate_proj.weight"),
+        "w_up": get(p + "mlp.up_proj.weight"),
+        "w_down": get(p + "mlp.down_proj.weight"),
+    }
+
+
+def _llama_top(config: ModelConfig, get: Get) -> dict:
+    return {
+        "embed": get("model.embed_tokens.weight"),
+        "final_norm": get("model.norm.weight"),
+        "lm_head": get("lm_head.weight"),
+    }
+
+
+def _phi3_layer(config: ModelConfig, i: int, get: Get) -> dict:
+    """phi3 ships fused qkv_proj [QD+2*KD, H] and gate_up_proj [2I, H];
+    split for the unfused layout (merge_fused_params fuses them again)."""
+    p = f"model.layers.{i}."
+    qkv = get(p + "self_attn.qkv_proj.weight")
+    QD, KD = config.q_dim, config.kv_dim
+    gate_up = get(p + "mlp.gate_up_proj.weight")
+    I = gate_up.shape[0] // 2
+    return {
+        "attn_norm": get(p + "input_layernorm.weight"),
+        "mlp_norm": get(p + "post_attention_layernorm.weight"),
+        "wq": qkv[:QD],
+        "wk": qkv[QD:QD + KD],
+        "wv": qkv[QD + KD:],
+        "wo": get(p + "self_attn.o_proj.weight"),
+        "w_gate": gate_up[:I],
+        "w_up": gate_up[I:],
+        "w_down": get(p + "mlp.down_proj.weight"),
+    }
+
+
+_FAMILY_LAYER = {"phi3": _phi3_layer}
+_FAMILY_TOP: dict = {}
+
+# model_types with their own layer or tree builders in the JAX package's
+# tables (bigdl_tpu/convert/hf.py `_FAMILY_LAYER`, `_FAMILY_TOP`, the mllama
+# and deepseek trees) that this port's tables do not hold yet
+_ZOO = frozenset({
+    "gemma2", "gemma3", "gemma3_text", "phi3_v", "baichuan", "internlm2",
+    "internlmxcomposer2", "starcoder2", "glm", "chatglm", "chatglm4v", "qwen2_vl",
+    "mpt", "gpt2", "bloom", "gpt_neox", "mixtral", "qwen2_moe", "rwkv", "rwkv5",
+    "falcon", "qwen3", "qwen3_moe", "phi", "cohere", "yuan", "minicpmv", "minicpmo",
+    "megrezo", "qwen2_audio", "internvl", "janus", "qwen", "deci", "gpt_bigcode",
+    "phixtral", "baichuan_m1", "mllama", "mllama_text_model", "deepseek_v2",
+    "deepseek_v3", "minicpm3",
+})
+
+
+def check_family(config: ModelConfig) -> None:
+    """Raise NotImplementedError, naming its ROADMAP item, for a checkpoint
+    this port cannot ingest yet."""
+    mt = config.model_type
+    if mt in _ZOO:
+        raise NotImplementedError(
+            f"HF ingest of model_type {mt!r}: ROADMAP queue 1 item [9], the rest "
+            "of the zoo is still to be ported (the port's tables hold the "
+            "llama-shaped default and phi3)")
+    try:
+        check_supported(config)
+    except NotImplementedError as e:
+        raise NotImplementedError(
+            f"HF ingest of model_type {mt!r}: {e} (ROADMAP queue 1 item [4], "
+            "the llama flags)") from None
+
+
+def layer_tensors(config: ModelConfig, i: int, get: Get) -> dict:
+    return _FAMILY_LAYER.get(config.model_type, _llama_layer)(config, i, get)
+
+
+def top_tensors(config: ModelConfig, get: Get) -> dict:
+    return _FAMILY_TOP.get(config.model_type, _llama_top)(config, get)
+
+
+# ---------------------------------------------------------------------------
+# model assembly
+# ---------------------------------------------------------------------------
+
+def params_from_state_dict(config: ModelConfig, get_tensor: Get, qtype: str = "sym_int4",
+                           dtype=torch.bfloat16, lm_head_qtype: Optional[str] = None,
+                           device=None) -> LlamaModel:
+    """The port's model from an HF tensor-name accessor, on `device`: each
+    layer's projections quantized as its tensors stream in (f32 values on
+    the device, the port's encoder), dense leaves in `dtype`, the lm head
+    in `lm_head_qtype`, else the head format a mixed alias names, else
+    `qtype`; then qkv and gate/up fused (`merge_fused_params`)."""
+    check_family(config)
+    dev = resolve_device(device)
+    qtype, head_default = split_mixed_qtype(qtype)
+    lm_head_qtype = lm_head_qtype or head_default
+    spec = resolve_qtype(qtype)
+    head_spec = resolve_qtype(lm_head_qtype) if lm_head_qtype else spec
+
+    def maybe_quant(name: str, t: torch.Tensor):
+        use = head_spec if name == "lm_head" else spec
+        if not use.is_dense and (name in _QUANT_TARGETS or name == "lm_head"):
+            rows = max(1, QUANT_CHUNK // t.shape[-1])
+            parts = [quantize(t[i:i + rows].to(dev).float(), use.name)
+                     for i in range(0, t.shape[0], rows)]
+            return parts[0] if len(parts) == 1 else concat_rows(parts)
+        return t.to(dev).to(dtype)
+
+    layers = []
+    for i in range(config.num_hidden_layers):
+        d = {k: maybe_quant(k, v) for k, v in layer_tensors(config, i, get_tensor).items()}
+        norms = d.pop("attn_norm"), d.pop("mlp_norm")
+        layers.append(DecoderLayer(*norms, {k: Linear(v) for k, v in d.items()}))
+    top = {k: maybe_quant(k, v) for k, v in top_tensors(config, get_tensor).items()}
+    model = LlamaModel(top["embed"], layers, top["final_norm"], Linear(top["lm_head"]))
+    return merge_fused_params(model, config)
+
+
+# ---------------------------------------------------------------------------
+# the safetensors reader
+# ---------------------------------------------------------------------------
+
+# safetensors dtype names -> torch dtypes (stored little-endian)
+_ST_DTYPES = {
+    "BF16": torch.bfloat16, "F16": torch.float16, "F32": torch.float32, "F64": torch.float64,
+    "I8": torch.int8, "I16": torch.int16, "I32": torch.int32, "I64": torch.int64,
+    "U8": torch.uint8, "BOOL": torch.bool,
+    "F8_E4M3": torch.float8_e4m3fn, "F8_E5M2": torch.float8_e5m2,
+}
+
+
+def read_header(path: str) -> tuple[dict, int]:
+    """(tensors, data offset) of one safetensors file: {name: {"dtype",
+    "shape", "data_offsets"}} from its JSON header (the "__metadata__"
+    entry dropped) and the byte where the tensor data starts."""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+    header.pop("__metadata__", None)
+    return header, 8 + n
+
+
+def read_tensor(path: str, entry: dict, base: int) -> torch.Tensor:
+    """One tensor of a safetensors file, read from its byte range into a
+    fresh CPU tensor of its stored dtype and shape."""
+    dt = entry["dtype"]
+    if dt not in _ST_DTYPES:
+        raise NotImplementedError(f"safetensors dtype {dt} is not read by this port")
+    b, e = entry["data_offsets"]
+    buf = np.empty(e - b, np.uint8)
+    with open(path, "rb") as f:
+        f.seek(base + b)
+        if f.readinto(memoryview(buf)) != e - b:
+            raise ValueError(f"{path}: truncated tensor data ({e - b} bytes expected)")
+    t = torch.from_numpy(buf)
+    if e > b:
+        t = t.view(_ST_DTYPES[dt])
+    else:
+        t = torch.empty(0, dtype=_ST_DTYPES[dt])
+    return t.reshape(entry["shape"])
+
+
+def open_checkpoint(model_path: str) -> Get:
+    """Tensor getter over a local safetensors checkpoint directory (one
+    `model.safetensors` or the shards of `model.safetensors.index.json`):
+    name -> CPU tensor in its stored dtype, read one at a time. A missing
+    `lm_head.weight` falls back to `model.embed_tokens.weight` (checkpoints
+    that tie without the flag)."""
+    index_path = os.path.join(model_path, "model.safetensors.index.json")
+    if os.path.exists(index_path):
+        with open(index_path) as f:
+            weight_map = json.load(f)["weight_map"]
+    else:
+        header, _ = read_header(os.path.join(model_path, "model.safetensors"))
+        weight_map = {k: "model.safetensors" for k in header}
+    headers: dict[str, tuple[dict, int]] = {}
+
+    def get_tensor(name: str) -> torch.Tensor:
+        if name not in weight_map and name == "lm_head.weight":
+            name = "model.embed_tokens.weight"
+        if name not in weight_map:
+            raise KeyError(
+                f"checkpoint at {model_path} has no tensor {name!r} "
+                f"({len(weight_map)} tensors present) — incomplete "
+                "download, or a layout this translation doesn't cover?")
+        shard = weight_map[name]
+        if shard not in headers:
+            headers[shard] = read_header(os.path.join(model_path, shard))
+        header, base = headers[shard]
+        return read_tensor(os.path.join(model_path, shard), header[name], base)
+
+    return get_tensor
+
+
+def load_hf_checkpoint(model_path: str, qtype: str = "sym_int4", dtype=torch.bfloat16,
+                       config: Optional[ModelConfig] = None,
+                       device=None) -> tuple[ModelConfig, LlamaModel, str]:
+    """An HF-format local checkpoint directory (config.json + safetensors)
+    as (config, model, qtype), the model quantized on `device` (the card
+    unless told otherwise) and fused."""
+    with open(os.path.join(model_path, "config.json")) as f:
+        hf_config = json.load(f)
+    if hf_config.get("quantization_config"):
+        raise NotImplementedError(
+            "HF ingest of a GPTQ/AWQ checkpoint (quantization_config): ROADMAP "
+            "queue 1 item [10], autoq.py is still to be ported")
+    if config is None:
+        config = ModelConfig.from_hf_config(hf_config)
+    check_family(config)  # before a byte of the checkpoint is read
+    model = params_from_state_dict(config, open_checkpoint(model_path), qtype, dtype,
+                                   device=device)
+    return config, model, qtype

@@ -17,16 +17,17 @@
 //
 // Design: the access pattern is the transpose of the forward GEMM's — the
 // contraction runs over the weight's O rows — on the same pipeline
-// (qtile.cuh). One block owns bm = 64, 128 or 256 rows of g (ops/kernels/
+// (qtile.cuh). One block owns bm = 64 or 128 rows of g (ops/kernels/
 // qtile.py dx_tile) by 128 dx columns: the 8 groups of 128/S j positions
 // of the finest plane split in all S segments, so the pieces of every
-// plane byte it needs decode once. It walks all of O in steps of 64 weight
-// rows (128 for the S = 8 formats): decoder warps keep a ring of 3-6
+// plane byte it needs decode once. It walks all of O in steps of 128
+// weight rows (64 for the byte formats): decoder warps keep a ring of 3-6
 // stages of g tiles and packed rows in flight with cp.async and decode
 // each step once, one step ahead, into a ring of two bf16 W tiles [o][dx
 // column]; one or two warpgroups multiply g (K-major) by W (MN-major: its
 // rows are the contraction) with wgmma m64n128k16 from shared memory.
-// The f32 sums stay in registers across the whole O walk, so no partial
+// The f32 sums stay in registers across the whole O walk (each step's
+// wgmmas from zero, added to them round to nearest), so no partial
 // sums cross blocks: no atomics, and dx is the same from run to run. The
 // epilogue stores bf16 pairs from the accumulators into each group's 16
 // contiguous dx columns. No TMA yet.
@@ -44,19 +45,19 @@ namespace {
 using Fmt = BIGDL_QFMT;
 constexpr int kS = Fmt::kS;
 
-// dx's tiles: kWG warpgroups of MMA warps, each kChunks m64 pieces of g by
-// the block's 128 dx columns; W tiles of a step of weight rows by 128 dx
+// dx's tiles: kWG warpgroups of MMA warps, each 64 rows of g by the
+// block's 128 dx columns; W tiles of a step of weight rows by 128 dx
 // columns (wgmma's MN-major B), both in the swizzled layout.
-template <int kWG, int kChunks>
-using DxW = qtile::WTileFor<Fmt, 64 * kWG * kChunks, (kS == 8 ? 128 : 64), 128>;
-template <int kWG, int kChunks>
-using DxL = qtile::Layout<Fmt, 64 * kWG * kChunks, 4 * kWG, DxW<kWG, kChunks>>;
+template <int kWG>
+using DxW = qtile::WTileFor<Fmt, 64 * kWG, qtile::step_depth<Fmt>(), 128>;
+template <int kWG>
+using DxL = qtile::Layout<Fmt, 64 * kWG, 4 * kWG, DxW<kWG>>;
 
-template <int kWG, int kChunks>
-__global__ void __launch_bounds__(DxL<kWG, kChunks>::kThreads, 1)
+template <int kWG>
+__global__ void __launch_bounds__(DxL<kWG>::kThreads, 1)
     dx_kernel(const bf16* __restrict__ g, const QFields w, bf16* __restrict__ dx, int M, int K, int O) {
-  using L = DxL<kWG, kChunks>;
-  using W = DxW<kWG, kChunks>;
+  using L = DxL<kWG>;
+  using W = DxW<kWG>;
   extern __shared__ __align__(1024) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -85,12 +86,10 @@ __global__ void __launch_bounds__(DxL<kWG, kChunks>::kThreads, 1)
     return;
   }
 
-  float acc[kChunks][64];
+  float acc[64];
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c)
-#pragma unroll
-    for (int e = 0; e < 64; ++e) acc[c][e] = 0.0f;
-  qtile::consume_wgmma<L, W, kChunks, true>(smem, steps, warp, acc);
+  for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+  qtile::consume_wgmma<L, W, true>(smem, steps, warp, acc);
 
   // register 4 j + 2 h + e: row 16 (warp % 4) + lane / 4 + 8 h, tile column
   // c = 8 j + 2 (lane % 4) + e, column c % 16 of group c / 16 = jg*S + u:
@@ -103,28 +102,26 @@ __global__ void __launch_bounds__(DxL<kWG, kChunks>::kThreads, 1)
     if (jj >= Q) continue;
     const size_t col = static_cast<size_t>(grp % kS) * Q + jj + (c & 15);
 #pragma unroll
-    for (int cc = 0; cc < kChunks; ++cc)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + ((warp >> 2) * kChunks + cc) * 64 + 16 * (warp & 3) + (lane >> 2) + 8 * h;
-        if (m < M)
-          qtile::store_bf16x2(dx + static_cast<size_t>(m) * K + col, acc[cc][4 * j + 2 * h],
-                              acc[cc][4 * j + 2 * h + 1], true, true);
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + (warp >> 2) * 64 + 16 * (warp & 3) + (lane >> 2) + 8 * h;
+      if (m < M)
+        qtile::store_bf16x2(dx + static_cast<size_t>(m) * K + col, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1],
+                            true, true);
+    }
   }
 }
 
-template <int kWG, int kChunks>
+template <int kWG>
 int launch_dx(const bf16* g, const QFields& w, bf16* dx, int M, int K, int O, int stages, int smem,
               cudaStream_t stream) {
-  using L = DxL<kWG, kChunks>;
-  using W = DxW<kWG, kChunks>;
+  using L = DxL<kWG>;
+  using W = DxW<kWG>;
   if (stages != L::kStages || smem != L::kBytes) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err =
-      cudaFuncSetAttribute(dx_kernel<kWG, kChunks>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+      cudaFuncSetAttribute(dx_kernel<kWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((M + L::kBM - 1) / L::kBM, (K / kS + W::kJB - 1) / W::kJB);
-  dx_kernel<kWG, kChunks><<<grid, L::kThreads, L::kBytes, stream>>>(g, w, dx, M, K, O);
+  dx_kernel<kWG><<<grid, L::kThreads, L::kBytes, stream>>>(g, w, dx, M, K, O);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -132,9 +129,9 @@ int launch_dx(const bf16* g, const QFields& w, bf16* dx, int M, int K, int O, in
 
 // g [M, O] bf16 (O % 8 == 0), the weight's fields (null where absent), dx
 // [M, K] bf16; bm, bn, stages, smem: the tile of ops/kernels/qtile.py
-// dx_tile, bm rows of g by bn dx columns, (64, 128), (128, 128) or, below
-// S = 8, (256, 128) (checked against this build's layout; a mismatch
-// returns cudaErrorInvalidValue).
+// dx_tile, bm rows of g by bn dx columns, (64, 128) or (128, 128)
+// (checked against this build's layout; a mismatch returns
+// cudaErrorInvalidValue).
 extern "C" int qmatmul_dx(const void* g, const void* data, const void* scales, const void* mins,
                           const void* sub_scales, const void* sub_mins, void* dx, int M, int K, int O, int bm,
                           int bn, int stages, int smem, void* stream) {
@@ -144,10 +141,7 @@ extern "C" int qmatmul_dx(const void* g, const void* data, const void* scales, c
   const bf16* gp = static_cast<const bf16*>(g);
   bf16* dp = static_cast<bf16*>(dx);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (bm == 64 && bn == 128) return launch_dx<1, 1>(gp, w, dp, M, K, O, stages, smem, st);
-  if (bm == 128 && bn == 128) return launch_dx<1, 2>(gp, w, dp, M, K, O, stages, smem, st);
-  if constexpr (kS < 8) {
-    if (bm == 256 && bn == 128) return launch_dx<2, 2>(gp, w, dp, M, K, O, stages, smem, st);
-  }
+  if (bm == 64 && bn == 128) return launch_dx<1>(gp, w, dp, M, K, O, stages, smem, st);
+  if (bm == 128 && bn == 128) return launch_dx<2>(gp, w, dp, M, K, O, stages, smem, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -30,13 +30,14 @@
 //   128 weight rows once per block, one step ahead, into a ring of two
 //   bf16 tiles (qdecode16_tc: the same bits in about half the
 //   instructions); one or two warpgroups multiply them with wgmma
-//   m64n128k16 from shared memory. A block is 128 output columns by 64,
-//   128 or 256 rows of x (ops/kernels/qtile.py gemm_tile), the grid walks
+//   m64n128k16 from shared memory, each step's products from zero added
+//   to f32 sums round to nearest. A block is 128 output columns by 64 or
+//   128 rows of x (ops/kernels/qtile.py gemm_tile), the grid walks
 //   M fastest so that the blocks of one weight tile run together and share
-//   it through the L2. A step is 64 elements of K (128 for the S = 8
-//   formats): the groups of 64/S (128/S) j positions, all S segments, the
-//   column order of the weight's planes, which a contraction does not
-//   see; x_order_kernel first writes x in that order, so that each step's
+//   it through the L2. A step is 128 elements of K (64 for the byte
+//   formats, qtile::step_depth): the groups of 128/S j positions, all S
+//   segments, the column order of the weight's planes, which a
+//   contraction does not see; x_order_kernel first writes x in that order, so that each step's
 //   x tile is contiguous. The epilogue stores bf16 pairs from the
 //   accumulators. No TMA yet.
 // * the LoRA arm of `_kernel` (`qmatmul_lora`): y = x . dq(W)^T +
@@ -617,14 +618,14 @@ __global__ void __launch_bounds__(kXaWarps * 32)
   }
 }
 
-// The GEMM's tiles: kWG warpgroups of MMA warps, each kChunks m64 pieces
-// of x by 128 weight rows (output columns); W tiles of 128 rows by a step
-// of K, both in wgmma's swizzled layout.
-constexpr int kDepth = kS == 8 ? 128 : 64;
-template <int kWG, int kChunks>
-using GemmW = qtile::WTileFor<Fmt, 64 * kWG * kChunks, 128, kDepth>;
-template <int kWG, int kChunks>
-using GemmL = qtile::Layout<Fmt, 64 * kWG * kChunks, 4 * kWG, GemmW<kWG, kChunks>>;
+// The GEMM's tiles: kWG warpgroups of MMA warps, each 64 rows of x by 128
+// weight rows (output columns); W tiles of 128 rows by a step of K, both
+// in wgmma's swizzled layout.
+constexpr int kDepth = qtile::step_depth<Fmt>();
+template <int kWG>
+using GemmW = qtile::WTileFor<Fmt, 64 * kWG, 128, kDepth>;
+template <int kWG>
+using GemmL = qtile::Layout<Fmt, 64 * kWG, 4 * kWG, GemmW<kWG>>;
 
 // x in the order the GEMM's steps read it: step s's column 16 g + i is
 // x[m, (g % S) Q + s kDepth/S + (g / S) 16 + i] (the groups of the finest
@@ -666,12 +667,12 @@ int launch_x_order(const bf16* x, bf16* xo, int M, int K, cudaStream_t stream) {
 // (bf16(xa * gate), from lora_xa_tc_kernel) as A and B_cat [O, R] as W, so
 // the LoRA epilogue runs through the same MMA into the same f32 sums,
 // after the same K walk: a zero xg row adds exactly 0.
-template <int kWG, int kChunks, bool kLora>
-__global__ void __launch_bounds__(GemmL<kWG, kChunks>::kThreads, 1)
+template <int kWG, bool kLora>
+__global__ void __launch_bounds__(GemmL<kWG>::kThreads, 1)
     gemm_kernel(const bf16* __restrict__ xo, const QFields w, bf16* __restrict__ out, int M, int K, int O,
                 const bf16* __restrict__ xg, const bf16* __restrict__ lb, int R) {
-  using L = GemmL<kWG, kChunks>;
-  using W = GemmW<kWG, kChunks>;
+  using L = GemmL<kWG>;
+  using W = GemmW<kWG>;
   extern __shared__ __align__(1024) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -724,12 +725,10 @@ __global__ void __launch_bounds__(GemmL<kWG, kChunks>::kThreads, 1)
     return;
   }
 
-  float acc[kChunks][64];
+  float acc[64];
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c)
-#pragma unroll
-    for (int e = 0; e < 64; ++e) acc[c][e] = 0.0f;
-  qtile::consume_wgmma<L, W, kChunks, false>(smem, steps, warp, acc);
+  for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+  qtile::consume_wgmma<L, W, false>(smem, steps, warp, acc);
 
   // bf16 pairs straight from the accumulators: register 4 j + 2 h + e is
   // row 16 (warp % 4) + lane / 4 + 8 h, column 8 j + 2 (lane % 4) + e
@@ -739,33 +738,31 @@ __global__ void __launch_bounds__(GemmL<kWG, kChunks>::kThreads, 1)
     const int n = n0 + 8 * j + 2 * (lane & 3);
     if (n >= O) continue;
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + ((warp >> 2) * kChunks + c) * 64 + 16 * (warp & 3) + (lane >> 2) + 8 * h;
-        if (m < M)
-          qtile::store_bf16x2(out + static_cast<size_t>(m) * O + n, acc[c][4 * j + 2 * h], acc[c][4 * j + 2 * h + 1],
-                              even && n + 1 < O, n + 1 < O);
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + (warp >> 2) * 64 + 16 * (warp & 3) + (lane >> 2) + 8 * h;
+      if (m < M)
+        qtile::store_bf16x2(out + static_cast<size_t>(m) * O + n, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1],
+                            even && n + 1 < O, n + 1 < O);
+    }
   }
 }
 
-template <int kWG, int kChunks, bool kLora>
+template <int kWG, bool kLora>
 int launch_gemm(const bf16* xo, const QFields& w, bf16* out, int M, int K, int O, const bf16* xg,
                 const bf16* lb, int R, int stages, int smem, cudaStream_t stream) {
-  using L = GemmL<kWG, kChunks>;
+  using L = GemmL<kWG>;
   if (stages != L::kStages || smem != L::kBytes) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = cudaFuncSetAttribute(gemm_kernel<kWG, kChunks, kLora>,
+  const cudaError_t err = cudaFuncSetAttribute(gemm_kernel<kWG, kLora>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((M + L::kBM - 1) / L::kBM, (O + 127) / 128);
-  gemm_kernel<kWG, kChunks, kLora><<<grid, L::kThreads, L::kBytes, stream>>>(xo, w, out, M, K, O, xg, lb, R);
+  gemm_kernel<kWG, kLora><<<grid, L::kThreads, L::kBytes, stream>>>(xo, w, out, M, K, O, xg, lb, R);
   return static_cast<int>(cudaGetLastError());
 }
 
 // x into xo in the steps' order (S > 1; xo is x itself at S = 1), then the
 // tile ops/kernels/qtile.py chose: bm rows of x by bn output columns a
-// block, (64, 128), (128, 128) or, below S = 8, (256, 128)
+// block, (64, 128) or (128, 128)
 template <bool kLora>
 int launch_gemm_tile(const bf16* x, bf16* xo, const QFields& w, bf16* out, int M, int K, int O,
                      const bf16* xg, const bf16* lb, int R, int bm, int bn, int stages, int smem,
@@ -777,12 +774,8 @@ int launch_gemm_tile(const bf16* x, bf16* xo, const QFields& w, bf16* out, int M
     if (err != 0) return err;
     xa = xo;
   }
-  if (bm == 64 && bn == 128) return launch_gemm<1, 1, kLora>(xa, w, out, M, K, O, xg, lb, R, stages, smem, stream);
-  if (bm == 128 && bn == 128) return launch_gemm<1, 2, kLora>(xa, w, out, M, K, O, xg, lb, R, stages, smem, stream);
-  if constexpr (kS < 8) {
-    if (bm == 256 && bn == 128)
-      return launch_gemm<2, 2, kLora>(xa, w, out, M, K, O, xg, lb, R, stages, smem, stream);
-  }
+  if (bm == 64 && bn == 128) return launch_gemm<1, kLora>(xa, w, out, M, K, O, xg, lb, R, stages, smem, stream);
+  if (bm == 128 && bn == 128) return launch_gemm<2, kLora>(xa, w, out, M, K, O, xg, lb, R, stages, smem, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

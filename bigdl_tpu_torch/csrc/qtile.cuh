@@ -36,20 +36,20 @@
 // two steps ahead, so a barrier's arrivals never mix two steps. Their
 // stores reach wgmma through a proxy fence before the arrival.
 //
-// A step is kDepth = 64 elements of the contraction (128 for the formats
-// whose finest plane split is S = 8, so that a step holds whole 16-byte
-// pieces of every plane); the weight side of a block is 128 columns, its
-// A side 64, 128 or 256 rows (ops/kernels/qtile.py chooses): each weight
-// element is decoded M / bm times, so the 256-row tile halves the decode
-// of the 128-row one. Every tile is in wgmma's 128-byte swizzle
-// (tile_chunk): A and the GEMM's W K-major, dx's W (its rows are the
-// contraction) MN-major. The decoders' unit is one weight row's 16 j
-// positions of the finest plane split: kPieces 16-byte pieces decode to
-// the S groups u*Q + j .. + 15 (qdecode.cuh), so every packed byte is
-// decoded once per block and step, and the 16-entry codebook of
-// nf4/fp4/nf3 sits in 16 distinct banks (a warp's reads never conflict).
-// No atomics: every output element is summed by one block, over the whole
-// contraction, in a fixed order.
+// A step is kDepth = 128 elements of the contraction (64 for the byte
+// formats, whose packed step is as large as its A tile); the weight side of
+// a block is 128 columns, its A side 64 or 128 rows (ops/kernels/qtile.py
+// chooses), one m64 piece a warpgroup: each weight element is decoded
+// M / bm times. The deeper step halves the barrier round trips a 128-row
+// block makes (7-10 % of the GEMM's and dx's time on the card).
+//
+// The sums. The tensor cores add into f32 with the addends aligned to the
+// largest and truncated, so a wgmma chain over the whole K walk loses low
+// bits in proportion to the running sum (5-20x as many misrounded bf16
+// outputs as f32 sums rounded to nearest). So each step's wgmmas sum from
+// zero, and the MMA warps add the step to their sums with ordinary f32
+// adds (round to nearest): a thread holds 64 sums and 64 partials, which
+// a 256-row tile's 128 + 128 would not fit.
 #pragma once
 
 #include "qdecode.cuh"
@@ -66,6 +66,13 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 
 __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Elements of the contraction a step covers (whole 16-byte pieces of
+// every plane at either depth).
+template <class F>
+constexpr int step_depth() {
+  return F::kBits == 8 ? 64 : 128;
 }
 
 // Byte offset of the 16-byte chunk c8 of row r in a tile of kRows rows in
@@ -115,11 +122,11 @@ struct Layout {
   static constexpr int kThreads = 32 * kMmaWarps + W::kDecThreads;
   // Above 256 threads a block starts with 64 K / kThreads registers a
   // thread (in steps of 8), and setmaxnreg moves them from the decoder
-  // warps to the MMA warps (two m64n128 pieces hold 128 f32 sums) within
+  // warps to the MMA warps (64 sums and 64 chain partials a thread) within
   // that pool: an increase the decreases have not freed would wait forever.
   static constexpr int kEntryRegs = 65536 / kThreads / 8 * 8;
   static constexpr int kPool = kThreads * kEntryRegs;
-  // wgmma's MMA warps hold only their sums (128 a thread at most)
+  // wgmma's MMA warps hold only their sums and partials (128 a thread)
   static constexpr int kRegsMma = kMmaWarps == 8 ? 160 : 232;
   static constexpr int kRegsDec = (kPool - 32 * kMmaWarps * kRegsMma) / W::kDecThreads / 8 * 8;
   // only where the entry count is below the MMA warps' (an increase must
@@ -128,7 +135,7 @@ struct Layout {
   static_assert(!kSplitRegs || (kRegsDec >= 64 && kRegsDec <= kEntryRegs &&
                                 32 * kMmaWarps * kRegsMma + W::kDecThreads * kRegsDec <= kPool),
                 "the block's register pool");
-  static constexpr int kDepth = F::kS == 8 ? 128 : 64;
+  static constexpr int kDepth = step_depth<F>();
   static constexpr int kAElems = kBM * kDepth;
   static constexpr int kStageBytes = kAElems * 2 + W::kPackedBytes;
   // the swizzled layout's 1024-byte alignment costs up to 1 KB
@@ -289,12 +296,13 @@ __device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo = 1) {
          (64ull << 32) | (1ull << 62);
 }
 
-// d[0..63] += A[64 x 16] . B[16 x 128] from shared memory: A K-major; B
+// d[0..63] = A[64 x 16] . B[16 x 128] (+ d where keep != 0) from shared
+// memory: A K-major; B
 // K-major ([128 n][16 k], kTransB false) or MN-major ([16 k][128 n]);
 // d's layout: register 4 j + 2 h + e is row 16 (warp % 4) + lane / 4 + 8 h,
 // column 8 j + 2 (lane % 4) + e of the 64 x 128 piece.
 template <bool kTransB>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db, int keep) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -311,7 +319,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(kTransB ? 1 : 0));
+      : "l"(da), "l"(db), "r"(keep), "n"(kTransB ? 1 : 0));
 }
 
 // d[0..127] += A[64 x 16] . B[16 x 256] from shared memory; kTransA: A
@@ -353,20 +361,23 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
       : "l"(da), "l"(db), "r"(1), "n"(kTransA ? 1 : 0), "n"(kTransB ? 1 : 0));
 }
 
-// The MMA warps' loop on wgmma: kChunks m64 pieces of A a warpgroup (rows
-// 64 (kChunks (warp / 4) + c)), each against the whole 128-wide W tile:
-// 128 weight rows by a step of K (the GEMM), or with kTransB a step of
-// weight rows by 128 dx columns (dx, B MN-major). acc[c] in
-// wgmma_m64n128k16's layout. Step s's products are issued before step
-// s - 1's are waited for, so the tensor cores never drain between steps;
-// step s - 1's tiles are released then.
-template <class L, class W, int kChunks, bool kTransB>
-__device__ __forceinline__ void consume_wgmma(unsigned char* smem, int steps, int warp,
-                                              float (&acc)[kChunks][64]) {
+// The MMA warps' loop on wgmma: a warpgroup's 64 rows of A (from row
+// 64 (warp / 4)) against the whole 128-wide W tile: 128 weight rows by a
+// step of K (the GEMM), or with kTransB a step of weight rows by 128 dx
+// columns (dx, B MN-major). sum in wgmma_m64n128k16's layout. Each step's
+// wgmmas start from zero (scale-d 0 on the first), the warps wait for
+// them, release the step's tiles to the decoders and add the step to
+// sum. The partials are read outside any branch: ptxas serialises every
+// wgmma of a kernel that reads its accumulators on a divergent path.
+template <class L, class W, bool kTransB>
+__device__ __forceinline__ void consume_wgmma(unsigned char* smem, int steps, int warp, float (&sum)[64]) {
   static_assert((kTransB ? W::kColsN : W::kRowsN) == 128, "a 128-wide W tile");
   if constexpr (L::kSplitRegs) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::kRegsMma));
   const Smem<L, W> sm(smem);
-  const int row0 = (warp >> 2) * kChunks * 64;
+  const int row0 = (warp >> 2) * 64;
+  float acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
   for (int s = 0; s < steps; ++s) {
     bar_sync(kBarFull + (s & 1), L::kThreads);
     const unsigned char* a = reinterpret_cast<const unsigned char*>(sm.a_slot(s));
@@ -379,16 +390,15 @@ __device__ __forceinline__ void consume_wgmma(unsigned char* smem, int steps, in
       // of 64 columns W::kRowsN rows apart
       const uint64_t db = kTransB ? gmma_desc(b + kk * 128, W::kRowsN * 8)
                                   : gmma_desc(b + (kk >> 6) * W::kRowsN * 128 + (kk & 63) * 2);
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c)
-        wgmma_m64n128k16<kTransB>(
-            acc[c], gmma_desc(a + (kk >> 6) * L::kBM * 128 + (row0 + 64 * c) * 128 + (kk & 63) * 2), db);
+      wgmma_m64n128k16<kTransB>(acc, gmma_desc(a + (kk >> 6) * L::kBM * 128 + row0 * 128 + (kk & 63) * 2), db,
+                                kk == 0 ? 0 : 1);
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // step s - 1's are done
-    if (s >= 1 && s + 1 < steps) bar_arrive(kBarEmpty + ((s - 1) & 1), L::kThreads);  // the decoders wait for it
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    if (s + 2 < steps) bar_arrive(kBarEmpty + (s & 1), L::kThreads);  // the decoders wait for it
+#pragma unroll
+    for (int e = 0; e < 64; ++e) sum[e] = __fadd_rn(sum[e], acc[e]);
   }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
 // Two bf16 outputs from f32 sums; `pair` when both are in range and the

@@ -3,16 +3,18 @@
 
 The dataclass keeps every field of its counterpart, so a configuration
 built for one package builds the other field for field
-(`ModelConfig(**dataclasses.asdict(cfg))`). The forward in
-`models/llama.py` raises `NotImplementedError` for the flags this port
-does not run yet. The HuggingFace `config.json` mapping waits for HF
-ingest (ROADMAP queue 1).
+(`ModelConfig(**dataclasses.asdict(cfg))`). `ModelConfig.from_hf_config`
+and its per-`model_type` table (`_HF_BUILDERS`) are copies of the JAX
+package's HuggingFace `config.json` translation, whole: the table is
+data. The forward in `models/llama.py` raises `NotImplementedError` for
+the flags this port does not run yet, and `convert/hf.py` for the
+families whose checkpoints it cannot read.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,11 +183,716 @@ class ModelConfig:
             return True
         return (layer_idx + 1) % self.sliding_window_pattern != 0
 
+    @classmethod
+    def from_hf_config(cls, hf: dict[str, Any]) -> "ModelConfig":
+        """Build from a HuggingFace config.json dict (the ingest path the
+        reference drives through transformers AutoConfig, model.py:111)."""
+        model_type = hf.get("model_type", "llama")
+        if model_type == "chatglm" and isinstance(hf.get("vision_config"),
+                                                  dict):
+            # THUDM glm-4v-9b ships model_type "chatglm" + a vision_config
+            # dict; route to the chatglm4v family (EVA2-CLIP tower over
+            # the same chatglm text schema)
+            model_type = "chatglm4v"
+        if model_type == "Yi":
+            # legacy 01-ai remote-code id (reference convert.py:1738);
+            # the architecture is llama-shaped — served by the yi entry
+            model_type = "yi"
+        if model_type == "phi-msft":
+            # mlabonne phixtral ships phi-2's legacy remote-code id
+            # (reference convert.py:1685-1687 keys on num_local_experts
+            # exactly this way to exclude plain phi-2)
+            if hf.get("num_local_experts"):
+                model_type = "phixtral"
+            else:
+                raise NotImplementedError(
+                    "legacy phi-msft (phi-2 remote-code) checkpoints are "
+                    "not supported — use the native model_type='phi' "
+                    "release of phi-2"
+                )
+        if isinstance(hf.get("text_config"), dict):
+            # multimodal configs nest the decoder fields (HF >= 4.52
+            # qwen2_vl etc.); original checkpoints keep them at top level
+            # — merge with the nested values winning
+            hf = {**hf, **{k: v for k, v in hf["text_config"].items()
+                           if v is not None}}
+            hf["model_type"] = model_type
+        known = {
+            "vocab_size", "hidden_size", "intermediate_size",
+            "num_hidden_layers", "num_attention_heads", "num_key_value_heads",
+            "head_dim", "rms_norm_eps", "rope_theta", "rope_scaling",
+            "max_position_embeddings", "tie_word_embeddings", "sliding_window",
+            "hidden_act", "attention_bias", "mlp_bias",
+            "partial_rotary_factor",
+        }
+        kwargs = {k: hf[k] for k in known if k in hf and hf[k] is not None}
+        kwargs["model_type"] = model_type
+        rs = kwargs.get("rope_scaling")
+        if isinstance(rs, dict):
+            # longrope/su/dynamic/yarn need the context lengths, which HF
+            # stores at the TOP level of config.json (phi3: rope_scaling
+            # only carries the factor lists) — inject them.
+            rs = dict(rs)
+            for src, dst in (
+                ("original_max_position_embeddings", "original_max_position_embeddings"),
+                ("max_position_embeddings", "max_position_embeddings"),
+            ):
+                if dst not in rs and hf.get(src) is not None:
+                    rs[dst] = hf[src]
+            kwargs["rope_scaling"] = rs
+        builder = _HF_BUILDERS.get(model_type)
+        if builder is not None:
+            builder(hf, kwargs)
+        if "num_key_value_heads" not in kwargs:
+            kwargs["num_key_value_heads"] = kwargs.get(
+                "num_attention_heads", cls.num_attention_heads
+            )
+        return cls(**kwargs)
+
 
 def _hashable(v):
     if isinstance(v, list):
         return tuple(v)
     return v
+
+
+# --- per-model_type config translation -------------------------------------
+# The reference's per-arch knowledge lives in ~70 `model_type` branches of
+# `_optimize_post` (convert.py:1251-2027); here it is a table of small
+# config builders (weights-side counterparts live in bigdl_tpu/convert/hf.py).
+
+def _hf_qwen2(hf, kw):
+    # qwen2 has qkv bias but no o/mlp bias; HF config lacks the flag
+    kw.setdefault("attention_bias", True)
+
+
+def _hf_gemma(hf, kw):
+    kw["scale_embeddings"] = True
+    kw["rms_norm_offset"] = True
+    kw.setdefault("tie_word_embeddings", True)
+    kw.setdefault("hidden_act", hf.get("hidden_activation", "gelu_pytorch_tanh"))
+
+
+def _hf_gemma2(hf, kw):
+    _hf_gemma(hf, kw)
+    kw["attn_logit_softcap"] = hf.get("attn_logit_softcapping", 50.0)
+    kw["final_logit_softcap"] = hf.get("final_logit_softcapping", 30.0)
+    kw["post_attn_norm"] = True
+    kw["sliding_window_pattern"] = 2
+    if "query_pre_attn_scalar" in hf:
+        kw["attn_scale"] = hf["query_pre_attn_scalar"] ** -0.5
+
+
+def _hf_gemma3(hf, kw):
+    """Gemma3 text (HF Gemma3TextConfig): gemma2's norms/scales plus
+    per-head q/k RMSNorm and DUAL rope — full-attention layers use
+    rope_theta (+rope_scaling), sliding layers rope_local_base_freq
+    unscaled. layer_types lists the alternation explicitly."""
+    _hf_gemma(hf, kw)
+    kw["post_attn_norm"] = True
+    kw["qk_norm"] = True
+    kw.setdefault("head_dim", hf.get("head_dim", 256))
+    kw["rms_norm_eps"] = hf.get("rms_norm_eps", 1e-6)
+    if "query_pre_attn_scalar" in hf:
+        kw["attn_scale"] = hf["query_pre_attn_scalar"] ** -0.5
+    lt = hf.get("layer_types")
+    if lt:
+        kw["sliding_layers"] = tuple(t == "sliding_attention" for t in lt)
+    else:
+        kw["sliding_window_pattern"] = hf.get("sliding_window_pattern", 6)
+    kw["rope_local_theta"] = hf.get("rope_local_base_freq", 10000.0)
+
+
+def _hf_phi3(hf, kw):
+    # phi3 ships fused qkv/gate_up; split at ingest (convert/hf.py)
+    kw.setdefault("tie_word_embeddings", hf.get("tie_word_embeddings", False))
+
+
+def _hf_stablelm(hf, kw):
+    kw["norm_type"] = "layernorm"
+    kw["norm_bias"] = True
+    kw["attention_bias"] = hf.get("use_qkv_bias", False)
+    kw.setdefault("partial_rotary_factor", hf.get("partial_rotary_factor", 0.25))
+    kw["rms_norm_eps"] = hf.get("layer_norm_eps", 1e-5)
+
+
+def _hf_starcoder2(hf, kw):
+    kw["norm_type"] = "layernorm"
+    kw["norm_bias"] = True
+    kw["attention_bias"] = hf.get("use_bias", True)
+    kw["attention_out_bias"] = hf.get("use_bias", True)
+    kw["mlp_bias"] = hf.get("use_bias", True)
+    kw["gated_mlp"] = False
+    kw["rms_norm_eps"] = hf.get("norm_epsilon", 1e-5)
+    kw.setdefault("tie_word_embeddings", hf.get("tie_word_embeddings", True))
+
+
+def _hf_baichuan(hf, kw):
+    # 7B is rope llama-shaped; 13B (no rope, 40 heads, alibi) detected by
+    # position embeddings absence → model_max_length + alibi
+    if hf.get("num_attention_heads", 32) >= 40 and "rope_theta" not in hf:
+        kw["alibi"] = True
+    kw.setdefault(
+        "max_position_embeddings",
+        hf.get("model_max_length", hf.get("max_position_embeddings", 4096)),
+    )
+
+
+def _hf_internlm2(hf, kw):
+    kw.setdefault("attention_bias", hf.get("bias", False))
+
+
+def _hf_internlm(hf, kw):
+    """internlm v1: llama layout with biased qkv AND o projections."""
+    kw["attention_bias"] = bool(hf.get("bias", True))
+    kw["attention_out_bias"] = bool(hf.get("bias", True))
+
+
+def _hf_minicpm(hf, kw):
+    L = kw.get("num_hidden_layers", 32)
+    kw["residual_scale"] = hf.get("scale_depth", 1.0) / (L ** 0.5)
+    # runtime multiplier, NOT folded into weights: with tied embeddings the
+    # lm head shares the matrix and must stay unscaled
+    kw["embedding_scale"] = hf.get("scale_emb", 1.0)
+    if "dim_model_base" in hf and hf.get("hidden_size"):
+        kw["logit_scale"] = 1.0 / (hf["hidden_size"] / hf["dim_model_base"])
+
+
+def _hf_glm(hf, kw):
+    kw.setdefault("partial_rotary_factor", hf.get("partial_rotary_factor", 0.5))
+    kw["rope_interleaved"] = True
+    kw["attention_bias"] = hf.get("attention_bias", True)
+    kw.setdefault("head_dim", hf.get("head_dim"))
+
+
+def _hf_gpt2(hf, kw):
+    kw["hidden_size"] = hf.get("n_embd", 768)
+    kw["num_hidden_layers"] = hf.get("n_layer", 12)
+    kw["num_attention_heads"] = hf.get("n_head", 12)
+    kw["num_key_value_heads"] = kw["num_attention_heads"]
+    kw["intermediate_size"] = hf.get("n_inner") or 4 * kw["hidden_size"]
+    kw["max_position_embeddings"] = hf.get("n_positions", 1024)
+    kw["rms_norm_eps"] = hf.get("layer_norm_epsilon", 1e-5)
+    kw["norm_type"] = "layernorm"
+    kw["norm_bias"] = True
+    kw["gated_mlp"] = False
+    kw["mlp_bias"] = True
+    kw["attention_bias"] = True
+    kw["attention_out_bias"] = True
+    kw["learned_positions"] = True
+    kw["hidden_act"] = hf.get("activation_function", "gelu_new")
+    kw.setdefault("tie_word_embeddings", True)
+
+
+def _hf_bloom(hf, kw):
+    kw["num_hidden_layers"] = hf.get("n_layer", 24)
+    kw["num_attention_heads"] = hf.get("n_head", 16)
+    kw["num_key_value_heads"] = kw["num_attention_heads"]
+    kw["intermediate_size"] = 4 * kw.get("hidden_size", hf.get("hidden_size", 64))
+    kw["rms_norm_eps"] = hf.get("layer_norm_epsilon", 1e-5)
+    kw["norm_type"] = "layernorm"
+    kw["norm_bias"] = True
+    kw["gated_mlp"] = False
+    kw["mlp_bias"] = True
+    kw["attention_bias"] = True
+    kw["attention_out_bias"] = True
+    kw["alibi"] = True
+    kw["embed_layernorm"] = True
+    kw["hidden_act"] = "gelu_pytorch_tanh"
+    kw.setdefault("tie_word_embeddings", True)
+
+
+def _hf_gptneox(hf, kw):
+    kw["norm_type"] = "layernorm"
+    kw["norm_bias"] = True
+    kw["gated_mlp"] = False
+    kw["mlp_bias"] = True
+    kw["attention_bias"] = True
+    kw["attention_out_bias"] = True
+    kw["parallel_residual"] = hf.get("use_parallel_residual", True)
+    kw.setdefault("partial_rotary_factor", hf.get("rotary_pct", 0.25))
+    kw["rope_theta"] = hf.get("rotary_emb_base", 10000.0)
+    kw["rms_norm_eps"] = hf.get("layer_norm_eps", 1e-5)
+    kw["hidden_act"] = hf.get("hidden_act", "gelu")
+
+
+def _hf_mixtral(hf, kw):
+    kw["num_experts"] = hf.get("num_local_experts", 8)
+    kw["num_experts_per_tok"] = hf.get("num_experts_per_tok", 2)
+    kw["norm_topk_prob"] = True
+
+
+def _hf_qwen2_moe(hf, kw):
+    kw.setdefault("attention_bias", True)
+    kw["num_experts"] = hf.get("num_experts", 60)
+    kw["num_experts_per_tok"] = hf.get("num_experts_per_tok", 4)
+    kw["moe_intermediate_size"] = hf.get("moe_intermediate_size", 1408)
+    kw["shared_expert_intermediate_size"] = hf.get(
+        "shared_expert_intermediate_size", 5632
+    )
+    kw["norm_topk_prob"] = hf.get("norm_topk_prob", False)
+
+
+def _hf_chatglm(hf, kw):
+    """THUDM chatglm2/3 and glm-4 trust_remote_code config schema
+    (reference models/chatglm2.py, chatglm4.py: interleaved rope on the
+    first half of kv_channels, MQA via multi_query_group_num, fused
+    query_key_value / dense_h_to_4h checkpoints)."""
+    kw["num_hidden_layers"] = hf.get("num_layers", 28)
+    kw["intermediate_size"] = hf.get("ffn_hidden_size", 13696)
+    kw["vocab_size"] = hf.get("padded_vocab_size", hf.get("vocab_size", 65024))
+    kw["head_dim"] = hf.get("kv_channels")
+    if hf.get("multi_query_attention"):
+        kw["num_key_value_heads"] = hf.get("multi_query_group_num", 2)
+    kw["rms_norm_eps"] = hf.get("layernorm_epsilon", 1e-5)
+    kw["partial_rotary_factor"] = 0.5
+    kw["rope_interleaved"] = True
+    # chatglm2-32k / glm-4 scale the base by rope_ratio
+    # (chatglm2.py:102-109: base = 10000 * rope_ratio)
+    kw["rope_theta"] = 10000.0 * hf.get("rope_ratio", 1.0)
+    kw["attention_bias"] = bool(hf.get("add_qkv_bias", False))
+    kw["max_position_embeddings"] = hf.get("seq_length", 8192)
+    kw["tie_word_embeddings"] = bool(hf.get("tie_word_embeddings", False))
+    if not hf.get("rmsnorm", True):
+        kw["norm_type"] = "layernorm"
+
+
+def _hf_qwen2_vl(hf, kw):
+    """Qwen2-VL text side: qwen2 layout + M-RoPE. The mrope inv_freq is
+    the standard one — only the application is sectioned — so
+    rope_scaling is consumed here, not by make_inv_freq_scaled."""
+    kw.setdefault("attention_bias", True)
+    rs = kw.pop("rope_scaling", None) or {}
+    if isinstance(rs, (list, tuple)):
+        rs = dict(rs)
+    sections = rs.get("mrope_section")
+    if sections:
+        kw["mrope_section"] = tuple(int(s) for s in sections)
+    kw["image_token_id"] = hf.get("image_token_id", 151655)
+    kw["video_token_id"] = hf.get("video_token_id", 151656)
+    kw["vision_start_token_id"] = hf.get("vision_start_token_id", 151652)
+
+
+def _hf_mpt(hf, kw):
+    """MPT (reference models/mpt.py): alibi positions, fused Wqkv,
+    non-gated gelu MLP, bias-free layernorm, tied head."""
+    kw["hidden_size"] = hf.get("d_model", 4096)
+    kw["num_attention_heads"] = hf.get("n_heads", 32)
+    kw["num_hidden_layers"] = hf.get("n_layers", 32)
+    kw["intermediate_size"] = int(
+        hf.get("expansion_ratio", 4) * kw["hidden_size"]
+    )
+    kw["max_position_embeddings"] = hf.get("max_seq_len", 2048)
+    attn = hf.get("attn_config") or {}
+    kw["alibi"] = bool(attn.get("alibi", True))
+    kw["norm_type"] = "layernorm"
+    kw["hidden_act"] = "gelu"
+    kw["gated_mlp"] = False
+    kw["tie_word_embeddings"] = True
+    if not hf.get("no_bias", True):
+        # the weight translator (_mpt_layer) loads weights only; silently
+        # dropping a biased checkpoint's biases would generate garbage
+        raise NotImplementedError(
+            "mpt with no_bias=False (biased linears/layernorms) is not "
+            "supported; released MPT checkpoints use no_bias=True"
+        )
+
+
+def _mla_fields(hf, kw):
+    for f in ("q_lora_rank", "kv_lora_rank", "qk_nope_head_dim",
+              "qk_rope_head_dim", "v_head_dim"):
+        if hf.get(f) is not None:
+            kw[f] = hf[f]
+    kw["rope_interleaved"] = True  # DeepSeek complex-pair rope
+
+
+def _hf_deepseek_v2(hf, kw):
+    """DeepSeek-V2 (HF modeling_deepseek_v2; the reference's minicpm3.py
+    implements the same MLA): latent-KV attention + DeepSeek-MoE with
+    group-limited greedy routing and ungated shared experts."""
+    _mla_fields(hf, kw)
+    kw["num_experts"] = hf.get("n_routed_experts") or 0
+    kw["num_experts_per_tok"] = hf.get("num_experts_per_tok") or 2
+    kw["moe_intermediate_size"] = hf.get("moe_intermediate_size")
+    kw["n_shared_experts"] = hf.get("n_shared_experts")
+    kw["first_k_dense_replace"] = hf.get("first_k_dense_replace", 0)
+    kw["topk_method"] = hf.get("topk_method", "greedy")
+    kw["n_group"] = hf.get("n_group")
+    kw["topk_group"] = hf.get("topk_group")
+    kw["routed_scaling_factor"] = hf.get("routed_scaling_factor", 1.0)
+    kw["norm_topk_prob"] = hf.get("norm_topk_prob", False)
+    kw["scoring_func"] = hf.get("scoring_func", "softmax")
+    if hf.get("moe_layer_freq", 1) != 1:
+        raise NotImplementedError("deepseek moe_layer_freq != 1")
+
+
+def _hf_deepseek_v3(hf, kw):
+    _hf_deepseek_v2(hf, kw)
+    kw["topk_method"] = hf.get("topk_method", "noaux_tc")
+    kw["scoring_func"] = hf.get("scoring_func", "sigmoid")
+    kw["norm_topk_prob"] = hf.get("norm_topk_prob", True)
+
+
+def _hf_minicpm3(hf, kw):
+    """MiniCPM3 (reference models/minicpm3.py): MLA attention + the
+    minicpm residual/embedding/logit scalings, dense MLP."""
+    _hf_minicpm(hf, kw)
+    _mla_fields(hf, kw)
+
+
+def _hf_qwen3(hf, kw):
+    """Qwen3: qwen2 minus the qkv bias plus per-head q/k RMSNorm."""
+    kw["qk_norm"] = True
+    kw.setdefault("head_dim", hf.get("head_dim"))
+
+
+def _hf_qwen3_moe(hf, kw):
+    _hf_qwen3(hf, kw)
+    kw["num_experts"] = hf.get("num_experts", 128)
+    kw["num_experts_per_tok"] = hf.get("num_experts_per_tok", 8)
+    kw["moe_intermediate_size"] = hf.get("moe_intermediate_size", 768)
+    kw["norm_topk_prob"] = hf.get("norm_topk_prob", False)  # HF default
+    if hf.get("mlp_only_layers") or hf.get("decoder_sparse_step", 1) != 1:
+        # mixed dense/MoE stacks would hit the translator with dense
+        # layers lacking expert weights — fail with a clear message
+        raise NotImplementedError(
+            "qwen3_moe with mlp_only_layers/decoder_sparse_step != 1"
+        )
+
+
+def _hf_phi(hf, kw):
+    """Phi-1/1.5/2 (HF modeling_phi): parallel attn+mlp sharing ONE
+    input layernorm (the translator duplicates it, like falcon-7b),
+    biased linears everywhere incl. the lm head, partial rotary,
+    gelu_new MLP."""
+    kw["norm_type"] = "layernorm"
+    kw["norm_bias"] = True
+    kw["parallel_residual"] = True
+    kw["gated_mlp"] = False
+    kw["mlp_bias"] = True
+    kw["attention_bias"] = True
+    kw["attention_out_bias"] = True
+    kw["lm_head_bias"] = True
+    kw["rms_norm_eps"] = hf.get("layer_norm_eps", 1e-5)
+    kw.setdefault("partial_rotary_factor", hf.get("partial_rotary_factor", 0.5))
+    kw["hidden_act"] = hf.get("hidden_act", "gelu_new")
+    if hf.get("qk_layernorm"):
+        # the translator would silently drop q/k layernorm weights
+        raise NotImplementedError("phi with qk_layernorm=True")
+
+
+def _hf_baichuan_m1(hf, kw):
+    """Baichuan-M1: llama numerics + fused W_pack + kernel-2 K/V conv
+    (models/baichuan_m1.py). The reference ignores the config's sliding
+    window (baichuan_m1.py:216); so do we."""
+    kw.setdefault("attention_bias", False)
+    kw.pop("sliding_window", None)
+
+
+def _hf_qwen(hf, kw):
+    """Qwen v1 (Qwen-7B/14B remote code, reference models/qwen.py):
+    fused biased c_attn, bias-free c_proj, RMSNorm, MHA, and an MLP
+    whose HF intermediate_size is the SUM of the two halves (w1/w2 each
+    project to intermediate//2; out = c_proj(w1(x) * silu(w2(x)))).
+    Optional logn attention scaling beyond the training length."""
+    kw["attention_bias"] = True
+    kw["attention_out_bias"] = False
+    kw["intermediate_size"] = hf.get("intermediate_size", 22016) // 2
+    kw["rms_norm_eps"] = hf.get("layer_norm_epsilon", 1e-6)
+    kw["max_position_embeddings"] = hf.get(
+        "max_position_embeddings", hf.get("seq_length", 8192))
+    if hf.get("use_logn_attn"):
+        kw["logn_attn"] = True
+        kw["logn_train_len"] = hf.get("seq_length", 8192)
+    if "visual" in hf:  # Qwen-VL: <img>pad...pad</img> placeholders
+        kw["image_token_id"] = hf["visual"].get("image_start_id", 151857) + 2
+    # qwen's dynamic NTK adapts the rope base to the live sequence
+    # length; fixed-shape TPU programs pin it at the training length
+    # (exact within seq_length; longer contexts need an explicit
+    # rope_scaling override)
+
+
+def _hf_deci(hf, kw):
+    """DeciLM: llama with VARIABLE GQA (num_key_value_heads_per_layer).
+    Scan-stacked layers need uniform shapes, so ingest replicates each
+    layer's kv heads up to the max — numerically exact (repeat_kv
+    commutes with GQA grouping; convert/hf._deci_layer)."""
+    per_layer = hf.get("num_key_value_heads_per_layer")
+    if per_layer:
+        kw["num_key_value_heads"] = max(per_layer)
+    kw.setdefault("attention_bias", False)
+
+
+def _hf_gptbigcode(hf, kw):
+    """GPT-BigCode (starcoder v1, reference models/gptbigcode.py):
+    gpt2-style learned positions + layernorm + non-gated gelu MLP, but
+    nn.Linear weights (not Conv1D) and multi-query attention (1 kv
+    head) via a [H + 2*head_dim] fused c_attn."""
+    kw["hidden_size"] = hf.get("n_embd", 768)
+    kw["num_hidden_layers"] = hf.get("n_layer", 12)
+    kw["num_attention_heads"] = hf.get("n_head", 12)
+    kw["num_key_value_heads"] = 1 if hf.get("multi_query", True) else (
+        kw["num_attention_heads"])
+    kw["intermediate_size"] = hf.get("n_inner") or 4 * kw["hidden_size"]
+    kw["max_position_embeddings"] = hf.get("n_positions", 1024)
+    kw["rms_norm_eps"] = hf.get("layer_norm_epsilon", 1e-5)
+    kw["norm_type"] = "layernorm"
+    kw["norm_bias"] = True
+    kw["gated_mlp"] = False
+    kw["mlp_bias"] = True
+    kw["attention_bias"] = True
+    kw["attention_out_bias"] = True
+    kw["learned_positions"] = True
+    kw["hidden_act"] = hf.get("activation_function", "gelu_pytorch_tanh")
+    kw.setdefault("tie_word_embeddings", True)
+
+
+def _hf_phixtral(hf, kw):
+    """Phixtral (mlabonne MoE over phi-2 experts, reference
+    models/phixtral.py): phi's parallel-residual/biased/partial-rotary
+    decoder with mixtral-style top-k routing over NON-GATED fc1/fc2
+    experts; routing weights renormalize after top-k. Configs use the
+    legacy mixformer schema (n_embd/n_layer/rotary_dim)."""
+    _hf_phi(hf, kw)
+    kw["hidden_size"] = hf.get("n_embd", 2560)
+    kw["num_hidden_layers"] = hf.get("n_layer", 32)
+    kw["num_attention_heads"] = hf.get("n_head", 32)
+    kw["num_key_value_heads"] = hf.get("n_head_kv") or kw["num_attention_heads"]
+    kw["intermediate_size"] = hf.get("n_inner") or 4 * kw["hidden_size"]
+    kw["max_position_embeddings"] = hf.get("n_positions", 2048)
+    kw["num_experts"] = hf.get("num_local_experts", 4)
+    kw["num_experts_per_tok"] = hf.get("num_experts_per_tok", 2)
+    kw["norm_topk_prob"] = True
+    kw["rms_norm_eps"] = hf.get("layer_norm_epsilon", 1e-5)
+    kw["hidden_act"] = hf.get("activation_function", "gelu_new")
+    kw["lm_head_bias"] = True
+    if "rotary_dim" in hf:
+        head_dim = kw["hidden_size"] // kw["num_attention_heads"]
+        kw["partial_rotary_factor"] = hf["rotary_dim"] / head_dim
+
+
+def _hf_cohere(hf, kw):
+    """Cohere / Command-R: bias-free LayerNorm, parallel attn+mlp over
+    one shared norm, interleaved rope, logits scaled by logit_scale,
+    tied embeddings."""
+    kw["norm_type"] = "layernorm"
+    kw["parallel_residual"] = True
+    kw["rope_interleaved"] = True
+    kw["rms_norm_eps"] = hf.get("layer_norm_eps", 1e-5)
+    kw["logit_scale"] = hf.get("logit_scale", 0.0625)
+    kw["attention_bias"] = bool(hf.get("attention_bias", False))
+    kw.setdefault("tie_word_embeddings", hf.get("tie_word_embeddings", True))
+    if hf.get("use_qk_norm"):
+        raise NotImplementedError(
+            "cohere use_qk_norm=True (per-head LayerNorm) is not supported"
+        )
+
+
+def _hf_janus(hf, kw):
+    """Janus/Janus-Pro understanding path: the merged text_config is
+    llama-shaped; keep the image placeholder id for the feature
+    scatter (models/janus.py)."""
+    kw["image_token_id"] = hf.get("image_token_id", hf.get("image_token_index"))
+
+
+def _hf_internvl(hf, kw):
+    """InternVL (HF-converted layout): the merged text_config is
+    qwen2 or llama shaped; apply the text architecture's defaults and
+    keep the image token id (models/internvl.py scatters features
+    there)."""
+    inner = (hf.get("text_config") or {}).get("model_type", "qwen2")
+    if inner == "qwen2":
+        kw.setdefault("attention_bias", True)
+    kw["image_token_id"] = hf.get("image_token_id", hf.get("image_token_index"))
+
+
+def _hf_mllama(hf, kw):
+    """Mllama / Llama-3.2-Vision text side (reference models/mllama.py;
+    HF MllamaTextConfig — from_hf_config already merged the nested
+    text_config). The embedding table carries 8 extra special-image rows
+    beyond vocab_size (handled by the translator); lm_head stays at
+    vocab_size."""
+    kw["cross_attention_layers"] = tuple(
+        int(i) for i in hf.get("cross_attention_layers", ())
+    )
+
+
+def _hf_minicpmv(hf, kw):
+    """MiniCPM-V (reference models/minicpmv.py): the LLM half is
+    llama3-shaped (2_5) or qwen2-shaped (2_6, version >= 2.6 in
+    config.json); vision/resampler configs are consumed separately by
+    models/minicpmv.py. The image placeholder id comes from the
+    tokenizer's <unk>/<image> id — overridable at generate time."""
+    if float(hf.get("version", 2.6)) >= 2.6:
+        kw.setdefault("attention_bias", True)  # qwen2 qkv bias
+    kw.setdefault("image_token_id", hf.get("image_token_id", 0))
+
+
+def _hf_minicpmo(hf, kw):
+    """MiniCPM-o 2.6 (reference convert.py:1030-1041, 1963-1983): the
+    LLM half is qwen2-shaped at the top level of config.json; vision
+    (SigLIP + resampler) and audio (Whisper encoder + projection)
+    configs are consumed separately by models/minicpmo.py."""
+    kw.setdefault("attention_bias", True)  # qwen2 qkv bias
+    kw.setdefault("image_token_id", hf.get("image_token_id", 0))
+    # no silent default: the published config carries no audio_token_id,
+    # and defaulting it to 0 would collide with the image placeholder —
+    # callers set it from their tokenizer (models/minicpmo.py docstring)
+    if "audio_token_id" in hf:
+        kw.setdefault("audio_token_id", hf["audio_token_id"])
+    # default (2) lives in one place: models/minicpmo.DEFAULT_AUDIO_POOL_STEP
+    if "audio_pool_step" in hf:
+        kw.setdefault("audio_pool_step", hf["audio_pool_step"])
+
+
+def _hf_qwen2_audio(hf, kw):
+    """Qwen2-Audio (reference convert.py:969-971, 1655-1656): the text
+    half is qwen2 (nested text_config, merged by from_hf_config); the
+    <|AUDIO|> placeholder id is the top-level audio_token_index."""
+    kw.setdefault("attention_bias", True)  # qwen2 qkv bias
+    if hf.get("audio_token_index") is not None:
+        kw.setdefault("audio_token_id", hf["audio_token_index"])
+
+
+def _hf_yuan(hf, kw):
+    """Yuan-2 (reference models/yuan.py; original schema in
+    gguf/models/model_implement/yuan2/configuration_yuan.py): llama
+    fields + LFA conv filter handled by models/yuan.py."""
+    kw.setdefault(
+        "max_position_embeddings",
+        hf.get("model_max_length", hf.get("max_position_embeddings", 8192)),
+    )
+
+
+def _hf_falcon(hf, kw):
+    """Falcon (reference gguf/models/falcon.py; HF modeling_falcon.py).
+    Three variants: falcon-rw (alibi, sequential residual), falcon-7b
+    (multi-query + parallel attn/mlp sharing ONE input layernorm — the
+    translator duplicates it into attn_norm/mlp_norm), falcon-40b/180b
+    (new_decoder_architecture: GQA + separate ln_attn/ln_mlp)."""
+    kw["num_attention_heads"] = hf.get("num_attention_heads", hf.get("n_head", 71))
+    kw["num_hidden_layers"] = hf.get("num_hidden_layers", hf.get("n_layer", 32))
+    if hf.get("new_decoder_architecture"):
+        kw["num_key_value_heads"] = hf.get("num_kv_heads", 8)
+    elif hf.get("multi_query", True):
+        kw["num_key_value_heads"] = 1
+    else:
+        kw["num_key_value_heads"] = kw["num_attention_heads"]
+    kw["intermediate_size"] = hf.get("ffn_hidden_size") or 4 * hf.get(
+        "hidden_size", 4544
+    )
+    kw["rms_norm_eps"] = hf.get("layer_norm_epsilon", 1e-5)
+    kw["norm_type"] = "layernorm"
+    kw["norm_bias"] = True
+    kw["gated_mlp"] = False
+    kw["hidden_act"] = "gelu"
+    kw["mlp_bias"] = bool(hf.get("bias", False))
+    kw["attention_bias"] = bool(hf.get("bias", False))
+    kw["attention_out_bias"] = bool(hf.get("bias", False))
+    kw["parallel_residual"] = bool(
+        hf.get("parallel_attn", True) or hf.get("new_decoder_architecture")
+    )
+    if hf.get("alibi"):
+        kw["alibi"] = True
+        head_dim = hf.get("hidden_size", 4544) // kw["num_attention_heads"]
+        kw["alibi_scale"] = head_dim ** -0.5
+    kw.setdefault("tie_word_embeddings", hf.get("tie_word_embeddings", True))
+
+
+def _hf_rwkv(hf, kw):
+    """RWKV v4 (HF `rwkv` config schema: modeling_rwkv.py in
+    transformers; reference models/rwkv4.py). layer_norm_epsilon feeds
+    every LayerNorm; rescale_every is an fp16-overflow trick HF applies
+    only in half precision — exact under LN invariance, skipped here
+    (we compute the recurrence in f32)."""
+    kw["attention_hidden_size"] = hf.get(
+        "attention_hidden_size", hf.get("hidden_size", 4096)
+    )
+    kw["intermediate_size"] = (
+        hf.get("intermediate_size") or 4 * hf.get("hidden_size", 4096)
+    )
+    kw["rms_norm_eps"] = hf.get("layer_norm_epsilon", 1e-5)
+    kw["norm_type"] = "layernorm"
+    kw["max_position_embeddings"] = hf.get("context_length", 1024)
+    kw.setdefault("num_attention_heads", 1)
+    kw["num_key_value_heads"] = kw["num_attention_heads"]
+    kw["tie_word_embeddings"] = bool(hf.get("tie_word_embeddings", False))
+
+
+def _hf_rwkv5(hf, kw):
+    """RWKV v5 "Eagle" (trust_remote_code schema, e.g. rwkv-5-world;
+    reference models/rwkv5.py): multi-head matrix state with head_size
+    (64), gate branch, GroupNorm ln_x whose eps scales with
+    head_size_divisor."""
+    _hf_rwkv(hf, kw)
+    kw["rwkv_head_size"] = hf.get("head_size", 64)
+    kw["rwkv_group_norm_eps"] = 1e-5 * float(hf.get("head_size_divisor", 8)) ** 2
+    kw["num_attention_heads"] = kw["attention_hidden_size"] // kw["rwkv_head_size"]
+    kw["num_key_value_heads"] = kw["num_attention_heads"]
+
+
+_HF_BUILDERS = {
+    "qwen2": _hf_qwen2,
+    "qwen2_vl": _hf_qwen2_vl,
+    "chatglm": _hf_chatglm,
+    "mpt": _hf_mpt,
+    "gemma": _hf_gemma,
+    "gemma2": _hf_gemma2,
+    "gemma3": _hf_gemma3,
+    "gemma3_text": _hf_gemma3,
+    "phi3": _hf_phi3,
+    # phi-3-vision: the reference optimizes it as phi3 (convert.py:947,
+    # :1829 `in ["phi3", "phi3_v"]`); text fields are phi3's, the CLIP
+    # tower weights are simply not loaded on the text path
+    "phi3_v": _hf_phi3,
+    "stablelm": _hf_stablelm,
+    "starcoder2": _hf_starcoder2,
+    "baichuan": _hf_baichuan,
+    "internlm2": _hf_internlm2,
+    # internlm-xcomposer2: internlm2 decoder + per-linear Plora deltas
+    # that apply only to image-token rows (reference convert.py:984,
+    # :1523); the text path (im_mask=None) is exactly internlm2, and the
+    # Plora_A/B checkpoint keys are ignored by the internlm2 translation
+    "internlmxcomposer2": _hf_internlm2,
+    "internlm": _hf_internlm,
+    "minicpm": _hf_minicpm,
+    "glm": _hf_glm,
+    "gpt2": _hf_gpt2,
+    "bloom": _hf_bloom,
+    "gpt_neox": _hf_gptneox,
+    "mixtral": _hf_mixtral,
+    "qwen2_moe": _hf_qwen2_moe,
+    "rwkv": _hf_rwkv,
+    "rwkv5": _hf_rwkv5,
+    "falcon": _hf_falcon,
+    "yuan": _hf_yuan,
+    "minicpmv": _hf_minicpmv,
+    "minicpmo": _hf_minicpmo,
+    "qwen2_audio": _hf_qwen2_audio,
+    "mllama": _hf_mllama,
+    "mllama_text_model": _hf_mllama,
+    "deepseek_v2": _hf_deepseek_v2,
+    "deepseek_v3": _hf_deepseek_v3,
+    "minicpm3": _hf_minicpm3,
+    "internvl": _hf_internvl,
+    "internvl_chat": _hf_internvl,
+    "janus": _hf_janus,
+    "multi_modality": _hf_janus,  # janus checkpoints' original model_type
+    "qwen3": _hf_qwen3,
+    "qwen3_moe": _hf_qwen3_moe,
+    "phi": _hf_phi,
+    "cohere": _hf_cohere,
+    "qwen": _hf_qwen,
+    "qwen_vl": _hf_qwen,  # Qwen-VL ships model_type "qwen" + visual dict
+    "chatglm4v": _hf_chatglm,  # glm-4v: chatglm text schema + vision_config
+    "deci": _hf_deci,
+    "gpt_bigcode": _hf_gptbigcode,
+    "phixtral": _hf_phixtral,
+    "baichuan_m1": _hf_baichuan_m1,
+}
+
+
+# Canonical shapes for tests and benchmarks (no checkpoints needed).
 
 
 # Canonical shapes for tests and benchmarks (no checkpoints needed).

@@ -6,11 +6,12 @@ by `bn` weight-side columns, walking the contraction in steps through a
 ring of shared-memory stages. This module mirrors that layout's sizes (so
 the host knows each launch's stages, threads and shared memory; the entry
 points check stages and bytes against their own build) and chooses the
-tile per (M, O, K, qtype): the first of 256 x 128, 128 x 128 and 64 x 128
-whose grid fills the H100's 132 SMs (`FILL`). More rows a block decode
-each weight element fewer times (M / bm); serving's short prefills take
-the small tile and fill the card. The formats whose finest plane split is
-S = 8 have no 256-row tile (its ring does not fit in shared memory).
+tile per (M, O, K, qtype): 128 x 128 where its grid fills the H100's 132
+SMs (`FILL`), else 64 x 128. More rows a block decode each weight element
+fewer times (M / bm); serving's short prefills take the small tile and
+fill the card. A warpgroup of MMA warps takes 64 rows: it holds 64 f32
+sums and 64 partials of a step's wgmmas a thread (qtile.cuh
+`consume_wgmma`), so a 256-row tile's would not fit the registers.
 
 `k_order` gives the order in which a step or a dx block sees the
 contraction's columns: the groups of the format's finest plane split
@@ -32,10 +33,10 @@ import math
 import torch
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
-# A grid fills the card when it has a block for FILL of the SMs: llama3-8b's
-# 4096-wide projections at M = 1024 give the large tile 128 blocks, one
-# wave on 97 % of the SMs, which ran faster on the card than two waves of
-# 128 x 128 tiles.
+# A grid fills the card when it has a block for FILL of the SMs (a
+# 256 x 128 tile's 128 blocks at llama3-8b's 4096-wide projections, M =
+# 1024, one wave on 97 % of the SMs, ran faster than two waves of the
+# 128 x 128 tile, before the tile's sums had to fit beside their chains).
 FILL = 0.96
 SMEM_LIMIT = 232448  # shared memory one block may use (227 KB)
 MAX_STAGES = 6
@@ -62,16 +63,16 @@ def plane_split(qtype: str) -> tuple[int, int]:
 
 
 def depth(qtype: str) -> int:
-    """Elements of the contraction a step covers: 64, or 128 where S = 8
-    (a step holds whole 16-byte pieces of every plane)."""
-    return 128 if plane_split(qtype)[0] == 8 else 64
+    """Elements of the contraction a step covers (qtile.cuh step_depth):
+    128, or 64 for the byte formats, whose packed step is as large as its
+    A tile."""
+    return 64 if sum(PLANES[qtype]) == 8 else 128
 
 
 def tiles(qtype: str) -> tuple:
     """The (bm, bn) tiles the kernels are built for, in the policy's order
     of preference."""
-    narrow = ((128, 128), (64, 128))
-    return ((256, 128),) + narrow if plane_split(qtype)[0] < 8 else narrow
+    return ((128, 128), (64, 128))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,8 +129,8 @@ def _tile(M: int, side: int, qtype: str, gemm: bool) -> Tile:
     d = depth(qtype)
     rows, cols = (bn, d) if gemm else (d, bn)
     stages, smem = _layout(qtype, bm, rows, cols)
-    # the MMA warps are warpgroups of 4 (wgmma, 64 or 128 rows each)
-    mma_warps = 4 * max(1, bm // 128)
+    # the MMA warps are warpgroups of 4 (wgmma, 64 rows each)
+    mma_warps = 4 * (bm // 64)
     return Tile(bm, bn, stages, smem, 32 * (mma_warps + dec_warps(qtype, bm, rows, cols)),
                 (math.ceil(M / bm), math.ceil(side / bn)))
 

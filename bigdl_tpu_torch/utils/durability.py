@@ -17,12 +17,17 @@ bigdl_tpu/train/checkpoint.py (`_encode` / `_decode`, here
   artifact's meta. The port decodes them with `torch` views (it has no
   ml_dtypes).
 
+- **Numerical validation and reports**: `validate_numerics` (NaN/inf in
+  float tensors, per-qtype scale ranges) behind ``verify="full"``, and
+  the per-tensor `VerifyReport` of `convert.low_bit.verify_low_bit`.
+
 The disk fault injection of the JAX module (`faults=`) is not ported
 (ROADMAP queue 1 item 5, fault injection).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import hashlib
 import io
@@ -237,18 +242,123 @@ FLOAT_DTYPES = ("float16", "float32", "float64", "bfloat16",
                 "float8_e4m3fn", "float8_e5m2")
 
 
+@dataclasses.dataclass
+class Finding:
+    tensor: str
+    issue: str  # "non_finite" | "scale_range"
+    detail: str
+
+
+# per-qtype plausibility ceiling for |scale|: block scales are a block's
+# absmax over the format's largest code, so for the formats this package
+# quantizes a magnitude in the tens of thousands means scrambled fp16
+# bytes, not a big model. Unlisted qtypes get a conservative default.
+_SCALE_MAX_DEFAULT = 1e6
+_SCALE_MAX = {q: 1e4 for q in (
+    "sym_int4", "asym_int4", "sym_int5", "asym_int5", "sym_int8",
+    "nf4", "nf3", "fp4", "fp6", "fp8_e4m3", "fp8_e5m2",
+    "q2_k", "q3_k", "q4_k", "q5_k", "q6_k",
+)}
+
+
+def scale_bound(qtype: Optional[str]) -> float:
+    return _SCALE_MAX.get(qtype, _SCALE_MAX_DEFAULT)
+
+
+def _stored_to_f32(a: np.ndarray, dtype_name: str) -> torch.Tensor:
+    """A stored array as float32 on the CPU (bf16/fp8 bit views decoded)."""
+    return decode_array(a, dtype_name).float()
+
+
 def scan_non_finite(a: np.ndarray, dtype_name: str) -> Optional[str]:
     """NaN/inf scan of one stored array (bf16/fp8 bit views decoded).
     Returns a detail like '3 NaN / 0 inf of 4096 values', or None when
     clean or not a float storage dtype."""
     if dtype_name not in FLOAT_DTYPES:
         return None
-    x = decode_array(a, dtype_name).float()
+    x = _stored_to_f32(a, dtype_name)
     n_nan = int(torch.isnan(x).sum())
     n_inf = int(torch.isinf(x).sum())
     if n_nan or n_inf:
         return f"{n_nan} NaN / {n_inf} inf of {x.numel()} values"
     return None
+
+
+def validate_numerics(arrays: dict, manifest: dict) -> list:
+    """NaN/inf scan of float tensors (dense leaves, scales, mins) plus
+    scale-range sanity per qtype. `manifest` is the low-bit manifest
+    (path -> {kind, dtype[, qtype]}), `arrays` the stored numpy arrays
+    keyed the same way. Returns a list of Findings (empty: healthy)."""
+    findings: list[Finding] = []
+    for key in sorted(arrays):
+        info = manifest.get(key)
+        if info is None or info.get("kind") != "array":
+            continue
+        dt = info["dtype"]
+        if dt not in FLOAT_DTYPES:
+            continue
+        detail = scan_non_finite(arrays[key], dt)
+        if detail is not None:
+            findings.append(Finding(key, "non_finite", detail))
+            continue
+        if key.endswith("@scales"):
+            parent = key[: -len("@scales")]
+            qtype = (manifest.get(parent) or {}).get("qtype")
+            x = _stored_to_f32(arrays[key], dt)
+            amax = float(x.abs().max()) if x.numel() else 0.0
+            bound = scale_bound(qtype)
+            if amax > bound:
+                findings.append(Finding(
+                    key, "scale_range",
+                    f"|scale| max {amax:.3g} exceeds {bound:.0e} for qtype {qtype}"))
+    return findings
+
+
+# ---------------------------------------------------------------------------
+# per-tensor verification report
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TensorReport:
+    name: str
+    status: str  # "ok" | "corrupt" | "missing" | "extra" | "numerics"
+    detail: str = ""
+
+
+@dataclasses.dataclass
+class VerifyReport:
+    path: str
+    kind: str  # "low_bit" | "train"
+    rows: list
+    detail: Optional[str] = None  # artifact-level failure
+
+    @property
+    def ok(self) -> bool:
+        return self.detail is None and all(r.status == "ok" for r in self.rows)
+
+    def format(self) -> str:
+        lines = [f"{self.path} [{self.kind}]"]
+        if self.detail:
+            lines.append(f"  ARTIFACT {self.detail}")
+        width = max((len(r.name) for r in self.rows), default=0)
+        n_bad = 0
+        for r in sorted(self.rows, key=lambda r: (r.status == "ok", r.name)):
+            if r.status == "ok":
+                continue
+            n_bad += 1
+            lines.append(f"  {r.status.upper():8s} {r.name:<{width}s}  {r.detail}")
+        lines.append(f"  {len(self.rows) - n_bad}/{len(self.rows)} tensors ok"
+                     + ("" if self.ok else f", {n_bad} findings"))
+        return "\n".join(lines)
+
+
+def rows_from_error(err: IntegrityError) -> list:
+    rows = [TensorReport(k, "corrupt", v) for k, v in err.corrupted.items()]
+    rows += [TensorReport(k, "missing", "listed in manifest, absent from file")
+             for k in err.missing]
+    rows += [TensorReport(k, "extra", "present in file, absent from manifest")
+             for k in err.extra]
+    return rows
 
 
 # ---------------------------------------------------------------------------

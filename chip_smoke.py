@@ -62,7 +62,11 @@ the result lines; an exception ends the run at once; nothing is caught):
    M = 1, 63, 65, 1000 over aligned O and K (128 x 256 tiles with ragged
    edges), O and K not multiples of 8 and a base off 16 bytes, bf16 and
    f32 outputs, each launched twice (bit-equal), printing which of the two
-   kernels (`dw_variant`) each case ran;
+   kernels (`dw_variant`) each case ran; then the sums' rounding: at wo,
+   w_down and w_gateup (M = 1024, sym_int4) the bf16 outputs of the GEMM,
+   dx and the LoRA GEMM that differ from the exactly rounded value (f64
+   sums on the card), beside their plain versions' count: a kernel with
+   more than twice as many fails the run;
 3. the generation path: llama3-8b at full width and depth (32 layers) with
    seeded random weights, `optimize_model(..., "sym_int4")`, greedy
    `TorchModel.generate` of 32 tokens for 4 ragged prompts — launch counts
@@ -173,11 +177,27 @@ the result lines; an exception ends the run at once; nothing is caught):
    through the flash backward (loss and LoRA gradients), each against the
    plain versions on the card under phases 3, 7 and 5's bounds, and each
    of those kernels launched (flash a layer, paged a layer and decode
-   step, each flash-train kernel a layer).
+   step, each flash-train kernel a layer);
+16. checkpoints from disk (run after phase 4, on phase 3's model): (a)
+   phase 3's 32-layer llama3-8b sym_int4 model saved with `save_low_bit`
+   (the artifact's GB, the save's seconds and its device-to-host part),
+   loaded with `AutoModelForCausalLM.load_low_bit` under verify="fast"
+   and "full" (seconds, GB/s), `verify_low_bit` ok, and phase 3's greedy
+   tokens and launch counts from the loaded model; (b) an HF checkpoint
+   of Meta-Llama-3-8B's published config.json at 4 layers (bf16 N(0,
+   0.02^2) weights from a seed, two shards and an index, ~3.9 GB, written
+   with the script's own safetensors writer) ingested with
+   `from_pretrained` in sym_int4 and q4_k_m: one layer's bytes from the
+   card's encoder against the CPU encoder's (equal in sym_int4; q4_k's
+   differing bytes printed), prefill logits through the kernels against
+   the plain versions (phase 3's bound), in-vocabulary tokens the same on
+   a second call and after a save and load; the ingest's seconds, read
+   GB/s, quantize ms a layer and peak device memory. Both directories are
+   deleted; a temporary directory without room fails the phase.
 
-The whole run takes about 460-510 s of command time on an H100 (the
-host's speed moves it), the kernel builds included (the dequant sources
-build once per qtype: 36 libraries in 80-90 s).
+The whole run takes about 600 s of command time on an H100 (the host's
+speed moves it; phase 16 ~120-140 s of it), the kernel builds included
+(the dequant sources build once per qtype: 36 libraries in 50-90 s).
 It prints one `{"kernels": [...]}` line (the dequant forms carry their
 numbers per format under "by_format"), and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the
@@ -564,6 +584,11 @@ def main() -> int:
     serving_kernel_checks(torch, dev, cfg, errs, randn)
     adapter_kernel_checks(torch, dev, shapes, errs, qweight, randn)
     dw_kernel_checks(torch, cfg, errs, randn)
+    # the sums' rounding: each kernel's bf16 outputs off the exactly rounded
+    # value, at most twice as many as its plain version's (f32 sums)
+    for (form, name), (k, p, n) in misrounding_counts(torch, dev, "sym_int4", shapes).items():
+        log(f"phase 2: misrounded {form} {name} M={MISROUND_M} sym_int4: kernel {k}, plain {p} of {n}")
+        check(k <= 2 * p, f"{form} {name}: {k} outputs off the exactly rounded value, plain {p}")
     torch.cuda.synchronize()
 
     # ---------------------------------------------------------------- 3
@@ -769,6 +794,8 @@ def main() -> int:
             "max_abs_err": errs[kern.name], "ms": on_path(prof_, kern, n, calls),
             "isolated_ms": iso, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": lib, "per": unit})
+    # --------------------------------------------------------------- 16
+    checkpoint_phases(torch, dev, tm, prompts, out1, want)
     del tm, model
 
     # ---------------------------------------------------------------- 5
@@ -2549,6 +2576,286 @@ def phi3_phases(torch, dev, errs) -> None:
 # the other 15 weight formats: phases 9 and 10
 # ---------------------------------------------------------------------------
 
+# checkpoints from disk (phase 16): the script's own safetensors writer
+# and an HF checkpoint of llama3-8b's published config.json values
+ST_DTYPES = {"bfloat16": "BF16", "float16": "F16", "float32": "F32", "float64": "F64",
+             "int8": "I8", "int16": "I16", "int32": "I32", "int64": "I64", "uint8": "U8"}
+LLAMA3_8B_HF = {  # Meta-Llama-3-8B config.json, but for num_hidden_layers
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama", "vocab_size": 128256,
+    "hidden_size": 4096, "intermediate_size": 14336, "num_hidden_layers": 4,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "rope_theta": 500000.0,
+    "rms_norm_eps": 1e-05, "max_position_embeddings": 8192, "tie_word_embeddings": False,
+    "rope_scaling": None, "hidden_act": "silu", "attention_bias": False, "mlp_bias": False,
+    "bos_token_id": 128000, "eos_token_id": 128001, "torch_dtype": "bfloat16",
+}
+
+
+def write_safetensors(path, entries) -> int:
+    """A safetensors file from `entries`, [(name, dtype, shape, make)]:
+    the 8-byte header length, the JSON header (padded with spaces to 8
+    bytes), then each tensor's little-endian bytes in order, `make()`
+    called for one tensor at a time (a CPU tensor). Returns the bytes
+    written."""
+    import torch
+
+    header, off = {}, 0
+    for name, dtype, shape, _ in entries:
+        n = math.prod(shape) * dtype.itemsize
+        header[name] = {"dtype": ST_DTYPES[str(dtype).split(".")[-1]], "shape": list(shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for name, dtype, shape, make in entries:
+            t = make()
+            assert t.dtype == dtype and tuple(t.shape) == tuple(shape), name
+            f.write(t.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return 8 + len(head) + off
+
+
+def hf_llama_entries(torch, hf: dict, seed: int, dev):
+    """An HF llama checkpoint's tensors as write_safetensors entries, per
+    shard (two: the embedding and the first half of the layers, then the
+    rest, the final norm and the lm head): bf16 N(0, 0.02^2) matrices from
+    a seed, made on `dev`, and unit norms."""
+    H, I, V = hf["hidden_size"], hf["intermediate_size"], hf["vocab_size"]
+    L, D = hf["num_hidden_layers"], hf["hidden_size"] // hf["num_attention_heads"]
+    QD, KD = hf["num_attention_heads"] * D, hf["num_key_value_heads"] * D
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def mat(shape):
+        return lambda: (torch.randn(shape, device=dev, generator=g) * 0.02).to(torch.bfloat16).cpu()
+
+    def ones(n):
+        return lambda: torch.ones(n, dtype=torch.bfloat16)
+
+    def layer(i):
+        p = f"model.layers.{i}."
+        return [(p + n, torch.bfloat16, shape, fn) for n, shape, fn in (
+            ("input_layernorm.weight", (H,), ones(H)),
+            ("post_attention_layernorm.weight", (H,), ones(H)),
+            ("self_attn.q_proj.weight", (QD, H), mat((QD, H))),
+            ("self_attn.k_proj.weight", (KD, H), mat((KD, H))),
+            ("self_attn.v_proj.weight", (KD, H), mat((KD, H))),
+            ("self_attn.o_proj.weight", (H, QD), mat((H, QD))),
+            ("mlp.gate_proj.weight", (I, H), mat((I, H))),
+            ("mlp.up_proj.weight", (I, H), mat((I, H))),
+            ("mlp.down_proj.weight", (H, I), mat((H, I))))]
+
+    first = [("model.embed_tokens.weight", torch.bfloat16, (V, H), mat((V, H)))]
+    second = []
+    for i in range(L):
+        (first if i < L // 2 else second).extend(layer(i))
+    second += [("model.norm.weight", torch.bfloat16, (H,), ones(H)),
+               ("lm_head.weight", torch.bfloat16, (V, H), mat((V, H)))]
+    return [first, second]
+
+
+def write_hf_checkpoint(torch, root, hf: dict, seed: int, dev) -> int:
+    """config.json, two safetensors shards and their index under `root`;
+    returns the bytes of the shards."""
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "config.json").write_text(json.dumps(hf, indent=1))
+    weight_map, total = {}, 0
+    shards = hf_llama_entries(torch, hf, seed, dev)
+    for k, entries in enumerate(shards):
+        name = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        total += write_safetensors(root / name, entries)
+        weight_map.update({e[0]: name for e in entries})
+    (root / "model.safetensors.index.json").write_text(
+        json.dumps({"metadata": {"total_size": total}, "weight_map": weight_map}, indent=1))
+    return total
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def checkpoint_phases(torch, dev, tm, prompts, want_tokens, want_launches, hf=LLAMA3_8B_HF) -> None:
+    """Phase 16: checkpoints from disk to the card. (a) phase 3's 32-layer
+    llama3-8b sym_int4 model saved as the low-bit artifact, loaded back
+    (verify fast and full), verified, and generating phase 3's tokens with
+    phase 3's launches; (b) an HF checkpoint of llama3-8b's published
+    config at 4 layers, written with the script's safetensors writer,
+    ingested in sym_int4 and q4_k_m and checked. Each directory is
+    deleted after its half. (On the CPU, at a narrowed `hf`, this
+    rehearses the phase: only the launch checks fail there.)"""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch import AutoModelForCausalLM, verify_low_bit
+    from bigdl_tpu_torch.convert import hf as hf_mod
+    from bigdl_tpu_torch.convert import low_bit as low_bit_mod
+    from bigdl_tpu_torch.ops import kernels
+    from bigdl_tpu_torch.quant import quantize
+
+    t_phase = time.time()
+    tmp = Path(tempfile.gettempdir())
+
+    def room(need: int, what: str) -> bool:
+        free = shutil.disk_usage(tmp).free
+        log(f"phase 16: {what} needs {need / 1e9:.3f} GB under {tmp}, {free / 1e9:.3f} GB free")
+        check(free >= need, f"phase 16: {need / 1e9:.3f} GB of space for {what} under {tmp}")
+        return free >= need
+
+    def synced(fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            run.seconds += time.time() - t0
+            return out
+        run.seconds = 0.0
+        return run
+
+    def model_bytes(m):
+        return sum(t.numel() * t.element_size() for t in list(m.parameters()) + list(m.buffers()))
+
+    # (a) the artifact at full width and depth
+    need = int(model_bytes(tm.params) * 1.05)
+    if room(need, "the llama3-8b artifact"):
+        root = Path(tempfile.mkdtemp(prefix="bigdl_low_bit_", dir=tmp))
+        try:
+            d2h = synced(low_bit_mod.params_to_numpy)
+            t0 = time.time()
+            with mock.patch.object(low_bit_mod, "params_to_numpy", d2h):
+                tm.save_low_bit(str(root / "llama3-8b"))
+            save_s = time.time() - t0
+            gb = dir_bytes(root / "llama3-8b") / 1e9
+            log(f"phase 16 (a): save_low_bit of llama3-8b sym_int4 ({len(tm.params.layers)} layers): "
+                f"{gb:.3f} GB in {save_s:.3f} s, of which device-to-host and stacking {d2h.seconds:.3f} s")
+            for verify in ("fast", "full"):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                loaded = AutoModelForCausalLM.load_low_bit(str(root / "llama3-8b"), verify=verify,
+                                                           device=dev)
+                torch.cuda.synchronize()
+                sec = time.time() - t0
+                log(f"phase 16 (a): load_low_bit verify={verify}: {sec:.3f} s, {gb / sec:.3f} GB/s")
+                check(loaded.salvage_report is None, f"load_low_bit verify={verify}: a salvage report")
+                if verify == "full":
+                    break
+                del loaded
+            t0 = time.time()
+            rep = verify_low_bit(str(root / "llama3-8b"))
+            log(f"phase 16 (a): verify_low_bit ok={rep.ok} ({len(rep.rows)} tensors) in "
+                f"{time.time() - t0:.3f} s")
+            check(rep.ok, "verify_low_bit of the saved artifact")
+            kernels.reset_launches()
+            out = loaded.generate(prompts, max_new_tokens=NEW_TOKENS)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            same = bool((out == want_tokens).all())
+            log(f"phase 16 (a): loaded model's greedy tokens equal phase 3's: {same}; launches "
+                f"{launches} (phase 3's {want_launches})")
+            check(same, "phase 16 (a): the loaded model's tokens are phase 3's")
+            check(launches == want_launches, "phase 16 (a): launch counts of the loaded model")
+            del loaded
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (b) HF ingest at full width, 4 layers
+    H, I, V, L = hf["hidden_size"], hf["intermediate_size"], hf["vocab_size"], hf["num_hidden_layers"]
+    QD = H
+    KD = hf["num_key_value_heads"] * H // hf["num_attention_heads"]
+    layer_elems = (QD + 2 * KD) * H + H * QD + 3 * I * H
+    ckpt_bytes = 2 * (2 * V * H + L * (layer_elems + 2 * H) + H)
+    if not room(int(ckpt_bytes * 1.8), "the HF checkpoint and an artifact of its model"):
+        return
+    root = Path(tempfile.mkdtemp(prefix="bigdl_hf_", dir=tmp))
+    try:
+        t0 = time.time()
+        total = write_hf_checkpoint(torch, root / "hf", hf, 16, dev)
+        log(f"phase 16 (b): wrote an HF checkpoint of {hf['model_type']} config.json values at "
+            f"{L} layers: {total / 1e9:.3f} GB in two shards in {time.time() - t0:.3f} s")
+        get = hf_mod.open_checkpoint(str(root / "hf"))
+        for qtype in ("sym_int4", "q4_k_m"):
+            quant = synced(quantize)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with mock.patch.object(hf_mod, "quantize", quant):
+                m = AutoModelForCausalLM.from_pretrained(str(root / "hf"), load_in_low_bit=qtype,
+                                                         device=dev)
+            torch.cuda.synchronize()
+            sec = time.time() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            mb = model_bytes(m.params)
+            log(f"phase 16 (b) {qtype}: ingest {sec:.3f} s, read {total / 1e9 / sec:.3f} GB/s, quantize "
+                f"{quant.seconds * 1e3 / L:.3f} ms a layer ({quant.seconds:.3f} s with the lm head); peak "
+                f"device memory {peak / 2**30:.3f} GiB against the model's {mb / 2**30:.3f} GiB + one f32 "
+                f"layer {4 * layer_elems / 2**30:.3f} GiB = {(mb + 4 * layer_elems) / 2**30:.3f} GiB")
+            # the card's encoder against the CPU's on one layer's f32 weights
+            w32 = get("model.layers.1.mlp.down_proj.weight").float()
+            body = "sym_int4" if qtype == "sym_int4" else "q4_k"
+            ref = quantize(w32, body)
+            got = m.params.layers[1].proj["w_down"].w
+            diff = sum(int((getattr(got, f).cpu().view(torch.uint8) != v.view(torch.uint8)).sum())
+                       for f, v in ref.fields().items())
+            dq = (got.dequantize(torch.float32).cpu() - ref.dequantize(torch.float32)).abs().max().item()
+            log(f"phase 16 (b) {qtype}: layer 1 w_down {body} from the card's encoder against the CPU's: "
+                f"{diff} bytes differ, largest dequantized difference {dq:.6g}")
+            if qtype == "sym_int4":
+                check(diff == 0, "phase 16 (b): the card's sym_int4 bytes equal the CPU encoder's")
+            logits_checks(torch, dev, m, prompts, f"phase 16 (b) {qtype}")
+            out1 = m.generate(prompts, max_new_tokens=NEW_TOKENS)
+            out2 = m.generate(prompts, max_new_tokens=NEW_TOKENS)
+            ok = bool(((out1 >= 0) & (out1 < V)).all()) and out1.shape == (len(prompts), NEW_TOKENS)
+            check(ok and bool((out1 == out2).all()), f"phase 16 (b) {qtype}: tokens in the vocabulary, "
+                                                     "the same on a second call")
+            m.save_low_bit(str(root / qtype))
+            back = AutoModelForCausalLM.load_low_bit(str(root / qtype), verify="full", device=dev)
+            same = bool((back.generate(prompts, max_new_tokens=NEW_TOKENS) == out1).all())
+            log(f"phase 16 (b) {qtype}: greedy tokens (row 0) {out1[0].tolist()}; second call "
+                f"identical {bool((out1 == out2).all())}; after save_low_bit and load_low_bit identical {same}")
+            check(same, f"phase 16 (b) {qtype}: save and load of the ingested model change its tokens")
+            del m, back
+            shutil.rmtree(root / qtype, ignore_errors=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"phase 16: {time.time() - t_phase:.1f} s")
+
+
+def logits_checks(torch, dev, tm, prompts, label) -> None:
+    """Prefill logits of `tm` through the kernels against the plain
+    versions on the card, within phase 3's bound (2 % of the largest)."""
+    from bigdl_tpu_torch.generate import pad_prompts
+    from bigdl_tpu_torch.kvcache import init_cache
+    from bigdl_tpu_torch.models import llama
+    from bigdl_tpu_torch.ops import kernels
+    from bigdl_tpu_torch.utils import cache_len_for
+
+    cfg = tm.config
+    tokens, starts = pad_prompts(prompts, 0)
+    tok = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+
+    def run():
+        cache = dataclasses.replace(
+            init_cache(cfg.num_hidden_layers, len(prompts), cache_len_for(tokens.shape[1], 1),
+                       cfg.num_key_value_heads, cfg.head_dim_, device=dev),
+            start=torch.as_tensor(starts, device=dev))
+        with torch.inference_mode():
+            return llama.forward(cfg, tm.params, tok, cache, "prefill", last_logits_only=True)[0][:, -1]
+
+    kern = run()
+    with mock.patch.object(kernels, "qmatmul", kernels.qmatmul_plain), \
+            mock.patch.object(kernels, "flash_attention", kernels.flash_attention_plain):
+        plain = run()
+    err = (kern - plain).abs().max().item()
+    tol = 0.02 * plain.abs().max().item()
+    log(f"{label}: prefill logits kernel vs plain max_abs_err={err:.6g} tol={tol:.6g}")
+    check(bool(torch.isfinite(kern).all()) and err <= tol, f"{label}: prefill logits")
+
+
 FORMATS = ("asym_int4", "nf4", "fp4", "sym_int8", "asym_int5", "fp8_e4m3", "fp8_e5m2",
            "sym_int5", "fp6", "nf3", "q2_k", "q3_k", "q4_k", "q5_k", "q6_k")
 FORMAT_PATHS = ("nf4", "q4_k_m")  # generation at full depth (q4_k body, q6_k head)
@@ -2566,6 +2873,47 @@ def qweight_of(torch, dev, qtype, O, K, seed):
 
 def weight_bytes(w) -> int:
     return sum(t.numel() * t.element_size() for t in w.fields().values())
+
+
+MISROUND_SHAPES, MISROUND_M = ("wo", "w_down", "w_gateup"), 1024
+
+
+def misrounding_counts(torch, dev, qtype, shapes, seed=3) -> dict:
+    """{(form, shape): (kernel, plain, outputs)} at wo, w_down and w_gateup,
+    M = 1024: the bf16 outputs of the GEMM, dx and the LoRA GEMM (R = 8)
+    and of their plain versions (f32 sums in torch.matmul) that differ
+    from the exactly rounded value (f64 sums on the card). The LoRA GEMM's
+    exact value takes xg = bf16(f32(x A^T) * gate) from f64 sums, as the
+    kernel's first pass rounds it."""
+    from bigdl_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+
+    def bf(t):
+        return t.float().to(torch.bfloat16)
+
+    out = {}
+    for name in MISROUND_SHAPES:
+        O, K = shapes[name]
+        w = qweight_of(torch, dev, qtype, O, K, 5)
+        wd = w.dequantize(torch.bfloat16).double()
+        x, gr = randn(MISROUND_M, K), randn(MISROUND_M, O)
+        a, b = randn(RANK, K) / RANK, randn(O, RANK) * 0.01
+        gate = torch.full((MISROUND_M, RANK), 2.0, dtype=torch.bfloat16, device=dev)
+        xg = ((x.double() @ a.double().t()).float() * gate.float()).to(torch.bfloat16)
+        cases = {
+            "gemm": (kernels.qmatmul(x, w), kernels.qmatmul_plain(x, w), bf(x.double() @ wd.t())),
+            "dx": (kernels.qmatmul_dx(gr, w), kernels.qmatmul_dx_plain(gr, w), bf(gr.double() @ wd)),
+            "lora_gemm": (kernels.qmatmul_lora(x, w, a, b, gate), kernels.qmatmul_lora_plain(x, w, a, b, gate),
+                          bf(x.double() @ wd.t() + xg.double() @ b.double().t())),
+        }
+        for form, (k, p, e) in cases.items():
+            out[(form, name)] = (int((k != e).sum()), int((p != e).sum()), e.numel())
+        del w, wd, cases
+    return out
 
 
 def format_phases(torch, dev, cfg, card, prompts, tok, st, T, S) -> dict:

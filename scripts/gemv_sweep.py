@@ -16,9 +16,11 @@ the policy's tiles and over the fastest. With --policy, times only
 role-cut copy of the kernel (a checkout under build/exp/ with one role
 cut out of csrc/qmatmul.cu), whose checks fail but whose times print.
 With --misrounding, counts at wo, w_down and w_gateup the bf16 outputs of
-`kernels.qmatmul` (the GEMV at M = 8, the GEMM at M = 1024) and of its
-plain version (f32 sums in torch.matmul) that differ from the exactly
-rounded product (f64 sums), and those where the two differ.
+the GEMV (M = 8), and of the GEMM, dx and the LoRA GEMM (M = 1024, R = 8;
+chip_smoke.py `misrounding_counts`), and of their plain versions (f32
+sums in torch.matmul) that differ from the exactly rounded value (f64
+sums), and for the GEMV those where the two differ; it also builds
+`csrc/qbackward.cu`.
 """
 
 from __future__ import annotations
@@ -59,13 +61,14 @@ def main() -> int:
 
     qtype = args.qtype
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = _build._library_path("qmatmul", qtype)
-    if not lib.exists():
-        err = _build._compile("qmatmul", qtype, lib)
-        if err:
-            print(err, file=sys.stderr)
-            return 1
-    _build._libs[("qmatmul", qtype)] = ctypes.CDLL(str(lib))
+    for stem in ("qmatmul", "qbackward") if args.misrounding else ("qmatmul",):
+        lib = _build._library_path(stem, qtype)
+        if not lib.exists():
+            err = _build._compile(stem, qtype, lib)
+            if err:
+                print(err, file=sys.stderr)
+                return 1
+        _build._libs[(stem, qtype)] = ctypes.CDLL(str(lib))
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.misrounding:
@@ -75,13 +78,16 @@ def main() -> int:
             O, K = SHAPES[name]
             w = cs.qweight_of(torch, dev, qtype, O, K, 5)
             wd = w.dequantize(torch.bfloat16).double()
-            for M in (8, 1024):
-                x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
-                exact = (x.double() @ wd.t()).float().to(torch.bfloat16)
-                y, p = kernels.qmatmul(x, w), kernels.qmatmul_plain(x, w)
-                lines.append(f"{name} M={M}: kernel {int((y != exact).sum())}, plain {int((p != exact).sum())}, "
-                             f"kernel vs plain {int((y != p).sum())} of {y.numel()}")
-        print(f"{root.name} {qtype} outputs off the exactly rounded product: " + "; ".join(lines), flush=True)
+            x = torch.randn(8, K, device=dev, generator=g).to(torch.bfloat16)
+            exact = (x.double() @ wd.t()).float().to(torch.bfloat16)
+            y, p = kernels.qmatmul(x, w), kernels.qmatmul_plain(x, w)
+            lines.append(f"gemv {name} M=8: kernel {int((y != exact).sum())}, plain {int((p != exact).sum())}, "
+                         f"kernel vs plain {int((y != p).sum())} of {y.numel()}")
+            del w, wd
+        shapes = {k: SHAPES[k] for k in cs.MISROUND_SHAPES}
+        for (form, name), (k, p, n) in cs.misrounding_counts(torch, dev, qtype, shapes).items():
+            lines.append(f"{form} {name} M={cs.MISROUND_M}: kernel {k}, plain {p} of {n}")
+        print(f"{root.name} {qtype} outputs off the exactly rounded value: " + "; ".join(lines), flush=True)
         return 0
     g = torch.Generator(device=dev).manual_seed(0)
     ms_list = (4, 8) if args.policy else tuple(int(m) for m in args.m.split(","))

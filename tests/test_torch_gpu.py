@@ -854,3 +854,51 @@ def test_dequant_tile_kernels_match_plain(qtype, M, O):
     assert torch.equal(yl, kernels.qmatmul_lora(x, w, a, b, gate))
     assert torch.equal(dx, kernels.qmatmul_dx(gr, w))
     assert torch.equal(yl[::3], y[::3])
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("qtype", ["sym_int4", "nf4"])
+def test_dequant_sums_round_no_worse_than_twice_plain(qtype):
+    """The GEMM, dx and LoRA GEMM (M = 1024) at wo, w_down and w_gateup:
+    bf16 outputs off the exactly rounded value (f64 sums) at most twice as
+    many as the plain versions' (f32 sums rounded to nearest). One wgmma
+    chain over the whole K walk missed 5-20x as many: the tensor cores'
+    adds truncate (csrc/qtile.cuh, consume_wgmma)."""
+    dev = _cuda()
+    cs = _chip_smoke()
+    shapes = {"wo": (4096, 4096), "w_down": (4096, 14336), "w_gateup": (28672, 4096)}
+    counts = cs.misrounding_counts(torch, dev, qtype, shapes)
+    assert len(counts) == 9
+    for (form, name), (k, p, n) in counts.items():
+        assert k <= 2 * p, (form, name, k, p, n)
+
+
+def test_low_bit_round_trip_on_the_card(tmp_path):
+    """save_low_bit, then load_low_bit (fast and full) onto the card: a
+    2-layer llama3-8b-width model generates the same tokens as before."""
+    from bigdl_tpu_torch import AutoModelForCausalLM
+
+    dev = _cuda()
+    cfg = dataclasses.replace(PRESETS["llama3-8b"], num_hidden_layers=2)
+    tm = TorchModel(cfg, optimize_model(llama.init_params(cfg, seed=3), cfg, "sym_int4"),
+                    "sym_int4")
+    prompts = [list(range(1, 70)), [5, 9, 200, 7]]
+    want = tm.generate(prompts, max_new_tokens=8)
+    tm.save_low_bit(str(tmp_path / "m"))
+    for verify in ("fast", "full"):
+        back = AutoModelForCausalLM.load_low_bit(str(tmp_path / "m"), verify=verify)
+        assert back.device.type == "cuda" and back.salvage_report is None
+        kernels.reset_launches()
+        got = back.generate(prompts, max_new_tokens=8)
+        assert (got == want).all()
+        assert kernels.launch_counts()[kernels.GEMM.name] == 8

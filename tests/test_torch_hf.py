@@ -1,0 +1,235 @@
+"""HF ingest in the port against the JAX package, on the CPU.
+
+`ModelConfig.from_hf_config` against JAX's over HF config dicts of eight
+families; the port's safetensors reader (`convert.hf.open_checkpoint`)
+against the `safetensors` package, bit for bit, and chip_smoke.py's
+writer read back by the package; `load_hf_checkpoint` of a tiny llama and
+a tiny phi3 (fused qkv_proj/gate_up_proj, split and fused again) against
+JAX's: the same stored bytes for every tensor, prefill logits within
+tests/test_torch_llama.py's tolerance, in sym_int4 and q4_k_m; and the
+refusals, each naming its ROADMAP item. Fixtures are written here with
+the `safetensors` package from seeds.
+"""
+
+import dataclasses
+import importlib.util
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from safetensors import safe_open
+from safetensors.torch import save_file
+
+from bigdl_tpu.api import AutoModelForCausalLM as JaxAuto
+from bigdl_tpu.convert.low_bit import _flatten as jax_flatten
+from bigdl_tpu.models.config import ModelConfig as JaxConfig
+from bigdl_tpu_torch import AutoModelForCausalLM
+from bigdl_tpu_torch.convert import hf as hf_mod
+from bigdl_tpu_torch.convert import open_checkpoint, params_to_numpy
+from bigdl_tpu_torch.models.config import ModelConfig
+from test_torch_llama import PROMPT_LENS, _TOL_ULPS, _jax_last_logits, _port_last_logits
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+LLAMA = {"model_type": "llama", "vocab_size": 512, "hidden_size": 256,
+         "intermediate_size": 512, "num_hidden_layers": 2, "num_attention_heads": 2,
+         "num_key_value_heads": 1, "rms_norm_eps": 1e-5, "rope_theta": 10000.0,
+         "max_position_embeddings": 128, "tie_word_embeddings": False, "hidden_act": "silu"}
+PHI3 = {**LLAMA, "model_type": "phi3", "num_key_value_heads": 2,
+        "architectures": ["Phi3ForCausalLM"]}
+# the published Phi-3-mini-4k-instruct config.json (its sliding window)
+PHI3_MINI_4K = {"model_type": "phi3", "vocab_size": 32064, "hidden_size": 3072,
+                "intermediate_size": 8192, "num_hidden_layers": 32, "num_attention_heads": 32,
+                "num_key_value_heads": 32, "rms_norm_eps": 1e-05, "rope_theta": 10000.0,
+                "max_position_embeddings": 4096, "original_max_position_embeddings": 4096,
+                "sliding_window": 2047, "rope_scaling": None, "tie_word_embeddings": False,
+                "hidden_act": "silu", "attention_bias": False}
+HF_CONFIGS = {
+    "llama": {**LLAMA, "rope_scaling": {"rope_type": "llama3", "factor": 8.0,
+                                        "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                                        "original_max_position_embeddings": 8192}},
+    "mistral": {**LLAMA, "model_type": "mistral", "sliding_window": 4096,
+                "rope_theta": 1e6},
+    "qwen2": {**LLAMA, "model_type": "qwen2", "use_sliding_window": False,
+              "sliding_window": 32768, "max_window_layers": 28},
+    "phi3": {**PHI3_MINI_4K, "rope_scaling": {"type": "longrope", "short_factor": [1.0] * 48,
+                                              "long_factor": [2.0] * 48}},
+    "gemma2": {**LLAMA, "model_type": "gemma2", "head_dim": 256, "sliding_window": 4096,
+               "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0,
+               "query_pre_attn_scalar": 224, "hidden_activation": "gelu_pytorch_tanh"},
+    "mixtral": {**LLAMA, "model_type": "mixtral", "num_local_experts": 8,
+                "num_experts_per_tok": 2},
+    "qwen2_vl": {"model_type": "qwen2_vl", "vision_config": {"depth": 2},
+                 "text_config": {**LLAMA, "model_type": "qwen2_vl",
+                                 "rope_scaling": {"type": "mrope",
+                                                  "mrope_section": [16, 24, 24]}}},
+    "phi-msft": {**LLAMA, "model_type": "phi-msft", "num_local_experts": 4,
+                 "num_experts_per_tok": 2},
+}
+
+
+@pytest.mark.parametrize("family", list(HF_CONFIGS))
+def test_config_translation_equals_jax(family):
+    hf = HF_CONFIGS[family]
+    assert dataclasses.asdict(ModelConfig.from_hf_config(hf)) == dataclasses.asdict(
+        JaxConfig.from_hf_config(hf))
+
+
+def test_legacy_phi_msft_is_refused_as_jax_refuses_it():
+    hf = {**LLAMA, "model_type": "phi-msft"}
+    for cls in (ModelConfig, JaxConfig):
+        with pytest.raises(NotImplementedError, match="phi-msft"):
+            cls.from_hf_config(hf)
+
+
+def _tensors(seed):
+    g = torch.Generator().manual_seed(seed)
+    return {
+        "model.embed_tokens.weight": torch.randn(64, 16, generator=g).to(torch.bfloat16),
+        "a.f16": torch.randn(3, 5, generator=g).to(torch.float16),
+        "a.f32": torch.randn(7, generator=g),
+        "a.i32": torch.randint(-2 ** 31, 2 ** 31 - 1, (4, 6), generator=g, dtype=torch.int32),
+        "a.scalar": torch.tensor(2.5),
+    }
+
+
+def _bits_equal(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    if a.numel():
+        assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+def test_the_reader_returns_the_packages_bits(tmp_path, sharded):
+    ts = _tensors(0)
+    if sharded:
+        names = sorted(ts)
+        parts = {"model-00001-of-00002.safetensors": names[:2],
+                 "model-00002-of-00002.safetensors": names[2:]}
+        for shard, keys in parts.items():
+            save_file({k: ts[k] for k in keys}, str(tmp_path / shard))
+        (tmp_path / "model.safetensors.index.json").write_text(json.dumps(
+            {"weight_map": {k: s for s, keys in parts.items() for k in keys}}))
+    else:
+        save_file(ts, str(tmp_path / "model.safetensors"))
+    get = open_checkpoint(str(tmp_path))
+    for name in ts:
+        shard = ("model.safetensors" if not sharded else next(
+            s for s, keys in parts.items() if name in keys))
+        with safe_open(str(tmp_path / shard), framework="pt") as f:
+            _bits_equal(get(name), f.get_tensor(name))
+    # no lm_head.weight: the embedding stands in, as in the JAX reader
+    _bits_equal(get("lm_head.weight"), ts["model.embed_tokens.weight"])
+    with pytest.raises(KeyError, match="has no tensor 'model.norm.weight'"):
+        get("model.norm.weight")
+
+
+def test_chip_smoke_writer_is_read_by_the_package(tmp_path):
+    cs = _chip_smoke()
+    ts = _tensors(1)
+    entries = [(k, t.dtype, tuple(t.shape), lambda t=t: t) for k, t in ts.items()]
+    n = cs.write_safetensors(tmp_path / "model.safetensors", entries)
+    assert n == (tmp_path / "model.safetensors").stat().st_size
+    with safe_open(str(tmp_path / "model.safetensors"), framework="pt") as f:
+        assert sorted(f.keys()) == sorted(ts)
+        for k, t in ts.items():
+            _bits_equal(f.get_tensor(k), t)
+    hf = {**LLAMA, "num_hidden_layers": 2}
+    total = cs.write_hf_checkpoint(torch, tmp_path / "hf", hf, 3, torch.device("cpu"))
+    get = open_checkpoint(str(tmp_path / "hf"))
+    index = json.loads((tmp_path / "hf" / "model.safetensors.index.json").read_text())
+    assert index["metadata"]["total_size"] == total and len(set(index["weight_map"].values())) == 2
+    for k, shard in index["weight_map"].items():
+        with safe_open(str(tmp_path / "hf" / shard), framework="pt") as f:
+            _bits_equal(get(k), f.get_tensor(k))
+
+
+def _write_checkpoint(root, hf, seed):
+    """config.json and one safetensors file of bf16 N(0, 0.02^2) weights
+    (phi3: fused qkv_proj and gate_up_proj), unit-ish norms."""
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "config.json").write_text(json.dumps(hf))
+    rng = np.random.default_rng(seed)
+    H, I, V = hf["hidden_size"], hf["intermediate_size"], hf["vocab_size"]
+    D = H // hf["num_attention_heads"]
+    QD, KD = hf["num_attention_heads"] * D, hf["num_key_value_heads"] * D
+
+    def w(*shape, scale=0.02, loc=0.0):
+        return torch.from_numpy((loc + scale * rng.standard_normal(shape)).astype(np.float32)
+                                ).to(torch.bfloat16)
+
+    ts = {"model.embed_tokens.weight": w(V, H), "model.norm.weight": w(H, scale=0.1, loc=1.0),
+          "lm_head.weight": w(V, H)}
+    for i in range(hf["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        ts[p + "input_layernorm.weight"] = w(H, scale=0.1, loc=1.0)
+        ts[p + "post_attention_layernorm.weight"] = w(H, scale=0.1, loc=1.0)
+        ts[p + "self_attn.o_proj.weight"] = w(H, QD)
+        ts[p + "mlp.down_proj.weight"] = w(H, I)
+        if hf["model_type"] == "phi3":
+            ts[p + "self_attn.qkv_proj.weight"] = w(QD + 2 * KD, H)
+            ts[p + "mlp.gate_up_proj.weight"] = w(2 * I, H)
+        else:
+            ts[p + "self_attn.q_proj.weight"] = w(QD, H)
+            ts[p + "self_attn.k_proj.weight"] = w(KD, H)
+            ts[p + "self_attn.v_proj.weight"] = w(KD, H)
+            ts[p + "mlp.gate_proj.weight"] = w(I, H)
+            ts[p + "mlp.up_proj.weight"] = w(I, H)
+    save_file(ts, str(root / "model.safetensors"))
+    return root
+
+
+@pytest.mark.parametrize("qtype", ["sym_int4", "q4_k_m"])
+@pytest.mark.parametrize("family", ["llama", "phi3"])
+def test_ingest_matches_jax(tmp_path, family, qtype, monkeypatch):
+    """The port's ingest quantizes in row chunks (here 40 rows of 256, so
+    every projection and the lm head goes in pieces): the same bytes as
+    JAX's one call a weight."""
+    monkeypatch.setenv("BIGDL_TPU_PALLAS", "0")
+    monkeypatch.setattr(hf_mod, "QUANT_CHUNK", 40 * 256)
+    d = _write_checkpoint(tmp_path / family, LLAMA if family == "llama" else PHI3, 7)
+    jm = JaxAuto.from_pretrained(str(d), load_in_low_bit=qtype)
+    tm = AutoModelForCausalLM.from_pretrained(str(d), load_in_low_bit=qtype, device="cpu")
+    assert dataclasses.asdict(tm.config) == dataclasses.asdict(jm.config)
+    assert set(tm.params.layers[0].proj) == {"wqkv", "wo", "w_gateup", "w_down"}
+    jarrays, jmanifest = {}, {}
+    jax_flatten(jm.params, "", jarrays, jmanifest)
+    arrays, manifest = params_to_numpy(tm.params)
+    assert manifest == jmanifest
+    for k, a in jarrays.items():
+        np.testing.assert_array_equal(arrays[k], a, err_msg=k)
+    prompts = [list(np.random.default_rng(i).integers(1, 512, n))
+               for i, n in enumerate(PROMPT_LENS)]
+    ref = _jax_last_logits(jm.config, jm.params, prompts)
+    got = _port_last_logits(tm.config, tm.params, prompts)
+    assert np.abs(got - ref).max() <= _TOL_ULPS * np.abs(ref).max()
+
+
+def test_refusals_name_their_roadmap_items(tmp_path):
+    cases = {
+        "phi3-mini-4k": (PHI3_MINI_4K, r"item \[4\]"),
+        "qwen2": (HF_CONFIGS["qwen2"] | {"attention_bias": True}, r"item \[4\]"),
+        "gemma2": (HF_CONFIGS["gemma2"], r"item \[9\]"),
+        "gptq": (LLAMA | {"quantization_config": {"quant_method": "gptq", "bits": 4}},
+                 r"item \[10\]"),
+    }
+    for name, (hf, item) in cases.items():
+        d = tmp_path / name
+        d.mkdir()
+        (d / "config.json").write_text(json.dumps(hf))  # no tensor is ever read
+        with pytest.raises(NotImplementedError, match=item):
+            AutoModelForCausalLM.from_pretrained(str(d), device="cpu")
+    with pytest.raises(NotImplementedError, match=r"item \[10\]"):
+        AutoModelForCausalLM.from_gguf(str(tmp_path / "model.gguf"))

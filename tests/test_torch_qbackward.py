@@ -335,7 +335,7 @@ def test_dx_tile_policy_is_legal_and_fills_the_card(qtype):
             t = qtile.dx_tile(M, O, K, qtype)
             assert (t.bm, t.bn) in qtile.tiles(qtype) and 3 <= t.stages <= qtile.MAX_STAGES
             assert t.smem <= qtile.SMEM_LIMIT
-            assert t.threads in (32 * (4 * max(1, t.bm // 128) + d) for d in (4, 8))
+            assert t.threads in (32 * (4 * (t.bm // 64) + d) for d in (4, 8))
             assert t.grid == (math.ceil(M / t.bm), math.ceil(K / t.bn))
             assert t.blocks >= qtile.FILL * qtile.SMS or (t.bm, t.bn) == (64, 128), (name, M, t)
         assert qtile.dx_tile(1024, O, K, qtype).blocks >= qtile.FILL * qtile.SMS
