@@ -17,6 +17,11 @@ layout the port's `forward` runs: the fused one the JAX package's
 `optimize_model` makes by default (wqkv, w_gateup), or the unfused one of
 its `init_params` (wq/wk/wv, w_gate/w_up).
 
+The leaves of the llama flags ride along under JAX's names: the biases
+(bq/bk/bv or bqkv, bo, b_gate/b_up or b_gateup, b_down) on their
+projections, the post-norms and q/k norms on the layers; a tied model
+has no lm_head.
+
 `params_to_numpy` is the inverse: the port's model flattened under the
 same naming, in the artifact's stored form, for `convert/low_bit.py`'s
 `save_low_bit`.
@@ -32,8 +37,8 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.models.config import ModelConfig
-from bigdl_tpu_torch.models.llama import (DecoderLayer, LlamaModel,
-                                          check_supported)
+from bigdl_tpu_torch.models.llama import (BIAS_OF, OPTIONAL_NORMS, DecoderLayer,
+                                          LlamaModel, check_supported)
 from bigdl_tpu_torch.ops.linear import Linear
 from bigdl_tpu_torch.quant import ARRAY_FIELDS, QTensor, resolve_qtype
 from bigdl_tpu_torch.quant.numerics import FP8_DTYPE
@@ -46,11 +51,21 @@ _LAYOUTS = (("wqkv", "wo", "w_gateup", "w_down"),
             ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"))
 
 
+def _required_norms(config: ModelConfig) -> tuple[str, ...]:
+    return ((("post_attn_norm", "post_mlp_norm") if config.post_attn_norm else ())
+            + (("q_norm", "k_norm") if config.qk_norm else ()))
+
+
 def params_from_numpy(arrays: dict[str, np.ndarray], qtypes: dict[str, str],
                       config: ModelConfig, device=None,
                       dtype=torch.bfloat16) -> LlamaModel:
     """The port's model holding exactly the given weights, on `device`;
-    dense float leaves in `dtype`, or in their own type if it is None."""
+    dense float leaves in `dtype`, or in their own type if it is None.
+    Besides the projections, the tree may hold each projection's bias
+    under JAX's name (bq/bk/bv or bqkv, bo, b_gate/b_up or b_gateup,
+    b_down), the optional norms the config's flags ask for
+    (post_attn_norm/post_mlp_norm, q_norm/k_norm) and, when the head is
+    tied, no lm_head."""
     check_supported(config)
     dev = resolve_device(device)
     paths = {k.split("@")[0] for k in arrays}
@@ -63,12 +78,19 @@ def params_from_numpy(arrays: dict[str, np.ndarray], qtypes: dict[str, str],
             "wv, wo, w_gate, w_up, w_down); a layout mixing the two is unmerged "
             "in part")
     known = {"embed", "final_norm", "lm_head"} | {
-        f"layers.{n}" for n in _NORMS + layout}
+        f"layers.{n}" for n in _NORMS + layout + OPTIONAL_NORMS
+        + tuple(BIAS_OF[n] for n in layout)}
     unknown = sorted(p for p in paths if p not in known)
     if unknown:
         raise NotImplementedError(
-            f"params_from_numpy: leaves {unknown} belong to llama flags "
-            "this port does not run yet (ROADMAP queue 1), or mix layouts")
+            f"params_from_numpy: leaves {unknown} belong to llama flags this "
+            "port does not run yet (ROADMAP queue 1 item [4]), or mix layouts")
+    missing = [n for n in _required_norms(config) if f"layers.{n}" not in paths]
+    if "lm_head" not in paths and not config.tie_word_embeddings:
+        missing.append("lm_head")
+    if missing:
+        raise ValueError(f"params_from_numpy: the config's flags need {missing}, "
+                         "which the arrays do not hold")
 
     def tensor(key, index=None):
         a = arrays[key] if index is None else arrays[key][index]
@@ -93,13 +115,18 @@ def params_from_numpy(arrays: dict[str, np.ndarray], qtypes: dict[str, str],
                 if f"{path}@{f}" in arrays})
         return tensor(path, index)
 
+    def optional(path, index):
+        return tensor(path, index) if path in paths else None
+
     layers = []
     for i in range(config.num_hidden_layers):
-        proj = {n: Linear(weight(f"layers.{n}", i)) for n in layout}
+        proj = {n: Linear(weight(f"layers.{n}", i), optional(f"layers.{BIAS_OF[n]}", i))
+                for n in layout}
+        norms = {n: optional(f"layers.{n}", i) for n in OPTIONAL_NORMS}
         layers.append(DecoderLayer(tensor("layers.attn_norm", i),
-                                   tensor("layers.mlp_norm", i), proj))
-    return LlamaModel(tensor("embed"), layers, tensor("final_norm"),
-                      Linear(weight("lm_head")))
+                                   tensor("layers.mlp_norm", i), proj, **norms))
+    head = Linear(weight("lm_head")) if "lm_head" in paths else None
+    return LlamaModel(tensor("embed"), layers, tensor("final_norm"), head)
 
 
 def params_to_numpy(model: LlamaModel) -> tuple[dict[str, np.ndarray], dict[str, dict]]:
@@ -118,13 +145,23 @@ def params_to_numpy(model: LlamaModel) -> tuple[dict[str, np.ndarray], dict[str,
         return t.w if isinstance(t, Linear) else t
 
     layers = list(model.layers)
-    names = sorted({"attn_norm", "mlp_norm"} | set(layers[0].proj) if layers else ())
     if any(set(layer.proj) != set(layers[0].proj) for layer in layers):
         raise ValueError("params_to_numpy: the layers mix the fused and unfused layouts")
 
-    def stacked(name):
-        vals = [getattr(layer, name) if name in _NORMS else leaf(layer.proj[name])
-                for layer in layers]
+    def per_layer(name):
+        """Layer i's leaf `name` (a norm, a projection or its bias), or None."""
+        def get(layer):
+            if name in _NORMS or name in OPTIONAL_NORMS:
+                return getattr(layer, name)
+            if name in layer.proj:
+                return leaf(layer.proj[name])
+            lin = next(layer.proj[n] for n, b in BIAS_OF.items() if b == name)
+            return lin.bias
+        return [get(layer) for layer in layers]
+
+    def stacked(vals, name):
+        if any((v is None) != (vals[0] is None) for v in vals):
+            raise ValueError(f"params_to_numpy: layers.{name} is in some layers only")
         if isinstance(vals[0], QTensor):
             if len({v.qtype for v in vals}) != 1:
                 raise ValueError(f"params_to_numpy: layers.{name} mixes formats")
@@ -133,10 +170,17 @@ def params_to_numpy(model: LlamaModel) -> tuple[dict[str, np.ndarray], dict[str,
                 for f in ARRAY_FIELDS if getattr(vals[0], f) is not None})
         return torch.stack([v.detach().cpu() for v in vals])
 
-    tree = {"embed": model.embed, "final_norm": model.final_norm,
-            "lm_head": leaf(model.lm_head)}
+    tree = {"embed": model.embed, "final_norm": model.final_norm}
+    if model.lm_head is not None:
+        tree["lm_head"] = leaf(model.lm_head)
     if layers:
-        tree["layers"] = {n: stacked(n) for n in names}
+        names = (_NORMS + OPTIONAL_NORMS + tuple(layers[0].proj)
+                 + tuple(BIAS_OF[n] for n in layers[0].proj))
+        tree["layers"] = {}
+        for n in names:
+            vals = per_layer(n)
+            if vals[0] is not None:
+                tree["layers"][n] = stacked(vals, n)
     arrays: dict[str, np.ndarray] = {}
     manifest: dict[str, dict] = {}
 

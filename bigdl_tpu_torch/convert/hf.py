@@ -14,12 +14,16 @@ and the device hold about one layer in f32 beside the model built so far.
 length, a JSON header, raw little-endian bytes): one tensor at a time,
 read straight from its byte range.
 
-The family tables hold the llama-shaped default and phi3 (fused qkv_proj
-and gate_up_proj, split here as the JAX package splits them). Every other
-`model_type` the JAX package's tables map raises NotImplementedError
-before a tensor is read: the rest of the zoo is ROADMAP queue 1 item [9],
-and the llama flags a configuration needs (biases, windows, ...) item
-[4]. GPTQ/AWQ checkpoints (a `quantization_config`) wait for item [10].
+The family tables hold the llama-shaped default (llama, mistral, qwen2:
+q/k/v and o biases where the config has them, no lm head when tied),
+phi3 (fused qkv_proj and gate_up_proj, split here as the JAX package
+splits them), gemma2 (four norms a layer) and qwen3 (q/k norms). Every
+other `model_type` the JAX package's tables map raises
+NotImplementedError before a tensor is read (ROADMAP queue 1 item [9]),
+and so does every configuration `models.llama.check_supported` refuses:
+gemma3's local rope, for one, is item [4]. As in the JAX package, mlp
+biases are not read. GPTQ/AWQ checkpoints (a `quantization_config`) wait
+for item [10].
 """
 
 from __future__ import annotations
@@ -32,8 +36,8 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.models.config import ModelConfig
-from bigdl_tpu_torch.models.llama import (DecoderLayer, LlamaModel, check_supported,
-                                          merge_fused_params)
+from bigdl_tpu_torch.models.llama import (BIAS_OF, OPTIONAL_NORMS, DecoderLayer,
+                                          LlamaModel, check_supported, merge_fused_params)
 from bigdl_tpu_torch.ops.linear import Linear
 from bigdl_tpu_torch.quant import concat_rows, quantize, resolve_qtype
 from bigdl_tpu_torch.quant.qtypes import split_mixed_qtype
@@ -54,11 +58,9 @@ Get = Callable[[str], torch.Tensor]
 # per-family layer/top tensor builders
 # ---------------------------------------------------------------------------
 
-# the biases, norm biases and tied embeddings of the JAX package's
-# builders are llama flags `check_family` refuses (item [4])
 def _llama_layer(config: ModelConfig, i: int, get: Get) -> dict:
     p = f"model.layers.{i}."
-    return {
+    out = {
         "attn_norm": get(p + "input_layernorm.weight"),
         "mlp_norm": get(p + "post_attention_layernorm.weight"),
         "wq": get(p + "self_attn.q_proj.weight"),
@@ -69,14 +71,51 @@ def _llama_layer(config: ModelConfig, i: int, get: Get) -> dict:
         "w_up": get(p + "mlp.up_proj.weight"),
         "w_down": get(p + "mlp.down_proj.weight"),
     }
+    if config.attention_bias:
+        out["bq"] = get(p + "self_attn.q_proj.bias")
+        out["bk"] = get(p + "self_attn.k_proj.bias")
+        out["bv"] = get(p + "self_attn.v_proj.bias")
+    if config.attention_out_bias:
+        out["bo"] = get(p + "self_attn.o_proj.bias")
+    return out
 
 
 def _llama_top(config: ModelConfig, get: Get) -> dict:
-    return {
+    out = {
         "embed": get("model.embed_tokens.weight"),
         "final_norm": get("model.norm.weight"),
-        "lm_head": get("lm_head.weight"),
     }
+    if not config.tie_word_embeddings:
+        out["lm_head"] = get("lm_head.weight")
+    return out
+
+
+def _gemma2_layer(config: ModelConfig, i: int, get: Get) -> dict:
+    """gemma2's four norms a layer: post_attention_layernorm is the norm
+    after attention here, pre_feedforward_layernorm the MLP's input norm."""
+    p = f"model.layers.{i}."
+    return {
+        "attn_norm": get(p + "input_layernorm.weight"),
+        "post_attn_norm": get(p + "post_attention_layernorm.weight"),
+        "mlp_norm": get(p + "pre_feedforward_layernorm.weight"),
+        "post_mlp_norm": get(p + "post_feedforward_layernorm.weight"),
+        "wq": get(p + "self_attn.q_proj.weight"),
+        "wk": get(p + "self_attn.k_proj.weight"),
+        "wv": get(p + "self_attn.v_proj.weight"),
+        "wo": get(p + "self_attn.o_proj.weight"),
+        "w_gate": get(p + "mlp.gate_proj.weight"),
+        "w_up": get(p + "mlp.up_proj.weight"),
+        "w_down": get(p + "mlp.down_proj.weight"),
+    }
+
+
+def _qwen3_layer(config: ModelConfig, i: int, get: Get) -> dict:
+    """Qwen3: llama names + per-head q/k RMSNorm weights."""
+    out = _llama_layer(config, i, get)
+    p = f"model.layers.{i}."
+    out["q_norm"] = get(p + "self_attn.q_norm.weight")
+    out["k_norm"] = get(p + "self_attn.k_norm.weight")
+    return out
 
 
 def _phi3_layer(config: ModelConfig, i: int, get: Get) -> dict:
@@ -100,17 +139,20 @@ def _phi3_layer(config: ModelConfig, i: int, get: Get) -> dict:
     }
 
 
-_FAMILY_LAYER = {"phi3": _phi3_layer}
+_FAMILY_LAYER = {"phi3": _phi3_layer, "gemma2": _gemma2_layer, "qwen3": _qwen3_layer}
 _FAMILY_TOP: dict = {}
 
 # model_types with their own layer or tree builders in the JAX package's
 # tables (bigdl_tpu/convert/hf.py `_FAMILY_LAYER`, `_FAMILY_TOP`, the mllama
-# and deepseek trees) that this port's tables do not hold yet
+# and deepseek trees) that this port's tables do not hold yet. gemma3 and
+# gemma3_text are not listed: every configuration of theirs carries the
+# local rope (`rope_local_theta`), which `check_supported` refuses as a
+# llama flag (item [4]); their tables come with that flag.
 _ZOO = frozenset({
-    "gemma2", "gemma3", "gemma3_text", "phi3_v", "baichuan", "internlm2",
+    "phi3_v", "baichuan", "internlm2",
     "internlmxcomposer2", "starcoder2", "glm", "chatglm", "chatglm4v", "qwen2_vl",
     "mpt", "gpt2", "bloom", "gpt_neox", "mixtral", "qwen2_moe", "rwkv", "rwkv5",
-    "falcon", "qwen3", "qwen3_moe", "phi", "cohere", "yuan", "minicpmv", "minicpmo",
+    "falcon", "qwen3_moe", "phi", "cohere", "yuan", "minicpmv", "minicpmo",
     "megrezo", "qwen2_audio", "internvl", "janus", "qwen", "deci", "gpt_bigcode",
     "phixtral", "baichuan_m1", "mllama", "mllama_text_model", "deepseek_v2",
     "deepseek_v3", "minicpm3",
@@ -119,19 +161,19 @@ _ZOO = frozenset({
 
 def check_family(config: ModelConfig) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for a checkpoint
-    this port cannot ingest yet."""
+    this port cannot ingest yet: a family whose tables are not ported
+    (item [9]), then any configuration `check_supported` refuses (a llama
+    flag, item [4])."""
     mt = config.model_type
     if mt in _ZOO:
         raise NotImplementedError(
             f"HF ingest of model_type {mt!r}: ROADMAP queue 1 item [9], the rest "
             "of the zoo is still to be ported (the port's tables hold the "
-            "llama-shaped default and phi3)")
+            "llama-shaped default, phi3, gemma2 and qwen3)")
     try:
         check_supported(config)
     except NotImplementedError as e:
-        raise NotImplementedError(
-            f"HF ingest of model_type {mt!r}: {e} (ROADMAP queue 1 item [4], "
-            "the llama flags)") from None
+        raise NotImplementedError(f"HF ingest of model_type {mt!r}: {e}") from None
 
 
 def layer_tensors(config: ModelConfig, i: int, get: Get) -> dict:
@@ -174,9 +216,13 @@ def params_from_state_dict(config: ModelConfig, get_tensor: Get, qtype: str = "s
     for i in range(config.num_hidden_layers):
         d = {k: maybe_quant(k, v) for k, v in layer_tensors(config, i, get_tensor).items()}
         norms = d.pop("attn_norm"), d.pop("mlp_norm")
-        layers.append(DecoderLayer(*norms, {k: Linear(v) for k, v in d.items()}))
+        extra = {n: d.pop(n) for n in OPTIONAL_NORMS if n in d}
+        biases = {n: d.pop(BIAS_OF[n], None) for n in list(d) if n in BIAS_OF}
+        layers.append(DecoderLayer(*norms, {k: Linear(v, biases[k]) for k, v in d.items()},
+                                   **extra))
     top = {k: maybe_quant(k, v) for k, v in top_tensors(config, get_tensor).items()}
-    model = LlamaModel(top["embed"], layers, top["final_norm"], Linear(top["lm_head"]))
+    head = Linear(top["lm_head"]) if "lm_head" in top else None
+    model = LlamaModel(top["embed"], layers, top["final_norm"], head)
     return merge_fused_params(model, config)
 
 

@@ -1,35 +1,42 @@
-"""Llama-family decoder (port of bigdl_tpu/models/llama.py) for the plain
-llama flags: GQA, rope with the default theta, RMSNorm, SiLU-gated MLP,
-untied lm head.
+"""Llama-family decoder (port of bigdl_tpu/models/llama.py) for the dense
+llama-shaped families: llama, mistral, qwen2, qwen3, gemma2 and phi3 —
+GQA, RMSNorm (gemma's (1 + w) too), a gated MLP with silu, gelu or relu,
+the three bias flags, tied embeddings, qk-norm, sliding windows (uniform
+or alternating), gemma2's softcaps, attention scale, post-norms and
+embedding scale, and every rope-scaling scheme of the JAX package.
 
 The JAX package keeps parameters as a pytree with layers stacked for
 `lax.scan`; here they are modules — `LlamaModel` holds the embedding,
 one `DecoderLayer` per layer (norm weights, projections as
-`ops.linear.Linear` keyed by the JAX leaf names) and the lm head — and
-`forward` walks the layers in a Python loop. The embedding, the norms and
-every dense projection are parameters that require no gradient until
+`ops.linear.Linear` keyed by the JAX leaf names, each with its bias) and
+the lm head, absent when tied — and `forward` walks the layers in a
+Python loop. The embedding, the norms, the biases and every dense
+projection are parameters that require no gradient until
 `make_trainable` turns them on (the full fine-tune, train/recipes.py);
 quantized projections stay buffers. `forward` runs both layouts, as
-JAX's does: the fused one (wqkv, w_gateup) that `optimize_model` makes,
-and the unfused one (wq/wk/wv, w_gate/w_up) of `init_params`, which the
-full fine-tune trains. Every flag this slice does not run raises
-`NotImplementedError` (`check_supported`).
+JAX's does: the fused one (wqkv, w_gateup, their biases concatenated)
+that `optimize_model` makes, and the unfused one (wq/wk/wv, w_gate/w_up)
+of `init_params`, which the full fine-tune trains. Every flag this port
+does not run raises `NotImplementedError` naming its ROADMAP item
+(`check_supported`).
 
-With a cache, attention follows JAX's dispatch: a prefill (T > 1) over a
-dense cache with one position for all rows (generate, the serving
-engine's 1-row prefill) goes through the flash kernel, its fp8 arm for an
-fp8 cache; a one-token decode over a paged cache through the paged
-kernel, which reads the pool in place; every other cached call — decode
-over a dense cache, and any call with per-row positions such as the
-engine's paged prefill — through the plain masked attention over the
-full cache [0, max_len) (`kvcache.read_layer`'s dense view) under a
-validity mask from (start, pos). Without a
-cache (`cache=None`, the training / scoring path) query t of row b sits at
-slot t with position max(t - start[b], 0); T > 1 goes through the
-differentiable flash kernels (forward with logsumexp, dQ, dK/dV), T = 1
-through the masked attention; `remat=True` recomputes each layer in the
-backward instead of keeping its activations (JAX's `jax.checkpoint`
-around the scan body). Every path takes LoRA adapters (`lora=`: a
+Attention follows JAX's dispatch, layer by layer (`attention_route`): a
+prefill (T > 1) over a cache with one position for all rows (generate,
+the serving engine's 1-row prefill) and one window for every layer goes
+through the flash kernel, its fp8 arm for an fp8 cache; a one-token
+decode over a paged cache through the paged kernel, which reads the pool
+in place, with the layer's window; the cache-free path (training,
+scoring) at T > 1 through the differentiable flash kernels (forward with
+logsumexp, dQ, dK/dV) unless the windows alternate or the scores are
+softcapped. Every other call — decode over a dense cache, calls with
+per-row positions such as the engine's paged prefill, gemma2's prefill
+and training — goes through the plain masked attention, over the full
+cache [0, max_len) (`kvcache.read_layer`'s dense view) under the layer's
+mask from (start, pos): causal, and for a sliding layer k_slot > q_slot
+- window. Without a cache query t of row b sits at slot t with position
+max(t - start[b], 0). `remat=True` recomputes each layer in the backward
+instead of keeping its activations (JAX's `jax.checkpoint` around the
+scan body). Every path takes LoRA adapters (`lora=`: a
 `train.qlora.LoRA`, or JAX's {"layers": {target: {"a", "b"}}, "scale"}
 tree, shared — a [L, r, in], b [L, out, r], scalar scale — or batched per
 row, as the serving engine's decode step gathers them — a [L, B, rb, in],
@@ -54,59 +61,117 @@ from bigdl_tpu_torch.kvcache import KVCache
 from bigdl_tpu_torch.kvpaged import PagedKVCache
 from bigdl_tpu_torch.models.config import ModelConfig
 from bigdl_tpu_torch.ops import (Linear, apply_rotary_emb, attention, kernels,
-                                 rms_norm, rope_cos_sin)
+                                 linear, rms_norm, rope_cos_sin)
 from bigdl_tpu_torch.ops.linear import lora_epilogue
-from bigdl_tpu_torch.ops.rope import make_inv_freq_scaled
+from bigdl_tpu_torch.ops.rope import check_rope_scaling, make_inv_freq_scaled
 from bigdl_tpu_torch.quant import QTensor, concat_rows, quantize_or_dense
 from bigdl_tpu_torch.quant.qtypes import resolve_qtype, split_mixed_qtype
 from bigdl_tpu_torch.utils import resolve_device
 
-# ModelConfig fields this slice runs at any value; every other field must
-# keep its default (plain llama)
+# ModelConfig fields the port runs at any value; `hidden_act` and
+# `rope_scaling` are checked by value, and every other field must keep
+# its default
 _SUPPORTED_FIELDS = frozenset({
     "model_type", "vocab_size", "hidden_size", "intermediate_size",
     "num_hidden_layers", "num_attention_heads", "num_key_value_heads",
-    "head_dim", "rms_norm_eps", "rope_theta", "rope_scaling",
-    "max_position_embeddings",
+    "head_dim", "rms_norm_eps", "rope_theta", "max_position_embeddings",
+    "tie_word_embeddings", "attention_bias", "attention_out_bias", "mlp_bias",
+    "sliding_window", "sliding_window_pattern", "attn_logit_softcap",
+    "final_logit_softcap", "attn_scale", "post_attn_norm", "rms_norm_offset",
+    "scale_embeddings", "qk_norm",
+})
+# JAX's `_act` (bigdl_tpu/models/llama.py:282-291)
+ACTIVATIONS = ("silu", "gelu", "gelu_new", "gelu_pytorch_tanh", "gelu_tanh", "relu")
+# the MoE group of ROADMAP queue 1 item [4]
+_MOE_FIELDS = frozenset({
+    "num_experts", "num_experts_per_tok", "moe_intermediate_size",
+    "shared_expert_intermediate_size", "norm_topk_prob", "moe_dispatch",
+    "moe_capacity_factor",
+})
+# fields of families with their own modules (MLA, rwkv, mllama, the VL and
+# audio towers): ROADMAP queue 1 item [9]
+_FAMILY_FIELDS = frozenset({
+    "cross_attention_layers", "q_lora_rank", "kv_lora_rank", "qk_nope_head_dim",
+    "qk_rope_head_dim", "v_head_dim", "n_group", "topk_group", "topk_method",
+    "scoring_func", "routed_scaling_factor", "first_k_dense_replace",
+    "n_shared_experts", "attention_hidden_size", "rwkv_head_size",
+    "rwkv_group_norm_eps", "mrope_section", "image_token_id", "video_token_id",
+    "vision_start_token_id", "audio_token_id", "audio_pool_step",
 })
 _DEFAULTS = ModelConfig()
 
 
 def check_supported(config: ModelConfig) -> None:
-    """Raise for any config flag beyond the plain llama family."""
+    """Raise NotImplementedError, naming its ROADMAP item, for a config
+    field the port does not run: item [4] for a llama flag (its MoE group
+    for the experts), item [9] for a family's own fields; a rope-scaling
+    scheme or an activation the JAX package does not compute raises too.
+    Called before any weight is made or read."""
     for f in dataclasses.fields(ModelConfig):
-        if f.name in _SUPPORTED_FIELDS:
+        name, value = f.name, getattr(config, f.name)
+        if name in _SUPPORTED_FIELDS or value == getattr(_DEFAULTS, name):
             continue
-        if getattr(config, f.name) != getattr(_DEFAULTS, f.name):
+        if name == "rope_scaling":
+            check_rope_scaling(config.rope_scaling_dict)
+            continue
+        if name == "hidden_act":
+            if value in ACTIVATIONS:
+                continue
             raise NotImplementedError(
-                f"llama forward with {f.name}={getattr(config, f.name)!r}: "
-                "ROADMAP queue 1, the llama flags beyond plain llama are "
-                "still to be ported")
+                f"hidden_act {value!r}: the JAX package computes {ACTIVATIONS} only")
+        if name in _MOE_FIELDS:
+            item = "item [4]'s MoE group (mixtral, qwen2_moe) is still to be ported"
+        elif name in _FAMILY_FIELDS:
+            item = "item [9], the rest of the zoo is still to be ported"
+        else:
+            item = "item [4], the rest of the llama flags is still to be ported"
+        raise NotImplementedError(
+            f"llama forward with {name}={value!r}: ROADMAP queue 1 {item}")
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+# per-layer norm weights beyond attn_norm/mlp_norm, each held when its
+# flag is on: gemma2's post-norms (post_attn_norm) and qk-norm's [D] pair
+OPTIONAL_NORMS = ("post_attn_norm", "post_mlp_norm", "q_norm", "k_norm")
+# a projection's bias under JAX's leaf names (each Linear holds its own)
+BIAS_OF = {"wq": "bq", "wk": "bk", "wv": "bv", "wo": "bo", "w_gate": "b_gate",
+           "w_up": "b_up", "w_down": "b_down", "wqkv": "bqkv", "w_gateup": "b_gateup"}
+
+
 class DecoderLayer(nn.Module):
-    """One decoder layer's weights: the `attn_norm`/`mlp_norm` weights and
+    """One decoder layer's weights: the `attn_norm`/`mlp_norm` weights,
     the projections in `proj` — wq/wk/wv, wo, w_gate/w_up, w_down as
     `init_params` makes them, wqkv, wo, w_gateup, w_down after
-    `merge_fused_params`."""
+    `merge_fused_params` — each with its bias where the config has one,
+    and the `OPTIONAL_NORMS` the config's flags ask for (None
+    otherwise)."""
 
     def __init__(self, attn_norm: torch.Tensor, mlp_norm: torch.Tensor,
-                 proj: dict[str, Linear]):
+                 proj: dict[str, Linear], **norms: Optional[torch.Tensor]):
         super().__init__()
+        unknown = set(norms) - set(OPTIONAL_NORMS)
+        if unknown:
+            raise TypeError(f"DecoderLayer: unknown norms {sorted(unknown)}")
         self.attn_norm = _frozen(attn_norm)
         self.mlp_norm = _frozen(mlp_norm)
+        for name in OPTIONAL_NORMS:
+            t = norms.get(name)
+            if t is None:
+                self.register_parameter(name, None)
+            else:
+                setattr(self, name, _frozen(t))
         self.proj = nn.ModuleDict(proj)
 
 
 class LlamaModel(nn.Module):
-    """Embedding table, decoder layers, final norm and lm head."""
+    """Embedding table, decoder layers, final norm and lm head (None when
+    the head is tied to the embedding)."""
 
     def __init__(self, embed: torch.Tensor, layers: list[DecoderLayer],
-                 final_norm: torch.Tensor, lm_head: Linear):
+                 final_norm: torch.Tensor, lm_head: Optional[Linear]):
         super().__init__()
         self.embed = _frozen(embed)
         self.layers = nn.ModuleList(layers)
@@ -117,9 +182,11 @@ class LlamaModel(nn.Module):
 def make_trainable(model: LlamaModel) -> list[nn.Parameter]:
     """Turn on gradients for every leaf the full fine-tune trains (JAX's
     `make_full_train_step` differentiates the whole parameter tree): the
-    embedding, the norms, every dense projection and the lm head.
-    Quantized projections are buffers and cannot train (QLoRA trains
-    adapters over them). Returns the parameters, for the optimizer."""
+    embedding, the norms, the biases, every dense projection and the lm
+    head. A tied embedding is one parameter: it gets the sum of both
+    uses' gradients, as JAX's tree does. Quantized projections are
+    buffers and cannot train (QLoRA trains adapters over them). Returns
+    the parameters, for the optimizer."""
     quantized = [n for n, m in model.named_modules()
                  if isinstance(m, Linear) and m.qtype is not None]
     if quantized:
@@ -139,8 +206,9 @@ def make_trainable(model: LlamaModel) -> list[nn.Parameter]:
 def init_params(config: ModelConfig, seed: int = 0, device=None,
                 dtype=torch.bfloat16, scale: float = 0.02) -> LlamaModel:
     """Random dense init in `dtype` on `device` (the card unless told
-    otherwise), N(0, scale^2) weights from a seeded torch.Generator, unit
-    norms, in the unfused layout."""
+    otherwise), N(0, scale^2) weights from a seeded torch.Generator, in
+    the unfused layout, with JAX's other leaves: unit norms (post-norms
+    and q/k norms too), zero biases, no lm head when tied."""
     check_supported(config)
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -154,25 +222,36 @@ def init_params(config: ModelConfig, seed: int = 0, device=None,
     def ones(n):
         return torch.ones(n, dtype=dtype, device=dev)
 
+    def zeros(n, on):
+        return torch.zeros(n, dtype=dtype, device=dev) if on else None
+
+    ab, mb = config.attention_bias, config.mlp_bias
     layers = []
     for _ in range(config.num_hidden_layers):
-        proj = {name: Linear(w(shape)) for name, shape in (
-            ("wq", (QD, H)), ("wk", (KD, H)), ("wv", (KD, H)),
-            ("wo", (H, QD)), ("w_gate", (I, H)), ("w_up", (I, H)),
-            ("w_down", (H, I)))}
-        layers.append(DecoderLayer(ones(H), ones(H), proj))
+        proj = {name: Linear(w(shape), zeros(shape[0], on)) for name, shape, on in (
+            ("wq", (QD, H), ab), ("wk", (KD, H), ab), ("wv", (KD, H), ab),
+            ("wo", (H, QD), config.attention_out_bias), ("w_gate", (I, H), mb),
+            ("w_up", (I, H), mb), ("w_down", (H, I), mb))}
+        norms = {}
+        if config.post_attn_norm:
+            norms.update(post_attn_norm=ones(H), post_mlp_norm=ones(H))
+        if config.qk_norm:
+            norms.update(q_norm=ones(config.head_dim_), k_norm=ones(config.head_dim_))
+        layers.append(DecoderLayer(ones(H), ones(H), proj, **norms))
     embed = w((config.vocab_size, H))
-    return LlamaModel(embed, layers, ones(H), Linear(w((config.vocab_size, H))))
+    head = None if config.tie_word_embeddings else Linear(w((config.vocab_size, H)))
+    return LlamaModel(embed, layers, ones(H), head)
 
 
 def quantize_params(model: LlamaModel, qtype: str,
                     lm_head_qtype: Optional[str] = None) -> LlamaModel:
     """Quantize every projection and the lm head, in place (each dense
-    weight is freed as its QTensor replaces it); norms and the embedding
-    stay dense. The lm head takes `lm_head_qtype`, else the head format a
-    mixed alias names (q4_k_m: q4_k body, q6_k head), else `qtype`. A
-    weight whose last dim the format cannot take stays dense, with a
-    warning (`quantize_or_dense`). Returns `model`."""
+    weight is freed as its QTensor replaces it); norms, biases and the
+    embedding stay dense, and so does a tied head (it is the embedding,
+    which JAX never quantizes). The lm head takes `lm_head_qtype`, else
+    the head format a mixed alias names (q4_k_m: q4_k body, q6_k head),
+    else `qtype`. A weight whose last dim the format cannot take stays
+    dense, with a warning (`quantize_or_dense`). Returns `model`."""
     qtype, head_default = split_mixed_qtype(qtype)
     lm_head_qtype = lm_head_qtype or head_default
     spec = resolve_qtype(qtype)
@@ -185,32 +264,37 @@ def quantize_params(model: LlamaModel, qtype: str,
                     quantize_or_dense(lin.weight, spec.name, name), lin.bias)
     head = model.lm_head
     lm_spec = resolve_qtype(lm_head_qtype) if lm_head_qtype else spec
-    if head.qtype is None and not lm_spec.is_dense:
+    if head is not None and head.qtype is None and not lm_spec.is_dense:
         model.lm_head = Linear(
             quantize_or_dense(head.weight, lm_spec.name, "lm_head"), head.bias)
     return model
 
 
 def _concat(lins: list[Linear], what: str) -> Linear:
-    """Row-concatenation of same-format, bias-free linears."""
+    """Row-concatenation of same-format linears, their biases
+    concatenated (JAX's bqkv, b_gateup) when every part has one."""
     ws = [lin.w for lin in lins]
     if all(isinstance(w, QTensor) for w in ws) and len({w.qtype for w in ws}) == 1:
-        merged = Linear(concat_rows(ws))
+        weight = concat_rows(ws)
     elif all(isinstance(w, torch.Tensor) for w in ws):
-        merged = Linear(torch.cat(ws, dim=0))
+        weight = torch.cat(ws, dim=0)
     else:
-        merged = None
-    if merged is None or any(lin.bias is not None for lin in lins):
         raise NotImplementedError(
-            f"merging {what} of mixed formats or with biases: ROADMAP queue 1, "
-            "the llama flags beyond plain llama are still to be ported")
-    return merged
+            f"merging {what} of mixed formats: the JAX package leaves them "
+            "unmerged; the port's forward takes one layout a model")
+    biases = [lin.bias for lin in lins]
+    if all(b is None for b in biases):
+        return Linear(weight)
+    if any(b is None for b in biases):
+        raise ValueError(f"merging {what}: some parts have a bias and some not")
+    return Linear(weight, torch.cat([b.detach() for b in biases], dim=0))
 
 
 def merge_fused_params(model: LlamaModel, config: ModelConfig) -> LlamaModel:
-    """Fuse wq/wk/wv into wqkv and w_gate/w_up into w_gateup, in place:
-    one kernel launch streams one larger weight. The forward splits the
-    fused output, so results equal the unmerged layout's."""
+    """Fuse wq/wk/wv into wqkv and w_gate/w_up into w_gateup (their biases
+    into bqkv and b_gateup), in place: one kernel launch streams one
+    larger weight. The forward splits the fused output, so results equal
+    the unmerged layout's."""
     for layer in model.layers:
         p = layer.proj
         if "wq" in p:
@@ -226,14 +310,90 @@ def merge_fused_params(model: LlamaModel, config: ModelConfig) -> LlamaModel:
 
 def embed_tokens(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
                  compute_dtype=torch.bfloat16) -> torch.Tensor:
-    return model.embed.to(compute_dtype)[tokens]
+    """The embedding rows in the compute dtype; gemma's scale_embeddings
+    multiplies by sqrt(hidden) rounded to the compute dtype first, as JAX
+    does (59.75 for hidden 3584 in bf16)."""
+    h = model.embed.to(compute_dtype)[tokens]
+    if config.scale_embeddings:
+        h = h * torch.tensor(config.hidden_size ** 0.5, dtype=compute_dtype,
+                             device=h.device)
+    return h
+
+
+def _softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    return x if cap is None else torch.tanh(x / cap) * cap
 
 
 def lm_head_logits(config: ModelConfig, model: LlamaModel, h: torch.Tensor,
                    compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Final norm + lm head, logits in float32."""
-    h = rms_norm(h, model.final_norm, config.rms_norm_eps)
-    return model.lm_head(h, compute_dtype).float()
+    """Final norm + lm head (the embedding when tied, a dense product as
+    in JAX), logits in float32, then the final softcap."""
+    h = rms_norm(h, model.final_norm, config.rms_norm_eps,
+                 offset=config.rms_norm_offset)
+    if model.lm_head is None:
+        logits = linear(h, model.embed, None, compute_dtype)
+    else:
+        logits = model.lm_head(h, compute_dtype)
+    return _softcap(logits.float(), config.final_logit_softcap)
+
+
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    """JAX's `_act`: HF's "gelu" is the exact erf gelu, the tanh names
+    the approximation."""
+    if name == "silu":
+        return F.silu(x)
+    if name == "gelu":
+        return F.gelu(x)
+    if name in ("gelu_new", "gelu_pytorch_tanh", "gelu_tanh"):
+        return F.gelu(x, approximate="tanh")
+    if name == "relu":
+        return F.relu(x)
+    raise NotImplementedError(f"hidden_act {name}")
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionRoute:
+    """Where one layer's attention goes and what it is passed: `kernel` is
+    "flash" (the prefill kernel over the cache, `kernels.flash_attention`),
+    "flash_train" (the differentiable kernels, cache-free), "paged"
+    (`kernels.paged_attention`) or "plain" (`ops.attention` under the
+    layer's mask); `window` is the layer's sliding window (None on a
+    global layer), `softcap` and `scale` the attention's (None: none, and
+    1/sqrt(head_dim))."""
+    kernel: str
+    window: Optional[int]
+    softcap: Optional[float]
+    scale: Optional[float]
+
+
+def attention_route(config: ModelConfig, layer: int, cache: str = "dense",
+                    mode: str = "prefill", T: int = 1,
+                    per_row: bool = False) -> AttentionRoute:
+    """The JAX package's dispatch (bigdl_tpu/models/llama.py:644-697 and
+    805-847) for layer `layer` of a call with `cache` "none", "dense" or
+    "paged", `mode`, T query tokens and per-row positions or not:
+    - a one-token decode over a paged cache: the paged kernel, with the
+      layer's window, the softcap and the scale;
+    - without a cache, T > 1: the flash training kernels, if every layer
+      has the same window and the scores are not softcapped (the kernels
+      take no cap);
+    - a prefill over a cache, T > 1, one position for all rows, every
+      layer the same window: the flash kernel with the window, softcap
+      and scale;
+    - everything else, gemma2's alternating windows among it: the plain
+      attention under the layer's mask."""
+    uniform = config.sliding_window_pattern is None and config.sliding_layers is None
+    window = config.sliding_window if config.layer_is_sliding(layer) else None
+    cap, scale = config.attn_logit_softcap, config.attn_scale
+    if cache == "paged" and mode == "decode" and T == 1:
+        kernel = "paged"
+    elif cache == "none":
+        kernel = "flash_train" if T > 1 and uniform and cap is None else "plain"
+    elif mode == "prefill" and T > 1 and not per_row and uniform:
+        kernel = "flash"
+    else:
+        kernel = "plain"
+    return AttentionRoute(kernel, window, None if kernel == "flash_train" else cap, scale)
 
 
 def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
@@ -280,20 +440,25 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
         seq_len=max_len, device=dev)
     cos, sin = rope_cos_sin(positions, inv_freq, scale=att_scale)
 
-    # the JAX dispatch: a scalar-pos prefill through the flash kernel (no
-    # [T, S] scores in memory), the cache-free path through the
-    # differentiable flash kernels, a paged decode through the paged
-    # kernel, the rest through the masked plain attention
-    use_flash = T > 1 and (cache is None or (mode == "prefill" and not per_row))
-    use_paged = isinstance(cache, PagedKVCache) and mode == "decode" and T == 1
-    mask = None
-    if not (use_flash or use_paged):
+    kind = ("none" if cache is None else
+            "paged" if isinstance(cache, PagedKVCache) else "dense")
+    routes = [attention_route(config, idx, kind, mode, T, per_row)
+              for idx in range(len(model.layers))]
+    # the plain attention's masks, built once a forward: global and, with
+    # a window, sliding (k_slot > q_slot - window), keyed by the window
+    masks = {}
+    if any(r.kernel == "plain" for r in routes):
         sj = torch.arange(max_len, device=dev)
         slots = torch.arange(T, device=dev)[None, :] + (
             pos0.long()[:, None] if per_row else pos0)  # [B | 1, T]
-        mask = ((sj[None, None, :] <= slots[..., None])
+        base = ((sj[None, None, :] <= slots[..., None])
                 & (sj[None, None, :] >= row_start[:, None, None]))
-        mask = mask[:, None, None]  # [B, 1, 1, T, S]
+        masks[None] = base[:, None, None]  # [B, 1, 1, T, S]
+        for r in routes:
+            if r.kernel == "plain" and r.window is not None and r.window not in masks:
+                masks[r.window] = (base & (sj[None, None, :] > slots[..., None] - r.window)
+                                   )[:, None, None]
+        del base
 
     lora_layers, lora_scale = ((None, None) if lora is None else
                                (lora["layers"], lora["scale"]) if isinstance(lora, dict)
@@ -313,10 +478,14 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
         pair = adapter(target, idx)
         return y if pair is None else y + lora_epilogue(x, *pair, compute_dtype)
 
+    def norm(x, w):
+        return rms_norm(x, w, eps, offset=config.rms_norm_offset)
+
     def decoder_layer(h, idx):
         layer = model.layers[idx]
+        route = routes[idx]
         p = layer.proj
-        x = rms_norm(h, layer.attn_norm, eps)
+        x = norm(h, layer.attn_norm)
         if "wqkv" in p:  # fused layout; the adapters keep the unmerged names
             qkv = p["wqkv"](x, compute_dtype)
             q, k, v = qkv[..., :QD], qkv[..., QD:QD + KD], qkv[..., QD + KD:]
@@ -326,42 +495,51 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
         q = q.reshape(B, T, Hq, D)
         k = k.reshape(B, T, Hkv, D)
         v = v.reshape(B, T, Hkv, D)
+        if config.qk_norm:
+            q, k = norm(q, layer.q_norm), norm(k, layer.k_norm)
         q, k = apply_rotary_emb(q, k, cos, sin)
 
-        if cache is None:
-            attn = (kernels.flash_attention_train(q, k.to(compute_dtype),
-                                                  v.to(compute_dtype),
-                                                  start=row_start)
-                    if use_flash else attention(q, k.to(compute_dtype),
-                                                v.to(compute_dtype), mask))
-        elif use_paged:
+        attend = dict(scale=route.scale, softcap=route.softcap, window=route.window)
+        if route.kernel == "flash_train":
+            attn = kernels.flash_attention_train(q, k.to(compute_dtype), v.to(compute_dtype),
+                                                 start=row_start, **attend)
+        elif cache is None:
+            attn = attention(q, k.to(compute_dtype), v.to(compute_dtype),
+                             masks[route.window], route.scale, route.softcap)
+        elif route.kernel == "paged":
             kvcache.update_layer(cache, idx, k, v)
             attn = kernels.paged_attention(
                 q[:, 0], cache.k, cache.v, cache.block_tables, idx,
-                cache.pos, cache.start, cache.k_scale, cache.v_scale)[:, None]
-        elif use_flash:
+                cache.pos, cache.start, cache.k_scale, cache.v_scale, **attend)[:, None]
+        elif route.kernel == "flash":
             kvcache.update_layer(cache, idx, k, v)
             # fp8 codes and scales go to the kernel's fp8 arm as they are
             k_att, v_att, k_sc, v_sc = kvcache.read_layer_raw(cache, idx)
             attn = kernels.flash_attention(q, k_att, v_att, start=row_start,
                                            q_offset=pos0, k_scale=k_sc,
-                                           v_scale=v_sc)
+                                           v_scale=v_sc, **attend)
         else:
             kvcache.update_layer(cache, idx, k, v)
             k_att, v_att = kvcache.read_layer(cache, idx, compute_dtype)
-            attn = attention(q, k_att, v_att, mask)
-        h = h + p["wo"](attn.reshape(B, T, QD), compute_dtype,
-                        lora=adapter("wo", idx))
+            attn = attention(q, k_att, v_att, masks[route.window], route.scale,
+                             route.softcap)
+        out = p["wo"](attn.reshape(B, T, QD), compute_dtype, lora=adapter("wo", idx))
+        if config.post_attn_norm:
+            out = norm(out, layer.post_attn_norm)
+        h = h + out
 
-        x = rms_norm(h, layer.mlp_norm, eps)
+        x = norm(h, layer.mlp_norm)
         if "w_gateup" in p:
             gate, up = p["w_gateup"](x, compute_dtype).chunk(2, dim=-1)
             gate = plus_delta(gate, x, "w_gate", idx)
             up = plus_delta(up, x, "w_up", idx)
         else:
             gate, up = (p[n](x, compute_dtype, lora=adapter(n, idx)) for n in ("w_gate", "w_up"))
-        return h + p["w_down"](F.silu(gate) * up, compute_dtype,
-                               lora=adapter("w_down", idx))
+        down = p["w_down"](_act(config.hidden_act, gate) * up, compute_dtype,
+                           lora=adapter("w_down", idx))
+        if config.post_attn_norm:
+            down = norm(down, layer.post_mlp_norm)
+        return h + down
 
     for idx in range(len(model.layers)):
         if remat and torch.is_grad_enabled():

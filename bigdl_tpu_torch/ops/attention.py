@@ -1,11 +1,14 @@
 """Masked scaled dot-product attention with GQA (port of
-bigdl_tpu/ops/attention.py): the decode path, plain torch as in JAX.
-Scores and softmax in float32; the probabilities round to v's dtype
-before the value product, which sums in float32."""
+bigdl_tpu/ops/attention.py): plain torch as in JAX, for the decode over a
+dense cache, per-row prefills and every layer the kernels' dispatch does
+not take (models/llama.py `attention_route`). Scores and softmax in
+float32; the probabilities round to v's dtype before the value product,
+which sums in float32."""
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -13,18 +16,28 @@ _NEG_INF = -1e30
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              mask: torch.Tensor) -> torch.Tensor:
+              mask: Optional[torch.Tensor] = None,
+              scale: Optional[float] = None,
+              softcap: Optional[float] = None) -> torch.Tensor:
     """q [B,T,Hq,D]; k,v [B,S,Hkv,D]; bool mask broadcastable to
-    [B,Hkv,G,T,S] (True = attend); scores scaled by 1/sqrt(D). Returns
-    [B,T,Hq,D] in q.dtype."""
+    [B,Hkv,G,T,S] (True = attend). Scores are scaled (by 1/sqrt(D)
+    unless `scale` is given), capped by tanh(s / softcap) * softcap, and
+    only then masked, in JAX's order: a cap after the mask would turn
+    -1e30 into -softcap and give masked slots weight. Returns [B,T,Hq,D]
+    in q.dtype."""
     b, t, hq, d = q.shape
     _, s, hkv, _ = k.shape
     if hq % hkv:
         raise ValueError(f"GQA needs Hq % Hkv == 0, got {hq} % {hkv}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
     qg = q.reshape(b, t, hkv, hq // hkv, d)
-    scores = torch.einsum("bthgd,bshd->bhgts", qg.float(), k.float())
-    scores = torch.where(mask, scores * (1.0 / math.sqrt(d)),
-                         torch.full_like(scores, _NEG_INF))
+    scores = torch.einsum("bthgd,bshd->bhgts", qg.float(), k.float()) * scale
+    if softcap is not None:
+        scores = torch.tanh(scores / softcap) * softcap
+    if mask is not None:
+        scores = scores.masked_fill(~mask, _NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    del scores
     out = torch.einsum("bhgts,bshd->bthgd", probs.float(), v.float())
     return out.reshape(b, t, hq, d).to(q.dtype)

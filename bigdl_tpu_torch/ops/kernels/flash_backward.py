@@ -354,8 +354,9 @@ def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "path is ops.attention, as in JAX")
     if softcap is not None:
         raise NotImplementedError(
-            "flash_attention_train with a softcap: JAX sends it to its XLA "
-            "attention; ROADMAP queue 1 item 4 (the llama flags)")
+            "flash_attention_train with a softcap: the kernels take none; JAX's "
+            "dispatch (models/llama.py attention_route) sends a softcapped "
+            "model's training to the plain attention")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if start is None:

@@ -262,24 +262,32 @@ def gemv_tile(M: int, O: int, K: int, qtype: str, R: int = 0) -> GemvTile:
     while rmax > 0 and not lora_fused_ok(rmax, K):
         rmax -= 1
     shapes = [(w, w) for w in gemv_warps(qtype, M)[1:]] + [(8, wr) for wr in GEMV_WR if wr <= 8]
-    best = None
-    for kc in GEMV_KC:
-        working = -(-nsteps // -(-nsteps // kc))  # ranks with steps
-        for warps, wr in shapes:
-            if gemv_smem(M, K, qtype, kc, rmax, warps) > SMEM_LIMIT:
-                continue
-            blocks = working * math.ceil(O / (16 * wr))
-            if blocks >= GEMV_FILL * SMS:
-                best = (blocks, warps, wr, kc)
-                break
-            if best is None or blocks > best[0]:
-                best = (blocks, warps, wr, kc)
-        else:
-            continue
-        break
+
+    def search(r):
+        best = None
+        for kc in GEMV_KC:
+            working = -(-nsteps // -(-nsteps // kc))  # ranks with steps
+            for warps, wr in shapes:
+                if gemv_smem(M, K, qtype, kc, r, warps) > SMEM_LIMIT:
+                    continue
+                blocks = working * math.ceil(O / (16 * wr))
+                if blocks >= GEMV_FILL * SMS:
+                    return blocks, warps, wr, kc
+                if best is None or blocks > best[0]:
+                    best = (blocks, warps, wr, kc)
+        return best
+
+    # where x's columns leave no room for the widest adapter (qwen2-7b's
+    # w_down, K = 18944, at M > 16), the tile fits the GEMV alone
+    best = search(rmax) or search(0)
+    smem = None if best is None else gemv_smem(M, K, qtype, best[3], R, best[1])
+    if smem is None or smem > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"qmatmul GEMV: no tile holds M={M} rows of x at K={K} ({qtype}"
+            + (f", LoRA R={R}" if R else "") + ") in shared memory; ROADMAP queue 2 item 1")
     _, warps, wr, kc = best
-    return GemvTile(wr, kc, warps, gemv_stages(qtype), gemv_smem(M, K, qtype, kc, R, warps),
-                    32 * warps, (kc, math.ceil(O / (16 * wr))))
+    return GemvTile(wr, kc, warps, gemv_stages(qtype), smem, 32 * warps,
+                    (kc, math.ceil(O / (16 * wr))))
 
 
 def gemv_k_order(K: int, qtype: str) -> torch.Tensor:

@@ -32,9 +32,10 @@ of the dx kernel (JAX's rematerialized-dequant oracle, its
 
 `Linear` is the module form: it holds a QTensor's fields as buffers
 (`data`, `scales`, and `mins` / `sub_scales` / `sub_mins` where the
-format has them), or a dense `weight` parameter that trains only once
-asked to (`requires_grad=False` until `models.llama.make_trainable`),
-plus an optional bias.
+format has them), or a dense `weight` parameter, plus an optional `bias`
+parameter (added in the compute dtype after the product, as JAX adds
+it); parameters train only once asked to (`requires_grad=False` until
+`models.llama.make_trainable`).
 """
 
 from __future__ import annotations
@@ -258,8 +259,8 @@ def linear(x: torch.Tensor, w: Union[QTensor, torch.Tensor],
 
 class Linear(nn.Module):
     """A linear layer over a QTensor (its fields as buffers, None where the
-    format has none) or a dense weight (a parameter that requires no
-    gradient until asked to)."""
+    format has none) or a dense weight, with an optional bias (parameters
+    that require no gradient until asked to)."""
 
     def __init__(self, weight: Union[QTensor, torch.Tensor],
                  bias: Optional[torch.Tensor] = None):
@@ -270,7 +271,10 @@ class Linear(nn.Module):
         else:
             for f in ARRAY_FIELDS:
                 self.register_buffer(f, getattr(weight, f))
-        self.register_buffer("bias", bias)
+        if bias is None:
+            self.register_parameter("bias", None)
+        else:
+            self.bias = nn.Parameter(bias, requires_grad=False)
 
     @property
     def w(self) -> Union[QTensor, torch.Tensor]:

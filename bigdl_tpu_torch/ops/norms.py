@@ -7,7 +7,13 @@ import torch
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
+             eps: float = 1e-6, offset: bool = False) -> torch.Tensor:
+    """offset=True is gemma's convention: scale by (1 + w), formed in
+    float32 after the weight's cast (in bf16 it would lose the small
+    weights)."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+    w = weight.float()
+    if offset:
+        w = 1.0 + w
+    return (xf * torch.rsqrt(var + eps) * w).to(x.dtype)

@@ -194,6 +194,34 @@ the result lines; an exception ends the run at once; nothing is caught):
    a second call and after a save and load; the ingest's seconds, read
    GB/s, quantize ms a layer and peak device memory. Both directories are
    deleted; a temporary directory without room fails the phase.
+17. the llama flags (after phase 15): (a) gemma2-9b at full width and
+   depth (42 layers, hidden 3584, 16 q heads of 256 over 8, vocab
+   256,000 tied to the embedding, alternating windows of 4096, softcaps
+   50/30, (1 + w) norms, gelu-tanh), sym_int4, weights from a seed
+   (norm weights 0: the unit scale under (1 + w)),
+   through `TorchModel.generate` at phase 3's shapes: launches (GEMM
+   4 x 42, GEMV 31 x 4 x 42: the tied head is a dense product; no flash
+   launch: JAX's rule sends alternating windows to the plain attention),
+   in-vocabulary and repeatable tokens, prefill ms, decode step median
+   and p80, busy share, peak memory; (b) the paged engine on it with
+   phase 7's traffic: 42 paged launches a decode step with each layer's
+   window, the softcap and the scale, no page leaks, requests/s, TTFT
+   and decode-step quantiles; (c) windows that bite: a 4,500-token
+   prompt and 8 decode steps through 2-layer full-width mistral-7b
+   (flash prefill with its window) and gemma2-9b, over a dense cache, a
+   paged pool and a paged engine (max-len 4,608), kernels against the
+   plain versions (logits: phase 3's bound; the engine's chosen-token
+   logprobs: phase 7's) and each layer's window on the paged kernel; (d) 2-layer qwen2-7b's fused q/k/v bias through prefill and
+   decode, and a QLoRA step (B=1 T=1024, rank 8, seven projections) of
+   qwen2-7b, mistral-7b (flash training with its window) and gemma2-9b
+   (plain attention) against the plain versions (phase 5's bound); (e)
+   Llama-3.1's rope scaling on a 2-layer llama3-8b prefill at T=1024
+   against plain; (f) HF checkpoints of gemma2-9b's and qwen2-7b's
+   preset values at 4 layers (bf16 from a seed, two shards) ingested in
+   sym_int4: every quantized byte as `params_from_numpy` +
+   `optimize_model` give them from the same tensors, in-vocabulary and
+   repeatable tokens, and gemma2's `save_low_bit` -> `load_low_bit`
+   keeping them bit for bit.
 
 The whole run takes about 600 s of command time on an H100 (the host's
 speed moves it; phase 16 ~120-140 s of it), the kernel builds included
@@ -252,6 +280,33 @@ def device_kernels(prof) -> list:
                    if e.self_cpu_time_total == 0 and e.self_device_time_total > 0
                    and not e.key.startswith("Optimizer.")),
                   key=lambda e: -e.self_device_time_total)
+
+
+def profiled_steps(torch, run, n: int, expect: dict, label: str):
+    """A torch.profiler window over n calls of `run`, synchronised. The
+    caller checks its device calls; `expect` maps a kernel's name to (a
+    compiled pattern of its device functions' names, the calls the window
+    must hold). The profiler has dropped a few kernel records of a window
+    holding thousands (PR 13 run B, phase 6: 63 of 64 training forwards
+    and 381 of 384 LoRA GEMM kernels, while the wrappers counted every
+    launch), so a window whose counts differ is printed and profiled once
+    more."""
+    from torch.profiler import ProfilerActivity, profile
+
+    want = {name: calls for name, (_, calls) in expect.items()}
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                run()
+            torch.cuda.synchronize()
+        got = {name: sum(e.count for e in prof.key_averages()
+                         if pat.search(e.key) and e.self_device_time_total > 0)
+               for name, (pat, _) in expect.items()}
+        if got == want:
+            break
+        log(f"{label}: the profiler recorded {got} device calls, expected {want}"
+            + ("; profiling the window again" if attempt == 0 else ""))
+    return prof
 
 
 def time_ms(torch, fn, args_list, iters: int = 20) -> float:
@@ -811,6 +866,8 @@ def main() -> int:
     ft_entries = full_ft_phases(torch, dev, cfg, card, errs, randn)
     # --------------------------------------------------------------- 15
     phi3_phases(torch, dev, errs)
+    # --------------------------------------------------------------- 17
+    flags_phases(torch, dev, card, prompt_tokens, starts)
     for e in entries + train_entries + adapter_entries:
         if e["name"] in by_format:  # the dequant forms: sym_int4 above, then the others
             e["formats"] = ["sym_int4"] + list(by_format[e["name"]])
@@ -930,7 +987,6 @@ def train_phases(torch, dev, cfg, card, errs, qweight, randn) -> list:
     seeded operands on the card. Returns the `kernels` entries of the five
     training kernels."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from bigdl_tpu_torch import optimize_model
     from bigdl_tpu_torch.models import llama
@@ -1023,11 +1079,16 @@ def train_phases(torch, dev, cfg, card, errs, qweight, randn) -> list:
     del m2, lora2, kern_grads, plain_grads
 
     # ---------------------------------------------------------------- 6
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        for _ in range(PROFILED_TRAIN_STEPS):
-            step(model, lora, tokens, mask)
-        torch.cuda.synchronize()
+    # each kernel's device functions: the LoRA GEMM's first pass, x_order
+    # and its GEMM are three a launch
+    matches = [(kernels.LORA_GEMM, LORA_GEMM_EVENT, 3),
+               (kernels.DX, re.compile(r"namespace\)::dx_kernel"), 1),
+               (kernels.FLASH_FWD, re.compile(r"namespace\)::fwd_kernel"), 1),
+               (kernels.FLASH_DQ, re.compile(r"namespace\)::dq_kernel"), 1),
+               (kernels.FLASH_DKV, re.compile(r"namespace\)::dkv_kernel"), 1)]
+    prof = profiled_steps(torch, lambda: step(model, lora, tokens, mask), PROFILED_TRAIN_STEPS,
+                          {k.name: (m, per_step[k.name] * PROFILED_TRAIN_STEPS * parts)
+                           for k, m, parts in matches}, "phase 6")
     dev_events = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3 / PROFILED_TRAIN_STEPS
     step_ms = sorted(ms for ms, _ in runs)
@@ -1053,13 +1114,7 @@ def train_phases(torch, dev, cfg, card, errs, qweight, randn) -> list:
         check(calls == want_calls, f"{kern.name}: {calls} profiled calls, expected {want_calls}")
         return sum(e.self_device_time_total for e in evs) / 1e3 / PROFILED_TRAIN_STEPS
 
-    path_ms = {
-        kernels.LORA_GEMM.name: on_path(kernels.LORA_GEMM, LORA_GEMM_EVENT, parts=3),
-        kernels.DX.name: on_path(kernels.DX, re.compile(r"namespace\)::dx_kernel")),
-        kernels.FLASH_FWD.name: on_path(kernels.FLASH_FWD, re.compile(r"namespace\)::fwd_kernel")),
-        kernels.FLASH_DQ.name: on_path(kernels.FLASH_DQ, re.compile(r"namespace\)::dq_kernel")),
-        kernels.FLASH_DKV.name: on_path(kernels.FLASH_DKV, re.compile(r"namespace\)::dkv_kernel")),
-    }
+    path_ms = {k.name: on_path(k, m, parts) for k, m, parts in matches}
     del lora, step, prof
     qlora_variant_checks(torch, dev, cfg, model, tokens, mask)
     del model
@@ -1331,7 +1386,6 @@ def full_ft_phases(torch, dev, cfg, card, errs, randn) -> list:
     2-layer full-width step through the kernels against the plain
     versions; then the times. Returns the dW kernel's `kernels` entry."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from bigdl_tpu_torch.models import llama
     from bigdl_tpu_torch.ops import kernels
@@ -1384,11 +1438,13 @@ def full_ft_phases(torch, dev, cfg, card, errs, randn) -> list:
     del wq0
 
     # ---------------------------------------------------------------- 14
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        for _ in range(PROFILED_TRAIN_STEPS):
-            step(model, tokens, mask)
-        torch.cuda.synchronize()
+    prof = profiled_steps(
+        torch, lambda: step(model, tokens, mask), PROFILED_TRAIN_STEPS,
+        {kernels.DW.name: (re.compile(r"dw_tma_kernel<"),
+                           per_step[kernels.DW.name] * PROFILED_TRAIN_STEPS),
+         **{k.name: (re.compile(f"namespace\\)::{fn}"), per_step[k.name] * PROFILED_TRAIN_STEPS)
+            for k, fn in ((kernels.FLASH_FWD, "fwd_kernel"), (kernels.FLASH_DQ, "dq_kernel"),
+                          (kernels.FLASH_DKV, "dkv_kernel"))}}, "phase 14")
     dev_events = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3 / PROFILED_TRAIN_STEPS
     # every dW launch of the path runs the wgmma kernel (every weight's O
@@ -2617,24 +2673,33 @@ def write_safetensors(path, entries) -> int:
 
 
 def hf_llama_entries(torch, hf: dict, seed: int, dev):
-    """An HF llama checkpoint's tensors as write_safetensors entries, per
-    shard (two: the embedding and the first half of the layers, then the
-    rest, the final norm and the lm head): bf16 N(0, 0.02^2) matrices from
-    a seed, made on `dev`, and unit norms."""
+    """An HF llama-shaped checkpoint's tensors as write_safetensors
+    entries, per shard (two: the embedding and the first half of the
+    layers, then the rest, the final norm and the lm head): bf16 N(0,
+    0.02^2) matrices from a seed, made on `dev`, and unit norms (zero
+    weights under gemma's (1 + w), the same unit scale). The flags' tensors
+    follow each layer's llama ones: q/k/v (and o) biases where the config
+    has them (qwen2's q/k/v always), gemma2's pre/post feed-forward norms,
+    qwen3's q/k norms; a tied head (gemma's default) writes no lm_head."""
     H, I, V = hf["hidden_size"], hf["intermediate_size"], hf["vocab_size"]
-    L, D = hf["num_hidden_layers"], hf["hidden_size"] // hf["num_attention_heads"]
+    mt = hf["model_type"]
+    L = hf["num_hidden_layers"]
+    D = hf.get("head_dim") or hf["hidden_size"] // hf["num_attention_heads"]
     QD, KD = hf["num_attention_heads"] * D, hf["num_key_value_heads"] * D
+    gemma = mt.startswith("gemma")
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def mat(shape):
         return lambda: (torch.randn(shape, device=dev, generator=g) * 0.02).to(torch.bfloat16).cpu()
 
     def ones(n):
+        if gemma:
+            return lambda: torch.zeros(n, dtype=torch.bfloat16)
         return lambda: torch.ones(n, dtype=torch.bfloat16)
 
     def layer(i):
         p = f"model.layers.{i}."
-        return [(p + n, torch.bfloat16, shape, fn) for n, shape, fn in (
+        parts = [
             ("input_layernorm.weight", (H,), ones(H)),
             ("post_attention_layernorm.weight", (H,), ones(H)),
             ("self_attn.q_proj.weight", (QD, H), mat((QD, H))),
@@ -2643,14 +2708,25 @@ def hf_llama_entries(torch, hf: dict, seed: int, dev):
             ("self_attn.o_proj.weight", (H, QD), mat((H, QD))),
             ("mlp.gate_proj.weight", (I, H), mat((I, H))),
             ("mlp.up_proj.weight", (I, H), mat((I, H))),
-            ("mlp.down_proj.weight", (H, I), mat((H, I))))]
+            ("mlp.down_proj.weight", (H, I), mat((H, I)))]
+        if hf.get("attention_bias", mt == "qwen2"):
+            parts += [(f"self_attn.{n}_proj.bias", (r,), mat((r,)))
+                      for n, r in (("q", QD), ("k", KD), ("v", KD))]
+        if mt == "gemma2":
+            parts += [(n, (H,), ones(H)) for n in ("pre_feedforward_layernorm.weight",
+                                                   "post_feedforward_layernorm.weight")]
+        if mt == "qwen3":
+            parts += [(f"self_attn.{n}_norm.weight", (D,), lambda: torch.ones(D, dtype=torch.bfloat16))
+                      for n in ("q", "k")]
+        return [(p + n, torch.bfloat16, shape, fn) for n, shape, fn in parts]
 
     first = [("model.embed_tokens.weight", torch.bfloat16, (V, H), mat((V, H)))]
     second = []
     for i in range(L):
         (first if i < L // 2 else second).extend(layer(i))
-    second += [("model.norm.weight", torch.bfloat16, (H,), ones(H)),
-               ("lm_head.weight", torch.bfloat16, (V, H), mat((V, H)))]
+    second.append(("model.norm.weight", torch.bfloat16, (H,), ones(H)))
+    if not hf.get("tie_word_embeddings", gemma):
+        second.append(("lm_head.weight", torch.bfloat16, (V, H), mat((V, H))))
     return [first, second]
 
 
@@ -3250,6 +3326,499 @@ def format_phases(torch, dev, cfg, card, prompts, tok, st, T, S) -> dict:
                 f"plain_ms={plain_:.5f} library_ms={lib:.5f} bound_ms={bms:.5f} ({by})")
     log(f"phase 10: per-format times taken in {time.time() - t0:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the llama flags (phase 17)
+# ---------------------------------------------------------------------------
+
+LONG_PROMPT, LONG_DECODE = 4500, 8  # past the 4096 window of mistral and gemma2
+FLAGS_LAYERS = 2  # the kernels-vs-plain checks' depth, at full width
+LLAMA31_ROPE = {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+                "high_freq_factor": 4.0, "original_max_position_embeddings": 8192}
+# HF config.json values of the port's gemma2-9b and qwen2-7b presets, cut
+# to 4 layers (from_hf_config must give the preset back)
+GEMMA2_9B_HF = {
+    "architectures": ["Gemma2ForCausalLM"], "model_type": "gemma2", "vocab_size": 256000,
+    "hidden_size": 3584, "intermediate_size": 14336, "num_hidden_layers": 4,
+    "num_attention_heads": 16, "num_key_value_heads": 8, "head_dim": 256,
+    "rms_norm_eps": 1e-05, "rope_theta": 10000.0, "max_position_embeddings": 4096,
+    "sliding_window": 4096, "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0,
+    "query_pre_attn_scalar": 224, "hidden_activation": "gelu_pytorch_tanh",
+    "tie_word_embeddings": True, "torch_dtype": "bfloat16",
+}
+QWEN2_7B_HF = {
+    "architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2", "vocab_size": 152064,
+    "hidden_size": 3584, "intermediate_size": 18944, "num_hidden_layers": 4,
+    "num_attention_heads": 28, "num_key_value_heads": 4, "rms_norm_eps": 1e-05,
+    "rope_theta": 1000000.0, "max_position_embeddings": 4096, "tie_word_embeddings": False,
+    "hidden_act": "silu", "torch_dtype": "bfloat16",
+}
+
+
+def plain_kernels(kernels) -> dict:
+    """Every kernel entry point of the paths mapped to its plain version
+    (for mock.patch.multiple)."""
+    return {"qmatmul": kernels.qmatmul_plain, "qmatmul_dx": kernels.qmatmul_dx_plain,
+            "qmatmul_lora": kernels.qmatmul_lora_plain,
+            "flash_attention": kernels.flash_attention_plain,
+            "paged_attention": kernels.paged_attention_plain,
+            "flash_train_fwd": kernels.flash_attention_train_plain,
+            "flash_train_dq": kernels.flash_train_dq_plain,
+            "flash_train_dkv": kernels.flash_train_dkv_plain}
+
+
+def routes_text(llama, cfg, *call) -> str:
+    """Which kernel the layers reach (`llama.attention_route`), with
+    their window: each route, its layer count and first layers."""
+    by = {}
+    for layer in range(cfg.num_hidden_layers):
+        r = llama.attention_route(cfg, layer, *call)
+        by.setdefault(f"{r.kernel}(w={r.window})" if r.window else r.kernel, []).append(layer)
+    return ", ".join(f"{k} on {len(v)} layers ({', '.join(map(str, v[:3]))}"
+                     f"{', ...' if len(v) > 3 else ''})" for k, v in by.items())
+
+
+def unit_norms(torch, model) -> None:
+    """Zero every norm weight of a (1 + w) model in place: the unit scale
+    llama's ones give. init_params sets them to 1, as JAX's does, which
+    doubles each of gemma2's four norms a layer and saturates the capped
+    logits of a random model."""
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            if name.endswith("norm"):
+                prm.zero_()
+
+
+def flags_phases(torch, dev, card, prompt_tokens, starts, presets=None) -> None:
+    """Phase 17: the llama flags on the card. (a) gemma2-9b at full width
+    and depth (42 layers) in sym_int4 through `TorchModel.generate` at
+    phase 3's shapes, its launches and times; (b) the serving engine on it
+    with phase 7's traffic; (c) windows that bite: a 4,500-token prompt
+    and 8 decode steps through 2-layer mistral-7b and gemma2-9b, dense
+    cache and paged pool, kernels against the plain versions; (d)
+    qwen2-7b's biases (prefill and decode logits) and a QLoRA step of
+    qwen2-7b, mistral-7b and gemma2-9b, kernels against plain; (e)
+    Llama-3.1's rope scaling on a 2-layer llama3-8b prefill; (f) HF
+    checkpoints of gemma2 and qwen2 at 4 layers ingested in sym_int4: the
+    bytes of `params_from_numpy` + `optimize_model` over the same
+    tensors, greedy tokens, and gemma2's artifact round trip. `presets`
+    replaces PRESETS (a CPU rehearsal at narrow widths)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch import (PRESETS, AutoModelForCausalLM, ModelConfig, TorchModel,
+                                 optimize_model)
+    from bigdl_tpu_torch.convert import hf as hf_mod
+    from bigdl_tpu_torch.convert import params_from_numpy
+    from bigdl_tpu_torch.generate import pad_prompts
+    from bigdl_tpu_torch.kvcache import init_cache
+    from bigdl_tpu_torch.kvpaged import init_paged
+    from bigdl_tpu_torch.models import llama
+    from bigdl_tpu_torch.ops import kernels
+    from bigdl_tpu_torch.ops.rope import make_inv_freq_scaled
+    from bigdl_tpu_torch.quant import ARRAY_FIELDS
+    from bigdl_tpu_torch.serving import InferenceEngine
+    from bigdl_tpu_torch.train import init_lora, next_token_loss
+
+    presets = presets or PRESETS
+    t_phase = time.time()
+    plain = plain_kernels(kernels)
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def q(xs, f):
+        xs = sorted(xs)
+        return xs[min(int(f * len(xs)), len(xs) - 1)]
+
+    # (a) gemma2-9b at full width and depth through generate ------------
+    cfg = presets["gemma2-9b"]
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    t = time.time()
+    dense = llama.init_params(cfg, seed=50, device=dev)
+    unit_norms(torch, dense)
+    tm = TorchModel(cfg, optimize_model(dense, cfg, "sym_int4"), "sym_int4", device=dev)
+    del dense
+    torch.cuda.synchronize()
+    log(f"phase 17 (a): gemma2-9b {L} layers sym_int4 built in {time.time() - t:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB on the card; tied head dense "
+        f"{tm.params.lm_head is None}; routes: prefill {routes_text(llama, cfg, 'dense', 'prefill', 2)}"
+        f"; paged decode {routes_text(llama, cfg, 'paged', 'decode', 1, True)}")
+    prompts = [list(row[s0:]) for row, s0 in zip(prompt_tokens, starts)]
+    prompts = [[x % V for x in p_] for p_ in prompts]
+    kernels.reset_launches()
+    out1 = tm.generate(prompts, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want = {k.name: 0 for k in kernels.KERNELS}
+    want.update({kernels.GEMM.name: 4 * L, kernels.GEMV.name: (NEW_TOKENS - 1) * 4 * L})
+    log(f"phase 17 (a): launches {launches} expected {want} (no lm head launch: the tied "
+        "head is the dense embedding; no flash launch: alternating windows)")
+    check(launches == want, "phase 17 (a): gemma2-9b launch counts")
+    check(out1.shape == (len(prompts), NEW_TOKENS) and bool(((out1 >= 0) & (out1 < V)).all()),
+          "phase 17 (a): tokens in the vocabulary")
+    out2 = tm.generate(prompts, max_new_tokens=NEW_TOKENS)
+    check(bool((out1 == out2).all()), "phase 17 (a): identical tokens on a second call")
+    prefill_ms = sorted(wall_ms(lambda: tm.generate(prompts, 1)) for _ in range(3))
+    gen_ms = sorted(wall_ms(lambda: tm.generate(prompts, NEW_TOKENS)) for _ in range(3))
+    torch.cuda.reset_peak_memory_stats()
+    tm.generate(prompts, NEW_TOKENS)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    tokens, st = pad_prompts(prompts, 0)
+    T = tokens.shape[1]
+    S = T + NEW_TOKENS + 8
+    tok = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+    stt = torch.as_tensor(st, device=dev)
+    Hkv, D = cfg.num_key_value_heads, cfg.head_dim_
+    with torch.inference_mode():
+        cache = dataclasses.replace(init_cache(L, len(prompts), S, Hkv, D, device=dev), start=stt)
+        logits, cache = llama.forward(cfg, tm.params, tok, cache, "prefill", last_logits_only=True)
+        cur = logits[:, -1].argmax(-1)
+        step_ms = []
+        for i in range(NEW_TOKENS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = llama.forward(cfg, tm.params, cur[:, None], cache, "decode")
+            cur = logits[:, -1].argmax(-1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if i == NEW_TOKENS - PROFILED_STEPS - 1:
+                break
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILED_STEPS):
+                logits, cache = llama.forward(cfg, tm.params, cur[:, None], cache, "decode")
+                cur = logits[:, -1].argmax(-1)
+            torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in device_kernels(prof)) / 1e3 / PROFILED_STEPS
+    med = q(step_ms, 0.5)
+    log(f"phase 17 (a): card {card}")
+    log(f"phase 17 (a): gemma2-9b sym_int4 B={len(prompts)} prompt bucket {T} new tokens "
+        f"{NEW_TOKENS}: prefill_ms (generate of 1 token) median={prefill_ms[1]:.3f} "
+        f"min={prefill_ms[0]:.3f} max={prefill_ms[-1]:.3f} (n=3); generate_ms median="
+        f"{gen_ms[1]:.3f} (n=3); decode step ms median={med:.3f} p80={q(step_ms, 0.8):.3f} "
+        f"(n={len(step_ms)}); profiled decode: device busy {busy:.3f} ms per step = "
+        f"{busy / med:.3f} of the median step; peak_mem_gib={peak_gib:.3f}")
+    for e in device_kernels(prof)[:5]:
+        log(f"  {e.self_device_time_total / 1e3 / PROFILED_STEPS:8.3f} ms/step "
+            f"{e.count // PROFILED_STEPS:5d} calls/step  {e.key[:90]}")
+    del cache, logits
+
+    # (b) the serving engine on gemma2-9b: phase 7's traffic ------------
+    shared, indep = serving_traffic(V)
+    traffic = shared + indep
+    eng = InferenceEngine(tm, n_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, paged=True)
+    seen = {"ttft": [], "step": []}
+    for key, hist in (("ttft", eng.ttft), ("step", eng.decode_step_seconds)):
+        hist.observe = (lambda h, out: lambda x: (out.append(x), type(h).observe(h, x)))(
+            hist, seen[key])
+    calls = []
+    real_paged = kernels.paged_attention
+
+    def recorded(q_, k_pages, v_pages, block_tables, layer, *a, **kw):
+        calls.append((layer, kw.get("window"), kw.get("softcap"), kw.get("scale")))
+        return real_paged(q_, k_pages, v_pages, block_tables, layer, *a, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with mock.patch.object(kernels, "paged_attention", recorded):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(**sp) for sp in traffic]
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    steps = eng.decode_step_seconds.count
+    launches = kernels.launch_counts()
+    peak_b = torch.cuda.max_memory_allocated() / 2**30
+    ntok = sum(len(r.out_tokens) for r in reqs)
+    want_calls = {(layer, cfg.sliding_window if cfg.layer_is_sliding(layer) else None,
+                   cfg.attn_logit_softcap, cfg.attn_scale) for layer in range(L)}
+    log(f"phase 17 (b): gemma2-9b engine paged bf16, {len(reqs)} requests, {SLOTS} slots: "
+        f"{sec:.3f} s = {len(reqs) / sec:.3f} requests/s, {ntok / sec:.1f} generated tokens/s; "
+        f"TTFT ms median={q(seen['ttft'], .5) * 1e3:.3f} p90={q(seen['ttft'], .9) * 1e3:.3f}; "
+        f"decode step ms median={q(seen['step'], .5) * 1e3:.3f} p90={q(seen['step'], .9) * 1e3:.3f} "
+        f"(n={steps}); peak_mem_gib={peak_b:.3f}; page_leaks={eng.page_leaks()}; "
+        f"paged launches {launches[kernels.PAGED.name]}; (layer, window, softcap, scale) "
+        f"passed {sorted(set(calls), key=lambda c: c[0])[:2]}...")
+    check(all(r.finish_reason == "length" and len(r.out_tokens) == SERVE_NEW
+              and all(0 <= x < V for x in r.out_tokens) for r in reqs),
+          "phase 17 (b): every request finishes with its tokens in the vocabulary")
+    check(eng.page_leaks() == 0, "phase 17 (b): page leaks after the drain")
+    check(launches[kernels.PAGED.name] == L * steps == len(calls) and steps > 0,
+          f"phase 17 (b): {L} paged launches a decode step")
+    check(set(calls) == want_calls, "phase 17 (b): each layer's window, the softcap and the "
+                                     "scale passed to the paged kernel")
+    del eng, reqs, tm
+    torch.cuda.empty_cache()
+
+    def kv_logits(cfg_, model, toks, n_decode, start=None):
+        """Dense-cache prefill last logits, then n_decode greedy decode
+        steps: [n_decode + 1, B, V] float32."""
+        B_, T_ = toks.shape
+        cache = init_cache(cfg_.num_hidden_layers, B_, T_ + n_decode,
+                           cfg_.num_key_value_heads, cfg_.head_dim_, device=dev)
+        if start is not None:
+            cache = dataclasses.replace(cache, start=start)
+        out = []
+        with torch.inference_mode():
+            logits, cache = llama.forward(cfg_, model, toks, cache, "prefill",
+                                          last_logits_only=True)
+            out.append(logits[:, -1])
+            for _ in range(n_decode):
+                logits, cache = llama.forward(cfg_, model, out[-1].argmax(-1)[:, None], cache,
+                                              "decode")
+                out.append(logits[:, -1])
+        return torch.stack(out)
+
+    def paged_logits(cfg_, model, toks, n_decode):
+        """kv_logits over a one-row paged pool (pages of PAGE in reverse
+        order, page 0 the scratch): the prefill through the plain
+        attention (per-row positions), each decode step through the paged
+        kernel."""
+        T_ = toks.shape[1]
+        mp = -(-(T_ + n_decode) // PAGE)
+        cache = init_paged(cfg_.num_hidden_layers, mp + 1, PAGE, cfg_.num_key_value_heads,
+                           cfg_.head_dim_, 1, mp, device=dev)
+        cache.block_tables[0] = torch.arange(mp, 0, -1, dtype=torch.int32, device=dev)
+        out = []
+        with torch.inference_mode():
+            logits, cache = llama.forward(cfg_, model, toks, cache, "prefill",
+                                          last_logits_only=True)
+            out.append(logits[:, -1])
+            for _ in range(n_decode):
+                logits, cache = llama.forward(cfg_, model, out[-1].argmax(-1)[:, None], cache,
+                                              "decode")
+                out.append(logits[:, -1])
+        return torch.stack(out)
+
+    def held(label, kern, pl, extra=""):
+        err = (kern - pl).abs().max().item()
+        tol = 0.02 * pl.abs().max().item()  # phase 3's bound
+        log(f"phase 17 {label}: logits kernels vs plain max_abs_err={err:.6g} tol={tol:.6g}{extra}")
+        check(bool(torch.isfinite(kern).all()) and err <= tol, f"phase 17 {label}: kernels vs plain")
+
+    def small(name, seed, **kw):
+        cfg_ = dataclasses.replace(presets[name], num_hidden_layers=FLAGS_LAYERS, **kw)
+        dense_ = llama.init_params(cfg_, seed=seed, device=dev)
+        if cfg_.rms_norm_offset:
+            unit_norms(torch, dense_)
+        return cfg_, optimize_model(dense_, cfg_, "sym_int4")
+
+    rng = np.random.default_rng(51)
+
+    # (c) windows that bite: dense cache and paged pool -----------------
+    for name in ("mistral-7b", "gemma2-9b"):
+        cfg_, model = small(name, 52)
+        Lc = cfg_.num_hidden_layers
+        long_prompt = rng.integers(1, cfg_.vocab_size, LONG_PROMPT).tolist()
+        toks = torch.as_tensor([long_prompt], dtype=torch.long, device=dev)
+        kernels.reset_launches()
+        kern = kv_logits(cfg_, model, toks, LONG_DECODE)
+        torch.cuda.synchronize()
+        dense_launches = kernels.launch_counts()
+        with mock.patch.multiple(kernels, **plain):
+            pl = kv_logits(cfg_, model, toks, LONG_DECODE)
+        flash_want = Lc if llama.attention_route(cfg_, 0, "dense", "prefill", LONG_PROMPT).kernel == "flash" else 0
+        held(f"(c) {name} dense cache, prompt {LONG_PROMPT} + {LONG_DECODE} decode steps", kern, pl,
+             f"; flash launches {dense_launches[kernels.FLASH.name]} (expected {flash_want}); "
+             f"routes: prefill {routes_text(llama, cfg_, 'dense', 'prefill', LONG_PROMPT)}")
+        check(dense_launches[kernels.FLASH.name] == flash_want, f"phase 17 (c) {name}: flash launches")
+        kernels.reset_launches()
+        kern = paged_logits(cfg_, model, toks, LONG_DECODE)
+        torch.cuda.synchronize()
+        n_paged = kernels.PAGED.launches
+        with mock.patch.multiple(kernels, **plain):
+            pl = paged_logits(cfg_, model, toks, LONG_DECODE)
+        held(f"(c) {name} paged pool, prompt {LONG_PROMPT} + {LONG_DECODE} decode steps", kern, pl,
+             f"; paged launches {n_paged}; routes: decode "
+             f"{routes_text(llama, cfg_, 'paged', 'decode', 1, True)}")
+        check(n_paged == Lc * LONG_DECODE, f"phase 17 (c) {name}: paged launches of the pool's decode")
+        tmc = TorchModel(cfg_, model, "sym_int4", device=dev)
+        paged_calls = []
+
+        def serve():
+            eng_ = InferenceEngine(tmc, n_slots=1, max_len=LONG_PROMPT + 108, page_size=PAGE,
+                                   paged=True)
+            r_ = eng_.submit(prompt=long_prompt, max_new_tokens=LONG_DECODE + 1)
+            eng_.run_until_idle()
+            check(eng_.page_leaks() == 0, f"phase 17 (c) {name}: page leaks")
+            return r_.out_logprobs, r_.out_tokens, eng_.decode_step_seconds.count
+
+        def recorded_c(q_, k_pages, v_pages, block_tables, layer, *a, **kw):
+            paged_calls.append((layer, kw.get("window")))
+            return real_paged(q_, k_pages, v_pages, block_tables, layer, *a, **kw)
+
+        kernels.reset_launches()
+        with mock.patch.object(kernels, "paged_attention", recorded_c):
+            lk, tk, steps_c = serve()
+        n_paged = kernels.PAGED.launches
+        with mock.patch.multiple(kernels, **plain):
+            lp_, tp_, _ = serve()
+        n = next((j for j, (x, y) in enumerate(zip(tk, tp_)) if x != y), len(tk)) + 1
+        worst = max(abs(x - y) for x, y in zip(lk[:n], lp_[:n]))
+        windows = sorted(set(paged_calls))
+        log(f"phase 17 (c) {name} paged engine (max-len {LONG_PROMPT + 108}): {steps_c} decode steps, "
+            f"paged launches {n_paged}, (layer, window) passed {windows}; chosen-token logprobs "
+            f"kernels vs plain max_abs_err={worst:.5f} nat (tol {LOGPROB_TOL[False]})")
+        check(n_paged == Lc * steps_c > 0, f"phase 17 (c) {name}: paged launches = layers x steps")
+        check(windows == [(layer, cfg_.sliding_window if cfg_.layer_is_sliding(layer) else None)
+                          for layer in range(Lc)], f"phase 17 (c) {name}: each layer's window passed")
+        check(worst <= LOGPROB_TOL[False], f"phase 17 (c) {name}: paged engine kernels vs plain")
+        del model, tmc, kern, pl
+        torch.cuda.empty_cache()
+
+    # (d) qwen2-7b's biases; QLoRA of three families ----------------------
+    cfg_, model = small("qwen2-7b", 53)
+    check("wqkv" in model.layers[0].proj and model.layers[0].proj["wqkv"].bias is not None,
+          "phase 17 (d): qwen2's q/k/v biases fused into bqkv")
+    toks = torch.as_tensor(pad_prompts(prompts, 0)[0], dtype=torch.long, device=dev) % cfg_.vocab_size
+    kern = kv_logits(cfg_, model, toks, 4, stt)
+    with mock.patch.multiple(kernels, **plain):
+        pl = kv_logits(cfg_, model, toks, 4, stt)
+    held("(d) qwen2-7b prefill + 4 decode steps (bqkv)", kern, pl)
+    del model
+    for name, seed in (("qwen2-7b", 54), ("mistral-7b", 55), ("gemma2-9b", 56)):
+        cfg_, model = small(name, seed)
+        lora = init_lora(cfg_, seed=seed, rank=RANK, device=dev)
+        with torch.no_grad():  # B != 0, so the A gradients are not all 0
+            for pair in lora.layers.values():
+                pair["b"].copy_(torch.randn(pair["b"].shape, device=dev,
+                                            generator=torch.Generator(device=dev).manual_seed(seed))
+                                * 0.01)
+        ttok = torch.as_tensor(rng.integers(1, cfg_.vocab_size, (1, TRAIN_T)), dtype=torch.long,
+                               device=dev)
+        mask = torch.ones(ttok.shape, device=dev)
+
+        def grads():
+            for prm in lora.parameters():
+                prm.grad = None
+            loss = next_token_loss(cfg_, llama.forward, model, lora, ttok, mask)
+            loss.backward()
+            return loss.item(), {n_: prm.grad.float() for n_, prm in lora.named_parameters()}
+
+        kernels.reset_launches()
+        kern_loss, kern_grads = grads()
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        with mock.patch.multiple(kernels, **plain):
+            plain_loss, plain_grads = grads()
+        worst = max(((kern_grads[n_] - g_).abs().max() / g_.abs().max()).item()
+                    for n_, g_ in plain_grads.items())
+        route = llama.attention_route(cfg_, 0, "none", "prefill", TRAIN_T).kernel
+        ft = FLAGS_LAYERS if route == "flash_train" else 0
+        log(f"phase 17 (d) {name} QLoRA step (B=1 T={TRAIN_T}, rank {RANK}, 7 projections, "
+            f"{FLAGS_LAYERS} layers) kernels vs plain: loss {kern_loss:.6f} vs {plain_loss:.6f}; worst "
+            f"LoRA grad max_abs_err / max|grad| = {worst:.4g} (tol 0.05, phase 5's); attention "
+            f"{route}; launches {launches}")
+        check(all(launches[k.name] == ft for k in (kernels.FLASH_FWD, kernels.FLASH_DQ,
+                                                   kernels.FLASH_DKV))
+              and launches[kernels.LORA_GEMM.name] > 0 and launches[kernels.DX.name] > 0,
+              f"phase 17 (d) {name}: the QLoRA step's launches ({route})")
+        check(abs(kern_loss - plain_loss) <= 1e-3 * abs(plain_loss) and worst <= 0.05,
+              f"phase 17 (d) {name}: QLoRA step kernels vs plain")
+        del model, lora, kern_grads, plain_grads
+        torch.cuda.empty_cache()
+
+    # (e) Llama-3.1's rope scaling --------------------------------------
+    cfg_, model = small("llama3-8b", 57, rope_scaling=LLAMA31_ROPE)
+    inv_scaled, _ = make_inv_freq_scaled(cfg_.rotary_dim, cfg_.rope_theta,
+                                         cfg_.rope_scaling_dict, device=dev)
+    inv_plain, _ = make_inv_freq_scaled(cfg_.rotary_dim, cfg_.rope_theta, None, device=dev)
+    toks = torch.as_tensor(rng.integers(1, cfg_.vocab_size, (1, TRAIN_T)), dtype=torch.long,
+                           device=dev)
+    kernels.reset_launches()
+    kern = kv_logits(cfg_, model, toks, 0)
+    flash_n = kernels.FLASH.launches
+    with mock.patch.multiple(kernels, **plain):
+        pl = kv_logits(cfg_, model, toks, 0)
+    n_scaled = int((inv_scaled != inv_plain).sum())
+    held(f"(e) llama3-8b with Llama-3.1's rope_scaling, prefill T={TRAIN_T}", kern, pl,
+         f"; {n_scaled} of {inv_plain.numel()} frequencies scaled; flash launches {flash_n}")
+    check(n_scaled > 0 and flash_n == FLAGS_LAYERS, "phase 17 (e): scaled frequencies, flash launched")
+    del model
+
+    # (f) HF checkpoints of gemma2 and qwen2 ------------------------------
+    tmp = Path(tempfile.gettempdir())
+    root = Path(tempfile.mkdtemp(prefix="bigdl_hf_flags_", dir=tmp))
+    try:
+        for hf, preset in ((GEMMA2_9B_HF, "gemma2-9b"), (QWEN2_7B_HF, "qwen2-7b")):
+            name = hf["model_type"]
+            hf = dict(hf, vocab_size=presets[preset].vocab_size,
+                      hidden_size=presets[preset].hidden_size,
+                      intermediate_size=presets[preset].intermediate_size,
+                      num_attention_heads=presets[preset].num_attention_heads,
+                      num_key_value_heads=presets[preset].num_key_value_heads,
+                      **({"head_dim": presets[preset].head_dim} if "head_dim" in hf else {}))
+            want_cfg = dataclasses.replace(presets[preset], num_hidden_layers=hf["num_hidden_layers"])
+            check(ModelConfig.from_hf_config(hf) == want_cfg,
+                  f"phase 17 (f) {name}: config.json translates to the preset")
+            t0 = time.time()
+            total = write_hf_checkpoint(torch, root / name, hf, 58, dev)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            m = AutoModelForCausalLM.from_pretrained(str(root / name), load_in_low_bit="sym_int4",
+                                                     device=dev)
+            torch.cuda.synchronize()
+            ingest_s = time.time() - t1
+            # the same tensors through params_from_numpy and optimize_model
+            get = hf_mod.open_checkpoint(str(root / name))
+            Lf = m.config.num_hidden_layers
+            per = [hf_mod.layer_tensors(m.config, i, get) for i in range(Lf)]
+            arrays = {f"layers.{k}": torch.stack([d[k] for d in per]) for k in per[0]}
+            arrays.update(hf_mod.top_tensors(m.config, get))
+            ref = optimize_model(params_from_numpy(arrays, {}, m.config, device=dev), m.config,
+                                 "sym_int4")
+            del per, arrays
+            diff = 0
+            pairs = [(a.proj[k], b.proj[k]) for a, b in zip(m.params.layers, ref.layers) for k in a.proj]
+            if m.params.lm_head is not None:
+                pairs.append((m.params.lm_head, ref.lm_head))
+            for a, b in pairs:
+                for f in ARRAY_FIELDS + ("bias",):
+                    x, y = getattr(a, f, None), getattr(b, f, None)
+                    if (x is None) != (y is None):
+                        diff += 1
+                    elif x is not None:
+                        diff += int((x.detach().reshape(-1).view(torch.uint8)
+                                     != y.detach().reshape(-1).view(torch.uint8)).sum())
+            dense_same = all(torch.equal(getattr(a, n_), getattr(b, n_))
+                             for a, b in zip(m.params.layers, ref.layers)
+                             for n_ in ("attn_norm", "mlp_norm", "post_attn_norm", "post_mlp_norm")
+                             if getattr(a, n_) is not None) and torch.equal(m.params.embed, ref.embed)
+            del ref
+            out1 = m.generate(prompts, max_new_tokens=NEW_TOKENS)
+            out2 = m.generate(prompts, max_new_tokens=NEW_TOKENS)
+            ok = bool(((out1 >= 0) & (out1 < m.config.vocab_size)).all())
+            log(f"phase 17 (f) {name}: {hf['num_hidden_layers']}-layer HF checkpoint {total / 1e9:.3f} GB "
+                f"written in {t1 - t0:.3f} s, ingested in sym_int4 in {ingest_s:.3f} s; bytes differing "
+                f"from params_from_numpy + optimize_model over the same tensors: {diff}; dense leaves "
+                f"equal {dense_same}; greedy tokens (row 0) {out1[0].tolist()[:8]}..., second call "
+                f"identical {bool((out1 == out2).all())}")
+            check(diff == 0 and dense_same, f"phase 17 (f) {name}: the ingest's bytes")
+            check(ok and bool((out1 == out2).all()), f"phase 17 (f) {name}: tokens in the vocabulary, "
+                                                     "the same on a second call")
+            if name == "gemma2":
+                m.save_low_bit(str(root / "gemma2-art"))
+                back = AutoModelForCausalLM.load_low_bit(str(root / "gemma2-art"), verify="full",
+                                                         device=dev)
+                same = bool((back.generate(prompts, max_new_tokens=NEW_TOKENS) == out1).all())
+                log(f"phase 17 (f) gemma2: save_low_bit -> load_low_bit, greedy tokens identical {same}")
+                check(same, "phase 17 (f) gemma2: the artifact round trip keeps the tokens")
+                del back
+            del m
+            shutil.rmtree(root / name, ignore_errors=True)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 17: {time.time() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

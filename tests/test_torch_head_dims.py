@@ -1,7 +1,8 @@
 """Head dims on the card's attention wrappers: every preset the port
-admits runs its head_dim and GQA group through the flash prefill, paged
-decode and training flash wrappers (their card-side checks, run here on
-CPU tensors), an unported head_dim names its ROADMAP item, and the flash
+admits runs its head_dim and GQA group through each of the flash
+prefill, paged decode and training flash wrappers that the dispatch rule
+sends its paths to (their card-side checks, run here on CPU tensors), an
+unported head_dim names its ROADMAP item, and the flash
 wrappers' zero-padding of D (phi3-mini's 96 run at 128) gives the
 unpadded function. D = 96 against the JAX package's Pallas kernels in
 interpret mode is a case of test_torch_flash.py and
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from bigdl_tpu_torch import PRESETS
+from bigdl_tpu_torch.models import llama
 from bigdl_tpu_torch.models.llama import check_supported
 
 # the wrapper modules (the package's names are their entry functions)
@@ -45,25 +47,43 @@ def _bf16(*shape, seed=0):
 
 
 def test_every_admitted_preset_is_covered():
-    assert {"tiny-llama", "llama3-8b", "phi3-mini"} <= set(admitted_presets())
+    assert {"tiny-llama", "llama3-8b", "phi3-mini", "mistral-7b", "qwen2-7b",
+            "gemma2-9b"} <= set(admitted_presets())
+
+
+def reached_kernels(cfg) -> set:
+    """The attention kernels the preset's paths reach, by the dispatch
+    rule (`llama.attention_route`) over every layer: generate's prefill,
+    the paged engine's decode, the cache-free training step."""
+    calls = [("dense", "prefill", 64, False), ("paged", "decode", 1, True),
+             ("none", "prefill", 64, False)]
+    return {llama.attention_route(cfg, layer, *call).kernel
+            for call in calls for layer in range(cfg.num_hidden_layers)} - {"plain"}
 
 
 @pytest.mark.parametrize("name", sorted(admitted_presets()))
 def test_admitted_presets_head_dim_and_group_are_taken_by_the_card_wrappers(name):
     """The checks each wrapper runs before a launch, on the preset's head
-    dim and group: the flash prefill and the training flash take them
-    (padding D where the kernels were not built for it), the paged
-    decode takes them except for tiny-llama's D = 16."""
+    dim and group, for each kernel the dispatch sends the preset's paths
+    to: the flash prefill and the training flash take them (padding D
+    where the kernels were not built for it), the paged decode takes them
+    except for tiny-llama's D = 16. gemma2-9b's alternating windows and
+    softcap keep its prefill and training on the plain attention (JAX's
+    rule), so its D = 256 meets the paged kernel alone."""
     cfg = admitted_presets()[name]
+    reached = reached_kernels(cfg)
+    assert reached == ({"paged"} if name == "gemma2-9b" else {"flash", "paged", "flash_train"})
     D, Hq, Hkv = cfg.head_dim_, cfg.num_attention_heads, cfg.num_key_value_heads
     B, T, S = 1, 2, 4
     q, kv = _bf16(B, T, Hq, D), _bf16(B, S, Hkv, D, seed=1)
     start = torch.zeros(B, dtype=torch.int32)
-    fa._check(q, kv, kv, start)
-    assert fa.kernel_head_dim(D) in fa._HEAD_DIMS and fa.kernel_head_dim(D) >= D
-    fb._check(q, kv, kv, start)
-    lse = torch.zeros(B, T, Hq)
-    fb._check(q, kv, kv, start, q, lse, lse)
+    if "flash" in reached:
+        fa._check(q, kv, kv, start)
+        assert fa.kernel_head_dim(D) in fa._HEAD_DIMS and fa.kernel_head_dim(D) >= D
+    if "flash_train" in reached:
+        fb._check(q, kv, kv, start)
+        lse = torch.zeros(B, T, Hq)
+        fb._check(q, kv, kv, start, q, lse, lse)
     pool = _bf16(1, 2, 4, Hkv, D, seed=2)
     i32 = dict(dtype=torch.int32)
     args = (_bf16(B, Hq, D), pool, pool, torch.zeros(B, 2, **i32), torch.zeros(B, **i32),

@@ -3,11 +3,13 @@
 `ModelConfig.from_hf_config` against JAX's over HF config dicts of eight
 families; the port's safetensors reader (`convert.hf.open_checkpoint`)
 against the `safetensors` package, bit for bit, and chip_smoke.py's
-writer read back by the package; `load_hf_checkpoint` of a tiny llama and
-a tiny phi3 (fused qkv_proj/gate_up_proj, split and fused again) against
-JAX's: the same stored bytes for every tensor, prefill logits within
+writer read back by the package; `load_hf_checkpoint` of tiny llama,
+phi3 (fused qkv_proj/gate_up_proj, split and fused again), mistral,
+qwen2 (q/k/v biases), qwen3 (q/k norms), gemma2 (four norms, tied head)
+and the published phi3-mini-4k config (window 2047) against JAX's: the
+same stored bytes for every tensor, prefill logits within
 tests/test_torch_llama.py's tolerance, in sym_int4 and q4_k_m; and the
-refusals, each naming its ROADMAP item. Fixtures are written here with
+refusals, each naming its ROADMAP item before a tensor is read. Fixtures are written here with
 the `safetensors` package from seeds.
 """
 
@@ -158,27 +160,37 @@ def test_chip_smoke_writer_is_read_by_the_package(tmp_path):
 
 def _write_checkpoint(root, hf, seed):
     """config.json and one safetensors file of bf16 N(0, 0.02^2) weights
-    (phi3: fused qkv_proj and gate_up_proj), unit-ish norms."""
+    (phi3: fused qkv_proj and gate_up_proj), norms drawn around 1 (around
+    0 for gemma's (1 + w)); q/k/v and o biases N(0, 0.1^2) where the
+    config has them (qwen2's q/k/v always), gemma2's four norms a layer,
+    qwen3's q/k norms, and no lm_head.weight when the head is tied."""
     root.mkdir(parents=True, exist_ok=True)
     (root / "config.json").write_text(json.dumps(hf))
     rng = np.random.default_rng(seed)
+    mt = hf["model_type"]
     H, I, V = hf["hidden_size"], hf["intermediate_size"], hf["vocab_size"]
-    D = H // hf["num_attention_heads"]
+    D = hf.get("head_dim") or H // hf["num_attention_heads"]
     QD, KD = hf["num_attention_heads"] * D, hf["num_key_value_heads"] * D
+    norm_at = 0.0 if mt.startswith("gemma") else 1.0
+    tied = hf.get("tie_word_embeddings", mt.startswith("gemma"))
 
     def w(*shape, scale=0.02, loc=0.0):
         return torch.from_numpy((loc + scale * rng.standard_normal(shape)).astype(np.float32)
                                 ).to(torch.bfloat16)
 
-    ts = {"model.embed_tokens.weight": w(V, H), "model.norm.weight": w(H, scale=0.1, loc=1.0),
-          "lm_head.weight": w(V, H)}
+    def norm(n):
+        return w(n, scale=0.1, loc=norm_at)
+
+    ts = {"model.embed_tokens.weight": w(V, H), "model.norm.weight": norm(H)}
+    if not tied:
+        ts["lm_head.weight"] = w(V, H)
     for i in range(hf["num_hidden_layers"]):
         p = f"model.layers.{i}."
-        ts[p + "input_layernorm.weight"] = w(H, scale=0.1, loc=1.0)
-        ts[p + "post_attention_layernorm.weight"] = w(H, scale=0.1, loc=1.0)
+        ts[p + "input_layernorm.weight"] = norm(H)
+        ts[p + "post_attention_layernorm.weight"] = norm(H)
         ts[p + "self_attn.o_proj.weight"] = w(H, QD)
         ts[p + "mlp.down_proj.weight"] = w(H, I)
-        if hf["model_type"] == "phi3":
+        if mt == "phi3":
             ts[p + "self_attn.qkv_proj.weight"] = w(QD + 2 * KD, H)
             ts[p + "mlp.gate_up_proj.weight"] = w(2 * I, H)
         else:
@@ -187,23 +199,55 @@ def _write_checkpoint(root, hf, seed):
             ts[p + "self_attn.v_proj.weight"] = w(KD, H)
             ts[p + "mlp.gate_proj.weight"] = w(I, H)
             ts[p + "mlp.up_proj.weight"] = w(I, H)
+        if hf.get("attention_bias", mt == "qwen2"):
+            for n, rows in (("q", QD), ("k", KD), ("v", KD)):
+                ts[p + f"self_attn.{n}_proj.bias"] = w(rows, scale=0.1)
+        if mt == "gemma2":
+            ts[p + "pre_feedforward_layernorm.weight"] = norm(H)
+            ts[p + "post_feedforward_layernorm.weight"] = norm(H)
+        if mt == "qwen3":
+            ts[p + "self_attn.q_norm.weight"] = w(D, scale=0.1, loc=1.0)
+            ts[p + "self_attn.k_norm.weight"] = w(D, scale=0.1, loc=1.0)
     save_file(ts, str(root / "model.safetensors"))
     return root
 
 
+# tiny configurations of the families the ingest takes (the phi3-mini-4k
+# one is the published config.json at LLAMA's widths: its window 2047)
+INGEST = {
+    "llama": LLAMA,
+    "phi3": PHI3,
+    "mistral": {**LLAMA, "model_type": "mistral", "sliding_window": 4, "rope_theta": 1e6},
+    "qwen2": {**LLAMA, "model_type": "qwen2", "use_sliding_window": False,
+              "sliding_window": 32768, "max_window_layers": 28},
+    "qwen3": {**LLAMA, "model_type": "qwen3", "head_dim": 128, "attention_bias": False},
+    "gemma2": {**{k: v for k, v in LLAMA.items() if k != "tie_word_embeddings"},
+               "model_type": "gemma2", "head_dim": 128, "sliding_window": 4,
+               "query_pre_attn_scalar": 96, "attn_logit_softcapping": 0.5,
+               "final_logit_softcapping": 2.0, "hidden_activation": "gelu_pytorch_tanh",
+               "rms_norm_eps": 1e-6},
+    "phi3-mini-4k": {**PHI3_MINI_4K, **{k: PHI3[k] for k in (
+        "vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
+        "num_attention_heads", "num_key_value_heads", "max_position_embeddings")}},
+}
+
+
 @pytest.mark.parametrize("qtype", ["sym_int4", "q4_k_m"])
-@pytest.mark.parametrize("family", ["llama", "phi3"])
+@pytest.mark.parametrize("family", list(INGEST))
 def test_ingest_matches_jax(tmp_path, family, qtype, monkeypatch):
     """The port's ingest quantizes in row chunks (here 40 rows of 256, so
     every projection and the lm head goes in pieces): the same bytes as
-    JAX's one call a weight."""
+    JAX's one call a weight, the same dense leaves (biases merged into
+    bqkv, gemma2's four norms, qwen3's q/k norms, no lm_head when tied),
+    and prefill logits within test_torch_llama.py's bound."""
     monkeypatch.setenv("BIGDL_TPU_PALLAS", "0")
     monkeypatch.setattr(hf_mod, "QUANT_CHUNK", 40 * 256)
-    d = _write_checkpoint(tmp_path / family, LLAMA if family == "llama" else PHI3, 7)
+    d = _write_checkpoint(tmp_path / family, INGEST[family], 7)
     jm = JaxAuto.from_pretrained(str(d), load_in_low_bit=qtype)
     tm = AutoModelForCausalLM.from_pretrained(str(d), load_in_low_bit=qtype, device="cpu")
     assert dataclasses.asdict(tm.config) == dataclasses.asdict(jm.config)
     assert set(tm.params.layers[0].proj) == {"wqkv", "wo", "w_gateup", "w_down"}
+    assert (tm.params.lm_head is None) == tm.config.tie_word_embeddings
     jarrays, jmanifest = {}, {}
     jax_flatten(jm.params, "", jarrays, jmanifest)
     arrays, manifest = params_to_numpy(tm.params)
@@ -218,10 +262,15 @@ def test_ingest_matches_jax(tmp_path, family, qtype, monkeypatch):
 
 
 def test_refusals_name_their_roadmap_items(tmp_path):
+    """Each refusal names its item before a tensor is read (no tensor file
+    exists): gemma3's local rope is a llama flag still to port, cohere a
+    family, GPTQ the quantized checkpoints. phi3-mini-4k (window 2047) and
+    qwen2 (q/k/v bias) are ingest cases since the flags were ported."""
     cases = {
-        "phi3-mini-4k": (PHI3_MINI_4K, r"item \[4\]"),
-        "qwen2": (HF_CONFIGS["qwen2"] | {"attention_bias": True}, r"item \[4\]"),
-        "gemma2": (HF_CONFIGS["gemma2"], r"item \[9\]"),
+        "gemma3_text": ({**LLAMA, "model_type": "gemma3_text", "head_dim": 128,
+                         "sliding_window": 4, "rope_local_base_freq": 10000.0},
+                        r"item \[4\]"),
+        "cohere": ({**LLAMA, "model_type": "cohere", "logit_scale": 0.0625}, r"item \[9\]"),
         "gptq": (LLAMA | {"quantization_config": {"quant_method": "gptq", "bits": 4}},
                  r"item \[10\]"),
     }
@@ -233,3 +282,19 @@ def test_refusals_name_their_roadmap_items(tmp_path):
             AutoModelForCausalLM.from_pretrained(str(d), device="cpu")
     with pytest.raises(NotImplementedError, match=r"item \[10\]"):
         AutoModelForCausalLM.from_gguf(str(tmp_path / "model.gguf"))
+
+
+def test_unknown_rope_scheme_raises_before_any_tensor_is_read(tmp_path, monkeypatch):
+    """A rope_scaling type the JAX package does not compute raises in
+    check_supported, before the reader opens a shard: a complete
+    checkpoint sits beside the config, and every read fails the test."""
+    d = _write_checkpoint(tmp_path / "ckpt", {**LLAMA, "rope_scaling": {
+        "rope_type": "ntk-by-parts", "factor": 4.0}}, 3)
+
+    def no_read(*a, **kw):
+        raise AssertionError("a tensor was read")
+
+    monkeypatch.setattr(hf_mod, "read_header", no_read)
+    monkeypatch.setattr(hf_mod, "read_tensor", no_read)
+    with pytest.raises(NotImplementedError, match="rope_scaling type 'ntk-by-parts'"):
+        AutoModelForCausalLM.from_pretrained(str(d), device="cpu")

@@ -227,8 +227,13 @@ def test_unsupported_paths_raise(pair):
     for kw in ({"compress_kv": 8}, {"streaming_window": 64}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tm.generate(prompts, 2, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        llama.check_supported(dataclasses.replace(tcfg, qk_norm=True))
+    # qk_norm runs since the llama flags were ported (test_torch_flags.py);
+    # alibi and the experts still raise, naming their items
+    llama.check_supported(dataclasses.replace(tcfg, qk_norm=True))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item \[4\]"):
+        llama.check_supported(dataclasses.replace(tcfg, alibi=True))
+    with pytest.raises(NotImplementedError, match="MoE group"):
+        llama.check_supported(dataclasses.replace(tcfg, num_experts=4))
 
 
 # nf4 and q4_k_m at a width where every projection passes every format's

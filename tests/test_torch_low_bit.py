@@ -6,7 +6,10 @@ tests/test_torch_llama.py's tolerance, greedy tokens by its margin
 rule); the port writes and JAX's `load_low_bit(verify="full")` reads
 (the same tokens as the JAX model the weights came from); both packages
 save the same weights as the same npz member bytes, digests, manifest and
-model_config, in all 16 formats, q4_k_m and dense bf16. The durability paths
+model_config, in all 16 formats, q4_k_m and dense bf16, and for a
+gemma2-style and a qwen2-style model (their flags' leaves: bqkv,
+b_gateup, post and q/k norms, a tied head's missing lm_head), which
+each package also loads from the other's save. The durability paths
 (a flipped byte in every verify mode, salvage, verify_low_bit's rows,
 the format-version gate, the overwrite's new archive and sweep) are held
 to JAX's behaviour on the same bytes. All on the CPU at hidden 256,
@@ -30,14 +33,18 @@ from bigdl_tpu.api import TpuModel
 from bigdl_tpu.api import optimize_model as jax_optimize_model
 from bigdl_tpu.convert import load_low_bit as jax_load_low_bit
 from bigdl_tpu.convert import verify_low_bit as jax_verify_low_bit
+from bigdl_tpu.convert.low_bit import _flatten as jax_flatten_artifact
 from bigdl_tpu.models import llama as jllama
 from bigdl_tpu.models.config import ModelConfig as JaxConfig
 from bigdl_tpu.quant.qtypes import resolve_qtype, split_mixed_qtype
 from bigdl_tpu.utils.durability import IntegrityError as JaxIntegrityError
 from bigdl_tpu_torch import AutoModelForCausalLM, TorchModel, load_low_bit, verify_low_bit
-from bigdl_tpu_torch.convert import params_from_numpy
+from bigdl_tpu_torch.convert import params_from_numpy, params_to_numpy
 from bigdl_tpu_torch.models.config import ModelConfig
 from bigdl_tpu_torch.utils.durability import IntegrityError
+from test_torch_flags import BASE as FLAGS_BASE
+from test_torch_flags import GROUPS
+from test_torch_flags import _perturb as perturb
 from test_torch_llama import (NEW_TOKENS, PROMPT_LENS, _TOL_ULPS,
                               _assert_tokens_match_where_margin_allows, _flatten,
                               _jax_last_logits, _port_last_logits)
@@ -124,6 +131,70 @@ def test_both_packages_write_the_same_bytes(qtype, tmp_path):
         assert members["port"][name] == raw, name
     for key in ("format_version", "qtype", "model_config", "manifest", "integrity"):
         assert metas["port"][key] == metas["jax"][key], key
+
+
+# flagged configurations (tests/test_torch_flags.py's tiny widths, its
+# non-zero biases and norms): gemma2-style (every flag, tied head) and
+# qwen2-style (q/k/v biases, merged into bqkv)
+FLAGGED = {"gemma2": GROUPS["gemma2"], "qwen2": dict(model_type="qwen2", attention_bias=True)}
+
+
+@functools.lru_cache(maxsize=None)
+def flagged_model(name: str) -> TpuModel:
+    jcfg = JaxConfig(**FLAGS_BASE, **FLAGGED[name])
+    jparams = jax.jit(functools.partial(jllama.init_params, jcfg))(jax.random.PRNGKey(0))
+    jparams = jax.jit(lambda p: jax_optimize_model(p, jcfg, "sym_int4"))(
+        perturb(jparams, jcfg, 1))
+    return TpuModel(jcfg, jparams, "sym_int4")
+
+
+@pytest.mark.parametrize("name", list(FLAGGED))
+def test_flagged_artifacts_are_the_same_bytes_both_ways(name, tmp_path, monkeypatch):
+    """A flagged model saved by each package: the same npz members (bqkv,
+    b_gateup where the flags have them, gemma2's post norms and q/k norms,
+    no lm_head member when tied), digests, manifest and model_config.
+    Each package then loads the other's: the port JAX's (prefill logits
+    within test_torch_llama.py's bound, every array as JAX holds it), JAX
+    the port's under verify="full" (JAX's greedy tokens exactly)."""
+    monkeypatch.setenv("BIGDL_TPU_PALLAS", "0")
+    jm = flagged_model(name)
+    arrays, qtypes = {}, {}
+    _flatten(jm.params, "", arrays, qtypes)
+    tcfg = ModelConfig(**dataclasses.asdict(jm.config))
+    TorchModel(tcfg, params_from_numpy(arrays, qtypes, tcfg, device="cpu"), "sym_int4",
+               device="cpu").save_low_bit(str(tmp_path / "port"))
+    jm.save_low_bit(str(tmp_path / "jax"))
+    metas, members = {}, {}
+    for side in ("jax", "port"):
+        metas[side] = json.loads((tmp_path / side / "bigdl_tpu_config.json").read_text())
+        with zipfile.ZipFile(tmp_path / side / metas[side]["weights_file"]) as zf:
+            members[side] = {n: zf.read(n) for n in zf.namelist()}
+    assert members["port"].keys() == members["jax"].keys()
+    heads = [m for m in members["jax"] if m.startswith("lm_head")]
+    assert bool(heads) != jm.config.tie_word_embeddings, heads
+    want = {"gemma2": {"layers.bqkv.npy", "layers.b_gateup.npy", "layers.bo.npy",
+                       "layers.post_attn_norm.npy", "layers.q_norm.npy"},
+            "qwen2": {"layers.bqkv.npy"}}[name]
+    assert want <= members["jax"].keys()
+    for member, raw in members["jax"].items():
+        assert members["port"][member] == raw, member
+    for key in ("format_version", "qtype", "model_config", "manifest", "integrity"):
+        assert metas["port"][key] == metas["jax"][key], key
+
+    loaded = AutoModelForCausalLM.load_low_bit(str(tmp_path / "jax"), device="cpu")
+    got_arrays, _ = params_to_numpy(loaded.params)
+    jarrays = {}
+    jax_flatten_artifact(jm.params, "", jarrays, {})
+    assert got_arrays.keys() == jarrays.keys()
+    for k, a in jarrays.items():
+        np.testing.assert_array_equal(got_arrays[k], a, err_msg=k)
+    ref = _jax_last_logits(jm.config, jm.params, PROMPTS)
+    got = _port_last_logits(loaded.config, loaded.params, PROMPTS)
+    assert np.abs(got - ref).max() <= _TOL_ULPS * np.abs(ref).max()
+    back = JaxAuto.load_low_bit(str(tmp_path / "port"), verify="full")
+    assert back.salvage_report is None and back.config == jm.config
+    np.testing.assert_array_equal(back.generate(PROMPTS, NEW_TOKENS),
+                                  jm.generate(PROMPTS, NEW_TOKENS))
 
 
 def _flip_byte(path, member):

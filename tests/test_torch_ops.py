@@ -71,8 +71,15 @@ def test_rope_matches_jax():
 
 
 def test_rope_scaling_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_inv_freq_scaled(128, 500000.0, {"rope_type": "llama3", "factor": 8.0})
+    """Llama-3.1's scheme is computed as JAX computes it (every scheme:
+    test_torch_flags.py); a scheme the JAX package does not know raises."""
+    rs = {"rope_type": "llama3", "factor": 8.0}
+    inv_j, sc_j = jrope.make_inv_freq_scaled(128, 500000.0, rs)
+    inv_t, sc_t = make_inv_freq_scaled(128, 500000.0, rs)
+    assert sc_t == sc_j == 1.0
+    np.testing.assert_allclose(inv_t.numpy(), np.asarray(inv_j), rtol=2e-6)
+    with pytest.raises(NotImplementedError, match="rope_scaling type 'ntk-by-parts'"):
+        make_inv_freq_scaled(128, 500000.0, {"rope_type": "ntk-by-parts", "factor": 8.0})
 
 
 def test_masked_gqa_attention_matches_jax():
@@ -89,6 +96,45 @@ def test_masked_gqa_attention_matches_jax():
                         jnp.asarray(v, jnp.bfloat16), jnp.asarray(mask))
     got = attention(_t(q), _t(k), _t(v), torch.from_numpy(mask))
     _close_bf16(got.float().numpy(), ref)
+
+
+def test_rms_norm_offset_matches_jax():
+    """gemma's (1 + w): formed in f32 after the weight's cast, so weights
+    of 1e-3 (which 1 + w in bf16 would round away) scale the output as
+    JAX's do."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2, 5, 256)).astype(np.float32)
+    w = (1e-3 * rng.normal(size=(256,))).astype(np.float32)
+    ref = jnorms.rms_norm(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16), 1e-6,
+                          offset=True)
+    got = rms_norm(_t(x), _t(w), 1e-6, offset=True)
+    _close_bf16(got.float().numpy(), ref)
+    plain = rms_norm(_t(x), _t(np.ones_like(w)), 1e-6)
+    assert not torch.equal(got, plain)  # the small weights moved outputs
+
+
+@pytest.mark.parametrize("T", [1, 6])
+def test_attention_scale_and_softcap_match_jax(T):
+    """gemma2's scale and softcap, capped before the mask as JAX caps: a
+    cap after the mask would give masked slots weight (-1e30 -> -cap)."""
+    rng = np.random.default_rng(5)
+    B, S, Hq, Hkv, D = 2, 24, 4, 2, 64
+    q, k, v = (rng.normal(size=s) for s in ((B, T, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    start, pos = np.array([0, 7]), 14
+    sj, slots = np.arange(S), pos + np.arange(T)
+    mask = ((sj[None, None, :] <= slots[None, :, None])
+            & (sj[None, None, :] >= start[:, None, None])
+            & (sj[None, None, :] > slots[None, :, None] - 4))[:, None, None]
+    ref = jax_attention(jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
+                        jnp.asarray(v, jnp.bfloat16), jnp.asarray(mask), scale=0.3,
+                        softcap=2.0)
+    got = attention(_t(q), _t(k), _t(v), torch.from_numpy(mask), scale=0.3, softcap=2.0)
+    _close_bf16(got.float().numpy(), ref)
+    # masked slots take no weight: v moved there changes nothing
+    v2 = v.copy()
+    v2[:, 0] += 100.0
+    again = attention(_t(q), _t(k), _t(v2), torch.from_numpy(mask), scale=0.3, softcap=2.0)
+    assert torch.equal(again, got)
 
 
 def test_kvcache_positions_and_update_match_jax():
