@@ -5,14 +5,17 @@ a dense model, `TorchModel.generate` runs greedy or sampled generation,
 HuggingFace safetensors checkpoint (`from_pretrained`).
 
 `TorchModel` places its model on the card unless told otherwise; without
-a card it raises and asks for device="cpu". SnapKV (`compress_kv`) and
-attention-sink streaming (`streaming_window`) raise until ported; the
-serving engine is `serving.engine.InferenceEngine`.
+a card it raises and asks for device="cpu". `generate` takes the JAX
+package's KV-cache policies: the fp8 cache (`quantize_kv`), SnapKV
+(`compress_kv`) and attention-sink streaming (`streaming_window`), with
+their environment defaults; multi-turn chat is `chat.ChatSession`, the
+serving engine `serving.engine.InferenceEngine`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -68,16 +71,21 @@ class TorchModel:
         seed: int = 0,
         quantize_kv: bool = False,
         compress_kv: Optional[int] = None,
+        compress_window: int = 32,
         streaming_window: Optional[int] = None,
+        streaming_sink: int = 4,
     ) -> np.ndarray:
         """prompts: ragged list of token-id lists (or a [B, T] array).
-        Returns [B, max_new_tokens] generated ids."""
-        for name, on in (("compress_kv", compress_kv is not None),
-                         ("streaming_window", streaming_window is not None)):
-            if on:
-                raise NotImplementedError(
-                    f"generate({name}=...): ROADMAP queue 1, {name} is still "
-                    "to be ported")
+        Returns [B, max_new_tokens] generated ids.
+
+        quantize_kv keeps the KV cache in fp8 (default:
+        BIGDL_TPU_QUANTIZE_KV_CACHE); compress_kv is SnapKV's budget in
+        slots (default: BIGDL_TPU_COMPRESS_KV_CACHE with _BUDGET), applied
+        only when the prompt bucket is longer than the budget, with an
+        observation window of compress_window. streaming_window makes the
+        cache a fixed ring of that many slots, the first streaming_sink
+        tokens kept, so max_new_tokens may exceed it (equal-length prompts
+        shorter than the window)."""
         if isinstance(prompts, np.ndarray):
             prompts = [list(row) for row in prompts]
         if not prompts:
@@ -95,13 +103,59 @@ class TorchModel:
         if top_k is not None:
             # HF semantics: top_k <= 0 disables; larger than vocab caps
             top_k = None if top_k <= 0 else min(top_k, self.config.vocab_size)
-        tokens, start = pad_prompts(prompts, pad_token_id)
+        # environment defaults; an explicit argument wins
+        explicit_quantize_kv, explicit_compress_kv = quantize_kv, compress_kv
+        quantize_kv = quantize_kv or flags.quantize_kv_default()
+        if compress_kv is None:
+            compress_kv = flags.compress_kv_budget()
+        longest = max(len(p) for p in prompts)
+        if (compress_kv is not None and longest > compress_kv
+                and (self.config.sliding_window or self.config.alibi)):
+            # compressed slots are no longer positions, so window masks and
+            # slot-distance biases would be wrong
+            warnings.warn("SnapKV compress_kv skipped: incompatible with "
+                          "sliding-window/ALiBi attention for this config")
+            compress_kv = None
+        if (flags.performance_mode() and streaming_window is None and not do_sample
+                and compress_kv is None and repetition_penalty == 1.0 and longest >= 256):
+            raise NotImplementedError(
+                "BIGDL_TPU_PERFORMANCE_MODE switches generate to prompt-lookup "
+                "decoding: ROADMAP queue 1 item [7], decode/lookup.py is still to "
+                "be ported (unset the flag for plain decoding)")
+        streaming = None
+        if streaming_window is not None:
+            from bigdl_tpu_torch.streaming import validate_streaming
+
+            validate_streaming(self.config, streaming_window, streaming_sink)
+            if explicit_quantize_kv or explicit_compress_kv is not None:
+                raise ValueError("streaming_window is incompatible with quantize_kv/"
+                                 "compress_kv — the evicted keys are re-based in place")
+            if quantize_kv or compress_kv is not None:
+                warnings.warn("streaming_window: ignoring env-default "
+                              "quantize_kv/compress_kv for this call")
+                quantize_kv, compress_kv = False, None
+            lens = {len(p) for p in prompts}
+            if len(lens) > 1:
+                raise ValueError(
+                    "streaming_window needs equal-length prompts (the sink slots "
+                    "must hold real tokens in every row) — batch equal lengths or "
+                    "generate per prompt")
+            if longest >= streaming_window:
+                raise ValueError(
+                    f"prompt ({longest} tokens) must be shorter than streaming_window "
+                    f"({streaming_window}); raise the window or pre-truncate the prompt")
+            streaming = (streaming_sink, streaming_window)
+        # streaming pads to the exact prompt length: the sinks hold real
+        # tokens, and a bucket as long as the window would leave no room
+        tokens, start = pad_prompts(prompts, pad_token_id,
+                                    bucket=longest if streaming is not None else None)
         gen = GenerationConfig(
             max_new_tokens=max_new_tokens, do_sample=do_sample,
             temperature=temperature, top_k=top_k, top_p=top_p,
             repetition_penalty=repetition_penalty, eos_token_id=eos_token_id,
             pad_token_id=pad_token_id,
         )
+        budget = compress_kv if compress_kv is not None and tokens.shape[1] > compress_kv else 0
         generator = None
         if do_sample:
             generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -110,9 +164,13 @@ class TorchModel:
             torch.as_tensor(tokens, device=self.device),
             torch.as_tensor(start, device=self.device),
             generator, gen,
-            cache_len=cache_len_for(tokens.shape[1], max_new_tokens),
+            cache_len=(streaming_window if streaming is not None
+                       else cache_len_for(tokens.shape[1], max_new_tokens)),
             last_logits=flags.last_lm_head_default(),
             quantize_kv=quantize_kv,
+            compress_budget=budget,
+            compress_window=min(compress_window, max(budget - 1, 1)),
+            streaming=streaming,
         )
         return out.cpu().numpy().astype(np.int32)
 

@@ -17,6 +17,11 @@ layout the port's `forward` runs: the fused one the JAX package's
 `optimize_model` makes by default (wqkv, w_gateup), or the unfused one of
 its `init_params` (wq/wk/wv, w_gate/w_up).
 
+The embedding may be low-bit (`embedding.quantize_embedding`): its
+fields ride under "embed@<field>" as any QTensor's, both ways. A
+HostEmbedding has no place in the flattening, and `params_to_numpy`
+refuses it.
+
 The leaves of the llama flags ride along under JAX's names: the biases
 (bq/bk/bv or bqkv, bo, b_gate/b_up or b_gateup, b_down) on their
 projections, the post-norms and q/k norms on the layers; a tied model
@@ -36,6 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from bigdl_tpu_torch.embedding import HostEmbedding
 from bigdl_tpu_torch.models.config import ModelConfig
 from bigdl_tpu_torch.models.llama import (BIAS_OF, OPTIONAL_NORMS, DecoderLayer,
                                           LlamaModel, check_supported)
@@ -126,7 +132,7 @@ def params_from_numpy(arrays: dict[str, np.ndarray], qtypes: dict[str, str],
         layers.append(DecoderLayer(tensor("layers.attn_norm", i),
                                    tensor("layers.mlp_norm", i), proj, **norms))
     head = Linear(weight("lm_head")) if "lm_head" in paths else None
-    return LlamaModel(tensor("embed"), layers, tensor("final_norm"), head)
+    return LlamaModel(weight("embed"), layers, tensor("final_norm"), head)
 
 
 def params_to_numpy(model: LlamaModel) -> tuple[dict[str, np.ndarray], dict[str, dict]]:
@@ -170,6 +176,10 @@ def params_to_numpy(model: LlamaModel) -> tuple[dict[str, np.ndarray], dict[str,
                 for f in ARRAY_FIELDS if getattr(vals[0], f) is not None})
         return torch.stack([v.detach().cpu() for v in vals])
 
+    if isinstance(model.embed, HostEmbedding):
+        raise ValueError("params_to_numpy: the embedding is a HostEmbedding, a table "
+                         "on the host that the artifact does not carry (the JAX "
+                         "package refuses it too); save with the dense or low-bit table")
     tree = {"embed": model.embed, "final_norm": model.final_norm}
     if model.lm_head is not None:
         tree["lm_head"] = leaf(model.lm_head)

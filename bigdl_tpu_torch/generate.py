@@ -5,7 +5,11 @@ program (`lax.while_loop`); here the loop is Python over eager launches
 and sampling draws from an explicit `torch.Generator`. Prompts are
 left-padded to a power-of-two bucket, as in JAX. The per-row sampler and
 the repetition penalty (`sample_token_per_row`, `apply_repetition_penalty`)
-serve the serving engine as well.
+serve the serving engine as well. Two cache policies ride on the loop:
+SnapKV compresses the prompt's cache after the prefill
+(`kvcache.compress`), and attention-sink streaming evicts the oldest
+non-sink slots before a decode step that finds the cache full
+(`streaming.make_sink_shift`).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 from bigdl_tpu_torch import kvcache
 from bigdl_tpu_torch.models import llama
 from bigdl_tpu_torch.models.config import ModelConfig
+from bigdl_tpu_torch.utils import cache_len_for
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,17 +147,42 @@ def generate_tokens(config: ModelConfig, params, tokens: torch.Tensor,
                     start: torch.Tensor, generator: Optional[torch.Generator],
                     gen: GenerationConfig, cache_len: int,
                     last_logits: bool = True,
-                    quantize_kv: bool = False) -> torch.Tensor:
+                    quantize_kv: bool = False, compress_budget: int = 0,
+                    compress_window: int = 32, compress_kernel: int = 7,
+                    streaming: Optional[tuple] = None) -> torch.Tensor:
     """Prefill + decode loop. tokens [B, T] left-padded, start [B] int32,
     both on the model's device. Returns [B, max_new_tokens] generated ids
     (pad_token_id after a row's EOS); stops early once every row hit EOS.
     With a repetition penalty the prompt's real tokens and every emitted
     id (the pad after EOS too, as in JAX) count as seen. `quantize_kv`
     keeps the KV cache as float8_e5m2 codes with f16 scales.
+
+    compress_budget > 0: SnapKV compresses the prompt's cache to that many
+    slots after the prefill (observation window `compress_window`, pooling
+    `compress_kernel`) and the decode runs on a cache of
+    cache_len_for(budget, max_new_tokens) slots. streaming = (sink, window)
+    or (sink, window, chunk): the cache is `window` slots (cache_len) and
+    the oldest `chunk` non-sink slots go before each decode step that
+    finds it full, so max_new_tokens may exceed it.
     """
     B, T = tokens.shape
-    if cache_len < T + gen.max_new_tokens:
+    shift = None
+    if streaming is not None:
+        from bigdl_tpu_torch.streaming import default_chunk, make_sink_shift
+
+        sink, window = streaming[:2]
+        chunk = streaming[2] if len(streaming) > 2 else default_chunk(window, sink)
+        if cache_len != window or cache_len <= T:
+            raise ValueError(f"streaming: cache_len {cache_len} must be the window "
+                             f"{window} and exceed the prompt {T}")
+        if quantize_kv or compress_budget:
+            raise ValueError("streaming takes neither quantize_kv nor compress_budget")
+        shift = make_sink_shift(config, window, sink, chunk)
+    elif cache_len < T + gen.max_new_tokens:
         raise ValueError(f"cache_len {cache_len} < {T} + {gen.max_new_tokens}")
+    if compress_budget and compress_budget <= compress_window:
+        raise ValueError(f"compress_budget {compress_budget} must exceed the window "
+                         f"{compress_window}")
     cache = kvcache.init_cache(
         config.num_hidden_layers, B, cache_len, config.num_key_value_heads,
         config.head_dim_, quantize_kv=quantize_kv, device=tokens.device)
@@ -167,8 +197,17 @@ def generate_tokens(config: ModelConfig, params, tokens: torch.Tensor,
             logits = apply_repetition_penalty(logits, seen, gen.repetition_penalty)
         return sample_token(logits, generator, gen)
 
-    logits, cache = llama.forward(config, params, tokens, cache,
-                                  mode="prefill", last_logits_only=last_logits)
+    if compress_budget:
+        logits, cache, obs = llama.forward(config, params, tokens, cache, mode="prefill",
+                                           last_logits_only=last_logits,
+                                           collect_obs=compress_window)
+        cache = kvcache.compress(cache, obs, compress_budget,
+                                 cache_len_for(compress_budget, gen.max_new_tokens),
+                                 window=compress_window, kernel=compress_kernel)
+        del obs
+    else:
+        logits, cache = llama.forward(config, params, tokens, cache,
+                                      mode="prefill", last_logits_only=last_logits)
     cur = next_token(logits[:, -1])
     out = torch.full((B, gen.max_new_tokens), gen.pad_token_id,
                      dtype=torch.long, device=tokens.device)
@@ -180,6 +219,8 @@ def generate_tokens(config: ModelConfig, params, tokens: torch.Tensor,
             break
         if use_rep:
             seen[rows, cur] = True
+        if shift is not None:
+            cache = shift(cache)
         logits, cache = llama.forward(config, params, cur[:, None], cache,
                                       mode="decode")
         cur = next_token(logits[:, -1])

@@ -14,6 +14,13 @@ copy per layer per step would double its traffic.
 With `quantize_kv` k/v hold float8_e5m2 codes with one float16 scale per
 (slot, head) vector (`_quantize_heads`); `read_layer` dequantizes,
 `read_layer_raw` hands codes and scales to the flash kernel's fp8 arm.
+
+SnapKV (`compress`): after a prefill, the last `window` queries of every
+layer score the earlier keys; the scores, summed over the window and the
+query group and average-pooled, keep the `budget - window` best prefix
+slots of each kv head beside the window itself, compacted into a fresh
+cache. Keys are stored rotated, so compacted slots no longer give rope
+positions: `rope_base` carries each row's true next position.
 """
 
 from __future__ import annotations
@@ -22,10 +29,12 @@ import dataclasses
 from typing import Optional, Union
 
 import torch
+import torch.nn.functional as F
 
 from bigdl_tpu_torch.utils import resolve_device
 
 _FP8_MAX = 57344.0  # float8_e5m2 finite max
+_NEG_INF = -1e30
 FP8 = torch.float8_e5m2
 
 
@@ -37,6 +46,9 @@ class KVCache:
     start: torch.Tensor  # [B] int32: first valid slot per row (left padding)
     k_scale: Optional[torch.Tensor] = None  # [L, B, S, Hkv] f16 when fp8
     v_scale: Optional[torch.Tensor] = None
+    # [B] int32 rope position of the token written at slot `pos` where it
+    # differs from pos - start: after SnapKV compression. None: derived
+    rope_base: Optional[torch.Tensor] = None
 
     @property
     def max_len(self) -> int:
@@ -47,9 +59,13 @@ class KVCache:
         return self.k_scale is not None
 
     def next_positions(self, t: int) -> torch.Tensor:
-        """[B, T] rope positions of the next t tokens: slot s of row b has
-        position max(s - start[b], 0), so left-padded rows number their
-        real tokens from 0 and decode continues them."""
+        """[B, T] rope positions of the next t tokens: rope_base[b] + t
+        after compression, else slot s of row b has position
+        max(s - start[b], 0), so left-padded rows number their real tokens
+        from 0 and decode continues them."""
+        if self.rope_base is not None:
+            step = torch.arange(t, dtype=torch.int32, device=self.rope_base.device)
+            return self.rope_base[:, None] + step[None, :]
         return next_positions(self.pos, self.start, t)
 
 
@@ -171,7 +187,11 @@ def read_layer_raw(cache: KVCache, layer: int):
 
 
 def advance(cache, n: int):
-    return dataclasses.replace(cache, pos=cache.pos + n)
+    """The cache with pos (and rope_base, where set) moved on by n."""
+    rope_base = getattr(cache, "rope_base", None)
+    if rope_base is None:
+        return dataclasses.replace(cache, pos=cache.pos + n)
+    return dataclasses.replace(cache, pos=cache.pos + n, rope_base=rope_base + n)
 
 
 def insert_row(cache: KVCache, pcache: KVCache, slot: int, pad: int) -> KVCache:
@@ -216,3 +236,111 @@ def swap_in_row(cache: KVCache, k, v, k_scale, v_scale, slot: int, pos: int,
     cache.pos[slot] = pos
     cache.start[slot] = start
     return cache
+
+
+# ---------------------------------------------------------------------------
+# SnapKV compression (port of bigdl_tpu/kvcache.py:291-427)
+# ---------------------------------------------------------------------------
+
+def _avg_pool_1d(x: torch.Tensor, kernel: int) -> torch.Tensor:
+    """Mean pool with 'same' padding over the last axis (zeros beyond the
+    ends count in the mean, as JAX's reduce_window sum / kernel)."""
+    if kernel <= 1:
+        return x
+    pad = kernel // 2
+    windows = F.pad(x, (pad, kernel - 1 - pad)).unfold(-1, kernel, 1)
+    return windows.sum(-1) / kernel
+
+
+def snapkv_select(vote: torch.Tensor, prefix: torch.Tensor, keep_k: int) -> torch.Tensor:
+    """The slots [B, Hkv, keep_k] SnapKV keeps from pooled votes [B, Hkv,
+    S]: the keep_k largest (equal votes lower slot first: XLA's TopK order,
+    which torch.topk does not promise), in slot order after the picks off
+    the prefix (`prefix` [B, S] bool), which go first, left of the new
+    start (a stable sort keeps their order too, as JAX's argsort does)."""
+    idx = torch.sort(vote, dim=-1, descending=True, stable=True).indices[..., :keep_k]
+    valid = torch.gather(prefix[:, None, :].expand(vote.shape), -1, idx)
+    perm = torch.argsort(torch.where(valid, idx, -1), dim=-1, stable=True)
+    return torch.gather(idx, -1, perm)
+
+
+def snapkv_prefix(start: torch.Tensor, pos: int, window: int, S: int) -> torch.Tensor:
+    """[B, S] bool: the slots SnapKV scores, each row's valid slots before
+    the observation window [pos - window, pos)."""
+    sj = torch.arange(S, device=start.device)
+    return (sj[None, :] >= start.to(torch.long)[:, None]) & (sj[None, :] < pos - window)
+
+
+def snapkv_votes(k: torch.Tensor, k_scale: Optional[torch.Tensor], q_obs: torch.Tensor,
+                 prefix: torch.Tensor, kernel: int) -> torch.Tensor:
+    """One layer's pooled votes [B, Hkv, S] (f32): the softmax scores of
+    the observation queries q_obs [B, W, Hq, D] over the prefix slots
+    (`prefix` [B, S] bool) of k [B, S, Hkv, D] (fp8 codes dequantized with
+    k_scale), summed over the window and the query group, average-pooled
+    over `kernel` slots; -1e30 off the prefix."""
+    B, S, Hkv, D = k.shape
+    W, Hq = q_obs.shape[1], q_obs.shape[2]
+    kf = k.float()
+    if k_scale is not None:
+        kf = kf * k_scale.float()[..., None]
+    qg = q_obs.float().reshape(B, W, Hkv, Hq // Hkv, D)
+    scores = torch.einsum("bwhgd,bshd->bhgws", qg, kf) * (1.0 / D ** 0.5)
+    del kf
+    pm = prefix[:, None, None, None, :]
+    scores = scores.masked_fill(~pm, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1).masked_fill(~pm, 0.0)
+    del scores
+    vote = _avg_pool_1d(probs.sum(dim=(2, 3)), kernel)
+    return vote.masked_fill(~prefix[:, None, :], _NEG_INF)
+
+
+def compress(cache: KVCache, q_obs: torch.Tensor, budget: int, out_len: int,
+             window: int = 32, kernel: int = 7) -> KVCache:
+    """SnapKV: keep, per kv head, the `budget - window` prefix slots with
+    the largest pooled votes (`snapkv_votes`) in their order, then the
+    `window` observation slots, compacted into a fresh cache of `out_len`
+    slots (budget plus decode room). q_obs [L, B, W, Hq, D] holds each
+    layer's last W rotated queries (`models.llama.forward(collect_obs=W)`).
+    Works a layer at a time, so the f32 scores stay at 1/L of the cache;
+    an fp8 cache keeps its codes and scales (the votes dequantize). Slots
+    picked past a row's prefix go left of the new `start`, which masks
+    them. Returns a cache with pos = budget, start = keep_k - kept +
+    (pad slots inside the window) and rope_base = the row's next
+    position."""
+    L, B, S, Hkv, D = cache.k.shape
+    W = q_obs.shape[2]
+    keep_k = budget - W
+    if keep_k <= 0:
+        raise ValueError(f"budget {budget} must exceed the observation window {W}")
+    if isinstance(cache.pos, torch.Tensor):
+        raise ValueError("compress expects an aligned cache (one pos for all rows)")
+    P = cache.pos
+    start = cache.start.to(torch.long)
+    obs_start = P - W
+    prefix = snapkv_prefix(cache.start, P, W, S)
+
+    fields = [cache.k, cache.v] + ([cache.k_scale, cache.v_scale] if cache.quantized else [])
+    out = [torch.zeros((L, B, out_len) + f.shape[3:], dtype=f.dtype, device=f.device)
+           for f in fields]
+    for layer in range(L):
+        vote = snapkv_votes(cache.k[layer], cache.k_scale[layer] if cache.quantized else None,
+                            q_obs[layer], prefix, kernel)
+        idx = snapkv_select(vote, prefix, keep_k)  # [B, Hkv, keep_k]
+        for src, dst in zip(fields, out):
+            x = as_bits(src[layer])  # [B, S, Hkv, *feat]
+            xt = x.movedim(2, 1)  # [B, Hkv, S, *feat]
+            ix = idx.reshape(idx.shape + (1,) * (xt.dim() - 3)).expand(
+                idx.shape + xt.shape[3:])
+            sel = torch.gather(xt, 2, ix).movedim(1, 2)  # [B, keep_k, Hkv, *feat]
+            d = as_bits(dst[layer])
+            d[:, :keep_k] = sel
+            d[:, keep_k:budget] = x[:, obs_start:P]
+    avail = torch.clamp(obs_start - start, min=0)
+    kept = torch.clamp(avail, max=keep_k)
+    pad_in_obs = torch.clamp(start - obs_start, min=0)
+    new = KVCache(k=out[0], v=out[1], pos=budget,
+                  start=(keep_k - kept + pad_in_obs).to(torch.int32),
+                  rope_base=torch.clamp(P - start, min=0).to(torch.int32))
+    if cache.quantized:
+        new.k_scale, new.v_scale = out[2], out[3]
+    return new

@@ -57,6 +57,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from bigdl_tpu_torch import kvcache
+from bigdl_tpu_torch.embedding import HostEmbedding, embed_lookup
 from bigdl_tpu_torch.kvcache import KVCache
 from bigdl_tpu_torch.kvpaged import PagedKVCache
 from bigdl_tpu_torch.models.config import ModelConfig
@@ -168,15 +169,37 @@ class DecoderLayer(nn.Module):
 
 class LlamaModel(nn.Module):
     """Embedding table, decoder layers, final norm and lm head (None when
-    the head is tied to the embedding)."""
+    the head is tied to the embedding). `embed` is the table in any of
+    the three forms `embedding.embed_lookup` takes (`set_embed`)."""
 
-    def __init__(self, embed: torch.Tensor, layers: list[DecoderLayer],
-                 final_norm: torch.Tensor, lm_head: Optional[Linear]):
+    def __init__(self, embed: Union[torch.Tensor, QTensor, HostEmbedding],
+                 layers: list[DecoderLayer], final_norm: torch.Tensor,
+                 lm_head: Optional[Linear]):
         super().__init__()
-        self.embed = _frozen(embed)
+        self.set_embed(embed)
         self.layers = nn.ModuleList(layers)
         self.final_norm = _frozen(final_norm)
         self.lm_head = lm_head
+
+    def set_embed(self, embed: Union[torch.Tensor, QTensor, HostEmbedding]) -> None:
+        """Replace the embedding table: a dense tensor becomes the frozen
+        parameter `embed`; a low-bit QTensor's fields become the buffers
+        of `low_bit_embed` (a Linear), which move with the model and read
+        back as `embed`; a HostEmbedding stays a plain attribute, which
+        `nn.Module.to` leaves on the host."""
+        for name in ("embed", "low_bit_embed"):
+            self._parameters.pop(name, None)
+            self._modules.pop(name, None)
+            self.__dict__.pop(name, None)
+        if isinstance(embed, QTensor):
+            self.low_bit_embed = Linear(embed)
+        else:
+            self.embed = embed if isinstance(embed, HostEmbedding) else _frozen(embed)
+
+    def __getattr__(self, name: str):
+        if name == "embed" and "low_bit_embed" in self.__dict__["_modules"]:
+            return self.__dict__["_modules"]["low_bit_embed"].w
+        return super().__getattr__(name)
 
 
 def make_trainable(model: LlamaModel) -> list[nn.Parameter]:
@@ -310,10 +333,11 @@ def merge_fused_params(model: LlamaModel, config: ModelConfig) -> LlamaModel:
 
 def embed_tokens(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
                  compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """The embedding rows in the compute dtype; gemma's scale_embeddings
+    """The embedding rows in the compute dtype, from a dense, low-bit or
+    host table (`embedding.embed_lookup`); gemma's scale_embeddings
     multiplies by sqrt(hidden) rounded to the compute dtype first, as JAX
     does (59.75 for hidden 3584 in bf16)."""
-    h = model.embed.to(compute_dtype)[tokens]
+    h = embed_lookup(model.embed, tokens, compute_dtype)
     if config.scale_embeddings:
         h = h * torch.tensor(config.hidden_size ** 0.5, dtype=compute_dtype,
                              device=h.device)
@@ -326,11 +350,19 @@ def _softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 
 def lm_head_logits(config: ModelConfig, model: LlamaModel, h: torch.Tensor,
                    compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Final norm + lm head (the embedding when tied, a dense product as
-    in JAX), logits in float32, then the final softcap."""
+    """Final norm + lm head (the embedding when tied: a dense product, or
+    the quantized one of a low-bit table, as in JAX), logits in float32,
+    then the final softcap. A tied head over a HostEmbedding raises
+    AttributeError, as the JAX package's linear does on it: the head
+    would need the whole table on the device."""
     h = rms_norm(h, model.final_norm, config.rms_norm_eps,
                  offset=config.rms_norm_offset)
     if model.lm_head is None:
+        if isinstance(model.embed, HostEmbedding):
+            raise AttributeError(
+                "a tied lm head multiplies by the whole embedding table on the "
+                "device; a HostEmbedding keeps it on the host (untie the head, "
+                "or keep the table dense or low-bit)")
         logits = linear(h, model.embed, None, compute_dtype)
     else:
         logits = model.lm_head(h, compute_dtype)
@@ -400,14 +432,18 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
             cache: Optional[Union[KVCache, PagedKVCache]], mode: str = "prefill",
             compute_dtype=torch.bfloat16, last_logits_only: bool = False,
             start: Optional[torch.Tensor] = None,
-            lora=None, remat: bool = False) -> tuple[torch.Tensor, Optional[KVCache]]:
+            lora=None, remat: bool = False, collect_obs: int = 0):
     """Returns (logits [B, T, V] float32 — [B, 1, V] with
     last_logits_only — and the cache with pos advanced by T, or None
     without a cache). The cache is written in place; its pos is an int
     (rows aligned) or an int32 [B] tensor (per-row, the serving engine's
-    pools). `start` [B] gives the left padding of the cache-free path (the
-    cache carries its own); `lora` is a shared or batched adapter tree;
-    `remat` (cache-free only) recomputes each layer in the backward."""
+    pools); a compressed cache's rope_base gives the positions. `start`
+    [B] gives the left padding of the cache-free path (the cache carries
+    its own); `lora` is a shared or batched adapter tree; `remat`
+    (cache-free only) recomputes each layer in the backward.
+    `collect_obs` = W > 0 also returns, third, every layer's last W
+    rotated queries [L, B, W, Hq, D], SnapKV's observation window
+    (`kvcache.compress`)."""
     if mode not in ("prefill", "decode"):
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
     if remat and cache is not None:
@@ -498,6 +534,8 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
         if config.qk_norm:
             q, k = norm(q, layer.q_norm), norm(k, layer.k_norm)
         q, k = apply_rotary_emb(q, k, cos, sin)
+        if collect_obs:  # a copy: a view would keep the layer's whole q alive
+            obs.append(q[:, T - collect_obs:].clone())
 
         attend = dict(scale=route.scale, softcap=route.softcap, window=route.window)
         if route.kernel == "flash_train":
@@ -541,6 +579,7 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
             down = norm(down, layer.post_mlp_norm)
         return h + down
 
+    obs = []
     for idx in range(len(model.layers)):
         if remat and torch.is_grad_enabled():
             h = torch.utils.checkpoint.checkpoint(decoder_layer, h, idx,
@@ -551,4 +590,7 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
     if last_logits_only:
         h = h[:, -1:]
     logits = lm_head_logits(config, model, h, compute_dtype)
-    return logits, (None if cache is None else kvcache.advance(cache, T))
+    cache = None if cache is None else kvcache.advance(cache, T)
+    if collect_obs:
+        return logits, cache, torch.stack(obs)
+    return logits, cache

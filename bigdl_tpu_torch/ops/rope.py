@@ -163,12 +163,17 @@ def _rotate_half(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
 
 
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [..., D] rotated by cos/sin broadcast against it, computed in f32
+    and cast back to x's dtype."""
+    xf = x.float()
+    return (xf * cos + _rotate_half(xf) * sin).to(x.dtype)
+
+
 def apply_rotary_emb(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
                      sin: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """q [B,T,Hq,D], k [B,T,Hk,D], cos/sin [B,T,D] -> rotated, computed
     in f32 and cast back."""
     cos = cos[..., None, :]
     sin = sin[..., None, :]
-    qf, kf = q.float(), k.float()
-    return ((qf * cos + _rotate_half(qf) * sin).to(q.dtype),
-            (kf * cos + _rotate_half(kf) * sin).to(k.dtype))
+    return rotate(q, cos, sin), rotate(k, cos, sin)

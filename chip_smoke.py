@@ -222,10 +222,38 @@ the result lines; an exception ends the run at once; nothing is caught):
    `optimize_model` give them from the same tensors, in-vocabulary and
    repeatable tokens, and gemma2's `save_low_bit` -> `load_low_bit`
    keeping them bit for bit.
+18. generation's KV-cache policies and the embedding variants (after
+   phase 16, on phase 3's 32-layer model): (a) SnapKV, four seeded
+   prompts of 3,000, 2,400, 1,500 and 700 tokens compressed to 1,024
+   slots (window 32, pool 7), 32 greedy tokens: launches (flash 32 at the
+   prefill, GEMM at the 16,384-row prefill, GEMV at each step), the
+   compressed cache's length, pos, start and rope_base by the formula,
+   in-vocabulary and repeatable tokens, prefill ms, decode-step median
+   and p80 and peak memory beside plain generate's; again over the fp8
+   cache (the flash kernel's fp8 arm); (b) attention-sink streaming,
+   four 200-token prompts, window 256, sink 4, 160 tokens: launches, at
+   least three evictions, 256 slots throughout, repeatable tokens, the
+   same peak memory at half the tokens, decode-step times; (c) a
+   `ChatSession` with streaming (4, 512) over four turns of 150, 90, 200
+   and 40 tokens, 48 greedy tokens a turn: each turn's launches (one
+   flash a layer, GEMM or GEMV by its bucket), the cache at 512 slots,
+   replies repeated by a fresh session, each turn's prefill ms and
+   decode-step median; (d) the embedding table in host RAM, as a memmap
+   of a .npy file and in sym_int4: host tables' logits and tokens
+   bit-equal to the dense table's, the low-bit table's logits bit-equal
+   to a dense table of its dequantized rows, the device memory each
+   saves and its decode step; (e) two full-width layers against the
+   plain versions under phase 3's bound: SnapKV's first decode (the
+   kept slots by the selection rule: a slot kept by one run only lies
+   within 2 dv of the keep boundary, dv the layer's largest vote
+   difference), streaming's decode after an eviction, and chat turn 3's
+   logits against the plain versions and the kernels' one-shot prefill.
 
-The whole run takes about 600 s of command time on an H100 (the host's
-speed moves it; phase 16 ~120-140 s of it), the kernel builds included
-(the dequant sources build once per qtype: 36 libraries in 50-90 s).
+Every phase ends with one line, `phase N: done in X s, F failed
+checks`. The whole run takes about 800-950 s of command time on an H100
+(the host's speed moves it; phase 16 ~120-140 s of it, phase 18 ~125
+s), the kernel builds included (the dequant sources build once per
+qtype: 36 libraries in 50-90 s).
 It prints one `{"kernels": [...]}` line (the dequant forms carry their
 numbers per format under "by_format"), and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the
@@ -234,6 +262,7 @@ package beside it, it exits non-zero before printing either.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -273,32 +302,37 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 
 def device_kernels(prof) -> list:
     """The device events of a profiler window, largest first: events with
-    device time and no CPU time (the card's own), less the optimizer's
-    step annotation (`Optimizer.step#<class>.step`), a range over the
-    kernels it encloses rather than a kernel of its own."""
+    device time and no CPU time (the card's own), less the annotations
+    that span the kernels they enclose rather than being kernels: the
+    optimizer's step (`Optimizer.step#<class>.step`) and a scheduled
+    window's steps (`ProfilerStep#<n>`, `profiled_steps`)."""
     return sorted((e for e in prof.key_averages()
                    if e.self_cpu_time_total == 0 and e.self_device_time_total > 0
-                   and not e.key.startswith("Optimizer.")),
+                   and not e.key.startswith(("Optimizer.", "ProfilerStep"))),
                   key=lambda e: -e.self_device_time_total)
 
 
 def profiled_steps(torch, run, n: int, expect: dict, label: str):
-    """A torch.profiler window over n calls of `run`, synchronised. The
+    """A torch.profiler window over n calls of `run`, synchronised, after
+    one warm-up call traced and discarded (the profiler's schedule). The
     caller checks its device calls; `expect` maps a kernel's name to (a
     compiled pattern of its device functions' names, the calls the window
-    must hold). The profiler has dropped a few kernel records of a window
-    holding thousands (PR 13 run B, phase 6: 63 of 64 training forwards
-    and 381 of 384 LoRA GEMM kernels, while the wrappers counted every
-    launch), so a window whose counts differ is printed and profiled once
-    more."""
-    from torch.profiler import ProfilerActivity, profile
+    must hold). Windows without a warm-up call lost one training forward
+    at their start: PR 13 run B's phase 6 (63 of 64 training forwards and
+    381 of 384 LoRA GEMM kernels) and PR 15 run A's phase 14 (63 of 64
+    training forwards, twice in a row), while the wrappers counted every
+    launch. A window whose counts still differ is printed with the
+    matching names and profiled once more."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     want = {name: calls for name, (_, calls) in expect.items()}
     for attempt in range(2):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=n, repeat=1)) as prof:
+            for _ in range(n + 1):
                 run()
-            torch.cuda.synchronize()
+                torch.cuda.synchronize()
+                prof.step()
         got = {name: sum(e.count for e in prof.key_averages()
                          if pat.search(e.key) and e.self_device_time_total > 0)
                for name, (pat, _) in expect.items()}
@@ -306,7 +340,31 @@ def profiled_steps(torch, run, n: int, expect: dict, label: str):
             break
         log(f"{label}: the profiler recorded {got} device calls, expected {want}"
             + ("; profiling the window again" if attempt == 0 else ""))
+        for name, (pat, _) in expect.items():
+            log(f"  {name}: " + "; ".join(f"{e.count} x {e.key[:120]}" for e in prof.key_averages()
+                                          if pat.search(e.key)))
     return prof
+
+
+@contextlib.contextmanager
+def warm_profile(activities):
+    """torch.profiler.profile(activities) over the block, its tracing
+    warmed up first: 32 small kernels traced and discarded (the profiler's
+    schedule), then the block recorded. Windows without a warm-up have
+    lost a kernel record at their start while the wrappers counted every
+    launch (PR 13 run B: phase 6; PR 15 run A: phase 14; PR 15 run E:
+    phase 8, 159 of 160 paged decode kernels)."""
+    import torch
+    from torch.profiler import profile, schedule
+
+    with profile(activities=activities,
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        x = torch.zeros(256, device="cuda" if torch.cuda.is_available() else "cpu")  # CPU: rehearsals
+        for _ in range(32):
+            x.add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        yield prof
 
 
 def time_ms(torch, fn, args_list, iters: int = 20) -> float:
@@ -391,12 +449,12 @@ def device_ms(torch, fn, args_list, iters: int = 20) -> float:
     torch.profiler window over `iters` calls after 3 warm-up calls,
     cycling through `args_list` as time_ms does. Unlike CUDA events around
     the calls, it does not count the card waiting for the host."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     for i in range(3):
         fn(*args_list[i % len(args_list)])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with warm_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(iters):
             fn(*args_list[i % len(args_list)])
         torch.cuda.synchronize()
@@ -413,6 +471,21 @@ def check(ok: bool, what: str) -> None:
     if not ok:
         log(f"chip_smoke: FAILED: {what}")
         FAILED.append(what)
+
+
+# the phase running now: its number, start time and the failures before it
+PHASE: dict = {}
+
+
+def begin_phase(n) -> None:
+    """Close the running phase with its line `phase N: done in X s, F
+    failed checks`, then start phase n (None: close only)."""
+    if PHASE:
+        log(f"phase {PHASE['n']}: done in {time.time() - PHASE['t']:.1f} s, "
+            f"{len(FAILED) - PHASE['failed']} failed checks")
+    PHASE.clear()
+    if n is not None:
+        PHASE.update(n=n, t=time.time(), failed=len(FAILED))
 
 
 def tile_text(t) -> str:
@@ -470,7 +543,7 @@ def main() -> int:
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     from bigdl_tpu_torch import PRESETS, TorchModel, optimize_model
     from bigdl_tpu_torch.generate import pad_prompts
@@ -501,6 +574,7 @@ def main() -> int:
     st = torch.as_tensor(starts, device=dev)
 
     # ---------------------------------------------------------------- 1
+    begin_phase(1)
     t = time.time()
     libs = _build.build_all()
     log(f"phase 1: built {len(libs)} libraries from {sorted({s for s, _ in libs})} "
@@ -555,6 +629,7 @@ def main() -> int:
     card = f"{torch.cuda.get_device_name(0)} ({smi})"
 
     # ---------------------------------------------------------------- 2
+    begin_phase(2)
     g = torch.Generator(device=dev).manual_seed(0)
 
     def qweight(O, K, copies=1):
@@ -647,6 +722,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ---------------------------------------------------------------- 3
+    begin_phase(3)
     t = time.time()
     model = optimize_model(llama.init_params(cfg, seed=0), cfg, "sym_int4")
     tm = TorchModel(cfg, model, "sym_int4")
@@ -697,6 +773,7 @@ def main() -> int:
     del m2
 
     # ---------------------------------------------------------------- 4
+    begin_phase(4)
     rows = {}
     for name, (O, K) in shapes.items():
         copies = max(1, math.ceil(L2_COPIES_BYTES / (O * K * 0.5625)))
@@ -772,14 +849,14 @@ def main() -> int:
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        with profile(activities=acts) as prof_prefill:
+        with warm_profile(acts) as prof_prefill:
             for _ in range(PROFILED_PREFILLS):
                 state = prefill_state()
             torch.cuda.synchronize()
         for _ in range(3):
             state = step(*state)
         torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
+        with warm_profile(acts) as prof:
             for _ in range(PROFILED_STEPS):
                 state = step(*state)
             torch.cuda.synchronize()
@@ -850,24 +927,36 @@ def main() -> int:
             "isolated_ms": iso, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": lib, "per": unit})
     # --------------------------------------------------------------- 16
+    begin_phase(16)
     checkpoint_phases(torch, dev, tm, prompts, out1, want)
+    # --------------------------------------------------------------- 18
+    begin_phase(18)
+    cache_policy_phases(torch, dev, card, tm, prompts, tok, st, out1)
     del tm, model
 
     # ---------------------------------------------------------------- 5
+    begin_phase(5)
     train_entries = train_phases(torch, dev, cfg, card, errs, qweight, randn)
     # ---------------------------------------------------------------- 7
+    begin_phase(7)
     serving_entries, served = serving_phases(torch, dev, cfg, card, errs)
     # --------------------------------------------------------------- 11
+    begin_phase(11)
     adapter_entries = adapter_phases(torch, dev, cfg, card, errs, served)
     del served
     # ---------------------------------------------------------------- 9
+    begin_phase(9)
     by_format = format_phases(torch, dev, cfg, card, prompts, tok, st, T, S)
     # --------------------------------------------------------------- 13
+    begin_phase(13)
     ft_entries = full_ft_phases(torch, dev, cfg, card, errs, randn)
     # --------------------------------------------------------------- 15
+    begin_phase(15)
     phi3_phases(torch, dev, errs)
     # --------------------------------------------------------------- 17
+    begin_phase(17)
     flags_phases(torch, dev, card, prompt_tokens, starts)
+    begin_phase(None)
     for e in entries + train_entries + adapter_entries:
         if e["name"] in by_format:  # the dequant forms: sym_int4 above, then the others
             e["formats"] = ["sym_int4"] + list(by_format[e["name"]])
@@ -1079,6 +1168,7 @@ def train_phases(torch, dev, cfg, card, errs, qweight, randn) -> list:
     del m2, lora2, kern_grads, plain_grads
 
     # ---------------------------------------------------------------- 6
+    begin_phase(6)
     # each kernel's device functions: the LoRA GEMM's first pass, x_order
     # and its GEMM are three a launch
     matches = [(kernels.LORA_GEMM, LORA_GEMM_EVENT, 3),
@@ -1438,6 +1528,7 @@ def full_ft_phases(torch, dev, cfg, card, errs, randn) -> list:
     del wq0
 
     # ---------------------------------------------------------------- 14
+    begin_phase(14)
     prof = profiled_steps(
         torch, lambda: step(model, tokens, mask), PROFILED_TRAIN_STEPS,
         {kernels.DW.name: (re.compile(r"dw_tma_kernel<"),
@@ -1734,7 +1825,7 @@ def serving_phases(torch, dev, cfg, card, errs) -> list:
     phases 11-12 compare with: the model, the traffic and engine (a)'s
     requests and times."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     from bigdl_tpu_torch import TorchModel, optimize_model
     from bigdl_tpu_torch.models import llama
@@ -1875,7 +1966,7 @@ def serving_phases(torch, dev, cfg, card, errs) -> list:
     for sp in fp8_specs:
         eng.submit(**sp)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof_e:  # the admission step: 4 prefills
+    with warm_profile(acts) as prof_e:  # the admission step: 4 prefills
         eng.step()
         torch.cuda.synchronize()
     eng.run_until_idle()
@@ -1913,6 +2004,7 @@ def serving_phases(torch, dev, cfg, card, errs) -> list:
     del tm2
 
     # ---------------------------------------------------------------- 8
+    begin_phase(8)
     # engine (a)'s run: throughput, TTFT, decode step, peak memory
     ntok = sum(len(r.out_tokens) for r in reqs_a)
 
@@ -1953,7 +2045,7 @@ def serving_phases(torch, dev, cfg, card, errs) -> list:
             torch.cuda.synchronize()
             host.append((time.perf_counter() - t0) * 1e3)
         pos = list(eng._slot_pos)
-        with profile(activities=acts) as prof:
+        with warm_profile(acts) as prof:
             for _ in range(PROFILED_DECODES):
                 eng.step()
             torch.cuda.synchronize()
@@ -2204,7 +2296,7 @@ def adapter_phases(torch, dev, cfg, card, errs, served) -> list:
     adapters (ranks 4-32) over phase 7's traffic, then its times. Returns
     the `kernels` entry of the LoRA GEMV."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     from bigdl_tpu_torch import TorchModel, optimize_model
     from bigdl_tpu_torch.models import llama
@@ -2406,6 +2498,7 @@ def adapter_phases(torch, dev, cfg, card, errs, served) -> list:
     del tm2
 
     # ---------------------------------------------------------------- 12
+    begin_phase(12)
     ntok = sum(len(r.out_tokens) for r in reqs_f)
 
     def q(xs, f):
@@ -2436,7 +2529,7 @@ def adapter_phases(torch, dev, cfg, card, errs, served) -> list:
         torch.cuda.synchronize()
         host.append((time.perf_counter() - t1) * 1e3)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
+    with warm_profile(acts) as prof:
         for _ in range(PROFILED_DECODES):
             eng.step()
         torch.cuda.synchronize()
@@ -2999,7 +3092,7 @@ def format_phases(torch, dev, cfg, card, prompts, tok, st, T, S) -> dict:
     then each form's times per format. Returns {kernel name: {qtype:
     numbers}} for the `kernels` line."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     from bigdl_tpu_torch import TorchModel, optimize_model
     from bigdl_tpu_torch.kvcache import init_cache
@@ -3144,11 +3237,11 @@ def format_phases(torch, dev, cfg, card, prompts, tok, st, T, S) -> dict:
                 state = step(*state)
                 torch.cuda.synchronize()
                 steps.append((time.perf_counter() - t1) * 1e3)
-            with profile(activities=acts) as prof_pre:
+            with warm_profile(acts) as prof_pre:
                 for _ in range(PROFILED_PREFILLS):
                     state = prefill_state()
                 torch.cuda.synchronize()
-            with profile(activities=acts) as prof_dec:
+            with warm_profile(acts) as prof_dec:
                 for _ in range(PROFILED_STEPS):
                     state = step(*state)
                 torch.cuda.synchronize()
@@ -3208,7 +3301,7 @@ def format_phases(torch, dev, cfg, card, prompts, tok, st, T, S) -> dict:
     check(all(math.isfinite(x) for x in losses), "nf4 QLoRA finite losses")
     for k in forms:
         out[k.name]["nf4"]["launches"] += by_fmt[k.name].get("nf4", 0)
-    with profile(activities=acts) as prof:
+    with warm_profile(acts) as prof:
         for _ in range(PROFILED_TRAIN_STEPS):
             step_fn(model, lora, tokens, mask)
         torch.cuda.synchronize()
@@ -3254,6 +3347,7 @@ def format_phases(torch, dev, cfg, card, prompts, tok, st, T, S) -> dict:
         del m2
 
     # ---------------------------------------------------------------- 10
+    begin_phase(10)
     # each form per format, isolated at the path shapes, operands cycled
     # past the L2; summed over one decode step (GEMV, M=B: 4 layer
     # projections x L + the lm head), one prefill (GEMM, M=1024: 4 x L),
@@ -3408,7 +3502,7 @@ def flags_phases(torch, dev, card, prompt_tokens, starts, presets=None) -> None:
     import tempfile
 
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     from bigdl_tpu_torch import (PRESETS, AutoModelForCausalLM, ModelConfig, TorchModel,
                                  optimize_model)
@@ -3492,7 +3586,7 @@ def flags_phases(torch, dev, card, prompt_tokens, starts, presets=None) -> None:
             step_ms.append((time.perf_counter() - t0) * 1e3)
             if i == NEW_TOKENS - PROFILED_STEPS - 1:
                 break
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with warm_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(PROFILED_STEPS):
                 logits, cache = llama.forward(cfg, tm.params, cur[:, None], cache, "decode")
                 cur = logits[:, -1].argmax(-1)
@@ -3819,6 +3913,527 @@ def flags_phases(torch, dev, card, prompt_tokens, starts, presets=None) -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"phase 17: {time.time() - t_phase:.1f} s")
+
+
+
+# ---------------------------------------------------------------------------
+# phase 18: generation's KV-cache policies and the embedding variants
+# ---------------------------------------------------------------------------
+
+SNAP_LENS, SNAP_BUDGET, SNAP_WINDOW, SNAP_POOL = (3000, 2400, 1500, 700), 1024, 32, 7
+STREAM_LEN, STREAM_WINDOW, STREAM_SINK, STREAM_NEW = 200, 256, 4, 160
+CHAT_TURNS, CHAT_SINK, CHAT_WINDOW, CHAT_NEW = (150, 90, 200, 40), 4, 512, 48
+POLICY_LAYERS = 2  # the kernels-vs-plain checks' depth, at full width
+
+
+def plain_patches(kernels) -> dict:
+    """The generation path's kernels swapped for their plain versions."""
+    return {"qmatmul": kernels.qmatmul_plain, "flash_attention": kernels.flash_attention_plain}
+
+
+def quantiles(xs) -> str:
+    xs = sorted(xs)
+    if not xs:
+        return "none"
+    return (f"median={xs[len(xs) // 2]:.3f} p80={xs[int(0.8 * len(xs))]:.3f} "
+            f"max={xs[-1]:.3f} (n={len(xs)})")
+
+
+def selection_rule(torch, kvcache, c_a, obs_a, c_b, obs_b, window, keep_k):
+    """SnapKV's kept slots of two runs over the same prompts (caches c_a,
+    c_b before compression, observation queries obs_a, obs_b): per layer
+    the slots kept by one run only, each required to have a vote of run b
+    within 2 dv of b's keep_k-th largest vote, dv the layer's largest
+    vote difference (an order statistic moves by at most dv). Returns
+    ([differing slots per layer], [B] bool: rows that agree everywhere,
+    whether the rule held)."""
+    prefix = kvcache.snapkv_prefix(c_b.start, c_b.pos, window, c_b.max_len)
+    B = prefix.shape[0]
+    agree = torch.ones(B, dtype=torch.bool, device=prefix.device)
+    counts, held = [], True
+    for layer in range(c_b.k.shape[0]):
+        ks = [None if c.k_scale is None else c.k_scale[layer] for c in (c_a, c_b)]
+        va = kvcache.snapkv_votes(c_a.k[layer], ks[0], obs_a[layer], prefix, SNAP_POOL)
+        vb = kvcache.snapkv_votes(c_b.k[layer], ks[1], obs_b[layer], prefix, SNAP_POOL)
+        ia, ib = (kvcache.snapkv_select(v, prefix, keep_k) for v in (va, vb))
+        kept_a = torch.zeros_like(va, dtype=torch.bool).scatter_(-1, ia, True) & prefix[:, None]
+        kept_b = torch.zeros_like(vb, dtype=torch.bool).scatter_(-1, ib, True) & prefix[:, None]
+        diff = kept_a ^ kept_b  # [B, Hkv, S]
+        pm = prefix[:, None, :].expand(va.shape)
+        dv = (va - vb).abs()[pm].max().item() if bool(pm.any()) else 0.0
+        kth = torch.sort(vb, dim=-1, descending=True).values[..., keep_k - 1:keep_k]
+        gap = (vb - kth).abs()[diff]
+        held &= bool((gap <= 2 * dv).all())
+        counts.append(int(diff.sum()))
+        agree &= ~diff.any(-1).any(-1)
+    return counts, agree, held
+
+
+def cache_policy_phases(torch, dev, card, tm, prompts, tok, st, want_tokens,
+                        snap_lens=SNAP_LENS, budget=SNAP_BUDGET, stream_len=STREAM_LEN,
+                        stream_window=STREAM_WINDOW, stream_new=STREAM_NEW,
+                        chat_turns=CHAT_TURNS, chat_window=CHAT_WINDOW, chat_new=CHAT_NEW) -> None:
+    """Phase 18, on phase 3's model `tm` (its prompts, padded tokens `tok`
+    and starts `st`, and its greedy tokens `want_tokens`): (a) SnapKV,
+    (b) attention-sink streaming, (c) a chat session, (d) the embedding
+    variants, (e) two full-width layers of (a)-(c) against the plain
+    versions. (On the CPU, with shorter lengths and a narrow model, this
+    rehearses the phase: only the launch checks fail there.)"""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity
+
+    from bigdl_tpu_torch import kvcache, optimize_model, streaming
+    from bigdl_tpu_torch.chat import ChatSession
+    from bigdl_tpu_torch.embedding import HostEmbedding, quantize_embedding
+    from bigdl_tpu_torch.generate import pad_prompts
+    from bigdl_tpu_torch.models import llama
+    from bigdl_tpu_torch.ops import kernels
+    from bigdl_tpu_torch.utils import cache_len_for
+
+    cfg = tm.config
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    Hkv, D = cfg.num_key_value_heads, cfg.head_dim_
+    G = kernels.GEMV_MAX_ROWS
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def peak_gib(fn):
+        """(fn(), its peak device memory above what was allocated before,
+        GiB)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    def in_vocab(out, shape):
+        return out.shape == shape and bool(((out >= 0) & (out < V)).all())
+
+    def gen_launches(prefill_rows, steps, flash):
+        """A generate's launches: the prefill's 4 L projections (GEMM above
+        the GEMV's rows), its lm head on the last position (GEMV), then
+        4 L + 1 GEMV a decode step; one `flash` a layer at the prefill."""
+        want = {k.name: 0 for k in kernels.KERNELS}
+        want[kernels.GEMM.name if prefill_rows > G else kernels.GEMV.name] += 4 * L
+        want[kernels.GEMV.name] += 1 + steps * (4 * L + 1)
+        want[flash.name] = L
+        return want
+
+    # ------------------------------------------------------------ (a) SnapKV
+    t_a = time.time()
+    snap_prompts = [list(np.random.default_rng(40 + i).integers(0, V, n))
+                    for i, n in enumerate(snap_lens)]
+    snap_tok, snap_start = pad_prompts(snap_prompts, 0)
+    Ta = snap_tok.shape[1]
+    keep_k = budget - SNAP_WINDOW
+    obs_start = Ta - SNAP_WINDOW
+    avail = np.maximum(obs_start - snap_start, 0)
+    want_start = keep_k - np.minimum(avail, keep_k) + np.maximum(snap_start - obs_start, 0)
+    want_rope = Ta - snap_start
+    for fp8 in (False, True):
+        label = f"phase 18 (a){' fp8' if fp8 else ''}"
+        captured = []
+        real = kvcache.compress
+
+        def spy(*a, **kw):
+            captured.append(real(*a, **kw))
+            return captured[-1]
+
+        kernels.reset_launches()
+        with mock.patch.object(kvcache, "compress", spy):
+            out1, peak = peak_gib(lambda: tm.generate(snap_prompts, NEW_TOKENS, compress_kv=budget,
+                                                      compress_window=SNAP_WINDOW, quantize_kv=fp8))
+        launches = kernels.launch_counts()
+        want = gen_launches(len(snap_prompts) * Ta, NEW_TOKENS - 1,
+                            kernels.FLASH_FP8 if fp8 else kernels.FLASH)
+        log(f"{label}: SnapKV budget {budget} window {SNAP_WINDOW} pool {SNAP_POOL}, prompts "
+            f"{list(snap_lens)} in a bucket of {Ta}: launches {launches} expected {want}")
+        check(launches == want, f"{label}: launch counts")
+        c = captured[0] if captured else None
+        ok = (c is not None and c.max_len == cache_len_for(budget, NEW_TOKENS) and c.pos == budget
+              and c.quantized == fp8
+              and np.array_equal(c.start.cpu().numpy(), want_start)
+              and np.array_equal(c.rope_base.cpu().numpy(), want_rope))
+        log(f"{label}: compressed cache length {None if c is None else c.max_len} (want "
+            f"{cache_len_for(budget, NEW_TOKENS)}), pos {None if c is None else c.pos}, start "
+            f"{None if c is None else c.start.tolist()} (want {want_start.tolist()}), rope_base "
+            f"{None if c is None else c.rope_base.tolist()} (want {want_rope.tolist()})")
+        check(ok, f"{label}: the compressed cache's length, pos, start and rope_base")
+        del captured, c
+        out2 = tm.generate(snap_prompts, NEW_TOKENS, compress_kv=budget,
+                           compress_window=SNAP_WINDOW, quantize_kv=fp8)
+        same = bool((out1 == out2).all())
+        log(f"{label}: greedy tokens (row 3) {out1[3].tolist()[:12]}...; second call identical {same}")
+        check(in_vocab(out1, (len(snap_prompts), NEW_TOKENS)) and same,
+              f"{label}: tokens in the vocabulary, the same on a second call")
+        n = 1 if fp8 else 3  # the fp8 arm's times once
+        pre = sorted(wall_ms(lambda: tm.generate(snap_prompts, 1, compress_kv=budget,
+                                                 compress_window=SNAP_WINDOW, quantize_kv=fp8))
+                     for _ in range(n))
+        pre_plain = sorted(wall_ms(lambda: tm.generate(snap_prompts, 1, quantize_kv=fp8))
+                           for _ in range(n))
+        _, peak_plain = peak_gib(lambda: tm.generate(snap_prompts, NEW_TOKENS, quantize_kv=fp8))
+        log(f"{label}: prefill_ms (generate of 1 token) SnapKV median={pre[n // 2]:.3f} (n={n}), "
+            f"plain median={pre_plain[n // 2]:.3f}; peak memory above the model SnapKV {peak:.3f} "
+            f"GiB, plain {peak_plain:.3f} GiB")
+        if fp8:
+            continue
+
+        def snap_state(compress):
+            cache = dataclasses.replace(
+                kvcache.init_cache(L, len(snap_prompts), cache_len_for(Ta, NEW_TOKENS), Hkv, D,
+                                   device=dev), start=torch.as_tensor(snap_start, device=dev))
+            logits, cache, obs = llama.forward(
+                cfg, tm.params, torch.as_tensor(snap_tok, dtype=torch.long, device=dev), cache,
+                "prefill", last_logits_only=True, collect_obs=SNAP_WINDOW)
+            if compress:
+                cache = kvcache.compress(cache, obs, budget, cache_len_for(budget, NEW_TOKENS),
+                                         window=SNAP_WINDOW, kernel=SNAP_POOL)
+            return cache, logits[:, -1].argmax(-1)
+
+        def step(state):
+            logits, cache = llama.forward(cfg, tm.params, state[1][:, None], state[0], "decode")
+            return cache, logits[:, -1].argmax(-1)
+
+        with torch.inference_mode():
+            steps, busy = {}, {}
+            for compress in (True, False):
+                state = snap_state(compress)
+                steps[compress] = []
+                for _ in range(NEW_TOKENS - 8):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state = step(state)
+                    torch.cuda.synchronize()
+                    steps[compress].append((time.perf_counter() - t0) * 1e3)
+                with warm_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    state = step(state)
+                    torch.cuda.synchronize()
+                busy[compress] = sum(e.self_device_time_total for e in device_kernels(prof)) / 1e3
+                del state
+        log(f"{label}: decode step ms over the compressed cache ({cache_len_for(budget, NEW_TOKENS)} "
+            f"slots) {quantiles(steps[True])}, device busy {busy[True]:.3f} of a profiled step; "
+            f"over the plain cache ({cache_len_for(Ta, NEW_TOKENS)} slots) {quantiles(steps[False])}, "
+            f"device busy {busy[False]:.3f}")
+    torch.cuda.empty_cache()
+    log(f"phase 18 (a): {time.time() - t_a:.1f} s")
+
+    # --------------------------------------------------------- (b) streaming
+    t_b = time.time()
+    stream_prompts = [list(np.random.default_rng(60 + i).integers(0, V, stream_len))
+                      for i in range(4)]
+    shifts = []
+    real_shift = streaming.make_sink_shift
+
+    def spy_shift(*a, **kw):
+        inner = real_shift(*a, **kw)
+
+        def shift(cache):
+            out = inner(cache)
+            shifts.append((cache.max_len, cache.pos, out.pos))
+            return out
+        return shift
+
+    kernels.reset_launches()
+    with mock.patch.object(streaming, "make_sink_shift", spy_shift):
+        out1, peak = peak_gib(lambda: tm.generate(stream_prompts, stream_new,
+                                                  streaming_window=stream_window,
+                                                  streaming_sink=STREAM_SINK))
+    launches = kernels.launch_counts()
+    want = gen_launches(4 * stream_len, stream_new - 1, kernels.FLASH)
+    evictions = sum(1 for _, a, b in shifts if b < a)
+    lens = sorted({n for n, _, _ in shifts})
+    log(f"phase 18 (b): streaming window {stream_window} sink {STREAM_SINK} chunk "
+        f"{streaming.default_chunk(stream_window, STREAM_SINK)}, 4 prompts of {stream_len}, "
+        f"{stream_new} new tokens: launches {launches} expected {want}; {evictions} evictions; "
+        f"cache lengths seen {lens}")
+    check(launches == want, "phase 18 (b): launch counts")
+    check(evictions >= 3 and lens == [stream_window], "phase 18 (b): at least three evictions, "
+          f"the cache {stream_window} slots throughout")
+    out2 = tm.generate(stream_prompts, stream_new, streaming_window=stream_window,
+                       streaming_sink=STREAM_SINK)
+    same = bool((out1 == out2).all())
+    check(in_vocab(out1, (4, stream_new)) and same,
+          "phase 18 (b): tokens in the vocabulary, the same on a second call")
+    half = stream_new // 2  # past the first eviction already
+    _, peak2 = peak_gib(lambda: tm.generate(stream_prompts, half, streaming_window=stream_window,
+                                            streaming_sink=STREAM_SINK))
+    log(f"phase 18 (b): greedy tokens (row 0) {out1[0].tolist()[-12:]} (the last 12); second call "
+        f"identical {same}; peak memory above the model at {half} tokens {peak2:.4f} GiB, "
+        f"at {stream_new} {peak:.4f} GiB")
+    check(peak <= peak2 + 8 / 1024, "phase 18 (b): peak memory grows with the tokens")
+    shift = streaming.make_sink_shift(cfg, stream_window, STREAM_SINK,
+                                      streaming.default_chunk(stream_window, STREAM_SINK))
+    with torch.inference_mode():
+        cache = kvcache.init_cache(L, 4, stream_window, Hkv, D, device=dev)
+        logits, cache = llama.forward(cfg, tm.params, torch.as_tensor(stream_prompts, device=dev),
+                                      cache)
+        cur, steps, evict_steps = logits[:, -1].argmax(-1), [], []
+        for _ in range(stream_window - stream_len + 3 * streaming.default_chunk(
+                stream_window, STREAM_SINK)):  # through three evictions
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            full = cache.pos >= stream_window
+            cache = shift(cache)
+            logits, cache = llama.forward(cfg, tm.params, cur[:, None], cache, "decode")
+            cur = logits[:, -1].argmax(-1)
+            torch.cuda.synchronize()
+            (evict_steps if full else steps).append((time.perf_counter() - t0) * 1e3)
+        del cache, logits
+    log(f"phase 18 (b): decode step ms without an eviction {quantiles(steps)}; with one "
+        f"{quantiles(evict_steps)}")
+    torch.cuda.empty_cache()
+    log(f"phase 18 (b): {time.time() - t_b:.1f} s")
+
+    # -------------------------------------------------------------- (c) chat
+    t_c = time.time()
+    turns = [list(np.random.default_rng(80 + i).integers(0, V, n)) for i, n in enumerate(chat_turns)]
+    real_forward = llama.forward
+    buckets = []
+
+    def spy_forward(*a, **kw):
+        if kw.get("mode", a[4] if len(a) > 4 else "prefill") == "prefill":
+            buckets.append(a[2].shape[1])
+        return real_forward(*a, **kw)
+
+    def run_chat(record):
+        sess = ChatSession(tm, streaming=(CHAT_SINK, chat_window))
+        replies = []
+        for i, turn in enumerate(turns):
+            buckets.clear()
+            kernels.reset_launches()
+            times, t0 = [], time.perf_counter()
+            reply = []
+            with mock.patch.object(llama, "forward", spy_forward):
+                for t in sess.send_stream(turn, max_new_tokens=chat_new):
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    reply.append(t)
+                    t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            replies.append(reply)
+            if not record:
+                continue
+            b = buckets[0]
+            want = {k.name: 0 for k in kernels.KERNELS}
+            want[kernels.GEMM.name if b > G else kernels.GEMV.name] += 4 * L + 1
+            want[kernels.GEMV.name] += chat_new * (4 * L + 1)
+            want[kernels.FLASH.name] = L
+            launches = kernels.launch_counts()
+            log(f"phase 18 (c): turn {i + 1}: {len(turn)} tokens, prefill bucket {b}, pos after "
+                f"{sess.pos} (window {chat_window}); prefill_ms (to the first token) {times[0]:.3f}; "
+                f"decode step ms {quantiles(times[1:])}; launches {launches} expected {want}")
+            check(launches == want, f"phase 18 (c): turn {i + 1} launch counts")
+            check(sess.pos <= chat_window and sess.cache.max_len == chat_window,
+                  f"phase 18 (c): turn {i + 1} the cache stays {chat_window} slots")
+        return replies
+
+    first = run_chat(True)
+    again = run_chat(False)
+    total = sum(chat_turns) + len(chat_turns) * chat_new
+    ok = all(len(r) == chat_new and all(0 <= t < V for t in r) for r in first)
+    log(f"phase 18 (c): {total} tokens over {len(turns)} turns through a {chat_window}-slot window; "
+        f"reply 3 {first[2][:12]}...; a fresh session's replies identical {first == again}")
+    check(ok and first == again, "phase 18 (c): replies in the vocabulary, the same from a fresh session")
+    check(total > chat_window, "phase 18 (c): the conversation outgrows the window")
+    torch.cuda.empty_cache()
+    log(f"phase 18 (c): {time.time() - t_c:.1f} s")
+
+    # -------------------------------------------------------- (d) embeddings
+    t_d = time.time()
+    S = cache_len_for(tok.shape[1], NEW_TOKENS)
+
+    def prefill_logits():
+        cache = dataclasses.replace(kvcache.init_cache(L, len(prompts), S, Hkv, D, device=dev),
+                                    start=st)
+        with torch.inference_mode():
+            return llama.forward(cfg, tm.params, tok, cache, "prefill",
+                                 last_logits_only=True)[0][:, -1]
+
+    def decode_steps(n=16):
+        with torch.inference_mode():
+            cache = dataclasses.replace(kvcache.init_cache(L, len(prompts), S, Hkv, D, device=dev),
+                                        start=st)
+            logits, cache = llama.forward(cfg, tm.params, tok, cache, "prefill",
+                                          last_logits_only=True)
+            cur, out = logits[:, -1].argmax(-1), []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = llama.forward(cfg, tm.params, cur[:, None], cache, "decode")
+                cur = logits[:, -1].argmax(-1)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    ref_logits = prefill_logits()
+    ref_steps = decode_steps()
+    torch.cuda.synchronize()
+    with_dense = torch.cuda.memory_allocated()
+    # the dense table leaves the card while the variants run
+    dense = tm.params.embed.detach().cpu()
+    host_table = dense.float().numpy()
+    tmp = Path(tempfile.mkdtemp(prefix="bigdl_embed_"))
+    try:
+        np.save(tmp / "embed.npy", host_table)
+        variants = (("host RAM", lambda: HostEmbedding(host_table)),
+                    ("memmap", lambda: HostEmbedding.from_file(str(tmp / "embed.npy"))),
+                    ("sym_int4", lambda: quantize_embedding(dense.to(dev), "sym_int4")))
+        for name, make in variants:
+            table = make()
+            tm.params.set_embed(table)
+            tm.params.to(dev)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            saved = (with_dense - torch.cuda.memory_allocated()) / 1e9
+            logits = prefill_logits()
+            out1 = tm.generate(prompts, NEW_TOKENS)
+            out2 = tm.generate(prompts, NEW_TOKENS)
+            err = (logits - ref_logits).abs().max().item()
+            steps = decode_steps()
+            where = ("host" if isinstance(tm.params.embed, HostEmbedding)
+                     else str(tm.params.embed.data.device))
+            log(f"phase 18 (d) {name}: table on {where}; device memory saved {saved:.3f} GB; prefill "
+                f"logits max_abs_err against the dense table {err:.6g} (max|logit| "
+                f"{ref_logits.abs().max().item():.6g}); tokens equal the dense table's "
+                f"{bool((out1 == want_tokens).all())}, second call identical "
+                f"{bool((out1 == out2).all())}; decode step ms {quantiles(steps)} (dense "
+                f"{quantiles(ref_steps)})")
+            if name == "sym_int4":
+                # the gathered rows dequantize to the bits of the whole table's
+                tm.params.set_embed(table.dequantize(torch.bfloat16))
+                same = torch.equal(prefill_logits(), logits)
+                rel = ((logits - ref_logits).abs().mean() / ref_logits.abs().mean()).item()
+                log(f"phase 18 (d) sym_int4: mean |logit error| / mean |logit| against the dense "
+                    f"table {rel:.4g}; logits bit-equal to a dense table of its dequantized rows {same}")
+                check(bool(torch.isfinite(logits).all()) and in_vocab(out1, want_tokens.shape)
+                      and bool((out1 == out2).all()) and same,
+                      "phase 18 (d) sym_int4: finite logits equal to its dequantized table's, tokens "
+                      "in the vocabulary and repeatable")
+            else:
+                check(torch.equal(logits, ref_logits) and bool((out1 == want_tokens).all())
+                      and where == "host",
+                      f"phase 18 (d) {name}: prefill logits and tokens bit-equal to the dense table's")
+            del table
+    finally:
+        tm.params.set_embed(dense.to(dev))
+        shutil.rmtree(tmp, ignore_errors=True)
+        del host_table, dense
+    torch.cuda.empty_cache()
+    log(f"phase 18 (d): {time.time() - t_d:.1f} s")
+
+    # ----------------------------------- (e) two full-width layers vs plain
+    t_e = time.time()
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=POLICY_LAYERS)
+    m2 = optimize_model(llama.init_params(cfg2, seed=2, device=dev), cfg2, "sym_int4")
+    bound = 0.02  # phase 3's: 2 % of the largest logit
+    plain = plain_patches(kernels)
+
+    def fwd(*a, **kw):
+        with torch.inference_mode():
+            return llama.forward(cfg2, m2, *a, **kw)
+
+    def within(got, ref, what):
+        err = (got - ref).abs().max().item()
+        tol = bound * ref.abs().max().item()
+        log(f"phase 18 (e): {what}: max_abs_err={err:.6g} tol={tol:.6g}")
+        check(bool(torch.isfinite(got).all()) and err <= tol, f"phase 18 (e): {what}")
+
+    # SnapKV: prefill and compress, kernels and plain; the first decode
+    def snap_prefill():
+        cache = dataclasses.replace(
+            kvcache.init_cache(POLICY_LAYERS, len(snap_prompts), cache_len_for(Ta, NEW_TOKENS), Hkv,
+                               D, device=dev), start=torch.as_tensor(snap_start, device=dev))
+        logits, cache, obs = fwd(torch.as_tensor(snap_tok, dtype=torch.long, device=dev), cache,
+                                 "prefill", last_logits_only=True, collect_obs=SNAP_WINDOW)
+        comp = kvcache.compress(cache, obs, budget, cache_len_for(budget, NEW_TOKENS),
+                                window=SNAP_WINDOW, kernel=SNAP_POOL)
+        return cache, obs, comp, logits[:, -1]
+
+    c_k, obs_k, comp_k, pre_k = snap_prefill()
+    with mock.patch.multiple(kernels, **plain):
+        c_p, obs_p, comp_p, pre_p = snap_prefill()
+    counts, agree, held = selection_rule(torch, kvcache, c_k, obs_k, c_p, obs_p, SNAP_WINDOW, keep_k)
+    del c_k, c_p, obs_k, obs_p
+    log(f"phase 18 (e): SnapKV kept slots differing kernels vs plain per layer {counts} "
+        f"(of {len(snap_prompts)} rows x {Hkv} heads x {keep_k}); rows agreeing {agree.tolist()}; "
+        f"the selection rule (2 dv of the boundary) held {held}")
+    check(held, "phase 18 (e): SnapKV's selection rule, kernels vs plain")
+    nxt = pre_p.argmax(-1)[:, None]
+    d_kk, _ = fwd(nxt, dataclasses.replace(comp_k, k=comp_k.k.clone(), v=comp_k.v.clone()), "decode")
+    d_kp, _ = fwd(nxt, dataclasses.replace(comp_p, k=comp_p.k.clone(), v=comp_p.v.clone()), "decode")
+    with mock.patch.multiple(kernels, **plain):
+        d_pp, _ = fwd(nxt, comp_p, "decode")
+    within(d_kp[:, -1], d_pp[:, -1], "SnapKV first decode logits over one compressed cache")
+    if bool(agree.any()):
+        within(d_kk[agree, -1], d_pp[agree, -1],
+               f"SnapKV first decode logits, rows {agree.nonzero().flatten().tolist()} whose "
+               "selections agree, each run over its own cache")
+    del comp_k, comp_p, d_kk, d_kp, d_pp
+
+    # streaming: decode logits along one token path, after an eviction
+    def stream_run(path=None):
+        shift2 = streaming.make_sink_shift(cfg2, stream_window, STREAM_SINK,
+                                           streaming.default_chunk(stream_window, STREAM_SINK))
+        cache = kvcache.init_cache(POLICY_LAYERS, 4, stream_window, Hkv, D, device=dev)
+        logits, cache = fwd(torch.as_tensor(stream_prompts, device=dev), cache)
+        out, toks, evicted = [], [], None
+        cur = logits[:, -1].argmax(-1)
+        for i in range(stream_window - stream_len + 8):
+            if cache.pos >= stream_window and evicted is None:
+                evicted = i
+            cache = shift2(cache)
+            cur = cur if path is None else path[i]
+            toks.append(cur)
+            logits, cache = fwd(cur[:, None], cache, "decode")
+            out.append(logits[:, -1])
+            cur = logits[:, -1].argmax(-1)
+        return torch.stack(out, 1), toks, evicted
+
+    s_k, path, evicted = stream_run()
+    with mock.patch.multiple(kernels, **plain):
+        s_p, _, _ = stream_run(path)
+    within(s_k[:, evicted:], s_p[:, evicted:],
+           f"streaming decode logits after the eviction at step {evicted}")
+
+    # chat: turn 3's prefill logits (no window), against the plain
+    # versions along the same transcript and the kernels' one-shot prefill
+    class Recording(ChatSession):
+        def _prefill(self, ids):
+            self.prefill_logits = super()._prefill(ids)
+            return self.prefill_logits
+
+    tm2 = type(tm)(cfg2, m2, "sym_int4", device=dev)
+    sess = Recording(tm2, max_len=2048)
+    replies = [sess.send(t, max_new_tokens=chat_new) for t in turns[:2]]
+    sess.send(turns[2], max_new_tokens=1)
+    chat_k = sess.prefill_logits
+    with mock.patch.multiple(kernels, **plain):
+        ps = ChatSession(tm2, max_len=2048)
+        for t, r in zip(turns[:2], replies):
+            ps._prefill(t)
+            for x in r:
+                ps._decode(x)
+        chat_p = ps._prefill(turns[2])
+    transcript = turns[0] + replies[0] + turns[1] + replies[1] + turns[2]
+    one_tok, one_start = pad_prompts([transcript], 0)
+    cache = kvcache.init_cache(POLICY_LAYERS, 1, one_tok.shape[1], Hkv, D, device=dev)
+    one_k = fwd(torch.as_tensor(one_tok, dtype=torch.long, device=dev),
+                dataclasses.replace(cache, start=torch.as_tensor(one_start, device=dev)),
+                "prefill", last_logits_only=True)[0][0, -1]
+    within(chat_k, chat_p, f"chat turn 3 ({len(transcript)} tokens) against the plain versions")
+    within(chat_k, one_k, "chat turn 3 against the kernels' one-shot prefill of the transcript")
+    del m2, tm2, sess, ps
+    torch.cuda.empty_cache()
+    log(f"phase 18 (e): {time.time() - t_e:.1f} s")
 
 
 if __name__ == "__main__":

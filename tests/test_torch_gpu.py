@@ -902,3 +902,141 @@ def test_low_bit_round_trip_on_the_card(tmp_path):
         got = back.generate(prompts, max_new_tokens=8)
         assert (got == want).all()
         assert kernels.launch_counts()[kernels.GEMM.name] == 8
+
+
+# ---------------------------------------------------------------------------
+# generation's KV-cache policies on the card
+# ---------------------------------------------------------------------------
+
+_POLICY_CFG = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                          num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1)
+_PLAIN = {"qmatmul": kernels.qmatmul_plain, "flash_attention": kernels.flash_attention_plain}
+
+
+def _selection_agrees(c_a, obs_a, c_b, obs_b, window, keep_k):
+    """SnapKV's selection rule between two runs (caches before compression,
+    observation queries): a slot kept by one run only has a vote of run b
+    within 2 dv of b's keep_k-th largest, dv the layer's largest vote
+    difference. Returns [B] bool: the rows whose kept slots agree."""
+    from bigdl_tpu_torch import kvcache
+
+    prefix = kvcache.snapkv_prefix(c_b.start, c_b.pos, window, c_b.max_len)
+    agree = torch.ones(prefix.shape[0], dtype=torch.bool, device=prefix.device)
+    for layer in range(c_b.k.shape[0]):
+        # each run's votes on its own device
+        va, vb = (kvcache.snapkv_votes(c.k[layer], None, o[layer], prefix.to(c.k.device), 7
+                                       ).to(prefix.device) for c, o in ((c_a, obs_a), (c_b, obs_b)))
+        kept = [torch.zeros_like(v, dtype=torch.bool).scatter_(
+            -1, kvcache.snapkv_select(v, prefix, keep_k), True) & prefix[:, None] for v in (va, vb)]
+        diff = kept[0] ^ kept[1]
+        dv = (va - vb).abs()[prefix[:, None, :].expand(va.shape)].max()
+        kth = torch.sort(vb, dim=-1, descending=True).values[..., keep_k - 1:keep_k]
+        assert ((vb - kth).abs()[diff] <= 2 * dv).all()
+        agree &= ~diff.any(-1).any(-1)
+    return agree
+
+
+def test_snapkv_compress_on_the_card_matches_the_cpu():
+    """compress is plain torch: on the card, the same bookkeeping as on the
+    CPU, the kept slots by the selection rule (f32 sums in another order)
+    and, where they agree, the same compacted bytes."""
+    from bigdl_tpu_torch import kvcache
+
+    dev = _cuda()
+    g = torch.Generator().manual_seed(5)
+    L, B, S, Hkv, G, D, W = 2, 3, 300, 2, 4, 128, 16
+    cpu = kvcache.KVCache(k=torch.randn(L, B, S, Hkv, D, generator=g).to(torch.bfloat16),
+                          v=torch.randn(L, B, S, Hkv, D, generator=g).to(torch.bfloat16),
+                          pos=S, start=torch.tensor([0, 41, 290], dtype=torch.int32))
+    obs = (torch.randn(L, B, W, Hkv * G, D, generator=g) * 2).to(torch.bfloat16)
+    card = dataclasses.replace(cpu, k=cpu.k.to(dev), v=cpu.v.to(dev), start=cpu.start.to(dev))
+    want = kvcache.compress(cpu, obs, 80, 96, window=W)
+    got = kvcache.compress(card, obs.to(dev), 80, 96, window=W)
+    assert got.pos == want.pos == 80 and got.k.device.type == "cuda"
+    assert torch.equal(got.start.cpu(), want.start) and torch.equal(got.rope_base.cpu(), want.rope_base)
+    agree = _selection_agrees(cpu, obs, card, obs.to(dev), W, 80 - W)
+    for b in range(B):
+        s0 = int(want.start[b])
+        if agree[b]:
+            assert torch.equal(got.k[:, b, s0:].cpu(), want.k[:, b, s0:])
+            assert torch.equal(got.v[:, b, s0:].cpu(), want.v[:, b, s0:])
+
+
+def test_snapkv_generate_kernels_vs_plain():
+    """A small model's SnapKV prefill through the flash kernel and the
+    GEMM, then the first decode through the GEMV, against the plain
+    versions: the selection rule, and the decode logits within 2 % of the
+    largest over one compressed cache and, where the selections agree,
+    over each run's own."""
+    from bigdl_tpu_torch import kvcache
+    from bigdl_tpu_torch.utils import cache_len_for
+
+    dev = _cuda()
+    cfg = _POLICY_CFG
+    tm = TorchModel(cfg, optimize_model(llama.init_params(cfg, seed=4), cfg, "sym_int4"), "sym_int4")
+    prompts = [list(range(3, 200)), list(range(100, 160)), [7, 3, 9, 4]]
+    tokens, starts = pad_prompts(prompts, 0)
+    W, budget = 16, 64
+    tok = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+
+    def prefill():
+        cache = dataclasses.replace(
+            init_cache(2, 3, cache_len_for(tokens.shape[1], 8), 1, 128, device=dev),
+            start=torch.as_tensor(starts, device=dev))
+        with torch.inference_mode():
+            lg, cache, obs = llama.forward(cfg, tm.params, tok, cache, collect_obs=W,
+                                           last_logits_only=True)
+        return cache, obs, kvcache.compress(cache, obs, budget, cache_len_for(budget, 8), window=W), lg
+
+    kernels.reset_launches()
+    c_k, o_k, comp_k, lg = prefill()
+    assert kernels.FLASH.launches == 2 and kernels.GEMM.launches == 8
+    with mock.patch.multiple(kernels, **_PLAIN):
+        c_p, o_p, comp_p, _ = prefill()
+    agree = _selection_agrees(c_k, o_k, c_p, o_p, W, budget - W)
+    nxt = lg[:, -1].argmax(-1)[:, None]
+
+    def decode(comp):
+        with torch.inference_mode():
+            return llama.forward(cfg, tm.params, nxt, dataclasses.replace(
+                comp, k=comp.k.clone(), v=comp.v.clone()), "decode")[0][:, -1]
+
+    ref = None
+    with mock.patch.multiple(kernels, **_PLAIN):
+        ref = decode(comp_p)
+    tol = 0.02 * ref.abs().max()
+    assert (decode(comp_p) - ref).abs().max() <= tol
+    if bool(agree.any()):
+        assert (decode(comp_k)[agree] - ref[agree]).abs().max() <= tol
+
+
+def test_two_turn_chat_kernels_vs_plain():
+    """Two chat turns on the card: each turn's prefill through the flash
+    kernel at q_offset = pos (not a multiple of the tile), the second
+    turn's logits against the plain versions along the same transcript,
+    within 2 % of the largest."""
+    from bigdl_tpu_torch.chat import ChatSession
+
+    dev = _cuda()
+    cfg = _POLICY_CFG
+    tm = TorchModel(cfg, optimize_model(llama.init_params(cfg, seed=6), cfg, "sym_int4"), "sym_int4")
+    turns = [list(range(5, 42)), list(range(300, 309))]
+
+    class Recording(ChatSession):
+        def _prefill(self, ids):
+            self.prefill_logits = super()._prefill(ids)
+            return self.prefill_logits
+
+    sess = Recording(tm, max_len=256)
+    kernels.reset_launches()
+    r1 = sess.send(turns[0], max_new_tokens=7)
+    assert kernels.FLASH.launches == 2 and sess.cache.k.device.type == "cuda"
+    sess.send(turns[1], max_new_tokens=1)
+    assert kernels.FLASH.launches == 4
+    with mock.patch.multiple(kernels, **_PLAIN):
+        plain = ChatSession(tm, max_len=256)
+        plain._prefill(turns[0])
+        for t in r1:
+            plain._decode(t)
+        ref = plain._prefill(turns[1])
+    assert (sess.prefill_logits - ref).abs().max() <= 0.02 * ref.abs().max()
