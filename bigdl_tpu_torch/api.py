@@ -8,7 +8,10 @@ HuggingFace safetensors checkpoint (`from_pretrained`).
 a card it raises and asks for device="cpu". `generate` takes the JAX
 package's KV-cache policies: the fp8 cache (`quantize_kv`), SnapKV
 (`compress_kv`) and attention-sink streaming (`streaming_window`), with
-their environment defaults; multi-turn chat is `chat.ChatSession`, the
+their environment defaults, and under BIGDL_TPU_PERFORMANCE_MODE switches
+long greedy prompts to prompt-lookup decoding (`generate_lookup`);
+`generate_speculative` decodes self-speculatively against a sym_int4
+draft (`self_draft_params`). Multi-turn chat is `chat.ChatSession`, the
 serving engine `serving.engine.InferenceEngine`.
 """
 
@@ -118,10 +121,12 @@ class TorchModel:
             compress_kv = None
         if (flags.performance_mode() and streaming_window is None and not do_sample
                 and compress_kv is None and repetition_penalty == 1.0 and longest >= 256):
-            raise NotImplementedError(
-                "BIGDL_TPU_PERFORMANCE_MODE switches generate to prompt-lookup "
-                "decoding: ROADMAP queue 1 item [7], decode/lookup.py is still to "
-                "be ported (unset the flag for plain decoding)")
+            # JAX's switch (api.py:360-373): lookup has no eviction, SnapKV
+            # or penalty, and pays off on long prompts that the output quotes
+            return self.generate_lookup(prompts, max_new_tokens=max_new_tokens,
+                                        eos_token_id=eos_token_id,
+                                        pad_token_id=pad_token_id, seed=seed,
+                                        quantize_kv=quantize_kv)
         streaming = None
         if streaming_window is not None:
             from bigdl_tpu_torch.streaming import validate_streaming
@@ -173,6 +178,52 @@ class TorchModel:
             streaming=streaming,
         )
         return out.cpu().numpy().astype(np.int32)
+
+    def generate_lookup(self, prompts, max_new_tokens: int = 32, lookahead: int = 4,
+                        max_ngram: int = 3, **kw) -> np.ndarray:
+        """Prompt-lookup decoding (the reference's lookup.py:274, what
+        BIGDL_TPU_PERFORMANCE_MODE switches generate to): n-gram candidates
+        from the history, one verify forward a round; batch 1."""
+        from bigdl_tpu_torch.decode import lookup_generate
+
+        return lookup_generate(self.config, self.params, prompts,
+                               max_new_tokens=max_new_tokens, lookahead=lookahead,
+                               max_ngram=max_ngram, **kw)
+
+    def self_draft_params(self) -> llama.LlamaModel:
+        """The sym_int4 self-draft of this model's weights (the reference's
+        self-speculative draft, model.py:366-379), built once and cached;
+        it shares the embedding and norms with the target. Raises for a
+        quantized target, whose draft would equal it: all cost, no
+        speed-up."""
+        from bigdl_tpu_torch.quant.qtypes import resolve_qtype
+
+        try:
+            dense = resolve_qtype(self.qtype).is_dense
+        except ValueError:  # a mixed alias such as q4_k_m
+            dense = False
+        if not dense:
+            raise ValueError(
+                f"model qtype {self.qtype!r} is already quantized; a sym_int4 "
+                "self-draft would equal the target. Pass explicit draft_params or "
+                "load the target as fp16/bf16.")
+        draft = getattr(self, "_draft_params", None)
+        if draft is None:
+            draft = llama.quantized_copy(self.params, "sym_int4")
+            self._draft_params = draft
+        return draft
+
+    def generate_speculative(self, prompts, draft_params=None, max_new_tokens: int = 32,
+                             draft_k: int = 4, **kw) -> np.ndarray:
+        """Self-speculative decoding (the reference's speculative.py:803):
+        the draft (`self_draft_params()` unless given) proposes up to
+        draft_k tokens, one target forward verifies them; batch 1."""
+        from bigdl_tpu_torch.decode import speculative_generate
+
+        if draft_params is None:
+            draft_params = self.self_draft_params()
+        return speculative_generate(self.config, self.params, draft_params, prompts,
+                                    max_new_tokens=max_new_tokens, draft_k=draft_k, **kw)
 
 
 class AutoModelForCausalLM:

@@ -64,21 +64,24 @@ def seen_from_prompt(tokens: torch.Tensor, start: torch.Tensor,
 def filter_logits_per_row(logits: torch.Tensor, temperature: torch.Tensor,
                           top_k: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
     """Temperature, top-k (<= 0 disables), then top-p (>= 1 disables) over
-    the top-k-filtered distribution, with per-row [B] parameters; returns
-    scaled logits with -inf outside the support, whose softmax is the
-    sampling distribution."""
+    the top-k-filtered distribution, with per-row [B] parameters over
+    logits [B, ..., V] (the middle axes broadcast: a speculative verify
+    passes [B, K, V]); returns scaled logits with -inf outside the
+    support, whose softmax is the sampling distribution."""
     V = logits.shape[-1]
-    lt = logits / torch.clamp(temperature, min=1e-5)[:, None]
+    exp = (slice(None),) + (None,) * (logits.dim() - 1)
+    lt = logits / torch.clamp(temperature, min=1e-5)[exp]
     sorted_desc = torch.sort(lt, dim=-1, descending=True).values
-    kth = torch.gather(sorted_desc, -1, torch.clamp(top_k.long() - 1, 0, V - 1)[:, None])
+    kidx = torch.clamp(top_k.long() - 1, 0, V - 1)[exp].expand(lt.shape[:-1] + (1,))
+    kth = torch.gather(sorted_desc, -1, kidx)
     neg_inf = torch.full_like(lt, float("-inf"))
-    lt_k = torch.where((top_k > 0)[:, None] & (lt < kth), neg_inf, lt)
+    lt_k = torch.where((top_k > 0)[exp] & (lt < kth), neg_inf, lt)
     sorted_k = torch.sort(lt_k, dim=-1, descending=True).values
     probs = torch.softmax(sorted_k, dim=-1)
     cum = torch.cumsum(probs, dim=-1) - probs
-    cutoff_idx = torch.sum(cum < top_p[:, None], dim=-1, keepdim=True) - 1
+    cutoff_idx = torch.sum(cum < top_p[exp], dim=-1, keepdim=True) - 1
     cutoff = torch.gather(sorted_k, -1, torch.clamp(cutoff_idx, 0, V - 1))
-    return torch.where((top_p < 1.0)[:, None] & (lt_k < cutoff), neg_inf, lt_k)
+    return torch.where((top_p < 1.0)[exp] & (lt_k < cutoff), neg_inf, lt_k)
 
 
 def sample_token_per_row(logits: torch.Tensor, generator: Optional[torch.Generator],

@@ -293,6 +293,21 @@ def quantize_params(model: LlamaModel, qtype: str,
     return model
 
 
+def quantized_copy(model: LlamaModel, qtype: str) -> LlamaModel:
+    """A model whose projections and lm head are `qtype` copies of
+    `model`'s (`quantize_params` on new layer containers), sharing the
+    embedding, the norms and the biases with it; `model` is left as it
+    is. JAX's `optimize_model` is functional and gives this; the
+    self-speculative draft is built with it."""
+    layers = []
+    for layer in model.layers:
+        norms = {n: getattr(layer, n) for n in OPTIONAL_NORMS if getattr(layer, n) is not None}
+        layers.append(DecoderLayer(layer.attn_norm, layer.mlp_norm, dict(layer.proj.items()),
+                                   **norms))
+    return quantize_params(LlamaModel(model.embed, layers, model.final_norm, model.lm_head),
+                           qtype)
+
+
 def _concat(lins: list[Linear], what: str) -> Linear:
     """Row-concatenation of same-format linears, their biases
     concatenated (JAX's bqkv, b_gateup) when every part has one."""

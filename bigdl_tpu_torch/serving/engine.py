@@ -24,7 +24,18 @@ sub-slice of bigdl_tpu/serving/engine.py).
   runs the base path unchanged. Prefix pages are cached per adapter
   namespace, and over a paged pool the adapters' weights page into the
   same `PagePool` as KV (`AdapterPager`), paged out before any request is
-  preempted.
+  preempted;
+- with `speculative=True` a step is a speculative round: a draft model
+  (the target's sym_int4 self-draft unless `draft_params` is given) runs
+  K greedy decode steps over a second, always dense, pool; one target
+  forward over [cur, d0..d_{K-2}] verifies every slot (with the slots'
+  adapters); greedy rows accept the drafts that match the target's
+  argmax, sampled rows by rejection sampling (`decode.rejection_accept`),
+  penalty rows accept none; both pools roll back per row to pos + n_acc
+  + 1. The pools keep a physical reserve of draft_k - 1 slots past
+  max_len, so a verify of a request whose window ends flush with max_len
+  has room for every write. `adaptive_draft` steers K along a ladder
+  (draft_k, halved down to 2) from the acceptance rate.
 
 What changes from JAX: the pools are written in place where JAX donates
 buffers; `jax.random` keys become one `torch.Generator`; the all-default
@@ -34,13 +45,13 @@ the prompt's real tokens (JAX right-pads them to a bucket for a static
 shape — the page plan still uses that bucket, so the same admissions get
 the same physical pages, and the pad writes JAX makes land past `pos`,
 where nothing reads them). The block table goes to the card only when it
-changed.
+changed. A speculative round brings its acceptance counts to the host
+with its tokens, as the plain step does its tokens.
 
 Not in this slice, each raising NotImplementedError with its ROADMAP
-item: speculative decoding (with or without adapters), chunked prefill
-(with or without adapters), the request journal and fault injection,
-tracing and the request log, overload control (`max_queue`, deadlines,
-drain).
+item: chunked prefill (with or without adapters), the request journal
+and fault injection, tracing and the request log, overload control
+(`max_queue`, deadlines, drain).
 """
 
 from __future__ import annotations
@@ -57,8 +68,10 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch import kvcache, kvpaged
+from bigdl_tpu_torch.decode.speculative import rejection_accept
 from bigdl_tpu_torch.generate import (GenerationConfig, apply_repetition_penalty,
-                                      sample_token_per_row, seen_from_prompt)
+                                      filter_logits_per_row, sample_token_per_row,
+                                      seen_from_prompt)
 from bigdl_tpu_torch.models import llama
 from bigdl_tpu_torch.serving.adapters import AdapterError, AdapterPager, rank_bucket
 from bigdl_tpu_torch.serving.metrics import FAST_BUCKETS, Histogram
@@ -69,9 +82,6 @@ from bigdl_tpu_torch.utils import round_up
 # engine arguments of the JAX engine this slice leaves out -> the ROADMAP
 # item (queue 1 item 5 unless said) that ports them
 _NOT_PORTED = {
-    "speculative": "speculative decoding",
-    "draft_params": "speculative decoding",
-    "adaptive_draft": "speculative decoding",
     "prefill_chunk_tokens": "chunked prefill",
     "journal": "the request journal",
     "faults": "fault injection",
@@ -175,12 +185,25 @@ class InferenceEngine:
                  n_pages: Optional[int] = None, truncate_prompts: bool = False,
                  logprobs_top_k: int = 0, quantize_kv: bool = False,
                  preemption: bool = True, preemption_policy: str = "youngest",
-                 adapters=None, **not_ported):
+                 adapters=None, speculative: bool = False, draft_params=None,
+                 draft_k: int = 4, adaptive_draft: bool = False, **not_ported):
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"InferenceEngine got an unexpected argument {name!r}")
             if value not in (None, False):
                 raise _not_ported(f"InferenceEngine({name}=...)", _NOT_PORTED[name])
+        # JAX's refusals, before any pool is allocated
+        if logprobs_top_k and speculative:
+            raise NotImplementedError(
+                "logprobs_top_k is not wired through the speculative verify round "
+                "yet; use speculative=False")
+        if speculative and draft_k < 2:
+            # K-1 drafts are verifiable: K=1 would pay a draft forward whose
+            # token can never be accepted
+            raise ValueError(f"draft_k must be >= 2, got {draft_k}")
+        if adaptive_draft and not speculative:
+            raise ValueError("adaptive_draft steers the speculative draft length — pass "
+                             "speculative=True to enable it")
         if preemption_policy not in ("youngest", "oldest"):
             raise ValueError(f"preemption_policy must be 'youngest' or "
                              f"'oldest', got {preemption_policy!r}")
@@ -195,7 +218,16 @@ class InferenceEngine:
         self.paged = paged
         self.quantize_kv = quantize_kv
         self.page_size = page_size
-        self.max_pages_per_row = -(-max_len // page_size)
+        self.speculative = speculative
+        self.adaptive_draft = adaptive_draft
+        # the physical reserve past max_len (JAX's): a verify writes K
+        # tokens at pos..pos+K-1 before its rollback, so a request whose
+        # window ends flush with max_len writes up to K - 1 slots past it;
+        # without the reserve a paged row finds no logical page for them
+        # and finishes "length" short of its budget, and a dense row drops
+        # them
+        self._reserve = draft_k - 1 if speculative else 0
+        self.max_pages_per_row = -(-(max_len + self._reserve) // page_size)
         # +1: physical page 0 is the scratch sink, so the default pool
         # still covers every slot at full logical length
         self.n_pages = n_pages or n_slots * self.max_pages_per_row + 1
@@ -270,28 +302,50 @@ class InferenceEngine:
                 self.n_pages, kvpaged.kv_page_nbytes(self.cache), device=self.device)
             self._pager = AdapterPager(self._adapter_store, self._pool, self._alloc_page)
 
-    def _make_pool(self):
+        # speculative decoding: the draft's own pool, always dense (the
+        # draft needs its whole context, and a dense row keeps the per-row
+        # rollback a subtraction in both pools); K moves along a ladder
+        # under adaptive_draft
+        self.dcache = None
+        self._draft_params = draft_params
+        self.spec_rounds = 0  # verify rounds run
+        self.spec_emitted = 0  # tokens those rounds emitted
+        if speculative:
+            if draft_params is None:
+                self._draft_params = model.self_draft_params()
+            self.dcache = self._make_pool(force_dense=True)
+            ks = {draft_k}
+            k = draft_k
+            while adaptive_draft and k > 2:
+                k = max(2, k // 2)
+                ks.add(k)
+            self._k_ladder = sorted(ks)
+            self._cur_k = draft_k
+            self._accept_ema: Optional[float] = None
+
+    def _make_pool(self, force_dense: bool = False):
         """The shared KV pool, per-row positions from the start (idle
-        rows park at 0)."""
+        rows park at 0), with the speculative reserve past max_len;
+        force_dense: the draft pool, dense whatever the target's."""
         cfg = self.config
         L, Hkv, D = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim_
-        if self.paged:
+        if self.paged and not force_dense:
             return kvpaged.init_paged(L, self.n_pages, self.page_size, Hkv, D,
                                       self.n_slots, self.max_pages_per_row,
                                       quantize_kv=self.quantize_kv,
                                       device=self.device)
-        cache = kvcache.init_cache(L, self.n_slots, self.max_len, Hkv, D,
+        cache = kvcache.init_cache(L, self.n_slots, self.max_len + self._reserve, Hkv, D,
                                    quantize_kv=self.quantize_kv, device=self.device)
         return dataclasses.replace(cache, pos=torch.zeros(
             (self.n_slots,), dtype=torch.int32, device=self.device))
 
     # ---- device pieces ----------------------------------------------------
 
-    def _prefill(self, tokens: np.ndarray, pad: int, lora=None):
+    def _prefill(self, tokens: np.ndarray, pad: int, lora=None, params=None):
         """One request's prefill on its own 1-row, scalar-pos cache (the
         flash kernel; its fp8 arm for an fp8 pool), with the request's
-        adapter tree if any. Returns ([1, V] last logits, the 1-row
-        cache)."""
+        adapter tree if any, through `params` (default: the target's).
+        Returns ([1, V] last logits, the 1-row cache)."""
         cfg = self.config
         cache = kvcache.init_cache(
             cfg.num_hidden_layers, 1, tokens.shape[1], cfg.num_key_value_heads,
@@ -299,7 +353,8 @@ class InferenceEngine:
         cache = dataclasses.replace(cache, start=torch.tensor(
             [pad], dtype=torch.int32, device=self.device))
         logits, cache = llama.forward(
-            cfg, self.model.params, torch.as_tensor(tokens, device=self.device).long(),
+            cfg, self.model.params if params is None else params,
+            torch.as_tensor(tokens, device=self.device).long(),
             cache, mode="prefill", last_logits_only=True, lora=lora)
         return logits[:, -1], cache
 
@@ -344,6 +399,71 @@ class InferenceEngine:
             top = (ti, tv - lse[:, None])
         self.seen[torch.arange(self.n_slots, device=dev), nxt] = True
         return nxt, lp, top
+
+    def _spec_decode(self, K: int):
+        """One speculative round for the whole slot pool (JAX's
+        `_spec_decode_impl`): K greedy draft steps over the draft pool,
+        one verify forward of the target over [cur, d0..d_{K-2}] with the
+        slots' adapters, then per-row acceptance — greedy rows by argmax
+        match (the tokens of plain serving), sampled rows by rejection
+        sampling (the output law of plain sampling), penalty rows accept
+        none and take the penalty sampler's token at position 0. Both
+        pools roll back to pos + n_acc + 1; slots above hold stale drafts,
+        masked and overwritten next round. Acceptance caps at K-1: the
+        draft pool holds KV for cur, d0..d_{K-2} only. Returns (choice
+        [B, K], each emitted token's target logprob [B, K], n_acc [B], the
+        drafts [B, K]); slot b emits choice[b, :n_acc[b] + 1]."""
+        cfg, dev = self.config, self.device
+        tok, drafts = self.cur, []
+        for _ in range(K):
+            logits, self.dcache = llama.forward(cfg, self._draft_params, tok[:, None],
+                                                self.dcache, mode="decode")
+            tok = torch.argmax(logits[:, -1], dim=-1)
+            drafts.append(tok)
+        drafts = torch.stack(drafts, dim=1)  # [B, K]
+        verify_in = torch.cat([self.cur[:, None], drafts[:, :K - 1]], dim=1)
+        tlogits, self.cache = llama.forward(cfg, self.model.params, verify_in, self.cache,
+                                            mode="prefill", lora=self._gather_blora())
+        tlogits = tlogits.float()
+        greedy = torch.argmax(tlogits, dim=-1)  # [B, K]
+        pen1 = self._penalty == 1.0
+        row_greedy, row_sampled = ~self._dosample & pen1, self._dosample & pen1
+        temp, topk, topp = (torch.as_tensor(a, device=dev)
+                            for a in (self._temp, self._topk, self._topp))
+        if row_sampled.any():
+            probs = torch.softmax(filter_logits_per_row(tlogits, temp, topk, topp), dim=-1)
+            n_acc, extra = rejection_accept(
+                probs, drafts, greedy, torch.as_tensor(row_greedy, device=dev),
+                torch.as_tensor(row_sampled, device=dev), generator=self._gen)
+            del probs
+        else:  # all-greedy pools skip the [B, K, V] sorts (a host check)
+            acc = (drafts[:, :K - 1] == greedy[:, :K - 1]) & torch.as_tensor(
+                row_greedy, device=dev)[:, None]
+            n_acc = torch.cumprod(acc.long(), dim=1).sum(dim=1)
+            extra = torch.gather(greedy, 1, n_acc[:, None])[:, 0]
+        step0 = None
+        if not pen1.all():
+            step0 = apply_repetition_penalty(tlogits[:, 0], self.seen,
+                                             torch.as_tensor(self._penalty, device=dev))
+            samp0 = sample_token_per_row(step0, self._gen, temp, topk, topp, self._dosample)
+            extra = torch.where(torch.as_tensor(pen1, device=dev), extra, samp0)
+        pos = torch.arange(K, device=dev)[None, :]
+        choice = torch.where(pos < n_acc[:, None], drafts,
+                             torch.where(pos == n_acc[:, None], extra[:, None], greedy))
+        # each emitted token's logprob without a [B, K, V] log-softmax
+        lp = torch.gather(tlogits, -1, choice[..., None])[..., 0] - torch.logsumexp(tlogits, -1)
+        if step0 is not None:
+            # penalty rows drew position 0 from the penalized distribution
+            lp0 = (torch.gather(step0, -1, choice[:, :1])[:, 0]
+                   - torch.logsumexp(step0, dim=-1))
+            lp[:, 0] = torch.where(torch.as_tensor(pen1, device=dev), lp[:, 0], lp0)
+        back = (n_acc + 1 - K).to(torch.int32)
+        self.cache = dataclasses.replace(self.cache, pos=self.cache.pos + back)
+        self.dcache = dataclasses.replace(self.dcache, pos=self.dcache.pos + back)
+        self.cur = extra
+        # penalty rows emit exactly `extra`; the others do not read `seen`
+        self.seen[torch.arange(self.n_slots, device=dev), extra] = True
+        return choice, lp, n_acc, drafts
 
     # ---- host API ---------------------------------------------------------
 
@@ -548,8 +668,24 @@ class InferenceEngine:
         self.cache.start[slot] = 0
         self._slot_pos[slot] = len(prompt)
         self._register_prefix(prompt, path, table, ns=req.adapter)
+        if self.speculative:
+            # a prefix hit saves the target's prefill only: the draft
+            # prefills its whole context into its dense pool
+            self._admit_draft(slot, prompt, limit)
         self._activate(slot, req, logits_last)
         return True
+
+    def _admit_draft(self, slot: int, prompt: list[int], limit: int) -> None:
+        """Prefill the draft pool's row of a newly admitted or resumed
+        request, left-padded to its bucket — one definition for every
+        admission path (dense, paged, a prefix hit, a resume)."""
+        bucket = min(round_up(max(len(prompt), 16), 64), limit)
+        dprompt = prompt[-bucket:]
+        tokens = np.full((1, bucket), self.gen.pad_token_id, np.int32)
+        tokens[0, bucket - len(dprompt):] = dprompt
+        pad = bucket - len(dprompt)
+        _, dpcache = self._prefill(tokens, pad, params=self._draft_params)
+        kvcache.insert_row(self.dcache, dpcache, slot, pad)
 
     def _register_prefix(self, prompt: list[int], path: list,
                          table: list[int], ns=None) -> None:
@@ -566,15 +702,16 @@ class InferenceEngine:
                 nxt = self.radix.insert(node, key, table[i])
             node = nxt
 
-    def _ensure_decode_pages(self) -> None:
-        """Before a decode step, every active slot whose next write would
-        run past its allocation gets a page; a dry pool preempts a victim
+    def _ensure_decode_pages(self, need_tokens: int = 1) -> None:
+        """Before a decode step, every active slot whose next `need_tokens`
+        writes (a speculative verify writes K before its rollback) would
+        run past its allocation gets pages; a dry pool preempts a victim
         (policy order) to host RAM. "length" remains only for the logical
         capacity or a pool that provably cannot support the request."""
         for i in np.nonzero(self.active)[0]:
             slot = int(i)
             while (self.active[slot]
-                   and self._slot_pos[slot] + 1 > self._slot_written[slot]):
+                   and self._slot_pos[slot] + need_tokens > self._slot_written[slot]):
                 idx = len(self._slot_pages[slot])
                 if idx >= self.max_pages_per_row:  # logical capacity hit
                     self._finish(slot, "length")
@@ -682,6 +819,11 @@ class InferenceEngine:
         self.seen[slot] = entry.seen.to(self.device)
         # the parked request kept its adapter reference; re-point the slot
         self._set_slot_adapter(slot, req)
+        if self.speculative:
+            # the draft pool was not swapped (drafts only move the
+            # acceptance rate): rebuild its row from the whole context
+            self._admit_draft(slot, req.prompt + req.out_tokens,
+                              self.max_len - req.max_new_tokens)
         self._temp[slot], self._topk[slot] = entry.temp, entry.topk
         self._topp[slot], self._dosample[slot] = entry.topp, entry.dosample
         self._penalty[slot] = entry.penalty
@@ -955,6 +1097,8 @@ class InferenceEngine:
         pad = bucket - len(req.prompt)
         logits_last, pcache = self._prefill(tokens, pad, self._prefill_lora(req))
         kvcache.insert_row(self.cache, pcache, slot, pad)
+        if self.speculative:
+            self._admit_draft(slot, req.prompt, limit)
         self._activate(slot, req, logits_last)
 
     def _admit(self) -> None:
@@ -1051,6 +1195,8 @@ class InferenceEngine:
         """Rebuild the pool after a failed decode so the engine can keep
         serving new requests."""
         self.cache = self._make_pool()
+        if self.speculative:
+            self.dcache = self._make_pool(force_dense=True)
         self.cur.zero_()
         self.seen.zero_()
         self._penalty[:] = 1.0
@@ -1115,13 +1261,16 @@ class InferenceEngine:
         self._reap_preempt_requests()
         self._admit()
         if self.paged:
-            self._ensure_decode_pages()
+            # the current ladder K: after a downshift a round writes fewer
+            self._ensure_decode_pages(self._cur_k if self.speculative else 1)
             if self._bt_dirty:
                 self.cache.block_tables.copy_(torch.from_numpy(self._bt_host))
                 self._bt_dirty = False
         if not self.active.any():
             return (not self._queue.empty() or self._waiting is not None
                     or bool(self._preempted))
+        if self.speculative:
+            return self._step_speculative()
         t0 = self._clock()
         try:
             nxt, lps, top = self._decode()
@@ -1154,6 +1303,63 @@ class InferenceEngine:
                 alt = {int(t): float(lv) for t, lv in zip(tops_h[0][i], tops_h[1][i])}
             self._emit(i, int(toks[i]), float(lps_h[i]), alt)
         return True
+
+    def _step_speculative(self) -> bool:
+        """A draft-K-then-verify round: each live slot emits 1..K tokens
+        (its accepted drafts and the target's token after them)."""
+        t0 = self._clock()
+        try:
+            choice, lp, n_acc, _ = self._spec_decode(self._cur_k)
+        except Exception:
+            self.fail_all("speculative decode step failed")
+            self._reset_state()
+            raise
+        choice_h = choice.tolist()
+        lp_h = lp.cpu().numpy()
+        n_acc_h = n_acc.cpu().numpy()
+        # the host copies above synchronize: the round's device work is done
+        self.decode_step_seconds.observe(self._clock() - t0)
+        self.spec_rounds += 1
+        if self.adaptive_draft:
+            self._adapt_draft_k(n_acc_h[self.active])
+        for i in np.nonzero(self.active)[0]:
+            i = int(i)
+            s = self._slots[i]
+            n = int(n_acc_h[i])
+            if not np.all(np.isfinite(lp_h[i, :n + 1])):
+                # the plain step's quarantine: one poisoned row must not
+                # take the batch down
+                s.req.error = ("non-finite logits in speculative verify; request "
+                               "quarantined (other slots unaffected)")
+                self._finish(i, "error")
+                continue
+            if self.paged:  # the host mirror of the rolled-back position
+                self._slot_pos[i] += n + 1
+            for t in range(n + 1):
+                s.remaining -= 1
+                self.spec_emitted += 1
+                self._emit(i, int(choice_h[i][t]), float(lp_h[i, t]))
+                if not self.active[i]:  # EOS or the budget, mid-round
+                    break
+        return True
+
+    def _adapt_draft_k(self, n_acc: np.ndarray) -> None:
+        """Steer K along the ladder from an EMA of the rounds' acceptance
+        fraction: below 0.35 down a rung, above 0.75 up one. The tokens do
+        not change (speculative decoding is exact at any K); only the
+        draft's share of the work does."""
+        if n_acc.size == 0:
+            return
+        frac = float(np.mean(n_acc)) / max(self._cur_k - 1, 1)
+        self._accept_ema = (frac if self._accept_ema is None
+                            else 0.7 * self._accept_ema + 0.3 * frac)
+        idx = self._k_ladder.index(self._cur_k)
+        if self._accept_ema < 0.35 and idx > 0:
+            self._cur_k = self._k_ladder[idx - 1]
+            self._accept_ema = None  # measure again at the new K
+        elif self._accept_ema > 0.75 and idx < len(self._k_ladder) - 1:
+            self._cur_k = self._k_ladder[idx + 1]
+            self._accept_ema = None
 
     def run_until_idle(self, max_steps: int = 100000) -> None:
         for _ in range(max_steps):

@@ -178,11 +178,12 @@ the result lines; an exception ends the run at once; nothing is caught):
    plain versions on the card under phases 3, 7 and 5's bounds, and each
    of those kernels launched (flash a layer, paged a layer and decode
    step, each flash-train kernel a layer);
-16. checkpoints from disk (run after phase 4, on phase 3's model): (a)
-   phase 3's 32-layer llama3-8b sym_int4 model saved with `save_low_bit`
+16. checkpoints from disk (run after phase 4): (a) a llama3-8b sym_int4
+   model at full width and 16 of its 32 layers (seed 0; phase 3's model
+   until phase 19 joined the script) saved with `save_low_bit`
    (the artifact's GB, the save's seconds and its device-to-host part),
    loaded with `AutoModelForCausalLM.load_low_bit` under verify="fast"
-   and "full" (seconds, GB/s), `verify_low_bit` ok, and phase 3's greedy
+   and "full" (seconds, GB/s), `verify_low_bit` ok, and its own greedy
    tokens and launch counts from the loaded model; (b) an HF checkpoint
    of Meta-Llama-3-8B's published config.json at 4 layers (bf16 N(0,
    0.02^2) weights from a seed, two shards and an index, ~3.9 GB, written
@@ -194,17 +195,18 @@ the result lines; an exception ends the run at once; nothing is caught):
    a second call and after a save and load; the ingest's seconds, read
    GB/s, quantize ms a layer and peak device memory. Both directories are
    deleted; a temporary directory without room fails the phase.
-17. the llama flags (after phase 15): (a) gemma2-9b at full width and
-   depth (42 layers, hidden 3584, 16 q heads of 256 over 8, vocab
-   256,000 tied to the embedding, alternating windows of 4096, softcaps
-   50/30, (1 + w) norms, gelu-tanh), sym_int4, weights from a seed
+17. the llama flags (after phase 15): (a) gemma2-9b at full width
+   (hidden 3584, 16 q heads of 256 over 8, vocab 256,000 tied to the
+   embedding, alternating windows of 4096, softcaps 50/30, (1 + w) norms,
+   gelu-tanh) and 14 of its 42 layers (the full depth until phase 19
+   joined the script), sym_int4, weights from a seed
    (norm weights 0: the unit scale under (1 + w)),
    through `TorchModel.generate` at phase 3's shapes: launches (GEMM
-   4 x 42, GEMV 31 x 4 x 42: the tied head is a dense product; no flash
+   4 x 14, GEMV 31 x 4 x 14: the tied head is a dense product; no flash
    launch: JAX's rule sends alternating windows to the plain attention),
    in-vocabulary and repeatable tokens, prefill ms, decode step median
    and p80, busy share, peak memory; (b) the paged engine on it with
-   phase 7's traffic: 42 paged launches a decode step with each layer's
+   phase 7's traffic: 14 paged launches a decode step with each layer's
    window, the softcap and the scale, no page leaks, requests/s, TTFT
    and decode-step quantiles; (c) windows that bite: a 4,500-token
    prompt and 8 decode steps through 2-layer full-width mistral-7b
@@ -223,9 +225,10 @@ the result lines; an exception ends the run at once; nothing is caught):
    repeatable tokens, and gemma2's `save_low_bit` -> `load_low_bit`
    keeping them bit for bit.
 18. generation's KV-cache policies and the embedding variants (after
-   phase 16, on phase 3's 32-layer model): (a) SnapKV, four seeded
+   phase 16, on phase 16's 16-layer model; phase 3's 32-layer one until
+   phase 19 joined the script): (a) SnapKV, four seeded
    prompts of 3,000, 2,400, 1,500 and 700 tokens compressed to 1,024
-   slots (window 32, pool 7), 32 greedy tokens: launches (flash 32 at the
+   slots (window 32, pool 7), 32 greedy tokens: launches (flash a layer at the
    prefill, GEMM at the 16,384-row prefill, GEMV at each step), the
    compressed cache's length, pos, start and rope_base by the formula,
    in-vocabulary and repeatable tokens, prefill ms, decode-step median
@@ -248,12 +251,39 @@ the result lines; an exception ends the run at once; nothing is caught):
    within 2 dv of the keep boundary, dv the layer's largest vote
    difference), streaming's decode after an eviction, and chat turn 3's
    logits against the plain versions and the kernels' one-shot prefill.
+19. self-speculative and prompt-lookup decoding (after phase 18, on
+   phase 3's model and a bf16 llama3-8b of the same seed): (b) a
+   512-token prompt (64 seeded tokens, 8 times), 64 greedy tokens under
+   BIGDL_TPU_PERFORMANCE_MODE: the switch to prompt lookup, launches (the
+   GEMV at M = 4, flash at T = 4 a round), the teacher-forced rule, ms a
+   token beside plain generate's; (d) engine (f)'s four adapters over
+   phase 7's 8 prefix-sharing requests (32 tokens), speculative with the
+   model as its own draft: the LoRA GEMV at 32 rows, base rows accepting
+   K-1 every round but on near-ties, tokens as the plain adapter engine's
+   by the margin rule; (a) `generate_speculative` of one 256-token prompt,
+   64 greedy tokens, draft_k 4, against the sym_int4 self-draft (adaptive
+   off and on) and a perfect draft (the target's weights, twice): launches
+   (32 flash kernels at T = 4 a verify, the draft's GEMV a step), the
+   teacher-forced rule, the perfect draft's K-1 a round but on near-ties,
+   repeatable tokens, a sampled run in the support and repeatable under
+   its seed; rounds, acceptance and ms a token beside plain generate of
+   the target and of the draft; (c) the paged engine with
+   speculative=True, adaptive_draft=True on the bf16 target over phase
+   7's traffic with 4 sampled and 2 penalized requests and one whose
+   window ends flush with max_len: launches, no page leak, greedy rows
+   (penalized where asked) by the teacher-forced rule on the verify's
+   route within phase 7's 0.25 nat, sampled rows in the support;
+   requests/s, TTFT and decode-step quantiles beside the
+   non-speculative engine; (e) two
+   full-width layers' verify logits at T = 2, 3, 4 (B = 1) and T = 4 over
+   8 rows (the GEMV at M = 32) at q_offset 301 against the plain versions
+   under phase 3's bound.
 
 Every phase ends with one line, `phase N: done in X s, F failed
-checks`. The whole run takes about 800-950 s of command time on an H100
-(the host's speed moves it; phase 16 ~120-140 s of it, phase 18 ~125
-s), the kernel builds included (the dequant sources build once per
-qtype: 36 libraries in 50-90 s).
+checks`. The whole run takes about 900-1100 s of command time on an
+H100 (the host's speed moves it; phase 16 ~110-140 s of it, phase 18
+~100-130 s, phase 19 ~110-135 s), the kernel builds included (the
+dequant sources build once per qtype: 36 libraries in 50-90 s).
 It prints one `{"kernels": [...]}` line (the dequant forms carry their
 numbers per format under "by_format"), and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card, or without the
@@ -262,6 +292,7 @@ package beside it, it exits non-zero before printing either.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -281,6 +312,7 @@ PROFILED_PREFILLS, PROFILED_STEPS = 2, 5
 TRAIN_T, RANK, LR = 1024, 8, 1e-4  # bench.py child_train: B=1, T=1024, rank 8
 TRAIN_STEPS, PROFILED_TRAIN_STEPS = 5, 2
 PATH_FORMATS = ("sym_int4", "nf4", "q4_k", "q6_k")  # generation, training, q4_k_m
+HALF_LAYERS = 16  # phases 16 (a) and 18: half of llama3-8b's depth, full width
 RAGGED_M = (33, 255, 257, 1000, 4096)
 GEMV_CHECK_M, GEMV_R = (1, 3, 4, 8, 17, 32), 128  # the GEMV's row counts (n-tiles 1, 2, 4), adapter width
 # the GEMM's launch (x in its steps' order, then the GEMM) and the LoRA
@@ -848,18 +880,26 @@ def main() -> int:
             state = step(*state)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
-        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        with warm_profile(acts) as prof_prefill:
-            for _ in range(PROFILED_PREFILLS):
-                state = prefill_state()
-            torch.cuda.synchronize()
+        box = [state]  # the windows' calls carry the state on
+
+        def prefill_call():
+            box[0] = prefill_state()
+
+        def step_call():
+            box[0] = step(*box[0])
+
+        prof_prefill = profiled_steps(
+            torch, prefill_call, PROFILED_PREFILLS,
+            {kernels.GEMM.name: (GEMM_EVENT, 2 * 4 * L * PROFILED_PREFILLS),
+             kernels.FLASH.name: (re.compile(r"namespace\)::flash_kernel"), L * PROFILED_PREFILLS)},
+            "phase 4 prefill")
         for _ in range(3):
-            state = step(*state)
+            step_call()
         torch.cuda.synchronize()
-        with warm_profile(acts) as prof:
-            for _ in range(PROFILED_STEPS):
-                state = step(*state)
-            torch.cuda.synchronize()
+        prof = profiled_steps(
+            torch, step_call, PROFILED_STEPS,
+            {kernels.GEMV.name: (re.compile(r"namespace\)::gemv_kernel"),
+                                 (4 * L + 1) * PROFILED_STEPS)}, "phase 4 decode")
 
     dev_events = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3 / PROFILED_STEPS
@@ -926,12 +966,29 @@ def main() -> int:
             "max_abs_err": errs[kern.name], "ms": on_path(prof_, kern, n, calls),
             "isolated_ms": iso, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": lib, "per": unit})
+    # phases 16 (a) and 18 run a half-depth llama3-8b (full width, seed 0)
+    # since phase 19 joined the script, to keep the run inside its limit
+    cfg_half = dataclasses.replace(cfg, num_hidden_layers=HALF_LAYERS)
+    tm_half = TorchModel(cfg_half, optimize_model(llama.init_params(cfg_half, seed=0), cfg_half,
+                                                  "sym_int4"), "sym_int4")
+    kernels.reset_launches()
+    out_half = tm_half.generate(prompts, max_new_tokens=NEW_TOKENS)
+    want_half = {k.name: 0 for k in kernels.KERNELS}
+    want_half.update({kernels.GEMM.name: 4 * HALF_LAYERS,
+                      kernels.GEMV.name: 1 + (NEW_TOKENS - 1) * (4 * HALF_LAYERS + 1),
+                      kernels.FLASH.name: HALF_LAYERS})
+    check(kernels.launch_counts() == want_half, "launch counts of the half-depth model")
     # --------------------------------------------------------------- 16
     begin_phase(16)
-    checkpoint_phases(torch, dev, tm, prompts, out1, want)
+    checkpoint_phases(torch, dev, tm_half, prompts, out_half, want_half)
     # --------------------------------------------------------------- 18
     begin_phase(18)
-    cache_policy_phases(torch, dev, card, tm, prompts, tok, st, out1)
+    cache_policy_phases(torch, dev, card, tm_half, prompts, tok, st, out_half)
+    del tm_half
+    torch.cuda.empty_cache()
+    # --------------------------------------------------------------- 19
+    begin_phase(19)
+    decode_phases(torch, dev, card, tm)
     del tm, model
 
     # ---------------------------------------------------------------- 5
@@ -1966,11 +2023,26 @@ def serving_phases(torch, dev, cfg, card, errs) -> list:
     for sp in fp8_specs:
         eng.submit(**sp)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    fp8_flash = re.compile(r"flash_kernel<128, (true|\(bool\)1)>")
     with warm_profile(acts) as prof_e:  # the admission step: 4 prefills
         eng.step()
         torch.cuda.synchronize()
     eng.run_until_idle()
     launches_e = kernels.launch_counts()
+    got = sum(e.count for e in prof_e.key_averages()
+              if fp8_flash.search(e.key) and e.self_device_time_total > 0)
+    if got != 4 * L:
+        # a window short of a kernel record (the profiler's, not the
+        # wrappers': `profiled_steps`): profile another admission once
+        log(f"phase 7 (e): the profiler recorded {got} fp8 flash calls, expected {4 * L}; "
+            "profiling the admission again")
+        again = engine(quantize_kv=True)
+        for sp in fp8_specs:
+            again.submit(**sp)
+        with warm_profile(acts) as prof_e:
+            again.step()
+            torch.cuda.synchronize()
+        del again
     log(f"phase 7 (e) dense fp8: 4 requests of {FP8_DENSE_LEN} tokens, launches {launches_e}")
     check(launches_e[kernels.FLASH_FP8.name] == 4 * L > 0, "(e) flash fp8 launches")
     del eng
@@ -2045,14 +2117,14 @@ def serving_phases(torch, dev, cfg, card, errs) -> list:
             torch.cuda.synchronize()
             host.append((time.perf_counter() - t0) * 1e3)
         pos = list(eng._slot_pos)
-        with warm_profile(acts) as prof:
-            for _ in range(PROFILED_DECODES):
-                eng.step()
-            torch.cuda.synchronize()
+        flag = "true" if fp8 else "false"
+        prof = profiled_steps(
+            torch, eng.step, PROFILED_DECODES,
+            {kern.name: (re.compile(rf"paged_split_kernel<128, ({flag}|\(bool\){int(fp8)}), "),
+                         L * PROFILED_DECODES)}, f"phase 8 {'fp8' if fp8 else 'bf16'} pages")
         del eng
         busy = sum(e.self_device_time_total for e in device_kernels(prof)) / 1e3 / PROFILED_DECODES
         med = sorted(host)[len(host) // 2]
-        flag = "true" if fp8 else "false"
         path = kernel_ms(prof, (f"paged_split_kernel<128, {flag}, ",
                                 f"paged_split_kernel<128, (bool){int(fp8)}, "),
                          L * PROFILED_DECODES, PROFILED_DECODES)
@@ -2528,11 +2600,9 @@ def adapter_phases(torch, dev, cfg, card, errs, served) -> list:
         eng.step()
         torch.cuda.synchronize()
         host.append((time.perf_counter() - t1) * 1e3)
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with warm_profile(acts) as prof:
-        for _ in range(PROFILED_DECODES):
-            eng.step()
-        torch.cuda.synchronize()
+    prof = profiled_steps(torch, eng.step, PROFILED_DECODES,
+                          {kernels.LORA_GEMV.name: (LORA_GEMV_EVENT, 2 * L * PROFILED_DECODES)},
+                          "phase 12 adapter decode step")
     R = SLOTS * rank_bucket(max(ADAPTER_RANKS[:3]))
     del eng
     dev_events = device_kernels(prof)
@@ -2845,10 +2915,10 @@ def dir_bytes(path) -> int:
 
 
 def checkpoint_phases(torch, dev, tm, prompts, want_tokens, want_launches, hf=LLAMA3_8B_HF) -> None:
-    """Phase 16: checkpoints from disk to the card. (a) phase 3's 32-layer
-    llama3-8b sym_int4 model saved as the low-bit artifact, loaded back
-    (verify fast and full), verified, and generating phase 3's tokens with
-    phase 3's launches; (b) an HF checkpoint of llama3-8b's published
+    """Phase 16: checkpoints from disk to the card. (a) `tm` (in the run,
+    a 16-layer llama3-8b sym_int4 model) saved as the low-bit artifact,
+    loaded back (verify fast and full), verified, and generating its
+    tokens `want_tokens` with its launches `want_launches`; (b) an HF checkpoint of llama3-8b's published
     config at 4 layers, written with the script's safetensors writer,
     ingested in sym_int4 and q4_k_m and checked. Each directory is
     deleted after its half. (On the CPU, at a narrowed `hf`, this
@@ -3428,6 +3498,10 @@ def format_phases(torch, dev, cfg, card, prompts, tok, st, T, S) -> dict:
 
 LONG_PROMPT, LONG_DECODE = 4500, 8  # past the 4096 window of mistral and gemma2
 FLAGS_LAYERS = 2  # the kernels-vs-plain checks' depth, at full width
+# (a) and (b)'s gemma2-9b depth: a third of its 42 layers (both window
+# kinds alternate from layer 0) since phase 19 joined the script, to keep
+# the whole run inside its time limit; full width
+GEMMA2_LAYERS = 14
 LLAMA31_ROPE = {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
                 "high_freq_factor": 4.0, "original_max_position_embeddings": 8192}
 # HF config.json values of the port's gemma2-9b and qwen2-7b presets, cut
@@ -3486,7 +3560,7 @@ def unit_norms(torch, model) -> None:
 
 def flags_phases(torch, dev, card, prompt_tokens, starts, presets=None) -> None:
     """Phase 17: the llama flags on the card. (a) gemma2-9b at full width
-    and depth (42 layers) in sym_int4 through `TorchModel.generate` at
+    (GEMMA2_LAYERS of its 42 layers) in sym_int4 through `TorchModel.generate` at
     phase 3's shapes, its launches and times; (b) the serving engine on it
     with phase 7's traffic; (c) windows that bite: a 4,500-token prompt
     and 8 decode steps through 2-layer mistral-7b and gemma2-9b, dense
@@ -3533,8 +3607,9 @@ def flags_phases(torch, dev, card, prompt_tokens, starts, presets=None) -> None:
         xs = sorted(xs)
         return xs[min(int(f * len(xs)), len(xs) - 1)]
 
-    # (a) gemma2-9b at full width and depth through generate ------------
+    # (a) gemma2-9b at full width through generate ---------------------
     cfg = presets["gemma2-9b"]
+    cfg = dataclasses.replace(cfg, num_hidden_layers=min(GEMMA2_LAYERS, cfg.num_hidden_layers))
     L, V = cfg.num_hidden_layers, cfg.vocab_size
     t = time.time()
     dense = llama.init_params(cfg, seed=50, device=dev)
@@ -3973,8 +4048,9 @@ def cache_policy_phases(torch, dev, card, tm, prompts, tok, st, want_tokens,
                         snap_lens=SNAP_LENS, budget=SNAP_BUDGET, stream_len=STREAM_LEN,
                         stream_window=STREAM_WINDOW, stream_new=STREAM_NEW,
                         chat_turns=CHAT_TURNS, chat_window=CHAT_WINDOW, chat_new=CHAT_NEW) -> None:
-    """Phase 18, on phase 3's model `tm` (its prompts, padded tokens `tok`
-    and starts `st`, and its greedy tokens `want_tokens`): (a) SnapKV,
+    """Phase 18, on `tm` (in the run, phase 16's 16-layer model; its
+    prompts, padded tokens `tok` and starts `st`, and its greedy tokens
+    `want_tokens`): (a) SnapKV,
     (b) attention-sink streaming, (c) a chat session, (d) the embedding
     variants, (e) two full-width layers of (a)-(c) against the plain
     versions. (On the CPU, with shorter lengths and a narrow model, this
@@ -4434,6 +4510,515 @@ def cache_policy_phases(torch, dev, card, tm, prompts, tok, st, want_tokens,
     del m2, tm2, sess, ps
     torch.cuda.empty_cache()
     log(f"phase 18 (e): {time.time() - t_e:.1f} s")
+
+
+
+# ---------------------------------------------------------------------------
+# phase 19: self-speculative and prompt-lookup decoding
+# ---------------------------------------------------------------------------
+
+SPEC_PROMPT, SPEC_NEW, SPEC_K = 256, 64, 4  # (a): one seeded prompt, draft_k 4
+SPEC_SAMPLED_NEW = 16  # (a)'s sampled runs
+LOOKUP_PERIOD, LOOKUP_REPEATS, LOOKUP_NEW = 64, 8, 64  # (b): 64 seeded tokens, 8 times
+SPEC_SERVE_REQS, SPEC_ADAPTER_NEW = 8, 32  # (d): the 8 requests sharing the prefix, one wave
+SPEC_VERIFY_T, SPEC_OFFSET = (2, 3, 4), 301  # (e): verify rows; q_offset off the tile
+# phase 3's bound: a token's teacher-forced logit within 2 % of the largest
+# |logit| of its position's maximum (the kernels against plain, 2 layers).
+# generate's verify and a one-shot forward take the same route (flash) and
+# stay inside it. The engine's verify (per-row positions: the plain
+# attention, 8 rows at T = K) and a one-shot forward on that route differ
+# by up to 0.19 nat over 32 layers (engine (c) on an H100), above that
+# bound (~0.14 nat): the engine's rows are held to phase 7's 0.25 nat.
+TF_TOL = 0.02
+
+
+def spec_traffic(V: int) -> list:
+    """Phase 7's 16 requests for the speculative engine: 4 sample
+    (temperature 0.8, top-p 0.9: phase 7's requests 9 and 12, and 5 and
+    14), 2 carry repetition penalty 1.1 (phase 7's request 3, and 10),
+    and request 15's prompt is max_len - 64 tokens, so that its decode
+    window ends flush with max_len."""
+    import numpy as np
+
+    shared, indep = serving_traffic(V)
+    for r in (shared[5], indep[6]):
+        r.update(do_sample=True, temperature=0.8, top_p=0.9)
+    indep[2]["repetition_penalty"] = 1.1
+    indep[7] = dict(prompt=np.random.default_rng(19).integers(1, V, MAX_LEN - SERVE_NEW).tolist(),
+                    max_new_tokens=SERVE_NEW)
+    return shared + indep
+
+
+def teacher_forced(torch, cfg, params, prompt, out, per_row=False, lora=None, penalty=1.0):
+    """The target's logits [N, V] (f32) for each of the N emitted tokens
+    `out`: one forward over prompt + out[:-1] through the kernels, row i
+    predicting out[i], over a dense cache on the attention route of the
+    run it checks: one position for the batch (generate's verify: the
+    flash kernel), or per-row positions (the engine's verify: the plain
+    attention). Across the two routes the logits of a 32-layer model
+    differ by up to ~0.25 nat (phase 7's MARGIN_TOL), more than TF_TOL.
+    `lora` is the request's adapter tree; with a repetition `penalty`
+    row i is penalized over the prompt and out[:i], as the engine's
+    sampler sees them."""
+    from bigdl_tpu_torch.generate import apply_repetition_penalty
+    from bigdl_tpu_torch.kvcache import init_cache
+    from bigdl_tpu_torch.models import llama
+    from bigdl_tpu_torch.utils import round_up
+
+    seq = [int(x) for x in list(prompt) + list(out[:-1])]
+    dev = params.final_norm.device
+    cache = init_cache(cfg.num_hidden_layers, 1, round_up(len(seq), 64),
+                       cfg.num_key_value_heads, cfg.head_dim_, device=dev)
+    if per_row:
+        cache = dataclasses.replace(cache, pos=torch.zeros((1,), dtype=torch.int32, device=dev))
+    with torch.inference_mode():
+        logits, _ = llama.forward(cfg, params, torch.tensor([seq], device=dev), cache, "prefill",
+                                  lora=lora)
+    tf = logits[0, len(prompt) - 1:]
+    if penalty != 1.0:
+        seen = torch.zeros(tf.shape, dtype=torch.bool, device=dev)
+        seen[:, torch.tensor([int(x) for x in prompt], device=dev)] = True
+        for i, x in enumerate(out[:-1]):
+            seen[i + 1:, int(x)] = True
+        tf = apply_repetition_penalty(tf, seen, penalty)
+    return tf
+
+
+def tf_rule(torch, tf, toks, bound=None) -> tuple:
+    """The teacher-forced rule over logits tf [N, V] and tokens [N]: each
+    token's logit below its position's maximum (gaps [N]), against the
+    bound (default TF_TOL x the largest |logit|). Returns (gaps, bound,
+    held)."""
+    t = torch.tensor([int(x) for x in toks], device=tf.device)
+    gaps = tf.max(-1).values - tf.gather(-1, t[:, None])[:, 0]
+    bound = TF_TOL * tf.abs().max().item() if bound is None else bound
+    return gaps, bound, bool((gaps <= bound).all())
+
+
+def in_support(torch, tf, toks, temperature, top_p, bound) -> bool:
+    """Sampled tokens inside the top-p support at `temperature` of the
+    teacher-forced logits, or within the bound of its edge."""
+    t = torch.tensor([int(x) for x in toks], device=tf.device)
+    z = tf / temperature
+    sz = torch.sort(z, dim=-1, descending=True).values
+    p = torch.softmax(sz, dim=-1)
+    last = ((torch.cumsum(p, dim=-1) - p) < top_p).sum(-1) - 1
+    edge = sz.gather(-1, last[:, None])[:, 0]
+    return bool((z.gather(-1, t[:, None])[:, 0] >= edge - bound / temperature).all())
+
+
+def rejections(rounds, n_out, K):
+    """(out index, the rejected draft, the emitted token) of every round of
+    a speculative run whose acceptance stopped short of its cap, where the
+    rejected position lies inside the emitted tokens."""
+    out, e = [], 1
+    for drafts, choice, n_acc in rounds:
+        if n_acc < min(K, len(drafts)) - 1 and e + n_acc < n_out:
+            out.append((e + n_acc, drafts[n_acc], choice[n_acc]))
+        e += n_acc + 1
+    return out
+
+
+def decode_phases(torch, dev, card, tm, spec_new=SPEC_NEW, spec_prompt=SPEC_PROMPT,
+                  lookup_period=LOOKUP_PERIOD, lookup_new=LOOKUP_NEW, serve_new=SERVE_NEW,
+                  bf16=None) -> None:
+    """Phase 19, after phase 18, on phase 3's sym_int4 model `tm` and a
+    bf16 model of the same seed (`bf16`, built here unless given): (b)
+    prompt lookup through BIGDL_TPU_PERFORMANCE_MODE, (d) the adapter
+    engine speculative with a perfect draft, (a) self-speculative
+    generate_speculative against the sym_int4 self-draft, (c) the engine
+    with speculative=True, adaptive_draft=True on the paged pool, (e) two
+    full-width layers' verify against the plain versions. (On the CPU,
+    with a narrow model and short lengths, this rehearses the phase: only
+    the launch checks fail there.)"""
+    import numpy as np
+
+    from bigdl_tpu_torch import TorchModel, decode, optimize_model
+    from bigdl_tpu_torch.kvcache import init_cache
+    from bigdl_tpu_torch.models import llama
+    from bigdl_tpu_torch.ops import kernels
+    from bigdl_tpu_torch.serving import InferenceEngine
+    from bigdl_tpu_torch.serving.adapters import AdapterRegistry
+
+    cfg = tm.config
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    K = SPEC_K
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    @contextlib.contextmanager
+    def flash_rows():
+        """The query rows of every flash kernel call in the block."""
+        rows, real = [], kernels.flash_attention
+
+        def spy(q, *a, **kw):
+            rows.append(q.shape[1])
+            return real(q, *a, **kw)
+
+        with mock.patch.object(kernels, "flash_attention", spy):
+            yield rows
+
+    def tf_check(label, params, prompt, toks):
+        """The teacher-forced rule for one run; returns the logits."""
+        tf = teacher_forced(torch, cfg, params, prompt, toks)
+        gaps, bound, held = tf_rule(torch, tf, toks)
+        off = int((gaps > 0).sum())
+        log(f"{label}: teacher-forced rule: {off} of {len(toks)} tokens off their position's "
+            f"argmax, largest gap {gaps.max().item():.5f} (bound {bound:.5f})")
+        check(held, f"{label}: a token's logit lies more than the bound below its position's maximum")
+        return tf, bound
+
+    # ------------------------------------------------- (b) prompt lookup
+    t_b = time.time()
+    period = np.random.default_rng(50).integers(1, V, lookup_period).tolist()
+    lprompt = period * LOOKUP_REPEATS
+    stats, real_lookup = {}, decode.lookup_generate
+
+    def lookup_spy(*a, **kw):
+        kw["stats"] = stats
+        return real_lookup(*a, **kw)
+
+    kernels.reset_launches()
+    with mock.patch.dict("os.environ", {"BIGDL_TPU_PERFORMANCE_MODE": "1"}), \
+            mock.patch.object(decode, "lookup_generate", lookup_spy), flash_rows() as rows:
+        look, look_ms = wall_ms(lambda: tm.generate([lprompt], lookup_new))
+    launches = kernels.launch_counts()
+    n_r = stats.get("n_rounds", 0)
+    want = {k.name: 0 for k in kernels.KERNELS}
+    want.update({kernels.GEMM.name: 4 * L, kernels.GEMV.name: 1 + n_r * (4 * L + 1),
+                 kernels.FLASH.name: L * (1 + n_r)})
+    log(f"phase 19 (b): BIGDL_TPU_PERFORMANCE_MODE, a {len(lprompt)}-token prompt ({lookup_period} "
+        f"seeded tokens x {LOOKUP_REPEATS}), {lookup_new} new tokens: switched to prompt lookup "
+        f"{bool(stats)}; {n_r} rounds, {stats.get('n_matched', 0)} candidates accepted "
+        f"(rounds with a candidate {sum(c is not None for c, _, _ in stats.get('rounds', []))}); "
+        f"launches {launches} expected {want}; flash calls at T={K}: {rows.count(K)}")
+    check(bool(stats), "(b) the performance-mode switch to prompt lookup")
+    check(launches == want and rows.count(K) == L * n_r, "(b) launch counts")
+    tf_check("phase 19 (b)", tm.params, lprompt, look[0].tolist())
+    plain, plain_ms = wall_ms(lambda: tm.generate([lprompt], lookup_new))
+    log(f"phase 19 (b): card {card}; prompt lookup {look_ms / lookup_new:.3f} ms a token "
+        f"(generate {look_ms:.1f} ms), plain generate {plain_ms / lookup_new:.3f} ms a token "
+        f"({plain_ms:.1f} ms); tokens equal plain's {bool((look == plain).all())}; "
+        f"{time.time() - t_b:.1f} s")
+
+    # ------------------------------------------- (d) adapter engine, spec
+    t_d = time.time()
+    root = Path(__file__).resolve().parent / "build" / "adapters"
+    make_adapters(torch, dev, cfg, root / "spec")
+    shared, _ = serving_traffic(V)
+    d_new = min(serve_new, SPEC_ADAPTER_NEW)
+    specs = [dict(sp, max_new_tokens=d_new, adapter=a)
+             for sp, a in zip(shared[:SPEC_SERVE_REQS], ADAPTER_OF)]
+
+    def adapter_engine(**kw):
+        return InferenceEngine(tm, n_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, paged=True,
+                               adapters=AdapterRegistry(dir=str(root / "spec")), **kw)
+
+    def serve(eng, traffic):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(**sp) for sp in traffic]
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        return reqs, time.perf_counter() - t0
+
+    def watch_rounds(eng):
+        """Per round: (K, each active slot's request and its emitted count
+        before the round — None for an idle slot —, drafts, choice, n_acc)
+        on the host."""
+        log_, real = [], eng._spec_decode
+
+        def spy(k):
+            rows = [(s.req, len(s.req.out_tokens)) if eng.active[i] else None
+                    for i, s in enumerate(eng._slots)]
+            out = real(k)
+            choice, _, n_acc, drafts = out
+            log_.append((k, rows, drafts.tolist(), choice.tolist(), n_acc.tolist()))
+            return out
+
+        eng._spec_decode = spy
+        return log_
+
+    def slot_rate(eng, rounds):
+        """Tokens a round over the pool, and a slot's tokens a round."""
+        slot_rounds = sum(sum(r is not None for r in rows) for _, rows, _, _, _ in rounds)
+        return (f"{eng.spec_emitted / max(eng.spec_rounds, 1):.3f} tokens a round over the "
+                f"pool, {eng.spec_emitted / max(slot_rounds, 1):.3f} a slot")
+
+    def margin_rule(refs, reqs, rows):
+        """Each request's first divergence from the reference engine's
+        tokens: (request, token, the reference's top-1/top-2 margin)."""
+        ties = []
+        for i in rows:
+            a, b = refs[i].out_tokens, reqs[i].out_tokens
+            j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+            if j is not None:
+                top = sorted(refs[i].out_top_logprobs[j].values(), reverse=True)
+                ties.append((i, j, round(top[0] - top[1], 5)))
+        return ties
+
+    base_eng = adapter_engine(logprobs_top_k=2)
+    base_reqs, base_s = serve(base_eng, specs)
+    eng = adapter_engine(speculative=True, draft_params=tm.params, draft_k=K)
+    rounds_d = watch_rounds(eng)
+    lora_rows, real_lora = [], kernels.qmatmul_lora
+
+    def lora_spy(x, *a):
+        lora_rows.append(x.reshape(-1, x.shape[-1]).shape[0])
+        return real_lora(x, *a)
+
+    with mock.patch.object(kernels, "qmatmul_lora", lora_spy):
+        reqs_d, sec_d = serve(eng, specs)
+    ok = all(r.finish_reason == "length" and len(r.out_tokens) == d_new for r in reqs_d)
+    check(ok and eng.page_leaks() == 0, "(d) every request's budget, no page leaked")
+    # every request's tokens against the plain adapter engine's by the
+    # margin rule: a first divergence only on a near-tie of its logprobs
+    ties = margin_rule(base_reqs, reqs_d, range(len(specs)))
+    check(all(m <= MARGIN_TOL for _, _, m in ties), "(d) a request differs from the plain "
+                                                    "adapter engine beyond a near-tie")
+    # the base rows (the draft is their target) by the teacher-forced rule
+    # on the verify's route
+    tfs, worst = {}, 0.0
+    for i, sp in enumerate(specs):
+        if sp["adapter"] is None and not sp.get("repetition_penalty"):
+            tfs[i] = teacher_forced(torch, cfg, tm.params, sp["prompt"], reqs_d[i].out_tokens,
+                                    per_row=True)
+            gaps, _, held = tf_rule(torch, tfs[i], reqs_d[i].out_tokens, MARGIN_TOL)
+            worst = max(worst, gaps.max().item())
+            check(held, f"(d) base request {i}: teacher-forced rule")
+    # full acceptance: each base row's rounds accept K-1 unless the rejected
+    # draft sits on a near-tie of the base model's teacher-forced logits
+    base_rows = sorted(tfs)
+    short, near = 0, []
+    index = {id(r): i for i, r in enumerate(reqs_d)}
+    full = {i: [0, 0] for i in range(len(specs))}  # per request: full rounds, rounds
+    for k, rows, drafts, choice, n_acc in rounds_d:
+        for slot, row in enumerate(rows):
+            if row is None:
+                continue
+            i, before = index[id(row[0])], row[1]
+            n = n_acc[slot]
+            full[i][1] += 1
+            full[i][0] += n == k - 1
+            if i in base_rows and n < k - 1 and before + n < d_new:
+                tf = tfs[i]
+                gap = (tf[before + n].max() - tf[before + n, drafts[slot][n]]).item()
+                near.append((i, before + n, round(gap, 5)))
+                short += gap > MARGIN_TOL
+    acc = {i: f"{f}/{n}" for i, (f, n) in full.items()}
+    log(f"phase 19 (d): adapter engine (f)'s four adapters, {len(specs)} requests "
+        f"(adapters {[sp['adapter'] for sp in specs]}), the model as its own draft, draft_k {K}: "
+        f"{eng.spec_rounds} rounds, {slot_rate(eng, rounds_d)}; full-acceptance rounds per "
+        f"request {acc}; base rows {base_rows}' rejections "
+        f"(request, token, the rejected draft's teacher-forced gap) {near}; LoRA GEMV calls at "
+        f"{SLOTS * K} rows {lora_rows.count(SLOTS * K)} (row counts {sorted(set(lora_rows))}); "
+        f"base rows by the teacher-forced rule: largest gap {worst:.5f} (bound {MARGIN_TOL}); "
+        f"against the plain adapter engine (paged kernel decode), first divergences "
+        f"(request, token, its top-1/top-2 margin) {ties} (tol {MARGIN_TOL}); "
+        f"{sec_d:.3f} s against {base_s:.3f} s; page_leaks={eng.page_leaks()}; "
+        f"{time.time() - t_d:.1f} s")
+    check(lora_rows.count(SLOTS * K) > 0, f"(d) the LoRA GEMV at {SLOTS * K} rows")
+    check(short == 0, "(d) a base row's rejection off a near-tie: the perfect draft must "
+                      "accept K-1 every round")
+    del eng, base_eng, tfs
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- (a) generate_speculative
+    t_a = time.time()
+    if bf16 is None:
+        bf16 = TorchModel(cfg, optimize_model(llama.init_params(cfg, seed=0, device=dev), cfg,
+                                              "bf16"), "bf16", device=dev)
+    draft, draft_s = wall_ms(bf16.self_draft_params)
+    check(bf16.self_draft_params() is draft, "(a) the self-draft is cached")
+    sprompt = np.random.default_rng(51).integers(1, V, spec_prompt).tolist()
+    runs = {}
+    for label, kw in (("adaptive off", dict(adaptive=False)),
+                      ("adaptive on", dict(adaptive=True)),
+                      ("perfect draft", dict(adaptive=False, draft_params=bf16.params)),
+                      ("perfect draft, again", dict(adaptive=False, draft_params=bf16.params))):
+        st = {}
+        kernels.reset_launches()
+        with flash_rows() as rows:
+            out, ms = wall_ms(lambda: bf16.generate_speculative(
+                [sprompt], max_new_tokens=spec_new, draft_k=K, stats=st, **kw))
+        launches = kernels.launch_counts()
+        runs[label] = (out, ms, st)
+        quant = "draft_params" not in kw
+        want = {k.name: 0 for k in kernels.KERNELS}
+        want[kernels.FLASH.name] = L * (2 + st["n_rounds"])
+        if quant:  # the sym_int4 draft: its prefill, lm head and decode steps
+            want[kernels.GEMM.name] = 4 * L
+            want[kernels.GEMV.name] = 1 + st["n_drafted"] * (4 * L + 1)
+        acc = st["n_matched"] / max(st["n_rounds"] * (K - 1), 1)
+        log(f"phase 19 (a) {label}: {st['n_rounds']} rounds, {st['n_drafted']} drafted, "
+            f"{st['n_matched']} accepted (acceptance {acc:.3f} of K-1 a round, "
+            f"{spec_new / st['n_rounds']:.3f} tokens a round), {ms / spec_new:.3f} ms a token; "
+            f"launches {launches} expected {want}; flash calls at T={K}: {rows.count(K)}")
+        check(launches == want and rows.count(K) == L * st["n_rounds"], f"(a) {label}: launch counts")
+        check(out.shape == (1, spec_new) and bool(((out >= 0) & (out < V)).all()),
+              f"(a) {label}: tokens in the vocabulary")
+    out_a = runs["adaptive off"][0]
+    check(bool((runs["perfect draft"][0] == runs["perfect draft, again"][0]).all()),
+          "(a) the tokens repeat on a second run")
+    for label in ("adaptive off", "adaptive on", "perfect draft"):
+        tf, bound = tf_check(f"phase 19 (a) {label}", bf16.params, sprompt, runs[label][0][0].tolist())
+    # the perfect draft: K-1 accepted every round, but where the rejected
+    # draft sits on a near-tie of the target's teacher-forced logits
+    out_p, _, st_p = runs["perfect draft"]
+    rej = rejections(st_p["rounds"], spec_new, K)
+    gaps = [(i, round((tf[i].max() - tf[i, d]).item(), 5)) for i, d, _ in rej]
+    log(f"phase 19 (a) perfect draft: {sum(n == K - 1 for _, _, n in st_p['rounds'])} of "
+        f"{st_p['n_rounds']} rounds accept K-1; rejections (token, the rejected draft's "
+        f"teacher-forced gap) {gaps} (bound {bound:.5f})")
+    check(all(g <= bound for _, g in gaps), "(a) a perfect-draft rejection off a near-tie")
+    samp = []
+    for _ in range(2):
+        samp.append(bf16.generate_speculative([sprompt], max_new_tokens=SPEC_SAMPLED_NEW, draft_k=K,
+                                              do_sample=True, temperature=0.8, top_p=0.9, seed=5))
+    tf = teacher_forced(torch, cfg, bf16.params, sprompt, samp[0][0].tolist())
+    sup = in_support(torch, tf, samp[0][0].tolist(), 0.8, 0.9, TF_TOL * tf.abs().max().item())
+    log(f"phase 19 (a) sampled (temperature 0.8, top-p 0.9, seed 5): {samp[0][0].tolist()}; "
+        f"in the support {sup}; repeated under the seed {bool((samp[0] == samp[1]).all())}")
+    check(sup and bool((samp[0] == samp[1]).all()), "(a) sampled tokens in the support and repeatable")
+    plain_t, t_ms = wall_ms(lambda: bf16.generate([sprompt], spec_new))
+    dm = TorchModel(cfg, draft, "sym_int4", device=dev)
+    _, d_ms = wall_ms(lambda: dm.generate([sprompt], spec_new))
+    same = int((plain_t == out_a).sum())
+    log(f"phase 19 (a): card {card}; llama3-8b bf16 target, sym_int4 self-draft (built in "
+        f"{draft_s / 1e3:.1f} s), one {spec_prompt}-token prompt, {spec_new} greedy tokens, draft_k "
+        f"{K}: ms a token speculative {runs['adaptive off'][1] / spec_new:.3f} (adaptive off), "
+        f"{runs['adaptive on'][1] / spec_new:.3f} (on), perfect draft "
+        f"{runs['perfect draft'][1] / spec_new:.3f}; plain generate of the target "
+        f"{t_ms / spec_new:.3f}, of the draft {d_ms / spec_new:.3f}; speculative tokens equal "
+        f"plain's at {same} of {spec_new}; {time.time() - t_a:.1f} s")
+    del dm, tf, samp
+
+    # ------------------------------------- (c) the engine, speculative
+    t_c = time.time()
+    traffic = [dict(sp, max_new_tokens=serve_new) for sp in spec_traffic(V)]
+    ref = InferenceEngine(bf16, n_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, paged=True,
+                          logprobs_top_k=2)
+    hist = {}
+
+    def record(eng, tag):
+        for key, h in (("ttft", eng.ttft), ("step", eng.decode_step_seconds)):
+            hist[(tag, key)] = []
+            h.observe = (lambda h_, o: lambda x: (o.append(x * 1e3), type(h_).observe(h_, x)))(
+                h, hist[(tag, key)])
+
+    record(ref, "plain")
+    ref_reqs, ref_s = serve(ref, traffic)
+    del ref
+    torch.cuda.empty_cache()
+    eng = InferenceEngine(bf16, n_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, paged=True,
+                          speculative=True, adaptive_draft=True)
+    record(eng, "spec")
+    rounds_c = watch_rounds(eng)
+    real_admit, admits = eng._admit_draft, []
+
+    def admit_spy(slot, prompt, limit):
+        admits.append(len(prompt))
+        return real_admit(slot, prompt, limit)
+
+    eng._admit_draft = admit_spy
+    kernels.reset_launches()
+    reqs_c, sec_c = serve(eng, traffic)
+    launches = kernels.launch_counts()
+    ks = [r[0] for r in rounds_c]
+    want = {k.name: 0 for k in kernels.KERNELS}
+    want.update({kernels.GEMM.name: 4 * L * len(admits), kernels.FLASH.name: L * len(admits),
+                 kernels.GEMV.name: len(admits) + sum(ks) * (4 * L + 1)})
+    ok = all(r.finish_reason == "length" and len(r.out_tokens) == serve_new
+             and all(math.isfinite(lp) for lp in r.out_logprobs) for r in reqs_c)
+    check(ok, f"(c) every request finishes 'length' with {serve_new} tokens and finite logprobs")
+    check(eng.page_leaks() == 0, "(c) page leaks")
+    check(launches == want, "(c) launch counts: the draft's prefills and decode steps; the "
+                            "target's verify (per-row positions) takes the plain attention")
+    greedy = [i for i, sp in enumerate(traffic) if not sp.get("do_sample")]
+    worst, off, over3, sup_ok = 0.0, 0, 0, True
+    for i, sp in enumerate(traffic):
+        tf = teacher_forced(torch, cfg, bf16.params, sp["prompt"], reqs_c[i].out_tokens,
+                            per_row=True, penalty=sp.get("repetition_penalty", 1.0))
+        if i in greedy:
+            gaps, _, held = tf_rule(torch, tf, reqs_c[i].out_tokens, MARGIN_TOL)
+            worst = max(worst, gaps.max().item())
+            off += int((gaps > 0).sum())
+            over3 += int((gaps > TF_TOL * tf.abs().max().item()).sum())
+            check(held, f"(c) request {i}: teacher-forced rule")
+        else:
+            sup_ok &= in_support(torch, tf, reqs_c[i].out_tokens, sp["temperature"], sp["top_p"],
+                                 TF_TOL * tf.abs().max().item())
+        del tf
+    check(sup_ok, "(c) sampled rows in the support")
+    ties = margin_rule(ref_reqs, reqs_c, greedy)
+    flush = reqs_c[-1]
+    log(f"phase 19 (c): engine paged, bf16 target, sym_int4 self-draft, speculative adaptive "
+        f"(ladder {eng._k_ladder}, rounds at K {dict(collections.Counter(ks))}, last K "
+        f"{eng._cur_k}): {eng.spec_rounds} rounds, {eng.spec_emitted} tokens, "
+        f"{slot_rate(eng, rounds_c)}; {len(admits)} draft "
+        f"admissions; launches {launches} expected {want}; page_leaks={eng.page_leaks()}; "
+        f"greedy rows {greedy} (penalized where asked) by the teacher-forced rule: {off} tokens "
+        f"off their argmax, {over3} beyond phase 3's bound, largest gap {worst:.5f} (bound "
+        f"{MARGIN_TOL}); sampled rows in the support "
+        f"{sup_ok}; against the plain engine (paged kernel decode), first divergences "
+        f"(request, token, its top-1/top-2 margin) {ties}; request 15 (window flush with "
+        f"max_len, {len(flush.prompt)} + "
+        f"{serve_new}) {flush.finish_reason} with {len(flush.out_tokens)} tokens")
+    for tag, sec in (("speculative", sec_c), ("plain", ref_s)):
+        h = "spec" if tag == "speculative" else "plain"
+        log(f"phase 19 (c) {tag}: {len(traffic)} requests in {sec:.3f} s = "
+            f"{len(traffic) / sec:.3f} requests/s, {len(traffic) * serve_new / sec:.1f} tokens/s; "
+            f"TTFT ms {quantiles(hist[(h, 'ttft')])}; decode step (a round when speculative) ms "
+            f"{quantiles(hist[(h, 'step')])}")
+    log(f"phase 19 (c): card {card}; {time.time() - t_c:.1f} s")
+    del eng, bf16, draft
+    torch.cuda.empty_cache()
+
+    # ---------------------------- (e) two full-width layers, kernels vs plain
+    t_e = time.time()
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=POLICY_LAYERS)
+    m2 = optimize_model(llama.init_params(cfg2, seed=19, device=dev), cfg2, "sym_int4")
+    rng = np.random.default_rng(52)
+
+    def verify_logits(B, T, plain):
+        """Prefill B rows of SPEC_OFFSET tokens, then a verify of T rows at
+        q_offset = SPEC_OFFSET; its [B, T, V] logits."""
+        toks = torch.as_tensor(rng.integers(1, V, (B, SPEC_OFFSET + T)), device=dev)
+        cache = init_cache(POLICY_LAYERS, B, SPEC_OFFSET + 64, cfg.num_key_value_heads,
+                           cfg.head_dim_, device=dev)
+        patches = (mock.patch.multiple(kernels, **plain_patches(kernels)) if plain
+                   else contextlib.nullcontext())
+        with patches, torch.inference_mode():
+            _, cache = llama.forward(cfg2, m2, toks[:, :SPEC_OFFSET], cache, "prefill")
+            return llama.forward(cfg2, m2, toks[:, SPEC_OFFSET:], cache, "prefill")[0]
+
+    lines = []
+    for B, T in [(1, t) for t in SPEC_VERIFY_T] + [(SLOTS, K)]:
+        state = rng.bit_generator.state
+        n0 = (kernels.GEMV.launches, kernels.FLASH.launches)
+        got = verify_logits(B, T, False)
+        n1 = (kernels.GEMV.launches, kernels.FLASH.launches)
+        rng.bit_generator.state = state
+        ref_l = verify_logits(B, T, True)
+        err = (got - ref_l).abs().max().item()
+        tol = TF_TOL * ref_l.abs().max().item()
+        # the prefill (B x 301 rows) takes the GEMM, the verify's projections
+        # and lm head at M = B T rows the GEMV; one flash a layer each
+        gemv = n1[0] - n0[0]
+        lines.append(f"B={B} T={T} (M={B * T}) max_abs_err={err:.6g} tol={tol:.6g} "
+                     f"verify GEMV launches {gemv}")
+        check(bool(torch.isfinite(got).all()) and err <= tol, f"(e) verify B={B} T={T}: logits")
+        check(gemv == 4 * POLICY_LAYERS + 1 and n1[1] - n0[1] == 2 * POLICY_LAYERS,
+              f"(e) verify B={B} T={T}: GEMV at M={B * T} and flash launches")
+    log(f"phase 19 (e): 2-layer full-width verify at q_offset {SPEC_OFFSET} against the plain "
+        f"versions: {'; '.join(lines)}; {time.time() - t_e:.1f} s")
+    del m2
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

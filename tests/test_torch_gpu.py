@@ -1040,3 +1040,70 @@ def test_two_turn_chat_kernels_vs_plain():
             plain._decode(t)
         ref = plain._prefill(turns[1])
     assert (sess.prefill_logits - ref).abs().max() <= 0.02 * ref.abs().max()
+
+
+@pytest.mark.parametrize("T,qoff", [(2, 77), (3, 130), (4, 255), (4, 1021), (5, 64)])
+def test_flash_kernel_at_verify_shapes(T, qoff):
+    """The speculative verify's attention: T = K query rows, fewer than a
+    query tile, at q_offset = pos at any alignment over a longer cache,
+    with a left-padded row; against the plain version per element."""
+    dev = _cuda()
+    B, Hq, Hkv, D, S = 2, 8, 2, 128, qoff + T + 40
+    g = torch.Generator(device=dev).manual_seed(T * 1000 + qoff)
+    q = torch.randn(B, T, Hq, D, device=dev, generator=g).to(torch.bfloat16)
+    k = torch.randn(B, S, Hkv, D, device=dev, generator=g).to(torch.bfloat16)
+    v = torch.randn(B, S, Hkv, D, device=dev, generator=g).to(torch.bfloat16)
+    st = torch.tensor([0, qoff // 3], dtype=torch.int32, device=dev)
+    before = kernels.FLASH.launches
+    got = kernels.flash_attention(q, k, v, start=st, q_offset=qoff).float()
+    torch.cuda.synchronize()
+    assert kernels.FLASH.launches == before + 1
+    ref = kernels.flash_attention_plain(q, k, v, st, qoff).float()
+    assert bool(((got - ref).abs() <= _ULPS * ref.abs() + 1e-5).all())
+
+
+@pytest.mark.parametrize("M", [2, 3, 4, 16, 32])
+def test_gemv_at_verify_rows(M):
+    """The verify's projections at M = K (generate) and 8 x K (the engine)
+    rows through the GEMV, at llama3-8b's wo shape."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(M)
+    w = quantize(torch.randn(4096, 4096, device=dev, generator=g) * 0.02, "sym_int4")
+    x = torch.randn(M, 4096, device=dev, generator=g).to(torch.bfloat16)
+    before = kernels.GEMV.launches
+    y = kernels.qmatmul(x, w).float()
+    torch.cuda.synchronize()
+    assert kernels.GEMV.launches == before + 1
+    ref = kernels.qmatmul_plain(x, w).float()
+    assert (y - ref).abs().max() <= _ULPS * ref.abs().max()
+
+
+def test_speculative_and_lookup_generate_on_the_card():
+    """A small model on the card: self-speculative decoding (a sym_int4
+    model as its own draft, so every round accepts K-1) and prompt lookup
+    launch the flash kernel at T = K and the GEMV at M = K, and their
+    tokens hold the target's logits by the teacher-forced rule: each
+    emitted token's logit within 2 % of the largest of that position's
+    maximum, from one forward over prompt + output through the kernels."""
+    from bigdl_tpu_torch import decode
+    from bigdl_tpu_torch.generate import GenerationConfig
+
+    dev = _cuda()
+    cfg = _POLICY_CFG
+    tm = TorchModel(cfg, optimize_model(llama.init_params(cfg, seed=8), cfg, "sym_int4"), "sym_int4")
+    prompt = list(range(7, 40)) * 3
+    tokens, start = pad_prompts([prompt], 0)
+    kernels.reset_launches()
+    out, rounds, drafted, matched = decode.speculative_tokens(
+        cfg, tm.params, tm.params, torch.as_tensor(tokens, device=dev),
+        torch.as_tensor(start, device=dev), None, GenerationConfig(max_new_tokens=20),
+        cache_len=256, draft_k=4, adaptive=False)
+    # two layers: both prefills, then one verify a round
+    assert matched == 3 * rounds and kernels.FLASH.launches == 2 * (2 + rounds)
+    look = tm.generate_lookup([prompt], max_new_tokens=20)
+    for toks in (out.cpu()[0].tolist(), look[0].tolist()):
+        seq = torch.tensor([prompt + toks], device=dev)
+        with torch.inference_mode():
+            logits = llama.forward(cfg, tm.params, seq, None)[0][0, len(prompt) - 1:-1]
+        chosen = logits.gather(-1, torch.tensor(toks, device=dev)[:, None])[:, 0]
+        assert (logits.max(-1).values - chosen).max() <= 0.02 * logits.abs().max()

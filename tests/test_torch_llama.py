@@ -225,11 +225,12 @@ def test_unsupported_paths_raise(pair, monkeypatch):
     name, jcfg, jparams, tcfg, model, prompts = pair
     tm = TorchModel(tcfg, model, "sym_int4", device="cpu")
     # SnapKV and streaming run since generation's cache policies were
-    # ported (test_torch_snapkv.py, test_torch_streaming.py); performance
-    # mode's switch to prompt-lookup decoding still raises, naming its item
+    # ported (test_torch_snapkv.py, test_torch_streaming.py), and
+    # performance mode's switch to prompt-lookup decoding since the decode
+    # algorithms were (test_torch_decode.py)
     monkeypatch.setenv("BIGDL_TPU_PERFORMANCE_MODE", "1")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item \[7\]"):
-        tm.generate([list(prompts[0]) * 24], 2)
+    long = [list(prompts[0]) * 24]
+    np.testing.assert_array_equal(tm.generate(long, 2), tm.generate_lookup(long, 2))
     # qk_norm runs since the llama flags were ported (test_torch_flags.py);
     # alibi and the experts still raise, naming their items
     llama.check_supported(dataclasses.replace(tcfg, qk_norm=True))

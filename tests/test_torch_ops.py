@@ -185,6 +185,7 @@ def test_port_imports_no_jax_or_reference_package():
     any bigdl_tpu module."""
     files = sorted((ROOT / "bigdl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    assert {"speculative.py", "lookup.py"} <= {f.name for f in files if f.parent.name == "decode"}
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
@@ -236,6 +237,34 @@ def test_training_modules_load_no_jax_in_fresh_process():
         "step = make_full_train_step(cfg, llama.forward, GaLore(llama.make_trainable(m), 1e-3, rank=8))\n"
         "loss = step(m, torch.ones((1, 9), dtype=torch.long), torch.ones((1, 9)))\n"
         "assert torch.isfinite(loss)\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'bigdl_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-2000:]
+
+
+def test_decode_modules_load_no_jax_in_fresh_process():
+    """The decode algorithms (decode/speculative.py, decode/lookup.py) and
+    the speculative engine import and run a few tokens of a small model
+    on the CPU without loading jax or bigdl_tpu."""
+    code = (
+        "import sys\n"
+        "from bigdl_tpu_torch import PRESETS, TorchModel, optimize_model\n"
+        "from bigdl_tpu_torch.models import llama\n"
+        "from bigdl_tpu_torch.serving import InferenceEngine\n"
+        "cfg = PRESETS['tiny-llama']\n"
+        "tm = TorchModel(cfg, optimize_model(llama.init_params(cfg, 0, device='cpu'), cfg, 'bf16'),"
+        " 'bf16', device='cpu')\n"
+        "assert tm.generate_speculative([[1, 2, 3]], max_new_tokens=6).shape == (1, 6)\n"
+        "assert tm.generate_lookup([[1, 2, 1, 2, 1]], max_new_tokens=6).shape == (1, 6)\n"
+        "eng = InferenceEngine(tm, n_slots=1, max_len=64, speculative=True)\n"
+        "r = eng.submit([1, 2, 3], max_new_tokens=5)\n"
+        "eng.run_until_idle()\n"
+        "assert len(r.out_tokens) == 5\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'bigdl_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")

@@ -239,7 +239,8 @@ def test_sampling_penalty_and_cancel(pair):
 
 def test_out_of_slice_arguments_raise(pair):
     jm, tm, tol = pair
-    for kw in ({"speculative": True}, {"prefill_chunk_tokens": 8},
+    # speculative decoding runs since it was ported (test_torch_serving_spec.py)
+    for kw in ({"prefill_chunk_tokens": 8},
                {"journal": "j.jsonl"}, {"max_queue": 4}, {"deadline_s": 1.0},
                {"tracer": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

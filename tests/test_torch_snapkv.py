@@ -401,15 +401,16 @@ def test_env_budget_and_flags(monkeypatch):
 
 
 def test_performance_mode_lookup_switch_raises(monkeypatch):
-    """Where JAX's performance mode would switch to prompt-lookup decoding
+    """Where JAX's performance mode switches to prompt-lookup decoding
     (greedy, no SnapKV or streaming or penalty, a prompt of 256 or more),
-    the port refuses, naming the ROADMAP item, instead of decoding
-    plainly; a shorter prompt decodes as usual."""
+    the port switches too since decode/lookup.py was ported: the tokens
+    are `generate_lookup`'s (its parity: test_torch_decode.py); a shorter
+    prompt decodes as usual."""
     _, model = pair("sym_int4")
     tm = TorchModel(TCFG, model, "sym_int4", device="cpu")
     monkeypatch.setenv("BIGDL_TPU_PERFORMANCE_MODE", "1")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item \[7\]"):
-        tm.generate([list(range(1, 200)) * 2], 4)
+    long = [list(range(1, 200)) * 2]
+    np.testing.assert_array_equal(tm.generate(long, 4), tm.generate_lookup(long, 4))
     short = tm.generate([list(range(1, 40))], 4)
     monkeypatch.delenv("BIGDL_TPU_PERFORMANCE_MODE")
     np.testing.assert_array_equal(short, tm.generate([list(range(1, 40))], 4))
