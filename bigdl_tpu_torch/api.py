@@ -34,9 +34,10 @@ from bigdl_tpu_torch.utils import cache_len_for, flags, resolve_device
 def optimize_model(params: llama.LlamaModel, config: ModelConfig,
                    low_bit: str = "sym_int4",
                    lm_head_qtype: Optional[str] = None) -> llama.LlamaModel:
-    """Quantize a dense model's projections and lm head (to `lm_head_qtype`
-    where given, else as `llama.quantize_params` picks) and fuse qkv and
-    gate/up into single linears, in place — the layout `forward` runs."""
+    """Quantize a dense model's projections, experts and lm head (to
+    `lm_head_qtype` where given, else as `llama.quantize_params` picks)
+    and fuse qkv and gate/up into single linears (an MoE layer's experts
+    stay as they are), in place — the layout `forward` runs."""
     return llama.merge_fused_params(
         llama.quantize_params(params, low_bit, lm_head_qtype), config)
 
@@ -192,8 +193,9 @@ class TorchModel:
 
     def self_draft_params(self) -> llama.LlamaModel:
         """The sym_int4 self-draft of this model's weights (the reference's
-        self-speculative draft, model.py:366-379), built once and cached;
-        it shares the embedding and norms with the target. Raises for a
+        self-speculative draft, model.py:366-379): projections, experts and
+        lm head quantized, built once and cached; it shares the embedding,
+        norms, biases and an MoE model's router with the target. Raises for a
         quantized target, whose draft would equal it: all cost, no
         speed-up."""
         from bigdl_tpu_torch.quant.qtypes import resolve_qtype

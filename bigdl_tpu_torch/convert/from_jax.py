@@ -25,7 +25,11 @@ refuses it.
 The leaves of the llama flags ride along under JAX's names: the biases
 (bq/bk/bv or bqkv, bo, b_gate/b_up or b_gateup, b_down) on their
 projections, the post-norms and q/k norms on the layers; a tied model
-has no lm_head.
+has no lm_head. An MoE model's layers hold the attention's projections
+(wqkv, wo or wq/wk/wv, wo) and, in place of the gated MLP, the leaves of
+its `MoEBlock`: the router, the experts w_gate_e/w_up_e/w_down_e stacked
+[L, E, ...] (QTensors whose fields are [L, E, rows, *]) and qwen2-moe's
+w_gate_s/w_up_s/w_down_s and shared_gate.
 
 `params_to_numpy` is the inverse: the port's model flattened under the
 same naming, in the artifact's stored form, for `convert/low_bit.py`'s
@@ -43,8 +47,9 @@ import torch
 
 from bigdl_tpu_torch.embedding import HostEmbedding
 from bigdl_tpu_torch.models.config import ModelConfig
-from bigdl_tpu_torch.models.llama import (BIAS_OF, OPTIONAL_NORMS, DecoderLayer,
-                                          LlamaModel, check_supported)
+from bigdl_tpu_torch.models.llama import (BIAS_OF, MOE_EXPERTS, MOE_LEAVES, MOE_SHARED,
+                                          OPTIONAL_NORMS, DecoderLayer, LlamaModel,
+                                          MoEBlock, check_supported)
 from bigdl_tpu_torch.ops.linear import Linear
 from bigdl_tpu_torch.quant import ARRAY_FIELDS, QTensor, resolve_qtype
 from bigdl_tpu_torch.quant.numerics import FP8_DTYPE
@@ -52,9 +57,19 @@ from bigdl_tpu_torch.train.qlora import DEFAULT_TARGETS, LoRA, _target_dims
 from bigdl_tpu_torch.utils import resolve_device
 
 _NORMS = ("attn_norm", "mlp_norm")
-# the projections of each layout: fused (optimize_model) and unfused (init_params)
+# the projections of each layout: fused (optimize_model) and unfused
+# (init_params); an MoE layer has the attention's only, beside its experts
 _LAYOUTS = (("wqkv", "wo", "w_gateup", "w_down"),
             ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"))
+_MOE_LAYOUTS = (("wqkv", "wo"), ("wq", "wk", "wv", "wo"))
+
+
+def _moe_leaves(config: ModelConfig) -> tuple[str, ...]:
+    if not config.is_moe:
+        return ()
+    if config.shared_expert_intermediate_size:
+        return MOE_LEAVES
+    return ("router",) + MOE_EXPERTS
 
 
 def _required_norms(config: ModelConfig) -> tuple[str, ...]:
@@ -75,23 +90,24 @@ def params_from_numpy(arrays: dict[str, np.ndarray], qtypes: dict[str, str],
     check_supported(config)
     dev = resolve_device(device)
     paths = {k.split("@")[0] for k in arrays}
-    layout = next((names for names in _LAYOUTS
+    moe = _moe_leaves(config)
+    layout = next((names for names in (_MOE_LAYOUTS if moe else _LAYOUTS)
                    if {f"layers.{n}" for n in names} <= paths), None)
     if layout is None:
         raise ValueError(
             "params_from_numpy: the layer projections are neither the fused "
             "layout (wqkv, wo, w_gateup, w_down) nor the unfused one (wq, wk, "
-            "wv, wo, w_gate, w_up, w_down); a layout mixing the two is unmerged "
-            "in part")
+            "wv, wo, w_gate, w_up, w_down), or (wqkv, wo) or (wq, wk, wv, wo) "
+            "beside experts; a layout mixing the two is unmerged in part")
     known = {"embed", "final_norm", "lm_head"} | {
-        f"layers.{n}" for n in _NORMS + layout + OPTIONAL_NORMS
+        f"layers.{n}" for n in _NORMS + layout + OPTIONAL_NORMS + moe
         + tuple(BIAS_OF[n] for n in layout)}
     unknown = sorted(p for p in paths if p not in known)
     if unknown:
         raise NotImplementedError(
             f"params_from_numpy: leaves {unknown} belong to llama flags this "
             "port does not run yet (ROADMAP queue 1 item [4]), or mix layouts")
-    missing = [n for n in _required_norms(config) if f"layers.{n}" not in paths]
+    missing = [n for n in _required_norms(config) + moe if f"layers.{n}" not in paths]
     if "lm_head" not in paths and not config.tie_word_embeddings:
         missing.append("lm_head")
     if missing:
@@ -129,8 +145,14 @@ def params_from_numpy(arrays: dict[str, np.ndarray], qtypes: dict[str, str],
         proj = {n: Linear(weight(f"layers.{n}", i), optional(f"layers.{BIAS_OF[n]}", i))
                 for n in layout}
         norms = {n: optional(f"layers.{n}", i) for n in OPTIONAL_NORMS}
+        block = None
+        if moe:
+            block = MoEBlock(weight("layers.router", i),
+                             {n: Linear(weight(f"layers.{n}", i)) for n in moe
+                              if n in MOE_EXPERTS + MOE_SHARED},
+                             optional("layers.shared_gate", i))
         layers.append(DecoderLayer(tensor("layers.attn_norm", i),
-                                   tensor("layers.mlp_norm", i), proj, **norms))
+                                   tensor("layers.mlp_norm", i), proj, block, **norms))
     head = Linear(weight("lm_head")) if "lm_head" in paths else None
     return LlamaModel(weight("embed"), layers, tensor("final_norm"), head)
 
@@ -155,12 +177,15 @@ def params_to_numpy(model: LlamaModel) -> tuple[dict[str, np.ndarray], dict[str,
         raise ValueError("params_to_numpy: the layers mix the fused and unfused layouts")
 
     def per_layer(name):
-        """Layer i's leaf `name` (a norm, a projection or its bias), or None."""
+        """Layer i's leaf `name` (a norm, a projection or its bias, an MoE
+        leaf), or None."""
         def get(layer):
             if name in _NORMS or name in OPTIONAL_NORMS:
                 return getattr(layer, name)
             if name in layer.proj:
                 return leaf(layer.proj[name])
+            if name in MOE_LEAVES:
+                return None if layer.moe is None else layer.moe.leaves().get(name)
             lin = next(layer.proj[n] for n, b in BIAS_OF.items() if b == name)
             return lin.bias
         return [get(layer) for layer in layers]
@@ -185,7 +210,7 @@ def params_to_numpy(model: LlamaModel) -> tuple[dict[str, np.ndarray], dict[str,
         tree["lm_head"] = leaf(model.lm_head)
     if layers:
         names = (_NORMS + OPTIONAL_NORMS + tuple(layers[0].proj)
-                 + tuple(BIAS_OF[n] for n in layers[0].proj))
+                 + tuple(BIAS_OF[n] for n in layers[0].proj) + MOE_LEAVES)
         tree["layers"] = {}
         for n in names:
             vals = per_layer(n)

@@ -17,7 +17,11 @@ read straight from its byte range.
 The family tables hold the llama-shaped default (llama, mistral, qwen2:
 q/k/v and o biases where the config has them, no lm head when tied),
 phi3 (fused qkv_proj and gate_up_proj, split here as the JAX package
-splits them), gemma2 (four norms a layer) and qwen3 (q/k norms). Every
+splits them), gemma2 (four norms a layer), qwen3 (q/k norms) and the
+experts of mixtral, qwen2-moe (with its shared expert and q/k/v biases)
+and qwen3-moe (q/k norms), each expert's weights stacked [E, ...] as the
+JAX package stacks them and quantized in row chunks like any weight
+(rows are independent, so the bytes are those of one call). Every
 other `model_type` the JAX package's tables map raises
 NotImplementedError before a tensor is read (ROADMAP queue 1 item [9]),
 and so does every configuration `models.llama.check_supported` refuses:
@@ -36,14 +40,16 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.models.config import ModelConfig
-from bigdl_tpu_torch.models.llama import (BIAS_OF, OPTIONAL_NORMS, DecoderLayer,
-                                          LlamaModel, check_supported, merge_fused_params)
+from bigdl_tpu_torch.models.llama import (BIAS_OF, MOE_EXPERTS, MOE_SHARED, OPTIONAL_NORMS,
+                                          DecoderLayer, LlamaModel, MoEBlock,
+                                          check_supported, merge_fused_params)
 from bigdl_tpu_torch.ops.linear import Linear
-from bigdl_tpu_torch.quant import concat_rows, quantize, resolve_qtype
+from bigdl_tpu_torch.quant import QTensor, concat_rows, quantize, resolve_qtype
 from bigdl_tpu_torch.quant.qtypes import split_mixed_qtype
 from bigdl_tpu_torch.utils import resolve_device
 
-_QUANT_TARGETS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
+_QUANT_TARGETS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                  "w_gate_e", "w_up_e", "w_down_e", "w_gate_s", "w_up_s", "w_down_s"}
 # rows of a weight quantized at once hold at most this many f32 values
 # (256 MiB, about a llama3-8b projection): the lm head of a 128K
 # vocabulary goes in pieces, so the device holds less than a layer of f32
@@ -58,15 +64,23 @@ Get = Callable[[str], torch.Tensor]
 # per-family layer/top tensor builders
 # ---------------------------------------------------------------------------
 
-def _llama_layer(config: ModelConfig, i: int, get: Get) -> dict:
-    p = f"model.layers.{i}."
-    out = {
+def _attention(p: str, get: Get) -> dict:
+    """A layer's two norms and the attention's projections under HF's
+    llama names (prefix `p`)."""
+    return {
         "attn_norm": get(p + "input_layernorm.weight"),
         "mlp_norm": get(p + "post_attention_layernorm.weight"),
         "wq": get(p + "self_attn.q_proj.weight"),
         "wk": get(p + "self_attn.k_proj.weight"),
         "wv": get(p + "self_attn.v_proj.weight"),
         "wo": get(p + "self_attn.o_proj.weight"),
+    }
+
+
+def _llama_layer(config: ModelConfig, i: int, get: Get) -> dict:
+    p = f"model.layers.{i}."
+    out = {
+        **_attention(p, get),
         "w_gate": get(p + "mlp.gate_proj.weight"),
         "w_up": get(p + "mlp.up_proj.weight"),
         "w_down": get(p + "mlp.down_proj.weight"),
@@ -139,7 +153,55 @@ def _phi3_layer(config: ModelConfig, i: int, get: Get) -> dict:
     }
 
 
-_FAMILY_LAYER = {"phi3": _phi3_layer, "gemma2": _gemma2_layer, "qwen3": _qwen3_layer}
+def _experts(config: ModelConfig, p: str, get: Get, names: tuple[str, str, str]) -> dict:
+    """The experts' gate, up and down weights (HF's `names` under `p` +
+    "experts.{e}."), each stacked [E, rows, cols]."""
+    return {leaf: torch.stack([get(f"{p}experts.{e}.{n}.weight")
+                               for e in range(config.num_experts)])
+            for leaf, n in zip(("w_gate_e", "w_up_e", "w_down_e"), names)}
+
+
+def _mixtral_layer(config: ModelConfig, i: int, get: Get) -> dict:
+    """mixtral's block_sparse_moe: the router `gate`, experts w1 (gate),
+    w3 (up) and w2 (down)."""
+    p = f"model.layers.{i}."
+    return {**_attention(p, get), "router": get(p + "block_sparse_moe.gate.weight"),
+            **_experts(config, p + "block_sparse_moe.", get, ("w1", "w3", "w2"))}
+
+
+def _qwen2_moe_layer(config: ModelConfig, i: int, get: Get) -> dict:
+    """qwen2-moe: q/k/v biases, the router `mlp.gate`, the experts, and
+    the shared expert with its sigmoid gate `shared_expert_gate`."""
+    p = f"model.layers.{i}."
+    return {
+        **_attention(p, get),
+        "bq": get(p + "self_attn.q_proj.bias"),
+        "bk": get(p + "self_attn.k_proj.bias"),
+        "bv": get(p + "self_attn.v_proj.bias"),
+        "router": get(p + "mlp.gate.weight"),
+        **_experts(config, p + "mlp.", get, ("gate_proj", "up_proj", "down_proj")),
+        "w_gate_s": get(p + "mlp.shared_expert.gate_proj.weight"),
+        "w_up_s": get(p + "mlp.shared_expert.up_proj.weight"),
+        "w_down_s": get(p + "mlp.shared_expert.down_proj.weight"),
+        "shared_gate": get(p + "mlp.shared_expert_gate.weight"),
+    }
+
+
+def _qwen3_moe_layer(config: ModelConfig, i: int, get: Get) -> dict:
+    """qwen3-moe: qwen3's q/k norms, the router `mlp.gate` and the experts."""
+    p = f"model.layers.{i}."
+    return {
+        **_attention(p, get),
+        "q_norm": get(p + "self_attn.q_norm.weight"),
+        "k_norm": get(p + "self_attn.k_norm.weight"),
+        "router": get(p + "mlp.gate.weight"),
+        **_experts(config, p + "mlp.", get, ("gate_proj", "up_proj", "down_proj")),
+    }
+
+
+_FAMILY_LAYER = {"phi3": _phi3_layer, "gemma2": _gemma2_layer, "qwen3": _qwen3_layer,
+                 "mixtral": _mixtral_layer, "qwen2_moe": _qwen2_moe_layer,
+                 "qwen3_moe": _qwen3_moe_layer}
 _FAMILY_TOP: dict = {}
 
 # model_types with their own layer or tree builders in the JAX package's
@@ -151,8 +213,8 @@ _FAMILY_TOP: dict = {}
 _ZOO = frozenset({
     "phi3_v", "baichuan", "internlm2",
     "internlmxcomposer2", "starcoder2", "glm", "chatglm", "chatglm4v", "qwen2_vl",
-    "mpt", "gpt2", "bloom", "gpt_neox", "mixtral", "qwen2_moe", "rwkv", "rwkv5",
-    "falcon", "qwen3_moe", "phi", "cohere", "yuan", "minicpmv", "minicpmo",
+    "mpt", "gpt2", "bloom", "gpt_neox", "rwkv", "rwkv5",
+    "falcon", "phi", "cohere", "yuan", "minicpmv", "minicpmo",
     "megrezo", "qwen2_audio", "internvl", "janus", "qwen", "deci", "gpt_bigcode",
     "phixtral", "baichuan_m1", "mllama", "mllama_text_model", "deepseek_v2",
     "deepseek_v3", "minicpm3",
@@ -169,7 +231,8 @@ def check_family(config: ModelConfig) -> None:
         raise NotImplementedError(
             f"HF ingest of model_type {mt!r}: ROADMAP queue 1 item [9], the rest "
             "of the zoo is still to be ported (the port's tables hold the "
-            "llama-shaped default, phi3, gemma2 and qwen3)")
+            "llama-shaped default, phi3, gemma2, qwen3, mixtral, qwen2_moe and "
+            "qwen3_moe)")
     try:
         check_supported(config)
     except NotImplementedError as e:
@@ -206,10 +269,13 @@ def params_from_state_dict(config: ModelConfig, get_tensor: Get, qtype: str = "s
     def maybe_quant(name: str, t: torch.Tensor):
         use = head_spec if name == "lm_head" else spec
         if not use.is_dense and (name in _QUANT_TARGETS or name == "lm_head"):
+            flat = t.reshape(-1, t.shape[-1])  # the experts' [E, rows, cols] as rows
             rows = max(1, QUANT_CHUNK // t.shape[-1])
-            parts = [quantize(t[i:i + rows].to(dev).float(), use.name)
-                     for i in range(0, t.shape[0], rows)]
-            return parts[0] if len(parts) == 1 else concat_rows(parts)
+            parts = [quantize(flat[i:i + rows].to(dev).float(), use.name)
+                     for i in range(0, flat.shape[0], rows)]
+            qt = parts[0] if len(parts) == 1 else concat_rows(parts)
+            return QTensor(qtype=qt.qtype, **{f: a.reshape(*t.shape[:-1], *a.shape[1:])
+                                              for f, a in qt.fields().items()})
         return t.to(dev).to(dtype)
 
     layers = []
@@ -217,9 +283,14 @@ def params_from_state_dict(config: ModelConfig, get_tensor: Get, qtype: str = "s
         d = {k: maybe_quant(k, v) for k, v in layer_tensors(config, i, get_tensor).items()}
         norms = d.pop("attn_norm"), d.pop("mlp_norm")
         extra = {n: d.pop(n) for n in OPTIONAL_NORMS if n in d}
+        moe = None
+        if "router" in d:
+            moe = MoEBlock(d.pop("router"), {n: Linear(d.pop(n)) for n in list(d)
+                                             if n in MOE_EXPERTS + MOE_SHARED},
+                           d.pop("shared_gate", None))
         biases = {n: d.pop(BIAS_OF[n], None) for n in list(d) if n in BIAS_OF}
         layers.append(DecoderLayer(*norms, {k: Linear(v, biases[k]) for k, v in d.items()},
-                                   **extra))
+                                   moe, **extra))
     top = {k: maybe_quant(k, v) for k, v in top_tensors(config, get_tensor).items()}
     head = Linear(top["lm_head"]) if "lm_head" in top else None
     model = LlamaModel(top["embed"], layers, top["final_norm"], head)

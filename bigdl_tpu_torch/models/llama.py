@@ -1,8 +1,10 @@
-"""Llama-family decoder (port of bigdl_tpu/models/llama.py) for the dense
-llama-shaped families: llama, mistral, qwen2, qwen3, gemma2 and phi3 —
-GQA, RMSNorm (gemma's (1 + w) too), a gated MLP with silu, gelu or relu,
-the three bias flags, tied embeddings, qk-norm, sliding windows (uniform
-or alternating), gemma2's softcaps, attention scale, post-norms and
+"""Llama-family decoder (port of bigdl_tpu/models/llama.py) for the
+llama-shaped families: llama, mistral, qwen2, qwen3, gemma2 and phi3,
+the mixture-of-experts ones (mixtral, qwen2-moe, qwen3-moe) and the
+ALiBi and logn attention of baichuan-13b and qwen v1 — GQA, RMSNorm
+(gemma's (1 + w) too), a gated MLP with silu, gelu or relu, the three
+bias flags, tied embeddings, qk-norm, sliding windows (uniform or
+alternating), gemma2's softcaps, attention scale, post-norms and
 embedding scale, and every rope-scaling scheme of the JAX package.
 
 The JAX package keeps parameters as a pytree with layers stacked for
@@ -10,8 +12,9 @@ The JAX package keeps parameters as a pytree with layers stacked for
 one `DecoderLayer` per layer (norm weights, projections as
 `ops.linear.Linear` keyed by the JAX leaf names, each with its bias) and
 the lm head, absent when tied — and `forward` walks the layers in a
-Python loop. The embedding, the norms, the biases and every dense
-projection are parameters that require no gradient until
+Python loop; an MoE layer holds its experts in a `MoEBlock` instead of
+the gated MLP's projections. The embedding, the norms, the biases and
+every dense projection are parameters that require no gradient until
 `make_trainable` turns them on (the full fine-tune, train/recipes.py);
 quantized projections stay buffers. `forward` runs both layouts, as
 JAX's does: the fused one (wqkv, w_gateup, their biases concatenated)
@@ -34,9 +37,14 @@ and training — goes through the plain masked attention, over the full
 cache [0, max_len) (`kvcache.read_layer`'s dense view) under the layer's
 mask from (start, pos): causal, and for a sliding layer k_slot > q_slot
 - window. Without a cache query t of row b sits at slot t with position
-max(t - start[b], 0). `remat=True` recomputes each layer in the backward
-instead of keeping its activations (JAX's `jax.checkpoint` around the
-scan body). Every path takes LoRA adapters (`lora=`: a
+max(t - start[b], 0). An ALiBi model takes the plain attention on every
+route (JAX's rule): no rope, and the masks become a float bias, the
+head's slope times (k_slot - q_slot), -1e30 where masked; logn scales q
+by max(1, log(position + 1) / log(logn_train_len)) after rope on every
+route, so the kernels take the scaled q. `remat=True` recomputes each
+layer in the backward instead of keeping its activations (JAX's
+`jax.checkpoint` around the scan body). Every path takes LoRA adapters
+(`lora=`: a
 `train.qlora.LoRA`, or JAX's {"layers": {target: {"a", "b"}}, "scale"}
 tree, shared — a [L, r, in], b [L, out, r], scalar scale — or batched per
 row, as the serving engine's decode step gathers them — a [L, B, rb, in],
@@ -44,6 +52,14 @@ b [L, B, out, rb], scale [B]): the q/k/v and gate/up deltas apply as
 `lora_epilogue` on the fused projections' slices, wo and w_down pass
 theirs to `linear`, which folds them into the fused kernel's writeback
 where JAX's eligibility rule admits the width.
+
+The experts' products are plain torch, as JAX leaves them to XLA: each
+expert weight is dequantized (`QTensor.dequantize`), then `einsum`s run
+(`_moe_mlp`): top-k routing on float32 softmax weights, then either the
+dense combine (every expert computes every token) or the capacity
+dispatch ("ragged": each expert its routed tokens up to capacity C, the
+overflow dropped), chosen by `resolve_moe_dispatch`, and qwen2-moe's
+shared expert behind its sigmoid gate.
 """
 
 from __future__ import annotations
@@ -63,8 +79,9 @@ from bigdl_tpu_torch.kvpaged import PagedKVCache
 from bigdl_tpu_torch.models.config import ModelConfig
 from bigdl_tpu_torch.ops import (Linear, apply_rotary_emb, attention, kernels,
                                  linear, rms_norm, rope_cos_sin)
+from bigdl_tpu_torch.ops.attention import _NEG_INF
 from bigdl_tpu_torch.ops.linear import lora_epilogue
-from bigdl_tpu_torch.ops.rope import check_rope_scaling, make_inv_freq_scaled
+from bigdl_tpu_torch.ops.rope import alibi_slopes, check_rope_scaling, make_inv_freq_scaled
 from bigdl_tpu_torch.quant import QTensor, concat_rows, quantize_or_dense
 from bigdl_tpu_torch.quant.qtypes import resolve_qtype, split_mixed_qtype
 from bigdl_tpu_torch.utils import resolve_device
@@ -79,11 +96,13 @@ _SUPPORTED_FIELDS = frozenset({
     "tie_word_embeddings", "attention_bias", "attention_out_bias", "mlp_bias",
     "sliding_window", "sliding_window_pattern", "attn_logit_softcap",
     "final_logit_softcap", "attn_scale", "post_attn_norm", "rms_norm_offset",
-    "scale_embeddings", "qk_norm",
+    "scale_embeddings", "qk_norm", "alibi", "alibi_scale", "logn_attn",
+    "logn_train_len",
 })
 # JAX's `_act` (bigdl_tpu/models/llama.py:282-291)
 ACTIVATIONS = ("silu", "gelu", "gelu_new", "gelu_pytorch_tanh", "gelu_tanh", "relu")
-# the MoE group of ROADMAP queue 1 item [4]
+# the MoE group (mixtral, qwen2-moe, qwen3-moe): gated experts only;
+# phixtral's non-gated, biased experts (gated_mlp=False) are item [4]
 _MOE_FIELDS = frozenset({
     "num_experts", "num_experts_per_tok", "moe_intermediate_size",
     "shared_expert_intermediate_size", "norm_topk_prob", "moe_dispatch",
@@ -104,13 +123,19 @@ _DEFAULTS = ModelConfig()
 
 def check_supported(config: ModelConfig) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for a config
-    field the port does not run: item [4] for a llama flag (its MoE group
-    for the experts), item [9] for a family's own fields; a rope-scaling
-    scheme or an activation the JAX package does not compute raises too.
-    Called before any weight is made or read."""
+    field the port does not run: item [4] for a llama flag, item [9] for
+    a family's own fields; a rope-scaling scheme or an activation the JAX
+    package does not compute raises too, and so do MLP biases beside
+    experts (JAX's tree would carry them unused). Called before any
+    weight is made or read."""
+    if config.is_moe and config.mlp_bias:
+        raise NotImplementedError(
+            "llama forward with experts and mlp_bias=True: ROADMAP queue 1 item [4], "
+            "the rest of the llama flags (phixtral's biased experts) is still to be ported")
     for f in dataclasses.fields(ModelConfig):
         name, value = f.name, getattr(config, f.name)
-        if name in _SUPPORTED_FIELDS or value == getattr(_DEFAULTS, name):
+        if (name in _SUPPORTED_FIELDS or name in _MOE_FIELDS
+                or value == getattr(_DEFAULTS, name)):
             continue
         if name == "rope_scaling":
             check_rope_scaling(config.rope_scaling_dict)
@@ -120,9 +145,7 @@ def check_supported(config: ModelConfig) -> None:
                 continue
             raise NotImplementedError(
                 f"hidden_act {value!r}: the JAX package computes {ACTIVATIONS} only")
-        if name in _MOE_FIELDS:
-            item = "item [4]'s MoE group (mixtral, qwen2_moe) is still to be ported"
-        elif name in _FAMILY_FIELDS:
+        if name in _FAMILY_FIELDS:
             item = "item [9], the rest of the zoo is still to be ported"
         else:
             item = "item [4], the rest of the llama flags is still to be ported"
@@ -142,16 +165,61 @@ BIAS_OF = {"wq": "bq", "wk": "bk", "wv": "bv", "wo": "bo", "w_gate": "b_gate",
            "w_up": "b_up", "w_down": "b_down", "wqkv": "bqkv", "w_gateup": "b_gateup"}
 
 
+# an MoE layer's expert weights under JAX's leaf names, quantized as its
+# `_QUANT_TARGETS` are: the experts stacked [E, EI, H] (w_down_e
+# [E, H, EI]) and qwen2-moe's shared expert [S, H] (w_down_s [H, S]); the
+# router [E, H] and the shared expert's gate [1, H] stay dense
+MOE_EXPERTS = ("w_gate_e", "w_up_e", "w_down_e")
+MOE_SHARED = ("w_gate_s", "w_up_s", "w_down_s")
+MOE_LEAVES = ("router",) + MOE_EXPERTS + MOE_SHARED + ("shared_gate",)
+
+
+class MoEBlock(nn.Module):
+    """A layer's mixture-of-experts MLP: the dense `router` [E, H], the
+    expert weights in `proj` (`MOE_EXPERTS`, and `MOE_SHARED` with
+    qwen2-moe's shared expert), each held by an `ops.linear.Linear` as a
+    dense tensor or a QTensor, and `shared_gate` [1, H] beside a shared
+    expert (None otherwise). `_moe_mlp` computes with `leaves()`."""
+
+    def __init__(self, router: torch.Tensor, proj: dict[str, Linear],
+                 shared_gate: Optional[torch.Tensor] = None):
+        super().__init__()
+        shared = set(proj) == set(MOE_EXPERTS + MOE_SHARED)
+        if not (shared or set(proj) == set(MOE_EXPERTS)) or shared != (shared_gate is not None):
+            raise ValueError(f"MoEBlock: projections {sorted(proj)} with "
+                             f"{'a' if shared_gate is not None else 'no'} shared gate; "
+                             f"want {MOE_EXPERTS}, plus {MOE_SHARED} and shared_gate")
+        self.router = _frozen(router)
+        self.proj = nn.ModuleDict(proj)
+        if shared_gate is None:
+            self.register_parameter("shared_gate", None)
+        else:
+            self.shared_gate = _frozen(shared_gate)
+
+    def leaves(self) -> dict:
+        """{JAX leaf name: tensor or QTensor} of the present leaves."""
+        out = {"router": self.router, **{n: lin.w for n, lin in self.proj.items()}}
+        if self.shared_gate is not None:
+            out["shared_gate"] = self.shared_gate
+        return out
+
+    def copy(self) -> "MoEBlock":
+        """A new block holding the same weights (`quantized_copy`)."""
+        return MoEBlock(self.router, dict(self.proj.items()), self.shared_gate)
+
+
 class DecoderLayer(nn.Module):
     """One decoder layer's weights: the `attn_norm`/`mlp_norm` weights,
     the projections in `proj` — wq/wk/wv, wo, w_gate/w_up, w_down as
     `init_params` makes them, wqkv, wo, w_gateup, w_down after
     `merge_fused_params` — each with its bias where the config has one,
     and the `OPTIONAL_NORMS` the config's flags ask for (None
-    otherwise)."""
+    otherwise). An MoE layer's `proj` holds the attention's projections
+    only and `moe` its experts (None in a dense layer)."""
 
     def __init__(self, attn_norm: torch.Tensor, mlp_norm: torch.Tensor,
-                 proj: dict[str, Linear], **norms: Optional[torch.Tensor]):
+                 proj: dict[str, Linear], moe: Optional[MoEBlock] = None,
+                 **norms: Optional[torch.Tensor]):
         super().__init__()
         unknown = set(norms) - set(OPTIONAL_NORMS)
         if unknown:
@@ -165,6 +233,7 @@ class DecoderLayer(nn.Module):
             else:
                 setattr(self, name, _frozen(t))
         self.proj = nn.ModuleDict(proj)
+        self.register_module("moe", moe)
 
 
 class LlamaModel(nn.Module):
@@ -227,11 +296,17 @@ def make_trainable(model: LlamaModel) -> list[nn.Parameter]:
 # ---------------------------------------------------------------------------
 
 def init_params(config: ModelConfig, seed: int = 0, device=None,
-                dtype=torch.bfloat16, scale: float = 0.02) -> LlamaModel:
+                dtype=torch.bfloat16, scale: float = 0.02,
+                low_bit: Optional[str] = None) -> LlamaModel:
     """Random dense init in `dtype` on `device` (the card unless told
     otherwise), N(0, scale^2) weights from a seeded torch.Generator, in
     the unfused layout, with JAX's other leaves: unit norms (post-norms
-    and q/k norms too), zero biases, no lm head when tied."""
+    and q/k norms too), zero biases, no lm head when tied; an MoE layer's
+    router, experts and shared expert in JAX's order. With `low_bit`,
+    each layer is quantized as soon as it is made (then the lm head), so
+    only one dense layer is ever held: mixtral-8x7b's 32 dense layers are
+    ~93 GB of bf16. The result equals `quantize_params(init_params(...),
+    low_bit)`: quantizing draws nothing from the generator."""
     check_supported(config)
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -249,28 +324,55 @@ def init_params(config: ModelConfig, seed: int = 0, device=None,
         return torch.zeros(n, dtype=dtype, device=dev) if on else None
 
     ab, mb = config.attention_bias, config.mlp_bias
+    E, EI = config.num_experts, config.moe_intermediate_size or I
+    S = config.shared_expert_intermediate_size
+    body = None if low_bit is None else resolve_qtype(split_mixed_qtype(low_bit)[0])
     layers = []
     for _ in range(config.num_hidden_layers):
-        proj = {name: Linear(w(shape), zeros(shape[0], on)) for name, shape, on in (
-            ("wq", (QD, H), ab), ("wk", (KD, H), ab), ("wv", (KD, H), ab),
-            ("wo", (H, QD), config.attention_out_bias), ("w_gate", (I, H), mb),
-            ("w_up", (I, H), mb), ("w_down", (H, I), mb))}
+        shapes = [("wq", (QD, H), ab), ("wk", (KD, H), ab), ("wv", (KD, H), ab),
+                  ("wo", (H, QD), config.attention_out_bias)]
+        if not config.is_moe:
+            shapes += [("w_gate", (I, H), mb), ("w_up", (I, H), mb), ("w_down", (H, I), mb)]
+        proj = {name: Linear(w(shape), zeros(shape[0], on)) for name, shape, on in shapes}
+        moe = None
+        if config.is_moe:
+            router = w((E, H))
+            experts = {n: Linear(w(shape)) for n, shape in (
+                ("w_gate_e", (E, EI, H)), ("w_up_e", (E, EI, H)), ("w_down_e", (E, H, EI)))}
+            if S:
+                experts.update({n: Linear(w(shape)) for n, shape in (
+                    ("w_gate_s", (S, H)), ("w_up_s", (S, H)), ("w_down_s", (H, S)))})
+            moe = MoEBlock(router, experts, w((1, H)) if S else None)
         norms = {}
         if config.post_attn_norm:
             norms.update(post_attn_norm=ones(H), post_mlp_norm=ones(H))
         if config.qk_norm:
             norms.update(q_norm=ones(config.head_dim_), k_norm=ones(config.head_dim_))
-        layers.append(DecoderLayer(ones(H), ones(H), proj, **norms))
+        layer = DecoderLayer(ones(H), ones(H), proj, moe, **norms)
+        if body is not None and not body.is_dense:
+            quantize_layer(layer, body.name)
+        layers.append(layer)
     embed = w((config.vocab_size, H))
     head = None if config.tie_word_embeddings else Linear(w((config.vocab_size, H)))
-    return LlamaModel(embed, layers, ones(H), head)
+    model = LlamaModel(embed, layers, ones(H), head)
+    return model if low_bit is None else quantize_params(model, low_bit)
+
+
+def quantize_layer(layer: DecoderLayer, qtype: str) -> None:
+    """Quantize a layer's dense projections and experts to `qtype` (a
+    body format, not a mixed alias), in place; the router and the shared
+    expert's gate stay dense."""
+    for proj in (layer.proj,) + ((layer.moe.proj,) if layer.moe is not None else ()):
+        for name, lin in proj.items():
+            if lin.qtype is None:
+                proj[name] = Linear(quantize_or_dense(lin.weight, qtype, name), lin.bias)
 
 
 def quantize_params(model: LlamaModel, qtype: str,
                     lm_head_qtype: Optional[str] = None) -> LlamaModel:
-    """Quantize every projection and the lm head, in place (each dense
-    weight is freed as its QTensor replaces it); norms, biases and the
-    embedding stay dense, and so does a tied head (it is the embedding,
+    """Quantize every projection, expert and the lm head, in place (each
+    dense weight is freed as its QTensor replaces it); norms, biases, the
+    router, the shared expert's gate and the embedding stay dense, and so does a tied head (it is the embedding,
     which JAX never quantizes). The lm head takes `lm_head_qtype`, else
     the head format a mixed alias names (q4_k_m: q4_k body, q6_k head),
     else `qtype`. A weight whose last dim the format cannot take stays
@@ -281,10 +383,7 @@ def quantize_params(model: LlamaModel, qtype: str,
     if spec.is_dense:
         return model
     for layer in model.layers:
-        for name, lin in layer.proj.items():
-            if lin.qtype is None:
-                layer.proj[name] = Linear(
-                    quantize_or_dense(lin.weight, spec.name, name), lin.bias)
+        quantize_layer(layer, spec.name)
     head = model.lm_head
     lm_spec = resolve_qtype(lm_head_qtype) if lm_head_qtype else spec
     if head is not None and head.qtype is None and not lm_spec.is_dense:
@@ -294,16 +393,17 @@ def quantize_params(model: LlamaModel, qtype: str,
 
 
 def quantized_copy(model: LlamaModel, qtype: str) -> LlamaModel:
-    """A model whose projections and lm head are `qtype` copies of
-    `model`'s (`quantize_params` on new layer containers), sharing the
-    embedding, the norms and the biases with it; `model` is left as it
+    """A model whose projections, experts and lm head are `qtype` copies
+    of `model`'s (`quantize_params` on new layer containers), sharing the
+    embedding, the norms, the biases and the routers with it; `model` is left as it
     is. JAX's `optimize_model` is functional and gives this; the
     self-speculative draft is built with it."""
     layers = []
     for layer in model.layers:
         norms = {n: getattr(layer, n) for n in OPTIONAL_NORMS if getattr(layer, n) is not None}
+        moe = None if layer.moe is None else layer.moe.copy()
         layers.append(DecoderLayer(layer.attn_norm, layer.mlp_norm, dict(layer.proj.items()),
-                                   **norms))
+                                   moe, **norms))
     return quantize_params(LlamaModel(model.embed, layers, model.final_norm, model.lm_head),
                            qtype)
 
@@ -332,7 +432,8 @@ def merge_fused_params(model: LlamaModel, config: ModelConfig) -> LlamaModel:
     """Fuse wq/wk/wv into wqkv and w_gate/w_up into w_gateup (their biases
     into bqkv and b_gateup), in place: one kernel launch streams one
     larger weight. The forward splits the fused output, so results equal
-    the unmerged layout's."""
+    the unmerged layout's. An MoE layer has no w_gate/w_up: its experts
+    stay as they are (JAX's rule)."""
     for layer in model.layers:
         p = layer.proj
         if "wq" in p:
@@ -398,6 +499,116 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     raise NotImplementedError(f"hidden_act {name}")
 
 
+# ---------------------------------------------------------------------------
+# mixture of experts (JAX's `_moe_*`, bigdl_tpu/models/llama.py:346-504)
+# ---------------------------------------------------------------------------
+
+def _deq(w, compute_dtype):
+    return w.dequantize(compute_dtype) if isinstance(w, QTensor) else w.to(compute_dtype)
+
+
+def resolve_moe_dispatch(config: ModelConfig) -> str:
+    """JAX's auto rule: the dense combine up to 8 experts (all matmuls,
+    no gather or scatter), the capacity dispatch above (FLOPs ~ k / E)."""
+    if config.moe_dispatch is not None:
+        return config.moe_dispatch
+    return "ragged" if config.num_experts > 8 else "dense"
+
+
+def _moe_router(config: ModelConfig, xc: torch.Tensor, p: dict):
+    """Top-k routing on float32 softmax weights: (topv [B, T, k] f32,
+    topi [B, T, k] int64), topv renormalized under norm_topk_prob
+    (mixtral). lax.top_k's order, the larger first and the lower expert
+    first on ties, comes from a stable sort on either device (torch.topk
+    does not promise the tie order on CUDA)."""
+    logits = torch.matmul(xc.float(), p["router"].to(xc.dtype).float().t())
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = config.num_experts_per_tok
+    topv, topi = topv[..., :k], topi[..., :k]
+    if config.norm_topk_prob:
+        topv = topv / (topv.sum(-1, keepdim=True) + 1e-20)
+    return topv, topi
+
+
+def _expert_ffn(config: ModelConfig, xe: torch.Tensor, p: dict, compute_dtype) -> torch.Tensor:
+    """Each expert's gated FFN on its grouped tokens: [E, C, H] -> [E, C, H]."""
+    wu = _deq(p["w_up_e"], compute_dtype)  # [E, I, H]
+    wg = _deq(p["w_gate_e"], compute_dtype)
+    u = torch.bmm(xe, wu.transpose(1, 2))
+    z = _act(config.hidden_act, torch.bmm(xe, wg.transpose(1, 2))) * u
+    del wu, wg, u
+    return torch.bmm(z, _deq(p["w_down_e"], compute_dtype).transpose(1, 2))
+
+
+def _moe_dispatch_ragged(config: ModelConfig, xc: torch.Tensor, p: dict, compute_dtype,
+                         topv: torch.Tensor, topi: torch.Tensor) -> torch.Tensor:
+    """The capacity dispatch (GShard): each expert computes at most C =
+    ceil(N k / E * capacity_factor) of its routed tokens, in token-major
+    order of assignment; the rest are dropped (their weight never
+    arrives). A kept slot holds one token, so the dispatch is a plain
+    index write (JAX's scatter-add into zeros; the overflow bin it sums
+    into is thrown away), and each token's k contributions are added in
+    JAX's token-major order, rounding to the compute dtype after each
+    add: no atomics, two calls are bit-equal."""
+    B, T, H = xc.shape
+    E, k = config.num_experts, config.num_experts_per_tok
+    N = B * T
+    C = max(1, min(N, int(-(-N * k * config.moe_capacity_factor // E))))
+    dev = xc.device
+    x_flat = xc.reshape(N, H)
+    e_flat = topi.reshape(N * k)
+    w_flat = topv.reshape(N * k).to(compute_dtype)
+    onehot = F.one_hot(e_flat, E)  # [N k, E]
+    pos = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(-1)  # slot within expert
+    slot = torch.where(pos < C, e_flat * C + pos, E * C)  # E C: the overflow bin
+    tok = torch.arange(N, device=dev).repeat_interleave(k)
+    x_disp = torch.zeros(E * C + 1, H, dtype=compute_dtype, device=dev)
+    x_disp[slot] = x_flat[tok]
+    y = _expert_ffn(config, x_disp[:-1].reshape(E, C, H), p, compute_dtype).reshape(E * C, H)
+    y = torch.cat([y, torch.zeros(1, H, dtype=compute_dtype, device=dev)])
+    contrib = (y[slot] * w_flat[:, None]).reshape(N, k, H)  # overflow reads zeros
+    out = torch.zeros(N, H, dtype=compute_dtype, device=dev)
+    for j in range(k):
+        out = out + contrib[:, j]
+    return out.reshape(B, T, H)
+
+
+def _moe_dispatch_dense(config: ModelConfig, xc: torch.Tensor, p: dict, compute_dtype,
+                        topv: torch.Tensor, topi: torch.Tensor) -> torch.Tensor:
+    """The dense combine: every expert computes every token, and the
+    top-k weights (0 for an expert not chosen) combine them."""
+    combine = torch.zeros(*topi.shape[:-1], config.num_experts, dtype=torch.float32,
+                          device=xc.device).scatter_(-1, topi, topv)
+    wu = _deq(p["w_up_e"], compute_dtype)  # [E, I, H]
+    wg = _deq(p["w_gate_e"], compute_dtype)
+    u = torch.einsum("bth,eih->btei", xc, wu)
+    z = _act(config.hidden_act, torch.einsum("bth,eih->btei", xc, wg)) * u
+    del wu, wg, u
+    d = torch.einsum("btei,ehi->bteh", z, _deq(p["w_down_e"], compute_dtype))
+    return torch.einsum("bteh,bte->bth", d, combine.to(compute_dtype))
+
+
+def _moe_mlp(config: ModelConfig, x: torch.Tensor, p: dict, compute_dtype) -> torch.Tensor:
+    """The mixture-of-experts MLP over `p` (`MoEBlock.leaves()`): route,
+    dispatch by `resolve_moe_dispatch`, then qwen2-moe's shared expert
+    times its sigmoid gate."""
+    xc = x.to(compute_dtype)
+    topv, topi = _moe_router(config, xc, p)
+    if resolve_moe_dispatch(config) == "ragged":
+        out = _moe_dispatch_ragged(config, xc, p, compute_dtype, topv, topi)
+    else:
+        out = _moe_dispatch_dense(config, xc, p, compute_dtype, topv, topi)
+    if config.shared_expert_intermediate_size:
+        sg = torch.matmul(xc, _deq(p["w_gate_s"], compute_dtype).t())
+        su = torch.matmul(xc, _deq(p["w_up_s"], compute_dtype).t())
+        sd = torch.matmul(_act(config.hidden_act, sg) * su,
+                          _deq(p["w_down_s"], compute_dtype).t())
+        gate = torch.sigmoid(torch.matmul(xc, p["shared_gate"].to(compute_dtype).t()))
+        out = out + sd * gate
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class AttentionRoute:
     """Where one layer's attention goes and what it is passed: `kernel` is
@@ -427,12 +638,16 @@ def attention_route(config: ModelConfig, layer: int, cache: str = "dense",
     - a prefill over a cache, T > 1, one position for all rows, every
       layer the same window: the flash kernel with the window, softcap
       and scale;
-    - everything else, gemma2's alternating windows among it: the plain
-      attention under the layer's mask."""
+    - everything else, gemma2's alternating windows among it, and every
+      call of an ALiBi model (`not config.alibi` on each of JAX's kernel
+      routes; the kernels take no bias): the plain attention under the
+      layer's mask."""
     uniform = config.sliding_window_pattern is None and config.sliding_layers is None
     window = config.sliding_window if config.layer_is_sliding(layer) else None
     cap, scale = config.attn_logit_softcap, config.attn_scale
-    if cache == "paged" and mode == "decode" and T == 1:
+    if config.alibi:
+        kernel = "plain"
+    elif cache == "paged" and mode == "decode" and T == 1:
         kernel = "paged"
     elif cache == "none":
         kernel = "flash_train" if T > 1 and uniform and cap is None else "plain"
@@ -486,10 +701,20 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
     per_row = isinstance(pos0, torch.Tensor)
 
     h = embed_tokens(config, model, tokens, compute_dtype)
-    inv_freq, att_scale = make_inv_freq_scaled(
-        config.rotary_dim, config.rope_theta, config.rope_scaling_dict,
-        seq_len=max_len, device=dev)
-    cos, sin = rope_cos_sin(positions, inv_freq, scale=att_scale)
+    use_rope = not config.alibi  # ALiBi's positions are its bias
+    if use_rope:
+        inv_freq, att_scale = make_inv_freq_scaled(
+            config.rotary_dim, config.rope_theta, config.rope_scaling_dict,
+            seq_len=max_len, device=dev)
+        cos, sin = rope_cos_sin(positions, inv_freq, scale=att_scale)
+    # qwen v1's logn: queries past the training length scale by
+    # log_train_len(position + 1), from the positions (per row under a
+    # speculative verify), not the slots
+    logn_col = None
+    if config.logn_attn and config.logn_train_len:
+        logn = torch.log(positions.float() + 1.0) / torch.log(
+            torch.tensor(float(config.logn_train_len), device=dev))
+        logn_col = torch.clamp(logn, min=1.0)[:, :, None, None].to(compute_dtype)
 
     kind = ("none" if cache is None else
             "paged" if isinstance(cache, PagedKVCache) else "dense")
@@ -510,6 +735,17 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
                 masks[r.window] = (base & (sj[None, None, :] > slots[..., None] - r.window)
                                    )[:, None, None]
         del base
+        if config.alibi:
+            # the additive bias slope_h * (k_slot - q_slot), 0 on the
+            # diagonal (row starts cancel), -1e30 where masked: one
+            # [B, Hkv, G, T, S] float mask a window, built once a forward
+            slopes = alibi_slopes(Hq, device=dev).reshape(Hkv, Hq // Hkv)
+            if config.alibi_scale:  # falcon-rw: the bias shares the score scale
+                slopes = slopes * config.alibi_scale
+            dist = (sj[None, None, :] - slots[..., None]).float()  # [B | 1, T, S]
+            bias = slopes[None, :, :, None, None] * dist[:, None, None]
+            masks = {w: torch.where(m, bias, _NEG_INF) for w, m in masks.items()}
+            del bias, dist
 
     lora_layers, lora_scale = ((None, None) if lora is None else
                                (lora["layers"], lora["scale"]) if isinstance(lora, dict)
@@ -548,7 +784,10 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
         v = v.reshape(B, T, Hkv, D)
         if config.qk_norm:
             q, k = norm(q, layer.q_norm), norm(k, layer.k_norm)
-        q, k = apply_rotary_emb(q, k, cos, sin)
+        if use_rope:
+            q, k = apply_rotary_emb(q, k, cos, sin)
+        if logn_col is not None:
+            q = q * logn_col
         if collect_obs:  # a copy: a view would keep the layer's whole q alive
             obs.append(q[:, T - collect_obs:].clone())
 
@@ -582,14 +821,18 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
         h = h + out
 
         x = norm(h, layer.mlp_norm)
-        if "w_gateup" in p:
-            gate, up = p["w_gateup"](x, compute_dtype).chunk(2, dim=-1)
-            gate = plus_delta(gate, x, "w_gate", idx)
-            up = plus_delta(up, x, "w_up", idx)
+        if layer.moe is not None:  # JAX's MoE path takes no adapter
+            down = _moe_mlp(config, x, layer.moe.leaves(), compute_dtype)
         else:
-            gate, up = (p[n](x, compute_dtype, lora=adapter(n, idx)) for n in ("w_gate", "w_up"))
-        down = p["w_down"](_act(config.hidden_act, gate) * up, compute_dtype,
-                           lora=adapter("w_down", idx))
+            if "w_gateup" in p:
+                gate, up = p["w_gateup"](x, compute_dtype).chunk(2, dim=-1)
+                gate = plus_delta(gate, x, "w_gate", idx)
+                up = plus_delta(up, x, "w_up", idx)
+            else:
+                gate, up = (p[n](x, compute_dtype, lora=adapter(n, idx))
+                            for n in ("w_gate", "w_up"))
+            down = p["w_down"](_act(config.hidden_act, gate) * up, compute_dtype,
+                               lora=adapter("w_down", idx))
         if config.post_attn_norm:
             down = norm(down, layer.post_mlp_norm)
         return h + down

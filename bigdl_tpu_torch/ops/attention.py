@@ -19,8 +19,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: Optional[torch.Tensor] = None,
               scale: Optional[float] = None,
               softcap: Optional[float] = None) -> torch.Tensor:
-    """q [B,T,Hq,D]; k,v [B,S,Hkv,D]; bool mask broadcastable to
-    [B,Hkv,G,T,S] (True = attend). Scores are scaled (by 1/sqrt(D)
+    """q [B,T,Hq,D]; k,v [B,S,Hkv,D]; mask broadcastable to [B,Hkv,G,T,S]:
+    bool (True = attend), or float, added to the scores (ALiBi's bias,
+    -1e30 where a slot is masked). Scores are scaled (by 1/sqrt(D)
     unless `scale` is given), capped by tanh(s / softcap) * softcap, and
     only then masked, in JAX's order: a cap after the mask would turn
     -1e30 into -softcap and give masked slots weight. Returns [B,T,Hq,D]
@@ -35,8 +36,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = torch.einsum("bthgd,bshd->bhgts", qg.float(), k.float()) * scale
     if softcap is not None:
         scores = torch.tanh(scores / softcap) * softcap
-    if mask is not None:
+    if mask is not None and mask.dtype == torch.bool:
         scores = scores.masked_fill(~mask, _NEG_INF)
+    elif mask is not None:
+        scores = scores + mask.float()
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     del scores
     out = torch.einsum("bhgts,bshd->bthgd", probs.float(), v.float())

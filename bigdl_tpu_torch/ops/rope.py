@@ -177,3 +177,21 @@ def apply_rotary_emb(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
     cos = cos[..., None, :]
     sin = sin[..., None, :]
     return rotate(q, cos, sin), rotate(k, cos, sin)
+
+
+def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
+    """ALiBi's per-head slopes [num_heads] in float32 (JAX's
+    `alibi_slopes`, baichuan-13b and bloom): powers of 2^(-8/n) for the
+    nearest power-of-two head count n, then every other slope of 2n's
+    series for the heads past n (baichuan-13b's 40 heads: 32 + 8)."""
+
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+
+    n = 2 ** math.floor(math.log2(num_heads))
+    slopes = pow2_slopes(n)
+    if n < num_heads:
+        slopes += pow2_slopes(2 * n)[0::2][: num_heads - n]
+    # float64 values rounded once to float32, as numpy's asarray does
+    return torch.tensor(slopes, dtype=torch.float64).to(torch.float32).to(device)

@@ -7,7 +7,9 @@ oldest `chunk` non-sink slots go at once: the recent region moves left by
 `chunk`. Keys are stored rotated, so the moved keys are re-based by the
 exact `-chunk`-step inverse rotation (rotate(k, p - c) == rotate(rotate(k,
 p), -c)), with the attention scale of yarn/longrope left out (the stored
-keys already carry it). Positions therefore never pass `window`.
+keys already carry it). Positions therefore never pass `window`. An
+ALiBi model stores its keys unrotated (its positions are a bias over
+slot distances), so its moved keys are copied as they are.
 
 The rotation runs in float32 and rounds back to the cache's dtype once per
 eviction, as the JAX package's does: a key that survives the recent region
@@ -53,8 +55,10 @@ def make_evict(config: ModelConfig, window: int, sink: int, chunk: int = 1):
     whatever the cache's fill: the recent region moves left by `chunk`,
     its keys re-rotated by -chunk steps, the freed tail zeroed, pos down
     by `chunk`. Used behind the full-cache test of `make_sink_shift` and
-    by ChatSession's room-making before a turn's prefill."""
+    by ChatSession's room-making before a turn's prefill. Under ALiBi the
+    keys move without re-rotation."""
     validate_streaming(config, window, sink, chunk)
+    use_rope = not config.alibi
 
     def evict(cache):
         if cache.k_scale is not None:
@@ -67,14 +71,17 @@ def make_evict(config: ModelConfig, window: int, sink: int, chunk: int = 1):
             raise NotImplementedError(
                 "streaming sinks run on the aligned generate path (one pos for "
                 "all rows), not the serving engine's per-row pool")
-        inv_freq, _ = make_inv_freq_scaled(config.rotary_dim, config.rope_theta,
-                                           config.rope_scaling_dict, seq_len=window,
-                                           device=cache.k.device)
-        # the -chunk-step inverse rotation; attention scale 1
-        cos, sin = rope_cos_sin(torch.full((1,), -chunk, dtype=torch.int32,
-                                           device=cache.k.device), inv_freq)
         S = cache.max_len
-        moved = rotate(cache.k[:, :, sink + chunk:], cos[0], sin[0])
+        if use_rope:
+            inv_freq, _ = make_inv_freq_scaled(config.rotary_dim, config.rope_theta,
+                                               config.rope_scaling_dict, seq_len=window,
+                                               device=cache.k.device)
+            # the -chunk-step inverse rotation; attention scale 1
+            cos, sin = rope_cos_sin(torch.full((1,), -chunk, dtype=torch.int32,
+                                               device=cache.k.device), inv_freq)
+            moved = rotate(cache.k[:, :, sink + chunk:], cos[0], sin[0])
+        else:
+            moved = cache.k[:, :, sink + chunk:].clone()
         cache.k[:, :, sink:S - chunk] = moved
         cache.v[:, :, sink:S - chunk] = cache.v[:, :, sink + chunk:].clone()
         cache.k[:, :, S - chunk:] = 0

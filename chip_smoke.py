@@ -252,7 +252,8 @@ the result lines; an exception ends the run at once; nothing is caught):
    difference), streaming's decode after an eviction, and chat turn 3's
    logits against the plain versions and the kernels' one-shot prefill.
 19. self-speculative and prompt-lookup decoding (after phase 18, on
-   phase 3's model and a bf16 llama3-8b of the same seed): (b) a
+   phase 16 (a)'s 16-layer model and a bf16 one of the same seed; phase
+   3's 32-layer model until phase 20 joined the script): (b) a
    512-token prompt (64 seeded tokens, 8 times), 64 greedy tokens under
    BIGDL_TPU_PERFORMANCE_MODE: the switch to prompt lookup, launches (the
    GEMV at M = 4, flash at T = 4 a round), the teacher-forced rule, ms a
@@ -278,11 +279,45 @@ the result lines; an exception ends the run at once; nothing is caught):
    full-width layers' verify logits at T = 2, 3, 4 (B = 1) and T = 4 over
    8 rows (the GEMV at M = 32) at q_offset 301 against the plain versions
    under phase 3's bound.
+20. mixture of experts, ALiBi and logn (after phase 17; the experts run
+   as JAX runs them, each expert tensor dequantized, then einsums): (a)
+   mixtral-8x7b at full width (hidden 4096, 32 q heads over 8, 8 experts
+   of 14336, top-2 renormalized, vocab 32000, rope theta 1e6) and 16 of
+   its 32 layers in sym_int4, built layer by layer (`init_params(low_bit=)`:
+   the build's peak below the dense model's size), through `generate` at
+   phase 3's shapes: launches (GEMM 2 x 16, GEMV 1 + 31 x (2 x 16 + 1),
+   flash 16: wqkv and wo), in-vocabulary and repeatable tokens, prefill
+   ms, the routing rule (each row against a one-shot forward: at the
+   first layer where the chosen experts differ, only near-ties, router
+   logits within ROUTER_TOL; without a difference, the tokens within
+   0.25 nat of its maximum), the decode step's host-set ms and profiled
+   busy ms, the MoE block's
+   share of it (one layer isolated: the experts' dequantize, then the rest),
+   peak memory; a 2-layer prefill through the kernels against the plain
+   versions, and the capacity dispatch at capacity factor E / k against the
+   dense one (phase 3's bound); (b) the paged engine on it at phase 8's
+   settings over 4 prefix-sharing and 4 independent requests of phase 7
+   (32 tokens): requests/s, TTFT and decode-step quantiles, 16 paged
+   launches a decode step, no page leaks, the same tokens from a second
+   run (a rounding that flips a token's experts moves it by a whole
+   expert on this random model, so the engine's tokens are not held to
+   `generate`'s: (a)'s routing rule shows why); (c) 2 layers of qwen2-moe at
+   Qwen1.5-MoE-A2.7B's width (60 experts of 1408, top-4, a shared expert
+   of 5632, vocab 151936): the auto rule's capacity dispatch, prefill and
+   a decode step through the kernels against the plain versions; (d) 2
+   layers of baichuan-13b's width (40 heads of 128: ALiBi slopes past 32,
+   vocab 64000) through `generate` and the paged engine: no flash or
+   paged launch (JAX's rule), GEMM and GEMV by their exact counts, the
+   engine's decode step beside mixtral's, logits against the plain
+   versions; (e) 2 layers of Qwen-7B's width with logn (train length
+   2048) over two 3,000-token prompts: a flash launch a layer, the q it
+   takes equal to logn_attn=False's times the logn factor bit for bit,
+   logits against the plain versions and moved by logn.
 
 Every phase ends with one line, `phase N: done in X s, F failed
 checks`. The whole run takes about 900-1100 s of command time on an
 H100 (the host's speed moves it; phase 16 ~110-140 s of it, phase 18
-~100-130 s, phase 19 ~110-135 s), the kernel builds included (the
+~100-130 s, phase 19 ~110-135 s, phase 20 ~90-150 s), the kernel builds included (the
 dequant sources build once per qtype: 36 libraries in 50-90 s).
 It prints one `{"kernels": [...]}` line (the dequant forms carry their
 numbers per format under "by_format"), and as its last line
@@ -312,7 +347,7 @@ PROFILED_PREFILLS, PROFILED_STEPS = 2, 5
 TRAIN_T, RANK, LR = 1024, 8, 1e-4  # bench.py child_train: B=1, T=1024, rank 8
 TRAIN_STEPS, PROFILED_TRAIN_STEPS = 5, 2
 PATH_FORMATS = ("sym_int4", "nf4", "q4_k", "q6_k")  # generation, training, q4_k_m
-HALF_LAYERS = 16  # phases 16 (a) and 18: half of llama3-8b's depth, full width
+HALF_LAYERS = 16  # phases 16 (a), 18 and 19: half of llama3-8b's depth, full width
 RAGGED_M = (33, 255, 257, 1000, 4096)
 GEMV_CHECK_M, GEMV_R = (1, 3, 4, 8, 17, 32), 128  # the GEMV's row counts (n-tiles 1, 2, 4), adapter width
 # the GEMM's launch (x in its steps' order, then the GEMM) and the LoRA
@@ -967,7 +1002,8 @@ def main() -> int:
             "isolated_ms": iso, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": lib, "per": unit})
     # phases 16 (a) and 18 run a half-depth llama3-8b (full width, seed 0)
-    # since phase 19 joined the script, to keep the run inside its limit
+    # since phase 19 joined the script, and phase 19 since phase 20 did,
+    # to keep the run inside its limit
     cfg_half = dataclasses.replace(cfg, num_hidden_layers=HALF_LAYERS)
     tm_half = TorchModel(cfg_half, optimize_model(llama.init_params(cfg_half, seed=0), cfg_half,
                                                   "sym_int4"), "sym_int4")
@@ -984,12 +1020,13 @@ def main() -> int:
     # --------------------------------------------------------------- 18
     begin_phase(18)
     cache_policy_phases(torch, dev, card, tm_half, prompts, tok, st, out_half)
-    del tm_half
-    torch.cuda.empty_cache()
     # --------------------------------------------------------------- 19
     begin_phase(19)
-    decode_phases(torch, dev, card, tm)
     del tm, model
+    torch.cuda.empty_cache()
+    decode_phases(torch, dev, card, tm_half)
+    del tm_half
+    torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 5
     begin_phase(5)
@@ -1013,6 +1050,10 @@ def main() -> int:
     # --------------------------------------------------------------- 17
     begin_phase(17)
     flags_phases(torch, dev, card, prompt_tokens, starts)
+    torch.cuda.empty_cache()
+    # --------------------------------------------------------------- 20
+    begin_phase(20)
+    moe_phases(torch, dev, card)
     begin_phase(None)
     for e in entries + train_entries + adapter_entries:
         if e["name"] in by_format:  # the dequant forms: sym_int4 above, then the others
@@ -4622,8 +4663,8 @@ def rejections(rounds, n_out, K):
 def decode_phases(torch, dev, card, tm, spec_new=SPEC_NEW, spec_prompt=SPEC_PROMPT,
                   lookup_period=LOOKUP_PERIOD, lookup_new=LOOKUP_NEW, serve_new=SERVE_NEW,
                   bf16=None) -> None:
-    """Phase 19, after phase 18, on phase 3's sym_int4 model `tm` and a
-    bf16 model of the same seed (`bf16`, built here unless given): (b)
+    """Phase 19, after phase 18, on phase 16 (a)'s sym_int4 model `tm` and
+    a bf16 model of the same seed (`bf16`, built here unless given): (b)
     prompt lookup through BIGDL_TPU_PERFORMANCE_MODE, (d) the adapter
     engine speculative with a perfect draft, (a) self-speculative
     generate_speculative against the sym_int4 self-draft, (c) the engine
@@ -5018,6 +5059,421 @@ def decode_phases(torch, dev, card, tm, spec_new=SPEC_NEW, spec_prompt=SPEC_PROM
     log(f"phase 19 (e): 2-layer full-width verify at q_offset {SPEC_OFFSET} against the plain "
         f"versions: {'; '.join(lines)}; {time.time() - t_e:.1f} s")
     del m2
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 20: mixture of experts, ALiBi and logn
+# ---------------------------------------------------------------------------
+
+MOE_LAYERS = 16  # mixtral-8x7b's depth here: half of its 32 layers, full width
+MOE_SERVE_REQS = 4  # engine (b): 4 prefix-sharing and 4 independent requests of phase 7
+# Qwen1.5-MoE-A2.7B's published config.json (the port's translation of it),
+# baichuan-13b's and Qwen-7B's widths; 2 layers each
+QWEN2_MOE_A27B = dict(model_type="qwen2_moe", vocab_size=151936, hidden_size=2048,
+                      intermediate_size=5632, num_hidden_layers=2, num_attention_heads=16,
+                      num_key_value_heads=16, attention_bias=True, rope_theta=1e6,
+                      max_position_embeddings=8192, num_experts=60, num_experts_per_tok=4,
+                      moe_intermediate_size=1408, shared_expert_intermediate_size=5632)
+BAICHUAN_13B = dict(model_type="baichuan", vocab_size=64000, hidden_size=5120,
+                    intermediate_size=13696, num_hidden_layers=2, num_attention_heads=40,
+                    num_key_value_heads=40, rms_norm_eps=1e-6, max_position_embeddings=4096,
+                    alibi=True)
+QWEN_7B = dict(model_type="qwen", vocab_size=151936, hidden_size=4096, intermediate_size=11008,
+               num_hidden_layers=2, num_attention_heads=32, num_key_value_heads=32,
+               rms_norm_eps=1e-6, max_position_embeddings=8192, attention_bias=True,
+               logn_attn=True, logn_train_len=2048)
+LOGN_PROMPT = 3000  # (e): past logn_train_len
+
+
+# Two runs of one MoE model on different routes (generate's steps, a
+# one-shot forward) choose other experts for a token where its router
+# logits' k-th and (k+1)-th values lie within this much of each other
+# (bf16 roundings of its input); a flip moves the token by a whole expert.
+ROUTER_TOL = 0.05  # 4x the largest seen on the H100 (0.0122, PERF.md)
+
+
+@contextlib.contextmanager
+def routes_recorded(torch, llama):
+    """`llama._moe_router` recording every call's chosen experts (sorted,
+    [B, T, k]) and the gap between its k-th and (k+1)-th router logits
+    ([B, T]), in call order (layer by layer, forward by forward)."""
+    real, calls = llama._moe_router, []
+
+    def recorded(config, xc, p):
+        topv, topi = real(config, xc, p)
+        top = torch.matmul(xc.float(), p["router"].to(xc.dtype).float().t()).sort(
+            -1, descending=True).values
+        k = config.num_experts_per_tok
+        calls.append((topi.sort(-1).values, top[..., k - 1] - top[..., k]))
+        return topv, topi
+
+    with mock.patch.object(llama, "_moe_router", recorded):
+        yield calls
+
+
+def routing_rule(torch, cfg, params, prompts, out, gen_calls) -> None:
+    """The issue of near-ties in the router, settled token by token:
+    each row of a `generate` run (routes `gen_calls`: the prefill's L
+    calls, then L a decode step) against a one-shot forward of prompt +
+    out[:-1] on the generate route (`teacher_forced`), expert choices
+    compared at every layer and position. Where no choice differs, every
+    token lies within MARGIN_TOL of the one-shot forward's maximum (the
+    dense models' cross-route rule); where some do, at the first layer
+    with a difference every differing token is a near-tie (k-th and
+    (k+1)-th router logits within ROUTER_TOL in either run): before that
+    layer the runs differ by roundings only."""
+    from bigdl_tpu_torch.models import llama
+
+    L = cfg.num_hidden_layers
+    T = gen_calls[0][0].shape[1]
+    rows = []
+    for b, (p_, o_) in enumerate(zip(prompts, out)):
+        with routes_recorded(torch, llama) as tf_calls:
+            tf = teacher_forced(torch, cfg, params, p_, o_)
+        gaps = tf_rule(torch, tf, o_, bound=MARGIN_TOL)[0]
+        first, tie_gaps, n_diff = None, [], 0
+        for layer in range(L):
+            steps = [gen_calls[layer]] + [gen_calls[L * s + layer] for s in range(1, len(o_))]
+            g_e = torch.cat([steps[0][0][b, T - len(p_):]] + [c[0][b] for c in steps[1:]])
+            g_gap = torch.cat([steps[0][1][b, T - len(p_):]] + [c[1][b] for c in steps[1:]])
+            t_e, t_gap = tf_calls[layer][0][0], tf_calls[layer][1][0]
+            differ = (g_e != t_e).any(-1)
+            n_diff += int(differ.sum())
+            if first is None and bool(differ.any()):
+                first = layer
+                tie_gaps = torch.minimum(g_gap, t_gap)[differ].tolist()
+        held = (all(g <= ROUTER_TOL for g in tie_gaps) if first is not None
+                else bool((gaps <= MARGIN_TOL).all()))
+        rows.append((b, n_diff, first, round(max(tie_gaps, default=0.0), 4),
+                     round(gaps.max().item(), 4)))
+        check(held, f"phase 20 (a): row {b}: the routing rule ({rows[-1]})")
+    log(f"phase 20 (a): generate against a one-shot forward, expert choices at {L} layers x "
+        f"every position (row, tokens x layers choosing other experts, first such layer, the "
+        f"largest router-logit gap among that layer's differing tokens, bound {ROUTER_TOL}; the "
+        f"row's largest teacher-forced gap, bound {MARGIN_TOL} where no choice differs): {rows}")
+
+
+def moe_configs():
+    """Phase 20's four configurations, full width: mixtral-8x7b at
+    MOE_LAYERS of its 32 layers, and 2 layers of the others."""
+    from bigdl_tpu_torch import PRESETS, ModelConfig
+
+    return {"mixtral": dataclasses.replace(PRESETS["mixtral-8x7b"], num_hidden_layers=MOE_LAYERS),
+            "qwen2_moe": ModelConfig(**QWEN2_MOE_A27B), "baichuan": ModelConfig(**BAICHUAN_13B),
+            "qwen": ModelConfig(**QWEN_7B)}
+
+
+def moe_phases(torch, dev, card, configs=None, logn_prompt=LOGN_PROMPT) -> None:
+    """Phase 20: (a) mixtral-8x7b through `generate` (launches, tokens,
+    times, the experts' share of a decode step, peak memory; 2 layers
+    against the plain versions, dense against ragged); (b) the paged
+    engine on it; (c) 2-layer qwen2-moe (ragged, shared expert) against
+    the plain versions; (d) 2-layer baichuan-13b (ALiBi: no attention
+    kernel) through generate and the engine; (e) 2-layer Qwen-7B with
+    logn past its training length through the flash kernel. `configs`
+    replaces `moe_configs()` (a CPU rehearsal at narrow widths)."""
+    import numpy as np
+
+    from bigdl_tpu_torch import TorchModel, optimize_model
+    from bigdl_tpu_torch.generate import pad_prompts
+    from bigdl_tpu_torch.kvcache import init_cache
+    from bigdl_tpu_torch.models import llama
+    from bigdl_tpu_torch.ops import kernels
+    from bigdl_tpu_torch.serving import InferenceEngine
+
+    configs = configs or moe_configs()
+    plain = plain_kernels(kernels)
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def q(xs, f):
+        xs = sorted(xs)
+        return xs[min(int(f * len(xs)), len(xs) - 1)]
+
+    def ragged(V):
+        return [list(np.random.default_rng(i).integers(0, V, n)) for i, n in enumerate(PROMPT_LENS)]
+
+    def build(cfg, seed):
+        """`init_params(low_bit=)`: each layer quantized as it is made."""
+        return optimize_model(llama.init_params(cfg, seed=seed, device=dev, low_bit="sym_int4"), cfg)
+
+    def last_logits(cfg, model, toks, start, n_decode=0):
+        """Prefill last logits over a dense cache, then n_decode greedy
+        steps: [n_decode + 1, B, V] float32."""
+        cache = dataclasses.replace(
+            init_cache(cfg.num_hidden_layers, toks.shape[0], toks.shape[1] + n_decode + 8,
+                       cfg.num_key_value_heads, cfg.head_dim_, device=dev), start=start)
+        out = []
+        with torch.inference_mode():
+            logits, cache = llama.forward(cfg, model, toks, cache, "prefill", last_logits_only=True)
+            out.append(logits[:, -1])
+            for _ in range(n_decode):
+                logits, cache = llama.forward(cfg, model, out[-1].argmax(-1)[:, None], cache,
+                                              "decode")
+                out.append(logits[:, -1])
+        return torch.stack(out)
+
+    def vs_plain(label, cfg, model, toks, start, n_decode=0):
+        """Logits through the kernels against the plain versions, phase 3's
+        bound (2 % of the largest plain logit); returns the kernels' ones."""
+        kern = last_logits(cfg, model, toks, start, n_decode)
+        with mock.patch.multiple(kernels, **plain):
+            ref = last_logits(cfg, model, toks, start, n_decode)
+        err, tol = (kern - ref).abs().max().item(), 0.02 * ref.abs().max().item()
+        log(f"phase 20 {label}: logits through the kernels vs plain: max_abs_err={err:.6g} "
+            f"tol={tol:.6g}")
+        check(bool(torch.isfinite(kern).all()) and err <= tol, f"phase 20 {label}: kernels vs plain")
+        return kern
+
+    def serve(tm, specs):
+        """The paged engine at phase 8's settings over `specs`: (requests,
+        seconds, decode steps, TTFT and decode-step observations)."""
+        eng = InferenceEngine(tm, n_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, paged=True)
+        seen = {"ttft": [], "step": []}
+        for key, hist in (("ttft", eng.ttft), ("step", eng.decode_step_seconds)):
+            hist.observe = (lambda h, out: lambda x: (out.append(x), type(h).observe(h, x)))(
+                hist, seen[key])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(**sp) for sp in specs]
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        check(eng.page_leaks() == 0, "phase 20: the engine's page leaks after the drain")
+        return reqs, sec, eng.decode_step_seconds.count, seen
+
+    def serve_text(reqs, sec, steps, seen):
+        ntok = sum(len(r.out_tokens) for r in reqs)
+        return (f"{len(reqs)} requests, {SLOTS} slots, pages of {PAGE}: {sec:.3f} s = "
+                f"{len(reqs) / sec:.3f} requests/s, {ntok / sec:.1f} generated tokens/s; TTFT ms "
+                f"median={q(seen['ttft'], .5) * 1e3:.3f} p90={q(seen['ttft'], .9) * 1e3:.3f}; decode "
+                f"step ms median={q(seen['step'], .5) * 1e3:.3f} p90={q(seen['step'], .9) * 1e3:.3f} "
+                f"(n={steps})")
+
+    # (a) mixtral-8x7b through generate ---------------------------------
+    cfg = configs["mixtral"]
+    L, V, H = cfg.num_hidden_layers, cfg.vocab_size, cfg.hidden_size
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    EI = cfg.moe_intermediate_size or cfg.intermediate_size
+    per_layer = 2 * H * (cfg.q_dim + cfg.kv_dim) + 3 * E * EI * H + E * H + 2 * H
+    dense_gib = (L * per_layer + 2 * V * H + H) * 2 / 2**30  # every weight in bf16
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    model = build(cfg, 0)
+    tm = TorchModel(cfg, model, "sym_int4", device=dev)
+    torch.cuda.synchronize()
+    build_s = time.time() - t
+    model_gib = torch.cuda.memory_allocated() / 2**30 - base_gib
+    build_peak = torch.cuda.max_memory_allocated() / 2**30 - base_gib
+    log(f"phase 20 (a): card {card}")
+    log(f"phase 20 (a): mixtral-8x7b {L} of 32 layers (hidden {H}, {E} experts of "
+        f"{EI}, top-{k}) sym_int4 built layer by "
+        f"layer in {build_s:.1f} s: {model_gib:.3f} GiB on the card, peak during the build "
+        f"{build_peak:.3f} GiB (the dense bf16 model would be {dense_gib:.3f} GiB); dispatch "
+        f"{llama.resolve_moe_dispatch(cfg)}")
+    check(build_peak < dense_gib, "phase 20 (a): the build never holds the dense model")
+    prompts = ragged(V)
+    kernels.reset_launches()
+    with routes_recorded(torch, llama) as gen_routes:
+        out1 = tm.generate(prompts, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want = {kn.name: 0 for kn in kernels.KERNELS}
+    want.update({kernels.GEMM.name: 2 * L, kernels.GEMV.name: 1 + (NEW_TOKENS - 1) * (2 * L + 1),
+                 kernels.FLASH.name: L})
+    log(f"phase 20 (a): launches {launches} expected {want} (the attention's wqkv and wo; the "
+        "experts are dequantized, then einsums, as JAX computes them)")
+    check(launches == want, "phase 20 (a): mixtral launch counts")
+    check(out1.shape == (len(prompts), NEW_TOKENS) and bool(((out1 >= 0) & (out1 < V)).all()),
+          "phase 20 (a): tokens in the vocabulary")
+    torch.cuda.reset_peak_memory_stats()
+    out2 = tm.generate(prompts, max_new_tokens=NEW_TOKENS)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(bool((out1 == out2).all()), "phase 20 (a): identical tokens on a second call")
+    routing_rule(torch, cfg, tm.params, prompts, out1, gen_routes)
+    prefill_ms = sorted(wall_ms(lambda: tm.generate(prompts, 1)) for _ in range(3))
+    tokens, st = pad_prompts(prompts, 0)
+    tok = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+    stt = torch.as_tensor(st, device=dev)
+    Hkv, D = cfg.num_key_value_heads, cfg.head_dim_
+    n_steps = 8
+    with torch.inference_mode():
+        cache = dataclasses.replace(
+            init_cache(L, len(prompts), tokens.shape[1] + n_steps + 16, Hkv, D, device=dev),
+            start=stt)
+        logits, cache = llama.forward(cfg, tm.params, tok, cache, "prefill", last_logits_only=True)
+        box = [cache, logits[:, -1].argmax(-1)]
+
+        def step():
+            lg, box[0] = llama.forward(cfg, tm.params, box[1][:, None], box[0], "decode")
+            box[1] = lg[:, -1].argmax(-1)
+
+        step_ms = [wall_ms(step) for _ in range(n_steps)]
+        prof = profiled_steps(torch, step, 3, {kernels.GEMV.name: (
+            re.compile(r"namespace\)::gemv_kernel"), (2 * L + 1) * 3)}, "phase 20 (a) decode")
+        # one layer's MoE block at the decode step's shape, isolated: the
+        # experts' dequantize alone, then the whole block
+        x = torch.randn(len(prompts), 1, H, device=dev).to(torch.bfloat16)
+        leaves = tm.params.layers[0].moe.leaves()
+        deq_ms = device_ms(torch, lambda: [llama._deq(leaves[n], torch.bfloat16)
+                                           for n in llama.MOE_EXPERTS], [()], iters=5)
+        moe_ms = device_ms(torch, lambda: llama._moe_mlp(cfg, x, leaves, torch.bfloat16), [()],
+                           iters=5)
+    del cache, logits, box
+    busy = sum(e.self_device_time_total for e in device_kernels(prof)) / 1e3 / 3 or math.nan
+    med = q(step_ms, 0.5)
+    log(f"phase 20 (a): mixtral-8x7b {L} layers sym_int4 B={len(prompts)} prompt bucket "
+        f"{tokens.shape[1]}: prefill_ms (generate of 1 token) median={prefill_ms[1]:.3f} "
+        f"min={prefill_ms[0]:.3f} max={prefill_ms[-1]:.3f} (n=3); decode step ms (host-set) "
+        f"median={med:.3f} max={max(step_ms):.3f} (n={n_steps}); profiled decode: device busy "
+        f"{busy:.3f} ms per step = {busy / med:.3f} of the median step; peak_mem_gib={peak_gib:.3f}")
+    log(f"phase 20 (a): the MoE block at B={len(prompts)}, one token, isolated (device time): "
+        f"{moe_ms:.3f} ms a layer, of it the experts' dequantize {deq_ms:.3f} ms (3 x {E} x "
+        f"{EI} x {H}); x {L} layers = "
+        f"{L * moe_ms:.3f} ms = {L * moe_ms / busy:.3f} of the busy step (dequantize "
+        f"{L * deq_ms / busy:.3f}, the einsums and routing {L * (moe_ms - deq_ms) / busy:.3f}, "
+        f"the rest {1 - L * moe_ms / busy:.3f})")
+    for e in device_kernels(prof)[:6]:
+        log(f"  {e.self_device_time_total / 1e3 / 3:8.3f} ms/step {e.count // 3:5d} calls/step  "
+            f"{e.key[:90]}")
+
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=FLAGS_LAYERS)
+    m2 = build(cfg2, 1)
+    kern = vs_plain("(a) 2-layer prefill", cfg2, m2, tok, stt)
+    cap = E / k  # C >= N: nothing overflows
+    rg = last_logits(dataclasses.replace(cfg2, moe_dispatch="ragged", moe_capacity_factor=cap),
+                     m2, tok, stt)
+    err, tol = (rg - kern).abs().max().item(), 0.02 * kern.abs().max().item()
+    log(f"phase 20 (a): 2-layer ragged dispatch (capacity factor {cap}: nothing dropped) vs "
+        f"dense: max_abs_err={err:.6g} tol={tol:.6g}")
+    check(err <= tol, "phase 20 (a): ragged against dense")
+    del m2, kern, rg
+
+    # (b) the paged engine on mixtral -----------------------------------
+    shared, indep = serving_traffic(V)
+    specs = [dict(prompt=sp["prompt"], max_new_tokens=NEW_TOKENS)
+             for sp in shared[:MOE_SERVE_REQS] + indep[:MOE_SERVE_REQS]]
+    kernels.reset_launches()
+    reqs, sec, steps, seen = serve(tm, specs)
+    paged_n = kernels.launch_counts()[kernels.PAGED.name]
+    moe_step = q(seen["step"], .5) * 1e3
+    log(f"phase 20 (b): mixtral engine paged bf16, {serve_text(reqs, sec, steps, seen)}; paged "
+        f"launches {paged_n} ({L} a decode step)")
+    check(paged_n == L * steps and steps > 0, f"phase 20 (b): {L} paged launches a decode step")
+    check(all(r.finish_reason == "length" and len(r.out_tokens) == NEW_TOKENS for r in reqs),
+          "phase 20 (b): every request finishes with its budget")
+    again = serve(tm, specs)[0]
+    check(all(a.out_tokens == b.out_tokens for a, b in zip(reqs, again)),
+          "phase 20 (b): identical tokens on a second run")
+    del reqs, again, tm, model
+    torch.cuda.empty_cache()
+
+    # (c) qwen2-moe: the capacity dispatch and the shared expert --------
+    cfg = configs["qwen2_moe"]
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    t = time.time()
+    model = build(cfg, 2)
+    torch.cuda.synchronize()
+    log(f"phase 20 (c): qwen2-moe (Qwen1.5-MoE-A2.7B's width: {cfg.num_experts} experts of "
+        f"{cfg.moe_intermediate_size}, top-{cfg.num_experts_per_tok}, shared expert "
+        f"{cfg.shared_expert_intermediate_size}) {L} layers built in {time.time() - t:.1f} s; "
+        f"dispatch {llama.resolve_moe_dispatch(cfg)} (auto), capacity "
+        f"{math.ceil(tok.numel() * cfg.num_experts_per_tok * cfg.moe_capacity_factor / cfg.num_experts)}"
+        " slots an expert at the prefill")
+    check(llama.resolve_moe_dispatch(cfg) == "ragged", "phase 20 (c): the auto rule picks ragged")
+    qtok = torch.remainder(tok, V)
+    kernels.reset_launches()
+    vs_plain("(c) prefill and a decode step", cfg, model, qtok, stt, n_decode=1)
+    got = kernels.launch_counts()
+    check((got[kernels.GEMM.name], got[kernels.GEMV.name], got[kernels.FLASH.name])
+          == (2 * L, 1 + 2 * L + 1, L), f"phase 20 (c): launches {got}")
+    del model
+    torch.cuda.empty_cache()
+
+    # (d) ALiBi: baichuan-13b's width -----------------------------------
+    cfg = configs["baichuan"]
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    tm = TorchModel(cfg, build(cfg, 3), "sym_int4", device=dev)
+    aprompts = [[x % V for x in p_] for p_ in prompts]
+    kernels.reset_launches()
+    out = tm.generate(aprompts, NEW_TOKENS)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want = {kn.name: 0 for kn in kernels.KERNELS}
+    want.update({kernels.GEMM.name: 4 * L, kernels.GEMV.name: 1 + (NEW_TOKENS - 1) * (4 * L + 1)})
+    log(f"phase 20 (d): baichuan-13b width ({cfg.num_attention_heads} heads: ALiBi slopes past 32 "
+        f"interpolated) {L} layers: generate launches {launches} expected {want} (no flash: "
+        f"JAX's rule); routes prefill {routes_text(llama, cfg, 'dense', 'prefill', 2)}, paged "
+        f"decode {routes_text(llama, cfg, 'paged', 'decode', 1, True)}")
+    check(launches == want, "phase 20 (d): ALiBi generate launch counts")
+    check(bool((out == tm.generate(aprompts, NEW_TOKENS)).all()),
+          "phase 20 (d): identical tokens on a second call")
+    atraffic = [dict(prompt=[x % V for x in sp["prompt"]], max_new_tokens=NEW_TOKENS)
+                for sp in indep[:MOE_SERVE_REQS]]  # no prefix hit: one prefill each
+    kernels.reset_launches()
+    reqs, sec, steps, seen = serve(tm, atraffic)
+    launches = kernels.launch_counts()
+    want = {kn.name: 0 for kn in kernels.KERNELS}
+    want.update({kernels.GEMM.name: 4 * L * len(atraffic),
+                 kernels.GEMV.name: len(atraffic) + steps * (4 * L + 1)})
+    log(f"phase 20 (d): ALiBi engine paged bf16 (the plain attention over kvpaged.read_layer's "
+        f"gather of max_len {MAX_LEN} slots), {serve_text(reqs, sec, steps, seen)} (mixtral's "
+        f"{moe_step:.3f}); launches {launches} expected {want}")
+    check(launches == want, "phase 20 (d): ALiBi engine launch counts")
+    bt, bs = pad_prompts(aprompts, 0)
+    vs_plain("(d) ALiBi prefill and a decode step", cfg, tm.params,
+             torch.as_tensor(bt, dtype=torch.long, device=dev), torch.as_tensor(bs, device=dev),
+             n_decode=1)
+    del tm, reqs
+    torch.cuda.empty_cache()
+
+    # (e) logn past logn_train_len: Qwen-7B's width ---------------------
+    cfg = configs["qwen"]
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    model = build(cfg, 4)
+    ltok = torch.as_tensor(np.random.default_rng(20).integers(0, V, (2, logn_prompt)),
+                           dtype=torch.long, device=dev)
+    lst = torch.zeros(2, dtype=torch.int32, device=dev)
+    seen_q = []
+    real_flash = kernels.flash_attention
+
+    def recorded(q_, *a, **kw):
+        seen_q.append(q_.clone())
+        return real_flash(q_, *a, **kw)
+
+    with mock.patch.object(kernels, "flash_attention", recorded):
+        kernels.reset_launches()
+        on = last_logits(cfg, model, ltok, lst)
+        flash_n = kernels.FLASH.launches
+        off_cfg = dataclasses.replace(cfg, logn_attn=False)
+        off = last_logits(off_cfg, model, ltok, lst)
+    vs_plain(f"(e) logn prefill of {logn_prompt} tokens", cfg, model, ltok, lst)
+    pos = torch.arange(logn_prompt, device=dev, dtype=torch.float32)
+    factor = torch.clamp(torch.log(pos + 1) / torch.log(torch.tensor(
+        float(cfg.logn_train_len), device=dev)), min=1.0).to(torch.bfloat16)[None, :, None, None]
+    q_on, q_off = seen_q[0], seen_q[L]  # layer 0 of each run
+    inside = cfg.logn_train_len - 1
+    scaled = (torch.equal(q_on[:, :inside], q_off[:, :inside])
+              and torch.equal(q_on, q_off * factor))
+    diff = (on - off).abs().max().item()
+    log(f"phase 20 (e): Qwen-7B width, {L} layers, logn_train_len {cfg.logn_train_len}, "
+        f"B=2 T={logn_prompt}: flash launches {flash_n} (a layer); the flash kernel's q is "
+        f"logn_attn=False's times max(1, log(p + 1) / log({cfg.logn_train_len})) bit for bit "
+        f"({scaled}; factor {factor.max().item():.4f} at the last position); last logits with "
+        f"logn vs without: max_abs_diff={diff:.6g}")
+    check(flash_n == L, "phase 20 (e): a flash launch a layer")
+    check(scaled, "phase 20 (e): the flash kernel takes the scaled q")
+    check(diff > 0, "phase 20 (e): logn moves the logits past logn_train_len")
+    del model, seen_q
     torch.cuda.empty_cache()
 
 

@@ -2,11 +2,11 @@
 """chip_smoke phase 19 (self-speculative and prompt-lookup decoding) alone
 on one CUDA card, or its adapter engine (d) taken apart.
 
-    python3 scripts/decode_phase.py            # the builds, phase 3's model, phase 19
+    python3 scripts/decode_phase.py            # the builds, phase 16 (a)'s model, phase 19
     python3 scripts/decode_phase.py --adapters
 
-The first form builds every kernel library, makes phase 3's model
-(llama3-8b, 32 layers, sym_int4, weights from seed 0) and runs
+The first form builds every kernel library, makes phase 16 (a)'s model
+(llama3-8b at full width, 16 layers, sym_int4, weights from seed 0) and runs
 `chip_smoke.decode_phases` on it; it exits 1 when a check failed.
 
 --adapters serves phase 19 (d)'s traffic (phase 7's 8 prefix-sharing
@@ -23,6 +23,7 @@ phase 3's bound, where the largest lies, and the bound.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import sys
 import time
@@ -105,7 +106,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(smi, flush=True)
-    cfg = PRESETS["llama3-8b"]
+    cfg = dataclasses.replace(PRESETS["llama3-8b"], num_hidden_layers=cs.HALF_LAYERS)
     dev = torch.device("cuda")
     tm = TorchModel(cfg, optimize_model(llama.init_params(cfg, seed=0), cfg, "sym_int4"), "sym_int4")
     if args.adapters:

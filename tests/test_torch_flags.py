@@ -547,12 +547,17 @@ def test_check_supported_admits_the_flags_and_names_items_for_the_rest():
         llama.check_supported(dataclasses.replace(base, hidden_act=act))
     for rs in SCHEMES.values():
         llama.check_supported(dataclasses.replace(base, rope_scaling=rs))
-    with pytest.raises(NotImplementedError, match=r"item \[4\]'s MoE group"):
-        llama.check_supported(PRESETS["mixtral-8x7b"])
-    for kw in ({"alibi": True}, {"logn_attn": True, "logn_train_len": 8},
-               {"rope_local_theta": 1e4}, {"sliding_layers": (True, False)},
+    # since the MoE group, ALiBi and logn were ported (test_torch_moe.py,
+    # test_torch_alibi_logn.py) every preset runs; the flags still
+    # unported raise, phixtral's non-gated experts among them
+    llama.check_supported(PRESETS["mixtral-8x7b"])
+    for kw in ({"alibi": True, "alibi_scale": 0.125}, {"logn_attn": True, "logn_train_len": 8},
+               {"num_experts": 8, "shared_expert_intermediate_size": 64, "moe_dispatch": "ragged"}):
+        llama.check_supported(dataclasses.replace(base, **kw))
+    for kw in ({"rope_local_theta": 1e4}, {"sliding_layers": (True, False)},
                {"norm_type": "layernorm"}, {"parallel_residual": True},
-               {"partial_rotary_factor": 0.5}, {"learned_positions": True}):
+               {"partial_rotary_factor": 0.5}, {"learned_positions": True},
+               {"num_experts": 4, "gated_mlp": False}):
         with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item \[4\]"):
             llama.check_supported(dataclasses.replace(base, **kw))
     with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item \[9\]"):

@@ -1107,3 +1107,116 @@ def test_speculative_and_lookup_generate_on_the_card():
             logits = llama.forward(cfg, tm.params, seq, None)[0][0, len(prompt) - 1:-1]
         chosen = logits.gather(-1, torch.tensor(toks, device=dev)[:, None])[:, 0]
         assert (logits.max(-1).values - chosen).max() <= 0.02 * logits.abs().max()
+
+
+_MOE_CFG = ModelConfig(model_type="mixtral", vocab_size=512, hidden_size=256,
+                       intermediate_size=512, num_hidden_layers=2, num_attention_heads=2,
+                       num_key_value_heads=1, num_experts=8, num_experts_per_tok=2,
+                       norm_topk_prob=True)
+_MOE_PROMPTS = [list(range(3, 100)), list(range(50, 90)), [7, 3, 9, 4]]
+
+
+def _moe_prefill_logits(cfg, model, prompts):
+    tokens, starts = pad_prompts(prompts, 0)
+    dev = torch.device("cuda")
+    cache = dataclasses.replace(
+        init_cache(cfg.num_hidden_layers, len(prompts), tokens.shape[1] + 8,
+                   cfg.num_key_value_heads, cfg.head_dim_, device=dev),
+        start=torch.as_tensor(starts, device=dev))
+    with torch.inference_mode():
+        return llama.forward(cfg, model, torch.as_tensor(tokens, dtype=torch.long, device=dev),
+                             cache, last_logits_only=True)[0][:, -1]
+
+
+@pytest.mark.parametrize("dispatch", ["dense", "ragged"])
+def test_moe_generate_kernels_vs_plain(dispatch):
+    """A 2-layer MoE model on the card, the experts dense or by capacity
+    (qwen2-moe's shared expert on the ragged arm): generate's launches
+    (the attention's two projections a layer through the GEMM and the
+    GEMV, flash a layer), tokens repeatable bit for bit (the ragged
+    combine adds in a fixed order), and prefill logits through the
+    kernels within 2 % of the largest plain one."""
+    _cuda()
+    cfg = dataclasses.replace(_MOE_CFG, moe_dispatch=dispatch, **(
+        dict(shared_expert_intermediate_size=256, moe_intermediate_size=128,
+             num_experts_per_tok=4, norm_topk_prob=False) if dispatch == "ragged" else {}))
+    model = optimize_model(llama.init_params(cfg, seed=5, low_bit="sym_int4"), cfg)
+    tm = TorchModel(cfg, model, "sym_int4")
+    L, N = cfg.num_hidden_layers, 8
+    kernels.reset_launches()
+    out = tm.generate(_MOE_PROMPTS, N)
+    torch.cuda.synchronize()
+    got = kernels.launch_counts()
+    assert (got[kernels.GEMM.name], got[kernels.GEMV.name], got[kernels.FLASH.name]) == (
+        2 * L, 1 + (N - 1) * (2 * L + 1), L)
+    assert (out == tm.generate(_MOE_PROMPTS, N)).all()
+    kern = _moe_prefill_logits(cfg, model, _MOE_PROMPTS)
+    with mock.patch.multiple(kernels, **_PLAIN):
+        plain = _moe_prefill_logits(cfg, model, _MOE_PROMPTS)
+    assert torch.isfinite(kern).all()
+    assert (kern - plain).abs().max() <= 0.02 * plain.abs().max()
+
+
+def test_moe_dense_equals_ragged_on_the_card():
+    """With a capacity factor of E / k nothing is dropped, and the
+    capacity dispatch's logits equal the dense combine's within 2 % of
+    the largest (bf16 sums in other orders)."""
+    _cuda()
+    cfg = dataclasses.replace(_MOE_CFG, moe_dispatch="dense")
+    model = optimize_model(llama.init_params(cfg, seed=6, low_bit="sym_int4"), cfg)
+    dense = _moe_prefill_logits(cfg, model, _MOE_PROMPTS)
+    ragged = _moe_prefill_logits(
+        dataclasses.replace(cfg, moe_dispatch="ragged", moe_capacity_factor=4.0), model,
+        _MOE_PROMPTS)
+    assert (dense - ragged).abs().max() <= 0.02 * dense.abs().max()
+
+
+_ALIBI_CFG = ModelConfig(model_type="baichuan", vocab_size=512, hidden_size=256,
+                         intermediate_size=512, num_hidden_layers=2, num_attention_heads=6,
+                         num_key_value_heads=2, head_dim=64, alibi=True)
+
+
+def test_alibi_launches_no_attention_kernel():
+    """An ALiBi model through generate and the paged engine: the plain
+    attention with the bias on every route (no flash or paged launch), the
+    projections through the GEMM and GEMV by their exact counts, no page
+    leaks, and prefill logits through the GEMM within 2 % of plain."""
+    from bigdl_tpu_torch.serving import InferenceEngine
+
+    _cuda()
+    cfg = _ALIBI_CFG
+    model = optimize_model(llama.init_params(cfg, seed=7), cfg, "sym_int4")
+    tm = TorchModel(cfg, model, "sym_int4")
+    L, N = cfg.num_hidden_layers, 8
+    kernels.reset_launches()
+    tm.generate(_MOE_PROMPTS, N)
+    eng = InferenceEngine(tm, n_slots=2, max_len=256, paged=True, page_size=16)
+    reqs = [eng.submit(p, max_new_tokens=N) for p in _MOE_PROMPTS]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    got = kernels.launch_counts()
+    assert got[kernels.FLASH.name] == got[kernels.PAGED.name] == got[kernels.FLASH_FWD.name] == 0
+    assert got[kernels.GEMM.name] >= 4 * L and got[kernels.GEMV.name] >= 1 + (N - 1) * (4 * L + 1)
+    assert eng.page_leaks() == 0 and all(len(r.out_tokens) == N for r in reqs)
+    kern = _moe_prefill_logits(cfg, model, _MOE_PROMPTS)
+    with mock.patch.multiple(kernels, **_PLAIN):
+        plain = _moe_prefill_logits(cfg, model, _MOE_PROMPTS)
+    assert (kern - plain).abs().max() <= 0.02 * plain.abs().max()
+
+
+def test_logn_flash_takes_the_scaled_q():
+    """logn past its training length (8) on a 97-token prompt: the flash
+    kernel launched a layer, logits within 2 % of plain, and logits other
+    than logn_attn=False's."""
+    _cuda()
+    cfg = dataclasses.replace(_POLICY_CFG, attention_bias=True, logn_attn=True,
+                              logn_train_len=8)
+    model = optimize_model(llama.init_params(cfg, seed=8), cfg, "sym_int4")
+    kernels.reset_launches()
+    kern = _moe_prefill_logits(cfg, model, _MOE_PROMPTS)
+    assert kernels.FLASH.launches == cfg.num_hidden_layers
+    with mock.patch.multiple(kernels, **_PLAIN):
+        plain = _moe_prefill_logits(cfg, model, _MOE_PROMPTS)
+    assert (kern - plain).abs().max() <= 0.02 * plain.abs().max()
+    off = _moe_prefill_logits(dataclasses.replace(cfg, logn_attn=False), model, _MOE_PROMPTS)
+    assert not torch.equal(off, kern)

@@ -231,13 +231,16 @@ def test_unsupported_paths_raise(pair, monkeypatch):
     monkeypatch.setenv("BIGDL_TPU_PERFORMANCE_MODE", "1")
     long = [list(prompts[0]) * 24]
     np.testing.assert_array_equal(tm.generate(long, 2), tm.generate_lookup(long, 2))
-    # qk_norm runs since the llama flags were ported (test_torch_flags.py);
-    # alibi and the experts still raise, naming their items
-    llama.check_supported(dataclasses.replace(tcfg, qk_norm=True))
+    # qk_norm runs since the llama flags were ported (test_torch_flags.py),
+    # alibi and the experts since their slice (test_torch_alibi_logn.py,
+    # test_torch_moe.py); gemma3's local rope and the layer shapes still
+    # raise, naming their item
+    for kw in ({"qk_norm": True}, {"alibi": True}, {"num_experts": 4}):
+        llama.check_supported(dataclasses.replace(tcfg, **kw))
     with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item \[4\]"):
-        llama.check_supported(dataclasses.replace(tcfg, alibi=True))
-    with pytest.raises(NotImplementedError, match="MoE group"):
-        llama.check_supported(dataclasses.replace(tcfg, num_experts=4))
+        llama.check_supported(dataclasses.replace(tcfg, rope_local_theta=1e4))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item \[4\]"):
+        llama.check_supported(dataclasses.replace(tcfg, norm_type="layernorm"))
 
 
 # nf4 and q4_k_m at a width where every projection passes every format's
