@@ -24,12 +24,17 @@ refuses it.
 
 The leaves of the llama flags ride along under JAX's names: the biases
 (bq/bk/bv or bqkv, bo, b_gate/b_up or b_gateup, b_down) on their
-projections, the post-norms and q/k norms on the layers; a tied model
-has no lm_head. An MoE model's layers hold the attention's projections
-(wqkv, wo or wq/wk/wv, wo) and, in place of the gated MLP, the leaves of
-its `MoEBlock`: the router, the experts w_gate_e/w_up_e/w_down_e stacked
-[L, E, ...] (QTensors whose fields are [L, E, rows, *]) and qwen2-moe's
-w_gate_s/w_up_s/w_down_s and shared_gate.
+projections, the norms' biases (attn_norm_b, mlp_norm_b), post-norms and
+q/k norms on the layers; final_norm_b, gpt2's wpe, bloom's embed_norm and
+embed_norm_b on the model, lm_head_b on the lm head; a tied model has no
+lm_head. A plain fc -> act -> proj MLP has w_up and w_down only. An MoE
+model's layers hold the attention's projections (wqkv, wo or wq/wk/wv,
+wo) and, in place of the MLP, the leaves of its `MoEBlock`: the router,
+the experts w_gate_e/w_up_e/w_down_e stacked [L, E, ...] (QTensors whose
+fields are [L, E, rows, *]; phixtral's have no w_gate_e and carry
+b_up_e/b_down_e), qwen2-moe's w_gate_s/w_up_s/w_down_s and shared_gate,
+and the dense MLP's biases JAX's init_params makes beside experts under
+mlp_bias (unused).
 
 `params_to_numpy` is the inverse: the port's model flattened under the
 same naming, in the artifact's stored form, for `convert/low_bit.py`'s
@@ -47,9 +52,9 @@ import torch
 
 from bigdl_tpu_torch.embedding import HostEmbedding
 from bigdl_tpu_torch.models.config import ModelConfig
-from bigdl_tpu_torch.models.llama import (BIAS_OF, MOE_EXPERTS, MOE_LEAVES, MOE_SHARED,
-                                          OPTIONAL_NORMS, DecoderLayer, LlamaModel,
-                                          MoEBlock, check_supported)
+from bigdl_tpu_torch.models.llama import (BIAS_OF, MOE_BIAS_OF, MOE_EXPERTS, MOE_LEAVES,
+                                          MOE_SHARED, MOE_UNUSED, OPTIONAL_NORMS, TOP_LEAVES,
+                                          DecoderLayer, LlamaModel, MoEBlock, check_supported)
 from bigdl_tpu_torch.ops.linear import Linear
 from bigdl_tpu_torch.quant import ARRAY_FIELDS, QTensor, resolve_qtype
 from bigdl_tpu_torch.quant.numerics import FP8_DTYPE
@@ -57,24 +62,36 @@ from bigdl_tpu_torch.train.qlora import DEFAULT_TARGETS, LoRA, _target_dims
 from bigdl_tpu_torch.utils import resolve_device
 
 _NORMS = ("attn_norm", "mlp_norm")
-# the projections of each layout: fused (optimize_model) and unfused
-# (init_params); an MoE layer has the attention's only, beside its experts
-_LAYOUTS = (("wqkv", "wo", "w_gateup", "w_down"),
-            ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"))
-_MOE_LAYOUTS = (("wqkv", "wo"), ("wq", "wk", "wv", "wo"))
+# the attention's projections of each layout: fused (optimize_model) and
+# unfused (init_params); the MLP's follow, by its kind (none beside
+# experts)
+_ATTENTION = (("wqkv", "wo"), ("wq", "wk", "wv", "wo"))
+_MLP = {"gated": (("w_gateup", "w_down"), ("w_gate", "w_up", "w_down")),
+        "plain": (("w_up", "w_down"), ("w_up", "w_down")), "moe": ((), ())}
+
+
+def _layouts(config: ModelConfig) -> tuple[tuple[str, ...], ...]:
+    kind = "moe" if config.is_moe else "gated" if config.gated_mlp else "plain"
+    return tuple(a + m for a, m in zip(_ATTENTION, _MLP[kind]))
 
 
 def _moe_leaves(config: ModelConfig) -> tuple[str, ...]:
+    """The MoE leaves the config needs (the biases are optional)."""
     if not config.is_moe:
         return ()
-    if config.shared_expert_intermediate_size:
-        return MOE_LEAVES
-    return ("router",) + MOE_EXPERTS
+    experts = MOE_EXPERTS if config.gated_mlp else MOE_EXPERTS[1:]
+    shared = MOE_SHARED + ("shared_gate",) if config.shared_expert_intermediate_size else ()
+    return ("router",) + experts + shared
 
 
-def _required_norms(config: ModelConfig) -> tuple[str, ...]:
-    return ((("post_attn_norm", "post_mlp_norm") if config.post_attn_norm else ())
-            + (("q_norm", "k_norm") if config.qk_norm else ()))
+def _required(config: ModelConfig) -> tuple[str, ...]:
+    """The optional leaves the config's flags need, as JAX's forward reads
+    them without a default."""
+    return (tuple(f"layers.{n}" for n in (
+        (("post_attn_norm", "post_mlp_norm") if config.post_attn_norm else ())
+        + (("q_norm", "k_norm") if config.qk_norm else ()) + _moe_leaves(config)))
+        + (("wpe",) if config.learned_positions else ())
+        + (("embed_norm",) if config.embed_layernorm else ()))
 
 
 def params_from_numpy(arrays: dict[str, np.ndarray], qtypes: dict[str, str],
@@ -84,30 +101,31 @@ def params_from_numpy(arrays: dict[str, np.ndarray], qtypes: dict[str, str],
     dense float leaves in `dtype`, or in their own type if it is None.
     Besides the projections, the tree may hold each projection's bias
     under JAX's name (bq/bk/bv or bqkv, bo, b_gate/b_up or b_gateup,
-    b_down), the optional norms the config's flags ask for
-    (post_attn_norm/post_mlp_norm, q_norm/k_norm) and, when the head is
-    tied, no lm_head."""
+    b_down), the optional norms and norm biases, the `TOP_LEAVES`, the lm
+    head's bias and, when the head is tied, no lm_head; those the
+    config's flags need must be there."""
     check_supported(config)
     dev = resolve_device(device)
     paths = {k.split("@")[0] for k in arrays}
-    moe = _moe_leaves(config)
-    layout = next((names for names in (_MOE_LAYOUTS if moe else _LAYOUTS)
+    moe = MOE_LEAVES if config.is_moe else ()
+    layout = next((names for names in _layouts(config)
                    if {f"layers.{n}" for n in names} <= paths), None)
     if layout is None:
         raise ValueError(
             "params_from_numpy: the layer projections are neither the fused "
-            "layout (wqkv, wo, w_gateup, w_down) nor the unfused one (wq, wk, "
-            "wv, wo, w_gate, w_up, w_down), or (wqkv, wo) or (wq, wk, wv, wo) "
-            "beside experts; a layout mixing the two is unmerged in part")
-    known = {"embed", "final_norm", "lm_head"} | {
+            "layout (wqkv, wo, then w_gateup, w_down; w_up, w_down in a plain "
+            "MLP; none beside experts) nor the unfused one (wq, wk, wv, wo, "
+            "then w_gate, w_up, w_down; w_up, w_down in a plain MLP); a layout "
+            "mixing the two is unmerged in part")
+    known = {"embed", "final_norm", "lm_head", "lm_head_b", *TOP_LEAVES} | {
         f"layers.{n}" for n in _NORMS + layout + OPTIONAL_NORMS + moe
         + tuple(BIAS_OF[n] for n in layout)}
     unknown = sorted(p for p in paths if p not in known)
     if unknown:
-        raise NotImplementedError(
-            f"params_from_numpy: leaves {unknown} belong to llama flags this "
-            "port does not run yet (ROADMAP queue 1 item [4]), or mix layouts")
-    missing = [n for n in _required_norms(config) + moe if f"layers.{n}" not in paths]
+        raise ValueError(
+            f"params_from_numpy: leaves {unknown} are not the config's "
+            f"(layout {layout}), or mix layouts")
+    missing = [n for n in _required(config) if n not in paths]
     if "lm_head" not in paths and not config.tie_word_embeddings:
         missing.append("lm_head")
     if missing:
@@ -148,13 +166,18 @@ def params_from_numpy(arrays: dict[str, np.ndarray], qtypes: dict[str, str],
         block = None
         if moe:
             block = MoEBlock(weight("layers.router", i),
-                             {n: Linear(weight(f"layers.{n}", i)) for n in moe
-                              if n in MOE_EXPERTS + MOE_SHARED},
-                             optional("layers.shared_gate", i))
+                             {n: Linear(weight(f"layers.{n}", i),
+                                        optional(f"layers.{MOE_BIAS_OF[n]}", i)
+                                        if n in MOE_BIAS_OF else None)
+                              for n in MOE_EXPERTS + MOE_SHARED if f"layers.{n}" in paths},
+                             optional("layers.shared_gate", i),
+                             **{n: optional(f"layers.{n}", i) for n in MOE_UNUSED})
         layers.append(DecoderLayer(tensor("layers.attn_norm", i),
                                    tensor("layers.mlp_norm", i), proj, block, **norms))
-    head = Linear(weight("lm_head")) if "lm_head" in paths else None
-    return LlamaModel(weight("embed"), layers, tensor("final_norm"), head)
+    head = (Linear(weight("lm_head"), optional("lm_head_b", None)) if "lm_head" in paths
+            else None)
+    return LlamaModel(weight("embed"), layers, tensor("final_norm"), head,
+                      **{n: optional(n, None) for n in TOP_LEAVES})
 
 
 def params_to_numpy(model: LlamaModel) -> tuple[dict[str, np.ndarray], dict[str, dict]]:
@@ -184,8 +207,8 @@ def params_to_numpy(model: LlamaModel) -> tuple[dict[str, np.ndarray], dict[str,
                 return getattr(layer, name)
             if name in layer.proj:
                 return leaf(layer.proj[name])
-            if name in MOE_LEAVES:
-                return None if layer.moe is None else layer.moe.leaves().get(name)
+            if layer.moe is not None and name in MOE_LEAVES:
+                return layer.moe.leaves().get(name)
             lin = next(layer.proj[n] for n, b in BIAS_OF.items() if b == name)
             return lin.bias
         return [get(layer) for layer in layers]
@@ -205,12 +228,15 @@ def params_to_numpy(model: LlamaModel) -> tuple[dict[str, np.ndarray], dict[str,
         raise ValueError("params_to_numpy: the embedding is a HostEmbedding, a table "
                          "on the host that the artifact does not carry (the JAX "
                          "package refuses it too); save with the dense or low-bit table")
-    tree = {"embed": model.embed, "final_norm": model.final_norm}
+    tree = {"embed": model.embed, "final_norm": model.final_norm, **model.top_leaves()}
     if model.lm_head is not None:
         tree["lm_head"] = leaf(model.lm_head)
+        if model.lm_head.bias is not None:
+            tree["lm_head_b"] = model.lm_head.bias
     if layers:
         names = (_NORMS + OPTIONAL_NORMS + tuple(layers[0].proj)
-                 + tuple(BIAS_OF[n] for n in layers[0].proj) + MOE_LEAVES)
+                 + tuple(BIAS_OF[n] for n in layers[0].proj)
+                 + (MOE_LEAVES if layers[0].moe is not None else ()))
         tree["layers"] = {}
         for n in names:
             vals = per_layer(n)

@@ -14,20 +14,27 @@ and the device hold about one layer in f32 beside the model built so far.
 length, a JSON header, raw little-endian bytes): one tensor at a time,
 read straight from its byte range.
 
-The family tables hold the llama-shaped default (llama, mistral, qwen2:
-q/k/v and o biases where the config has them, no lm head when tied),
+The family tables are copies of the JAX package's: the llama-shaped
+default (llama, mistral, qwen2, stablelm, minicpm: q/k/v and o biases
+and the norms' biases where the config has them, no lm head when tied),
 phi3 (fused qkv_proj and gate_up_proj, split here as the JAX package
-splits them), gemma2 (four norms a layer), qwen3 (q/k norms) and the
-experts of mixtral, qwen2-moe (with its shared expert and q/k/v biases)
-and qwen3-moe (q/k norms), each expert's weights stacked [E, ...] as the
-JAX package stacks them and quantized in row chunks like any weight
+splits them), gemma2 (four norms a layer), gemma3 (gemma2's norms and
+q/k norms, under bare `model.` names or a multimodal checkpoint's
+`model.language_model.` or `language_model.model.`), qwen3 (q/k norms),
+phi-1/1.5/2 (one biased layernorm feeding both parallel branches,
+biases everywhere), starcoder2, gpt-neox and bloom (q/k/v fused per head,
+split here), cohere (one bias-free layernorm), gpt2 (Conv1D weights
+stored [in, out], transposed here; learned positions), bloom's embedding
+layernorm, and the experts of mixtral, qwen2-moe (with its shared expert
+and q/k/v biases), qwen3-moe (q/k norms) and phixtral (phi-2 fc1/fc2
+experts with their biases), each expert's weights stacked [E, ...] as
+the JAX package stacks them and quantized in row chunks like any weight
 (rows are independent, so the bytes are those of one call). Every
 other `model_type` the JAX package's tables map raises
 NotImplementedError before a tensor is read (ROADMAP queue 1 item [9]),
-and so does every configuration `models.llama.check_supported` refuses:
-gemma3's local rope, for one, is item [4]. As in the JAX package, mlp
-biases are not read. GPTQ/AWQ checkpoints (a `quantization_config`) wait
-for item [10].
+and so does every configuration `models.llama.check_supported` refuses.
+As in the JAX package, the llama-shaped table reads no MLP biases.
+GPTQ/AWQ checkpoints (a `quantization_config`) wait for item [10].
 """
 
 from __future__ import annotations
@@ -40,9 +47,10 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.models.config import ModelConfig
-from bigdl_tpu_torch.models.llama import (BIAS_OF, MOE_EXPERTS, MOE_SHARED, OPTIONAL_NORMS,
-                                          DecoderLayer, LlamaModel, MoEBlock,
-                                          check_supported, merge_fused_params)
+from bigdl_tpu_torch.models.llama import (BIAS_OF, MOE_BIAS_OF, MOE_EXPERTS, MOE_SHARED,
+                                          OPTIONAL_NORMS, TOP_LEAVES, DecoderLayer,
+                                          LlamaModel, MoEBlock, check_supported,
+                                          merge_fused_params)
 from bigdl_tpu_torch.ops.linear import Linear
 from bigdl_tpu_torch.quant import QTensor, concat_rows, quantize, resolve_qtype
 from bigdl_tpu_torch.quant.qtypes import split_mixed_qtype
@@ -91,6 +99,9 @@ def _llama_layer(config: ModelConfig, i: int, get: Get) -> dict:
         out["bv"] = get(p + "self_attn.v_proj.bias")
     if config.attention_out_bias:
         out["bo"] = get(p + "self_attn.o_proj.bias")
+    if config.norm_bias:
+        out["attn_norm_b"] = get(p + "input_layernorm.bias")
+        out["mlp_norm_b"] = get(p + "post_attention_layernorm.bias")
     return out
 
 
@@ -99,6 +110,8 @@ def _llama_top(config: ModelConfig, get: Get) -> dict:
         "embed": get("model.embed_tokens.weight"),
         "final_norm": get("model.norm.weight"),
     }
+    if config.norm_bias:
+        out["final_norm_b"] = get("model.norm.bias")
     if not config.tie_word_embeddings:
         out["lm_head"] = get("lm_head.weight")
     return out
@@ -121,6 +134,38 @@ def _gemma2_layer(config: ModelConfig, i: int, get: Get) -> dict:
         "w_up": get(p + "mlp.up_proj.weight"),
         "w_down": get(p + "mlp.down_proj.weight"),
     }
+
+
+def _gemma3_get(get: Get) -> Get:
+    """Multimodal gemma3 checkpoints (4B and up) keep the text weights
+    under `model.language_model.` (HF >= 4.52) or `language_model.model.`
+    (the original releases); gemma3_text (1B) under bare `model.` names."""
+
+    def g(name):
+        try:
+            return get(name)
+        except KeyError:
+            pass
+        try:
+            return get("model.language_" + name)
+        except KeyError:
+            return get("language_model." + name)
+
+    return g
+
+
+def _gemma3_layer(config: ModelConfig, i: int, get: Get) -> dict:
+    """gemma2's four norms a layer and the per-head q/k RMSNorm."""
+    g = _gemma3_get(get)
+    out = _gemma2_layer(config, i, g)
+    p = f"model.layers.{i}."
+    out["q_norm"] = g(p + "self_attn.q_norm.weight")
+    out["k_norm"] = g(p + "self_attn.k_norm.weight")
+    return out
+
+
+def _gemma3_top(config: ModelConfig, get: Get) -> dict:
+    return _llama_top(config, _gemma3_get(get))
 
 
 def _qwen3_layer(config: ModelConfig, i: int, get: Get) -> dict:
@@ -151,6 +196,180 @@ def _phi3_layer(config: ModelConfig, i: int, get: Get) -> dict:
         "w_up": gate_up[I:],
         "w_down": get(p + "mlp.down_proj.weight"),
     }
+
+
+def _starcoder2_layer(config: ModelConfig, i: int, get: Get) -> dict:
+    """starcoder2: biased layernorms, biased q/k/v/o, a plain c_fc ->
+    act -> c_proj MLP with biases."""
+    p = f"model.layers.{i}."
+    return {
+        "attn_norm": get(p + "input_layernorm.weight"),
+        "attn_norm_b": get(p + "input_layernorm.bias"),
+        "mlp_norm": get(p + "post_attention_layernorm.weight"),
+        "mlp_norm_b": get(p + "post_attention_layernorm.bias"),
+        "wq": get(p + "self_attn.q_proj.weight"),
+        "wk": get(p + "self_attn.k_proj.weight"),
+        "wv": get(p + "self_attn.v_proj.weight"),
+        "wo": get(p + "self_attn.o_proj.weight"),
+        "bq": get(p + "self_attn.q_proj.bias"),
+        "bk": get(p + "self_attn.k_proj.bias"),
+        "bv": get(p + "self_attn.v_proj.bias"),
+        "bo": get(p + "self_attn.o_proj.bias"),
+        "w_up": get(p + "mlp.c_fc.weight"),
+        "b_up": get(p + "mlp.c_fc.bias"),
+        "w_down": get(p + "mlp.c_proj.weight"),
+        "b_down": get(p + "mlp.c_proj.bias"),
+    }
+
+
+def _gpt2_layer(config: ModelConfig, i: int, get: Get) -> dict:
+    """GPT-2 stores its linears as Conv1D ([in, out], transposed here)
+    with a fused c_attn [in, 3H]."""
+    p = f"transformer.h.{i}."
+    H = config.hidden_size
+    c_attn = get(p + "attn.c_attn.weight").T  # [3H, H]
+    b_attn = get(p + "attn.c_attn.bias")
+    return {
+        "attn_norm": get(p + "ln_1.weight"),
+        "attn_norm_b": get(p + "ln_1.bias"),
+        "mlp_norm": get(p + "ln_2.weight"),
+        "mlp_norm_b": get(p + "ln_2.bias"),
+        "wq": c_attn[:H], "wk": c_attn[H:2 * H], "wv": c_attn[2 * H:],
+        "bq": b_attn[:H], "bk": b_attn[H:2 * H], "bv": b_attn[2 * H:],
+        "wo": get(p + "attn.c_proj.weight").T,
+        "bo": get(p + "attn.c_proj.bias"),
+        "w_up": get(p + "mlp.c_fc.weight").T,
+        "b_up": get(p + "mlp.c_fc.bias"),
+        "w_down": get(p + "mlp.c_proj.weight").T,
+        "b_down": get(p + "mlp.c_proj.bias"),
+    }
+
+
+def _gpt2_top(config: ModelConfig, get: Get) -> dict:
+    return {
+        "embed": get("transformer.wte.weight"),
+        "wpe": get("transformer.wpe.weight"),
+        "final_norm": get("transformer.ln_f.weight"),
+        "final_norm_b": get("transformer.ln_f.bias"),
+    }
+
+
+def _split_headwise_qkv(fused: torch.Tensor, n_heads: int, head_dim: int):
+    """[heads * 3 * D, H] fused per head (bloom's and gpt-neox's
+    query_key_value) -> (q, k, v), each [heads * D, H]."""
+    H_in = fused.shape[-1]
+    g = fused.reshape(n_heads, 3, head_dim, H_in)
+    return tuple(g[:, j].reshape(-1, H_in) for j in range(3))
+
+
+def _headwise_layer(config: ModelConfig, get: Get, p: str, attn: str) -> dict:
+    """bloom's and gpt-neox's layer under prefix `p`, the attention's
+    module `attn`: biased layernorms, query_key_value split per head,
+    dense, and dense_h_to_4h -> act -> dense_4h_to_h, all biased."""
+    D, nh = config.head_dim_, config.num_attention_heads
+    wq, wk, wv = _split_headwise_qkv(get(p + attn + ".query_key_value.weight"), nh, D)
+    bq, bk, bv = (b.reshape(-1) for b in _split_headwise_qkv(
+        get(p + attn + ".query_key_value.bias").reshape(-1, 1), nh, D))
+    return {
+        "attn_norm": get(p + "input_layernorm.weight"),
+        "attn_norm_b": get(p + "input_layernorm.bias"),
+        "mlp_norm": get(p + "post_attention_layernorm.weight"),
+        "mlp_norm_b": get(p + "post_attention_layernorm.bias"),
+        "wq": wq, "wk": wk, "wv": wv, "bq": bq, "bk": bk, "bv": bv,
+        "wo": get(p + attn + ".dense.weight"),
+        "bo": get(p + attn + ".dense.bias"),
+        "w_up": get(p + "mlp.dense_h_to_4h.weight"),
+        "b_up": get(p + "mlp.dense_h_to_4h.bias"),
+        "w_down": get(p + "mlp.dense_4h_to_h.weight"),
+        "b_down": get(p + "mlp.dense_4h_to_h.bias"),
+    }
+
+
+def _bloom_layer(config: ModelConfig, i: int, get: Get) -> dict:
+    return _headwise_layer(config, get, f"transformer.h.{i}.", "self_attention")
+
+
+def _bloom_top(config: ModelConfig, get: Get) -> dict:
+    return {
+        "embed": get("transformer.word_embeddings.weight"),
+        "embed_norm": get("transformer.word_embeddings_layernorm.weight"),
+        "embed_norm_b": get("transformer.word_embeddings_layernorm.bias"),
+        "final_norm": get("transformer.ln_f.weight"),
+        "final_norm_b": get("transformer.ln_f.bias"),
+    }
+
+
+def _gptneox_layer(config: ModelConfig, i: int, get: Get) -> dict:
+    return _headwise_layer(config, get, f"gpt_neox.layers.{i}.", "attention")
+
+
+def _gptneox_top(config: ModelConfig, get: Get) -> dict:
+    out = {
+        "embed": get("gpt_neox.embed_in.weight"),
+        "final_norm": get("gpt_neox.final_layer_norm.weight"),
+        "final_norm_b": get("gpt_neox.final_layer_norm.bias"),
+    }
+    if not config.tie_word_embeddings:
+        out["lm_head"] = get("embed_out.weight")
+    return out
+
+
+def _phi_layer(config: ModelConfig, i: int, get: Get) -> dict:
+    """phi-1/1.5/2: the parallel attention and MLP read the SAME input
+    layernorm, which fills both norm slots; fc1/fc2 and dense, all
+    biased."""
+    p = f"model.layers.{i}."
+    ln_w = get(p + "input_layernorm.weight")
+    ln_b = get(p + "input_layernorm.bias")
+    return {
+        "attn_norm": ln_w, "attn_norm_b": ln_b,
+        "mlp_norm": ln_w, "mlp_norm_b": ln_b,
+        "wq": get(p + "self_attn.q_proj.weight"),
+        "bq": get(p + "self_attn.q_proj.bias"),
+        "wk": get(p + "self_attn.k_proj.weight"),
+        "bk": get(p + "self_attn.k_proj.bias"),
+        "wv": get(p + "self_attn.v_proj.weight"),
+        "bv": get(p + "self_attn.v_proj.bias"),
+        "wo": get(p + "self_attn.dense.weight"),
+        "bo": get(p + "self_attn.dense.bias"),
+        "w_up": get(p + "mlp.fc1.weight"),
+        "b_up": get(p + "mlp.fc1.bias"),
+        "w_down": get(p + "mlp.fc2.weight"),
+        "b_down": get(p + "mlp.fc2.bias"),
+    }
+
+
+def _phi_top(config: ModelConfig, get: Get) -> dict:
+    out = {
+        "embed": get("model.embed_tokens.weight"),
+        "final_norm": get("model.final_layernorm.weight"),
+        "final_norm_b": get("model.final_layernorm.bias"),
+    }
+    if not config.tie_word_embeddings:
+        out["lm_head"] = get("lm_head.weight")
+        out["lm_head_b"] = get("lm_head.bias")
+    return out
+
+
+def _cohere_layer(config: ModelConfig, i: int, get: Get) -> dict:
+    """cohere: one bias-free layernorm feeds both parallel branches."""
+    p = f"model.layers.{i}."
+    ln = get(p + "input_layernorm.weight")
+    out = {
+        "attn_norm": ln, "mlp_norm": ln,
+        "wq": get(p + "self_attn.q_proj.weight"),
+        "wk": get(p + "self_attn.k_proj.weight"),
+        "wv": get(p + "self_attn.v_proj.weight"),
+        "wo": get(p + "self_attn.o_proj.weight"),
+        "w_gate": get(p + "mlp.gate_proj.weight"),
+        "w_up": get(p + "mlp.up_proj.weight"),
+        "w_down": get(p + "mlp.down_proj.weight"),
+    }
+    if config.attention_bias:
+        out["bq"] = get(p + "self_attn.q_proj.bias")
+        out["bk"] = get(p + "self_attn.k_proj.bias")
+        out["bv"] = get(p + "self_attn.v_proj.bias")
+    return out
 
 
 def _experts(config: ModelConfig, p: str, get: Get, names: tuple[str, str, str]) -> dict:
@@ -187,6 +406,41 @@ def _qwen2_moe_layer(config: ModelConfig, i: int, get: Get) -> dict:
     }
 
 
+def _phixtral_layer(config: ModelConfig, i: int, get: Get) -> dict:
+    """phixtral (the legacy mixformer names): one shared biased
+    layernorm, a fused mixer.Wqkv, and a router over phi-2's fc1/fc2
+    experts (moe.mlp.{e}), each with its biases."""
+    p = f"transformer.h.{i}."
+    H = config.hidden_size
+    ln_w = get(p + "ln.weight")
+    ln_b = get(p + "ln.bias")
+    wqkv = get(p + "mixer.Wqkv.weight")  # [3H, H]
+    bqkv = get(p + "mixer.Wqkv.bias")
+    out = {
+        "attn_norm": ln_w, "attn_norm_b": ln_b,
+        "mlp_norm": ln_w, "mlp_norm_b": ln_b,
+        "wq": wqkv[:H], "wk": wqkv[H:2 * H], "wv": wqkv[2 * H:],
+        "bq": bqkv[:H], "bk": bqkv[H:2 * H], "bv": bqkv[2 * H:],
+        "wo": get(p + "mixer.out_proj.weight"),
+        "bo": get(p + "mixer.out_proj.bias"),
+        "router": get(p + "moe.gate.weight"),
+    }
+    for leaf, n in (("w_up_e", "fc1.weight"), ("b_up_e", "fc1.bias"),
+                    ("w_down_e", "fc2.weight"), ("b_down_e", "fc2.bias")):
+        out[leaf] = torch.stack([get(f"{p}moe.mlp.{e}.{n}") for e in range(config.num_experts)])
+    return out
+
+
+def _phixtral_top(config: ModelConfig, get: Get) -> dict:
+    return {
+        "embed": get("transformer.embd.wte.weight"),
+        "final_norm": get("lm_head.ln.weight"),
+        "final_norm_b": get("lm_head.ln.bias"),
+        "lm_head": get("lm_head.linear.weight"),
+        "lm_head_b": get("lm_head.linear.bias"),
+    }
+
+
 def _qwen3_moe_layer(config: ModelConfig, i: int, get: Get) -> dict:
     """qwen3-moe: qwen3's q/k norms, the router `mlp.gate` and the experts."""
     p = f"model.layers.{i}."
@@ -199,40 +453,42 @@ def _qwen3_moe_layer(config: ModelConfig, i: int, get: Get) -> dict:
     }
 
 
-_FAMILY_LAYER = {"phi3": _phi3_layer, "gemma2": _gemma2_layer, "qwen3": _qwen3_layer,
-                 "mixtral": _mixtral_layer, "qwen2_moe": _qwen2_moe_layer,
-                 "qwen3_moe": _qwen3_moe_layer}
-_FAMILY_TOP: dict = {}
+_FAMILY_LAYER = {"phi3": _phi3_layer, "gemma2": _gemma2_layer, "gemma3": _gemma3_layer,
+                 "gemma3_text": _gemma3_layer, "qwen3": _qwen3_layer,
+                 "starcoder2": _starcoder2_layer, "gpt2": _gpt2_layer,
+                 "bloom": _bloom_layer, "gpt_neox": _gptneox_layer, "phi": _phi_layer,
+                 "cohere": _cohere_layer, "mixtral": _mixtral_layer,
+                 "qwen2_moe": _qwen2_moe_layer, "qwen3_moe": _qwen3_moe_layer,
+                 "phixtral": _phixtral_layer}
+_FAMILY_TOP = {"gemma3": _gemma3_top, "gemma3_text": _gemma3_top, "gpt2": _gpt2_top,
+               "bloom": _bloom_top, "gpt_neox": _gptneox_top, "phi": _phi_top,
+               "phixtral": _phixtral_top}
 
 # model_types with their own layer or tree builders in the JAX package's
 # tables (bigdl_tpu/convert/hf.py `_FAMILY_LAYER`, `_FAMILY_TOP`, the mllama
-# and deepseek trees) that this port's tables do not hold yet. gemma3 and
-# gemma3_text are not listed: every configuration of theirs carries the
-# local rope (`rope_local_theta`), which `check_supported` refuses as a
-# llama flag (item [4]); their tables come with that flag.
+# and deepseek trees) that this port's tables do not hold yet: each
+# family's own modules (MLA, rwkv, the VL and audio towers, mllama's
+# cross-attention) or weight layouts (fused W_pack, grouped wqkv, falcon's
+# query_key_value) are ROADMAP queue 1 item [9]
 _ZOO = frozenset({
-    "phi3_v", "baichuan", "internlm2",
-    "internlmxcomposer2", "starcoder2", "glm", "chatglm", "chatglm4v", "qwen2_vl",
-    "mpt", "gpt2", "bloom", "gpt_neox", "rwkv", "rwkv5",
-    "falcon", "phi", "cohere", "yuan", "minicpmv", "minicpmo",
-    "megrezo", "qwen2_audio", "internvl", "janus", "qwen", "deci", "gpt_bigcode",
-    "phixtral", "baichuan_m1", "mllama", "mllama_text_model", "deepseek_v2",
-    "deepseek_v3", "minicpm3",
+    "phi3_v", "baichuan", "internlm2", "internlmxcomposer2", "glm", "chatglm", "chatglm4v",
+    "qwen2_vl", "mpt", "rwkv", "rwkv5", "falcon", "yuan", "minicpmv", "minicpmo", "megrezo",
+    "qwen2_audio", "internvl", "janus", "qwen", "deci", "gpt_bigcode", "baichuan_m1",
+    "mllama", "mllama_text_model", "deepseek_v2", "deepseek_v3", "minicpm3",
 })
 
 
 def check_family(config: ModelConfig) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for a checkpoint
     this port cannot ingest yet: a family whose tables are not ported
-    (item [9]), then any configuration `check_supported` refuses (a llama
-    flag, item [4])."""
+    (item [9]), then any configuration `check_supported` refuses (a
+    family's own fields, item [9])."""
     mt = config.model_type
     if mt in _ZOO:
         raise NotImplementedError(
             f"HF ingest of model_type {mt!r}: ROADMAP queue 1 item [9], the rest "
             "of the zoo is still to be ported (the port's tables hold the "
-            "llama-shaped default, phi3, gemma2, qwen3, mixtral, qwen2_moe and "
-            "qwen3_moe)")
+            f"llama-shaped default and {sorted(_FAMILY_LAYER)})")
     try:
         check_supported(config)
     except NotImplementedError as e:
@@ -276,7 +532,9 @@ def params_from_state_dict(config: ModelConfig, get_tensor: Get, qtype: str = "s
             qt = parts[0] if len(parts) == 1 else concat_rows(parts)
             return QTensor(qtype=qt.qtype, **{f: a.reshape(*t.shape[:-1], *a.shape[1:])
                                               for f, a in qt.fields().items()})
-        return t.to(dev).to(dtype)
+        # a fresh contiguous copy: phi's one layernorm fills two slots,
+        # gpt2's transposed weights are views
+        return t.to(device=dev, dtype=dtype, memory_format=torch.contiguous_format, copy=True)
 
     layers = []
     for i in range(config.num_hidden_layers):
@@ -285,15 +543,16 @@ def params_from_state_dict(config: ModelConfig, get_tensor: Get, qtype: str = "s
         extra = {n: d.pop(n) for n in OPTIONAL_NORMS if n in d}
         moe = None
         if "router" in d:
-            moe = MoEBlock(d.pop("router"), {n: Linear(d.pop(n)) for n in list(d)
-                                             if n in MOE_EXPERTS + MOE_SHARED},
-                           d.pop("shared_gate", None))
+            moe = MoEBlock(d.pop("router"), {
+                n: Linear(d.pop(n), d.pop(MOE_BIAS_OF.get(n, ""), None))
+                for n in list(d) if n in MOE_EXPERTS + MOE_SHARED}, d.pop("shared_gate", None))
         biases = {n: d.pop(BIAS_OF[n], None) for n in list(d) if n in BIAS_OF}
         layers.append(DecoderLayer(*norms, {k: Linear(v, biases[k]) for k, v in d.items()},
                                    moe, **extra))
     top = {k: maybe_quant(k, v) for k, v in top_tensors(config, get_tensor).items()}
-    head = Linear(top["lm_head"]) if "lm_head" in top else None
-    model = LlamaModel(top["embed"], layers, top["final_norm"], head)
+    head = Linear(top["lm_head"], top.get("lm_head_b")) if "lm_head" in top else None
+    model = LlamaModel(top["embed"], layers, top["final_norm"], head,
+                       **{n: top[n] for n in TOP_LEAVES if n in top})
     return merge_fused_params(model, config)
 
 

@@ -45,9 +45,11 @@
 //   in chunk order, so the result is the same from run to run. The
 //   wrapper allocates scratch and counters; the kernel allocates nothing.
 //
-// Head dims 64, 96 (phi3-mini), 128 and 256: a lane holds dimension pairs
-// 64 i + 2 lane (at D = 96 the second pair on lanes 0 .. 15 only), and
-// the 192- and 96-byte slot rows of D = 96 take swizzles of their own.
+// Head dims 64, 80 (phi-2, phixtral), 96 (phi3-mini), 128 and 256: a lane
+// holds dimension pairs 64 i + 2 lane (at D = 80 and 96 the second pair
+// on lanes 0 .. 7 and 0 .. 15 only), and the 160- and 80-byte slot rows of
+// D = 80 and the 192- and 96-byte ones of D = 96 take swizzles of their
+// own: each keeps a row's chunks a permutation of the row.
 //
 // All offsets into the pool are 64-bit: L * NP * page * Hkv * D passes
 // 2^31 at larger pools.
@@ -71,6 +73,10 @@ template <int kNC>
 __device__ __forceinline__ int swz(int r, int c) {
   if constexpr (kNC % 8 == 0)
     return r * kNC + (c ^ (r & 7));
+  else if constexpr (kNC == 10)  // D = 80, bf16: 160-byte rows, chunks 0 .. 7 and 8, 9
+    return r * kNC + (c < 8 ? c ^ (r & 7) : c ^ (r & 1));
+  else if constexpr (kNC == 5)  // D = 80, e5m2: 80-byte rows, chunks 0 .. 3 and 4
+    return r * kNC + (c < 4 ? c ^ ((r >> 1) & 3) : c);
   else if constexpr (kNC == 12)
     return r * kNC + (c ^ ((r >> 1) & 3));  // D = 96, bf16: 192-byte rows
   else if constexpr (kNC == 6)
@@ -113,8 +119,8 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const size_t head0 = static_cast<size_t>(b) * Hkv * G + static_cast<size_t>(hk) * G;
-  // pair i of lane l is dimensions 64 i + 2 l, + 1: at D = 96 the second
-  // pair exists for lanes 0 .. 15 only
+  // pair i of lane l is dimensions 64 i + 2 l, + 1: at D = 80 and 96 the
+  // second pair exists for lanes 0 .. 7 and 0 .. 15 only
   auto has_pair = [&](int i) { return D % 64 == 0 || 64 * i + 2 * lane < D; };
 
   // the row's live slots [lo, hi] (slots past the block table do not
@@ -421,6 +427,9 @@ int dispatch(const void* q, int q_f32, float scale, const void* k, const void* v
   switch (D) {
     case 64:
       return by_group<64, kFp8>(q, q_f32, scale, k, v, ksp, vsp, btp, pp, sp, op, po, pml, tk, B, Hq, Hkv, NP, page, mp, layer,
+                                window, softcap, chunk, nmax, st);
+    case 80:
+      return by_group<80, kFp8>(q, q_f32, scale, k, v, ksp, vsp, btp, pp, sp, op, po, pml, tk, B, Hq, Hkv, NP, page, mp, layer,
                                 window, softcap, chunk, nmax, st);
     case 96:
       return by_group<96, kFp8>(q, q_f32, scale, k, v, ksp, vsp, btp, pp, sp, op, po, pml, tk, B, Hq, Hkv, NP, page, mp, layer,

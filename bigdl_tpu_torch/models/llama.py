@@ -1,27 +1,35 @@
-"""Llama-family decoder (port of bigdl_tpu/models/llama.py) for the
-llama-shaped families: llama, mistral, qwen2, qwen3, gemma2 and phi3,
-the mixture-of-experts ones (mixtral, qwen2-moe, qwen3-moe) and the
-ALiBi and logn attention of baichuan-13b and qwen v1 — GQA, RMSNorm
-(gemma's (1 + w) too), a gated MLP with silu, gelu or relu, the three
-bias flags, tied embeddings, qk-norm, sliding windows (uniform or
-alternating), gemma2's softcaps, attention scale, post-norms and
-embedding scale, and every rope-scaling scheme of the JAX package.
+"""Llama-family decoder (port of bigdl_tpu/models/llama.py) for every
+family the JAX package runs on it: llama, mistral, qwen2, qwen3, gemma2,
+gemma3 and phi3; phi-1/1.5/2, starcoder2, stablelm, gpt-neox, cohere,
+gpt2, bloom and minicpm; the mixture-of-experts ones (mixtral,
+qwen2-moe, qwen3-moe, phixtral) and the ALiBi and logn attention of
+baichuan-13b and qwen v1 — GQA, RMSNorm (gemma's (1 + w) too) or
+LayerNorm with or without bias, a gated or a plain fc -> act -> proj MLP
+with silu, gelu or relu, the three bias flags and the lm head's, tied
+embeddings, qk-norm, sliding windows (uniform, alternating or listed per
+layer), gemma2's softcaps, attention scale, post-norms, the embedding
+scales, minicpm's residual and logit scales, cohere's logit scale,
+parallel residuals (attention and MLP read the same layer input), gpt2's
+learned positions, bloom's embedding layernorm, partial and interleaved
+rope, gemma3's local rope (its sliding layers rotate at their own base,
+unscaled) and every rope-scaling scheme of the JAX package.
 
 The JAX package keeps parameters as a pytree with layers stacked for
 `lax.scan`; here they are modules — `LlamaModel` holds the embedding,
-one `DecoderLayer` per layer (norm weights, projections as
-`ops.linear.Linear` keyed by the JAX leaf names, each with its bias) and
-the lm head, absent when tied — and `forward` walks the layers in a
-Python loop; an MoE layer holds its experts in a `MoEBlock` instead of
-the gated MLP's projections. The embedding, the norms, the biases and
+one `DecoderLayer` per layer (norm weights and biases, projections as
+`ops.linear.Linear` keyed by the JAX leaf names, each with its bias), the
+final norm, the optional top-level leaves of `TOP_LEAVES` and the lm
+head with its bias, absent when tied — and `forward` walks the layers in
+a Python loop; an MoE layer holds its experts in a `MoEBlock` instead of
+the MLP's projections. The embedding, the norms, the biases and
 every dense projection are parameters that require no gradient until
 `make_trainable` turns them on (the full fine-tune, train/recipes.py);
 quantized projections stay buffers. `forward` runs both layouts, as
 JAX's does: the fused one (wqkv, w_gateup, their biases concatenated)
 that `optimize_model` makes, and the unfused one (wq/wk/wv, w_gate/w_up)
-of `init_params`, which the full fine-tune trains. Every flag this port
-does not run raises `NotImplementedError` naming its ROADMAP item
-(`check_supported`).
+of `init_params`, which the full fine-tune trains. A field of a family
+with modules of its own (MLA, rwkv, mllama, the VL and audio towers)
+raises `NotImplementedError` naming its ROADMAP item (`check_supported`).
 
 Attention follows JAX's dispatch, layer by layer (`attention_route`): a
 prefill (T > 1) over a cache with one position for all rows (generate,
@@ -59,7 +67,8 @@ expert weight is dequantized (`QTensor.dequantize`), then `einsum`s run
 dense combine (every expert computes every token) or the capacity
 dispatch ("ragged": each expert its routed tokens up to capacity C, the
 overflow dropped), chosen by `resolve_moe_dispatch`, and qwen2-moe's
-shared expert behind its sigmoid gate.
+shared expert behind its sigmoid gate. phixtral's experts are plain fc ->
+act -> proj with a bias on each (`b_up_e`, `b_down_e`).
 """
 
 from __future__ import annotations
@@ -78,7 +87,7 @@ from bigdl_tpu_torch.kvcache import KVCache
 from bigdl_tpu_torch.kvpaged import PagedKVCache
 from bigdl_tpu_torch.models.config import ModelConfig
 from bigdl_tpu_torch.ops import (Linear, apply_rotary_emb, attention, kernels,
-                                 linear, rms_norm, rope_cos_sin)
+                                 layer_norm, linear, rms_norm, rope_cos_sin)
 from bigdl_tpu_torch.ops.attention import _NEG_INF
 from bigdl_tpu_torch.ops.linear import lora_epilogue
 from bigdl_tpu_torch.ops.rope import alibi_slopes, check_rope_scaling, make_inv_freq_scaled
@@ -97,12 +106,15 @@ _SUPPORTED_FIELDS = frozenset({
     "sliding_window", "sliding_window_pattern", "attn_logit_softcap",
     "final_logit_softcap", "attn_scale", "post_attn_norm", "rms_norm_offset",
     "scale_embeddings", "qk_norm", "alibi", "alibi_scale", "logn_attn",
-    "logn_train_len",
+    "logn_train_len", "sliding_layers", "rope_local_theta", "norm_type", "norm_bias",
+    "parallel_residual", "partial_rotary_factor", "rope_interleaved", "learned_positions",
+    "embed_layernorm", "gated_mlp", "embedding_scale", "residual_scale", "logit_scale",
+    "lm_head_bias",
 })
 # JAX's `_act` (bigdl_tpu/models/llama.py:282-291)
 ACTIVATIONS = ("silu", "gelu", "gelu_new", "gelu_pytorch_tanh", "gelu_tanh", "relu")
-# the MoE group (mixtral, qwen2-moe, qwen3-moe): gated experts only;
-# phixtral's non-gated, biased experts (gated_mlp=False) are item [4]
+# the MoE group (mixtral, qwen2-moe, qwen3-moe; phixtral's non-gated,
+# biased experts under gated_mlp=False and mlp_bias)
 _MOE_FIELDS = frozenset({
     "num_experts", "num_experts_per_tok", "moe_intermediate_size",
     "shared_expert_intermediate_size", "norm_topk_prob", "moe_dispatch",
@@ -122,16 +134,11 @@ _DEFAULTS = ModelConfig()
 
 
 def check_supported(config: ModelConfig) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for a config
-    field the port does not run: item [4] for a llama flag, item [9] for
-    a family's own fields; a rope-scaling scheme or an activation the JAX
-    package does not compute raises too, and so do MLP biases beside
-    experts (JAX's tree would carry them unused). Called before any
-    weight is made or read."""
-    if config.is_moe and config.mlp_bias:
-        raise NotImplementedError(
-            "llama forward with experts and mlp_bias=True: ROADMAP queue 1 item [4], "
-            "the rest of the llama flags (phixtral's biased experts) is still to be ported")
+    """Raise NotImplementedError for a config field the port does not
+    run: a family's own fields (item [9]); a rope-scaling scheme or an
+    activation the JAX package does not compute raises too. Called
+    before any weight is made or read. Every other `ModelConfig` field
+    runs at any value (`_SUPPORTED_FIELDS`, `_MOE_FIELDS`)."""
     for f in dataclasses.fields(ModelConfig):
         name, value = f.name, getattr(config, f.name)
         if (name in _SUPPORTED_FIELDS or name in _MOE_FIELDS
@@ -145,21 +152,24 @@ def check_supported(config: ModelConfig) -> None:
                 continue
             raise NotImplementedError(
                 f"hidden_act {value!r}: the JAX package computes {ACTIVATIONS} only")
-        if name in _FAMILY_FIELDS:
-            item = "item [9], the rest of the zoo is still to be ported"
-        else:
-            item = "item [4], the rest of the llama flags is still to be ported"
         raise NotImplementedError(
-            f"llama forward with {name}={value!r}: ROADMAP queue 1 {item}")
+            f"llama forward with {name}={value!r}: ROADMAP queue 1 item [9], the rest "
+            "of the zoo is still to be ported")
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-# per-layer norm weights beyond attn_norm/mlp_norm, each held when its
-# flag is on: gemma2's post-norms (post_attn_norm) and qk-norm's [D] pair
-OPTIONAL_NORMS = ("post_attn_norm", "post_mlp_norm", "q_norm", "k_norm")
+# per-layer norm leaves beyond attn_norm/mlp_norm, each held when its
+# flag is on: the two norms' biases (norm_bias), gemma2's post-norms
+# (post_attn_norm) and qk-norm's [D] pair
+OPTIONAL_NORMS = ("attn_norm_b", "mlp_norm_b", "post_attn_norm", "post_mlp_norm", "q_norm",
+                  "k_norm")
+# the model's top-level leaves beyond embed/final_norm, each held when its
+# flag is on: the final norm's bias (norm_bias), gpt2's learned positions
+# `wpe` [max_position_embeddings, H], bloom's embedding layernorm
+TOP_LEAVES = ("final_norm_b", "wpe", "embed_norm", "embed_norm_b")
 # a projection's bias under JAX's leaf names (each Linear holds its own)
 BIAS_OF = {"wq": "bq", "wk": "bk", "wv": "bv", "wo": "bo", "w_gate": "b_gate",
            "w_up": "b_up", "w_down": "b_down", "wqkv": "bqkv", "w_gateup": "b_gateup"}
@@ -167,55 +177,80 @@ BIAS_OF = {"wq": "bq", "wk": "bk", "wv": "bv", "wo": "bo", "w_gate": "b_gate",
 
 # an MoE layer's expert weights under JAX's leaf names, quantized as its
 # `_QUANT_TARGETS` are: the experts stacked [E, EI, H] (w_down_e
-# [E, H, EI]) and qwen2-moe's shared expert [S, H] (w_down_s [H, S]); the
-# router [E, H] and the shared expert's gate [1, H] stay dense
+# [E, H, EI]; no w_gate_e when the experts are not gated: phixtral) and
+# qwen2-moe's shared expert [S, H] (w_down_s [H, S]); the router [E, H]
+# and the shared expert's gate [1, H] stay dense, and so do phixtral's
+# expert biases b_up_e [E, EI] and b_down_e [E, H], held by their
+# experts' Linears
 MOE_EXPERTS = ("w_gate_e", "w_up_e", "w_down_e")
 MOE_SHARED = ("w_gate_s", "w_up_s", "w_down_s")
-MOE_LEAVES = ("router",) + MOE_EXPERTS + MOE_SHARED + ("shared_gate",)
+MOE_BIAS_OF = {"w_up_e": "b_up_e", "w_down_e": "b_down_e"}
+# JAX's init_params makes the dense MLP's biases beside experts under
+# mlp_bias, and its MoE forward reads none of them: a MoEBlock carries
+# them (`unused`), so that the tree and its artifact stay JAX's
+MOE_UNUSED = ("b_gate", "b_up", "b_down")
+MOE_LEAVES = (("router",) + MOE_EXPERTS + MOE_SHARED + ("shared_gate",)
+              + tuple(MOE_BIAS_OF.values()) + MOE_UNUSED)
 
 
 class MoEBlock(nn.Module):
     """A layer's mixture-of-experts MLP: the dense `router` [E, H], the
-    expert weights in `proj` (`MOE_EXPERTS`, and `MOE_SHARED` with
-    qwen2-moe's shared expert), each held by an `ops.linear.Linear` as a
-    dense tensor or a QTensor, and `shared_gate` [1, H] beside a shared
-    expert (None otherwise). `_moe_mlp` computes with `leaves()`."""
+    expert weights in `proj` (`MOE_EXPERTS`, without w_gate_e for
+    non-gated experts, and `MOE_SHARED` with qwen2-moe's shared expert),
+    each held by an `ops.linear.Linear` as a dense tensor or a QTensor
+    (w_up_e and w_down_e with their biases where the experts have them),
+    `shared_gate` [1, H] beside a shared expert (None otherwise) and the
+    `MOE_UNUSED` biases given. `_moe_mlp` computes with `leaves()`."""
 
     def __init__(self, router: torch.Tensor, proj: dict[str, Linear],
-                 shared_gate: Optional[torch.Tensor] = None):
+                 shared_gate: Optional[torch.Tensor] = None, **unused: torch.Tensor):
         super().__init__()
-        shared = set(proj) == set(MOE_EXPERTS + MOE_SHARED)
-        if not (shared or set(proj) == set(MOE_EXPERTS)) or shared != (shared_gate is not None):
+        experts = set(proj) - set(MOE_SHARED)
+        shared = set(proj) & set(MOE_SHARED)
+        if (experts not in (set(MOE_EXPERTS), set(MOE_EXPERTS[1:]))
+                or shared not in (set(), set(MOE_SHARED))
+                or bool(shared) != (shared_gate is not None)
+                or set(unused) - set(MOE_UNUSED)):
             raise ValueError(f"MoEBlock: projections {sorted(proj)} with "
-                             f"{'a' if shared_gate is not None else 'no'} shared gate; "
-                             f"want {MOE_EXPERTS}, plus {MOE_SHARED} and shared_gate")
+                             f"{'a' if shared_gate is not None else 'no'} shared gate and "
+                             f"{sorted(unused)}; want {MOE_EXPERTS} (w_gate_e optional), "
+                             f"plus {MOE_SHARED} and shared_gate, and some of {MOE_UNUSED}")
         self.router = _frozen(router)
         self.proj = nn.ModuleDict(proj)
-        if shared_gate is None:
-            self.register_parameter("shared_gate", None)
-        else:
-            self.shared_gate = _frozen(shared_gate)
+        for name, t in (("shared_gate", shared_gate),) + tuple(
+                (n, unused.get(n)) for n in MOE_UNUSED):
+            if t is None:
+                self.register_parameter(name, None)
+            else:
+                setattr(self, name, _frozen(t))
+
+    def unused(self) -> dict:
+        return {n: getattr(self, n) for n in MOE_UNUSED if getattr(self, n) is not None}
 
     def leaves(self) -> dict:
         """{JAX leaf name: tensor or QTensor} of the present leaves."""
         out = {"router": self.router, **{n: lin.w for n, lin in self.proj.items()}}
+        out.update({b: self.proj[n].bias for n, b in MOE_BIAS_OF.items()
+                    if n in self.proj and self.proj[n].bias is not None})
         if self.shared_gate is not None:
             out["shared_gate"] = self.shared_gate
-        return out
+        return {**out, **self.unused()}
 
     def copy(self) -> "MoEBlock":
         """A new block holding the same weights (`quantized_copy`)."""
-        return MoEBlock(self.router, dict(self.proj.items()), self.shared_gate)
+        return MoEBlock(self.router, dict(self.proj.items()), self.shared_gate, **self.unused())
 
 
 class DecoderLayer(nn.Module):
     """One decoder layer's weights: the `attn_norm`/`mlp_norm` weights,
     the projections in `proj` — wq/wk/wv, wo, w_gate/w_up, w_down as
     `init_params` makes them, wqkv, wo, w_gateup, w_down after
-    `merge_fused_params` — each with its bias where the config has one,
-    and the `OPTIONAL_NORMS` the config's flags ask for (None
-    otherwise). An MoE layer's `proj` holds the attention's projections
-    only and `moe` its experts (None in a dense layer)."""
+    `merge_fused_params` (no w_gate or w_gateup in a plain fc -> act ->
+    proj MLP: w_up, w_down) — each with its bias where the config has
+    one, and the `OPTIONAL_NORMS` the config's flags ask for, the norms'
+    biases among them (None otherwise). An MoE layer's `proj` holds the
+    attention's projections only and `moe` its experts (None in a dense
+    layer)."""
 
     def __init__(self, attn_norm: torch.Tensor, mlp_norm: torch.Tensor,
                  proj: dict[str, Linear], moe: Optional[MoEBlock] = None,
@@ -237,18 +272,33 @@ class DecoderLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
-    """Embedding table, decoder layers, final norm and lm head (None when
-    the head is tied to the embedding). `embed` is the table in any of
-    the three forms `embedding.embed_lookup` takes (`set_embed`)."""
+    """Embedding table, decoder layers, final norm, the `TOP_LEAVES` the
+    config's flags ask for (None otherwise) and lm head (None when the
+    head is tied to the embedding; its bias is the Linear's). `embed` is
+    the table in any of the three forms `embedding.embed_lookup` takes
+    (`set_embed`)."""
 
     def __init__(self, embed: Union[torch.Tensor, QTensor, HostEmbedding],
                  layers: list[DecoderLayer], final_norm: torch.Tensor,
-                 lm_head: Optional[Linear]):
+                 lm_head: Optional[Linear], **top: Optional[torch.Tensor]):
         super().__init__()
+        unknown = set(top) - set(TOP_LEAVES)
+        if unknown:
+            raise TypeError(f"LlamaModel: unknown leaves {sorted(unknown)}")
         self.set_embed(embed)
         self.layers = nn.ModuleList(layers)
         self.final_norm = _frozen(final_norm)
+        for name in TOP_LEAVES:
+            t = top.get(name)
+            if t is None:
+                self.register_parameter(name, None)
+            else:
+                setattr(self, name, _frozen(t))
         self.lm_head = lm_head
+
+    def top_leaves(self) -> dict:
+        """{name: tensor} of the present `TOP_LEAVES`."""
+        return {n: getattr(self, n) for n in TOP_LEAVES if getattr(self, n) is not None}
 
     def set_embed(self, embed: Union[torch.Tensor, QTensor, HostEmbedding]) -> None:
         """Replace the embedding table: a dense tensor becomes the frozen
@@ -300,9 +350,12 @@ def init_params(config: ModelConfig, seed: int = 0, device=None,
                 low_bit: Optional[str] = None) -> LlamaModel:
     """Random dense init in `dtype` on `device` (the card unless told
     otherwise), N(0, scale^2) weights from a seeded torch.Generator, in
-    the unfused layout, with JAX's other leaves: unit norms (post-norms
-    and q/k norms too), zero biases, no lm head when tied; an MoE layer's
-    router, experts and shared expert in JAX's order. With `low_bit`,
+    the unfused layout, with JAX's other leaves: unit norms (post-norms,
+    q/k norms and the embedding layernorm too), zero biases (the norms'
+    and the lm head's too), N(0, scale^2) learned positions, no lm head
+    when tied; an MoE layer's router, experts and shared expert in JAX's
+    order, and the dense MLP's biases it carries unused under mlp_bias.
+    With `low_bit`,
     each layer is quantized as soon as it is made (then the lm head), so
     only one dense layer is ever held: mixtral-8x7b's 32 dense layers are
     ~93 GB of bf16. The result equals `quantize_params(init_params(...),
@@ -323,7 +376,7 @@ def init_params(config: ModelConfig, seed: int = 0, device=None,
     def zeros(n, on):
         return torch.zeros(n, dtype=dtype, device=dev) if on else None
 
-    ab, mb = config.attention_bias, config.mlp_bias
+    ab, mb, gated = config.attention_bias, config.mlp_bias, config.gated_mlp
     E, EI = config.num_experts, config.moe_intermediate_size or I
     S = config.shared_expert_intermediate_size
     body = None if low_bit is None else resolve_qtype(split_mixed_qtype(low_bit)[0])
@@ -332,18 +385,28 @@ def init_params(config: ModelConfig, seed: int = 0, device=None,
         shapes = [("wq", (QD, H), ab), ("wk", (KD, H), ab), ("wv", (KD, H), ab),
                   ("wo", (H, QD), config.attention_out_bias)]
         if not config.is_moe:
-            shapes += [("w_gate", (I, H), mb), ("w_up", (I, H), mb), ("w_down", (H, I), mb)]
+            shapes += ([("w_gate", (I, H), mb)] if gated else []) + [
+                ("w_up", (I, H), mb), ("w_down", (H, I), mb)]
         proj = {name: Linear(w(shape), zeros(shape[0], on)) for name, shape, on in shapes}
         moe = None
         if config.is_moe:
             router = w((E, H))
-            experts = {n: Linear(w(shape)) for n, shape in (
-                ("w_gate_e", (E, EI, H)), ("w_up_e", (E, EI, H)), ("w_down_e", (E, H, EI)))}
+            biased = not gated and mb  # phixtral's experts
+            experts = {n: Linear(w(shape), zeros(bias, biased)) for n, shape, bias in (
+                [("w_gate_e", (E, EI, H), None)] if gated else []) + [
+                ("w_up_e", (E, EI, H), (E, EI)), ("w_down_e", (E, H, EI), (E, H))]}
             if S:
                 experts.update({n: Linear(w(shape)) for n, shape in (
                     ("w_gate_s", (S, H)), ("w_up_s", (S, H)), ("w_down_s", (H, S)))})
-            moe = MoEBlock(router, experts, w((1, H)) if S else None)
+            unused = {}
+            if mb:
+                unused = {"b_up": zeros(I, True), "b_down": zeros(H, True)}
+                if gated:
+                    unused["b_gate"] = zeros(I, True)
+            moe = MoEBlock(router, experts, w((1, H)) if S else None, **unused)
         norms = {}
+        if config.norm_bias:
+            norms.update(attn_norm_b=zeros(H, True), mlp_norm_b=zeros(H, True))
         if config.post_attn_norm:
             norms.update(post_attn_norm=ones(H), post_mlp_norm=ones(H))
         if config.qk_norm:
@@ -352,9 +415,18 @@ def init_params(config: ModelConfig, seed: int = 0, device=None,
         if body is not None and not body.is_dense:
             quantize_layer(layer, body.name)
         layers.append(layer)
-    embed = w((config.vocab_size, H))
-    head = None if config.tie_word_embeddings else Linear(w((config.vocab_size, H)))
-    model = LlamaModel(embed, layers, ones(H), head)
+    V = config.vocab_size
+    embed = w((V, H))
+    top = {}
+    if config.norm_bias:
+        top["final_norm_b"] = zeros(H, True)
+    if config.learned_positions:
+        top["wpe"] = w((config.max_position_embeddings, H))
+    if config.embed_layernorm:
+        top.update(embed_norm=ones(H), embed_norm_b=zeros(H, True))
+    head = None if config.tie_word_embeddings else Linear(
+        w((V, H)), zeros(V, config.lm_head_bias))
+    model = LlamaModel(embed, layers, ones(H), head, **top)
     return model if low_bit is None else quantize_params(model, low_bit)
 
 
@@ -395,8 +467,8 @@ def quantize_params(model: LlamaModel, qtype: str,
 def quantized_copy(model: LlamaModel, qtype: str) -> LlamaModel:
     """A model whose projections, experts and lm head are `qtype` copies
     of `model`'s (`quantize_params` on new layer containers), sharing the
-    embedding, the norms, the biases and the routers with it; `model` is left as it
-    is. JAX's `optimize_model` is functional and gives this; the
+    embedding, the norms, the biases, the routers and the other top-level
+    leaves with it; `model` is left as it is. JAX's `optimize_model` is functional and gives this; the
     self-speculative draft is built with it."""
     layers = []
     for layer in model.layers:
@@ -404,8 +476,8 @@ def quantized_copy(model: LlamaModel, qtype: str) -> LlamaModel:
         moe = None if layer.moe is None else layer.moe.copy()
         layers.append(DecoderLayer(layer.attn_norm, layer.mlp_norm, dict(layer.proj.items()),
                                    moe, **norms))
-    return quantize_params(LlamaModel(model.embed, layers, model.final_norm, model.lm_head),
-                           qtype)
+    return quantize_params(LlamaModel(model.embed, layers, model.final_norm, model.lm_head,
+                                      **model.top_leaves()), qtype)
 
 
 def _concat(lins: list[Linear], what: str) -> Linear:
@@ -433,7 +505,8 @@ def merge_fused_params(model: LlamaModel, config: ModelConfig) -> LlamaModel:
     into bqkv and b_gateup), in place: one kernel launch streams one
     larger weight. The forward splits the fused output, so results equal
     the unmerged layout's. An MoE layer has no w_gate/w_up: its experts
-    stay as they are (JAX's rule)."""
+    stay as they are, and a plain MLP has no w_gate: its w_up stays alone
+    (JAX's rule)."""
     for layer in model.layers:
         p = layer.proj
         if "wq" in p:
@@ -451,12 +524,14 @@ def embed_tokens(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
                  compute_dtype=torch.bfloat16) -> torch.Tensor:
     """The embedding rows in the compute dtype, from a dense, low-bit or
     host table (`embedding.embed_lookup`); gemma's scale_embeddings
-    multiplies by sqrt(hidden) rounded to the compute dtype first, as JAX
-    does (59.75 for hidden 3584 in bf16)."""
+    multiplies by sqrt(hidden) and minicpm's embedding_scale by scale_emb,
+    each rounded to the compute dtype first, as JAX does (59.75 for
+    hidden 3584 in bf16)."""
     h = embed_lookup(model.embed, tokens, compute_dtype)
-    if config.scale_embeddings:
-        h = h * torch.tensor(config.hidden_size ** 0.5, dtype=compute_dtype,
-                             device=h.device)
+    for on, factor in ((config.scale_embeddings, config.hidden_size ** 0.5),
+                       (config.embedding_scale, config.embedding_scale)):
+        if on:
+            h = h * torch.tensor(factor, dtype=compute_dtype, device=h.device)
     return h
 
 
@@ -466,13 +541,18 @@ def _softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 
 def lm_head_logits(config: ModelConfig, model: LlamaModel, h: torch.Tensor,
                    compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Final norm + lm head (the embedding when tied: a dense product, or
-    the quantized one of a low-bit table, as in JAX), logits in float32,
-    then the final softcap. A tied head over a HostEmbedding raises
-    AttributeError, as the JAX package's linear does on it: the head
-    would need the whole table on the device."""
-    h = rms_norm(h, model.final_norm, config.rms_norm_eps,
-                 offset=config.rms_norm_offset)
+    """Final norm (a layernorm with its bias under norm_type
+    "layernorm") + lm head with its bias (the embedding when tied: a
+    dense product, or the quantized one of a low-bit table, as in JAX),
+    logits in float32, times logit_scale, then the final softcap. A tied
+    head over a HostEmbedding raises AttributeError, as the JAX package's
+    linear does on it: the head would need the whole table on the
+    device."""
+    if config.norm_type == "layernorm":
+        h = layer_norm(h, model.final_norm, model.final_norm_b, config.rms_norm_eps)
+    else:
+        h = rms_norm(h, model.final_norm, config.rms_norm_eps,
+                     offset=config.rms_norm_offset)
     if model.lm_head is None:
         if isinstance(model.embed, HostEmbedding):
             raise AttributeError(
@@ -482,7 +562,10 @@ def lm_head_logits(config: ModelConfig, model: LlamaModel, h: torch.Tensor,
         logits = linear(h, model.embed, None, compute_dtype)
     else:
         logits = model.lm_head(h, compute_dtype)
-    return _softcap(logits.float(), config.final_logit_softcap)
+    logits = logits.float()
+    if config.logit_scale:
+        logits = logits * config.logit_scale
+    return _softcap(logits, config.final_logit_softcap)
 
 
 def _act(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -532,13 +615,23 @@ def _moe_router(config: ModelConfig, xc: torch.Tensor, p: dict):
 
 
 def _expert_ffn(config: ModelConfig, xe: torch.Tensor, p: dict, compute_dtype) -> torch.Tensor:
-    """Each expert's gated FFN on its grouped tokens: [E, C, H] -> [E, C, H]."""
-    wu = _deq(p["w_up_e"], compute_dtype)  # [E, I, H]
-    wg = _deq(p["w_gate_e"], compute_dtype)
-    u = torch.bmm(xe, wu.transpose(1, 2))
-    z = _act(config.hidden_act, torch.bmm(xe, wg.transpose(1, 2))) * u
-    del wu, wg, u
-    return torch.bmm(z, _deq(p["w_down_e"], compute_dtype).transpose(1, 2))
+    """Each expert's FFN on its grouped tokens: [E, C, H] -> [E, C, H],
+    gated (mixtral, qwen2-moe) or plain fc -> act -> proj with the
+    experts' biases (phixtral)."""
+    u = torch.bmm(xe, _deq(p["w_up_e"], compute_dtype).transpose(1, 2))  # [E, C, I]
+    if config.gated_mlp:
+        g = torch.bmm(xe, _deq(p["w_gate_e"], compute_dtype).transpose(1, 2))
+        z = _act(config.hidden_act, g) * u
+        del g
+    else:
+        if "b_up_e" in p:
+            u = u + p["b_up_e"].to(compute_dtype)[:, None, :]
+        z = _act(config.hidden_act, u)
+    del u
+    out = torch.bmm(z, _deq(p["w_down_e"], compute_dtype).transpose(1, 2))
+    if not config.gated_mlp and "b_down_e" in p:
+        out = out + p["b_down_e"].to(compute_dtype)[:, None, :]
+    return out
 
 
 def _moe_dispatch_ragged(config: ModelConfig, xc: torch.Tensor, p: dict, compute_dtype,
@@ -577,15 +670,24 @@ def _moe_dispatch_ragged(config: ModelConfig, xc: torch.Tensor, p: dict, compute
 def _moe_dispatch_dense(config: ModelConfig, xc: torch.Tensor, p: dict, compute_dtype,
                         topv: torch.Tensor, topi: torch.Tensor) -> torch.Tensor:
     """The dense combine: every expert computes every token, and the
-    top-k weights (0 for an expert not chosen) combine them."""
+    top-k weights (0 for an expert not chosen) combine them; phixtral's
+    expert biases ride inside each expert's weighted term, as HF's
+    per-expert MLP call adds them."""
     combine = torch.zeros(*topi.shape[:-1], config.num_experts, dtype=torch.float32,
                           device=xc.device).scatter_(-1, topi, topv)
-    wu = _deq(p["w_up_e"], compute_dtype)  # [E, I, H]
-    wg = _deq(p["w_gate_e"], compute_dtype)
-    u = torch.einsum("bth,eih->btei", xc, wu)
-    z = _act(config.hidden_act, torch.einsum("bth,eih->btei", xc, wg)) * u
-    del wu, wg, u
+    u = torch.einsum("bth,eih->btei", xc, _deq(p["w_up_e"], compute_dtype))  # [B, T, E, I]
+    if config.gated_mlp:
+        g = torch.einsum("bth,eih->btei", xc, _deq(p["w_gate_e"], compute_dtype))
+        z = _act(config.hidden_act, g) * u
+        del g
+    else:
+        if "b_up_e" in p:
+            u = u + p["b_up_e"].to(compute_dtype)[None, None]
+        z = _act(config.hidden_act, u)
+    del u
     d = torch.einsum("btei,ehi->bteh", z, _deq(p["w_down_e"], compute_dtype))
+    if not config.gated_mlp and "b_down_e" in p:
+        d = d + p["b_down_e"].to(compute_dtype)[None, None]
     return torch.einsum("bteh,bte->bth", d, combine.to(compute_dtype))
 
 
@@ -701,12 +803,27 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
     per_row = isinstance(pos0, torch.Tensor)
 
     h = embed_tokens(config, model, tokens, compute_dtype)
-    use_rope = not config.alibi  # ALiBi's positions are its bias
+    if config.learned_positions:  # gpt2's wpe table; a position past it
+        # reads its last row, as JAX's gather clamps
+        wpe = model.wpe.to(compute_dtype)
+        h = h + wpe[positions.long().clamp(max=wpe.shape[0] - 1)]
+    if config.embed_layernorm:  # bloom's word_embeddings_layernorm
+        h = layer_norm(h, model.embed_norm, model.embed_norm_b, eps)
+    # ALiBi's positions are its bias, gpt2's its learned table
+    use_rope = not (config.alibi or config.learned_positions)
+    interleaved = config.rope_interleaved
+    cos_local = None
     if use_rope:
         inv_freq, att_scale = make_inv_freq_scaled(
             config.rotary_dim, config.rope_theta, config.rope_scaling_dict,
             seq_len=max_len, device=dev)
-        cos, sin = rope_cos_sin(positions, inv_freq, scale=att_scale)
+        cos, sin = rope_cos_sin(positions, inv_freq, scale=att_scale, interleaved=interleaved)
+        if config.rope_local_theta is not None:
+            # gemma3: the sliding layers rotate at the local base, unscaled
+            # (HF applies rope_scaling to the global layers only)
+            inv_local, _ = make_inv_freq_scaled(config.rotary_dim, config.rope_local_theta,
+                                                None, device=dev)
+            cos_local, sin_local = rope_cos_sin(positions, inv_local, interleaved=interleaved)
     # qwen v1's logn: queries past the training length scale by
     # log_train_len(position + 1), from the positions (per row under a
     # speculative verify), not the slots
@@ -765,14 +882,19 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
         pair = adapter(target, idx)
         return y if pair is None else y + lora_epilogue(x, *pair, compute_dtype)
 
-    def norm(x, w):
+    def norm(x, w, b=None):
+        if config.norm_type == "layernorm":
+            return layer_norm(x, w, b, eps)
         return rms_norm(x, w, eps, offset=config.rms_norm_offset)
+
+    rs = config.residual_scale  # minicpm: both branches times scale_depth / sqrt(L)
+    rs_t = None if not rs else torch.tensor(rs, dtype=compute_dtype, device=dev)
 
     def decoder_layer(h, idx):
         layer = model.layers[idx]
         route = routes[idx]
         p = layer.proj
-        x = norm(h, layer.attn_norm)
+        x = norm(h, layer.attn_norm, layer.attn_norm_b)
         if "wqkv" in p:  # fused layout; the adapters keep the unmerged names
             qkv = p["wqkv"](x, compute_dtype)
             q, k, v = qkv[..., :QD], qkv[..., QD:QD + KD], qkv[..., QD + KD:]
@@ -783,11 +905,17 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
         k = k.reshape(B, T, Hkv, D)
         v = v.reshape(B, T, Hkv, D)
         if config.qk_norm:
-            q, k = norm(q, layer.q_norm), norm(k, layer.k_norm)
+            q = rms_norm(q, layer.q_norm, eps, offset=config.rms_norm_offset)
+            k = rms_norm(k, layer.k_norm, eps, offset=config.rms_norm_offset)
         if use_rope:
-            q, k = apply_rotary_emb(q, k, cos, sin)
+            local = cos_local is not None and config.layer_is_sliding(idx)
+            q, k = apply_rotary_emb(q, k, cos_local if local else cos,
+                                    sin_local if local else sin, interleaved)
         if logn_col is not None:
             q = q * logn_col
+        # without rope (learned positions, ALiBi) q is still a view of the
+        # fused projection's output; the attention kernels read whole rows
+        q = q.contiguous()
         if collect_obs:  # a copy: a view would keep the layer's whole q alive
             obs.append(q[:, T - collect_obs:].clone())
 
@@ -818,24 +946,31 @@ def forward(config: ModelConfig, model: LlamaModel, tokens: torch.Tensor,
         out = p["wo"](attn.reshape(B, T, QD), compute_dtype, lora=adapter("wo", idx))
         if config.post_attn_norm:
             out = norm(out, layer.post_attn_norm)
-        h = h + out
+        if not config.parallel_residual:  # gpt-neox, phi, cohere: the MLP reads h too
+            h = h + (out * rs_t if rs else out)
 
-        x = norm(h, layer.mlp_norm)
+        x = norm(h, layer.mlp_norm, layer.mlp_norm_b)
         if layer.moe is not None:  # JAX's MoE path takes no adapter
             down = _moe_mlp(config, x, layer.moe.leaves(), compute_dtype)
-        else:
-            if "w_gateup" in p:
-                gate, up = p["w_gateup"](x, compute_dtype).chunk(2, dim=-1)
-                gate = plus_delta(gate, x, "w_gate", idx)
-                up = plus_delta(up, x, "w_up", idx)
-            else:
-                gate, up = (p[n](x, compute_dtype, lora=adapter(n, idx))
-                            for n in ("w_gate", "w_up"))
+        elif "w_gateup" in p:
+            gate, up = p["w_gateup"](x, compute_dtype).chunk(2, dim=-1)
+            gate = plus_delta(gate, x, "w_gate", idx)
+            up = plus_delta(up, x, "w_up", idx)
             down = p["w_down"](_act(config.hidden_act, gate) * up, compute_dtype,
                                lora=adapter("w_down", idx))
+        else:
+            up = p["w_up"](x, compute_dtype, lora=adapter("w_up", idx))
+            if config.gated_mlp:
+                gate = p["w_gate"](x, compute_dtype, lora=adapter("w_gate", idx))
+                up = _act(config.hidden_act, gate) * up
+            else:  # plain fc -> act -> proj
+                up = _act(config.hidden_act, up)
+            down = p["w_down"](up, compute_dtype, lora=adapter("w_down", idx))
         if config.post_attn_norm:
             down = norm(down, layer.post_mlp_norm)
-        return h + down
+        if config.parallel_residual:
+            return h + out + down
+        return h + (down * rs_t if rs else down)
 
     obs = []
     for idx in range(len(model.layers)):

@@ -42,9 +42,9 @@ PAGED_FP8 = Kernel("paged_attention_fp8", "paged_attention", "ppppppppppppiiiiii
                    replaces=_REPLACES)
 
 _NEG_INF = -1e30
-# phi3-mini's 96 is an instantiation of its own: padding the pool each
-# step would move every live slot's bytes again
-_HEAD_DIMS = (64, 96, 128, 256)
+# phi-2's 80 and phi3-mini's 96 are instantiations of their own: padding
+# the pool each step would move every live slot's bytes again
+_HEAD_DIMS = (64, 80, 96, 128, 256)
 _MAX_GROUP = 16  # query heads per kv head: 4 warps, up to 4 heads each
 
 SPLIT_TILE = 32  # slots a stage of the kernel's ring (csrc/paged_attention.cu kTile)

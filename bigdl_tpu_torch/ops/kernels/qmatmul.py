@@ -8,7 +8,10 @@ on the card and what the design does about it, and `csrc/qdecode.cuh`
 holds every format's decode. Two kernels split the TPU kernel's two shape
 classes at `GEMV_MAX_ROWS` rows: a GEMV for decode and a GEMM for
 prefill, both on the tensor cores, whose tiles `qtile.gemv_tile` and
-`qtile.gemm_tile` choose. `_kernel`'s LoRA
+`qtile.gemm_tile` choose. The GEMV keeps its rows of x in shared memory,
+so rows that do not fit there (`gemv_tile` finds no tile: 30 to 32 of
+them at gemma-3-27b's K = 21504 in sym_int4, a paged prefill's short
+tail) go to the GEMM instead, which streams x; the LoRA forms likewise. `_kernel`'s LoRA
 epilogue (`qmatmul_lora`) has the same two forms, the LoRA GEMV (serving
 decode steps, short prefill tails) and the LoRA GEMM (prefill, training),
 for any adapter width R that the JAX package's `lora_fused_ok` admits
@@ -156,8 +159,8 @@ def qmatmul_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
 
 def qmatmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     """y[..., O] = x @ dequant(W)^T: x [..., K] bf16, w a QTensor [O, K];
-    returns bf16 [..., O]. Rows <= GEMV_MAX_ROWS launch the GEMV, more rows
-    the GEMM."""
+    returns bf16 [..., O]. Rows <= GEMV_MAX_ROWS launch the GEMV where its
+    shared memory holds them, more rows the GEMM."""
     if x.device.type == "cpu":
         return qmatmul_plain(x, w)
     if x.device.type != "cuda":
@@ -168,8 +171,8 @@ def qmatmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     _check_x(x2, "qmatmul")
     M, O = x2.shape[0], w.data.shape[0]
     out = torch.empty((M, O), dtype=torch.bfloat16, device=x.device)
-    if 0 < M <= GEMV_MAX_ROWS:
-        t = gemv_tile(M, O, K, w.qtype)
+    t = gemv_tile(M, O, K, w.qtype) if 0 < M <= GEMV_MAX_ROWS else None
+    if t:
         GEMV(x2, *fields, out, M, K, O, t.wr, t.kc, t.warps, t.stages, t.smem,
              device=x.device, qtype=w.qtype)
     elif M:
@@ -200,7 +203,8 @@ def qmatmul_lora(x: torch.Tensor, w: QTensor, a_cat: torch.Tensor,
     y = x @ dq(W)^T + bf16((x @ A_cat^T) * gate) @ B_cat^T. x [..., K]
     bf16; a_cat [R, K], b_cat [O, R], gate [M, R] bf16 with
     `lora_fused_ok(R, K)`; returns bf16 [..., O]. Rows <= GEMV_MAX_ROWS
-    launch the LoRA GEMV, more rows the LoRA GEMM."""
+    launch the LoRA GEMV where its shared memory holds them, more rows the
+    LoRA GEMM."""
     if x.device.type == "cpu":
         return qmatmul_lora_plain(x, w, a_cat, b_cat, gate)
     if x.device.type != "cuda":
@@ -226,8 +230,8 @@ def qmatmul_lora(x: torch.Tensor, w: QTensor, a_cat: torch.Tensor,
             raise ValueError(f"qmatmul_lora: {name} must be contiguous and "
                              f"{align}-byte aligned")
     out = torch.empty((M, O), dtype=torch.bfloat16, device=x.device)
-    if M and M <= GEMV_MAX_ROWS:
-        t = gemv_tile(M, O, K, w.qtype, R)
+    t = gemv_tile(M, O, K, w.qtype, R) if 0 < M <= GEMV_MAX_ROWS else None
+    if t:
         ks, kspb = lora_xa_split(R, K)
         buf, tickets = workspace(x.device, 4 * ks * M * R, -(-R // 16))  # first pass
         xg = torch.empty((M, R), dtype=torch.bfloat16, device=x.device)

@@ -240,10 +240,14 @@ class GemvTile:
 
 
 @functools.lru_cache(maxsize=None)
-def gemv_tile(M: int, O: int, K: int, qtype: str, R: int = 0) -> GemvTile:
+def gemv_tile(M: int, O: int, K: int, qtype: str, R: int = 0) -> GemvTile | None:
     """The GEMV's tile for x [M <= 32, K] against an [O, K] weight (R > 0:
     the LoRA arm's shared memory; the tile itself does not depend on R, so
-    a zero-gate row of the LoRA GEMV sums in the plain GEMV's order).
+    a zero-gate row of the LoRA GEMV sums in the plain GEMV's order), or
+    None where no tile holds the M rows of x (and the adapter's xg) in
+    shared memory: 30 to 32 rows at gemma-3-27b's K = 21504 in sym_int4,
+    29 to 32 with an adapter. `kernels.qmatmul` sends those rows to the
+    GEMM, which streams x.
 
     The first, fewest cluster ranks first and then most rows, whose grid
     has GEMV_FILL of a block an SM with steps to walk and that fits 227 KB
@@ -282,9 +286,7 @@ def gemv_tile(M: int, O: int, K: int, qtype: str, R: int = 0) -> GemvTile:
     best = search(rmax) or search(0)
     smem = None if best is None else gemv_smem(M, K, qtype, best[3], R, best[1])
     if smem is None or smem > SMEM_LIMIT:
-        raise NotImplementedError(
-            f"qmatmul GEMV: no tile holds M={M} rows of x at K={K} ({qtype}"
-            + (f", LoRA R={R}" if R else "") + ") in shared memory; ROADMAP queue 2 item 1")
+        return None
     _, warps, wr, kc = best
     return GemvTile(wr, kc, warps, gemv_stages(qtype), smem, 32 * warps,
                     (kc, math.ceil(O / (16 * wr))))

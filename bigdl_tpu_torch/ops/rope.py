@@ -1,10 +1,14 @@
 """Rotary position embeddings (port of bigdl_tpu/ops/rope.py): the
 frequencies, with the HF `rope_scaling` schemes the JAX package computes
 (linear, dynamic NTK, llama3 smoothing, yarn, longrope/su), the cos/sin
-tables and the rotate-half (HF llama) rotation over the whole head, all
-in float32 on the caller's device. A scheme the JAX package does not know
-raises in `check_rope_scaling`, which `models.llama.check_supported`
-calls before a model is built."""
+tables and the rotation, all in float32 on the caller's device. Two
+conventions: rotate-half (HF llama: contiguous halves, the angles
+duplicated over both) and interleaved pairs (GPT-NeoX/GLM/cohere: lanes
+rotated as even/odd pairs, each angle repeated pairwise). Partial rotary
+(phi, stablelm, gpt-neox) rotates only the first R = `rotary_dim` lanes
+of a head, the cos/sin tables' width, and passes the rest through. A
+scheme the JAX package does not know raises in `check_rope_scaling`,
+which `models.llama.check_supported` calls before a model is built."""
 
 from __future__ import annotations
 
@@ -150,11 +154,16 @@ def make_inv_freq_scaled(head_dim: int, theta: float,
 
 
 def rope_cos_sin(positions: torch.Tensor, inv_freq: torch.Tensor,
-                 scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
-    """positions [..., T] int -> float32 cos/sin [..., T, head_dim], the
-    angles duplicated over both halves (HF llama layout)."""
+                 scale: float = 1.0, interleaved: bool = False
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions [..., T] int -> float32 cos/sin [..., T, R], R twice
+    inv_freq's length: the angles duplicated over both halves (HF llama)
+    or repeated pairwise (`interleaved`)."""
     angles = positions.float()[..., None] * inv_freq
-    angles = torch.cat([angles, angles], dim=-1)
+    if interleaved:
+        angles = torch.repeat_interleave(angles, 2, dim=-1)
+    else:
+        angles = torch.cat([angles, angles], dim=-1)
     return torch.cos(angles) * scale, torch.sin(angles) * scale
 
 
@@ -163,20 +172,34 @@ def _rotate_half(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
 
 
-def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x [..., D] rotated by cos/sin broadcast against it, computed in f32
-    and cast back to x's dtype."""
+def _rotate_pairs(x: torch.Tensor) -> torch.Tensor:
+    """Even/odd pair rotation (HF modeling_glm's rotate_half): lane pair
+    (x0, x1) becomes (-x1, x0)."""
+    return torch.stack([-x[..., 1::2], x[..., 0::2]], dim=-1).reshape(x.shape)
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+           interleaved: bool = False) -> torch.Tensor:
+    """x [..., D] rotated by cos/sin [..., R] broadcast against it,
+    computed in f32 and cast back to x's dtype; with R < D only the first
+    R lanes rotate (partial rotary), the others pass through."""
     xf = x.float()
-    return (xf * cos + _rotate_half(xf) * sin).to(x.dtype)
+    R = cos.shape[-1]
+    rot = xf[..., :R] if R < xf.shape[-1] else xf
+    out = rot * cos + (_rotate_pairs(rot) if interleaved else _rotate_half(rot)) * sin
+    if R < xf.shape[-1]:
+        out = torch.cat([out, xf[..., R:]], dim=-1)
+    return out.to(x.dtype)
 
 
 def apply_rotary_emb(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
-                     sin: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """q [B,T,Hq,D], k [B,T,Hk,D], cos/sin [B,T,D] -> rotated, computed
-    in f32 and cast back."""
+                     sin: torch.Tensor, interleaved: bool = False
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """q [B,T,Hq,D], k [B,T,Hk,D], cos/sin [B,T,R] with R <= D ->
+    rotated, computed in f32 and cast back."""
     cos = cos[..., None, :]
     sin = sin[..., None, :]
-    return rotate(q, cos, sin), rotate(k, cos, sin)
+    return rotate(q, cos, sin, interleaved), rotate(k, cos, sin, interleaved)
 
 
 def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:

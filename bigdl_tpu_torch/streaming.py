@@ -7,7 +7,9 @@ oldest `chunk` non-sink slots go at once: the recent region moves left by
 `chunk`. Keys are stored rotated, so the moved keys are re-based by the
 exact `-chunk`-step inverse rotation (rotate(k, p - c) == rotate(rotate(k,
 p), -c)), with the attention scale of yarn/longrope left out (the stored
-keys already carry it). Positions therefore never pass `window`. An
+keys already carry it), in the model's convention: over the first
+`rotary_dim` lanes only under partial rotary, in even/odd pairs under
+`rope_interleaved`. Positions therefore never pass `window`. An
 ALiBi model stores its keys unrotated (its positions are a bias over
 slot distances), so its moved keys are copied as they are.
 
@@ -78,8 +80,10 @@ def make_evict(config: ModelConfig, window: int, sink: int, chunk: int = 1):
                                                device=cache.k.device)
             # the -chunk-step inverse rotation; attention scale 1
             cos, sin = rope_cos_sin(torch.full((1,), -chunk, dtype=torch.int32,
-                                               device=cache.k.device), inv_freq)
-            moved = rotate(cache.k[:, :, sink + chunk:], cos[0], sin[0])
+                                               device=cache.k.device), inv_freq,
+                                    interleaved=config.rope_interleaved)
+            moved = rotate(cache.k[:, :, sink + chunk:], cos[0], sin[0],
+                           config.rope_interleaved)
         else:
             moved = cache.k[:, :, sink + chunk:].clone()
         cache.k[:, :, sink:S - chunk] = moved

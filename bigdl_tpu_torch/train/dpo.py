@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.models.config import ModelConfig
+from bigdl_tpu_torch.train.qlora import fill_missing_grads
 
 
 def sequence_logprob(config: ModelConfig, forward_fn: Callable, model,
@@ -64,6 +65,7 @@ def make_dpo_step(config: ModelConfig, forward_fn: Callable,
         loss, aux = dpo_loss(config, forward_fn, model, lora, chosen, chosen_mask,
                              rejected, rejected_mask, beta=beta)
         loss.backward()
+        fill_missing_grads(optimizer)
         optimizer.step()
         return loss.detach(), aux
 

@@ -154,6 +154,20 @@ def merge_lora(model, lora: LoRA, requantize: Optional[str] = None):
     return model
 
 
+def fill_missing_grads(optimizer: torch.optim.Optimizer) -> None:
+    """Give every trainable parameter of `optimizer` without a gradient a
+    zero one: a leaf the forward never reads (a w_gate adapter over a
+    plain MLP, any adapter of an MoE layer's MLP, the dense MLP biases an
+    MoE tree carries) has a zero gradient in JAX's steps, which
+    differentiate the whole tree, and optax still applies its update
+    (AdamW's weight decay) to it; torch's optimizers skip a parameter
+    whose gradient is None."""
+    for group in optimizer.param_groups:
+        for prm in group["params"]:
+            if prm.grad is None and prm.requires_grad:
+                prm.grad = torch.zeros_like(prm)
+
+
 def next_token_loss(config: ModelConfig, forward_fn: Callable, model,
                     lora: Optional[LoRA], tokens: torch.Tensor,
                     loss_mask: torch.Tensor) -> torch.Tensor:
@@ -175,7 +189,9 @@ def make_train_step(config: ModelConfig, forward_fn: Callable,
     """Returns step(model, lora, tokens, loss_mask) -> loss: one forward,
     backward and `optimizer` update of the adapters in place (build the
     optimizer over `lora.parameters()`, e.g. with `adamw`). Only the
-    adapters train; the base and the scale stay fixed.
+    adapters train; the base and the scale stay fixed. Every adapter gets
+    a gradient, zero where the forward does not read it (JAX's step
+    differentiates the whole tree).
     return_grad_norm=True returns (loss, global norm of the gradients),
     the training supervisor's overflow guard. remat=True recomputes each
     layer in the backward (`forward_fn` takes `remat=`, as llama.forward
@@ -201,6 +217,7 @@ def make_train_step(config: ModelConfig, forward_fn: Callable,
             loss = next_token_loss(config, inner_forward, model, lora, tokens,
                                    loss_mask)
             loss.backward()
+        fill_missing_grads(optimizer)
         norm = None
         if return_grad_norm:
             grads = [p.grad.float() for p in lora.parameters() if p.grad is not None]

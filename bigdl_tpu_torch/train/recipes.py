@@ -31,7 +31,8 @@ from typing import Callable, Optional
 import torch
 
 from bigdl_tpu_torch.models.config import ModelConfig
-from bigdl_tpu_torch.train.qlora import LoRA, init_lora, merge_lora, next_token_loss
+from bigdl_tpu_torch.train.qlora import (LoRA, fill_missing_grads, init_lora, merge_lora,
+                                         next_token_loss)
 
 
 # ---------------------------------------------------------------------------
@@ -128,6 +129,7 @@ def make_full_train_step(config: ModelConfig, forward_fn: Callable,
         optimizer.zero_grad(set_to_none=True)
         loss = next_token_loss(config, forward_fn, model, None, tokens, loss_mask)
         loss.backward()
+        fill_missing_grads(optimizer)
         if layer_mask is not None:
             apply_layer_mask(model.layers, layer_mask)
         if not train_embed:

@@ -179,7 +179,7 @@ the result lines; an exception ends the run at once; nothing is caught):
    of those kernels launched (flash a layer, paged a layer and decode
    step, each flash-train kernel a layer);
 16. checkpoints from disk (run after phase 4): (a) a llama3-8b sym_int4
-   model at full width and 16 of its 32 layers (seed 0; phase 3's model
+   model at full width and 12 of its 32 layers (seed 0; phase 3's model
    until phase 19 joined the script) saved with `save_low_bit`
    (the artifact's GB, the save's seconds and its device-to-host part),
    loaded with `AutoModelForCausalLM.load_low_bit` under verify="fast"
@@ -225,7 +225,7 @@ the result lines; an exception ends the run at once; nothing is caught):
    repeatable tokens, and gemma2's `save_low_bit` -> `load_low_bit`
    keeping them bit for bit.
 18. generation's KV-cache policies and the embedding variants (after
-   phase 16, on phase 16's 16-layer model; phase 3's 32-layer one until
+   phase 16, on phase 16's 12-layer model; phase 3's 32-layer one until
    phase 19 joined the script): (a) SnapKV, four seeded
    prompts of 3,000, 2,400, 1,500 and 700 tokens compressed to 1,024
    slots (window 32, pool 7), 32 greedy tokens: launches (flash a layer at the
@@ -252,7 +252,7 @@ the result lines; an exception ends the run at once; nothing is caught):
    difference), streaming's decode after an eviction, and chat turn 3's
    logits against the plain versions and the kernels' one-shot prefill.
 19. self-speculative and prompt-lookup decoding (after phase 18, on
-   phase 16 (a)'s 16-layer model and a bf16 one of the same seed; phase
+   phase 16 (a)'s 12-layer model and a bf16 one of the same seed; phase
    3's 32-layer model until phase 20 joined the script): (b) a
    512-token prompt (64 seeded tokens, 8 times), 64 greedy tokens under
    BIGDL_TPU_PERFORMANCE_MODE: the switch to prompt lookup, launches (the
@@ -264,7 +264,7 @@ the result lines; an exception ends the run at once; nothing is caught):
    by the margin rule; (a) `generate_speculative` of one 256-token prompt,
    64 greedy tokens, draft_k 4, against the sym_int4 self-draft (adaptive
    off and on) and a perfect draft (the target's weights, twice): launches
-   (32 flash kernels at T = 4 a verify, the draft's GEMV a step), the
+   (a flash kernel a layer at T = 4 a verify, the draft's GEMV a step), the
    teacher-forced rule, the perfect draft's K-1 a round but on near-ties,
    repeatable tokens, a sampled run in the support and repeatable under
    its seed; rounds, acceptance and ms a token beside plain generate of
@@ -313,11 +313,40 @@ the result lines; an exception ends the run at once; nothing is caught):
    2048) over two 3,000-token prompts: a flash launch a layer, the q it
    takes equal to logn_attn=False's times the logn factor bit for bit,
    logits against the plain versions and moved by logn.
+21. the rest of the llama flags (after phase 20): (a) gemma-3-27b
+   (google/gemma-3-27b-it's published text_config: hidden 5376, 32 q
+   heads over 16 of 128, scale 168^-0.5, windows of 1024 on 5 layers of
+   each 6, rope 1e6 x8 on the global layers and 1e4 on the local ones,
+   vocab 262,208 tied) at full width and GEMMA3_LAYERS of its 62 layers
+   in sym_int4, built layer by layer, through `generate` at phase 3's
+   shapes: launches (GEMM 4 x L, GEMV 31 x 4 x L, no flash: windows that
+   are not uniform take the plain attention, JAX's rule) and the same
+   counts in profiled windows, in-vocabulary and repeatable tokens,
+   prefill ms, the decode step's host-set and busy ms, peak memory; 2
+   layers (one local, one global) over a 1,500-token prompt past the
+   window against the plain versions; (b) the paged engine on it over 4
+   prefix-sharing and 4 independent requests of phase 7 (32 tokens):
+   requests/s, TTFT and decode-step quantiles, L paged launches a decode
+   step with each layer's window and the scale, no page leaks, the same
+   tokens from a second run, and `generate`'s tokens by the margin rule;
+   (c) 2 layers of phi-2 (head_dim 80, partial rope, lm head bias),
+   phixtral-4x2_8, starcoder2-15b (a 4,500-token prompt past its 4,096
+   window), c4ai-command-r-v01 (interleaved rope, logit scale), gpt2-xl
+   (learned positions), bloom-7b1 (ALiBi, embedding layernorm) and
+   MiniCPM-2B (its scales) at their published widths: prefill and 2
+   decode steps through the kernels against the plain versions, greedy
+   tokens by the margin rule, flash launches by the dispatch rule; the
+   paged kernel at D = 80 against its plain version (bf16 and fp8 pages,
+   relaunch bit-equal) and phi-2's paged engine against the plain one by
+   the margin rule; (d) a 2-layer HF checkpoint at gemma-3-27b's width
+   under a multimodal checkpoint's `language_model.model.` names, its
+   ingested bytes equal to `params_from_numpy` + `optimize_model`'s.
 
 Every phase ends with one line, `phase N: done in X s, F failed
 checks`. The whole run takes about 900-1100 s of command time on an
 H100 (the host's speed moves it; phase 16 ~110-140 s of it, phase 18
-~100-130 s, phase 19 ~110-135 s, phase 20 ~90-150 s), the kernel builds included (the
+~100-130 s, phase 19 ~110-135 s, phase 20 ~90-150 s, phase 21 ~40-60
+s), the kernel builds included (the
 dequant sources build once per qtype: 36 libraries in 50-90 s).
 It prints one `{"kernels": [...]}` line (the dequant forms carry their
 numbers per format under "by_format"), and as its last line
@@ -347,7 +376,9 @@ PROFILED_PREFILLS, PROFILED_STEPS = 2, 5
 TRAIN_T, RANK, LR = 1024, 8, 1e-4  # bench.py child_train: B=1, T=1024, rank 8
 TRAIN_STEPS, PROFILED_TRAIN_STEPS = 5, 2
 PATH_FORMATS = ("sym_int4", "nf4", "q4_k", "q6_k")  # generation, training, q4_k_m
-HALF_LAYERS = 16  # phases 16 (a), 18 and 19: half of llama3-8b's depth, full width
+# phases 16 (a), 18 and 19: 12 of llama3-8b's 32 layers, full width (16
+# until phase 21 joined the script: a run on a slow host read ~1245 s)
+HALF_LAYERS = 12
 RAGGED_M = (33, 255, 257, 1000, 4096)
 GEMV_CHECK_M, GEMV_R = (1, 3, 4, 8, 17, 32), 128  # the GEMV's row counts (n-tiles 1, 2, 4), adapter width
 # the GEMM's launch (x in its steps' order, then the GEMM) and the LoRA
@@ -400,7 +431,8 @@ def profiled_steps(torch, run, n: int, expect: dict, label: str):
                 run()
                 torch.cuda.synchronize()
                 prof.step()
-        got = {name: sum(e.count for e in prof.key_averages()
+        events = prof.key_averages()  # slow on a long window: once
+        got = {name: sum(e.count for e in events
                          if pat.search(e.key) and e.self_device_time_total > 0)
                for name, (pat, _) in expect.items()}
         if got == want:
@@ -408,7 +440,7 @@ def profiled_steps(torch, run, n: int, expect: dict, label: str):
         log(f"{label}: the profiler recorded {got} device calls, expected {want}"
             + ("; profiling the window again" if attempt == 0 else ""))
         for name, (pat, _) in expect.items():
-            log(f"  {name}: " + "; ".join(f"{e.count} x {e.key[:120]}" for e in prof.key_averages()
+            log(f"  {name}: " + "; ".join(f"{e.count} x {e.key[:120]}" for e in events
                                           if pat.search(e.key)))
     return prof
 
@@ -1001,9 +1033,8 @@ def main() -> int:
             "max_abs_err": errs[kern.name], "ms": on_path(prof_, kern, n, calls),
             "isolated_ms": iso, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": lib, "per": unit})
-    # phases 16 (a) and 18 run a half-depth llama3-8b (full width, seed 0)
-    # since phase 19 joined the script, and phase 19 since phase 20 did,
-    # to keep the run inside its limit
+    # phases 16 (a), 18 and 19 run a llama3-8b of HALF_LAYERS (full width,
+    # seed 0), to keep the run inside its limit
     cfg_half = dataclasses.replace(cfg, num_hidden_layers=HALF_LAYERS)
     tm_half = TorchModel(cfg_half, optimize_model(llama.init_params(cfg_half, seed=0), cfg_half,
                                                   "sym_int4"), "sym_int4")
@@ -1013,7 +1044,7 @@ def main() -> int:
     want_half.update({kernels.GEMM.name: 4 * HALF_LAYERS,
                       kernels.GEMV.name: 1 + (NEW_TOKENS - 1) * (4 * HALF_LAYERS + 1),
                       kernels.FLASH.name: HALF_LAYERS})
-    check(kernels.launch_counts() == want_half, "launch counts of the half-depth model")
+    check(kernels.launch_counts() == want_half, "launch counts of the HALF_LAYERS model")
     # --------------------------------------------------------------- 16
     begin_phase(16)
     checkpoint_phases(torch, dev, tm_half, prompts, out_half, want_half)
@@ -1054,6 +1085,9 @@ def main() -> int:
     # --------------------------------------------------------------- 20
     begin_phase(20)
     moe_phases(torch, dev, card)
+    # --------------------------------------------------------------- 21
+    begin_phase(21)
+    layer_shape_phases(torch, dev, card)
     begin_phase(None)
     for e in entries + train_entries + adapter_entries:
         if e["name"] in by_format:  # the dequant forms: sym_int4 above, then the others
@@ -2876,15 +2910,19 @@ def write_safetensors(path, entries) -> int:
     return 8 + len(head) + off
 
 
-def hf_llama_entries(torch, hf: dict, seed: int, dev):
+def hf_llama_entries(torch, hf: dict, seed: int, dev, prefix: str = ""):
     """An HF llama-shaped checkpoint's tensors as write_safetensors
     entries, per shard (two: the embedding and the first half of the
     layers, then the rest, the final norm and the lm head): bf16 N(0,
     0.02^2) matrices from a seed, made on `dev`, and unit norms (zero
     weights under gemma's (1 + w), the same unit scale). The flags' tensors
     follow each layer's llama ones: q/k/v (and o) biases where the config
-    has them (qwen2's q/k/v always), gemma2's pre/post feed-forward norms,
-    qwen3's q/k norms; a tied head (gemma's default) writes no lm_head."""
+    has them (qwen2's q/k/v always), gemma2's and gemma3's pre/post
+    feed-forward norms, qwen3's and gemma3's q/k norms; a tied head
+    (gemma's default) writes no lm_head. A multimodal config's fields come
+    from its text_config; `prefix` goes before every name (gemma3's
+    multimodal checkpoints: "language_model.")."""
+    hf = {**hf, **hf.get("text_config", {})}
     H, I, V = hf["hidden_size"], hf["intermediate_size"], hf["vocab_size"]
     mt = hf["model_type"]
     L = hf["num_hidden_layers"]
@@ -2916,32 +2954,34 @@ def hf_llama_entries(torch, hf: dict, seed: int, dev):
         if hf.get("attention_bias", mt == "qwen2"):
             parts += [(f"self_attn.{n}_proj.bias", (r,), mat((r,)))
                       for n, r in (("q", QD), ("k", KD), ("v", KD))]
-        if mt == "gemma2":
+        if mt.startswith(("gemma2", "gemma3")):
             parts += [(n, (H,), ones(H)) for n in ("pre_feedforward_layernorm.weight",
                                                    "post_feedforward_layernorm.weight")]
         if mt == "qwen3":
             parts += [(f"self_attn.{n}_norm.weight", (D,), lambda: torch.ones(D, dtype=torch.bfloat16))
                       for n in ("q", "k")]
-        return [(p + n, torch.bfloat16, shape, fn) for n, shape, fn in parts]
+        if mt.startswith("gemma3"):
+            parts += [(f"self_attn.{n}_norm.weight", (D,), ones(D)) for n in ("q", "k")]
+        return [(prefix + p + n, torch.bfloat16, shape, fn) for n, shape, fn in parts]
 
-    first = [("model.embed_tokens.weight", torch.bfloat16, (V, H), mat((V, H)))]
+    first = [(prefix + "model.embed_tokens.weight", torch.bfloat16, (V, H), mat((V, H)))]
     second = []
     for i in range(L):
         (first if i < L // 2 else second).extend(layer(i))
-    second.append(("model.norm.weight", torch.bfloat16, (H,), ones(H)))
+    second.append((prefix + "model.norm.weight", torch.bfloat16, (H,), ones(H)))
     if not hf.get("tie_word_embeddings", gemma):
-        second.append(("lm_head.weight", torch.bfloat16, (V, H), mat((V, H))))
+        second.append((prefix + "lm_head.weight", torch.bfloat16, (V, H), mat((V, H))))
     return [first, second]
 
 
-def write_hf_checkpoint(torch, root, hf: dict, seed: int, dev) -> int:
-    """config.json, two safetensors shards and their index under `root`;
-    returns the bytes of the shards."""
+def write_hf_checkpoint(torch, root, hf: dict, seed: int, dev, prefix: str = "") -> int:
+    """config.json, two safetensors shards and their index under `root`
+    (tensor names after `prefix`); returns the bytes of the shards."""
     root = Path(root)
     root.mkdir(parents=True, exist_ok=True)
     (root / "config.json").write_text(json.dumps(hf, indent=1))
     weight_map, total = {}, 0
-    shards = hf_llama_entries(torch, hf, seed, dev)
+    shards = hf_llama_entries(torch, hf, seed, dev, prefix)
     for k, entries in enumerate(shards):
         name = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
         total += write_safetensors(root / name, entries)
@@ -2957,7 +2997,7 @@ def dir_bytes(path) -> int:
 
 def checkpoint_phases(torch, dev, tm, prompts, want_tokens, want_launches, hf=LLAMA3_8B_HF) -> None:
     """Phase 16: checkpoints from disk to the card. (a) `tm` (in the run,
-    a 16-layer llama3-8b sym_int4 model) saved as the low-bit artifact,
+    a 12-layer llama3-8b sym_int4 model) saved as the low-bit artifact,
     loaded back (verify fast and full), verified, and generating its
     tokens `want_tokens` with its launches `want_launches`; (b) an HF checkpoint of llama3-8b's published
     config at 4 layers, written with the script's safetensors writer,
@@ -4089,7 +4129,7 @@ def cache_policy_phases(torch, dev, card, tm, prompts, tok, st, want_tokens,
                         snap_lens=SNAP_LENS, budget=SNAP_BUDGET, stream_len=STREAM_LEN,
                         stream_window=STREAM_WINDOW, stream_new=STREAM_NEW,
                         chat_turns=CHAT_TURNS, chat_window=CHAT_WINDOW, chat_new=CHAT_NEW) -> None:
-    """Phase 18, on `tm` (in the run, phase 16's 16-layer model; its
+    """Phase 18, on `tm` (in the run, phase 16's 12-layer model; its
     prompts, padded tokens `tok` and starts `st`, and its greedy tokens
     `want_tokens`): (a) SnapKV,
     (b) attention-sink streaming, (c) a chat session, (d) the embedding
@@ -5164,6 +5204,126 @@ def moe_configs():
             "qwen": ModelConfig(**QWEN_7B)}
 
 
+# the model-level helpers of phases 20 and 21: wall times, a dense cache's
+# logits through the kernels against the plain versions, the paged engine
+
+
+def wall_ms(torch, fn) -> float:
+    """fn's wall time in ms, the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def quantile(xs, f):
+    xs = sorted(xs)
+    return xs[min(int(f * len(xs)), len(xs) - 1)]
+
+
+def ragged_prompts(V):
+    """Phase 3's B = 4 ragged prompts, seeded, in [0, V)."""
+    import numpy as np
+
+    return [list(np.random.default_rng(i).integers(0, V, n)) for i, n in enumerate(PROMPT_LENS)]
+
+
+def dense_logits(torch, dev, cfg, model, toks, start, n_decode=0, feed=None):
+    """Prefill last logits over a dense cache, then n_decode decode steps
+    fed `feed` [B, n_decode] (greedy when None): ([n_decode + 1, B, V]
+    float32, the tokens fed or None)."""
+    from bigdl_tpu_torch.kvcache import init_cache
+    from bigdl_tpu_torch.models import llama
+
+    cache = dataclasses.replace(
+        init_cache(cfg.num_hidden_layers, toks.shape[0], toks.shape[1] + n_decode + 8,
+                   cfg.num_key_value_heads, cfg.head_dim_, device=dev), start=start)
+    out, fed = [], []
+    with torch.inference_mode():
+        logits, cache = llama.forward(cfg, model, toks, cache, "prefill", last_logits_only=True)
+        out.append(logits[:, -1])
+        for i in range(n_decode):
+            fed.append(out[-1].argmax(-1) if feed is None else feed[:, i])
+            logits, cache = llama.forward(cfg, model, fed[-1][:, None], cache, "decode")
+            out.append(logits[:, -1])
+    return torch.stack(out), (torch.stack(fed, 1) if fed else None)
+
+
+def logits_vs_plain(torch, dev, phase, label, cfg, model, toks, start, n_decode=0, margin=False):
+    """Logits through the kernels against the plain versions fed the same
+    tokens, phase 3's bound (2 % of the largest plain logit); with
+    `margin`, the greedy tokens by the margin rule too (a differing token
+    only where the plain run's top-1/top-2 margin is within MARGIN_TOL).
+    Returns the kernels' logits."""
+    from bigdl_tpu_torch.ops import kernels
+
+    kern, fed = dense_logits(torch, dev, cfg, model, toks, start, n_decode)
+    with mock.patch.multiple(kernels, **plain_kernels(kernels)):
+        ref, _ = dense_logits(torch, dev, cfg, model, toks, start, n_decode, feed=fed)
+    err, tol = (kern - ref).abs().max().item(), 0.02 * ref.abs().max().item()
+    line = (f"phase {phase} {label}: logits through the kernels vs plain: max_abs_err={err:.6g} "
+            f"tol={tol:.6g}")
+    ties = []
+    if margin:
+        top = ref.topk(2, dim=-1).values
+        differ = kern.argmax(-1) != ref.argmax(-1)
+        ties = (top[..., 0] - top[..., 1])[differ].tolist()
+        line += (f"; greedy tokens differing at {len(ties)} of {differ.numel()} (plain margins "
+                 f"{[round(m, 4) for m in ties]}, tol {MARGIN_TOL})")
+    log(line)
+    check(bool(torch.isfinite(kern).all()) and err <= tol,
+          f"phase {phase} {label}: kernels vs plain")
+    check(all(m <= MARGIN_TOL for m in ties), f"phase {phase} {label}: greedy tokens by the "
+                                              "margin rule")
+    return kern
+
+
+def serve_paged(torch, phase, tm, specs, logprobs_top_k=0, record=None):
+    """The paged engine at phase 8's settings over `specs`, every request
+    to its budget and no page leaked: (requests, seconds, decode steps,
+    TTFT and decode-step observations); `record` collects each paged
+    launch's (layer, window, scale)."""
+    from bigdl_tpu_torch.ops import kernels
+    from bigdl_tpu_torch.serving import InferenceEngine
+
+    eng = InferenceEngine(tm, n_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, paged=True,
+                          logprobs_top_k=logprobs_top_k)
+    seen = {"ttft": [], "step": []}
+    for key, hist in (("ttft", eng.ttft), ("step", eng.decode_step_seconds)):
+        hist.observe = (lambda h, out: lambda x: (out.append(x), type(h).observe(h, x)))(
+            hist, seen[key])
+    real = kernels.paged_attention
+
+    def recorded(q_, k_pages, v_pages, block_tables, layer, *a, **kw_):
+        record.append((layer, kw_.get("window"), kw_.get("scale")))
+        return real(q_, k_pages, v_pages, block_tables, layer, *a, **kw_)
+
+    with (mock.patch.object(kernels, "paged_attention", recorded) if record is not None
+          else contextlib.nullcontext()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(**sp) for sp in specs]
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    check(eng.page_leaks() == 0, f"phase {phase}: the engine's page leaks after the drain")
+    check(all(r.finish_reason == "length" and len(r.out_tokens) == sp["max_new_tokens"]
+              for r, sp in zip(reqs, specs)), f"phase {phase}: every request finishes with its "
+                                              "budget")
+    return reqs, sec, eng.decode_step_seconds.count, seen
+
+
+def serve_text(reqs, sec, steps, seen):
+    ntok = sum(len(r.out_tokens) for r in reqs)
+    return (f"{len(reqs)} requests, {SLOTS} slots, pages of {PAGE}: {sec:.3f} s = "
+            f"{len(reqs) / sec:.3f} requests/s, {ntok / sec:.1f} generated tokens/s; TTFT ms "
+            f"median={quantile(seen['ttft'], .5) * 1e3:.3f} "
+            f"p90={quantile(seen['ttft'], .9) * 1e3:.3f}; decode step ms "
+            f"median={quantile(seen['step'], .5) * 1e3:.3f} "
+            f"p90={quantile(seen['step'], .9) * 1e3:.3f} (n={steps})")
+
+
 def moe_phases(torch, dev, card, configs=None, logn_prompt=LOGN_PROMPT) -> None:
     """Phase 20: (a) mixtral-8x7b through `generate` (launches, tokens,
     times, the experts' share of a decode step, peak memory; 2 layers
@@ -5180,81 +5340,21 @@ def moe_phases(torch, dev, card, configs=None, logn_prompt=LOGN_PROMPT) -> None:
     from bigdl_tpu_torch.kvcache import init_cache
     from bigdl_tpu_torch.models import llama
     from bigdl_tpu_torch.ops import kernels
-    from bigdl_tpu_torch.serving import InferenceEngine
 
     configs = configs or moe_configs()
-    plain = plain_kernels(kernels)
-
-    def wall_ms(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
-    def q(xs, f):
-        xs = sorted(xs)
-        return xs[min(int(f * len(xs)), len(xs) - 1)]
-
-    def ragged(V):
-        return [list(np.random.default_rng(i).integers(0, V, n)) for i, n in enumerate(PROMPT_LENS)]
 
     def build(cfg, seed):
         """`init_params(low_bit=)`: each layer quantized as it is made."""
         return optimize_model(llama.init_params(cfg, seed=seed, device=dev, low_bit="sym_int4"), cfg)
 
     def last_logits(cfg, model, toks, start, n_decode=0):
-        """Prefill last logits over a dense cache, then n_decode greedy
-        steps: [n_decode + 1, B, V] float32."""
-        cache = dataclasses.replace(
-            init_cache(cfg.num_hidden_layers, toks.shape[0], toks.shape[1] + n_decode + 8,
-                       cfg.num_key_value_heads, cfg.head_dim_, device=dev), start=start)
-        out = []
-        with torch.inference_mode():
-            logits, cache = llama.forward(cfg, model, toks, cache, "prefill", last_logits_only=True)
-            out.append(logits[:, -1])
-            for _ in range(n_decode):
-                logits, cache = llama.forward(cfg, model, out[-1].argmax(-1)[:, None], cache,
-                                              "decode")
-                out.append(logits[:, -1])
-        return torch.stack(out)
+        return dense_logits(torch, dev, cfg, model, toks, start, n_decode)[0]
 
     def vs_plain(label, cfg, model, toks, start, n_decode=0):
-        """Logits through the kernels against the plain versions, phase 3's
-        bound (2 % of the largest plain logit); returns the kernels' ones."""
-        kern = last_logits(cfg, model, toks, start, n_decode)
-        with mock.patch.multiple(kernels, **plain):
-            ref = last_logits(cfg, model, toks, start, n_decode)
-        err, tol = (kern - ref).abs().max().item(), 0.02 * ref.abs().max().item()
-        log(f"phase 20 {label}: logits through the kernels vs plain: max_abs_err={err:.6g} "
-            f"tol={tol:.6g}")
-        check(bool(torch.isfinite(kern).all()) and err <= tol, f"phase 20 {label}: kernels vs plain")
-        return kern
+        return logits_vs_plain(torch, dev, 20, label, cfg, model, toks, start, n_decode)
 
     def serve(tm, specs):
-        """The paged engine at phase 8's settings over `specs`: (requests,
-        seconds, decode steps, TTFT and decode-step observations)."""
-        eng = InferenceEngine(tm, n_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, paged=True)
-        seen = {"ttft": [], "step": []}
-        for key, hist in (("ttft", eng.ttft), ("step", eng.decode_step_seconds)):
-            hist.observe = (lambda h, out: lambda x: (out.append(x), type(h).observe(h, x)))(
-                hist, seen[key])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        reqs = [eng.submit(**sp) for sp in specs]
-        eng.run_until_idle()
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        check(eng.page_leaks() == 0, "phase 20: the engine's page leaks after the drain")
-        return reqs, sec, eng.decode_step_seconds.count, seen
-
-    def serve_text(reqs, sec, steps, seen):
-        ntok = sum(len(r.out_tokens) for r in reqs)
-        return (f"{len(reqs)} requests, {SLOTS} slots, pages of {PAGE}: {sec:.3f} s = "
-                f"{len(reqs) / sec:.3f} requests/s, {ntok / sec:.1f} generated tokens/s; TTFT ms "
-                f"median={q(seen['ttft'], .5) * 1e3:.3f} p90={q(seen['ttft'], .9) * 1e3:.3f}; decode "
-                f"step ms median={q(seen['step'], .5) * 1e3:.3f} p90={q(seen['step'], .9) * 1e3:.3f} "
-                f"(n={steps})")
+        return serve_paged(torch, 20, tm, specs)
 
     # (a) mixtral-8x7b through generate ---------------------------------
     cfg = configs["mixtral"]
@@ -5281,7 +5381,7 @@ def moe_phases(torch, dev, card, configs=None, logn_prompt=LOGN_PROMPT) -> None:
         f"{build_peak:.3f} GiB (the dense bf16 model would be {dense_gib:.3f} GiB); dispatch "
         f"{llama.resolve_moe_dispatch(cfg)}")
     check(build_peak < dense_gib, "phase 20 (a): the build never holds the dense model")
-    prompts = ragged(V)
+    prompts = ragged_prompts(V)
     kernels.reset_launches()
     with routes_recorded(torch, llama) as gen_routes:
         out1 = tm.generate(prompts, max_new_tokens=NEW_TOKENS)
@@ -5300,7 +5400,7 @@ def moe_phases(torch, dev, card, configs=None, logn_prompt=LOGN_PROMPT) -> None:
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(bool((out1 == out2).all()), "phase 20 (a): identical tokens on a second call")
     routing_rule(torch, cfg, tm.params, prompts, out1, gen_routes)
-    prefill_ms = sorted(wall_ms(lambda: tm.generate(prompts, 1)) for _ in range(3))
+    prefill_ms = sorted(wall_ms(torch, lambda: tm.generate(prompts, 1)) for _ in range(3))
     tokens, st = pad_prompts(prompts, 0)
     tok = torch.as_tensor(tokens, dtype=torch.long, device=dev)
     stt = torch.as_tensor(st, device=dev)
@@ -5317,7 +5417,7 @@ def moe_phases(torch, dev, card, configs=None, logn_prompt=LOGN_PROMPT) -> None:
             lg, box[0] = llama.forward(cfg, tm.params, box[1][:, None], box[0], "decode")
             box[1] = lg[:, -1].argmax(-1)
 
-        step_ms = [wall_ms(step) for _ in range(n_steps)]
+        step_ms = [wall_ms(torch, step) for _ in range(n_steps)]
         prof = profiled_steps(torch, step, 3, {kernels.GEMV.name: (
             re.compile(r"namespace\)::gemv_kernel"), (2 * L + 1) * 3)}, "phase 20 (a) decode")
         # one layer's MoE block at the decode step's shape, isolated: the
@@ -5330,7 +5430,7 @@ def moe_phases(torch, dev, card, configs=None, logn_prompt=LOGN_PROMPT) -> None:
                            iters=5)
     del cache, logits, box
     busy = sum(e.self_device_time_total for e in device_kernels(prof)) / 1e3 / 3 or math.nan
-    med = q(step_ms, 0.5)
+    med = quantile(step_ms, 0.5)
     log(f"phase 20 (a): mixtral-8x7b {L} layers sym_int4 B={len(prompts)} prompt bucket "
         f"{tokens.shape[1]}: prefill_ms (generate of 1 token) median={prefill_ms[1]:.3f} "
         f"min={prefill_ms[0]:.3f} max={prefill_ms[-1]:.3f} (n=3); decode step ms (host-set) "
@@ -5365,12 +5465,10 @@ def moe_phases(torch, dev, card, configs=None, logn_prompt=LOGN_PROMPT) -> None:
     kernels.reset_launches()
     reqs, sec, steps, seen = serve(tm, specs)
     paged_n = kernels.launch_counts()[kernels.PAGED.name]
-    moe_step = q(seen["step"], .5) * 1e3
+    moe_step = quantile(seen["step"], .5) * 1e3
     log(f"phase 20 (b): mixtral engine paged bf16, {serve_text(reqs, sec, steps, seen)}; paged "
         f"launches {paged_n} ({L} a decode step)")
     check(paged_n == L * steps and steps > 0, f"phase 20 (b): {L} paged launches a decode step")
-    check(all(r.finish_reason == "length" and len(r.out_tokens) == NEW_TOKENS for r in reqs),
-          "phase 20 (b): every request finishes with its budget")
     again = serve(tm, specs)[0]
     check(all(a.out_tokens == b.out_tokens for a, b in zip(reqs, again)),
           "phase 20 (b): identical tokens on a second run")
@@ -5475,6 +5573,439 @@ def moe_phases(torch, dev, card, configs=None, logn_prompt=LOGN_PROMPT) -> None:
     check(diff > 0, "phase 20 (e): logn moves the logits past logn_train_len")
     del model, seen_q
     torch.cuda.empty_cache()
+
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the rest of the llama flags (gemma3, the layer shapes, phixtral)
+# ---------------------------------------------------------------------------
+
+# google/gemma-3-27b-it's published config.json, its text_config (the
+# vision tower's fields left out)
+GEMMA3_27B_HF = {
+    "architectures": ["Gemma3ForConditionalGeneration"], "model_type": "gemma3",
+    "text_config": {
+        "model_type": "gemma3_text", "vocab_size": 262208, "hidden_size": 5376,
+        "intermediate_size": 21504, "num_hidden_layers": 62, "num_attention_heads": 32,
+        "num_key_value_heads": 16, "head_dim": 128, "query_pre_attn_scalar": 168,
+        "sliding_window": 1024, "sliding_window_pattern": 6, "rope_theta": 1000000.0,
+        "rope_scaling": {"rope_type": "linear", "factor": 8.0},
+        "rope_local_base_freq": 10000.0, "rms_norm_eps": 1e-06,
+        "max_position_embeddings": 131072, "hidden_activation": "gelu_pytorch_tanh",
+        "final_logit_softcapping": None, "attn_logit_softcapping": None,
+        "torch_dtype": "bfloat16"},
+}
+# (a) and (b): 12 of gemma-3-27b's 62 layers (2 cycles of 5 local layers
+# and 1 global), full width: at 62 the whole run read ~965 s on one H100
+# host, at 48 ~1245 s on a slower one (PERF.md)
+GEMMA3_LAYERS = 12
+GEMMA3_LONG = 1500  # (a)'s 2-layer check: past the 1,024 window
+# the published config.json values of each layer shape (the port's
+# translation of it, cut to FLAGS_LAYERS layers after the translation, so
+# that MiniCPM's residual scale keeps its 40 layers' 1.4 / sqrt(40))
+LAYER_SHAPES_HF = {
+    "phi-2": {"model_type": "phi", "vocab_size": 51200, "hidden_size": 2560,
+              "intermediate_size": 10240, "num_hidden_layers": 32, "num_attention_heads": 32,
+              "num_key_value_heads": 32, "partial_rotary_factor": 0.4, "layer_norm_eps": 1e-05,
+              "hidden_act": "gelu_new", "max_position_embeddings": 2048, "rope_theta": 10000.0,
+              "qk_layernorm": False, "tie_word_embeddings": False},
+    "phixtral-4x2_8": {"model_type": "phi-msft", "vocab_size": 51200, "n_embd": 2560, "n_head": 32,
+                       "n_layer": 32, "n_inner": None, "n_positions": 2048, "rotary_dim": 32,
+                       "num_local_experts": 4, "num_experts_per_tok": 2,
+                       "activation_function": "gelu_new", "layer_norm_epsilon": 1e-05,
+                       "tie_word_embeddings": False},
+    "starcoder2-15b": {"model_type": "starcoder2", "vocab_size": 49152, "hidden_size": 6144,
+                       "intermediate_size": 24576, "num_hidden_layers": 40,
+                       "num_attention_heads": 48, "num_key_value_heads": 4, "sliding_window": 4096,
+                       "rope_theta": 100000, "max_position_embeddings": 16384, "use_bias": True,
+                       "norm_epsilon": 1e-05, "hidden_act": "gelu_pytorch_tanh"},
+    "c4ai-command-r-v01": {"model_type": "cohere", "vocab_size": 256000, "hidden_size": 8192,
+                           "intermediate_size": 22528, "num_hidden_layers": 40,
+                           "num_attention_heads": 64, "num_key_value_heads": 64,
+                           "layer_norm_eps": 1e-05, "logit_scale": 0.0625, "rope_theta": 8000000.0,
+                           "max_position_embeddings": 8192, "use_qk_norm": False,
+                           "tie_word_embeddings": True, "hidden_act": "silu"},
+    "gpt2-xl": {"model_type": "gpt2", "vocab_size": 50257, "n_embd": 1600, "n_layer": 48,
+                "n_head": 25, "n_positions": 1024, "activation_function": "gelu_new",
+                "layer_norm_epsilon": 1e-05},
+    "bloom-7b1": {"model_type": "bloom", "vocab_size": 250880, "hidden_size": 4096, "n_layer": 30,
+                  "n_head": 32, "layer_norm_epsilon": 1e-05},
+    "MiniCPM-2B": {"model_type": "minicpm", "vocab_size": 122753, "hidden_size": 2304,
+                   "intermediate_size": 5760, "num_hidden_layers": 40, "num_attention_heads": 36,
+                   "num_key_value_heads": 36, "rms_norm_eps": 1e-05, "rope_theta": 10000.0,
+                   "max_position_embeddings": 4096, "scale_emb": 12, "scale_depth": 1.4,
+                   "dim_model_base": 256, "tie_word_embeddings": True, "hidden_act": "silu"},
+}
+SHAPES_DECODE = 2  # (c): greedy decode steps after each prefill
+SHAPES_SERVE_REQS = 4  # (b), (c): 4 prefix-sharing and 4 independent requests of phase 7
+
+
+def layer_shape_configs():
+    """Phase 21's configurations: gemma-3-27b at GEMMA3_LAYERS of its 62
+    layers, and each layer shape at FLAGS_LAYERS layers of its width."""
+    from bigdl_tpu_torch import ModelConfig
+
+    out = {"gemma3": dataclasses.replace(ModelConfig.from_hf_config(GEMMA3_27B_HF),
+                                         num_hidden_layers=GEMMA3_LAYERS)}
+    out.update({name: dataclasses.replace(ModelConfig.from_hf_config(hf),
+                                          num_hidden_layers=FLAGS_LAYERS)
+                for name, hf in LAYER_SHAPES_HF.items()})
+    return out
+
+
+def layer_shape_phases(torch, dev, card, configs=None, long_prompt=GEMMA3_LONG,
+                       hf=GEMMA3_27B_HF) -> None:
+    """Phase 21: (a) gemma-3-27b at full width through `generate`
+    (launches, tokens, times, peak memory; 2 layers against the plain
+    versions past the window); (b) the paged engine on it (each layer's
+    window and scale on the paged kernel, its tokens as `generate`'s by
+    the margin rule); (c) each layer shape at 2 layers against the plain
+    versions, and phi-2's paged engine at head_dim 80; (d) gemma3's HF
+    ingest under a multimodal checkpoint's names. `configs` replaces
+    `layer_shape_configs()` and `hf` the checkpoint's config (a CPU
+    rehearsal at narrow widths)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from bigdl_tpu_torch import AutoModelForCausalLM, TorchModel, optimize_model
+    from bigdl_tpu_torch.convert import hf as hf_mod
+    from bigdl_tpu_torch.convert import params_from_numpy
+    from bigdl_tpu_torch.generate import pad_prompts
+    from bigdl_tpu_torch.kvcache import init_cache
+    from bigdl_tpu_torch.models import llama
+    from bigdl_tpu_torch.ops import kernels
+    from bigdl_tpu_torch.ops.kernels.paged_attention import split_chunk
+    from bigdl_tpu_torch.ops.kernels.qtile import gemv_tile
+    from bigdl_tpu_torch.quant import ARRAY_FIELDS
+
+    configs = configs or layer_shape_configs()
+    plain = plain_kernels(kernels)
+    t_phase = time.time()
+
+    def build(cfg, seed):
+        """`init_params(low_bit=)` (each layer quantized as it is made), a
+        (1 + w) model's norms at the unit scale, then fused."""
+        model = llama.init_params(cfg, seed=seed, device=dev, low_bit="sym_int4")
+        if cfg.rms_norm_offset:
+            unit_norms(torch, model)
+        return optimize_model(model, cfg)
+
+    def vs_plain(label, cfg, model, toks, start, n_decode=SHAPES_DECODE):
+        return logits_vs_plain(torch, dev, 21, label, cfg, model, toks, start, n_decode,
+                               margin=True)
+
+    def serve(tm, specs, record=None):
+        return serve_paged(torch, 21, tm, specs, logprobs_top_k=2, record=record)
+
+    def margin_rule(label, reqs, other):
+        """Each request's tokens as `other`'s ([tokens] a request), or a
+        first difference where the request's own top-1/top-2 logprob
+        margin is within MARGIN_TOL."""
+        ties = []
+        for i, (r, o) in enumerate(zip(reqs, other)):
+            d = next((j for j, (x, y) in enumerate(zip(r.out_tokens, o)) if x != int(y)), None)
+            if d is not None:
+                top = sorted(r.out_top_logprobs[d].values(), reverse=True)
+                ties.append((i, d, round(top[0] - top[1], 4)))
+        log(f"phase 21 {label}: requests differing (request, first token, margin) {ties}, "
+            f"tol {MARGIN_TOL}")
+        check(all(m <= MARGIN_TOL for _, _, m in ties), f"phase 21 {label}: the margin rule")
+
+    def paged_vs_plain(label, cfg, seed, windows=(None,)):
+        """The paged kernel (bf16 and fp8 pages) against its plain version
+        at the model's heads, head_dim and attention scale, at the engine's
+        decode shape (8 rows of up to 2,048 slots), with each of `windows`:
+        each element within 2^-7 |ref| + 1e-5, relaunched bit-equal."""
+        Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+        scale = cfg.attn_scale
+        g = torch.Generator(device=dev).manual_seed(seed)
+        pos = (2047, 1100, 64, 0, 1500, 5, 700, 1999)
+        for fp8 in (False, True):
+            kern = kernels.PAGED_FP8 if fp8 else kernels.PAGED
+            k, v, ks, vs, bt, p, _, _ = paged_operands(torch, dev, g, 2, Hkv, D, pos, fp8)
+            st_ = torch.zeros(len(pos), dtype=torch.int32, device=dev)
+            qv = torch.randn((len(pos), Hq, D), device=dev, generator=g).bfloat16()
+            for window in windows:
+                kw = dict(scale=scale, window=window)
+                before = kern.launches
+                y = kernels.paged_attention(qv, k, v, bt, 1, p, st_, ks, vs, **kw)
+                same = torch.equal(y, kernels.paged_attention(qv, k, v, bt, 1, p, st_, ks, vs, **kw))
+                launched = kern.launches - before
+                y = y.float()
+                ref = kernels.paged_attention_plain(qv, k, v, bt, 1, p, st_, ks, vs, **kw).float()
+                err = (y - ref).abs().max().item()
+                within = bool(((y - ref).abs() <= 2 ** -7 * ref.abs() + 1e-5).all())
+                log(f"phase 21 {label}: {kern.name} B={len(pos)} Hq={Hq} Hkv={Hkv} D={D} "
+                    f"scale={'D^-0.5' if scale is None else f'{scale:.6g}'} window={window} pos={pos} "
+                    f"chunk={split_chunk(len(pos), Hkv, MAX_LEN)} max_abs_err={err:.6g} "
+                    f"tol=2^-7*|ref|+1e-5 per element; launches {launched}; relaunch bit-equal "
+                    f"{same}")
+                check(launched == 2 and bool(torch.isfinite(y).all()) and within and same,
+                      f"phase 21 {label}: {kern.name} at D={D} window={window}")
+
+    def phi_engine(cfg, model, seed):
+        """phi-2's head_dim 80: the paged kernel's D = 80 instantiation
+        against its plain version, then phase 7's 8 requests of NEW_TOKENS
+        through the paged engine on the kernels and on the plain versions:
+        paged launches = layers x decode steps, the kernels' tokens as the
+        plain engine's by the margin rule."""
+        D = cfg.head_dim_
+        paged_vs_plain("(c) phi-2", cfg, seed)
+        shared_, indep_ = serving_traffic(cfg.vocab_size)
+        specs_ = [dict(prompt=sp["prompt"], max_new_tokens=NEW_TOKENS)
+                  for sp in shared_[:SHAPES_SERVE_REQS] + indep_[:SHAPES_SERVE_REQS]]
+        tm_ = TorchModel(cfg, model, "sym_int4", device=dev)
+        kernels.reset_launches()
+        kreqs, sec_, steps_, seen_ = serve(tm_, specs_)
+        paged_ = kernels.PAGED.launches
+        log(f"phase 21 (c) phi-2: engine paged bf16 (head_dim {D}), "
+            f"{serve_text(kreqs, sec_, steps_, seen_)}; paged launches {paged_}")
+        check(paged_ == cfg.num_hidden_layers * steps_ and steps_ > 0,
+              "phase 21 (c) phi-2: paged launches = layers x decode steps")
+        with mock.patch.multiple(kernels, **plain):
+            preqs = serve(tm_, specs_)[0]
+        margin_rule("(c) phi-2's engine, kernels against the plain versions", preqs,
+                    [r.out_tokens for r in kreqs])
+
+    # (a) gemma-3-27b through generate --------------------------------------
+    cfg = configs["gemma3"]
+    L, V, H = cfg.num_hidden_layers, cfg.vocab_size, cfg.hidden_size
+    per_layer = H * (cfg.q_dim + cfg.kv_dim) * 2 + 3 * cfg.intermediate_size * H
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    model = build(cfg, 60)
+    tm = TorchModel(cfg, model, "sym_int4", device=dev)
+    torch.cuda.synchronize()
+    build_s = time.time() - t
+    model_gib = torch.cuda.memory_allocated() / 2**30 - base_gib
+    build_peak = torch.cuda.max_memory_allocated() / 2**30 - base_gib
+    log(f"phase 21 (a): card {card}")
+    log(f"phase 21 (a): gemma-3-27b {L} of 62 layers (hidden {H}, {cfg.num_attention_heads} q heads "
+        f"over {cfg.num_key_value_heads}, head_dim {cfg.head_dim_}, scale {cfg.attn_scale:.6g}, "
+        f"window {cfg.sliding_window} on {sum(cfg.layer_is_sliding(i) for i in range(L))} layers, "
+        f"rope {cfg.rope_theta:g} x{cfg.rope_scaling_dict['factor']:g} global, "
+        f"{cfg.rope_local_theta:g} local; {per_layer * L / 1e9:.3f} G layer weights, vocab {V} tied) "
+        f"sym_int4 built layer by layer in {build_s:.1f} s: {model_gib:.3f} GiB on the card, peak "
+        f"during the build {build_peak:.3f} GiB; routes: prefill "
+        f"{routes_text(llama, cfg, 'dense', 'prefill', 2)}; paged decode "
+        f"{routes_text(llama, cfg, 'paged', 'decode', 1, True)}")
+    prompts = [[x % V for x in p_] for p_ in ragged_prompts(V)]
+    kernels.reset_launches()
+    out1 = tm.generate(prompts, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want = {k.name: 0 for k in kernels.KERNELS}
+    want.update({kernels.GEMM.name: 4 * L, kernels.GEMV.name: (NEW_TOKENS - 1) * 4 * L})
+    log(f"phase 21 (a): launches {launches} expected {want} (no lm head launch: the tied head "
+        "is the dense embedding; no flash launch: windows that are not uniform, JAX's rule)")
+    check(launches == want, "phase 21 (a): gemma3 launch counts")
+    check(out1.shape == (len(prompts), NEW_TOKENS) and bool(((out1 >= 0) & (out1 < V)).all()),
+          "phase 21 (a): tokens in the vocabulary")
+    torch.cuda.reset_peak_memory_stats()
+    out2 = tm.generate(prompts, max_new_tokens=NEW_TOKENS)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(bool((out1 == out2).all()), "phase 21 (a): identical tokens on a second call")
+    prefill_ms = sorted(wall_ms(torch, lambda: tm.generate(prompts, 1)) for _ in range(3))
+    tokens, st = pad_prompts(prompts, 0)
+    tok = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+    stt = torch.as_tensor(st, device=dev)
+    Hkv, D = cfg.num_key_value_heads, cfg.head_dim_
+    n_steps = 8
+
+    def new_cache():
+        return dataclasses.replace(init_cache(L, len(prompts), tokens.shape[1] + 2 * n_steps + 16,
+                                              Hkv, D, device=dev), start=stt)
+
+    with torch.inference_mode():
+        prof_pre = profiled_steps(torch, lambda: llama.forward(
+            cfg, tm.params, tok, new_cache(), "prefill", last_logits_only=True), 1, {
+                kernels.GEMM.name: (GEMM_EVENT, 2 * 4 * L),
+                kernels.FLASH.name: (re.compile(r"namespace\)::flash_kernel"), 0)},
+            "phase 21 (a) prefill")
+        logits, cache = llama.forward(cfg, tm.params, tok, new_cache(), "prefill",
+                                      last_logits_only=True)
+        box = [cache, logits[:, -1].argmax(-1)]
+
+        def step():
+            lg, box[0] = llama.forward(cfg, tm.params, box[1][:, None], box[0], "decode")
+            box[1] = lg[:, -1].argmax(-1)
+
+        step_ms = [wall_ms(torch, step) for _ in range(n_steps)]
+        prof = profiled_steps(torch, step, 3, {kernels.GEMV.name: (
+            re.compile(r"namespace\)::gemv_kernel"), 4 * L * 3)}, "phase 21 (a) decode")
+    del cache, logits, box
+    # the windows' device kernels, read once (key_averages is slow on a
+    # window over many layers)
+    pre_k, dec_k = device_kernels(prof_pre), device_kernels(prof)
+    gemm_n = sum(e.count for e in pre_k if GEMM_EVENT.search(e.key))
+    gemv_n = sum(e.count for e in dec_k if re.search(r"namespace\)::gemv_kernel", e.key))
+    flash_n = sum(e.count for e in pre_k if "flash_kernel" in e.key)
+    pre_busy = sum(e.self_device_time_total for e in pre_k) / 1e3
+    busy = sum(e.self_device_time_total for e in dec_k) / 1e3 / 3 or math.nan
+    med = quantile(step_ms, 0.5)
+    log(f"phase 21 (a): profiled windows: a prefill's GEMM device kernels {gemm_n} (x_order + "
+        f"gemm, 2 x 4 x {L}), flash {flash_n}; 3 decode steps' GEMV kernels {gemv_n} (4 x {L} a "
+        "step)")
+    check(gemm_n == 2 * 4 * L and flash_n == 0 and gemv_n == 4 * L * 3,
+          "phase 21 (a): profiled launch counts")
+    log(f"phase 21 (a): gemma-3-27b {L} layers sym_int4 B={len(prompts)} prompt bucket "
+        f"{tokens.shape[1]}: prefill_ms (generate of 1 token) median={prefill_ms[1]:.3f} "
+        f"min={prefill_ms[0]:.3f} max={prefill_ms[-1]:.3f} (n=3), profiled prefill device busy "
+        f"{pre_busy:.3f} ms; decode step ms (host-set) median={med:.3f} max={max(step_ms):.3f} "
+        f"(n={n_steps}); profiled decode: device busy {busy:.3f} ms per step = {busy / med:.3f} of "
+        f"the median step; peak_mem_gib={peak_gib:.3f}")
+    for e in dec_k[:5]:
+        log(f"  {e.self_device_time_total / 1e3 / 3:8.3f} ms/step {e.count // 3:5d} calls/step  "
+            f"{e.key[:90]}")
+    # the GEMV and the GEMM at the decode step's 4 rows and a paged
+    # prefill's 30-row tail (past what the GEMV's shared memory holds at
+    # w_down's K) on layer 0's own weights, against plain
+    g = torch.Generator(device=dev).manual_seed(65)
+    for name_, M in (("w_gateup", 4), ("w_down", 4), ("w_down", 30)):
+        w = tm.params.layers[0].proj[name_].w
+        O_, K_ = w.shape
+        x = torch.randn((M, K_), device=dev, generator=g).bfloat16()
+        kern = kernels.GEMV if gemv_tile(M, O_, K_, w.qtype) else kernels.GEMM
+        before = kern.launches
+        y = kernels.qmatmul(x, w)
+        launched = kern.launches - before
+        same = torch.equal(y, kernels.qmatmul(x, w))
+        ref = kernels.qmatmul_plain(x, w).float()
+        err = (y.float() - ref).abs().max().item()
+        # f32 sums in another order, then one bf16 rounding on each side:
+        # within 2 bf16 ULPs of the largest output (phase 2's bound)
+        tol = ref.abs().max().item() * 2 ** -7
+        log(f"phase 21 (a): {kern.name} {name_} M={M} O={O_} K={K_} max_abs_err={err:.6g} "
+            f"tol={tol:.6g}; launches {launched}; relaunch bit-equal {same}")
+        check(launched == 1 and bool(torch.isfinite(y).all()) and err <= tol and same
+              and (kern is kernels.GEMV) == (M == 4),
+              f"phase 21 (a): {kern.name} {name_} M={M} against plain")
+    log(f"phase 21 (a): {time.time() - t_phase:.1f} s into the phase")
+    # 2 layers, one local (layer 0) and one global (layer 1: HF's
+    # layer_types form), a prompt past the window: both tables and the
+    # window bite
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=FLAGS_LAYERS, sliding_layers=(True, False))
+    m2 = build(cfg2, 61)
+    ltok = torch.as_tensor(np.random.default_rng(62).integers(1, V, (1, long_prompt)),
+                           dtype=torch.long, device=dev)
+    vs_plain(f"(a) 2 layers (local, global), a {long_prompt}-token prompt", cfg2, m2, ltok,
+             torch.zeros(1, dtype=torch.int32, device=dev))
+    del m2
+    log(f"phase 21 (a): {time.time() - t_phase:.1f} s into the phase")
+
+    # (b) the paged engine on gemma-3-27b --------------------------------
+    paged_vs_plain("(b) gemma-3-27b", cfg, 64, windows=(cfg.sliding_window, None))
+    shared, indep = serving_traffic(V)
+    specs = [dict(prompt=sp["prompt"], max_new_tokens=NEW_TOKENS)
+             for sp in shared[:SHAPES_SERVE_REQS] + indep[:SHAPES_SERVE_REQS]]
+    calls = []
+    kernels.reset_launches()
+    reqs, sec, steps, seen = serve(tm, specs, record=calls)
+    paged_n = kernels.launch_counts()[kernels.PAGED.name]
+    want_calls = {(layer, cfg.sliding_window if cfg.layer_is_sliding(layer) else None,
+                   cfg.attn_scale) for layer in range(L)}
+    log(f"phase 21 (b): gemma-3-27b engine paged bf16, {serve_text(reqs, sec, steps, seen)}; "
+        f"paged launches {paged_n} ({L} a decode step); (layer, window, scale) passed "
+        f"{sorted(set(calls))[:6]}...")
+    check(paged_n == L * steps == len(calls) and steps > 0,
+          f"phase 21 (b): {L} paged launches a decode step")
+    check(set(calls) == want_calls, "phase 21 (b): each layer's window and the scale on the "
+                                    "paged kernel")
+    again = serve(tm, specs)[0]
+    check(all(a.out_tokens == b.out_tokens for a, b in zip(reqs, again)),
+          "phase 21 (b): identical tokens on a second run")
+    gen = tm.generate([sp["prompt"] for sp in specs], max_new_tokens=NEW_TOKENS)
+    margin_rule("(b) the engine against generate", reqs, gen.tolist())
+    del reqs, again, tm, model, gen
+    torch.cuda.empty_cache()
+    log(f"phase 21 (b): {time.time() - t_phase:.1f} s into the phase")
+
+    # (c) the layer shapes at 2 layers ----------------------------------------
+    for seed, name in enumerate((n for n in configs if n != "gemma3"), 70):
+        cfg = configs[name]
+        V = cfg.vocab_size
+        t = time.time()
+        model = build(cfg, seed)
+        torch.cuda.synchronize()
+        long = cfg.sliding_window is not None  # starcoder2: a prompt past its window
+        if long:
+            toks = torch.as_tensor(np.random.default_rng(seed).integers(
+                1, V, (1, LONG_PROMPT)), dtype=torch.long, device=dev)
+            start = torch.zeros(1, dtype=torch.int32, device=dev)
+        else:
+            toks, start = torch.remainder(tok, V), stt
+        route = llama.attention_route(cfg, 0, "dense", "prefill", toks.shape[1])
+        kernels.reset_launches()
+        vs_plain(f"(c) {name} ({cfg.model_type}: D={cfg.head_dim_}, rotary {cfg.rotary_dim}"
+                 f"{' interleaved' if cfg.rope_interleaved else ''}, built in "
+                 f"{time.time() - t:.1f} s) prompt {tuple(toks.shape)} + {SHAPES_DECODE} decode steps",
+                 cfg, model, toks, start)
+        launches = kernels.launch_counts()
+        flash_want = FLAGS_LAYERS if route.kernel == "flash" else 0
+        log(f"phase 21 (c) {name}: launches {launches}; flash expected {flash_want} (prefill "
+            f"route {route.kernel}, window {route.window})")
+        check(launches[kernels.FLASH.name] == flash_want, f"phase 21 (c) {name}: flash launches")
+        if name == "phi-2":
+            phi_engine(cfg, model, seed)
+        del model
+        torch.cuda.empty_cache()
+    log(f"phase 21 (c): {time.time() - t_phase:.1f} s into the phase")
+
+    # (d) gemma3's HF ingest under a multimodal checkpoint's names ---------
+    tmp = Path(tempfile.gettempdir())
+    root = Path(tempfile.mkdtemp(prefix="bigdl_hf_gemma3_", dir=tmp))
+    try:
+        hf2 = dict(hf, text_config=dict(hf["text_config"], num_hidden_layers=FLAGS_LAYERS))
+        t0 = time.time()
+        total = write_hf_checkpoint(torch, root, hf2, 63, dev, prefix="language_model.")
+        torch.cuda.synchronize()
+        t1 = time.time()
+        m = AutoModelForCausalLM.from_pretrained(str(root), load_in_low_bit="sym_int4", device=dev)
+        torch.cuda.synchronize()
+        ingest_s = time.time() - t1
+        get = hf_mod.open_checkpoint(str(root))
+        Lf = m.config.num_hidden_layers
+        per = [hf_mod.layer_tensors(m.config, i, get) for i in range(Lf)]
+        arrays = {f"layers.{k}": torch.stack([d[k] for d in per]) for k in per[0]}
+        arrays.update(hf_mod.top_tensors(m.config, get))
+        ref = optimize_model(params_from_numpy(arrays, {}, m.config, device=dev), m.config,
+                             "sym_int4")
+        del per, arrays
+        diff = 0
+        for a, b in [(a.proj[k], b.proj[k]) for a, b in zip(m.params.layers, ref.layers)
+                     for k in a.proj]:
+            for f in ARRAY_FIELDS + ("bias",):
+                x, y = getattr(a, f, None), getattr(b, f, None)
+                if (x is None) != (y is None):
+                    diff += 1
+                elif x is not None:
+                    diff += int((x.detach().reshape(-1).view(torch.uint8)
+                                 != y.detach().reshape(-1).view(torch.uint8)).sum())
+        dense_same = all(torch.equal(getattr(a, n_), getattr(b, n_))
+                         for a, b in zip(m.params.layers, ref.layers)
+                         for n_ in ("attn_norm", "mlp_norm") + llama.OPTIONAL_NORMS
+                         if getattr(a, n_) is not None) and torch.equal(m.params.embed, ref.embed)
+        names = json.loads((root / "model.safetensors.index.json").read_text())["weight_map"]
+        prefix = next(n for n in names if ".layers." in n).split("layers.")[0]
+        log(f"phase 21 (d): gemma3 {Lf}-layer HF checkpoint at gemma-3-27b's width under "
+            f"{prefix!r} names, {total / 1e9:.3f} GB written in {t1 - t0:.3f} s, "
+            f"ingested in sym_int4 in {ingest_s:.3f} s; config {m.config.model_type}, sliding "
+            f"{[m.config.layer_is_sliding(i) for i in range(Lf)]}, local rope "
+            f"{m.config.rope_local_theta:g}; bytes differing from params_from_numpy + optimize_model "
+            f"over the same tensors: {diff}; dense leaves equal {dense_same}")
+        check(m.config.rope_local_theta == 1e4 and m.config.qk_norm,
+              "phase 21 (d): the config's local rope and q/k norms")
+        check(diff == 0 and dense_same, "phase 21 (d): the ingest's bytes")
+        del m, ref
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"phase 21: {time.time() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

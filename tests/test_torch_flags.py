@@ -548,20 +548,22 @@ def test_check_supported_admits_the_flags_and_names_items_for_the_rest():
     for rs in SCHEMES.values():
         llama.check_supported(dataclasses.replace(base, rope_scaling=rs))
     # since the MoE group, ALiBi and logn were ported (test_torch_moe.py,
-    # test_torch_alibi_logn.py) every preset runs; the flags still
-    # unported raise, phixtral's non-gated experts among them
+    # test_torch_alibi_logn.py) every preset runs, and since the rest of
+    # the llama flags were (test_torch_gemma3.py, test_torch_layer_shapes.py)
+    # gemma3's local rope, the layer shapes and phixtral's experts do too;
+    # a family's own fields raise, naming item [9]
     llama.check_supported(PRESETS["mixtral-8x7b"])
     for kw in ({"alibi": True, "alibi_scale": 0.125}, {"logn_attn": True, "logn_train_len": 8},
-               {"num_experts": 8, "shared_expert_intermediate_size": 64, "moe_dispatch": "ragged"}):
-        llama.check_supported(dataclasses.replace(base, **kw))
-    for kw in ({"rope_local_theta": 1e4}, {"sliding_layers": (True, False)},
+               {"num_experts": 8, "shared_expert_intermediate_size": 64, "moe_dispatch": "ragged"},
+               {"rope_local_theta": 1e4}, {"sliding_layers": (True, False)},
                {"norm_type": "layernorm"}, {"parallel_residual": True},
                {"partial_rotary_factor": 0.5}, {"learned_positions": True},
                {"num_experts": 4, "gated_mlp": False}):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item \[4\]"):
+        llama.check_supported(dataclasses.replace(base, **kw))
+    for kw in ({"kv_lora_rank": 64}, {"mrope_section": (16, 24, 24)},
+               {"rwkv_head_size": 64}):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item \[9\]"):
             llama.check_supported(dataclasses.replace(base, **kw))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item \[9\]"):
-        llama.check_supported(dataclasses.replace(base, kv_lora_rank=64))
     with pytest.raises(NotImplementedError, match="rope_scaling type 'mystery'"):
         llama.check_supported(dataclasses.replace(base, rope_scaling={"type": "mystery"}))
     with pytest.raises(NotImplementedError, match="hidden_act 'swish2'"):
@@ -573,8 +575,8 @@ def test_gemv_tiles_at_the_new_widths(M):
     """The GEMV's host policy at the flagged presets' projections (qwen2's
     K = 18944 among them): every M <= 32 gets a tile that fits shared
     memory; where x's columns leave no room for the widest adapter, the
-    tile fits the GEMV alone and a LoRA row too wide raises naming its
-    ROADMAP item instead of failing to launch."""
+    tile fits the GEMV alone and a LoRA row too wide gets no tile (its
+    rows go to the LoRA GEMM) instead of failing to launch."""
     from bigdl_tpu_torch.ops.kernels import qtile
 
     for name in ("mistral-7b", "qwen2-7b", "gemma2-9b"):
@@ -584,5 +586,4 @@ def test_gemv_tiles_at_the_new_widths(M):
             t = qtile.gemv_tile(M, O, K, "sym_int4")
             assert t.smem <= qtile.SMEM_LIMIT and t.grid[1] * 16 * t.wr >= O
     if M == 32:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 1"):
-            qtile.gemv_tile(M, 3584, 18944, "sym_int4", R=128)
+        assert qtile.gemv_tile(M, 3584, 18944, "sym_int4", R=128) is None

@@ -52,6 +52,36 @@ def test_qmatmul_kernels_match_plain(M, O, K):
     assert (y - ref).abs().max() <= _ULPS * ref.abs().max()
 
 
+@pytest.mark.parametrize("lora", [False, True])
+@pytest.mark.parametrize("M", [28, 29, 30, 32])
+def test_rows_the_gemv_cannot_hold_go_to_the_gemm(M, lora):
+    """gemma-3-27b's w_down (K = 21504): the GEMV holds 29 rows of x in
+    shared memory, 30 to 32 go to the GEMM; with an adapter (R = 16) the
+    LoRA GEMV holds 28, 29 to 32 go to the LoRA GEMM; each matches plain."""
+    dev = _cuda()
+    O, K, R = 384, 21504, 16
+    g = torch.Generator(device=dev).manual_seed(M)
+    w = quantize(torch.randn(O, K, device=dev, generator=g) * 0.05, "sym_int4")
+    x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+    if lora:
+        a = (torch.randn(R, K, device=dev, generator=g) / R).to(torch.bfloat16)
+        b = (torch.randn(O, R, device=dev, generator=g) * 0.02).to(torch.bfloat16)
+        gate = torch.full((M, R), 2.0, dtype=torch.bfloat16, device=dev)
+        kernel = kernels.LORA_GEMV if M <= 28 else kernels.LORA_GEMM
+        run = lambda: kernels.qmatmul_lora(x, w, a, b, gate)  # noqa: E731
+        plain = lambda: kernels.qmatmul_lora_plain(x, w, a, b, gate)  # noqa: E731
+    else:
+        kernel = kernels.GEMV if M <= 29 else kernels.GEMM
+        run = lambda: kernels.qmatmul(x, w)  # noqa: E731
+        plain = lambda: kernels.qmatmul_plain(x, w)  # noqa: E731
+    before = kernel.launches
+    y = run().float()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = plain().float()
+    assert (y - ref).abs().max() <= _ULPS * ref.abs().max()
+
+
 OTHER_FORMATS = ["asym_int4", "nf4", "fp4", "sym_int8", "asym_int5", "fp8_e4m3",
                  "fp8_e5m2", "sym_int5", "fp6", "nf3", "q2_k", "q3_k", "q4_k",
                  "q5_k", "q6_k"]
@@ -168,6 +198,9 @@ PAGED_CASES = [
     (3, 8, 2, 128, 16, 4, (50, 0, 60), (0, 0, 35), 20, 30.0),
     # phi3-mini's head_dim 96 and group 1 (the D = 96 instantiation)
     (3, 8, 8, 96, 16, 4, (50, 0, 60), (0, 0, 35), 20, 30.0),
+    # phi-2's head_dim 80 (the D = 80 instantiation), group 1 and 2
+    (3, 8, 8, 80, 16, 4, (50, 0, 60), (0, 0, 35), 20, 30.0),
+    (3, 8, 4, 80, 8, 4, (17, 9, 30), (2, 0, 5), None, None),
     # llama3-8b at the serving engine's decode shape: 8 rows, page 64,
     # ragged positions up to 2047, row 3 idle
     (8, 32, 8, 128, 64, 32, (2047, 1100, 64, 0, 1500, 5, 700, 1999),
@@ -211,6 +244,8 @@ PAGED_SPLIT_CASES = [
     (3, 8, 2, 64, 16, 8, (127, 64, 40), (0, 63, 41), 70, None),
     # phi3-mini at the engine's decode shape: 32 heads over 32 kv heads, D = 96
     (8, 32, 32, 96, 64, 32, (2047, 1100, 64, 0, 1500, 5, 700, 1999), (0,) * 8, None, None),
+    # phi-2 at the engine's decode shape: 32 heads over 32 kv heads, D = 80
+    (8, 32, 32, 80, 64, 32, (2047, 1100, 64, 0, 1500, 5, 700, 1999), (0,) * 8, None, None),
 ]
 
 

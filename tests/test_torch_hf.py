@@ -5,12 +5,16 @@ families; the port's safetensors reader (`convert.hf.open_checkpoint`)
 against the `safetensors` package, bit for bit, and chip_smoke.py's
 writer read back by the package; `load_hf_checkpoint` of tiny llama,
 phi3 (fused qkv_proj/gate_up_proj, split and fused again), mistral,
-qwen2 (q/k/v biases), qwen3 (q/k norms), gemma2 (four norms, tied head)
-and the published phi3-mini-4k config (window 2047) against JAX's: the
-same stored bytes for every tensor, prefill logits within
-tests/test_torch_llama.py's tolerance, in sym_int4 and q4_k_m; and the
-refusals, each naming its ROADMAP item before a tensor is read. Fixtures are written here with
-the `safetensors` package from seeds.
+qwen2 (q/k/v biases), qwen3 (q/k norms), gemma2 (four norms, tied head),
+the published phi3-mini-4k config (window 2047), gemma3 (under a
+multimodal checkpoint's `language_model.model.` names) and gemma3_text,
+phi, phixtral, starcoder2, gpt_neox, cohere, gpt2, bloom, stablelm and
+minicpm, each under its family's HF names, against JAX's: the same
+stored bytes for every tensor, prefill logits within
+tests/test_torch_llama.py's tolerance, in sym_int4 and q4_k_m (the
+families from gemma3 on in one of the two each); and the refusals,
+each naming its ROADMAP item before a tensor is read. Fixtures are
+written here with the `safetensors` package from seeds.
 """
 
 import dataclasses
@@ -158,56 +162,138 @@ def test_chip_smoke_writer_is_read_by_the_package(tmp_path):
             _bits_equal(get(k), f.get_tensor(k))
 
 
-def _write_checkpoint(root, hf, seed):
-    """config.json and one safetensors file of bf16 N(0, 0.02^2) weights
-    (phi3: fused qkv_proj and gate_up_proj), norms drawn around 1 (around
-    0 for gemma's (1 + w)); q/k/v and o biases N(0, 0.1^2) where the
-    config has them (qwen2's q/k/v always), gemma2's four norms a layer,
-    qwen3's q/k norms, and no lm_head.weight when the head is tied."""
+def _llama_names(cfg, i, mt):
+    """(name, shape, kind) of layer i under HF's llama names: the two
+    norms (with biases under norm_bias), q/k/v/o with the biases the
+    config has (qwen2's q/k/v always), the gated MLP; phi3's fused
+    qkv_proj/gate_up_proj, gemma2/3's pre/post feed-forward norms,
+    qwen3's and gemma3's q/k norms."""
+    H, I, D = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim_
+    QD, KD = cfg.q_dim, cfg.kv_dim
+    p = f"model.layers.{i}."
+    out = [(p + "input_layernorm.weight", (H,), "norm"),
+           (p + "post_attention_layernorm.weight", (H,), "norm"),
+           (p + "self_attn.o_proj.weight", (H, QD), "w"), (p + "mlp.down_proj.weight", (H, I), "w")]
+    if mt == "phi3":
+        out += [(p + "self_attn.qkv_proj.weight", (QD + 2 * KD, H), "w"),
+                (p + "mlp.gate_up_proj.weight", (2 * I, H), "w")]
+    else:
+        out += [(p + f"self_attn.{n}_proj.weight", (r, H), "w")
+                for n, r in (("q", QD), ("k", KD), ("v", KD))]
+        out += [(p + f"mlp.{n}_proj.weight", (I, H), "w") for n in ("gate", "up")]
+    if cfg.attention_bias:
+        out += [(p + f"self_attn.{n}_proj.bias", (r,), "bias")
+                for n, r in (("q", QD), ("k", KD), ("v", KD))]
+    if cfg.norm_bias:
+        out += [(p + f"{n}.bias", (H,), "bias")
+                for n in ("input_layernorm", "post_attention_layernorm")]
+    if mt.startswith("gemma"):
+        out += [(p + f"{n}.weight", (H,), "norm")
+                for n in ("pre_feedforward_layernorm", "post_feedforward_layernorm")]
+    if cfg.qk_norm:
+        out += [(p + f"self_attn.{n}_norm.weight", (D,), "norm")
+                for n in ("q", "k")]
+    return out
+
+
+def _family_names(cfg, mt):
+    """(name, shape, kind) of every tensor of a checkpoint of family `mt`
+    under its HF names (the JAX package's tables read exactly these)."""
+    H, I, V, D, L = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.head_dim_,
+                     cfg.num_hidden_layers)
+    QD, KD, nh = cfg.q_dim, cfg.kv_dim, cfg.num_attention_heads
+
+    def biased(name, shape):
+        return [(name + ".weight", shape, "w"), (name + ".bias", (shape[0],), "bias")]
+
+    def ln(name):
+        return [(name + ".weight", (H,), "norm"), (name + ".bias", (H,), "bias")]
+
+    out = []
+    for i in range(L):
+        if mt == "phi":
+            p = f"model.layers.{i}."
+            out += ln(p + "input_layernorm")
+            for n, r in (("q", QD), ("k", KD), ("v", KD)):
+                out += biased(p + f"self_attn.{n}_proj", (r, H))
+            out += biased(p + "self_attn.dense", (H, QD)) + biased(p + "mlp.fc1", (I, H))
+            out += biased(p + "mlp.fc2", (H, I))
+        elif mt == "phixtral":
+            p = f"transformer.h.{i}."
+            out += ln(p + "ln") + biased(p + "mixer.Wqkv", (3 * H, H))
+            out += biased(p + "mixer.out_proj", (H, H))
+            out += [(p + "moe.gate.weight", (cfg.num_experts, H), "w")]
+            for e in range(cfg.num_experts):
+                out += biased(p + f"moe.mlp.{e}.fc1", (I, H)) + biased(p + f"moe.mlp.{e}.fc2", (H, I))
+        elif mt == "starcoder2":
+            p = f"model.layers.{i}."
+            out += ln(p + "input_layernorm") + ln(p + "post_attention_layernorm")
+            for n, r in (("q", QD), ("k", KD), ("v", KD)):
+                out += biased(p + f"self_attn.{n}_proj", (r, H))
+            out += biased(p + "self_attn.o_proj", (H, QD)) + biased(p + "mlp.c_fc", (I, H))
+            out += biased(p + "mlp.c_proj", (H, I))
+        elif mt in ("gpt_neox", "bloom"):
+            p, attn = ((f"gpt_neox.layers.{i}.", "attention") if mt == "gpt_neox"
+                       else (f"transformer.h.{i}.", "self_attention"))
+            out += ln(p + "input_layernorm") + ln(p + "post_attention_layernorm")
+            out += biased(p + attn + ".query_key_value", (nh * 3 * D, H))
+            out += biased(p + attn + ".dense", (H, QD)) + biased(p + "mlp.dense_h_to_4h", (I, H))
+            out += biased(p + "mlp.dense_4h_to_h", (H, I))
+        elif mt == "gpt2":  # Conv1D: weights stored [in, out]
+            p = f"transformer.h.{i}."
+            out += ln(p + "ln_1") + ln(p + "ln_2")
+            out += [(p + "attn.c_attn.weight", (H, 3 * H), "w"), (p + "attn.c_attn.bias", (3 * H,), "bias"),
+                    (p + "attn.c_proj.weight", (H, H), "w"), (p + "attn.c_proj.bias", (H,), "bias"),
+                    (p + "mlp.c_fc.weight", (H, I), "w"), (p + "mlp.c_fc.bias", (I,), "bias"),
+                    (p + "mlp.c_proj.weight", (I, H), "w"), (p + "mlp.c_proj.bias", (H,), "bias")]
+        elif mt == "cohere":
+            p = f"model.layers.{i}."
+            out += [n for n in _llama_names(cfg, i, mt) if "post_attention" not in n[0]]
+        else:
+            out += _llama_names(cfg, i, mt)
+    if mt == "phixtral":
+        out += [("transformer.embd.wte.weight", (V, H), "w")] + ln("lm_head.ln")
+        out += biased("lm_head.linear", (V, H))
+    elif mt == "gpt2":
+        out += [("transformer.wte.weight", (V, H), "w"),
+                ("transformer.wpe.weight", (cfg.max_position_embeddings, H), "w")]
+        out += ln("transformer.ln_f")
+    elif mt == "bloom":
+        out += [("transformer.word_embeddings.weight", (V, H), "w")]
+        out += ln("transformer.word_embeddings_layernorm") + ln("transformer.ln_f")
+    elif mt == "gpt_neox":
+        out += [("gpt_neox.embed_in.weight", (V, H), "w")] + ln("gpt_neox.final_layer_norm")
+        if not cfg.tie_word_embeddings:
+            out += [("embed_out.weight", (V, H), "w")]
+    else:
+        final = "model.final_layernorm" if mt == "phi" else "model.norm"
+        out += [("model.embed_tokens.weight", (V, H), "w"), (final + ".weight", (H,), "norm")]
+        if cfg.norm_bias:
+            out += [(final + ".bias", (H,), "bias")]
+        if not cfg.tie_word_embeddings:
+            out += (biased("lm_head", (V, H)) if cfg.lm_head_bias
+                    else [("lm_head.weight", (V, H), "w")])
+    return out
+
+
+def _write_checkpoint(root, hf, seed, prefix=""):
+    """config.json and one safetensors file of the family's tensors (the
+    JAX package's translation of `hf` gives their shapes): bf16 N(0,
+    0.02^2) weights, biases N(0, 0.1^2), norms (q/k norms too) drawn
+    around 1 (around 0 for gemma's (1 + w)); no lm_head.weight when the
+    head is tied. `prefix` goes before every name whose family keeps it
+    (gemma3's multimodal checkpoints: "language_model.")."""
     root.mkdir(parents=True, exist_ok=True)
     (root / "config.json").write_text(json.dumps(hf))
+    cfg = JaxConfig.from_hf_config(hf)
     rng = np.random.default_rng(seed)
-    mt = hf["model_type"]
-    H, I, V = hf["hidden_size"], hf["intermediate_size"], hf["vocab_size"]
-    D = hf.get("head_dim") or H // hf["num_attention_heads"]
-    QD, KD = hf["num_attention_heads"] * D, hf["num_key_value_heads"] * D
-    norm_at = 0.0 if mt.startswith("gemma") else 1.0
-    tied = hf.get("tie_word_embeddings", mt.startswith("gemma"))
-
-    def w(*shape, scale=0.02, loc=0.0):
-        return torch.from_numpy((loc + scale * rng.standard_normal(shape)).astype(np.float32)
-                                ).to(torch.bfloat16)
-
-    def norm(n):
-        return w(n, scale=0.1, loc=norm_at)
-
-    ts = {"model.embed_tokens.weight": w(V, H), "model.norm.weight": norm(H)}
-    if not tied:
-        ts["lm_head.weight"] = w(V, H)
-    for i in range(hf["num_hidden_layers"]):
-        p = f"model.layers.{i}."
-        ts[p + "input_layernorm.weight"] = norm(H)
-        ts[p + "post_attention_layernorm.weight"] = norm(H)
-        ts[p + "self_attn.o_proj.weight"] = w(H, QD)
-        ts[p + "mlp.down_proj.weight"] = w(H, I)
-        if mt == "phi3":
-            ts[p + "self_attn.qkv_proj.weight"] = w(QD + 2 * KD, H)
-            ts[p + "mlp.gate_up_proj.weight"] = w(2 * I, H)
-        else:
-            ts[p + "self_attn.q_proj.weight"] = w(QD, H)
-            ts[p + "self_attn.k_proj.weight"] = w(KD, H)
-            ts[p + "self_attn.v_proj.weight"] = w(KD, H)
-            ts[p + "mlp.gate_proj.weight"] = w(I, H)
-            ts[p + "mlp.up_proj.weight"] = w(I, H)
-        if hf.get("attention_bias", mt == "qwen2"):
-            for n, rows in (("q", QD), ("k", KD), ("v", KD)):
-                ts[p + f"self_attn.{n}_proj.bias"] = w(rows, scale=0.1)
-        if mt == "gemma2":
-            ts[p + "pre_feedforward_layernorm.weight"] = norm(H)
-            ts[p + "post_feedforward_layernorm.weight"] = norm(H)
-        if mt == "qwen3":
-            ts[p + "self_attn.q_norm.weight"] = w(D, scale=0.1, loc=1.0)
-            ts[p + "self_attn.k_norm.weight"] = w(D, scale=0.1, loc=1.0)
+    norm_at = 0.0 if cfg.rms_norm_offset else 1.0
+    loc = {"w": (0.0, 0.02), "bias": (0.0, 0.1), "norm": (norm_at, 0.1)}
+    ts = {}
+    for name, shape, kind in _family_names(cfg, cfg.model_type):
+        m, sd = loc[kind]
+        ts[prefix + name] = torch.from_numpy(
+            (m + sd * rng.standard_normal(shape)).astype(np.float32)).to(torch.bfloat16)
     save_file(ts, str(root / "model.safetensors"))
     return root
 
@@ -229,24 +315,69 @@ INGEST = {
     "phi3-mini-4k": {**PHI3_MINI_4K, **{k: PHI3[k] for k in (
         "vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
         "num_attention_heads", "num_key_value_heads", "max_position_embeddings")}},
+    # the families of the rest of the llama flags, each as its config.json
+    # names its fields (gemma3: the multimodal form, its weights under
+    # `language_model.model.`)
+    "gemma3": {"model_type": "gemma3", "text_config": {
+        **{k: v for k, v in LLAMA.items() if k != "tie_word_embeddings"},
+        "model_type": "gemma3_text", "head_dim": 128, "sliding_window": 4,
+        "sliding_window_pattern": 2, "query_pre_attn_scalar": 168, "rope_theta": 1e6,
+        "rope_scaling": {"rope_type": "linear", "factor": 8.0}, "rope_local_base_freq": 1e4,
+        "rms_norm_eps": 1e-6}},
+    "gemma3_text": {**{k: v for k, v in LLAMA.items() if k != "tie_word_embeddings"},
+                    "model_type": "gemma3_text", "head_dim": 128, "sliding_window": 4,
+                    "layer_types": ["sliding_attention", "full_attention"],
+                    "query_pre_attn_scalar": 168, "rms_norm_eps": 1e-6},
+    "phi": {**LLAMA, "model_type": "phi", "partial_rotary_factor": 0.4,
+            "hidden_act": "gelu_new", "layer_norm_eps": 1e-5},
+    "phixtral": {"model_type": "phi-msft", "vocab_size": 512, "n_embd": 256, "n_layer": 2,
+                 "n_head": 2, "n_inner": 512, "n_positions": 128, "rotary_dim": 32,
+                 "num_local_experts": 4, "num_experts_per_tok": 2,
+                 "activation_function": "gelu_new", "tie_word_embeddings": False},
+    "starcoder2": {**LLAMA, "model_type": "starcoder2", "sliding_window": 4,
+                   "hidden_act": "gelu_pytorch_tanh", "use_bias": True, "norm_epsilon": 1e-5,
+                   "tie_word_embeddings": True},
+    "gpt_neox": {**LLAMA, "model_type": "gpt_neox", "num_key_value_heads": 2, "rotary_pct": 0.25,
+                 "use_parallel_residual": True, "hidden_act": "gelu"},
+    "cohere": {**LLAMA, "model_type": "cohere", "logit_scale": 0.0625,
+               "tie_word_embeddings": True},
+    "gpt2": {"model_type": "gpt2", "vocab_size": 512, "n_embd": 256, "n_layer": 2, "n_head": 2,
+             "n_positions": 128, "activation_function": "gelu_new"},
+    "bloom": {"model_type": "bloom", "vocab_size": 512, "hidden_size": 256, "n_layer": 2,
+              "n_head": 2},
+    "stablelm": {**LLAMA, "model_type": "stablelm", "partial_rotary_factor": 0.25,
+                 "layer_norm_eps": 1e-5},
+    "minicpm": {**LLAMA, "model_type": "minicpm", "scale_emb": 12, "scale_depth": 1.4,
+                "dim_model_base": 128, "tie_word_embeddings": True},
 }
+# gemma3's multimodal checkpoints keep the text weights under this prefix
+PREFIX = {"gemma3": "language_model."}
+# the families before gemma3 in both formats; the later ones (their
+# tables are what they add: the quantizer is the same) in one each, the
+# two formats alternating
+_NEW = list(INGEST)[list(INGEST).index("gemma3"):]
+INGEST_CASES = [(f, q) for f in INGEST if f not in _NEW for q in ("sym_int4", "q4_k_m")] + [
+    (f, ("sym_int4", "q4_k_m")[i % 2]) for i, f in enumerate(_NEW)]
 
 
-@pytest.mark.parametrize("qtype", ["sym_int4", "q4_k_m"])
-@pytest.mark.parametrize("family", list(INGEST))
+@pytest.mark.parametrize("family,qtype", INGEST_CASES, ids=[f"{f}-{q}" for f, q in INGEST_CASES])
 def test_ingest_matches_jax(tmp_path, family, qtype, monkeypatch):
     """The port's ingest quantizes in row chunks (here 40 rows of 256, so
     every projection and the lm head goes in pieces): the same bytes as
     JAX's one call a weight, the same dense leaves (biases merged into
-    bqkv, gemma2's four norms, qwen3's q/k norms, no lm_head when tied),
-    and prefill logits within test_torch_llama.py's bound."""
+    bqkv, gemma2's four norms, qwen3's q/k norms, the norms' biases,
+    gpt2's wpe, bloom's embedding layernorm, phi's lm head bias, the
+    experts' biases, no lm_head when tied), and prefill logits within
+    test_torch_llama.py's bound."""
     monkeypatch.setenv("BIGDL_TPU_PALLAS", "0")
     monkeypatch.setattr(hf_mod, "QUANT_CHUNK", 40 * 256)
-    d = _write_checkpoint(tmp_path / family, INGEST[family], 7)
+    d = _write_checkpoint(tmp_path / family, INGEST[family], 7, PREFIX.get(family, ""))
     jm = JaxAuto.from_pretrained(str(d), load_in_low_bit=qtype)
     tm = AutoModelForCausalLM.from_pretrained(str(d), load_in_low_bit=qtype, device="cpu")
     assert dataclasses.asdict(tm.config) == dataclasses.asdict(jm.config)
-    assert set(tm.params.layers[0].proj) == {"wqkv", "wo", "w_gateup", "w_down"}
+    mlp = set() if tm.config.is_moe else {
+        "w_gateup" if tm.config.gated_mlp else "w_up", "w_down"}
+    assert set(tm.params.layers[0].proj) == {"wqkv", "wo"} | mlp
     assert (tm.params.lm_head is None) == tm.config.tie_word_embeddings
     jarrays, jmanifest = {}, {}
     jax_flatten(jm.params, "", jarrays, jmanifest)
@@ -263,14 +394,13 @@ def test_ingest_matches_jax(tmp_path, family, qtype, monkeypatch):
 
 def test_refusals_name_their_roadmap_items(tmp_path):
     """Each refusal names its item before a tensor is read (no tensor file
-    exists): gemma3's local rope is a llama flag still to port, cohere a
-    family, GPTQ the quantized checkpoints. phi3-mini-4k (window 2047) and
-    qwen2 (q/k/v bias) are ingest cases since the flags were ported."""
+    exists): falcon's and internlm2's tables are families still to port,
+    GPTQ the quantized checkpoints. phi3-mini-4k (window 2047) and qwen2
+    (q/k/v bias) are ingest cases since the flags were ported, gemma3 and
+    cohere since the rest of them were."""
     cases = {
-        "gemma3_text": ({**LLAMA, "model_type": "gemma3_text", "head_dim": 128,
-                         "sliding_window": 4, "rope_local_base_freq": 10000.0},
-                        r"item \[4\]"),
-        "cohere": ({**LLAMA, "model_type": "cohere", "logit_scale": 0.0625}, r"item \[9\]"),
+        "falcon": ({**LLAMA, "model_type": "falcon", "parallel_attn": True}, r"item \[9\]"),
+        "internlm2": ({**LLAMA, "model_type": "internlm2"}, r"item \[9\]"),
         "gptq": (LLAMA | {"quantization_config": {"quant_method": "gptq", "bits": 4}},
                  r"item \[10\]"),
     }

@@ -233,14 +233,16 @@ def test_unsupported_paths_raise(pair, monkeypatch):
     np.testing.assert_array_equal(tm.generate(long, 2), tm.generate_lookup(long, 2))
     # qk_norm runs since the llama flags were ported (test_torch_flags.py),
     # alibi and the experts since their slice (test_torch_alibi_logn.py,
-    # test_torch_moe.py); gemma3's local rope and the layer shapes still
-    # raise, naming their item
-    for kw in ({"qk_norm": True}, {"alibi": True}, {"num_experts": 4}):
+    # test_torch_moe.py), gemma3's local rope and the layer shapes since
+    # theirs (test_torch_gemma3.py, test_torch_layer_shapes.py); the
+    # families with modules of their own still raise, naming their item
+    for kw in ({"qk_norm": True}, {"alibi": True}, {"num_experts": 4},
+               {"rope_local_theta": 1e4}, {"norm_type": "layernorm"}):
         llama.check_supported(dataclasses.replace(tcfg, **kw))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item \[4\]"):
-        llama.check_supported(dataclasses.replace(tcfg, rope_local_theta=1e4))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item \[4\]"):
-        llama.check_supported(dataclasses.replace(tcfg, norm_type="layernorm"))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item \[9\]"):
+        llama.check_supported(dataclasses.replace(tcfg, q_lora_rank=64))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item \[9\]"):
+        llama.check_supported(dataclasses.replace(tcfg, cross_attention_layers=(1,)))
 
 
 # nf4 and q4_k_m at a width where every projection passes every format's

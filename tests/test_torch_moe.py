@@ -535,12 +535,15 @@ def test_hf_ingest_matches_jax_and_params_from_numpy(tmp_path, family, monkeypat
 
 
 def test_refusals_name_what_is_still_unported():
-    """phixtral's non-gated experts and MLP biases beside experts raise,
-    naming ROADMAP item [4]; params_from_numpy without an MoE leaf the
-    config needs raises."""
+    """phixtral's non-gated experts and MLP biases beside experts run since
+    the rest of the llama flags were ported (test_torch_layer_shapes.py);
+    DeepSeek's MoE fields (item [9]) raise, naming their item;
+    params_from_numpy without an MoE leaf the config needs raises."""
     base = _port_config(_jax_config("mixtral"))
     for kw in ({"gated_mlp": False}, {"mlp_bias": True}):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item \[4\]"):
+        llama.check_supported(dataclasses.replace(base, **kw))
+    for kw in ({"n_shared_experts": 2}, {"topk_method": "noaux_tc"}):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item \[9\]"):
             llama.check_supported(dataclasses.replace(base, **kw))
     _, jparams, tcfg, _ = _quantized("mixtral")
     arrays, qtypes = {}, {}
