@@ -9,6 +9,8 @@ given device="cpu", where every kernel wrapper takes its plain PyTorch
 version.
 """
 
+__version__ = "0.1.0"
+
 from bigdl_tpu_torch.api import AutoModelForCausalLM, TorchModel, optimize_model
 from bigdl_tpu_torch.convert.low_bit import load_low_bit, save_low_bit, verify_low_bit
 from bigdl_tpu_torch.models.config import PRESETS, ModelConfig

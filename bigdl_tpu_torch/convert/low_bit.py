@@ -56,18 +56,18 @@ def save_low_bit(path: str, config: ModelConfig, model, qtype: str, *, faults=No
     artifact, with one commit point: the config's rename. A fresh save
     writes `weights.npz`; an overwrite writes `weights-<token>.npz` beside
     the archive the live config names, commits the config that names the
-    new one, then sweeps the superseded archives."""
-    if faults is not None:
-        raise NotImplementedError(
-            "save_low_bit(faults=...): ROADMAP queue 1 item [5], the disk "
-            "fault injector is still to be ported")
+    new one, then sweeps the superseded archives. `faults` threads a
+    `utils/diskfaults.DiskFaultInjector` through both atomic writes (a
+    lost write on either file is then detected at load, never answered by
+    deleting the only archive the surviving config names)."""
     os.makedirs(path, exist_ok=True)
     arrays, manifest = params_to_numpy(model)
     overwrite = os.path.exists(os.path.join(path, _CONFIG))
     wname = f"weights-{os.urandom(4).hex()}.npz" if overwrite else "weights.npz"
     tensors: dict[str, dict] = {}
     durability.atomic_write(os.path.join(path, wname),
-                            lambda f: tensors.update(durability.write_npz(f, arrays)))
+                            lambda f: tensors.update(durability.write_npz(f, arrays)),
+                            faults=faults)
     meta = {
         "format_version": FORMAT_VERSION,
         "qtype": qtype,
@@ -77,7 +77,8 @@ def save_low_bit(path: str, config: ModelConfig, model, qtype: str, *, faults=No
         "integrity": durability.integrity_section(tensors),
     }
     durability.atomic_write(os.path.join(path, _CONFIG),
-                            lambda f: f.write(json.dumps(meta, indent=1).encode()))
+                            lambda f: f.write(json.dumps(meta, indent=1).encode()),
+                            faults=faults)
     # sweep only after seeing the commit land: the config on disk names
     # the new archive and the archive exists
     try:

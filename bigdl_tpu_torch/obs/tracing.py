@@ -1,0 +1,365 @@
+"""Request-lifecycle tracing (a copy of bigdl_tpu/obs/tracing.py): a
+bounded span recorder with Chrome trace-event export, a structured
+per-request JSONL log, and the trace summary and nesting check. The
+events, the log records and their line format are the JAX package's, so
+one Perfetto view and one dashboard read either package's output.
+
+Design constraints:
+
+- **Tracing off ⇒ near-zero overhead.** Every record method returns
+  after a single attribute check when ``enabled`` is False; the engine
+  additionally guards its instrumentation sites on the same flag, so a
+  production engine with tracing disabled pays one pointer load per
+  hook. No lock is taken on the hot path even when enabled: the ring is
+  a ``deque(maxlen=...)`` whose ``append`` is atomic under the GIL
+  (single engine-thread writer for spans; handler threads only add
+  submit/finish instants, which are themselves single appends).
+- **Bounded.** The ring holds the newest ``capacity`` events; older
+  ones are evicted and counted in ``dropped`` (approximately — the
+  check races the append by design, a miscount of a few events under
+  concurrent writers is acceptable for a drop *indicator*).
+- **Injectable clock.** All timestamps flow through ``clock`` (default
+  ``time.time``); a caller that drives the engine from a manual clock
+  gives the recorder the same one, so the export is in that clock's
+  seconds.
+
+Track model: ``tid`` 0 is the engine track (``decode_step`` spans,
+occupancy counters, adapter events); each request gets its own track at
+``tid = rid`` with strictly sequential spans — ``queued`` → ``prefill``
+→ ``decode`` windows → ``preempted`` → more ``decode`` windows — so
+nesting is monotonic per track (`validate_nesting` checks it).
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import threading
+import time
+from typing import Any, Callable, Optional
+
+# cap on distinct thread_name metadata entries: a long-lived server sees
+# unboundedly many rids, and the *name* table (unlike the ring) is not
+# otherwise bounded
+_MAX_NAMED_TRACKS = 4096
+
+
+class TraceRecorder:
+    """Bounded ring buffer of Chrome trace events.
+
+    All public record methods take timestamps in SECONDS (float, the
+    recorder's clock domain) and convert to the trace format's
+    microseconds at append time. Callers that already hold a timestamp
+    (the engine stamps once per step and reuses it) pass it explicitly;
+    callers without one use :meth:`now`. An event's name is positional
+    only, so its args may carry a `name` of their own (the adapter
+    registry's events name their adapter).
+    """
+
+    def __init__(self, capacity: int = 65536, enabled: bool = True,
+                 clock: Callable[[], float] = time.time):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.capacity = capacity
+        self.enabled = enabled
+        self._clock = clock
+        self._buf: "collections.deque[dict]" = collections.deque(
+            maxlen=capacity
+        )
+        self._pid = os.getpid()
+        self.dropped = 0
+        self._named: set = set()
+
+    # -- recording ----------------------------------------------------------
+
+    def now(self) -> float:
+        return self._clock()
+
+    def _append(self, evt: dict) -> None:
+        if len(self._buf) == self.capacity:
+            self.dropped += 1  # approximate under racing writers (doc'd)
+        self._buf.append(evt)
+
+    def _name_track(self, tid: int, ts: float) -> None:
+        """Perfetto-visible track label for a request's tid (emitted on
+        first sight; the name table is capped, the ring may still evict
+        the metadata event — both are display niceties, not data)."""
+        if tid == 0 or tid in self._named or len(self._named) >= \
+                _MAX_NAMED_TRACKS:
+            return
+        self._named.add(tid)
+        self._append({
+            "name": "thread_name", "ph": "M", "pid": self._pid,
+            "tid": int(tid), "args": {"name": f"req {tid}"},
+        })
+
+    def complete(self, name: str, ts: float, dur: float, /, tid: int = 0,
+                 cat: str = "engine", **args: Any) -> None:
+        """One finished span: ``[ts, ts + dur]`` seconds."""
+        if not self.enabled:
+            return
+        self._name_track(tid, ts)
+        self._append({
+            "name": name, "ph": "X", "cat": cat, "pid": self._pid,
+            "tid": int(tid), "ts": int(ts * 1e6),
+            "dur": max(int(dur * 1e6), 0), "args": args,
+        })
+
+    def instant(self, name: str, /, ts: Optional[float] = None, tid: int = 0,
+                cat: str = "engine", **args: Any) -> None:
+        if not self.enabled:
+            return
+        if ts is None:
+            ts = self._clock()
+        self._name_track(tid, ts)
+        self._append({
+            "name": name, "ph": "i", "s": "t", "cat": cat,
+            "pid": self._pid, "tid": int(tid), "ts": int(ts * 1e6),
+            "args": args,
+        })
+
+    def counter(self, name: str, /, ts: Optional[float] = None,
+                **values: float) -> None:
+        """Perfetto counter track (batch occupancy, queue depth, ...)."""
+        if not self.enabled:
+            return
+        if ts is None:
+            ts = self._clock()
+        self._append({
+            "name": name, "ph": "C", "pid": self._pid, "tid": 0,
+            "ts": int(ts * 1e6), "args": values,
+        })
+
+    # -- export -------------------------------------------------------------
+
+    def events(self) -> list:
+        """Snapshot of the ring (oldest first)."""
+        return list(self._buf)
+
+    def clear(self) -> None:
+        self._buf.clear()
+        self._named.clear()
+        self.dropped = 0
+
+    def status(self) -> dict:
+        return {"enabled": self.enabled, "events": len(self._buf),
+                "capacity": self.capacity, "dropped": self.dropped}
+
+    @staticmethod
+    def _sanitize_args(evt: dict) -> dict:
+        """Replace non-finite arg values with None: a NaN loss — the
+        exact anomaly tracing exists to capture — must not turn the
+        whole export into non-RFC-8259 JSON (`NaN` tokens) that
+        Perfetto and strict parsers reject."""
+        import math
+
+        def bad(v):
+            return isinstance(v, float) and not math.isfinite(v)
+
+        args = evt.get("args")
+        if args and any(bad(v) for v in args.values()):
+            evt = dict(evt)
+            evt["args"] = {k: (None if bad(v) else v)
+                           for k, v in args.items()}
+        return evt
+
+    def export(self, path: Optional[str] = None) -> dict:
+        """The Chrome trace-event object (``{"traceEvents": [...]}``),
+        optionally written to ``path`` — the file loads as-is in
+        Perfetto / ``chrome://tracing``. Non-finite arg values (NaN
+        losses, ...) are exported as null to keep the JSON standard.
+        The file commits through the atomic tmp+fsync+rename protocol:
+        a SIGTERM mid-dump must leave either the previous export or the
+        complete new one, never a torn, Perfetto-unloadable JSON."""
+        obj = {"traceEvents": [self._sanitize_args(e)
+                               for e in self.events()],
+               "displayTimeUnit": "ms",
+               "otherData": {"dropped_events": self.dropped}}
+        if path is not None:
+            from bigdl_tpu_torch.utils.durability import atomic_write
+
+            data = json.dumps(obj, separators=(",", ":"),
+                              allow_nan=False).encode("utf-8")
+            atomic_write(path, lambda f: f.write(data))
+        return obj
+
+
+class RequestLog:
+    """Structured per-request JSONL log of *derived* timings (queue
+    wait, TTFT, time-per-output-token, preempted time) — one record per
+    finished request, in the serving journal's tab+crc32 line discipline
+    (`serving/journal.crc_line`), so interior rot in a long-lived log is
+    detectable and the two on-disk line formats cannot drift.
+
+    Thread-safe: shed records come from handler threads while the
+    engine thread writes completions. Write failures degrade to no-ops
+    (observability must never take the engine down)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._lock = threading.Lock()
+        self._f = None
+        try:
+            os.makedirs(os.path.dirname(os.path.abspath(path)),
+                        exist_ok=True)
+            self._f = open(path, "a", encoding="utf-8")
+        except OSError:  # pragma: no cover - read-only mount
+            self._f = None
+
+    def write(self, record: dict) -> None:
+        if self._f is None:
+            return
+        from bigdl_tpu_torch.serving.journal import crc_line
+
+        line = crc_line(json.dumps(record, separators=(",", ":")))
+        try:
+            with self._lock:
+                self._f.write(line + "\n")
+                self._f.flush()
+        except (OSError, ValueError):  # pragma: no cover - closed/full
+            pass
+
+    def close(self) -> None:
+        with self._lock:
+            if self._f is not None:
+                try:
+                    self._f.close()
+                finally:
+                    self._f = None
+
+    @staticmethod
+    def read(path: str) -> list:
+        """Decode a request log: crc-mismatched / torn lines skipped
+        (same tolerance as the journal scan)."""
+        from bigdl_tpu_torch.serving.journal import split_crc_line
+
+        if not os.path.exists(path):
+            return []
+        out = []
+        with open(path, "r", encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                body, ok = split_crc_line(line)
+                if ok is False:
+                    continue
+                try:
+                    out.append(json.loads(body))
+                except json.JSONDecodeError:
+                    continue
+        return out
+
+
+# ---------------------------------------------------------------------------
+# trace summarization (the CLI's `bigdl-tpu trace summarize`)
+# ---------------------------------------------------------------------------
+
+def _pct(sorted_vals: list, q: float) -> float:
+    if not sorted_vals:
+        return 0.0
+    i = min(int(q * (len(sorted_vals) - 1) + 0.5), len(sorted_vals) - 1)
+    return sorted_vals[i]
+
+
+def summarize_trace(trace) -> dict:
+    """Reduce a trace (the export dict, or a bare event list) to a
+    latency table: per span name — count / total / mean / p50 / p99 /
+    max milliseconds; plus request-level stats derived from ``finish``
+    instants (ttft / queue_wait / preempted seconds, finish reasons)."""
+    events = trace.get("traceEvents", []) if isinstance(trace, dict) \
+        else list(trace)
+    spans: dict = {}
+    reqs: dict = {"ttft_s": [], "queue_wait_s": [], "preempted_s": [],
+                  "finish_reasons": {}}
+    for e in events:
+        ph = e.get("ph")
+        if ph == "X":
+            spans.setdefault(e.get("name", "?"), []).append(
+                e.get("dur", 0) / 1e3  # µs -> ms
+            )
+        elif ph == "i" and e.get("name") == "finish":
+            args = e.get("args", {})
+            reason = args.get("finish_reason", "?")
+            reqs["finish_reasons"][reason] = \
+                reqs["finish_reasons"].get(reason, 0) + 1
+            for k in ("ttft_s", "queue_wait_s", "preempted_s"):
+                v = args.get(k)
+                if isinstance(v, (int, float)):
+                    reqs[k].append(float(v))
+    table = {}
+    for name, durs in spans.items():
+        durs.sort()
+        table[name] = {
+            "count": len(durs),
+            "total_ms": round(sum(durs), 3),
+            "mean_ms": round(sum(durs) / len(durs), 3),
+            "p50_ms": round(_pct(durs, 0.50), 3),
+            "p99_ms": round(_pct(durs, 0.99), 3),
+            "max_ms": round(durs[-1], 3),
+        }
+    req_stats = {"finish_reasons": reqs["finish_reasons"]}
+    for k in ("ttft_s", "queue_wait_s", "preempted_s"):
+        vals = sorted(reqs[k])
+        if vals:
+            req_stats[k] = {
+                "count": len(vals),
+                "mean": round(sum(vals) / len(vals), 6),
+                "p50": round(_pct(vals, 0.50), 6),
+                "p99": round(_pct(vals, 0.99), 6),
+            }
+    return {"spans": table, "requests": req_stats}
+
+
+def format_summary(summary: dict) -> str:
+    """Human-readable latency table for the CLI."""
+    lines = [f"{'span':<14}{'count':>8}{'mean ms':>10}{'p50 ms':>10}"
+             f"{'p99 ms':>10}{'max ms':>10}{'total ms':>11}"]
+    lines.append("-" * len(lines[0]))
+    for name in sorted(summary.get("spans", {})):
+        s = summary["spans"][name]
+        lines.append(
+            f"{name:<14}{s['count']:>8}{s['mean_ms']:>10.3f}"
+            f"{s['p50_ms']:>10.3f}{s['p99_ms']:>10.3f}"
+            f"{s['max_ms']:>10.3f}{s['total_ms']:>11.3f}"
+        )
+    req = summary.get("requests", {})
+    if req.get("finish_reasons"):
+        lines.append("")
+        lines.append("requests by finish_reason: " + ", ".join(
+            f"{k}={v}" for k, v in sorted(req["finish_reasons"].items())
+        ))
+    for k, label in (("ttft_s", "TTFT"), ("queue_wait_s", "queue wait"),
+                     ("preempted_s", "preempted")):
+        if k in req:
+            s = req[k]
+            lines.append(
+                f"{label}: n={s['count']} mean={s['mean'] * 1e3:.1f}ms "
+                f"p50={s['p50'] * 1e3:.1f}ms p99={s['p99'] * 1e3:.1f}ms"
+            )
+    return "\n".join(lines)
+
+
+def validate_nesting(events: list) -> list:
+    """Spans that partially overlap a predecessor on the same track —
+    `[]` means every track is monotonically nested (each pair of spans
+    on a tid is either disjoint or fully contained). Test + CLI helper,
+    not a hot path."""
+    by_tid: dict = {}
+    for e in events:
+        if e.get("ph") == "X":
+            by_tid.setdefault((e.get("pid"), e.get("tid")), []).append(e)
+    bad = []
+    for track in by_tid.values():
+        track.sort(key=lambda e: (e["ts"], -e.get("dur", 0)))
+        stack: list = []  # enclosing spans' end times
+        for e in track:
+            end = e["ts"] + e.get("dur", 0)
+            while stack and e["ts"] >= stack[-1]:
+                stack.pop()
+            if stack and end > stack[-1]:
+                bad.append(e)
+                continue
+            stack.append(end)
+    return bad

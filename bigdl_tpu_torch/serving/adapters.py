@@ -22,9 +22,12 @@ eligibility rule), never merged into the base.
 - **`rank_bucket`**: a batch's adapters pad their rank up a power-of-two
   ladder; zero rows of A and columns of B add exactly 0.
 
-The JAX module's fault points and tracer events are not ported: the
-registry's `faults=`, `tracer=` and `bind(...)` raise NotImplementedError
-(ROADMAP queue 1 item 5: fault injection, tracing).
+Fault points (`serving/faults.py`): ``adapter_load_corrupt`` fails the
+registry's next load as a corrupt artifact, ``adapter_page_in_stall`` the
+pager's next page-in; either quarantines the one request naming the
+tenant. With a tracer the registry records ``adapter_load`` and
+``adapter_evict`` instants on the engine track. The JAX registry's
+operator calls for the HTTP layer (`unload`, `peek`) wait for it.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import collections
 import json
 import os
 import threading
+import time
 import zipfile
 from typing import Callable, Optional
 
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from bigdl_tpu_torch.serving.faults import NULL_INJECTOR
 from bigdl_tpu_torch.utils import durability
 from bigdl_tpu_torch.utils.durability import IntegrityError
 
@@ -47,11 +52,6 @@ FORMAT_VERSION = 1
 
 # registry default: adapters above this rank are refused at load
 DEFAULT_MAX_RANK = 64
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: ROADMAP queue 1 item 5 ({item}), not "
-                               "ported to the serving adapters yet")
 
 
 def rank_bucket(rank: int) -> int:
@@ -101,10 +101,10 @@ class AdapterError(ValueError):
 # artifact I/O
 # ---------------------------------------------------------------------------
 
-def save_adapter(path: str, lora) -> None:
+def save_adapter(path: str, lora, *, faults=None) -> None:
     """Write a LoRA tree ({'layers': {target: {'a', 'b'}}, 'scale'}, or a
     `train.qlora.LoRA`) as one verifiable .npz: per-tensor digests in the
-    meta member, atomic commit."""
+    meta member, atomic commit (`faults`: a DiskFaultInjector for it)."""
     layers, scale = _tree(lora)
     arrays: dict = {}
     dtypes: dict = {}
@@ -145,7 +145,7 @@ def save_adapter(path: str, lora) -> None:
             durability.add_npz_member(zf, "meta", np.asarray(json.dumps(meta)))
 
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    durability.atomic_write(path, write)
+    durability.atomic_write(path, write, faults=faults)
 
 
 def load_adapter(path: str, verify: str = "fast") -> tuple[dict, dict]:
@@ -249,15 +249,14 @@ class AdapterRegistry:
 
     def __init__(self, dir: Optional[str] = None, budget_bytes: Optional[int] = None,
                  verify: str = "fast", max_rank: int = DEFAULT_MAX_RANK,
-                 faults=None, tracer=None):
-        if faults is not None:
-            raise _not_ported("AdapterRegistry(faults=...)", "fault injection")
-        if tracer is not None:
-            raise _not_ported("AdapterRegistry(tracer=...)", "tracing")
+                 faults=None, tracer=None, clock: Callable[[], float] = time.time):
         self.dir = dir
         self.budget_bytes = budget_bytes
         self.verify = durability.check_verify_mode(verify)
         self.max_rank = max_rank
+        self._faults = faults if faults is not None else NULL_INJECTOR
+        self.tracer = tracer
+        self._clock = clock
         self._lock = threading.RLock()
         # name -> entry, least recently used first
         self._entries: "collections.OrderedDict[str, AdapterEntry]" = collections.OrderedDict()
@@ -267,16 +266,24 @@ class AdapterRegistry:
         self.evictions = 0  # budget-pressure drops
         self.load_failures = 0  # missing, corrupt or mismatched artifacts
 
-    def bind(self, tracer=None, faults=None) -> "AdapterRegistry":
-        """A server's late wiring of its tracer and fault injector: neither
-        is ported yet, so both raise."""
+    def bind(self, tracer=None, clock=None, faults=None) -> "AdapterRegistry":
+        """Late wiring for a server that makes its tracer, clock and fault
+        injector after the registry. An injector the registry was made
+        with is kept: the server's fills only the inert default."""
         if tracer is not None:
-            raise _not_ported("AdapterRegistry.bind(tracer=...)", "tracing")
-        if faults is not None:
-            raise _not_ported("AdapterRegistry.bind(faults=...)", "fault injection")
+            self.tracer = tracer
+        if clock is not None:
+            self._clock = clock
+        if faults is not None and self._faults is NULL_INJECTOR:
+            self._faults = faults
         return self
 
     # -- internals (call with the lock held) --------------------------------
+
+    def _instant(self, event: str, **args) -> None:
+        tr = self.tracer
+        if tr is not None and tr.enabled:
+            tr.instant(event, ts=self._clock(), tid=0, cat="adapter", **args)
 
     def _resolve_path(self, name: str, path: Optional[str]) -> str:
         if path is not None:
@@ -308,9 +315,15 @@ class AdapterRegistry:
                                    "every resident adapter is referenced or pinned")
             del self._entries[victim.name]
             self.evictions += 1
+            self._instant("adapter_evict", name=victim.name, nbytes=victim.nbytes)
 
     def _load_locked(self, name: str, path: Optional[str], pin: bool) -> AdapterEntry:
         resolved = self._resolve_path(name, path)
+        t0 = self._clock()
+        if self._faults.fire("adapter_load_corrupt") is not None:
+            self.load_failures += 1
+            raise AdapterError(name, "corrupt", f"injected corrupt artifact ({resolved}; "
+                               "fault point adapter_load_corrupt)")
         try:
             lora, meta = load_adapter(resolved, verify=self.verify)
         except FileNotFoundError as e:
@@ -328,6 +341,8 @@ class AdapterRegistry:
         self._entries[name] = entry  # most recently used
         self._paths[name] = resolved
         self.loads += 1
+        self._instant("adapter_load", name=name, rank=entry.rank, nbytes=entry.nbytes,
+                      seconds=round(self._clock() - t0, 6))
         return entry
 
     # -- operator surface ----------------------------------------------------
@@ -393,6 +408,8 @@ class AdapterRegistry:
             self.load_failures += 1
             if self._entries.get(entry.name) is entry and entry.refcount == 0:
                 del self._entries[entry.name]
+                self._instant("adapter_evict", name=entry.name, nbytes=entry.nbytes,
+                              rejected=True)
 
     # -- observability -------------------------------------------------------
 
@@ -440,10 +457,11 @@ class AdapterPager:
     - the scale stays host-side; only the bf16 leaves are paged, so a
       gather from pages equals one from host RAM bit for bit."""
 
-    def __init__(self, store, pool, alloc: Callable[[], Optional[int]]):
+    def __init__(self, store, pool, alloc: Callable[[], Optional[int]], faults=None):
         self.store = store
         self._pool = pool
         self._alloc = alloc
+        self._faults = faults if faults is not None else NULL_INJECTOR
         # name -> _PagedAdapter, least recently used first
         self._res: "collections.OrderedDict[str, _PagedAdapter]" = collections.OrderedDict()
         self.page_ins = 0  # pages written device-ward
@@ -459,12 +477,17 @@ class AdapterPager:
 
     def ensure(self, entry: AdapterEntry, rid: int) -> bool:
         """Make `entry` device-resident and add `rid`'s hold. False: the
-        pool stayed dry (the caller gathers from host RAM)."""
+        pool stayed dry (the caller gathers from host RAM). Raises
+        AdapterError(kind="page_in_stall") when that fault point fires:
+        the caller quarantines the one request, never the batch."""
         rec = self._res.get(entry.name)
         if rec is not None:
             self._res.move_to_end(entry.name)
             rec.holders.add(rid)
             return True
+        if self._faults.fire("adapter_page_in_stall") is not None:
+            raise AdapterError(entry.name, "page_in_stall", "injected device page-in stall "
+                               "(fault point adapter_page_in_stall)")
         flats, shapes = [], []
         for t in entry.targets:
             for leaf in ("a", "b"):

@@ -1,5 +1,5 @@
-"""Slot-based continuous-batching inference engine (port of the engine
-sub-slice of bigdl_tpu/serving/engine.py).
+"""Slot-based continuous-batching inference engine (port of
+bigdl_tpu/serving/engine.py).
 
 - a fixed pool of `n_slots` decode slots shares one KV pool with per-row
   write positions: a dense `kvcache.KVCache` [L, slots, max_len, ...], or
@@ -35,7 +35,31 @@ sub-slice of bigdl_tpu/serving/engine.py).
   + 1. The pools keep a physical reserve of draft_k - 1 slots past
   max_len, so a verify of a request whose window ends flush with max_len
   has room for every write. `adaptive_draft` steers K along a ladder
-  (draft_k, halved down to 2) from the acceptance rate.
+  (draft_k, halved down to 2) from the acceptance rate;
+- with `prefill_chunk_tokens` (paged only) a prompt's uncached tail
+  prefills in chunks, at most one chunk a step: the slot is held but not
+  decoded until its last chunk lands, so a long prompt stalls the running
+  batch by one chunk, not one prompt. A decoding slot that needs pages
+  takes them from a chunk plan first (the plan restarts later);
+- overload control: `max_queue` sheds submits over the bound
+  ("queue_full"), `queue_deadline_s` sheds requests that waited too long
+  ("queue_deadline"), `deadline_s` finishes a request past its budget
+  "timeout" with its partial output; `begin_drain`/`drain` shed new
+  submits ("draining") while accepted work finishes;
+- `journal=` appends every accepted request to a crash-recovery journal
+  (`serving/journal.py`, the JAX package's file format) and tombstones
+  its finish; an engine attached to a journal replays the unfinished
+  tail first (`recovered_requests`), and `close()` compacts it;
+- `faults=` (`serving/faults.py`) fires the JAX engine's injection
+  points: `alloc_page`, `slow_step`, `nan_logits`, `crash_before_done`
+  and the adapter pager's page-in stall;
+- `tracer=` (`obs/tracing.TraceRecorder`) records each request's
+  lifecycle (submit, queued, prefill, decode windows of
+  `trace_decode_every` tokens, swap-out and preempted, finish) and the
+  engine's decode steps; `request_log=` writes one derived-timings
+  record per finished request. Every timestamp, deadline and histogram
+  reads the one `clock` (default `time.time`, wall-clock stamps as the
+  JAX engine's).
 
 What changes from JAX: the pools are written in place where JAX donates
 buffers; `jax.random` keys become one `torch.Generator`; the all-default
@@ -44,14 +68,10 @@ per-slot arrays, so they cost no device sync; the paged prefill runs only
 the prompt's real tokens (JAX right-pads them to a bucket for a static
 shape — the page plan still uses that bucket, so the same admissions get
 the same physical pages, and the pad writes JAX makes land past `pos`,
-where nothing reads them). The block table goes to the card only when it
+where nothing reads them; a chunk runs its n real tokens, where JAX pads
+it to a 16-token bucket). The block table goes to the card only when it
 changed. A speculative round brings its acceptance counts to the host
 with its tokens, as the plain step does its tokens.
-
-Not in this slice, each raising NotImplementedError with its ROADMAP
-item: chunked prefill (with or without adapters), the request journal
-and fault injection, tracing and the request log, overload control
-(`max_queue`, deadlines, drain).
 """
 
 from __future__ import annotations
@@ -62,7 +82,7 @@ import itertools
 import queue
 import threading
 import time
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -74,30 +94,11 @@ from bigdl_tpu_torch.generate import (GenerationConfig, apply_repetition_penalty
                                       seen_from_prompt)
 from bigdl_tpu_torch.models import llama
 from bigdl_tpu_torch.serving.adapters import AdapterError, AdapterPager, rank_bucket
+from bigdl_tpu_torch.serving.faults import NULL_INJECTOR, FaultError
 from bigdl_tpu_torch.serving.metrics import FAST_BUCKETS, Histogram
 from bigdl_tpu_torch.serving.radix import RadixPrefixCache
 from bigdl_tpu_torch.train.qlora import _target_dims
 from bigdl_tpu_torch.utils import round_up
-
-# engine arguments of the JAX engine this slice leaves out -> the ROADMAP
-# item (queue 1 item 5 unless said) that ports them
-_NOT_PORTED = {
-    "prefill_chunk_tokens": "chunked prefill",
-    "journal": "the request journal",
-    "faults": "fault injection",
-    "tracer": "tracing",
-    "request_log": "the request log",
-    "max_queue": "overload control",
-    "queue_deadline_s": "overload control",
-    "deadline_s": "overload control",
-}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: ROADMAP queue 1 item 5 ({item}), not ported to the "
-        "serving engine yet")
-
 
 @dataclasses.dataclass
 class Request:
@@ -123,9 +124,17 @@ class Request:
     out_top_logprobs: list[dict] = dataclasses.field(default_factory=list)
     done: bool = False
     finish_reason: str = ""  # "stop" (EOS or cancel) | "length" (budget) |
-    # "invalid" (rejected at submit) | "error"
+    # "invalid" (rejected at submit) | "error" | "shed" (queue bound, queue
+    # deadline or drain: retryable) | "timeout" (deadline_s expired)
     error: Optional[str] = None
+    # which admission limit shed the request ("queue_full" |
+    # "queue_deadline" | "draining"), for a caller's retry choice
+    shed_kind: Optional[str] = None
     stream: Optional[queue.SimpleQueue] = None  # receives (token | None=end)
+    # overload controls (None = the engine's default): the longest wait for
+    # a slot, and the whole budget from submit
+    queue_deadline_s: Optional[float] = None
+    deadline_s: Optional[float] = None
     submit_ts: float = 0.0
     admit_ts: Optional[float] = None  # first admission (before prefill)
     preemptions: int = 0  # times swapped to host RAM
@@ -145,6 +154,10 @@ class _Slot:
     # extend AND has emitted nothing since its resume proves the pool
     # cannot support it (self-preempting again would livelock).
     resumed_pos: int = -1
+    # the decode-window trace span: tokens since the last "decode" span
+    # and the window's start
+    t_win: float = 0.0
+    n_win: int = 0
 
 
 @dataclasses.dataclass
@@ -169,12 +182,28 @@ class _Preempted:
     n_pages: int = 0  # paged: pages to reallocate on resume
 
 
+@dataclasses.dataclass
+class _PrefillState:
+    """A request mid-chunked-prefill: it holds its slot and its whole page
+    table, but stays inactive (no decode) and the engine's block-table row
+    stays on the scratch page until the last chunk lands, so the idle
+    slot's garbage decode writes never reach its half-filled (possibly
+    shared) pages. Chunks write through `row`."""
+
+    req: Request
+    slot: int
+    row: np.ndarray  # the slot's real block-table row
+    written: int  # prompt tokens whose KV is in the pool (hits, copy included)
+    path: list  # the matched radix nodes, for the last chunk's registration
+    chunk: int  # tokens a chunk
+
+
 class InferenceEngine:
     """model: a TorchModel (api.py) of the llama family. Sampling
     parameters, the repetition penalty and EOS are per request; the
     engine's GenerationConfig gives the defaults. Thread-safe entry
-    points: `submit`, `cancel`, `preempt`; everything else runs on the
-    thread that calls `step()`."""
+    points: `submit`, `cancel`, `preempt`, `begin_drain`; everything else
+    runs on the thread that calls `step()`."""
 
     # cache-aware admission: oldest entries scored per pop
     _ADMIT_SCAN_WINDOW = 64
@@ -182,21 +211,48 @@ class InferenceEngine:
     def __init__(self, model, n_slots: int = 8, max_len: int = 1024,
                  gen: Optional[GenerationConfig] = None, seed: int = 0,
                  paged: bool = False, page_size: int = 64,
-                 n_pages: Optional[int] = None, truncate_prompts: bool = False,
-                 logprobs_top_k: int = 0, quantize_kv: bool = False,
-                 preemption: bool = True, preemption_policy: str = "youngest",
-                 adapters=None, speculative: bool = False, draft_params=None,
-                 draft_k: int = 4, adaptive_draft: bool = False, **not_ported):
-        for name, value in not_ported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"InferenceEngine got an unexpected argument {name!r}")
-            if value not in (None, False):
-                raise _not_ported(f"InferenceEngine({name}=...)", _NOT_PORTED[name])
+                 n_pages: Optional[int] = None, speculative: bool = False,
+                 draft_params=None, draft_k: int = 4, adaptive_draft: bool = False,
+                 truncate_prompts: bool = False, logprobs_top_k: int = 0,
+                 quantize_kv: bool = False, prefill_chunk_tokens: Optional[int] = None,
+                 journal: Optional[str] = None, max_queue: Optional[int] = None,
+                 queue_deadline_s: Optional[float] = None,
+                 deadline_s: Optional[float] = None, preemption: bool = True,
+                 preemption_policy: str = "youngest", faults=None, adapters=None,
+                 tracer=None, request_log: Optional[str] = None,
+                 trace_decode_every: int = 8, clock: Callable[[], float] = time.time):
+        # the clock and the observability sinks first: submit() and the
+        # journal's replay at the end of __init__ stamp times and record
+        # finishes
+        self._clock = clock
+        self.tracer = tracer
+        self.trace_decode_every = max(int(trace_decode_every), 1)
+        self._request_log = None
+        if request_log is not None:
+            from bigdl_tpu_torch.obs.tracing import RequestLog
+
+            self._request_log = RequestLog(request_log)
+        self._t_start = clock()
+        self._journal = None  # attached at the end of __init__
+        self.recovered_requests: list[Request] = []
         # JAX's refusals, before any pool is allocated
         if logprobs_top_k and speculative:
             raise NotImplementedError(
                 "logprobs_top_k is not wired through the speculative verify round "
                 "yet; use speculative=False")
+        if prefill_chunk_tokens is not None:
+            if not paged:
+                raise ValueError("prefill_chunk_tokens requires paged=True (chunks "
+                                 "write straight into the shared page pool)")
+            if prefill_chunk_tokens < 1:
+                raise ValueError(f"prefill_chunk_tokens must be >= 1, got "
+                                 f"{prefill_chunk_tokens}")
+            if speculative:
+                # the draft's admission prefill is monolithic: it would break
+                # the one-chunk stall bound
+                raise NotImplementedError(
+                    "prefill_chunk_tokens is not wired through the speculative "
+                    "draft admission yet; use speculative=False or monolithic prefill")
         if speculative and draft_k < 2:
             # K-1 drafts are verifiable: K=1 would pay a draft forward whose
             # token can never be accepted
@@ -211,7 +267,6 @@ class InferenceEngine:
         self.model = model
         self.config = model.config
         self.device = model.device
-        self._clock = time.perf_counter
         self.n_slots = n_slots
         self.max_len = max_len
         self.gen = gen or GenerationConfig()
@@ -235,6 +290,23 @@ class InferenceEngine:
         self.logprobs_top_k = logprobs_top_k
         self.preemption = preemption
         self.preemption_policy = preemption_policy
+        self.prefill_chunk_tokens = prefill_chunk_tokens
+        self.prefill_chunks = 0  # prefill calls: a chunk each, a monolithic prefill 1
+        # the one request mid-chunked-prefill, if any (engine thread only)
+        self._prefilling: Optional[_PrefillState] = None
+        self.max_queue = max_queue
+        self.queue_deadline_s = queue_deadline_s
+        self.deadline_s = deadline_s
+        self._faults = faults if faults is not None else NULL_INJECTOR
+        # the drain latch: new submits shed "draining" while accepted work runs
+        self._draining = False
+        # set while fail_all cleans up: crash points must not fire again
+        # inside its _finish calls
+        self._cleanup = False
+        # makes max_queue's check-then-put exact across handler threads
+        self._admission_lock = threading.Lock()
+        # one deadline-bearing submit arms the per-step queue sweep
+        self._deadlines_seen = queue_deadline_s is not None or deadline_s is not None
         if paged:
             # one hold per slot block-table entry + one per cached radix node
             self._pool = kvpaged.PagePool(self.n_pages)
@@ -279,6 +351,9 @@ class InferenceEngine:
         self.preemptions = 0
         self.preemption_resumes = 0
         self.requests_completed = 0
+        self.requests_shed = 0  # under _stat_lock
+        self.request_timeouts = 0  # under _stat_lock
+        self.journal_corrupt_lines = 0  # set at the journal's attach
         self.queue_wait = Histogram()
         self.ttft = Histogram()  # submit -> first emitted token
         self.itl = Histogram(buckets=FAST_BUCKETS)  # inter-token gap
@@ -300,7 +375,8 @@ class InferenceEngine:
         if adapters is not None and paged:
             self._adapter_store = kvpaged.AdapterPageStore(
                 self.n_pages, kvpaged.kv_page_nbytes(self.cache), device=self.device)
-            self._pager = AdapterPager(self._adapter_store, self._pool, self._alloc_page)
+            self._pager = AdapterPager(self._adapter_store, self._pool, self._alloc_page,
+                                       faults=faults)
 
         # speculative decoding: the draft's own pool, always dense (the
         # draft needs its whole context, and a dense row keeps the per-row
@@ -322,6 +398,29 @@ class InferenceEngine:
             self._k_ladder = sorted(ks)
             self._cur_k = draft_k
             self._accept_ema: Optional[float] = None
+
+        # the crash-recovery journal: attaching replays the previous
+        # process's unfinished tail, with the rid counter seeded past every
+        # journaled rid (a fresh rid's tombstone must never cancel an old
+        # pending entry)
+        if journal is not None:
+            from bigdl_tpu_torch.serving.journal import RequestJournal, replay
+
+            stats: dict = {}
+            entries, max_rid = RequestJournal.scan(journal, stats=stats)
+            self.journal_corrupt_lines = stats.get("corrupt_lines", 0)
+            # compact to the pending tail before the append handle opens;
+            # the rid counter seeds from the max before compaction
+            RequestJournal.compact(journal, entries=entries)
+            self._rid = itertools.count(max_rid + 1)
+            self._journal = RequestJournal(journal)
+            # replay bypasses max_queue: every entry was accepted once, and a
+            # shed here would erase its only record
+            bound, self.max_queue = self.max_queue, None
+            try:
+                self.recovered_requests = replay(self, entries)
+            finally:
+                self.max_queue = bound
 
     def _make_pool(self, force_dense: bool = False):
         """The shared KV pool, per-row positions from the start (idle
@@ -478,14 +577,10 @@ class InferenceEngine:
                deadline_s: Optional[float] = None,
                adapter: Optional[str] = None) -> Request:
         """Queue a request (thread-safe). An invalid one (empty prompt,
-        ids outside the vocabulary, a prompt over the slot capacity
-        without truncate_prompts, an adapter on an engine without a
-        registry) finishes "invalid" at once."""
-        for name, value, item in (
-                ("queue_deadline_s", queue_deadline_s, "overload control"),
-                ("deadline_s", deadline_s, "overload control")):
-            if value is not None:
-                raise _not_ported(f"submit({name}=...)", item)
+        ids outside the vocabulary, an adapter on an engine without a
+        registry, a prompt over the slot capacity without truncate_prompts)
+        finishes "invalid" at once; a submit while draining or over
+        `max_queue` is shed before it is journaled."""
         if repetition_penalty is not None and repetition_penalty <= 0:
             raise ValueError(f"repetition_penalty must be > 0, got {repetition_penalty}")
         if top_k is not None:
@@ -498,7 +593,17 @@ class InferenceEngine:
             max_new_tokens=max_new_tokens, stream=stream, do_sample=do_sample,
             temperature=temperature, top_k=top_k, top_p=top_p,
             repetition_penalty=repetition_penalty, eos_token_id=eos_token_id,
-            adapter=adapter, submit_ts=self._clock())
+            adapter=adapter,
+            queue_deadline_s=(queue_deadline_s if queue_deadline_s is not None
+                              else self.queue_deadline_s),
+            deadline_s=deadline_s if deadline_s is not None else self.deadline_s,
+            submit_ts=self._clock())
+        tr = self.tracer
+        if tr is not None and tr.enabled:
+            tr.instant("submit", ts=req.submit_ts, tid=req.rid, cat="request",
+                       rid=req.rid, prompt_tokens=len(req.prompt))
+        if req.queue_deadline_s is not None or req.deadline_s is not None:
+            self._deadlines_seen = True  # a plain bool store, read next step
         error = None
         limit = self.max_len - max_new_tokens
         bad = [t for t in req.prompt if not 0 <= t < self.config.vocab_size]
@@ -507,26 +612,53 @@ class InferenceEngine:
         elif bad:
             error = (f"prompt token id {bad[0]} outside [0, "
                      f"{self.config.vocab_size}) — wrong tokenizer for this model?")
+        elif adapter is not None and self.adapters is None:
+            # serving the base instead would be the wrong model for the tenant
+            error = (f"request names adapter {adapter!r} but this engine has no "
+                     "adapter registry (construct it with adapters=)")
         elif len(req.prompt) > limit and not self.truncate_prompts:
             error = (f"prompt ({len(req.prompt)} tokens) exceeds the slot capacity "
                      f"({limit} = max_len {self.max_len} - max_new_tokens "
                      f"{max_new_tokens}); shorten the prompt, raise max_len, or "
                      "construct the engine with truncate_prompts=True to keep "
                      "the prompt tail")
-        elif adapter is not None and self.adapters is None:
-            # serving the base instead would be the wrong model for the tenant
-            error = (f"request names adapter {adapter!r} but this engine has no "
-                     "adapter registry (construct it with adapters=)")
         if error is not None:
             req.error, req.finish_reason, req.done = error, "invalid", True
-            self._note_finish(req)
+            self._note_finish(req, req.submit_ts)
             if stream is not None:
                 stream.put(None)
             return req
+        if self._draining:
+            # shed before the journal append: a drained request was never
+            # accepted, and its entry would resurrect it at the next start
+            self._shed_request(req, "draining", "server is draining for shutdown; "
+                               "retry against a fresh instance", journaled=False)
+            return req
+        if self.max_queue is None:
+            self._accept(req)
+            return req
+        shed_qsize = None
+        with self._admission_lock:
+            qsize = self._queue.qsize()
+            if qsize >= self.max_queue:
+                # decided under the lock, checked before the journal append;
+                # the rejection's own work runs after the release
+                shed_qsize = qsize
+            else:
+                self._accept(req)
+        if shed_qsize is not None:
+            self._shed_request(req, "queue_full", f"queue full: {shed_qsize} waiting >= "
+                               f"max_queue {self.max_queue}; retry later", journaled=False)
+        return req
+
+    def _accept(self, req: Request) -> None:
+        """Take a submit in: its in-flight charge, its journal entry, the
+        queue."""
         with self._stat_lock:
             self._inflight += 1
+        if self._journal is not None:
+            self._journal.record_submit(req)
         self._queue.put(req)
-        return req
 
     def _slot_sampling(self, req: Request) -> tuple[float, int, float, bool]:
         """A request's sampling parameters against the engine defaults."""
@@ -550,7 +682,10 @@ class InferenceEngine:
         """A free page: the free list, then LRU radix leaves, then the page-
         out of holder-free adapters (their host copies survive). Eviction
         only drops pages no slot holds; preemption comes after all three
-        (`_alloc_page_preempting`)."""
+        (`_alloc_page_preempting`). The `alloc_page` fault point returns
+        None as if the pool were dry."""
+        if self._faults.fire("alloc_page") is not None:
+            return None
         pg = self._pool.alloc()
         while pg is None and self.radix.evict_one():
             self.prefix_evictions += 1
@@ -573,8 +708,9 @@ class InferenceEngine:
     def _admit_paged(self, req: Request, slot: int) -> bool:
         """Reuse the longest cached prompt prefix from the radix tree
         (full pages by descent, a mid-page divergence by copying the
-        cached page), allocate fresh pages for the rest, prefill the tail.
-        False = not enough pages; retry later."""
+        cached page), allocate fresh pages for the rest, prefill the tail:
+        at once, or as a chunk plan that `step()` advances one chunk at a
+        time (prefill_chunk_tokens). False = not enough pages; retry later."""
         page = self.page_size
         limit = self.max_len - req.max_new_tokens
         if len(req.prompt) > limit:
@@ -661,8 +797,18 @@ class InferenceEngine:
             self.prefix_tokens_reused += t_copy
             self.radix.touch(src_node)
 
+        chunk = self.prefill_chunk_tokens
+        if chunk is not None and len(tail2) > chunk:
+            # the slot is held (req set, inactive, its engine block-table row
+            # on the scratch page); step() runs one chunk a call
+            self._slots[slot] = _Slot(req=req, seq=next(self._seq))
+            self._prefilling = _PrefillState(req=req, slot=slot, row=row, written=lp_eff,
+                                             path=path, chunk=chunk)
+            return True
+
         self._bt_host[slot] = row
         self._bt_dirty = True
+        self.prefill_chunks += 1
         logits_last = self._paged_prefill(row, lp_eff, tail2, self._prefill_lora(req))
         self.cache.pos[slot] = len(prompt)
         self.cache.start[slot] = 0
@@ -674,6 +820,33 @@ class InferenceEngine:
             self._admit_draft(slot, prompt, limit)
         self._activate(slot, req, logits_last)
         return True
+
+    def _advance_prefill(self) -> None:
+        """Run at most one chunk of the in-flight chunked prefill. The last
+        chunk installs the real block-table row, registers the radix nodes
+        and activates the slot (its first token closes the TTFT)."""
+        st = self._prefilling
+        if st is None:
+            return
+        prompt = st.req.prompt
+        rem = len(prompt) - st.written
+        n = min(st.chunk, rem)
+        self.prefill_chunks += 1
+        logits_last = self._paged_prefill(st.row, st.written,
+                                          prompt[st.written: st.written + n],
+                                          self._prefill_lora(st.req))
+        st.written += n
+        if n < rem:
+            return
+        slot = st.slot
+        self._prefilling = None
+        self._bt_host[slot] = st.row
+        self._bt_dirty = True
+        self.cache.pos[slot] = len(prompt)
+        self.cache.start[slot] = 0
+        self._slot_pos[slot] = len(prompt)
+        self._register_prefix(prompt, st.path, self._slot_pages[slot], ns=st.req.adapter)
+        self._activate(slot, st.req, logits_last)
 
     def _admit_draft(self, slot: int, prompt: list[int], limit: int) -> None:
         """Prefill the draft pool's row of a newly admitted or resumed
@@ -740,15 +913,32 @@ class InferenceEngine:
             if victim is not None:
                 self._preempt_slot(victim)
                 continue
+            if self._abort_prefill_for_pages():
+                continue  # the chunk plan gave its pages back
             s = self._slots[slot]
             if s.resumed_pos < 0 or self._slot_pos[slot] > s.resumed_pos:
                 self._preempt_slot(slot)  # the caller sees the slot inactive
             return None
 
+    def _abort_prefill_for_pages(self) -> bool:
+        """A chunk plan yields its pages to a decoding slot that needs
+        them: it has no decode state yet, so its slot is released and its
+        request goes back to the queue's front, to prefill again later from
+        what the cache still holds. Nothing was emitted, so the output is
+        unchanged; admit_ts stays that of the first admission."""
+        st = self._prefilling
+        if st is None:
+            return False
+        self._free_slot_state(st.slot)  # releases the pages and the plan
+        with self._queue.mutex:
+            self._queue.queue.appendleft(st.req)
+        return True
+
     def _pick_victim(self, exclude: int) -> Optional[int]:
         """youngest = most recently (re)admitted: least progress lost, and
         the oldest request is never chosen while another is active, so it
-        always completes and frees its pages."""
+        always completes and frees its pages. A slot mid-chunked-prefill is
+        inactive: it has no decode state to swap and is never a victim."""
         cands = [(s.seq, i) for i, s in enumerate(self._slots)
                  if s.req is not None and i != exclude and self.active[i]]
         if not cands:
@@ -756,11 +946,14 @@ class InferenceEngine:
         pick = max(cands) if self.preemption_policy == "youngest" else min(cands)
         return pick[1]
 
+    @torch.inference_mode()
     def _preempt_slot(self, slot: int) -> None:
         """Swap a slot's KV to host RAM and park its request with the
         tokens generated so far; the slot frees without finishing it."""
         s = self._slots[slot]
         req = s.req
+        now = self._clock()
+        self._flush_decode_window(slot, now)
         if self.paged:
             pos = self._slot_pos[slot]
             n_keep = -(-pos // self.page_size)  # pages holding real KV
@@ -782,7 +975,11 @@ class InferenceEngine:
             blob=blob, n_pages=n_keep)
         req.preemptions += 1
         self.preemptions += 1
-        req.preempt_ts = self._clock()
+        req.preempt_ts = now  # the "preempted" span and resume_wait close on it
+        tr = self.tracer
+        if tr is not None and tr.enabled:
+            tr.instant("swap_out", ts=now, tid=req.rid, cat="request", rid=req.rid,
+                       pos=pos, pages=n_keep)
         self._preempted.append(entry)
         self._free_slot_state(slot)
         if not self.paged:
@@ -836,6 +1033,10 @@ class InferenceEngine:
             parked = max(now - req.preempt_ts, 0.0)
             self.resume_wait.observe(parked)
             req.preempted_s += parked
+            tr = self.tracer
+            if tr is not None and tr.enabled:
+                tr.complete("preempted", req.preempt_ts, parked, tid=req.rid, cat="request",
+                            rid=req.rid, pages=entry.n_pages)
             req.preempt_ts = None
         if req.last_token_ts is not None:
             req.last_token_ts = now  # the stall is in resume_wait, not itl
@@ -863,10 +1064,14 @@ class InferenceEngine:
         through the registry) and take the request's one reference, paged
         into the device pool where it fits. False: the adapter is missing,
         corrupt or does not fit this model; that request finishes "error"
-        and the caller admits the next one."""
+        and the caller admits the next one. An injected page-in stall fails
+        that request only."""
         if req.rid in self._adapter_refs:  # an out-of-pages retry: held already
             if self._pager is not None:  # its pages may have been paged out
-                self._pager.ensure(self._adapter_refs[req.rid], req.rid)
+                try:
+                    self._pager.ensure(self._adapter_refs[req.rid], req.rid)
+                except AdapterError:
+                    pass  # best effort: the gather reads the host copy
             return True
         try:
             entry = self.adapters.acquire(req.adapter)
@@ -883,7 +1088,15 @@ class InferenceEngine:
         if self._pager is not None:
             # False (the pool stayed dry) is no error: the decode step
             # gathers this adapter from host RAM; paging never preempts KV
-            self._pager.ensure(entry, req.rid)
+            try:
+                self._pager.ensure(entry, req.rid)
+            except AdapterError as e:
+                # the page-in stall: release the reference just taken, so the
+                # registry's counts stay exact, and fail this request
+                del self._adapter_refs[req.rid]
+                self.adapters.release(entry)
+                self._fail_request(req, str(e))
+                return False
         return True
 
     def _check_adapter_dims(self, entry) -> None:
@@ -1005,25 +1218,39 @@ class InferenceEngine:
         """Terminal failure for a request not (or no longer) in a slot."""
         self._finish_detached(req, "error", error=msg)
 
-    def _finish_detached(self, req: Request, reason: str,
-                         error: Optional[str] = None) -> None:
-        """Terminal state for a request not in a slot (queued / parked)."""
-        with self._stat_lock:
-            self._inflight -= 1
+    def _shed_request(self, req: Request, kind: str, msg: str,
+                      journaled: bool = True) -> None:
+        """Overload rejection: explicit, fast, retryable."""
+        req.shed_kind = kind
+        self._finish_detached(req, "shed", error=msg, journaled=journaled)
+        self._bump("requests_shed")
+
+    def _finish_detached(self, req: Request, reason: str, error: Optional[str] = None,
+                         journaled: bool = True) -> None:
+        """Terminal state for a request not in a slot (queued / parked),
+        with _finish's journal and stream discipline. journaled=False: a
+        request shed at submit, never accepted (no journal entry, no
+        in-flight charge)."""
+        if journaled:
+            with self._stat_lock:
+                self._inflight -= 1
         if error is not None:
             req.error = error
         req.finish_reason = reason
         req.done = True
-        self._note_finish(req)
+        self._note_finish(req, self._clock())
+        if journaled and self._journal is not None:
+            self._journal.record_done(req.rid)
         if req.stream is not None:
             req.stream.put(None)
 
-    def _note_finish(self, req: Request) -> None:
-        """Per-reason finish count, shared by every finish path (handler
+    def _note_finish(self, req: Request, now: float) -> None:
+        """Terminal accounting shared by every finish path: the per-reason
+        count, the trace events and the request log's record (handler
         threads reach it for rejected submits, hence the lock)."""
-        now = self._clock()
+        reason = req.finish_reason or "?"
         with self._stat_lock:
-            self.finish_reasons[req.finish_reason or "?"] += 1
+            self.finish_reasons[reason] += 1
         entry = self._adapter_refs.pop(req.rid, None)
         if entry is not None:
             # the request's one adapter hold ends with it (every finish path
@@ -1031,16 +1258,75 @@ class InferenceEngine:
             self.adapters.release(entry)
             if self._pager is not None:
                 self._pager.drop_holder(req.rid)
-        if req.preempt_ts is not None:  # died while parked
-            req.preempted_s += max(now - req.preempt_ts, 0.0)
+        tr = self.tracer
+        if req.preempt_ts is not None:  # died while parked: close the stretch
+            parked = max(now - req.preempt_ts, 0.0)
+            req.preempted_s += parked
+            if tr is not None and tr.enabled:
+                tr.complete("preempted", req.preempt_ts, parked, tid=req.rid, cat="request",
+                            rid=req.rid, outcome=reason)
             req.preempt_ts = None
+        if tr is not None and tr.enabled:
+            if req.admit_ts is None and reason != "invalid":
+                # died waiting: its queued span shows the wait
+                tr.complete("queued", req.submit_ts, now - req.submit_ts, tid=req.rid,
+                            cat="request", rid=req.rid, outcome=reason)
+            args = {"rid": req.rid, "finish_reason": reason, "tokens": len(req.out_tokens)}
+            if req.first_token_ts is not None:
+                args["ttft_s"] = round(req.first_token_ts - req.submit_ts, 6)
+            if req.admit_ts is not None:
+                args["queue_wait_s"] = round(req.admit_ts - req.submit_ts, 6)
+            if req.preempted_s:
+                args["preempted_s"] = round(req.preempted_s, 6)
+            tr.instant("finish", ts=now, tid=req.rid, cat="request", **args)
+        if self._request_log is not None:
+            self._request_log.write(self._request_record(req, now))
+
+    def _request_record(self, req: Request, now: float) -> dict:
+        """The request log's record: every timing the TTFT, inter-token and
+        queue-wait dashboards derive, under one rid."""
+        rec = {"ts": round(now, 6), "rid": req.rid, "finish_reason": req.finish_reason,
+               "prompt_tokens": len(req.prompt), "output_tokens": len(req.out_tokens)}
+        if req.admit_ts is not None:
+            rec["queue_wait_s"] = round(req.admit_ts - req.submit_ts, 6)
+        if req.first_token_ts is not None:
+            rec["ttft_s"] = round(req.first_token_ts - req.submit_ts, 6)
+            n = len(req.out_tokens)
+            if n > 1 and req.last_token_ts is not None:
+                # time per output token over the decode stretch, parked
+                # time taken out (it is reported on its own)
+                decoding = max(req.last_token_ts - req.first_token_ts - req.preempted_s, 0.0)
+                rec["tpot_s"] = round(decoding / (n - 1), 6)
+        if req.preemptions:
+            rec["preemptions"] = req.preemptions
+            rec["preempted_s"] = round(req.preempted_s, 6)
+        if req.shed_kind is not None:
+            rec["shed_kind"] = req.shed_kind
+        if req.error:
+            rec["error"] = req.error
+        return rec
+
+    @staticmethod
+    def _expired(req: Request, now: float) -> Optional[str]:
+        """The deadline a request has blown, if any."""
+        if req.deadline_s is not None and now - req.submit_ts > req.deadline_s:
+            return "deadline_s"
+        if (req.admit_ts is None and req.queue_deadline_s is not None
+                and now - req.submit_ts > req.queue_deadline_s):
+            return "queue_deadline_s"
+        return None
 
     def _mark_admitted(self, req: Request) -> None:
-        """Stamp the first admission: queue_wait measures pure waiting."""
+        """Stamp the first admission: queue_wait measures pure waiting, and
+        the "queued" span ends where the prefill span starts."""
         if req.admit_ts is not None:
             return
         req.admit_ts = self._clock()
         self.queue_wait.observe(req.admit_ts - req.submit_ts)
+        tr = self.tracer
+        if tr is not None and tr.enabled:
+            tr.complete("queued", req.submit_ts, req.admit_ts - req.submit_ts, tid=req.rid,
+                        cat="request", rid=req.rid)
 
     def _activate(self, slot: int, req: Request, logits_last: torch.Tensor) -> None:
         """After prefill: sample the first token, arm the slot's sampling
@@ -1080,8 +1366,15 @@ class InferenceEngine:
         if self.logprobs_top_k:
             tv, ti = torch.topk(row_lp, self.logprobs_top_k)
             first_top = {int(t): float(lv) for t, lv in zip(ti.tolist(), tv.tolist())}
+        # the prefill phase closes here (the first token's sample synced),
+        # before the first emit: the request's track stays nested
+        now = self._clock()
         if req.admit_ts is not None:
-            self.prefill_seconds.observe(self._clock() - req.admit_ts)
+            self.prefill_seconds.observe(now - req.admit_ts)
+            tr = self.tracer
+            if tr is not None and tr.enabled:
+                tr.complete("prefill", req.admit_ts, now - req.admit_ts, tid=req.rid,
+                            cat="request", rid=req.rid, prompt_tokens=len(req.prompt))
         self._emit(slot, first, first_lp, first_top)
 
     def _admit_dense(self, req: Request, slot: int) -> None:
@@ -1095,6 +1388,7 @@ class InferenceEngine:
         tokens = np.full((1, bucket), self.gen.pad_token_id, np.int32)
         tokens[0, bucket - len(req.prompt):] = req.prompt
         pad = bucket - len(req.prompt)
+        self.prefill_chunks += 1  # a monolithic prefill is one chunk
         logits_last, pcache = self._prefill(tokens, pad, self._prefill_lora(req))
         kvcache.insert_row(self.cache, pcache, slot, pad)
         if self.speculative:
@@ -1108,12 +1402,14 @@ class InferenceEngine:
                 return
             # preempted requests resume first, in preemption order
             if self._preempted:
+                # dead entries at any depth went in _sweep_preempted
                 entry = self._preempted[0]
                 if self._resume_preempted(entry, slot):
                     self._preempted.popleft()
                     continue
-                if not self.active.any():
-                    # nothing left to free pages: the restore can never fit
+                if not self.active.any() and self._prefilling is None:
+                    # nothing left to free pages (a chunk plan will activate
+                    # and free its own): the restore can never fit
                     self._preempted.popleft()
                     self._fail_request(entry.req, (
                         f"cannot resume preempted request: restoring "
@@ -1121,12 +1417,20 @@ class InferenceEngine:
                         "raise n_pages"))
                     continue
                 return  # wait for pages before admitting anything newer
+            if self._prefilling is not None:
+                # one prefill at a time: the queue waits for the plan to land
+                return
             req = self._pop_request()
             if req is None:
                 return
             if req.rid in self._cancelled:  # cancelled while queued
                 self._cancelled.pop(req.rid, None)
                 self._finish_detached(req, "stop")
+                continue
+            now = self._clock()
+            which = self._expired(req, now)
+            if which is not None:
+                self._expire_queued(req, which, now)
                 continue
             if req.adapter is not None and not self._resolve_adapter(req):
                 continue  # that request errors; the batch keeps serving
@@ -1146,12 +1450,25 @@ class InferenceEngine:
             return
         req = s.req
         now = self._clock()
+        prev = req.last_token_ts
         if req.first_token_ts is None:
             req.first_token_ts = now
             self.ttft.observe(now - req.submit_ts)
+            prev = now
         else:
-            self.itl.observe(now - req.last_token_ts)
+            self.itl.observe(now - prev)
         req.last_token_ts = now
+        tr = self.tracer
+        if tr is not None and tr.enabled:
+            # one "decode" span a trace_decode_every tokens, each opening
+            # where the last closed
+            if s.n_win == 0:
+                s.t_win = prev
+            s.n_win += 1
+            if s.n_win >= self.trace_decode_every:
+                tr.complete("decode", s.t_win, now - s.t_win, tid=req.rid, cat="request",
+                            rid=req.rid, tokens=s.n_win)
+                s.n_win = 0
         req.out_tokens.append(token)
         if logprob is not None:
             req.out_logprobs.append(logprob)
@@ -1162,15 +1479,35 @@ class InferenceEngine:
         if s.remaining <= 0:
             self._finish(slot, "length")
 
+    def _flush_decode_window(self, slot: int, now: float) -> None:
+        """Close the slot's partial decode-window span (a finish or a
+        preemption must not drop its tail tokens' span)."""
+        s = self._slots[slot]
+        tr = self.tracer
+        if tr is not None and tr.enabled and s.n_win > 0 and s.req is not None:
+            tr.complete("decode", s.t_win, now - s.t_win, tid=s.req.rid, cat="request",
+                        rid=s.req.rid, tokens=s.n_win)
+        s.n_win = 0
+
     def _finish(self, slot: int, reason: str = "stop", counted: bool = True) -> None:
         s = self._slots[slot]
+        now = self._clock()
+        self._flush_decode_window(slot, now)
         s.req.finish_reason = reason
         s.req.done = True
+        # before the crash point: a crash here leaves the request terminal,
+        # so its in-flight charge and its accounting are already settled
         with self._stat_lock:
             self._inflight -= 1
-        self._note_finish(s.req)
+        self._note_finish(s.req, now)
         if counted and reason in ("stop", "length"):
             self.requests_completed += 1  # cancelled requests are not counted
+        if not self._cleanup and self._faults.fire("crash_before_done") is not None:
+            # a process death in the journal's at-least-once window: the
+            # request completed, its tombstone was never written
+            raise FaultError(f"injected crash before journal tombstone (rid {s.req.rid})")
+        if self._journal is not None:
+            self._journal.record_done(s.req.rid)
         if s.req.stream is not None:
             s.req.stream.put(None)
         self._free_slot_state(slot)
@@ -1178,6 +1515,10 @@ class InferenceEngine:
     def _free_slot_state(self, slot: int) -> None:
         """Release a slot's engine-side state (sampling rows, pages)
         without touching the request's terminal fields."""
+        if self._prefilling is not None and self._prefilling.slot == slot:
+            # died mid-chunked-prefill: every finish path comes here, so no
+            # chunk ever runs for a freed slot
+            self._prefilling = None
         self._slots[slot] = _Slot()
         self.active[slot] = False
         if self._slot_adapter[slot] is not None:
@@ -1202,6 +1543,7 @@ class InferenceEngine:
         self._penalty[:] = 1.0
         self.active[:] = False
         self._preempted.clear()
+        self._prefilling = None  # a half-run chunk plan died with the pool
         self._slot_adapter = [None] * self.n_slots
         self._blora, self._blora_dirty = None, True
         if self.paged:
@@ -1233,33 +1575,168 @@ class InferenceEngine:
                 self._cancelled.pop(s.req.rid, None)
                 self._finish(i, "stop", counted=False)
 
+    def _inject_nan(self, lps: np.ndarray) -> np.ndarray:
+        """The `nan_logits` fault point, on the plain and the speculative
+        step: the victim rows' host logprobs become NaN, as if the model
+        had produced non-finite logits for them."""
+        f = self._faults.fire("nan_logits")
+        if f is None:
+            return lps
+        lps = lps.copy()
+        victims = f.get("slots")
+        if victims is None:
+            act = np.nonzero(self.active)[0]
+            victims = [int(act[0])] if act.size else []
+        for v in victims:
+            lps[v] = np.nan
+        return lps
+
+    def _bump(self, counter: str) -> None:
+        """Increment an overload counter (handler threads and the engine
+        thread both bump them)."""
+        with self._stat_lock:
+            setattr(self, counter, getattr(self, counter) + 1)
+
+    def _expire_queued(self, req: Request, which: str, now: float) -> None:
+        """A request that expired before admission: a queue deadline sheds
+        it, the whole deadline times it out."""
+        if which == "queue_deadline_s":
+            self._shed_request(req, "queue_deadline", (
+                f"queue deadline: waited {now - req.submit_ts:.2f}s > "
+                f"queue_deadline_s={req.queue_deadline_s}"))
+        else:
+            self._finish_detached(req, "timeout", error=f"deadline_s={req.deadline_s} "
+                                  "exceeded before admission")
+            self._bump("request_timeouts")
+
+    def _sweep_preempted(self) -> None:
+        """Drop parked requests that were cancelled or whose deadline
+        expired, at any depth of the deque."""
+        if not self._preempted:
+            return
+        now = self._clock()
+        keep: "collections.deque[_Preempted]" = collections.deque()
+        for entry in self._preempted:
+            req = entry.req
+            if req.rid in self._cancelled:
+                self._cancelled.pop(req.rid, None)
+                self._finish_detached(req, "stop")
+                continue
+            if self._expired(req, now) is not None:
+                self._finish_detached(req, "timeout", error=f"deadline_s={req.deadline_s} "
+                                      "exceeded while preempted")
+                self._bump("request_timeouts")
+                continue
+            keep.append(entry)
+        self._preempted = keep
+
+    def _sweep_queue(self) -> None:
+        """Drop requests that died while waiting (expired deadlines,
+        cancelled clients) even when no slot frees: they stop counting
+        against max_queue at the next step."""
+        if not self._deadlines_seen and not self._cancelled:
+            return
+        now = self._clock()
+        # the paged out-of-pages retry waits like a queue entry
+        if self._waiting is not None:
+            req = self._waiting
+            if req.rid in self._cancelled:
+                self._waiting = None
+                self._cancelled.pop(req.rid, None)
+                self._finish_detached(req, "stop")
+            else:
+                which = self._expired(req, now)
+                if which is not None:
+                    self._waiting = None
+                    self._expire_queued(req, which, now)
+        if self._queue.empty():
+            return
+        expired: list[tuple[Request, str]] = []
+        cancelled: list[Request] = []
+        with self._queue.mutex:  # one pass over the deque under its own lock
+            q = self._queue.queue
+            keep = []
+            for r in q:
+                which = self._expired(r, now)
+                if r.rid in self._cancelled:
+                    cancelled.append(r)
+                elif which is not None:
+                    expired.append((r, which))
+                else:
+                    keep.append(r)
+            if expired or cancelled:
+                q.clear()
+                q.extend(keep)
+        for req in cancelled:  # journal and stream work outside the lock
+            self._cancelled.pop(req.rid, None)
+            self._finish_detached(req, "stop")
+        for req, which in expired:
+            self._expire_queued(req, which, now)
+
+    def _reap_deadlines(self) -> None:
+        """Finish in-flight requests past their whole budget "timeout",
+        with their partial output."""
+        now = self._clock()
+        for i, s in enumerate(self._slots):
+            if s.req is None or s.req.deadline_s is None:
+                continue
+            if s.req.rid in self._cancelled:
+                continue  # the cancel reaper frees it; counted once
+            if now - s.req.submit_ts > s.req.deadline_s:
+                s.req.error = (f"deadline_s={s.req.deadline_s} exceeded after "
+                               f"{len(s.req.out_tokens)} tokens")
+                self._finish(i, "timeout")
+                self._bump("request_timeouts")
+
+    @torch.inference_mode()
     def fail_all(self, msg: str) -> None:
         """Mark every in-flight, parked and queued request failed (the
-        decode-failure path; streams get their end marker)."""
-        for i, s in enumerate(self._slots):
-            if s.req is not None:
+        decode-failure path; streams get their end marker). Crash points
+        do not fire during the cleanup."""
+        self._cleanup = True
+        try:
+            for i, s in enumerate(self._slots):
+                if s.req is None:
+                    continue
+                if s.req.done:
+                    # crashed inside _finish (crash_before_done): the request
+                    # completed; free the slot, keep its terminal state and
+                    # write no tombstone, so a successor replays it
+                    if s.req.stream is not None:
+                        s.req.stream.put(None)
+                    self._free_slot_state(i)
+                    continue
                 s.req.error = msg
                 self._finish(i, "error")
-        if self._waiting is not None:
-            req, self._waiting = self._waiting, None
-            self._fail_request(req, msg)
-        while self._preempted:
-            self._fail_request(self._preempted.popleft().req, msg)
-        while True:
-            try:
-                req = self._queue.get_nowait()
-            except queue.Empty:
-                break
-            self._fail_request(req, msg)
-        self.active[:] = False
+            if self._waiting is not None:
+                req, self._waiting = self._waiting, None
+                self._fail_request(req, msg)
+            while self._preempted:
+                self._fail_request(self._preempted.popleft().req, msg)
+            while True:
+                try:
+                    req = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                self._fail_request(req, msg)
+            self.active[:] = False
+        finally:
+            self._cleanup = False
 
     @torch.inference_mode()
     def step(self) -> bool:
-        """Admit queued requests, advance every active slot one token.
-        Returns True while work remains."""
+        """Admit queued requests, run at most one prefill chunk, advance
+        every active slot one token. Returns True while work remains."""
+        f = self._faults.fire("slow_step")
+        if f is not None:  # an injected device stall
+            time.sleep(float(f.get("seconds", 0.05)))
         self._reap_cancelled()
         self._reap_preempt_requests()
+        self._reap_deadlines()
+        self._sweep_preempted()
+        self._sweep_queue()
         self._admit()
+        self._advance_prefill()
         if self.paged:
             # the current ladder K: after a downshift a round writes fewer
             self._ensure_decode_pages(self._cur_k if self.speculative else 1)
@@ -1268,7 +1745,7 @@ class InferenceEngine:
                 self._bt_dirty = False
         if not self.active.any():
             return (not self._queue.empty() or self._waiting is not None
-                    or bool(self._preempted))
+                    or bool(self._preempted) or self._prefilling is not None)
         if self.speculative:
             return self._step_speculative()
         t0 = self._clock()
@@ -1281,10 +1758,10 @@ class InferenceEngine:
             raise
         self.cur = nxt
         toks = nxt.tolist()
-        lps_h = lps.cpu().numpy()
+        lps_h = self._inject_nan(lps.cpu().numpy())
         tops_h = None if top is None else (top[0].tolist(), top[1].tolist())
         # the host copies above synchronize: the step's device work is done
-        self.decode_step_seconds.observe(self._clock() - t0)
+        self._note_decode_step(t0)
         for i in np.nonzero(self.active)[0]:
             i = int(i)
             s = self._slots[i]
@@ -1304,6 +1781,19 @@ class InferenceEngine:
             self._emit(i, int(toks[i]), float(lps_h[i]), alt)
         return True
 
+    def _note_decode_step(self, t0: float) -> None:
+        """A decode step's histogram, and its span and occupancy counter on
+        the engine track (tid 0)."""
+        t1 = self._clock()
+        self.decode_step_seconds.observe(t1 - t0)
+        tr = self.tracer
+        if tr is not None and tr.enabled:
+            busy = int(self.active.sum())
+            tr.complete("decode_step", t0, t1 - t0, tid=0, cat="engine", occupancy=busy,
+                        slots=self.n_slots, queue_depth=self._queue.qsize())
+            tr.counter("batch", ts=t1, occupancy=busy, queued=self._queue.qsize(),
+                       preempted=len(self._preempted))
+
     def _step_speculative(self) -> bool:
         """A draft-K-then-verify round: each live slot emits 1..K tokens
         (its accepted drafts and the target's token after them)."""
@@ -1315,10 +1805,10 @@ class InferenceEngine:
             self._reset_state()
             raise
         choice_h = choice.tolist()
-        lp_h = lp.cpu().numpy()
+        lp_h = self._inject_nan(lp.cpu().numpy())
         n_acc_h = n_acc.cpu().numpy()
         # the host copies above synchronize: the round's device work is done
-        self.decode_step_seconds.observe(self._clock() - t0)
+        self._note_decode_step(t0)
         self.spec_rounds += 1
         if self.adaptive_draft:
             self._adapt_draft_k(n_acc_h[self.active])
@@ -1367,16 +1857,47 @@ class InferenceEngine:
                 return
 
     def begin_drain(self) -> None:
-        raise _not_ported("InferenceEngine.begin_drain", "drain")
-
-    def drain(self, timeout_s: Optional[float] = None) -> bool:
-        raise _not_ported("InferenceEngine.drain", "drain")
+        """Stop admitting (new submits shed "draining") while accepted work
+        keeps stepping. Thread-safe."""
+        self._draining = True
 
     def idle(self) -> bool:
         """No accepted-but-unfinished work remains (an in-flight count,
         so a request mid-admission is not missed)."""
         with self._stat_lock:
             return self._inflight == 0
+
+    def drain(self, timeout_s: Optional[float] = None) -> bool:
+        """begin_drain, then step to completion from the calling thread.
+        True when drained; False at the timeout, the unfinished requests
+        left pending (a journaled engine replays them at its next start)."""
+        self.begin_drain()
+        deadline = None if timeout_s is None else self._clock() + timeout_s
+        while not self.idle():
+            if deadline is not None and self._clock() > deadline:
+                return False
+            self.step()
+        return True
+
+    def close(self) -> None:
+        """Close the request log; flush, compact and detach the journal.
+        Only after the stepping thread has stopped: compaction replaces the
+        file under any live append handle. After a clean drain the journal
+        holds nothing, so the next start replays nothing. Idempotent."""
+        if self._request_log is not None:
+            self._request_log.close()
+        if self._journal is None:
+            return
+        from bigdl_tpu_torch.serving.journal import RequestJournal
+
+        path = self._journal.path
+        self._journal.close()
+        self._journal = None
+        RequestJournal.compact(path)
+
+    def uptime_seconds(self) -> float:
+        """Engine age in its own clock's seconds."""
+        return max(self._clock() - self._t_start, 0.0)
 
     def page_leaks(self) -> int:
         """Pages whose refcount disagrees with their holders (slot block

@@ -1,13 +1,28 @@
-"""Serving histograms (copies of `Histogram`, `FAST_BUCKETS` and the
-request buckets of bigdl_tpu/serving/metrics.py). The engine observes its
-TTFT, inter-token, prefill and decode-step latencies into them; the
-Prometheus exposition (`render`) and the training registry wait for the
-HTTP layer (ROADMAP queue 1 item 5)."""
+"""Serving metrics (a copy of bigdl_tpu/serving/metrics.py): counters,
+histograms and gauges with a Prometheus text-format exposition.
+
+The engine observes its queue-wait, TTFT, inter-token, prefill,
+decode-step and resume-wait latencies into `Histogram`s;
+`Metrics(engine).render()` writes every family under the JAX package's names, so one
+dashboard reads either package, and `metric_drift` holds a rendering to
+the registry of families (`expected_families`). `bigdl_tpu_build_info`
+labels torch's version where the JAX package labels jax's. The training
+counters render at zero until the training supervisor is ported (ROADMAP
+queue 1 item [6]).
+"""
 
 from __future__ import annotations
 
+import threading
+from collections import defaultdict
+
 # request latency histogram bucket upper bounds (seconds)
 _BUCKETS = (0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
+
+# training steps run minutes on big jobs: the request buckets would pile
+# everything into +Inf
+_STEP_BUCKETS = (0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+                 120.0, 300.0, 600.0)
 
 # per-token / per-step phase latencies live in milliseconds: the request
 # buckets would flatten every inter-token-latency distribution into the
@@ -15,11 +30,37 @@ _BUCKETS = (0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
 FAST_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
                 0.5, 1.0, 2.5, 5.0)
 
+# finish reasons ALWAYS rendered (zero-valued series keep dashboards and
+# the drift check stable); reasons outside this set render as seen
+FINISH_REASONS = ("stop", "length", "error", "shed", "timeout", "invalid")
+
+
+def _verify_failures() -> int:
+    """Process-wide checkpoint verification failure count (lazy import:
+    metrics must stay importable without dragging the convert stack)."""
+    from bigdl_tpu_torch.utils.durability import VERIFY_FAILURES
+
+    return VERIFY_FAILURES.value
+
+
+class Counter:
+    """Process-wide thread-safe counter for the module-level registry
+    (same shape as durability.VERIFY_FAILURES, kept local so this
+    module stays stdlib-only)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.value = 0
+
+    def inc(self, n: int = 1) -> None:
+        with self._lock:
+            self.value += n
+
 
 class Histogram:
     """Minimal lock-free Prometheus histogram: one writer (the engine
-    thread observes), any reader (a racing reader sees a value at most
-    one observation stale)."""
+    thread observes), any reader (a racing render sees a value at most
+    one observation stale — fine for scraping)."""
 
     def __init__(self, buckets=_BUCKETS):
         self.buckets = buckets
@@ -38,3 +79,450 @@ class Histogram:
     @property
     def count(self) -> int:
         return sum(self.counts)
+
+    def render_series(self, name: str, label: str = "") -> list:
+        """The bucket/sum/count sample lines only (no HELP/TYPE) —
+        labelled histogram families emit one HELP/TYPE header over many
+        series. `label` is a preformatted 'key="value",' prefix."""
+        lines = []
+        cum = 0
+        for i, ub in enumerate(self.buckets):
+            cum += self.counts[i]
+            lines.append(f'{name}_bucket{{{label}le="{ub}"}} {cum}')
+        cum += self.counts[-1]
+        lines.append(f'{name}_bucket{{{label}le="+Inf"}} {cum}')
+        suffix = f"{{{label[:-1]}}}" if label else ""
+        lines.append(f"{name}_sum{suffix} {self.sum:.6f}")
+        lines.append(f"{name}_count{suffix} {cum}")
+        return lines
+
+    def render(self, name: str, help_text: str) -> list:
+        return [f"# HELP {name} {help_text}",
+                f"# TYPE {name} histogram"] + self.render_series(name)
+
+
+# ---------------------------------------------------------------------------
+# training-supervisor registry (the JAX package's train/supervisor.py
+# bumps these; the port's supervisor is ROADMAP queue 1 item [6], so they
+# render at zero until it lands). Process-wide, like VERIFY_FAILURES.
+# ---------------------------------------------------------------------------
+
+TRAIN_ANOMALIES = Counter()             # guarded steps found anomalous
+TRAIN_STEPS_SKIPPED = Counter()         # updates discarded (state kept)
+TRAIN_ROLLBACKS = Counter()             # restores from last-good ckpt
+TRAIN_EMERGENCY_CHECKPOINTS = Counter()  # SIGTERM-boundary saves
+TRAIN_WATCHDOG_ABORTS = Counter()       # hung-step exits
+TRAIN_STEP_SECONDS = Histogram(buckets=_STEP_BUCKETS)
+
+_TRAIN_COUNTER_SERIES = (
+    ("bigdl_tpu_train_anomalies_total",
+     "training steps flagged anomalous (NaN/inf loss or grad-norm, "
+     "EMA loss spike)", TRAIN_ANOMALIES),
+    ("bigdl_tpu_train_steps_skipped_total",
+     "anomalous steps skipped with optimizer state untouched",
+     TRAIN_STEPS_SKIPPED),
+    ("bigdl_tpu_train_rollbacks_total",
+     "rollbacks to the last good checkpoint after consecutive "
+     "anomalies", TRAIN_ROLLBACKS),
+    ("bigdl_tpu_train_emergency_checkpoints_total",
+     "preemption-signal emergency checkpoints", TRAIN_EMERGENCY_CHECKPOINTS),
+    ("bigdl_tpu_train_watchdog_aborts_total",
+     "hung-step watchdog aborts", TRAIN_WATCHDOG_ABORTS),
+)
+
+
+def render_train_series() -> list:
+    lines = []
+    for name, help_text, c in _TRAIN_COUNTER_SERIES:
+        lines += [f"# HELP {name} {help_text}",
+                  f"# TYPE {name} counter",
+                  f"{name} {c.value}"]
+    lines += TRAIN_STEP_SECONDS.render(
+        "bigdl_tpu_train_step_seconds",
+        "supervised training step wall-clock (incl. host loss fetch)",
+    )
+    return lines
+
+
+def render_build_info() -> list:
+    """`bigdl_tpu_build_info` gauge: constant 1 with the build identity
+    as labels — the standard Prometheus idiom for joining every other
+    series against a version during a rollout."""
+    import torch
+
+    from bigdl_tpu_torch import __version__
+    from bigdl_tpu_torch.convert.low_bit import FORMAT_VERSION
+
+    return [
+        "# HELP bigdl_tpu_build_info build identity (constant 1; "
+        "version labels)",
+        "# TYPE bigdl_tpu_build_info gauge",
+        f'bigdl_tpu_build_info{{version="{__version__}",'
+        f'torch_version="{torch.__version__}",format_version="{FORMAT_VERSION}"}} 1',
+    ]
+
+
+class Metrics:
+    def __init__(self, engine=None):
+        self._lock = threading.Lock()
+        self.engine = engine
+        self.requests = defaultdict(int)  # (endpoint, status) -> count
+        self.tokens_generated = 0
+        self.requests_failed = 0
+        self.hist = defaultdict(Histogram)  # endpoint -> latency histogram
+
+    # -- recording ----------------------------------------------------------
+    def observe_request(self, endpoint: str, status: int, seconds: float):
+        with self._lock:
+            self.requests[(endpoint, status)] += 1
+            if status >= 500 and status != 503:
+                # 503 is deliberate load shedding (queue deadline)
+                # — the designed healthy overload
+                # response, tracked by bigdl_tpu_requests_shed_total;
+                # counting it here would make the failure-rate alert
+                # fire on backpressure (and inconsistently: the 429
+                # shed path never counted)
+                self.requests_failed += 1
+            self.hist[endpoint].observe(seconds)
+
+    def count_tokens(self, n: int):
+        with self._lock:
+            self.tokens_generated += n
+
+    # -- exposition ---------------------------------------------------------
+    def render(self) -> str:
+        lines = [
+            "# HELP bigdl_tpu_requests_total HTTP requests by endpoint/status",
+            "# TYPE bigdl_tpu_requests_total counter",
+        ]
+        with self._lock:
+            for (ep, status), n in sorted(self.requests.items()):
+                lines.append(
+                    f'bigdl_tpu_requests_total{{endpoint="{ep}",'
+                    f'status="{status}"}} {n}'
+                )
+            lines += [
+                "# HELP bigdl_tpu_tokens_generated_total tokens emitted",
+                "# TYPE bigdl_tpu_tokens_generated_total counter",
+                f"bigdl_tpu_tokens_generated_total {self.tokens_generated}",
+                "# HELP bigdl_tpu_requests_failed_total 5xx responses",
+                "# TYPE bigdl_tpu_requests_failed_total counter",
+                f"bigdl_tpu_requests_failed_total {self.requests_failed}",
+                # artifact durability (utils/durability.py): process-wide
+                # count of checkpoint integrity-verification failures —
+                # a nonzero here means a load saw corruption (raised or
+                # salvaged) and restarts are running on borrowed time
+                "# HELP bigdl_tpu_checkpoint_verify_failures_total "
+                "checkpoint integrity verification failures",
+                "# TYPE bigdl_tpu_checkpoint_verify_failures_total counter",
+                f"bigdl_tpu_checkpoint_verify_failures_total "
+                f"{_verify_failures()}",
+            ]
+            lines += render_build_info()
+            lines += render_train_series()
+            lines += [
+                "# HELP bigdl_tpu_request_seconds request latency",
+                "# TYPE bigdl_tpu_request_seconds histogram",
+            ]
+            for ep, hist in sorted(self.hist.items()):
+                lines += hist.render_series(
+                    "bigdl_tpu_request_seconds", f'endpoint="{ep}",'
+                )
+        if self.engine is not None:
+            busy = int(self.engine.active.sum())
+            lines += [
+                "# HELP bigdl_tpu_busy_slots decode slots in use",
+                "# TYPE bigdl_tpu_busy_slots gauge",
+                f"bigdl_tpu_busy_slots {busy}",
+                "# HELP bigdl_tpu_total_slots decode slot pool size",
+                "# TYPE bigdl_tpu_total_slots gauge",
+                f"bigdl_tpu_total_slots {self.engine.n_slots}",
+                "# HELP bigdl_tpu_queue_depth requests waiting for a slot",
+                "# TYPE bigdl_tpu_queue_depth gauge",
+                f"bigdl_tpu_queue_depth {self.engine._queue.qsize()}",
+                # overload-protection observability:
+                # preemption activity, load shedding, and deadline kills
+                # are invisible without these — an operator must be able
+                # to tell "we truncated output" never happens from graphs
+                "# HELP bigdl_tpu_preemptions_total requests swapped to "
+                "host RAM under page-pool pressure",
+                "# TYPE bigdl_tpu_preemptions_total counter",
+                f"bigdl_tpu_preemptions_total {self.engine.preemptions}",
+                "# HELP bigdl_tpu_preemption_resumes_total preempted "
+                "requests swapped back in and resumed",
+                "# TYPE bigdl_tpu_preemption_resumes_total counter",
+                f"bigdl_tpu_preemption_resumes_total "
+                f"{self.engine.preemption_resumes}",
+                "# HELP bigdl_tpu_requests_shed_total requests rejected "
+                "at/behind admission (queue bound or queue deadline)",
+                "# TYPE bigdl_tpu_requests_shed_total counter",
+                f"bigdl_tpu_requests_shed_total {self.engine.requests_shed}",
+                "# HELP bigdl_tpu_request_timeouts_total requests killed "
+                "by a deadline or server wait timeout",
+                "# TYPE bigdl_tpu_request_timeouts_total counter",
+                f"bigdl_tpu_request_timeouts_total "
+                f"{self.engine.request_timeouts}",
+                "# HELP bigdl_tpu_preempted_waiting preempted requests "
+                "parked in host RAM awaiting resume",
+                "# TYPE bigdl_tpu_preempted_waiting gauge",
+                f"bigdl_tpu_preempted_waiting {len(self.engine._preempted)}",
+                "# HELP bigdl_tpu_journal_corrupt_lines_total interior-"
+                "corrupt journal lines skipped at recovery scan",
+                "# TYPE bigdl_tpu_journal_corrupt_lines_total counter",
+                f"bigdl_tpu_journal_corrupt_lines_total "
+                f"{getattr(self.engine, 'journal_corrupt_lines', 0)}",
+            ]
+            lines += self.engine.queue_wait.render(
+                "bigdl_tpu_queue_wait_seconds",
+                "submit-to-first-admission wait (prefill excluded)",
+            )
+            # ---- request-lifecycle latency + utilization families ----
+            lines += [
+                "# HELP bigdl_tpu_uptime_seconds engine age (its own "
+                "clock domain)",
+                "# TYPE bigdl_tpu_uptime_seconds gauge",
+                f"bigdl_tpu_uptime_seconds "
+                f"{self.engine.uptime_seconds():.3f}",
+                "# HELP bigdl_tpu_batch_occupancy fraction of decode "
+                "slots in use",
+                "# TYPE bigdl_tpu_batch_occupancy gauge",
+                f"bigdl_tpu_batch_occupancy "
+                f"{busy / max(self.engine.n_slots, 1):.4f}",
+                "# HELP bigdl_tpu_kv_pool_utilization fraction of the "
+                "KV pool holding live state",
+                "# TYPE bigdl_tpu_kv_pool_utilization gauge",
+                f"bigdl_tpu_kv_pool_utilization "
+                f"{self.engine.kv_utilization():.4f}",
+                "# HELP bigdl_tpu_requests_finished_total requests "
+                "reaching a terminal state, by finish_reason",
+                "# TYPE bigdl_tpu_requests_finished_total counter",
+            ]
+            # snapshot under the writers' lock (handler threads insert
+            # first-seen reasons concurrently via _note_finish)
+            with self.engine._stat_lock:
+                fr = dict(self.engine.finish_reasons)
+            for reason in FINISH_REASONS + tuple(
+                sorted(set(fr) - set(FINISH_REASONS))
+            ):
+                lines.append(
+                    f'bigdl_tpu_requests_finished_total'
+                    f'{{reason="{reason}"}} {fr.get(reason, 0)}'
+                )
+            lines += self.engine.ttft.render(
+                "bigdl_tpu_ttft_seconds",
+                "time to first token (submit to first emit)",
+            )
+            lines += self.engine.itl.render(
+                "bigdl_tpu_inter_token_seconds",
+                "gap between consecutive emitted tokens (parked time "
+                "excluded — see resume_wait)",
+            )
+            lines += self.engine.prefill_seconds.render(
+                "bigdl_tpu_prefill_seconds",
+                "prefill phase per admission (admission to first-token "
+                "sample)",
+            )
+            lines += self.engine.decode_step_seconds.render(
+                "bigdl_tpu_decode_step_seconds",
+                "batched decode step wall-clock (host-sync honest)",
+            )
+            lines += self.engine.resume_wait.render(
+                "bigdl_tpu_resume_wait_seconds",
+                "preempted requests' host-RAM parked time until resume "
+                "(not folded into queue_wait)",
+            )
+            lines += [
+                # chunked prefill: one count per prefill dispatch — a
+                # monolithic prefill is 1 chunk
+                "# HELP bigdl_tpu_prefill_chunks_total prefill chunks "
+                "dispatched (monolithic prefill counts 1)",
+                "# TYPE bigdl_tpu_prefill_chunks_total counter",
+                f"bigdl_tpu_prefill_chunks_total "
+                f"{self.engine.prefill_chunks}",
+            ]
+            if self.engine.paged:
+                lines += [
+                    "# HELP bigdl_tpu_free_pages allocatable KV pages",
+                    "# TYPE bigdl_tpu_free_pages gauge",
+                    f"bigdl_tpu_free_pages {self.engine._pool.n_free}",
+                    "# HELP bigdl_tpu_prefix_hits_total full-page prefix "
+                    "cache hits",
+                    "# TYPE bigdl_tpu_prefix_hits_total counter",
+                    f"bigdl_tpu_prefix_hits_total {self.engine.prefix_hits}",
+                    "# HELP bigdl_tpu_prefix_partial_hits_total sub-page "
+                    "prefix copies",
+                    "# TYPE bigdl_tpu_prefix_partial_hits_total counter",
+                    f"bigdl_tpu_prefix_partial_hits_total "
+                    f"{self.engine.prefix_partial_hits}",
+                    "# HELP bigdl_tpu_prefix_tokens_reused_total prompt "
+                    "tokens served from copied KV instead of prefill",
+                    "# TYPE bigdl_tpu_prefix_tokens_reused_total counter",
+                    f"bigdl_tpu_prefix_tokens_reused_total "
+                    f"{self.engine.prefix_tokens_reused}",
+                    # radix prefix cache (serving/radix.py)
+                    "# HELP bigdl_tpu_prefix_evictions_total radix "
+                    "cache leaves evicted for page pressure",
+                    "# TYPE bigdl_tpu_prefix_evictions_total counter",
+                    f"bigdl_tpu_prefix_evictions_total "
+                    f"{self.engine.prefix_evictions}",
+                    "# HELP bigdl_tpu_radix_nodes cached prefix pages "
+                    "(radix tree nodes)",
+                    "# TYPE bigdl_tpu_radix_nodes gauge",
+                    f"bigdl_tpu_radix_nodes {self.engine.radix.n_nodes}",
+                ]
+            if getattr(self.engine, "adapters", None) is not None:
+                # multi-tenant LoRA registry (serving/adapters.py §7)
+                st = self.engine.adapters.stats()
+                lines += [
+                    "# HELP bigdl_tpu_adapter_loads_total LoRA adapter "
+                    "artifact loads (incl. post-eviction reloads)",
+                    "# TYPE bigdl_tpu_adapter_loads_total counter",
+                    f"bigdl_tpu_adapter_loads_total {st['loads']}",
+                    "# HELP bigdl_tpu_adapter_evictions_total adapters "
+                    "dropped from host RAM under budget pressure",
+                    "# TYPE bigdl_tpu_adapter_evictions_total counter",
+                    f"bigdl_tpu_adapter_evictions_total {st['evictions']}",
+                    "# HELP bigdl_tpu_adapter_load_failures_total "
+                    "missing/corrupt/rank-mismatched adapter loads",
+                    "# TYPE bigdl_tpu_adapter_load_failures_total counter",
+                    f"bigdl_tpu_adapter_load_failures_total "
+                    f"{st['load_failures']}",
+                    "# HELP bigdl_tpu_adapters_resident adapters "
+                    "currently resident in host RAM",
+                    "# TYPE bigdl_tpu_adapters_resident gauge",
+                    f"bigdl_tpu_adapters_resident {st['resident']}",
+                ]
+                # unified device paging: device
+                # residency in the shared KV page pool. Families render
+                # whenever the adapter block does (0 when the engine has
+                # no pager — dense pool or family cache) so the drift
+                # gate stays structural, not configuration-dependent.
+                pager = getattr(self.engine, "_pager", None)
+                pi = pager.page_ins if pager is not None else 0
+                po = pager.page_outs if pager is not None else 0
+                pr = pager.pages_resident if pager is not None else 0
+                lines += [
+                    "# HELP bigdl_tpu_adapter_page_ins_total adapter "
+                    "weight pages written into the shared KV page pool",
+                    "# TYPE bigdl_tpu_adapter_page_ins_total counter",
+                    f"bigdl_tpu_adapter_page_ins_total {pi}",
+                    "# HELP bigdl_tpu_adapter_page_outs_total adapter "
+                    "weight pages dropped back to host under pressure",
+                    "# TYPE bigdl_tpu_adapter_page_outs_total counter",
+                    f"bigdl_tpu_adapter_page_outs_total {po}",
+                    "# HELP bigdl_tpu_adapter_pages_resident device "
+                    "pages currently holding adapter weights",
+                    "# TYPE bigdl_tpu_adapter_pages_resident gauge",
+                    f"bigdl_tpu_adapter_pages_resident {pr}",
+                ]
+            if self.engine.speculative:
+                lines += [
+                    "# HELP bigdl_tpu_spec_rounds_total verify rounds run",
+                    "# TYPE bigdl_tpu_spec_rounds_total counter",
+                    f"bigdl_tpu_spec_rounds_total {self.engine.spec_rounds}",
+                    "# HELP bigdl_tpu_spec_emitted_total tokens emitted by "
+                    "verify rounds",
+                    "# TYPE bigdl_tpu_spec_emitted_total counter",
+                    f"bigdl_tpu_spec_emitted_total {self.engine.spec_emitted}",
+                    "# HELP bigdl_tpu_spec_draft_k current draft length "
+                    "(ladder-steered when adaptive_draft)",
+                    "# TYPE bigdl_tpu_spec_draft_k gauge",
+                    f"bigdl_tpu_spec_draft_k {self.engine._cur_k}",
+                ]
+        return "\n".join(lines) + "\n"
+
+
+# ---------------------------------------------------------------------------
+# exposition-drift registry: the authoritative list of metric families a
+# render must contain; `metric_drift` reports a disagreement in either
+# direction, so a family can neither silently vanish from the exposition
+# nor ship unregistered.
+# ---------------------------------------------------------------------------
+
+_PROCESS_FAMILIES = (
+    "bigdl_tpu_requests_total",
+    "bigdl_tpu_tokens_generated_total",
+    "bigdl_tpu_requests_failed_total",
+    "bigdl_tpu_checkpoint_verify_failures_total",
+    "bigdl_tpu_build_info",
+    "bigdl_tpu_train_anomalies_total",
+    "bigdl_tpu_train_steps_skipped_total",
+    "bigdl_tpu_train_rollbacks_total",
+    "bigdl_tpu_train_emergency_checkpoints_total",
+    "bigdl_tpu_train_watchdog_aborts_total",
+    "bigdl_tpu_train_step_seconds",
+    "bigdl_tpu_request_seconds",
+)
+
+_ENGINE_FAMILIES = (
+    "bigdl_tpu_busy_slots",
+    "bigdl_tpu_total_slots",
+    "bigdl_tpu_queue_depth",
+    "bigdl_tpu_preemptions_total",
+    "bigdl_tpu_preemption_resumes_total",
+    "bigdl_tpu_requests_shed_total",
+    "bigdl_tpu_request_timeouts_total",
+    "bigdl_tpu_preempted_waiting",
+    "bigdl_tpu_journal_corrupt_lines_total",
+    "bigdl_tpu_queue_wait_seconds",
+    "bigdl_tpu_uptime_seconds",
+    "bigdl_tpu_batch_occupancy",
+    "bigdl_tpu_kv_pool_utilization",
+    "bigdl_tpu_requests_finished_total",
+    "bigdl_tpu_ttft_seconds",
+    "bigdl_tpu_inter_token_seconds",
+    "bigdl_tpu_prefill_seconds",
+    "bigdl_tpu_decode_step_seconds",
+    "bigdl_tpu_resume_wait_seconds",
+    "bigdl_tpu_prefill_chunks_total",
+)
+
+_PAGED_FAMILIES = (
+    "bigdl_tpu_free_pages",
+    "bigdl_tpu_prefix_hits_total",
+    "bigdl_tpu_prefix_partial_hits_total",
+    "bigdl_tpu_prefix_tokens_reused_total",
+    "bigdl_tpu_prefix_evictions_total",
+    "bigdl_tpu_radix_nodes",
+)
+
+_SPEC_FAMILIES = (
+    "bigdl_tpu_spec_rounds_total",
+    "bigdl_tpu_spec_emitted_total",
+    "bigdl_tpu_spec_draft_k",
+)
+
+_ADAPTER_FAMILIES = (
+    "bigdl_tpu_adapter_loads_total",
+    "bigdl_tpu_adapter_evictions_total",
+    "bigdl_tpu_adapter_load_failures_total",
+    "bigdl_tpu_adapters_resident",
+    "bigdl_tpu_adapter_page_ins_total",
+    "bigdl_tpu_adapter_page_outs_total",
+    "bigdl_tpu_adapter_pages_resident",
+)
+
+
+def expected_families(engine=None) -> list:
+    """Every metric family a `Metrics(engine).render()` must expose."""
+    names = list(_PROCESS_FAMILIES)
+    if engine is not None:
+        names += _ENGINE_FAMILIES
+        if getattr(engine, "paged", False):
+            names += _PAGED_FAMILIES
+        if getattr(engine, "adapters", None) is not None:
+            names += _ADAPTER_FAMILIES
+        if getattr(engine, "speculative", False):
+            names += _SPEC_FAMILIES
+    return names
+
+
+def metric_drift(rendered: str, engine=None) -> tuple:
+    """(missing, unregistered): families the registry expects but the
+    exposition lacks, and families rendered but absent from the
+    registry. Both empty = no drift."""
+    import re
+
+    got = set(re.findall(r"^# TYPE (\S+) \S+", rendered, flags=re.M))
+    want = set(expected_families(engine))
+    return sorted(want - got), sorted(got - want)

@@ -11,7 +11,9 @@ bigdl_tpu/train/checkpoint.py (`_encode` / `_decode`, here
   package gives the same member bytes, so the same manifest.
 - **Atomic writes**: :func:`atomic_write` streams into a ``tmp-<pid>``
   sibling, fsyncs, renames over the target and fsyncs the directory; a
-  kill at any instant leaves the old file or the complete new one.
+  kill at any instant leaves the old file or the complete new one. Its
+  `faults=` (a `utils/diskfaults.DiskFaultInjector`) injects the storage
+  faults the load side must detect.
 - **Dtypes numpy lacks**: bf16 and fp8 leaves cross an npz as their
   unsigned-integer bit view, with the dtype's name kept in the
   artifact's meta. The port decodes them with `torch` views (it has no
@@ -20,9 +22,6 @@ bigdl_tpu/train/checkpoint.py (`_encode` / `_decode`, here
 - **Numerical validation and reports**: `validate_numerics` (NaN/inf in
   float tensors, per-qtype scale ranges) behind ``verify="full"``, and
   the per-tensor `VerifyReport` of `convert.low_bit.verify_low_bit`.
-
-The disk fault injection of the JAX module (`faults=`) is not ported
-(ROADMAP queue 1 item 5, fault injection).
 """
 
 from __future__ import annotations
@@ -392,10 +391,20 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
-def atomic_write(path: str, writer: Callable) -> None:
+def atomic_write(path: str, writer: Callable, *, faults=None) -> None:
     """Crash-safe file replacement: `writer(f)` streams the payload into a
     ``tmp-<pid>`` sibling, which is flushed, fsynced and renamed over
-    `path`, then the directory is fsynced."""
+    `path`, then the directory is fsynced.
+
+    `faults` (utils/diskfaults.DiskFaultInjector) drives the injected
+    failure modes: ``torn_rename`` raises DiskFaultError before the rename
+    with the tmp left behind (a simulated kill, deliberately not cleaned
+    up), ``drop_file`` discards the write, ``bit_flip``/``truncate``
+    corrupt the committed file after the rename (storage rot)."""
+    from bigdl_tpu_torch.utils.diskfaults import (NULL_DISK_INJECTOR, DiskFaultError,
+                                                  apply_post_commit)
+
+    inj = faults if faults is not None else NULL_DISK_INJECTOR
     clean_stale_tmps(path)
     tmp = f"{path}.tmp-{os.getpid()}"
     try:
@@ -403,9 +412,19 @@ def atomic_write(path: str, writer: Callable) -> None:
             writer(f)
             f.flush()
             os.fsync(f.fileno())
+        if inj.fire("torn_rename") is not None:
+            # a kill between fsync and rename: the tmp stays on disk as a
+            # real SIGKILL would leave it
+            raise DiskFaultError(f"torn_rename injected before {path}")
+        if inj.fire("drop_file") is not None:
+            os.unlink(tmp)
+            return
         os.replace(tmp, path)
+    except DiskFaultError:
+        raise
     except BaseException:
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise
     _fsync_dir(path)
+    apply_post_commit(path, inj)

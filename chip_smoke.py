@@ -179,8 +179,8 @@ the result lines; an exception ends the run at once; nothing is caught):
    of those kernels launched (flash a layer, paged a layer and decode
    step, each flash-train kernel a layer);
 16. checkpoints from disk (run after phase 4): (a) a llama3-8b sym_int4
-   model at full width and 12 of its 32 layers (seed 0; phase 3's model
-   until phase 19 joined the script) saved with `save_low_bit`
+   model at full width and 8 of its 32 layers (seed 0; 12 until phase 22
+   joined the script, phase 3's model until phase 19 did) saved with `save_low_bit`
    (the artifact's GB, the save's seconds and its device-to-host part),
    loaded with `AutoModelForCausalLM.load_low_bit` under verify="fast"
    and "full" (seconds, GB/s), `verify_low_bit` ok, and its own greedy
@@ -225,7 +225,7 @@ the result lines; an exception ends the run at once; nothing is caught):
    repeatable tokens, and gemma2's `save_low_bit` -> `load_low_bit`
    keeping them bit for bit.
 18. generation's KV-cache policies and the embedding variants (after
-   phase 16, on phase 16's 12-layer model; phase 3's 32-layer one until
+   phase 16, on phase 16's 8-layer model; phase 3's 32-layer one until
    phase 19 joined the script): (a) SnapKV, four seeded
    prompts of 3,000, 2,400, 1,500 and 700 tokens compressed to 1,024
    slots (window 32, pool 7), 32 greedy tokens: launches (flash a layer at the
@@ -252,7 +252,7 @@ the result lines; an exception ends the run at once; nothing is caught):
    difference), streaming's decode after an eviction, and chat turn 3's
    logits against the plain versions and the kernels' one-shot prefill.
 19. self-speculative and prompt-lookup decoding (after phase 18, on
-   phase 16 (a)'s 12-layer model and a bf16 one of the same seed; phase
+   phase 16 (a)'s 8-layer model and a bf16 one of the same seed; phase
    3's 32-layer model until phase 20 joined the script): (b) a
    512-token prompt (64 seeded tokens, 8 times), 64 greedy tokens under
    BIGDL_TPU_PERFORMANCE_MODE: the switch to prompt lookup, launches (the
@@ -341,6 +341,31 @@ the result lines; an exception ends the run at once; nothing is caught):
    the margin rule; (d) a 2-layer HF checkpoint at gemma-3-27b's width
    under a multimodal checkpoint's `language_model.model.` names, its
    ingested bytes equal to `params_from_numpy` + `optimize_model`'s.
+22. the serving engine's control plane (after phases 11-12, on phase 7's
+   model and pool settings, bf16 pages): (a) phase 7's 16 requests with
+   `prefill_chunk_tokens=256`: finish reasons and greedy tokens as engine
+   (a)'s by the margin rule, `prefill_chunks` and the GEMM and GEMV
+   launches equal to the counts derived on the host from the chunk plan,
+   paged launches L a decode step, no page leaks; (b) the decode stall: 7
+   requests of 100-420 tokens decode 64 tokens, and 4 steps after all
+   decode a 1,900-token prompt arrives, monolithic and in chunks of 256
+   and 64: at most one chunk a step, every row emits at every step of the
+   admission, the rows' tokens agree by the margin rule; printed: the
+   admission's longest and median host-set step, the profiled device
+   time of a step holding the prefill or a chunk, the long request's
+   TTFT; (c) on a manual clock: `max_queue`'s exact "queue_full" sheds, a
+   `queue_deadline_s` shed at the step its clock passes, a `deadline_s`
+   "timeout" with partial output, `begin_drain`'s "draining" shed while
+   accepted work finishes, `drain()` True, no page leaks; (d) a journal in
+   a temporary directory: `crash_before_done` raises FaultError out of
+   `step()`, a successor replays the unfinished requests with tokens as an
+   uninterrupted run's, a third engine after drain and close replays
+   nothing; `nan_logits` finishes exactly one request "error", the others
+   as a clean run's; an `alloc_page` storm preempts, every request
+   finishes whole, no leaks; (e) 8 traced requests with a request log:
+   `validate_nesting` empty, `summarize_trace` counts 8, 8 records with
+   good CRCs, no metric drift; the decode step's host-set median and
+   device time with tracing off and on.
 
 Every phase ends with one line, `phase N: done in X s, F failed
 checks`. The whole run takes about 900-1100 s of command time on an
@@ -376,9 +401,10 @@ PROFILED_PREFILLS, PROFILED_STEPS = 2, 5
 TRAIN_T, RANK, LR = 1024, 8, 1e-4  # bench.py child_train: B=1, T=1024, rank 8
 TRAIN_STEPS, PROFILED_TRAIN_STEPS = 5, 2
 PATH_FORMATS = ("sym_int4", "nf4", "q4_k", "q6_k")  # generation, training, q4_k_m
-# phases 16 (a), 18 and 19: 12 of llama3-8b's 32 layers, full width (16
-# until phase 21 joined the script: a run on a slow host read ~1245 s)
-HALF_LAYERS = 12
+# phases 16 (a), 18 and 19: 8 of llama3-8b's 32 layers, full width (16
+# until phase 21 joined the script: a run on a slow host read ~1245 s; 12
+# until phase 22 did: a run on a slow host read 1058.6 s)
+HALF_LAYERS = 8
 RAGGED_M = (33, 255, 257, 1000, 4096)
 GEMV_CHECK_M, GEMV_R = (1, 3, 4, 8, 17, 32), 128  # the GEMV's row counts (n-tiles 1, 2, 4), adapter width
 # the GEMM's launch (x in its steps' order, then the GEMM) and the LoRA
@@ -1068,6 +1094,9 @@ def main() -> int:
     # --------------------------------------------------------------- 11
     begin_phase(11)
     adapter_entries = adapter_phases(torch, dev, cfg, card, errs, served)
+    # --------------------------------------------------------------- 22
+    begin_phase(22)
+    serving_control_phases(torch, dev, card, served["tm"], served["traffic"], served["reqs_a"])
     del served
     # ---------------------------------------------------------------- 9
     begin_phase(9)
@@ -2738,6 +2767,400 @@ def adapter_phases(torch, dev, cfg, card, errs, served) -> list:
 
 
 # ---------------------------------------------------------------------------
+# serving's control plane: phase 22
+# ---------------------------------------------------------------------------
+
+CHUNK, CHUNK_SMALL = 256, 64  # (a) and (b)'s chunks; (b) runs both
+# (b): 7 independent requests decode 64 tokens each; 4 steps after all 7
+# decode, a 1,900-token prompt arrives
+STALL_LENS, STALL_NEW = (100, 150, 200, 260, 310, 370, 420), 64
+STALL_LONG, STALL_LONG_NEW = 1900, 16
+CONTROL_LEN, CONTROL_NEW = 64, 8  # (c) and (d)'s requests: 64 tokens, 8 new (16 in (d))
+# A chunked prefill takes other routes than the monolithic one: a last
+# chunk of up to 32 rows runs the GEMV where the whole tail ran the GEMM,
+# and the rows' sums go in other orders. Through 32 layers that moved
+# chosen-token logprobs by up to 0.126 nat on the H100 (PERF.md, phase
+# 22; past LOGPROB_TOL's 0.05 for one route), as the dense and paged pools'
+# routes move first tokens by 0.125-0.16 (phase 7): (a) and (b) hold
+# chunked against monolithic by the cross-route bound, MARGIN_TOL.
+
+
+def margin_rule(ref, got, what: str, tol_lp: float = LOGPROB_TOL[False]) -> float:
+    """`got`'s greedy tokens against `ref`'s (which carries its top two
+    logprobs): equal up to the first difference, which must sit where
+    ref's top-1/top-2 margin is within MARGIN_TOL, and chosen-token
+    logprobs within tol_lp up to there. Returns the largest logprob
+    difference."""
+    n = min(len(ref.out_tokens), len(got.out_tokens))
+    diff = next((i for i in range(n) if ref.out_tokens[i] != got.out_tokens[i]), None)
+    upto = n if diff is None else diff
+    worst = max((abs(a - b) for a, b in zip(ref.out_logprobs[:upto], got.out_logprobs[:upto])),
+                default=0.0)
+    check(worst <= tol_lp, f"{what}: chosen-token logprobs differ by {worst} > {tol_lp}")
+    if diff is not None:
+        top = sorted(ref.out_top_logprobs[diff].values(), reverse=True)
+        check(top[0] - top[1] <= MARGIN_TOL, f"{what}: token {diff} differs at margin "
+                                             f"{top[0] - top[1]} > {MARGIN_TOL}")
+    return worst
+
+
+def prefill_launches(cfg, n: int, qtype: str = "sym_int4") -> tuple[int, int]:
+    """(GEMM, GEMV) launches of one prefill call of n rows: each of the 4
+    projections a layer takes the GEMV where `kernels.qmatmul` does (n <=
+    GEMV_MAX_ROWS and a GEMV tile holds the rows), else the GEMM; the lm
+    head's last row takes the GEMV."""
+    from bigdl_tpu_torch.ops.kernels import GEMV_MAX_ROWS
+    from bigdl_tpu_torch.ops.kernels.qtile import gemv_tile
+
+    H, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    shapes = ((cfg.q_dim + 2 * cfg.kv_dim, H), (H, cfg.q_dim), (2 * I, H), (H, I))
+    gemv = sum(1 for O, K in shapes if n <= GEMV_MAX_ROWS and gemv_tile(n, O, K, qtype) is not None)
+    return L * (4 - gemv), L * gemv + 1
+
+
+def record_prefills(eng) -> list:
+    """Wrap the engine's paged prefill: each call appends (the request's
+    key, its prompt length, pos0, rows). A chunk plan's calls share its
+    rid; a monolithic prefill is a call of its own."""
+    calls = []
+    orig = eng._paged_prefill
+
+    def rec(row, pos0, tail, lora=None):
+        st = eng._prefilling
+        key = st.req.rid if st is not None else ("whole", len(calls))
+        total = len(st.req.prompt) if st is not None else pos0 + len(tail)
+        calls.append((key, total, pos0, len(tail)))
+        return orig(row, pos0, tail, lora)
+    eng._paged_prefill = rec
+    return calls
+
+
+def chunk_plan(calls, chunk: int) -> tuple[int, list]:
+    """From the recorded calls, the chunk count the plan gives on the host
+    (each request: one call when its uncached tail fits a chunk, else
+    ceil(tail / chunk)) and the requests whose calls differ from it."""
+    plans = collections.OrderedDict()
+    for key, total, pos0, n in calls:
+        plans.setdefault(key, (total, pos0, []))[2].append(n)
+    want, bad = 0, []
+    for key, (total, pos0, got) in plans.items():
+        tail = total - pos0
+        k = max(1, -(-tail // chunk))
+        sizes = [chunk] * (k - 1) + [tail - chunk * (k - 1)]
+        want += k
+        if got != sizes:
+            bad.append((key, got, sizes))
+    return want, bad
+
+
+def serving_control_phases(torch, dev, card, tm, traffic, reqs_a=None) -> None:
+    """Phase 22: the serving engine's control plane on phase 7's model
+    (llama3-8b sym_int4, 32 layers unless the caller cut them) at `cli
+    serve`'s defaults, bf16 pages: (a) chunked prefill over phase 7's
+    traffic against engine (a)'s monolithic tokens (`reqs_a`: made here
+    when None), its chunk and launch counts against the host's plan; (b)
+    the decode stall a long prompt causes, monolithic and chunked; (c)
+    overload control and the drain on a manual clock; (d) the journal's
+    crash and replay, NaN logits and a page-allocation storm; (e)
+    tracing, the request log and the metrics exposition."""
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity
+
+    from bigdl_tpu_torch.obs.tracing import (RequestLog, TraceRecorder, summarize_trace,
+                                             validate_nesting)
+    from bigdl_tpu_torch.ops import kernels
+    from bigdl_tpu_torch.serving import InferenceEngine
+    from bigdl_tpu_torch.serving.faults import FaultError, FaultInjector
+    from bigdl_tpu_torch.serving.journal import split_crc_line
+    from bigdl_tpu_torch.serving.metrics import Metrics, metric_drift
+
+    cfg = tm.config
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    # device activity only: reducing a CPU trace of a chunk step took ~4 s
+    # of the window the TTFT spans (PERF.md, phase 22)
+    acts = [ProfilerActivity.CUDA if torch.cuda.is_available() else ProfilerActivity.CPU]  # CPU: rehearsals
+    log(f"phase 22: card {card}")
+
+    def engine(**kw):
+        return InferenceEngine(tm, n_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, paged=True, **kw)
+
+    # (a) chunked prefill over phase 7's traffic ---------------------------
+    t0 = time.time()
+    if reqs_a is None:
+        ref_eng = engine(logprobs_top_k=2)
+        reqs_a = [ref_eng.submit(**sp) for sp in traffic]
+        ref_eng.run_until_idle()
+        del ref_eng
+        torch.cuda.empty_cache()
+    eng = engine(prefill_chunk_tokens=CHUNK)
+    calls = record_prefills(eng)
+    kernels.reset_launches()
+    reqs = [eng.submit(**sp) for sp in traffic]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    steps = eng.decode_step_seconds.count
+    want_chunks, bad = chunk_plan(calls, CHUNK)
+    want_gemm = sum(prefill_launches(cfg, n)[0] for *_, n in calls)
+    want_gemv = sum(prefill_launches(cfg, n)[1] for *_, n in calls) + steps * (4 * L + 1)
+    worst = 0.0
+    for i, (ra, rc) in enumerate(zip(reqs_a, reqs)):
+        check(rc.finish_reason == ra.finish_reason,
+              f"(a) request {i}: finish reason {rc.finish_reason} against {ra.finish_reason}")
+        if not traffic[i].get("do_sample"):
+            worst = max(worst, margin_rule(ra, rc, f"(a) request {i}", MARGIN_TOL))
+    log(f"phase 22 (a) chunked prefill ({CHUNK} tokens): {len(reqs)} requests in "
+        f"{time.time() - t0:.3f} s, {steps} decode steps, prefill_chunks={eng.prefill_chunks} "
+        f"(the plan on the host: {want_chunks}; {len(calls)} calls, sizes off the plan: {bad}), "
+        f"prefix_hits={eng.prefix_hits} partial={eng.prefix_partial_hits} "
+        f"page_leaks={eng.page_leaks()}; launches {launches}, GEMM/GEMV from the plan "
+        f"{want_gemm}/{want_gemv}; greedy tokens as engine (a)'s by the margin rule, largest "
+        f"logprob difference {worst:.5f}")
+    check(eng.prefill_chunks == want_chunks and not bad, "(a) prefill_chunks = the host's plan")
+    check(launches[kernels.GEMM.name] == want_gemm and launches[kernels.GEMV.name] == want_gemv,
+          "(a) GEMM and GEMV launches = the plan's")
+    check(launches[kernels.PAGED.name] == L * steps, "(a) paged launches = L x decode steps")
+    check(eng.page_leaks() == 0, "(a) page leaks")
+    del eng
+    torch.cuda.empty_cache()
+
+    # (b) the decode stall: a long prompt arrives beside 7 decoding rows --
+    rng = np.random.default_rng(22)
+    short = [rng.integers(1, V, n).tolist() for n in STALL_LENS]
+    long_prompt = rng.integers(1, V, STALL_LONG).tolist()
+    stall = {}
+    for chunk in (None, CHUNK, CHUNK_SMALL):
+        eng = engine(logprobs_top_k=2, prefill_chunk_tokens=chunk)
+        rows = [eng.submit(p, max_new_tokens=STALL_NEW) for p in short]
+        while not all(r.out_tokens for r in rows):
+            eng.step()
+        for _ in range(4):
+            eng.step()
+        longr = eng.submit(long_prompt, max_new_tokens=STALL_LONG_NEW)
+        host, busy, per_step, emits, overhead = [], None, [], True, 0.0
+        i = 0
+        while longr.first_token_ts is None:
+            before = ([len(r.out_tokens) for r in rows], eng.prefill_chunks)
+            # the device time of the step holding the prefill (monolithic)
+            # or the second chunk; the profiler's own setup and teardown
+            # before the first token are taken out of the TTFT
+            t_in = time.perf_counter()
+            with (warm_profile(acts) if i == (0 if chunk is None else 1)
+                  else contextlib.nullcontext()) as prof:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                host.append((t2 - t1) * 1e3)
+            if prof is not None:
+                busy = sum(e.self_device_time_total for e in device_kernels(prof)) / 1e3
+                after = time.perf_counter() - t2  # teardown: before the first token?
+                overhead += (t1 - t_in) + after * (longr.first_token_ts is None)
+            per_step.append(eng.prefill_chunks - before[1])
+            emits &= all(len(r.out_tokens) == n + 1 for r, n in zip(rows, before[0]) if not r.done)
+            i += 1
+        eng.run_until_idle()
+        host.sort()
+        ttft = (longr.first_token_ts - longr.submit_ts - overhead) * 1e3
+        stall[chunk] = rows
+        log(f"phase 22 (b) {'monolithic' if chunk is None else f'chunk {chunk}'}: the "
+            f"{STALL_LONG}-token prompt prefilled over {i} steps, chunks a step {per_step}; "
+            f"host-set step during the admission: longest {host[-1]:.3f} ms, median "
+            f"{host[len(host) // 2]:.3f} ms (n={len(host)}); profiled device time of a step "
+            f"holding {'the prefill' if chunk is None else 'a chunk'} {busy:.3f} ms; the long "
+            f"request's TTFT {ttft:.3f} ms (the profiler's {overhead * 1e3:.1f} ms out); each "
+            f"row emitted every step {emits}; page_leaks={eng.page_leaks()}")
+        if chunk is not None:
+            check(max(per_step) <= 1, f"(b) chunk {chunk}: at most one chunk a step")
+            check(emits, f"(b) chunk {chunk}: each decoding row emits every step of the admission")
+        check(eng.page_leaks() == 0 and longr.finish_reason == "length", f"(b) chunk {chunk}")
+        del eng
+        torch.cuda.empty_cache()
+    worst = 0.0
+    for chunk in (CHUNK, CHUNK_SMALL):
+        for j, (ref, got) in enumerate(zip(stall[None], stall[chunk])):
+            worst = max(worst, margin_rule(ref, got, f"(b) chunk {chunk} row {j}", MARGIN_TOL))
+    log(f"phase 22 (b): the 7 rows' tokens agree across the three engines by the margin rule "
+        f"(largest logprob difference {worst:.5f})")
+
+    # (c) overload control and the drain, on a manual clock ----------------
+    clock = [1000.0]
+    eng = engine(max_queue=4, clock=lambda: clock[0])
+
+    def sub(**kw):
+        return eng.submit(rng.integers(1, V, CONTROL_LEN).tolist(), **{
+            "max_new_tokens": CONTROL_NEW, **kw})
+
+    def tick(n=1):
+        for _ in range(n):
+            eng.step()
+            clock[0] += 0.1
+    first = [sub() for _ in range(4)]
+    tick()
+    second = [sub() for _ in range(6)]  # 4 queued, 2 over the bound
+    full = [r for r in second if r.shed_kind == "queue_full"]
+    tick()
+    timed = sub(max_new_tokens=64, deadline_s=1.0)  # waits for a slot, then runs out
+    late = [sub(queue_deadline_s=0.45) for _ in range(2)]  # no slot frees before step 5
+    shed_at = None
+    for k in range(12):
+        tick()
+        if shed_at is None and all(r.shed_kind == "queue_deadline" for r in late):
+            shed_at = k
+    eng.begin_drain()
+    drained = sub()
+    ok_drain = eng.drain()
+    tok_timed = len(timed.out_tokens)
+    log(f"phase 22 (c) overload: queue_full sheds {len(full)} (want 2), queue_deadline sheds "
+        f"at step {shed_at} after submit (its clock passes 0.45 s at step 5), timeout "
+        f"{timed.finish_reason} after {tok_timed} tokens ({timed.error}), draining shed "
+        f"{drained.shed_kind}, drain() {ok_drain}, requests_shed={eng.requests_shed} "
+        f"request_timeouts={eng.request_timeouts} finish_reasons={dict(eng.finish_reasons)} "
+        f"page_leaks={eng.page_leaks()}")
+    check(len(full) == 2 and all(r.finish_reason == "shed" for r in full), "(c) queue_full sheds")
+    check(shed_at == 5, "(c) the queue-deadline shed at the step its clock passes")
+    check(timed.finish_reason == "timeout" and 0 < tok_timed < 64, "(c) deadline_s timeout")
+    check(drained.shed_kind == "draining" and ok_drain and eng.idle(), "(c) the drain")
+    check(all(r.finish_reason == "length" and len(r.out_tokens) == CONTROL_NEW
+              for r in first + [r for r in second if r not in full]), "(c) accepted work finishes")
+    check(eng.requests_shed == 5 and eng.request_timeouts == 1 and eng.page_leaks() == 0,
+          "(c) counters and page leaks")
+    del eng
+    torch.cuda.empty_cache()
+
+    # (d) the journal's crash and replay; NaN logits; a page storm --------
+    prompts = [rng.integers(1, V, n).tolist() for n in (100, 230, 310, 420)]
+    clean_eng = engine(logprobs_top_k=2)
+    clean = [clean_eng.submit(p, max_new_tokens=16) for p in prompts]
+    clean_eng.run_until_idle()
+    del clean_eng
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        jpath = str(Path(tmp) / "journal.jsonl")
+        eng = engine(journal=jpath, faults=FaultInjector(0).arm("crash_before_done", times=1))
+        for p in prompts:
+            eng.submit(p, max_new_tokens=16)
+        crashed = None
+        for k in range(200):
+            try:
+                if not eng.step():
+                    break
+            except FaultError as e:
+                crashed = (k, str(e))
+                break
+        check(crashed is not None, "(d) crash_before_done: FaultError left step()")
+        del eng  # the process dies: no tombstone, no cleanup
+        torch.cuda.empty_cache()
+        succ = engine(journal=jpath)
+        rec = succ.recovered_requests
+        succ.run_until_idle()
+        by_prompt = {tuple(r.prompt): r for r in rec}
+        for i, p in enumerate(prompts):
+            check(tuple(p) in by_prompt, f"(d) request {i} replayed")
+            if tuple(p) in by_prompt:
+                margin_rule(clean[i], by_prompt[tuple(p)], f"(d) replayed request {i}")
+        check(succ.drain(), "(d) the successor drains")
+        succ.close()
+        del succ
+        torch.cuda.empty_cache()
+        third = engine(journal=jpath)
+        log(f"phase 22 (d) journal: crash at step {crashed}; the successor replayed "
+            f"{len(rec)} requests (rids {[r.rid for r in rec]}), tokens as the uninterrupted "
+            f"run's by the margin rule; after drain and close a third engine replays "
+            f"{len(third.recovered_requests)}")
+        check(len(rec) == len(prompts) and third.recovered_requests == [], "(d) replay counts")
+        del third
+        torch.cuda.empty_cache()
+    inj = FaultInjector(0)
+    eng = engine(faults=inj)
+    reqs = [eng.submit(p, max_new_tokens=16) for p in prompts]
+    eng.step()
+    victim = int(np.nonzero(eng.active)[0][0])
+    inj.arm("nan_logits", times=1, slots=[victim])
+    eng.run_until_idle()
+    errors = [i for i, r in enumerate(reqs) if r.finish_reason == "error"]
+    for i, r in enumerate(reqs):
+        if i not in errors:
+            margin_rule(clean[i], r, f"(d) nan_logits, request {i}")
+    log(f"phase 22 (d) nan_logits on slot {victim}: requests finishing 'error' {errors} "
+        f"({reqs[errors[0]].error if errors else None}), the others as the clean run's")
+    check(len(errors) == 1, "(d) nan_logits quarantines exactly one request")
+    check(eng.page_leaks() == 0, "(d) nan_logits page leaks")
+    del eng
+    torch.cuda.empty_cache()
+    inj = FaultInjector(0)
+    eng = engine(faults=inj)
+    reqs = [eng.submit(p, max_new_tokens=16) for p in prompts]
+    eng.step()
+    inj.arm("alloc_page", times=3)  # the next decode page growth preempts 3 victims
+    eng.run_until_idle()
+    for i, r in enumerate(reqs):
+        margin_rule(clean[i], r, f"(d) alloc_page storm, request {i}")
+    log(f"phase 22 (d) alloc_page storm: preemptions={eng.preemptions} "
+        f"resumes={eng.preemption_resumes} finish {[r.finish_reason for r in reqs]} "
+        f"page_leaks={eng.page_leaks()}")
+    check(eng.preemptions > 0 and all(r.finish_reason == "length" and len(r.out_tokens) == 16
+                                      for r in reqs) and eng.page_leaks() == 0,
+          "(d) the storm preempts, every request finishes whole, no leak")
+    del eng
+    torch.cuda.empty_cache()
+
+    # (e) tracing, the request log, the metrics exposition -----------------
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = TraceRecorder()
+        lpath = str(Path(tmp) / "requests.jsonl")
+        eng = engine(tracer=tr, request_log=lpath)
+        reqs = [eng.submit(**sp) for sp in traffic[:8]]
+        eng.run_until_idle()
+        eng.close()
+        events = tr.events()
+        summary = summarize_trace(events)
+        nreq = sum(summary["requests"]["finish_reasons"].values())
+        recs = RequestLog.read(lpath)
+        crc_ok = all(split_crc_line(x.strip())[1] is True for x in open(lpath) if x.strip())
+        drift = metric_drift(Metrics(eng).render(), eng)
+        log(f"phase 22 (e) tracing: {len(events)} events, nesting faults "
+            f"{len(validate_nesting(events))}, summarize_trace: {nreq} requests "
+            f"{summary['requests']['finish_reasons']}, spans "
+            f"{ {k: v['count'] for k, v in summary['spans'].items()} }; request log "
+            f"{len(recs)} records, crc {crc_ok}; metric drift {drift}")
+        check(validate_nesting(events) == [] and nreq == 8, "(e) nesting and the summary")
+        check(len(recs) == 8 and crc_ok, "(e) the request log")
+        check(drift == ([], []), "(e) metric drift")
+        del eng
+        torch.cuda.empty_cache()
+    # the decode step with tracing off and on, 8 rows of ~1,100 live slots
+    steady = [rng.integers(1, V, STEADY_LEN + 13 * i).tolist() for i in range(SLOTS)]
+    tr = TraceRecorder(enabled=False)
+    eng = engine(tracer=tr)
+    for p in steady:
+        eng.submit(p, max_new_tokens=SERVE_NEW)
+    for _ in range(4):
+        eng.step()
+    for enabled in (False, True):
+        tr.enabled = enabled
+        host = []
+        for _ in range(8):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t1) * 1e3)
+        with warm_profile(acts) as prof:
+            for _ in range(2):
+                eng.step()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in device_kernels(prof)) / 1e3 / 2
+        log(f"phase 22 (e) decode step, tracing {'on' if enabled else 'off'}: host-set median "
+            f"{sorted(host)[4]:.3f} ms (n=8), profiled device time {busy:.3f} ms")
+    del eng
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phi3-mini: head_dim 96 through the attention kernels (phase 15)
 # ---------------------------------------------------------------------------
 
@@ -2997,7 +3420,7 @@ def dir_bytes(path) -> int:
 
 def checkpoint_phases(torch, dev, tm, prompts, want_tokens, want_launches, hf=LLAMA3_8B_HF) -> None:
     """Phase 16: checkpoints from disk to the card. (a) `tm` (in the run,
-    a 12-layer llama3-8b sym_int4 model) saved as the low-bit artifact,
+    an 8-layer llama3-8b sym_int4 model) saved as the low-bit artifact,
     loaded back (verify fast and full), verified, and generating its
     tokens `want_tokens` with its launches `want_launches`; (b) an HF checkpoint of llama3-8b's published
     config at 4 layers, written with the script's safetensors writer,
@@ -4129,7 +4552,7 @@ def cache_policy_phases(torch, dev, card, tm, prompts, tok, st, want_tokens,
                         snap_lens=SNAP_LENS, budget=SNAP_BUDGET, stream_len=STREAM_LEN,
                         stream_window=STREAM_WINDOW, stream_new=STREAM_NEW,
                         chat_turns=CHAT_TURNS, chat_window=CHAT_WINDOW, chat_new=CHAT_NEW) -> None:
-    """Phase 18, on `tm` (in the run, phase 16's 12-layer model; its
+    """Phase 18, on `tm` (in the run, phase 16's 8-layer model; its
     prompts, padded tokens `tok` and starts `st`, and its greedy tokens
     `want_tokens`): (a) SnapKV,
     (b) attention-sink streaming, (c) a chat session, (d) the embedding

@@ -245,8 +245,18 @@ def test_corrupt_artifact_is_structured(tiny, tmp_path):
     with pytest.raises(AdapterError) as ei:
         reg.load("a")
     assert ei.value.kind == "corrupt" and reg.stats()["load_failures"] == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-        AdapterRegistry(faults=object())
+    # fault injection is ported: an armed adapter_load_corrupt fails the
+    # next load the same structured way (test_torch_journal_tracing.py
+    # holds it through the engine against JAX's)
+    from bigdl_tpu_torch.serving.faults import FaultInjector
+
+    jax_save_adapter(path, tiny.loras["t-r2"])
+    reg = AdapterRegistry(dir=str(tmp_path),
+                          faults=FaultInjector(seed=0).arm("adapter_load_corrupt"))
+    with pytest.raises(AdapterError, match="injected corrupt") as ei:
+        reg.load("a")
+    assert ei.value.kind == "corrupt" and reg.stats()["load_failures"] == 1
+    assert reg.load("a")["rank"] == 2  # one charge
 
 
 def test_rank_bucket_ladder():

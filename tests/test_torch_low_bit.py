@@ -311,8 +311,18 @@ def test_an_overwrite_writes_a_new_archive_and_sweeps_the_old(tmp_path):
 
 
 def test_faults_are_not_ported_and_the_card_is_the_default(artifacts, tmp_path):
-    with pytest.raises(NotImplementedError, match=r"queue 1 item \[5\]"):
-        port_model("sym_int4").save_low_bit(str(tmp_path / "f"), faults=object())
+    # the disk fault injector is ported (tests/test_torch_journal_tracing.py
+    # holds every mode against JAX's): a dropped weights write is detected
+    # at load, as in JAX
+    from bigdl_tpu_torch.utils.diskfaults import DiskFaultInjector
+
+    d = str(tmp_path / "f")
+    port_model("sym_int4").save_low_bit(d, faults=DiskFaultInjector(seed=1).arm("drop_file"))
+    assert not os.path.exists(os.path.join(d, "weights.npz"))
+    with pytest.raises(IntegrityError, match="does not exist"):
+        load_low_bit(d, device="cpu")
+    with pytest.raises(JaxIntegrityError, match="does not exist"):
+        jax_load_low_bit(d)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             load_low_bit(str(artifacts["port"]))

@@ -238,17 +238,29 @@ def test_sampling_penalty_and_cancel(pair):
 
 
 def test_out_of_slice_arguments_raise(pair):
+    """Every argument of JAX's engine is ported (the control plane is held
+    against JAX in test_torch_serving_control.py and
+    test_torch_journal_tracing.py): what raises now is an argument JAX's
+    engine does not take, and JAX's own refusals."""
     jm, tm, tol = pair
-    # speculative decoding runs since it was ported (test_torch_serving_spec.py)
-    for kw in ({"prefill_chunk_tokens": 8},
-               {"journal": "j.jsonl"}, {"max_queue": 4}, {"deadline_s": 1.0},
-               {"tracer": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="no_such_argument"):
+        InferenceEngine(tm, n_slots=1, max_len=64, no_such_argument=1)
+    for kw, err, match in (
+            ({"prefill_chunk_tokens": 8}, ValueError, "requires paged=True"),
+            ({"prefill_chunk_tokens": 0, "paged": True}, ValueError, ">= 1"),
+            ({"prefill_chunk_tokens": 8, "paged": True, "speculative": True,
+              "draft_params": tm.params}, NotImplementedError, "draft admission")):
+        with pytest.raises(err, match=match):
             InferenceEngine(tm, n_slots=1, max_len=64, **kw)
+        with pytest.raises(err, match=match):
+            JaxEngine(jm, n_slots=1, max_len=64,
+                      **{**kw, **({"draft_params": jm.params} if "draft_params" in kw else {})})
     eng = InferenceEngine(tm, n_slots=1, max_len=64)
     # adapters are ported (test_torch_adapters.py): naming one on an engine
     # without a registry finishes "invalid" at submit, as in JAX
     req = eng.submit([1, 2], adapter="a")
     assert req.done and req.finish_reason == "invalid" and "registry" in req.error
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.drain()
+    # the drain is ported: an engine with nothing in flight drains at once
+    assert eng.drain() is True
+    late = eng.submit([1, 2])
+    assert (late.finish_reason, late.shed_kind) == ("shed", "draining")

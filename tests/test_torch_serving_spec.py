@@ -311,8 +311,8 @@ def test_non_finite_row_is_quarantined_alone(setup):
 
 def test_refusals_match_jax(setup):
     """draft_k < 2, adaptive_draft without speculative, logprobs_top_k with
-    speculative and a sym_int4 target's self-draft refuse as in JAX;
-    chunked prefill is still to be ported."""
+    speculative, a sym_int4 target's self-draft and chunked prefill with
+    speculative refuse as in JAX."""
     jm, tm, _ = setup
     q = TorchModel(TCFG, optimize_model(llama.init_params(TCFG, 0, device="cpu"), TCFG),
                    "sym_int4", device="cpu")
@@ -325,6 +325,7 @@ def test_refusals_match_jax(setup):
             InferenceEngine(tm, n_slots=1, max_len=64, **kw)
     with pytest.raises(ValueError, match="already quantized"):
         InferenceEngine(q, n_slots=1, max_len=64, speculative=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceEngine(tm, n_slots=1, max_len=64, paged=True, speculative=True,
-                        prefill_chunk_tokens=8)
+    for eng, m in ((InferenceEngine, tm), (JaxEngine, jm)):
+        with pytest.raises(NotImplementedError, match="draft admission"):
+            eng(m, n_slots=1, max_len=64, paged=True, speculative=True,
+                prefill_chunk_tokens=8)
