@@ -13,8 +13,9 @@ eligibility rule), never merged into the base.
 - **`AdapterRegistry`**: named adapters resident in host RAM under a byte
   budget, LRU on every hit, refcounted (each request holding an adapter
   carries one reference; eviction touches only refcount-0, unpinned
-  entries), reloaded by name after an eviction. The JAX registry's
-  operator calls for the HTTP layer (`unload`, `peek`) wait for it.
+  entries), reloaded by name after an eviction. The operator calls
+  behind the HTTP layer's `/adapters` endpoints: `load`, `unload` (refused
+  while a request holds the adapter), `pin`, and `peek` (no side effects).
 - **`AdapterPager`**: device residency of resident adapters' (A, B)
   leaves in pages of the engine's KV `PagePool` (`kvpaged.AdapterPageStore`):
   page-in at admission, LRU page-out of holder-free adapters under page
@@ -25,9 +26,14 @@ eligibility rule), never merged into the base.
 Fault points (`serving/faults.py`): ``adapter_load_corrupt`` fails the
 registry's next load as a corrupt artifact, ``adapter_page_in_stall`` the
 pager's next page-in; either quarantines the one request naming the
-tenant. With a tracer the registry records ``adapter_load`` and
-``adapter_evict`` instants on the engine track. The JAX registry's
-operator calls for the HTTP layer (`unload`, `peek`) wait for it.
+tenant. With a tracer the registry records ``adapter_load``,
+``adapter_unload`` and ``adapter_evict`` instants on the engine track.
+
+One change from JAX: the pager keys a page-in by the registry entry, not
+only its name. An operator's unload and reload of a name (a new artifact
+under the old name) gives a new entry, so the next admission pages the
+new weights in; JAX's pager would serve the old pages. The old pages go
+back to the pool then, or at the next page-out.
 """
 
 from __future__ import annotations
@@ -365,6 +371,20 @@ class AdapterRegistry:
                 raise
             return entry.describe()
 
+    def unload(self, name: str) -> dict:
+        """Drop an adapter from residency (its path stays known, so a later
+        request reloads it). Refused ("busy") while a request holds it."""
+        with self._lock:
+            entry = self._entries.get(name)
+            if entry is None:
+                raise AdapterError(name, "missing", "not resident")
+            if entry.refcount > 0:
+                raise AdapterError(name, "busy",
+                                   f"{entry.refcount} in-flight request(s) hold it")
+            del self._entries[name]
+            self._instant("adapter_unload", name=name)
+            return entry.describe()
+
     def pin(self, name: str, pinned: bool = True) -> dict:
         with self._lock:
             entry = self._entries.get(name)
@@ -411,6 +431,13 @@ class AdapterRegistry:
                 self._instant("adapter_evict", name=entry.name, nbytes=entry.nbytes,
                               rejected=True)
 
+    def peek(self, name: str) -> Optional[AdapterEntry]:
+        """The resident entry for `name`, with no side effects: no LRU
+        refresh, no hit count, no reload (validation must not skew the
+        counters traffic is measured by)."""
+        with self._lock:
+            return self._entries.get(name)
+
     # -- observability -------------------------------------------------------
 
     def resident(self) -> list:
@@ -434,10 +461,11 @@ class _PagedAdapter:
     one PagePool reference), the leaf shapes that rebuild (A, B) from the
     flat page frame, and the rids holding it resident."""
 
-    __slots__ = ("name", "pages", "shapes", "n_elems", "holders")
+    __slots__ = ("name", "entry", "pages", "shapes", "n_elems", "holders")
 
-    def __init__(self, name, pages, shapes, n_elems):
+    def __init__(self, name, entry, pages, shapes, n_elems):
         self.name = name
+        self.entry = entry  # the registry entry whose weights the pages hold
         self.pages = pages
         self.shapes = shapes
         self.n_elems = n_elems
@@ -481,6 +509,10 @@ class AdapterPager:
         AdapterError(kind="page_in_stall") when that fault point fires:
         the caller quarantines the one request, never the batch."""
         rec = self._res.get(entry.name)
+        if rec is not None and rec.entry is not entry and not rec.holders:
+            # the name was unloaded and reloaded: its pages hold the old weights
+            self._drop(rec)
+            rec = None
         if rec is not None:
             self._res.move_to_end(entry.name)
             rec.holders.add(rid)
@@ -511,7 +543,7 @@ class AdapterPager:
                 self._pool.decref(p)
             raise
         self.page_ins += len(pages)
-        rec = _PagedAdapter(entry.name, pages, shapes, flat.numel())
+        rec = _PagedAdapter(entry.name, entry, pages, shapes, flat.numel())
         rec.holders.add(rid)
         self._res[entry.name] = rec
         return True
@@ -544,11 +576,14 @@ class AdapterPager:
         victim = next((r for r in self._res.values() if not r.holders), None)
         if victim is None:
             return False
-        for pg in victim.pages:
-            self._pool.decref(pg)
-        self.page_outs += len(victim.pages)
-        del self._res[victim.name]
+        self._drop(victim)
         return True
+
+    def _drop(self, rec: _PagedAdapter) -> None:
+        for pg in rec.pages:
+            self._pool.decref(pg)
+        self.page_outs += len(rec.pages)
+        del self._res[rec.name]
 
     def reset(self, pool) -> None:
         """After the engine rebuilt its pool: forget residency (the old

@@ -179,7 +179,7 @@ the result lines; an exception ends the run at once; nothing is caught):
    of those kernels launched (flash a layer, paged a layer and decode
    step, each flash-train kernel a layer);
 16. checkpoints from disk (run after phase 4): (a) a llama3-8b sym_int4
-   model at full width and 8 of its 32 layers (seed 0; 12 until phase 22
+   model at full width and 4 of its 32 layers (seed 0; 8 until phase 23
    joined the script, phase 3's model until phase 19 did) saved with `save_low_bit`
    (the artifact's GB, the save's seconds and its device-to-host part),
    loaded with `AutoModelForCausalLM.load_low_bit` under verify="fast"
@@ -198,7 +198,7 @@ the result lines; an exception ends the run at once; nothing is caught):
 17. the llama flags (after phase 15): (a) gemma2-9b at full width
    (hidden 3584, 16 q heads of 256 over 8, vocab 256,000 tied to the
    embedding, alternating windows of 4096, softcaps 50/30, (1 + w) norms,
-   gelu-tanh) and 14 of its 42 layers (the full depth until phase 19
+   gelu-tanh) and 8 of its 42 layers (the full depth until phase 19
    joined the script), sym_int4, weights from a seed
    (norm weights 0: the unit scale under (1 + w)),
    through `TorchModel.generate` at phase 3's shapes: launches (GEMM
@@ -225,7 +225,7 @@ the result lines; an exception ends the run at once; nothing is caught):
    repeatable tokens, and gemma2's `save_low_bit` -> `load_low_bit`
    keeping them bit for bit.
 18. generation's KV-cache policies and the embedding variants (after
-   phase 16, on phase 16's 8-layer model; phase 3's 32-layer one until
+   phase 16, on phase 16's 4-layer model; phase 3's 32-layer one until
    phase 19 joined the script): (a) SnapKV, four seeded
    prompts of 3,000, 2,400, 1,500 and 700 tokens compressed to 1,024
    slots (window 32, pool 7), 32 greedy tokens: launches (flash a layer at the
@@ -252,7 +252,7 @@ the result lines; an exception ends the run at once; nothing is caught):
    difference), streaming's decode after an eviction, and chat turn 3's
    logits against the plain versions and the kernels' one-shot prefill.
 19. self-speculative and prompt-lookup decoding (after phase 18, on
-   phase 16 (a)'s 8-layer model and a bf16 one of the same seed; phase
+   phase 16 (a)'s 4-layer model and a bf16 one of the same seed; phase
    3's 32-layer model until phase 20 joined the script): (b) a
    512-token prompt (64 seeded tokens, 8 times), 64 greedy tokens under
    BIGDL_TPU_PERFORMANCE_MODE: the switch to prompt lookup, launches (the
@@ -282,11 +282,11 @@ the result lines; an exception ends the run at once; nothing is caught):
 20. mixture of experts, ALiBi and logn (after phase 17; the experts run
    as JAX runs them, each expert tensor dequantized, then einsums): (a)
    mixtral-8x7b at full width (hidden 4096, 32 q heads over 8, 8 experts
-   of 14336, top-2 renormalized, vocab 32000, rope theta 1e6) and 16 of
+   of 14336, top-2 renormalized, vocab 32000, rope theta 1e6) and 8 of
    its 32 layers in sym_int4, built layer by layer (`init_params(low_bit=)`:
    the build's peak below the dense model's size), through `generate` at
-   phase 3's shapes: launches (GEMM 2 x 16, GEMV 1 + 31 x (2 x 16 + 1),
-   flash 16: wqkv and wo), in-vocabulary and repeatable tokens, prefill
+   phase 3's shapes: launches (GEMM 2 x L, GEMV 1 + 31 x (2 x L + 1),
+   flash L: wqkv and wo), in-vocabulary and repeatable tokens, prefill
    ms, the routing rule (each row against a one-shot forward: at the
    first layer where the chosen experts differ, only near-ties, router
    logits within ROUTER_TOL; without a difference, the tokens within
@@ -297,7 +297,7 @@ the result lines; an exception ends the run at once; nothing is caught):
    versions, and the capacity dispatch at capacity factor E / k against the
    dense one (phase 3's bound); (b) the paged engine on it at phase 8's
    settings over 4 prefix-sharing and 4 independent requests of phase 7
-   (32 tokens): requests/s, TTFT and decode-step quantiles, 16 paged
+   (32 tokens): requests/s, TTFT and decode-step quantiles, L paged
    launches a decode step, no page leaks, the same tokens from a second
    run (a rounding that flips a token's experts moves it by a whole
    expert on this random model, so the engine's tokens are not held to
@@ -366,6 +366,34 @@ the result lines; an exception ends the run at once; nothing is caught):
    `validate_nesting` empty, `summarize_trace` counts 8, 8 records with
    good CRCs, no metric drift; the decode step's host-set median and
    device time with tracing off and on.
+23. the HTTP layer (after phase 22, on phase 7's model at `cli serve`'s
+   defaults, bf16 pages, servers on 127.0.0.1 port 0, token-id text
+   through `IdTokenizer`): (a) phase 7's 16 requests from 16 client
+   threads over `/generate` (buffered and TGI), `/generate_stream`,
+   `/v1/completions` with logprobs and streaming `/v1/chat/completions`:
+   greedy tokens as engine (a)'s by the margin rule, finish reasons,
+   every SSE stream ending in [DONE], paged launches L a decode step,
+   no page leaks, `/metrics` with every family and no drift, `/health`
+   and `/info`; (b) printed: requests/s, generated tokens/s, client TTFT
+   (to the first SSE frame) beside the server engine's and phase 8's,
+   and a buffered request's client latency less its engine time (the
+   request log); (c) `POST /debug/profiler` opens a torch.profiler window
+   over 4 decoding rows for 6 decode steps: its trace holds L paged launches in each decode
+   step it covers, a second start and a stop with no window get 409, and
+   `/debug/trace` toggles with an export `validate_nesting` passes; (d)
+   `max_queue` overflow 429 with Retry-After, `deadline_s` 504 with the
+   partial tokens, `shutdown(graceful=True)` finishing 4 in-flight
+   requests, a successor on the journal replaying nothing, no leaks; (e)
+   a seeded rank-8 adapter loaded over HTTP (200), its request's tokens
+   as a bare engine's with the registry, unload while it is held 409 and
+   after it 200, no leaks; (f) a FastChat worker registering with a stub
+   controller, its NUL-terminated frames and usage, `/worker_get_status`
+   with the queue; (g) a 2-layer full-width artifact (made on the CPU)
+   served by `python -m bigdl_tpu_torch.cli serve --paged --port 0` in a
+   subprocess: one `/generate`, then SIGTERM drains and it exits 0. (g)
+   runs in phase 1, while the kernels build and before this process makes
+   its CUDA context, so that it holds on a card in exclusive-process
+   compute mode too.
 
 Every phase ends with one line, `phase N: done in X s, F failed
 checks`. The whole run takes about 900-1100 s of command time on an
@@ -401,10 +429,11 @@ PROFILED_PREFILLS, PROFILED_STEPS = 2, 5
 TRAIN_T, RANK, LR = 1024, 8, 1e-4  # bench.py child_train: B=1, T=1024, rank 8
 TRAIN_STEPS, PROFILED_TRAIN_STEPS = 5, 2
 PATH_FORMATS = ("sym_int4", "nf4", "q4_k", "q6_k")  # generation, training, q4_k_m
-# phases 16 (a), 18 and 19: 8 of llama3-8b's 32 layers, full width (16
+# phases 16 (a), 18 and 19: 4 of llama3-8b's 32 layers, full width (16
 # until phase 21 joined the script: a run on a slow host read ~1245 s; 12
-# until phase 22 did: a run on a slow host read 1058.6 s)
-HALF_LAYERS = 8
+# until phase 22 did: a run on a slow host read 1058.6 s; 8 until phase 23
+# did: a run on a slow host read ~1150 s)
+HALF_LAYERS = 4
 RAGGED_M = (33, 255, 257, 1000, 4096)
 GEMV_CHECK_M, GEMV_R = (1, 3, 4, 8, 17, 32), 128  # the GEMV's row counts (n-tiles 1, 2, 4), adapter width
 # the GEMM's launch (x in its steps' order, then the GEMM) and the LoRA
@@ -588,13 +617,16 @@ def device_ms(torch, fn, args_list, iters: int = 20) -> float:
 
 # the checks that failed: each is reported where it fails and the run goes
 # on, so that one run shows every failure; main() then exits 1 before the
-# result lines (an exception still ends the run at once)
+# result lines (an exception still ends the run at once). A failure goes to
+# standard error too, tagged with its phase, so a reader of the errors alone
+# sees which check it was
 FAILED: list = []
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         log(f"chip_smoke: FAILED: {what}")
+        print(f"chip_smoke: phase {PHASE.get('n')} FAILED: {what}", file=sys.stderr, flush=True)
         FAILED.append(what)
 
 
@@ -611,6 +643,57 @@ def begin_phase(n) -> None:
     PHASE.clear()
     if n is not None:
         PHASE.update(n=n, t=time.time(), failed=len(FAILED))
+
+
+def phase1_kernel_reports(libs: dict, t: float) -> None:
+    """Phase 1's reports of the built libraries, read from the files (no
+    CUDA context): ptxas's registers and spills of every kernel, the
+    tensor-core kernels' spills and their MMA instructions in the SASS."""
+    log(f"phase 1: built {len(libs)} libraries from {sorted({s for s, _ in libs})} "
+        f"(the dequant sources once per qtype) for sm_90a in {time.time() - t:.1f} s")
+    for (stem, qtype), path in libs.items():
+        res = ptxas_resources(path.with_suffix(".log").read_text())
+        regs = [r for r, _ in res.values() if r]  # entries; device functions report none
+        log(f"  ptxas {stem}{'[' + qtype + ']' if qtype else ''}: {len(regs)} kernels, "
+            f"registers {min(regs, default=0)}-{max(regs, default=0)}, spill bytes "
+            f"{sum(sp for _, sp in res.values())}")
+    spills = tc_kernel_report(libs[("flash_backward", None)], ("fwd_kernel", "dq_kernel", "dkv_kernel"))
+    spills += tc_kernel_report(libs[("flash_attention", None)], ("flash_kernel",))
+    check(spills == 0, "a tensor-core flash kernel spills")
+    # the dW kernels and the paged decode kernel: no spill; HGMMA (wgmma)
+    # in the TMA-fed dW kernel
+    spills = tc_kernel_report(libs[("dw_matmul", None)], ("dw_tma_kernel", "dw_kernel"))
+    spills += tc_kernel_report(libs[("paged_attention", None)], ("paged_split_kernel",))
+    check(spills == 0, "a dW or paged decode kernel spills")
+    hgmma = {k: n for k, n in sass_mma_counts(libs[("dw_matmul", None)], ("HGMMA",)).items()
+             if "dw_tma_kernel" in k}
+    log(f"  dw_tma_kernel HGMMA in SASS: {sorted(hgmma.values()) if hgmma else 'not read (no cuobjdump)'}")
+    check(all(n > 0 for n in hgmma.values()), "dw_tma_kernel: no HGMMA in its SASS")
+    # the dequant GEMM and dx of every format (csrc/qtile.cuh), SASS read in
+    # parallel; a spill in the paths' formats fails the run
+    from concurrent.futures import ThreadPoolExecutor
+
+    dequant = sorted(k for k in libs if k[0] in ("qmatmul", "qbackward"))
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        sass = dict(zip(dequant, pool.map(lambda k: sass_mma_counts(libs[k]), dequant)))
+    path_spills = 0
+    for stem, qtype in dequant:
+        sp = tc_kernel_report(libs[(stem, qtype)], ("gemm_kernel",) if stem == "qmatmul" else ("dx_kernel",),
+                              label=f"[{qtype}] ", sass=sass[(stem, qtype)])
+        path_spills += sp if qtype in PATH_FORMATS else 0
+    check(path_spills == 0, f"a dequant GEMM or dx kernel of {PATH_FORMATS} spills")
+    # the decode GEMV (plain and LoRA arms) and the LoRA GEMV's first pass:
+    # on the tensor cores (HMMA in the SASS) and unspilled in the paths' formats
+    gemv_spills, no_hmma = 0, []
+    for qtype in sorted(q for s_, q in dequant if s_ == "qmatmul"):
+        sp = tc_kernel_report(libs[("qmatmul", qtype)], ("gemv_kernel", "lora_xa_split_kernel"),
+                              label=f"[{qtype}] ", sass=sass[("qmatmul", qtype)])
+        if qtype in PATH_FORMATS:
+            gemv_spills += sp
+            no_hmma += [(qtype, k) for k, n in sass[("qmatmul", qtype)].items()
+                        if ("gemv_kernel" in k or "lora_xa_split_kernel" in k) and n == 0]
+    check(gemv_spills == 0, f"a GEMV kernel of {PATH_FORMATS} spills")
+    check(not no_hmma, f"GEMV kernels without HMMA in their SASS: {no_hmma}")
 
 
 def tile_text(t) -> str:
@@ -695,63 +778,31 @@ def main() -> int:
          enumerate(PROMPT_LENS)], 0)
     T = prompt_tokens.shape[1]
     S = cache_len_for(T, NEW_TOKENS)
-    tok = torch.as_tensor(prompt_tokens, dtype=torch.long, device=dev)
-    st = torch.as_tensor(starts, device=dev)
 
     # ---------------------------------------------------------------- 1
     begin_phase(1)
     t = time.time()
-    libs = _build.build_all()
-    log(f"phase 1: built {len(libs)} libraries from {sorted({s for s, _ in libs})} "
-        f"(the dequant sources once per qtype) for sm_90a in {time.time() - t:.1f} s")
-    for (stem, qtype), path in libs.items():
-        res = ptxas_resources(path.with_suffix(".log").read_text())
-        regs = [r for r, _ in res.values() if r]  # entries; device functions report none
-        log(f"  ptxas {stem}{'[' + qtype + ']' if qtype else ''}: {len(regs)} kernels, "
-            f"registers {min(regs, default=0)}-{max(regs, default=0)}, spill bytes "
-            f"{sum(sp for _, sp in res.values())}")
-    spills = tc_kernel_report(libs[("flash_backward", None)], ("fwd_kernel", "dq_kernel", "dkv_kernel"))
-    spills += tc_kernel_report(libs[("flash_attention", None)], ("flash_kernel",))
-    check(spills == 0, "a tensor-core flash kernel spills")
-    # the dW kernels and the paged decode kernel: no spill; HGMMA (wgmma)
-    # in the TMA-fed dW kernel
-    spills = tc_kernel_report(libs[("dw_matmul", None)], ("dw_tma_kernel", "dw_kernel"))
-    spills += tc_kernel_report(libs[("paged_attention", None)], ("paged_split_kernel",))
-    check(spills == 0, "a dW or paged decode kernel spills")
-    hgmma = {k: n for k, n in sass_mma_counts(libs[("dw_matmul", None)], ("HGMMA",)).items()
-             if "dw_tma_kernel" in k}
-    log(f"  dw_tma_kernel HGMMA in SASS: {sorted(hgmma.values()) if hgmma else 'not read (no cuobjdump)'}")
-    check(all(n > 0 for n in hgmma.values()), "dw_tma_kernel: no HGMMA in its SASS")
-    # the dequant GEMM and dx of every format (csrc/qtile.cuh), SASS read in
-    # parallel; a spill in the paths' formats fails the run
-    from concurrent.futures import ThreadPoolExecutor
-
-    dequant = sorted(k for k in libs if k[0] in ("qmatmul", "qbackward"))
-    with ThreadPoolExecutor(max_workers=8) as pool:
-        sass = dict(zip(dequant, pool.map(lambda k: sass_mma_counts(libs[k]), dequant)))
-    path_spills = 0
-    for stem, qtype in dequant:
-        sp = tc_kernel_report(libs[(stem, qtype)], ("gemm_kernel",) if stem == "qmatmul" else ("dx_kernel",),
-                              label=f"[{qtype}] ", sass=sass[(stem, qtype)])
-        path_spills += sp if qtype in PATH_FORMATS else 0
-    check(path_spills == 0, f"a dequant GEMM or dx kernel of {PATH_FORMATS} spills")
-    # the decode GEMV (plain and LoRA arms) and the LoRA GEMV's first pass:
-    # on the tensor cores (HMMA in the SASS) and unspilled in the paths' formats
-    gemv_spills, no_hmma = 0, []
-    for qtype in sorted(q for s_, q in dequant if s_ == "qmatmul"):
-        sp = tc_kernel_report(libs[("qmatmul", qtype)], ("gemv_kernel", "lora_xa_split_kernel"),
-                              label=f"[{qtype}] ", sass=sass[("qmatmul", qtype)])
-        if qtype in PATH_FORMATS:
-            gemv_spills += sp
-            no_hmma += [(qtype, k) for k, n in sass[("qmatmul", qtype)].items()
-                        if ("gemv_kernel" in k or "lora_xa_split_kernel" in k) and n == 0]
-    check(gemv_spills == 0, f"a GEMV kernel of {PATH_FORMATS} spills")
-    check(not no_hmma, f"GEMV kernels without HMMA in their SASS: {no_hmma}")
+    # phase 23 (g) runs now, while this process holds no CUDA context
+    entry = EntryPointRun(torch)
+    try:
+        try:
+            libs = _build.build_all()
+        finally:
+            entry.built.set()
+        phase1_kernel_reports(libs, t)
+        entry.finish()
+    finally:
+        entry.close()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     log(smi)
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    log(f"compute mode: {mode}")
     card = f"{torch.cuda.get_device_name(0)} ({smi})"
+    tok = torch.as_tensor(prompt_tokens, dtype=torch.long, device=dev)
+    st = torch.as_tensor(starts, device=dev)
 
     # ---------------------------------------------------------------- 2
     begin_phase(2)
@@ -1097,6 +1148,10 @@ def main() -> int:
     # --------------------------------------------------------------- 22
     begin_phase(22)
     serving_control_phases(torch, dev, card, served["tm"], served["traffic"], served["reqs_a"])
+    # --------------------------------------------------------------- 23
+    begin_phase(23)
+    http_phases(torch, dev, card, served["tm"], served["traffic"], served["reqs_a"],
+                served["summary_a"])
     del served
     # ---------------------------------------------------------------- 9
     begin_phase(9)
@@ -1124,6 +1179,7 @@ def main() -> int:
             e["by_format"] = by_format[e["name"]]
     if FAILED:
         log(f"chip_smoke: {len(FAILED)} check(s) failed: {FAILED}")
+        print(f"chip_smoke: {len(FAILED)} check(s) failed: {FAILED}", file=sys.stderr, flush=True)
         return 1
     log(json.dumps({"kernels": entries + train_entries + serving_entries + adapter_entries
                     + ft_entries}))
@@ -3161,6 +3217,632 @@ def serving_control_phases(torch, dev, card, tm, traffic, reqs_a=None) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the HTTP layer: phase 23
+# ---------------------------------------------------------------------------
+
+HTTP_KINDS = ("generate", "sse", "completions", "chat-sse", "tgi")  # request i takes i % 5
+HTTP_SSE = ("sse", "chat-sse")
+# (c): 4 requests of 100 tokens decode 96; the window stays open for 6 decode
+# steps after its start returns (a fixed 0.5 s held no whole step on a slow host)
+PROFILE_NEW, PROFILE_STEPS = 96, 6
+OVERLOAD_NEW = 64  # (d): 10 requests fill 8 slots and a queue of 2
+SUBPROCESS_LAYERS = 2  # (g): the artifact `cli serve` loads
+ADAPTER_NEW = 16  # (e): the adapter request's tokens
+
+
+class IdTokenizer:
+    """A tokenizer over token ids for the HTTP layer (the card's machine
+    has no `transformers`): text "t<id> t<id> ..." encodes to the ids,
+    each id decodes to "t<id> ", so every endpoint's text gives its ids
+    back."""
+
+    eos_token_id = None
+
+    def __call__(self, text):
+        return {"input_ids": [int(w[1:]) for w in text.split()]}
+
+    def decode(self, tokens, skip_special_tokens=True):
+        return "".join(f"t{int(t)} " for t in tokens)
+
+
+def http_call(port, path, payload=None, timeout=600.0):
+    """One request to 127.0.0.1:port: (status, headers, body, seconds to
+    the whole body, seconds to the first SSE frame or None)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            first, body = None, b""
+            if r.headers.get("Content-Type", "").startswith("text/event-stream"):
+                while True:
+                    line = r.readline()
+                    body += line
+                    if not line or line.startswith(b"data: "):
+                        first = time.perf_counter() - t0
+                        break
+            body += r.read()
+            return r.status, dict(r.headers), body, time.perf_counter() - t0, first
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read(), time.perf_counter() - t0, None
+
+
+def sse_frames(body: bytes) -> list:
+    """An SSE body's data frames: "[DONE]" or the decoded JSON."""
+    out = []
+    for part in body.decode().split("\n\n"):
+        if part.startswith("data: "):
+            d = part[len("data: "):]
+            out.append(d if d == "[DONE]" else json.loads(d))
+    return out
+
+
+def http_request(kind: str, spec: dict, tok) -> tuple:
+    """Phase 7's request `spec` as the `kind` endpoint takes it: (path,
+    payload)."""
+    p, n = spec["prompt"], spec["max_new_tokens"]
+    sampling = {k: spec[k] for k in ("do_sample", "temperature", "top_p", "repetition_penalty")
+                if k in spec}
+    if kind == "generate":
+        return "/generate", {"prompt": p, "max_new_tokens": n, **sampling}
+    if kind == "sse":
+        return "/generate_stream", {"prompt": p, "max_new_tokens": n, **sampling}
+    if kind == "completions":
+        return "/v1/completions", {"prompt": p, "max_tokens": n, "logprobs": 1, **sampling}
+    if kind == "chat-sse":
+        return "/v1/chat/completions", {"messages": [{"role": "user", "content": p}],
+                                        "max_tokens": n, "stream": True, **sampling}
+    return "/generate", {"inputs": tok.decode(p), "parameters": {
+        "max_new_tokens": n, "details": True, **sampling}}
+
+
+def http_result(kind: str, body: bytes, tok) -> tuple:
+    """(tokens, chosen-token logprobs or None, finish reason or None, the
+    stream ended in [DONE] or None) of one response body."""
+    if kind in HTTP_SSE:
+        fs = sse_frames(body)
+        toks = []
+        for f in fs:
+            if f == "[DONE]":
+                continue
+            if "error" in f:
+                return [], None, f"error: {f['error']}", False
+            toks += ([f["token"]] if kind == "sse"
+                     else tok(f["choices"][0]["delta"]["content"])["input_ids"])
+        return toks, None, None, bool(fs) and fs[-1] == "[DONE]"
+    o = json.loads(body)
+    if kind == "generate":
+        return o["tokens"], None, None, None
+    if kind == "tgi":
+        return tok(o["generated_text"])["input_ids"], None, o["details"]["finish_reason"], None
+    c = o["choices"][0]
+    return tok(c["text"])["input_ids"], c["logprobs"]["token_logprobs"], c["finish_reason"], None
+
+
+def quantile_ms(xs, f) -> float:
+    xs = sorted(xs)
+    return xs[min(int(f * len(xs)), len(xs) - 1)] * 1e3
+
+
+def paged_steps_in_trace(events) -> tuple:
+    """The decode steps a profiler window's Chrome trace covers, from its
+    kernels in time order: a step runs, for each layer, the GEMV of wqkv,
+    the paged kernel, the GEMVs of wo, w_gate_up and w_down, then the lm
+    head's GEMV. So between two paged launches there are 4 GEMVs within a
+    step and 5 across a step's end. Returns (paged launches, paged
+    launches of each step wholly inside the window, GEMV runs between
+    paged launches that are neither 4 nor 5)."""
+    names = [e["name"] for e in sorted((e for e in events if e.get("cat") == "kernel"),
+                                       key=lambda e: e["ts"])]
+    seq = [n for n in (("P" if "paged_split_kernel" in x else "G" if "gemv_kernel" in x else None)
+                       for x in names) if n]
+    paged = [i for i, s in enumerate(seq) if s == "P"]
+    gaps = [b - a - 1 for a, b in zip(paged, paged[1:])]
+    steps, run = [], None  # run: paged launches of the step in progress, None before the first end
+    for gap in gaps:
+        if gap == 5:
+            if run is not None:
+                steps.append(run)
+            run = 1
+        elif run is not None:
+            run += 1
+    return len(paged), steps, [g for g in gaps if g not in (4, 5)]
+
+
+class EntryPointRun:
+    """Phase 23 (g), the real entry point: `python -m bigdl_tpu_torch.cli
+    serve <dir> --paged --port 0` in a subprocess, over a SUBPROCESS_LAYERS-
+    layer llama3-8b sym_int4 artifact at full width (seed 0, made and saved
+    on the CPU); one `/generate`, then SIGTERM, which drains and exits 0.
+    It runs while this process holds no CUDA context (phase 1 makes none):
+    a card in exclusive-process compute mode takes one context at a time.
+    A thread makes the artifact and starts the server while the kernels
+    build; its `/generate`, the subprocess's first kernel launch, waits
+    for `built` and so loads the libraries this process built. (`preset`
+    and `device` other than llama3-8b and cuda: a rehearsal on the CPU.)"""
+
+    def __init__(self, torch, preset: str = "llama3-8b", device: str = "cuda"):
+        import tempfile
+        import threading
+
+        self.built = threading.Event()
+        self.tmp = tempfile.TemporaryDirectory()
+        self.out: dict = {}
+        self.proc = None
+        self.preset, self.device = preset, device
+        self.thread = threading.Thread(target=self._run, args=(torch,), daemon=True)
+        self.thread.start()
+
+    def _run(self, torch) -> None:
+        try:
+            self._serve(torch)
+        except BaseException as e:  # noqa: BLE001 - finish() raises it again
+            self.out["error"] = e
+
+    def _serve(self, torch) -> None:
+        import os
+        import signal
+
+        from bigdl_tpu_torch import PRESETS, TorchModel, optimize_model
+        from bigdl_tpu_torch.models import llama
+
+        cpu, tmp = torch.device("cpu"), Path(self.tmp.name)
+        cfg = dataclasses.replace(PRESETS[self.preset], num_hidden_layers=SUBPROCESS_LAYERS)
+        t0 = time.time()
+        small = TorchModel(cfg, optimize_model(llama.init_params(cfg, seed=0, device=cpu), cfg,
+                                               "sym_int4"), "sym_int4", device=cpu)
+        small.save_low_bit(str(tmp / "artifact"))
+        del small
+        self.out.update(V=cfg.vocab_size, t_save=time.time() - t0)
+        root = Path(__file__).resolve().parent
+        with open(tmp / "serve.err", "w") as err_f:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "bigdl_tpu_torch.cli", "serve", str(tmp / "artifact"),
+                 "--paged", "--port", "0", "--device", self.device], cwd=root,
+                env={**os.environ, "PYTHONPATH": str(root)}, stdout=subprocess.PIPE,
+                stderr=err_f, text=True)
+        t1 = time.time()
+        line = self.proc.stdout.readline()  # "... serving <dir> on <host>:<port>", or exit
+        self.out.update(line=line, t_up=time.time() - t1)
+        self.built.wait()
+        prompt = serving_traffic(cfg.vocab_size)[0][0]["prompt"][:64]
+        if "serving" in line:
+            self.out["gen"] = http_call(int(line.rsplit(":", 1)[1]), "/generate",
+                                        {"prompt": prompt, "max_new_tokens": 8}, timeout=300.0)
+        # the processes holding a context on the card now (this one: none)
+        try:
+            self.out["apps"] = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                capture_output=True, text=True).stdout.strip().replace("\n", "; ")
+        except OSError as e:  # a rehearsal without nvidia-smi
+            self.out["apps"] = f"not read ({e})"
+        self.out["pids"] = (os.getpid(), self.proc.pid)
+        self.proc.send_signal(signal.SIGTERM)
+        self.out["rc"] = self.proc.wait(timeout=120)
+        self.out["t_all"] = time.time() - t0
+
+    def finish(self, timeout: float = 600.0) -> None:
+        """Wait for the run (a subprocess still alive then is killed),
+        print its line and check it."""
+        self.thread.join(timeout)
+        self.close()
+        self.thread.join(10)
+        if "error" in self.out:
+            raise self.out["error"]
+        out, V = self.out, self.out.get("V", 0)
+        gen = out.get("gen")
+        gtoks = json.loads(gen[2])["tokens"] if gen and gen[0] == 200 else []
+        err = (Path(self.tmp.name) / "serve.err").read_text()
+        log(f"phase 23 (g), run in phase 1 before this process's CUDA context: `cli serve` of a "
+            f"{SUBPROCESS_LAYERS}-layer artifact (made on the CPU and saved in "
+            f"{out.get('t_save', 0):.1f} s, serving {out.get('t_up', 0):.1f} s after its start, "
+            f"{out.get('t_all', 0):.1f} s in all): {out.get('line', '').strip()!r}; /generate "
+            f"{gen and gen[0]} {gtoks}; SIGTERM -> exit {out.get('rc')}; compute apps on the card "
+            f"while it served (this pid, its pid {out.get('pids')}): {out.get('apps')!r}")
+        check(len(gtoks) == 8 and all(0 <= x < V for x in gtoks), "(g) /generate's tokens")
+        check(out.get("rc") == 0, f"(g) SIGTERM drains and exits 0 ({err[-500:]})")
+        self.tmp.cleanup()
+
+    def close(self) -> None:
+        """Kill the subprocess if it still runs."""
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def http_phases(torch, dev, card, tm, traffic, reqs_a=None, summary_a=None) -> None:
+    """Phase 23: the HTTP layer on phase 7's model (llama3-8b sym_int4,
+    32 layers) at `cli serve`'s defaults, bf16 pages, servers on
+    127.0.0.1 port 0: (a) phase 7's 16 requests over HTTP from 16 client
+    threads, five endpoint shapes, against engine (a)'s tokens (`reqs_a`:
+    made here when None); (b) requests/s, tokens/s, client TTFT beside the
+    engine's, the HTTP layer's cost a buffered request; (c) the profiler
+    window over 4 decoding requests and the trace toggle; (d) 429, 504,
+    the drain and the journal over HTTP; (e) the adapter lifecycle; (f) the
+    FastChat worker against a stub controller. (g), `cli serve` in a
+    subprocess, is `EntryPointRun`, which runs in phase 1."""
+    import tempfile
+    import threading
+    import types
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    import numpy as np
+
+    from bigdl_tpu_torch.obs.tracing import RequestLog, validate_nesting
+    from bigdl_tpu_torch.ops import kernels
+    from bigdl_tpu_torch.serving import FastChatWorker, InferenceEngine
+    from bigdl_tpu_torch.serving.adapters import AdapterRegistry, save_adapter
+    from bigdl_tpu_torch.serving.api_server import ApiServer
+    from bigdl_tpu_torch.serving.metrics import expected_families, metric_drift
+    from bigdl_tpu_torch.train import init_lora
+
+    cfg = tm.config
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    tok = IdTokenizer()
+    rng = np.random.default_rng(23)
+    log(f"phase 23: card {card}")
+
+    def server(**kw):
+        """An unstarted server whose engine steps under `srv.step_lock`."""
+        srv = ApiServer(tm, tokenizer=tok, port=0, n_slots=SLOTS, max_len=MAX_LEN,
+                        page_size=PAGE, paged=True, **kw)
+        step, srv.step_lock = srv.engine.step, threading.Lock()
+
+        def locked_step():
+            with srv.step_lock:
+                return step()
+        srv.engine.step = locked_step
+        return srv
+
+    def settled_leaks(srv) -> int:
+        """`page_leaks()` of a live server between two engine steps, once
+        it is idle: a step marks a request done before it frees the slot's
+        pages and writes its request-log record, so a client can hold its
+        answer while the step that finished it still runs."""
+        until(srv.engine.idle, "the engine idle")
+        with srv.step_lock:
+            return srv.engine.page_leaks()
+
+    def clients(port, calls):
+        """Each (path, payload) on its own thread, started together;
+        returns the results in order."""
+        out = [None] * len(calls)
+
+        def run(i, path, payload):
+            out[i] = http_call(port, path, payload)
+        ts = [threading.Thread(target=run, args=(i, *c), daemon=True) for i, c in enumerate(calls)]
+        for t in ts:
+            t.start()
+        return ts, out
+
+    def join(ts):
+        for t in ts:
+            t.join(600)
+        check(not any(t.is_alive() for t in ts), "a client thread did not finish")
+
+    def until(cond, what, timeout=120.0):
+        t0 = time.time()
+        while not cond():
+            if time.time() - t0 > timeout:
+                check(False, f"timed out waiting for {what}")
+                return False
+            time.sleep(0.002)
+        return True
+
+    if reqs_a is None:  # engine (a) of phase 7
+        ref_eng = InferenceEngine(tm, n_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, paged=True,
+                                  logprobs_top_k=2)
+        reqs_a = [ref_eng.submit(**sp) for sp in traffic]
+        ref_eng.run_until_idle()
+        del ref_eng
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (a) phase 7's 16 requests over HTTP ------------------------------
+        srv = server(request_log=str(tmp / "requests.jsonl")).start()
+        ttft_engine, rid_of = [], {}
+        hist = srv.engine.ttft
+        hist.observe = (lambda h: lambda x: (ttft_engine.append(x), type(h).observe(h, x)))(hist)
+        submit = srv.engine.submit
+
+        def recording_submit(prompt, *a, **k):
+            req = submit(prompt, *a, **k)
+            rid_of[tuple(prompt)] = req.rid
+            return req
+        srv.engine.submit = recording_submit
+        kinds = [HTTP_KINDS[i % len(HTTP_KINDS)] for i in range(len(traffic))]
+        calls = [http_request(k, sp, tok) for k, sp in zip(kinds, traffic)]
+        # the client's first urlopen builds urllib's opener (an SSL context):
+        # ~0.5 s, 16 times over when 16 threads race to it (H100 host)
+        check(http_call(srv.port, "/health")[0] == 200, "(a) /health before the requests")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        ts, res = clients(srv.port, calls)
+        join(ts)
+        wall = time.perf_counter() - t0
+        leaks = settled_leaks(srv)
+        launches = kernels.launch_counts()
+        steps = srv.engine.decode_step_seconds.count
+        worst, ntok, bad = 0.0, 0, []
+        for i, (kind, sp, r) in enumerate(zip(kinds, traffic, res)):
+            if r is None or r[0] != 200:
+                bad.append((i, kind, r and r[0], r and r[2][:200]))
+                continue
+            toks, lps, finish, done = http_result(kind, r[2], tok)
+            ntok += len(toks)
+            n = sp["max_new_tokens"]
+            check(len(toks) == n and all(0 <= x < V for x in toks),
+                  f"(a) request {i} ({kind}): {n} in-vocabulary tokens (got {len(toks)})")
+            check(finish in (None, "length"), f"(a) request {i} ({kind}): finish {finish}")
+            check(done in (None, True), f"(a) request {i} ({kind}): the stream ends in [DONE]")
+            if not sp.get("do_sample"):
+                got = types.SimpleNamespace(out_tokens=toks, out_logprobs=(
+                    lps if lps is not None else reqs_a[i].out_logprobs[:len(toks)]))
+                worst = max(worst, margin_rule(reqs_a[i], got, f"(a) request {i} ({kind})",
+                                               MARGIN_TOL))
+        check(not bad, f"(a) requests that did not answer 200: {bad}")
+        code, hdr, body, _, _ = http_call(srv.port, "/metrics")
+        text = body.decode()
+        drift = metric_drift(text, srv.engine)
+        health = http_call(srv.port, "/health")
+        info = json.loads(http_call(srv.port, "/info")[2])
+        log(f"phase 23 (a) {len(traffic)} requests over HTTP ({dict(collections.Counter(kinds))}) "
+            f"in {wall:.3f} s, {steps} decode steps, launches {launches}; greedy tokens as "
+            f"engine (a)'s by the margin rule, largest logprob difference (completions' "
+            f"token_logprobs) {worst:.5f}; page_leaks={leaks}; /metrics {code} "
+            f"{len(expected_families(srv.engine))} families, drift {drift}; /health {health[0]} "
+            f"{health[2].decode()}; /info {info}")
+        check(launches[kernels.PAGED.name] == L * steps, "(a) paged launches = L x decode steps")
+        check(launches[kernels.GEMM.name] > 0 and launches[kernels.GEMV.name] > 0,
+              "(a) prefill GEMM and decode GEMV launched")
+        check(leaks == 0, "(a) page leaks")
+        check(code == 200 and drift == ([], []), "(a) /metrics renders every family, no drift")
+        check(health[0] == 200 and json.loads(health[2]) == {"status": "ok"}, "(a) /health")
+        check(info["max_total_tokens"] == MAX_LEN and info["max_concurrent_requests"] == SLOTS
+              and info["model_dtype"] == "sym_int4", "(a) /info")
+
+        # (b) the numbers ------------------------------------------------------
+        recs = {rec["rid"]: rec for rec in RequestLog.read(str(tmp / "requests.jsonl"))}
+        sse_ttft, sse_gap, overhead = [], [], []
+        for k, sp, r in zip(kinds, traffic, res):
+            rec = recs.get(rid_of.get(tuple(sp["prompt"])))
+            if r is None or rec is None or "ttft_s" not in rec:
+                continue
+            if k in HTTP_SSE:  # the client's TTFT, and what it adds to the engine's
+                sse_ttft.append(r[4])
+                sse_gap.append(r[4] - rec["ttft_s"])
+                continue
+            engine_s = (rec["ttft_s"] + rec.get("tpot_s", 0.0) * (rec["output_tokens"] - 1)
+                        + rec.get("preempted_s", 0.0))
+            overhead.append(r[3] - engine_s)
+        check(len(overhead) + len(sse_ttft) == len(traffic),
+              "(b) every request found in the request log")
+        log(f"phase 23 (b) HTTP, {card}: {len(traffic) / wall:.3f} requests/s, {ntok} tokens = "
+            f"{ntok / wall:.1f} generated tokens/s over {wall:.3f} s; client TTFT (to the first "
+            f"SSE frame, {len(sse_ttft)} streams) ms median={quantile_ms(sse_ttft, .5):.3f} "
+            f"p90={quantile_ms(sse_ttft, .9):.3f}, less the same requests' engine TTFT "
+            f"median={quantile_ms(sse_gap, .5):.3f} p90={quantile_ms(sse_gap, .9):.3f}; the "
+            f"server engine's TTFT over all 16 ms median={quantile_ms(ttft_engine, .5):.3f} "
+            f"p90={quantile_ms(ttft_engine, .9):.3f}; client latency minus engine time, a "
+            f"buffered request (n={len(overhead)}) ms median={quantile_ms(overhead, .5):.3f} "
+            f"p90={quantile_ms(overhead, .9):.3f}")
+        if summary_a is not None:
+            log(f"phase 23 (b): phase 8's engine (a), the same requests submitted at once: "
+                f"{summary_a}")
+
+        # (c) the profiler window and the trace toggle ----------------------
+        st = json.loads(http_call(srv.port, "/debug/trace", {"enabled": True, "clear": True})[2])
+        check(st["enabled"] is True, "(c) POST /debug/trace turns tracing on")
+        prompts = [rng.integers(1, V, 100).tolist() for _ in range(4)]
+        ts, res4 = clients(srv.port, [("/generate", {"prompt": p, "max_new_tokens": PROFILE_NEW})
+                                      for p in prompts])
+        until(lambda: int(srv.engine.active.sum()) == 4 and all(
+            s.req is not None and s.req.out_tokens for s in srv.engine._slots if s.req), "4 rows")
+        logdir = str(tmp / "profile")
+        start = http_call(srv.port, "/debug/profiler", {"action": "start", "logdir": logdir})
+        again = http_call(srv.port, "/debug/profiler", {"action": "start", "logdir": logdir})
+        steps0 = srv.engine.decode_step_seconds.count
+        until(lambda: srv.engine.decode_step_seconds.count >= steps0 + PROFILE_STEPS,
+              f"{PROFILE_STEPS} decode steps in the window")
+        stop = http_call(srv.port, "/debug/profiler", {"action": "stop"})
+        idle = http_call(srv.port, "/debug/profiler", {"action": "stop"})
+        rows_live = int(srv.engine.active.sum())
+        join(ts)
+        check((start[0], again[0], stop[0], idle[0]) == (200, 409, 200, 409),
+              f"(c) profiler codes start/start/stop/stop {(start[0], again[0], stop[0], idle[0])}")
+        check(all(r and r[0] == 200 for r in res4), "(c) the 4 requests answer 200")
+        traces = sorted(Path(logdir).glob("trace-*.json"))
+        check(len(traces) == 1, f"(c) one trace written into the logdir ({traces})")
+        events = json.load(open(traces[0]))["traceEvents"] if traces else []
+        n_paged, full, odd = paged_steps_in_trace(events)
+        engine_tid = srv.worker.native_id
+        cpu_engine = sum(1 for e in events if e.get("cat") == "cpu_op" and e.get("tid") == engine_tid)
+        log(f"phase 23 (c) profiler window {json.loads(stop[2]).get('seconds')} s over 4 decoding "
+            f"rows ({rows_live} still decoding at its stop): {len(events)} trace events, "
+            f"{n_paged} paged_split_kernel launches, steps wholly inside the window {len(full)} "
+            f"with {full} paged launches each (want {L}), odd GEMV runs {odd}; the engine "
+            f"thread's CPU ops in the trace: {cpu_engine}")
+        check(bool(full) and all(n == L for n in full) and not odd,
+              f"(c) the trace: {L} paged launches in each decode step it covers")
+        check(rows_live == 4, "(c) the 4 rows decoded through the whole window")
+        span = json.loads(http_call(srv.port, "/debug/trace")[2])["traceEvents"]
+        nest = validate_nesting(span)
+        st = json.loads(http_call(srv.port, "/debug/trace", {"enabled": False})[2])
+        log(f"phase 23 (c) /debug/trace: {len(span)} events, nesting faults {len(nest)}, then "
+            f"enabled={st['enabled']}")
+        check(len(span) > 0 and nest == [] and st["enabled"] is False, "(c) /debug/trace")
+        check(settled_leaks(srv) == 0, "(c) page leaks")
+        srv.shutdown()
+        del srv, hist
+        torch.cuda.empty_cache()
+
+        # (d) overload, deadline and drain over HTTP --------------------------
+        jpath = str(tmp / "journal.jsonl")
+        srv = server(max_queue=2, journal=jpath).start()
+        prompts = [rng.integers(1, V, 100).tolist() for _ in range(SLOTS + 2)]
+        eng = srv.engine
+
+        def accepted() -> int:
+            return eng._inflight + eng.requests_completed
+
+        def one_by_one(calls, into_queue: bool = False):
+            """Each call on its own thread, the next once the engine took
+            the last in: into a slot (the queue empty), or, `into_queue`,
+            into the queue (the queue one longer). Returns (threads, result
+            cells)."""
+            ts, outs = [], []
+            for i, c in enumerate(calls):
+                base = accepted()
+                t, out = clients(srv.port, [c])
+                ts += t
+                outs.append(out)
+                until(lambda: accepted() == base + 1 and eng._queue.qsize() == (
+                    i + 1 if into_queue else 0), f"request {i} taken in")
+            return ts, outs
+        ts, outs = one_by_one([("/generate", {"prompt": p, "max_new_tokens": OVERLOAD_NEW})
+                               for p in prompts[:SLOTS]])
+        t2, o2 = one_by_one([("/generate", {"prompt": p, "max_new_tokens": OVERLOAD_NEW})
+                             for p in prompts[SLOTS:]], into_queue=True)
+        over = http_call(srv.port, "/generate", {"prompt": prompts[0], "max_new_tokens": 4})
+        join(ts + t2)
+        resd = [o[0] for o in outs + o2]
+        late = http_call(srv.port, "/v1/completions", {
+            "prompt": prompts[1], "max_tokens": MAX_LEN - 200, "deadline_s": 1.0})
+        late_body = json.loads(late[2])
+        ts, outs = one_by_one([("/generate", {"prompt": p, "max_new_tokens": 32})
+                               for p in prompts[:4]])
+        drained = srv.shutdown(graceful=True, drain_timeout_s=300.0)
+        join(ts)
+        resg = [o[0] for o in outs]
+        leaks = srv.engine.page_leaks()
+        succ = server(journal=jpath)
+        replayed = len(succ.engine.recovered_requests)
+        log(f"phase 23 (d) over max_queue 2 with 8 busy slots: {over[0]} Retry-After "
+            f"{over[1].get('Retry-After')} ({json.loads(over[2]).get('error')}); the 10 in-bound "
+            f"requests {[r and r[0] for r in resd]}; deadline_s 1.0: {late[0]} with "
+            f"{len(late_body.get('tokens', []))} partial tokens ({late_body.get('error')}); "
+            f"graceful shutdown over 4 in-flight requests -> {drained}, their codes "
+            f"{[r and r[0] for r in resg]}; page_leaks={leaks}; a successor on the journal "
+            f"replays {replayed}")
+        check(over[0] == 429 and int(over[1].get("Retry-After", 0)) >= 1, "(d) 429 + Retry-After")
+        check(all(r and r[0] == 200 for r in resd), "(d) the in-bound requests answer 200")
+        check(late[0] == 504 and 0 < len(late_body.get("tokens", [])) < MAX_LEN - 200,
+              "(d) 504 with the partial tokens")
+        check(drained is True and all(r and r[0] == 200 and len(json.loads(r[2])["tokens"]) == 32
+                                      for r in resg), "(d) the drain finishes in-flight requests")
+        check(leaks == 0 and replayed == 0, "(d) no page leak, nothing to replay")
+        succ.httpd.server_close()
+        succ.engine.close()
+        del srv, succ
+        torch.cuda.empty_cache()
+
+        # (e) adapters over HTTP ---------------------------------------------
+        lo = init_lora(cfg, seed=2023, rank=8, alpha=16.0, device=dev)
+        with torch.no_grad():
+            g = torch.Generator(device=dev).manual_seed(2024)
+            for t in lo.layers.values():
+                t["b"].normal_(0.0, 0.02, generator=g)
+        save_adapter(str(tmp / "ten.npz"), lo)
+        del lo
+        reg = AdapterRegistry(dir=str(tmp))
+        srv = server(adapters=reg).start()
+        load = http_call(srv.port, "/adapters/load", {"name": "ten"})
+        spec = traffic[8]  # an independent 100-token prompt
+        ts, rese = clients(srv.port, [("/v1/completions", {
+            "prompt": spec["prompt"], "max_tokens": ADAPTER_NEW, "logprobs": 1, "adapter": "ten"})])
+        until(lambda: reg.peek("ten") is not None and reg.peek("ten").refcount > 0,
+              "the request holding the adapter")
+        busy = http_call(srv.port, "/adapters/unload", {"name": "ten"})
+        join(ts)
+        unload = http_call(srv.port, "/adapters/unload", {"name": "ten"})
+        leaks = settled_leaks(srv)
+        srv.shutdown()
+        del srv
+        torch.cuda.empty_cache()
+        bare = InferenceEngine(tm, n_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, paged=True,
+                               logprobs_top_k=2, adapters=AdapterRegistry(dir=str(tmp)))
+        ref = bare.submit(spec["prompt"], ADAPTER_NEW, adapter="ten")
+        bare.run_until_idle()
+        del bare
+        torch.cuda.empty_cache()
+        ok = rese[0] is not None and rese[0][0] == 200
+        lp = 0.0
+        if ok:
+            toks, lps, finish, _ = http_result("completions", rese[0][2], tok)
+            lp = margin_rule(ref, types.SimpleNamespace(out_tokens=toks, out_logprobs=lps),
+                             "(e) the adapter request against a bare engine")
+            ok = len(toks) == ADAPTER_NEW and finish == "length"
+        base_same = sum(a == b for a, b in zip(ref.out_tokens, reqs_a[8].out_tokens))
+        log(f"phase 23 (e) adapter rank 8: load {load[0]}, unload while held {busy[0]} "
+            f"({json.loads(busy[2]).get('kind')}), after {unload[0]}; the request's tokens as a "
+            f"bare engine's with the registry (largest logprob difference {lp:.5f}; "
+            f"{base_same} of {ADAPTER_NEW} equal to the base model's); page_leaks={leaks}")
+        check((load[0], busy[0], unload[0]) == (200, 409, 200), "(e) adapter codes 200/409/200")
+        check(ok, "(e) the adapter request")
+        check(leaks == 0, "(e) page leaks")
+
+        # (f) the FastChat worker ---------------------------------------------
+        seen: list = []
+
+        class Controller(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                seen.append((self.path, json.loads(self.rfile.read(n) or b"{}")))
+                body = json.dumps({"exist": True}).encode()
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+        ctrl = ThreadingHTTPServer(("127.0.0.1", 0), Controller)
+        threading.Thread(target=ctrl.serve_forever, daemon=True).start()
+        worker = FastChatWorker(tm, controller_addr=f"http://127.0.0.1:{ctrl.server_address[1]}",
+                                port=0, n_slots=SLOTS, max_len=MAX_LEN, paged=True,
+                                heartbeat_s=0.2, model_names=["llama3-8b"])
+        worker.start()
+        until(lambda: [r for r, _ in seen][:2] == ["/register_worker", "/receive_heart_beat"],
+              "registration and a heartbeat")
+        k = 0  # phase 7's first request, greedy
+        ts, resf = clients(worker.port, [("/worker_generate_stream", {
+            "prompt": traffic[k]["prompt"], "max_new_tokens": 16})])
+        queued = None
+        if until(lambda: worker._inflight == 1, "the stream in flight"):
+            queued = json.loads(http_call(worker.port, "/worker_get_status", {})[2])
+        join(ts)
+        after = json.loads(http_call(worker.port, "/worker_get_status", {})[2])
+        body = resf[0][2] if resf[0] else b""
+        chunks = [json.loads(c) for c in body.split(b"\0") if c]
+        final = chunks[-1] if chunks else {}
+        toks = [int(t) for t in final.get("text", "").split()]
+        if len(toks) == 16:
+            margin_rule(reqs_a[k], types.SimpleNamespace(
+                out_tokens=toks, out_logprobs=reqs_a[k].out_logprobs[:16]),
+                "(f) the worker's tokens against engine (a)'s", MARGIN_TOL)
+        worker.shutdown()
+        worker.worker.join(10)
+        ctrl.shutdown()
+        log(f"phase 23 (f) FastChat: controller saw {[r for r, _ in seen][:3]}...; "
+            f"{len(chunks)} NUL-terminated frames, final {final.get('finish_reason')} usage "
+            f"{final.get('usage')}; /worker_get_status {queued} during the stream, {after} after")
+        check(body.endswith(b"\0") and all(c.get("error_code") == 0 for c in chunks),
+              "(f) NUL-terminated frames, no error")
+        check(final.get("usage", {}).get("completion_tokens") == 16 == len(toks)
+              and final.get("finish_reason") == "length", "(f) usage = the generated tokens")
+        check(queued is not None and queued["queue_length"] == 1 and after["queue_length"] == 0,
+              "(f) /worker_get_status reports the queue")
+        del worker
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phi3-mini: head_dim 96 through the attention kernels (phase 15)
 # ---------------------------------------------------------------------------
 
@@ -3420,7 +4102,7 @@ def dir_bytes(path) -> int:
 
 def checkpoint_phases(torch, dev, tm, prompts, want_tokens, want_launches, hf=LLAMA3_8B_HF) -> None:
     """Phase 16: checkpoints from disk to the card. (a) `tm` (in the run,
-    an 8-layer llama3-8b sym_int4 model) saved as the low-bit artifact,
+    a 4-layer llama3-8b sym_int4 model) saved as the low-bit artifact,
     loaded back (verify fast and full), verified, and generating its
     tokens `want_tokens` with its launches `want_launches`; (b) an HF checkpoint of llama3-8b's published
     config at 4 layers, written with the script's safetensors writer,
@@ -4002,10 +4684,10 @@ def format_phases(torch, dev, cfg, card, prompts, tok, st, T, S) -> dict:
 
 LONG_PROMPT, LONG_DECODE = 4500, 8  # past the 4096 window of mistral and gemma2
 FLAGS_LAYERS = 2  # the kernels-vs-plain checks' depth, at full width
-# (a) and (b)'s gemma2-9b depth: a third of its 42 layers (both window
-# kinds alternate from layer 0) since phase 19 joined the script, to keep
-# the whole run inside its time limit; full width
-GEMMA2_LAYERS = 14
+# (a) and (b)'s gemma2-9b depth: 8 of its 42 layers (both window kinds
+# alternate from layer 0; 14 from phase 19's joining the script until
+# phase 23's), to keep the whole run inside its time limit; full width
+GEMMA2_LAYERS = 8
 LLAMA31_ROPE = {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
                 "high_freq_factor": 4.0, "original_max_position_embeddings": 8192}
 # HF config.json values of the port's gemma2-9b and qwen2-7b presets, cut
@@ -4552,7 +5234,7 @@ def cache_policy_phases(torch, dev, card, tm, prompts, tok, st, want_tokens,
                         snap_lens=SNAP_LENS, budget=SNAP_BUDGET, stream_len=STREAM_LEN,
                         stream_window=STREAM_WINDOW, stream_new=STREAM_NEW,
                         chat_turns=CHAT_TURNS, chat_window=CHAT_WINDOW, chat_new=CHAT_NEW) -> None:
-    """Phase 18, on `tm` (in the run, phase 16's 8-layer model; its
+    """Phase 18, on `tm` (in the run, phase 16's 4-layer model; its
     prompts, padded tokens `tok` and starts `st`, and its greedy tokens
     `want_tokens`): (a) SnapKV,
     (b) attention-sink streaming, (c) a chat session, (d) the embedding
@@ -5529,7 +6211,7 @@ def decode_phases(torch, dev, card, tm, spec_new=SPEC_NEW, spec_prompt=SPEC_PROM
 # phase 20: mixture of experts, ALiBi and logn
 # ---------------------------------------------------------------------------
 
-MOE_LAYERS = 16  # mixtral-8x7b's depth here: half of its 32 layers, full width
+MOE_LAYERS = 8  # mixtral-8x7b's depth here: 8 of its 32 layers (16 until phase 23), full width
 MOE_SERVE_REQS = 4  # engine (b): 4 prefix-sharing and 4 independent requests of phase 7
 # Qwen1.5-MoE-A2.7B's published config.json (the port's translation of it),
 # baichuan-13b's and Qwen-7B's widths; 2 layers each
@@ -6018,10 +6700,10 @@ GEMMA3_27B_HF = {
         "final_logit_softcapping": None, "attn_logit_softcapping": None,
         "torch_dtype": "bfloat16"},
 }
-# (a) and (b): 12 of gemma-3-27b's 62 layers (2 cycles of 5 local layers
+# (a) and (b): 6 of gemma-3-27b's 62 layers (a cycle of 5 local layers
 # and 1 global), full width: at 62 the whole run read ~965 s on one H100
-# host, at 48 ~1245 s on a slower one (PERF.md)
-GEMMA3_LAYERS = 12
+# host, at 48 ~1245 s on a slower one (PERF.md); 12 until phase 23 joined
+GEMMA3_LAYERS = 6
 GEMMA3_LONG = 1500  # (a)'s 2-layer check: past the 1,024 window
 # the published config.json values of each layer shape (the port's
 # translation of it, cut to FLAGS_LAYERS layers after the translation, so

@@ -6,7 +6,7 @@ on one CUDA card, or its adapter engine (d) taken apart.
     python3 scripts/decode_phase.py --adapters
 
 The first form builds every kernel library, makes phase 16 (a)'s model
-(llama3-8b at full width, 8 layers, sym_int4, weights from seed 0) and runs
+(llama3-8b at full width, HALF_LAYERS = 4 layers, sym_int4, weights from seed 0) and runs
 `chip_smoke.decode_phases` on it; it exits 1 when a check failed.
 
 --adapters serves phase 19 (d)'s traffic (phase 7's 8 prefix-sharing

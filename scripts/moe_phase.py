@@ -5,7 +5,7 @@ CUDA card.
     python3 scripts/moe_phase.py
 
 Builds every kernel library, prints the card's name and power limit, and
-runs `chip_smoke.moe_phases`: mixtral-8x7b at full width and 16 of its
+runs `chip_smoke.moe_phases`: mixtral-8x7b at full width and 8 of its
 32 layers through `generate` and the paged engine, 2-layer qwen2-moe,
 baichuan-13b (ALiBi) and Qwen-7B (logn) against the plain versions. It
 exits 1 when a check failed.

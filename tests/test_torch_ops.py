@@ -186,6 +186,9 @@ def test_port_imports_no_jax_or_reference_package():
     files = sorted((ROOT / "bigdl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     assert {"speculative.py", "lookup.py"} <= {f.name for f in files if f.parent.name == "decode"}
+    rel = {str(f.relative_to(ROOT / "bigdl_tpu_torch")) for f in files if "bigdl_tpu_torch" in f.parts}
+    assert {"cli.py", "utils/common.py", "utils/errors.py", "obs/profiler.py",
+            "serving/api_server.py", "serving/fastchat_worker.py"} <= rel
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
@@ -265,6 +268,38 @@ def test_decode_modules_load_no_jax_in_fresh_process():
         "r = eng.submit([1, 2, 3], max_new_tokens=5)\n"
         "eng.run_until_idle()\n"
         "assert len(r.out_tokens) == 5\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'bigdl_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-2000:]
+
+
+def test_http_layer_loads_no_jax_in_fresh_process():
+    """The HTTP layer (the server, the FastChat worker, the command line,
+    the profiler window and the error helpers) imports and serves one
+    request of a small model on the CPU without loading jax or
+    bigdl_tpu."""
+    code = (
+        "import json, sys, urllib.request\n"
+        "from bigdl_tpu_torch import PRESETS, TorchModel, optimize_model, cli\n"
+        "from bigdl_tpu_torch.models import llama\n"
+        "from bigdl_tpu_torch.obs import PROFILER, ProfilerWindow\n"
+        "from bigdl_tpu_torch.serving import FastChatWorker\n"
+        "from bigdl_tpu_torch.serving.api_server import ApiServer\n"
+        "from bigdl_tpu_torch.utils import common, errors\n"
+        "cfg = PRESETS['tiny-llama']\n"
+        "tm = TorchModel(cfg, optimize_model(llama.init_params(cfg, 0, device='cpu'), cfg), "
+        "'sym_int4', device='cpu')\n"
+        "srv = ApiServer(tm, port=0, n_slots=1, max_len=64).start()\n"
+        "req = urllib.request.Request(f'http://127.0.0.1:{srv.port}/generate', "
+        "data=json.dumps({'prompt': [1, 2, 3], 'max_new_tokens': 3}).encode())\n"
+        "assert len(json.loads(urllib.request.urlopen(req, timeout=60).read())['tokens']) == 3\n"
+        "assert srv.shutdown(graceful=True)\n"
+        "cli.build_parser()\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'bigdl_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
